@@ -14,7 +14,10 @@ package is not beside it. Phases, each a hard failure:
    take (the larger of bytes over 3.35 TB/s and operations over the peak
    rate of their type, H100 SXM); then each kernel against its plain
    version at edge shapes (ragged lengths, q_offset, head_dim 64,
-   non-causal, one query row, odd widths, strided inputs);
+   non-causal, one query row, odd widths, strided inputs; for paged
+   decode: length 0, page boundaries, unmapped and poisoned pages, a dead
+   row, one and eight query heads per kv head, pages of 16, int8 scale
+   outliers);
 4. serve: Llama-3-8B at full width and depth (32 layers, random bf16
    weights from a seed) behind the port's ModelServer; greedy completions
    that land in the 128/512/2048 prefill buckets, a chunked-prefill prompt,
@@ -22,8 +25,17 @@ package is not beside it. Phases, each a hard failure:
    over HTTP. Every kernel must have
    launched during this phase; then the bucketed prefill's last-token
    logits are held against the plain path's;
-5. profile: host and device time of one decode dispatch and one 2048-token
-   prefill, with the kernels that take the device time.
+5. paged serve: the same weights on the page pool (bf16 pages, then int8
+   pages) behind a ModelServer: shared-prefix, chunked, streamed, predict
+   and sampled requests at once, then a second conversation turn and a
+   prompt that diverges inside a registered page. Every kernel of the path
+   must launch, the radix prefix index must hit and copy a tail,
+   ``/metrics`` must show resident pages and no page may leak; then one
+   decode step through the paged kernel is held against the gather path
+   (bf16 and int8 pages) after a 1000-token paged prefill;
+6. profile: host and device time of one decode dispatch on the contiguous
+   cache and on the page pool, and of one 2048-token prefill, with the
+   kernels that take the device time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -264,10 +276,113 @@ def phase_kernels() -> list[dict]:
         bound_ms=b_fl[0], bound_by=b_fl[1],
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))))
+    rows += paged_kernel_rows()
     for r in rows:
         print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def paged_case(gen, B, H, KH, D, page, lengths, *, quant=False, mpp=None,
+               spare=3, unmapped=()):
+    """Inputs of one paged-decode call: bf16 q, a pool with ``spare`` pages
+    no table names (plus the engine's sink page last), a table that scatters
+    each slot's pages over the pool in random order, and ``lengths``.
+    ``unmapped`` lists (slot, page slot) entries set to -1. An int8 pool is
+    quantized from bf16 K/V by ``quantize_kv``, as the engine writes it."""
+    from kubeflow_tpu_torch.ops.quantization import quantize_kv
+
+    mpp = mpp or max(-(-(int(max(lengths)) + 1) // page), 1)
+    P = B * mpp + spare + 1
+    q = torch.randn((B, 1, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn((P, page, KH, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    v = torch.randn((P, page, KH, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    perm = torch.argsort(torch.rand(B * mpp, generator=gen, device="cuda"))
+    table = perm.reshape(B, mpp).to(torch.int32)
+    for b, j in unmapped:
+        table[b, j] = -1
+    lens = torch.tensor(lengths, dtype=torch.int64, device="cuda")
+    case = {"q": q, "pool_k": k, "pool_v": v, "table": table, "lengths": lens}
+    if quant:
+        case["pool_k"], case["pool_ks"] = quantize_kv(k)
+        case["pool_v"], case["pool_vs"] = quantize_kv(v)
+    return case
+
+
+def paged_call(fn, case):
+    return fn(case["q"], case["pool_k"], case["pool_v"], case["table"],
+              case["lengths"], pool_ks=case.get("pool_ks"),
+              pool_vs=case.get("pool_vs"))
+
+
+def paged_bytes(case) -> int:
+    """Bytes one call must move: the K/V rows (and int8 scales) of every
+    position 0..lengths[b] of every slot, read once, plus q, the table,
+    the lengths and the output."""
+    _, page, KH, D = case["pool_k"].shape
+    pos = int((case["lengths"] + 1).sum())
+    row = 2 * KH * D * case["pool_k"].element_size()
+    if "pool_ks" in case:
+        row += 2 * KH * 4
+    q = case["q"]
+    return (pos * row + 2 * q.numel() * q.element_size()
+            + case["table"].numel() * 4 + case["lengths"].numel() * 8)
+
+
+def paged_flops(case) -> float:
+    """QK and PV products over every attended position (2 FLOP each per
+    multiply-add), in fp32 on the CUDA cores."""
+    _, _, H, D = case["q"].shape
+    return 4.0 * H * D * float((case["lengths"] + 1).sum())
+
+
+def paged_kernel_rows() -> list[dict]:
+    """Site 12: the paged-decode kernel against its plain version at the
+    serving shape (8 slots, 32 query over 8 kv heads of 128, pages of
+    128), bf16 and int8 pools. The recorded time is at length 2047, whose
+    ~67 MB of bf16 K/V exceeds the 50 MB L2; length 1024 (~34 MB, served
+    from L2 on back-to-back replays) is printed beside it."""
+    from kubeflow_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_ref,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    B, H, KH, D, page = 8, 32, 8, 128, 128
+    rows = []
+    for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
+        err, timed = 0.0, None
+        for length in (2047, 1024):
+            case = paged_case(gen, B, H, KH, D, page, [length] * B,
+                              quant=quant, mpp=16)
+            e = within(paged_call(paged_decode_attention, case),
+                       paged_call(paged_decode_ref, case),
+                       f"{name} length {length}")
+            err = max(err, e)
+            ms = device_ms(lambda: paged_call(paged_decode_attention, case))
+            b = bound(paged_bytes(case), paged_flops(case), FP32_FLOPS)
+            print(f"kernel {name} B={B} H={H} KH={KH} D={D} page={page} "
+                  f"length={length}: max_abs_err {e:.3e}, ms {ms:.4f}, "
+                  f"bound_ms {b[0]:.4f} ({b[1]}, "
+                  f"{paged_bytes(case) / 1e6:.1f} MB"
+                  f"{', fits the 50 MB L2' if length == 1024 else ''})",
+                  flush=True)
+            if timed is None:
+                timed = (case, ms, b)
+        case, ms, b = timed
+        rows.append(dict(
+            name=name, route="cuda",
+            source="kubeflow_tpu_torch/csrc/paged_decode.cu",
+            replaces="kubeflow_tpu/ops/paged_attention.py:169",
+            max_abs_err=err, ms=ms,
+            plain_ms=device_ms(lambda: paged_call(paged_decode_ref, case),
+                               iters=2, reps=3),
+            bound_ms=b[0], bound_by=b[1],
+            # No single PyTorch call attends over a page table.
+            library_ms=None))
     return rows
 
 
@@ -327,6 +442,67 @@ def phase_edges() -> None:
         e_l = within(lse, rl, name + " lse", atol=LSE_ATOL, rtol=0.0)
         print(f"edge {name}: max_abs_err o {e_o:.3e}, lse {e_l:.3e}",
               flush=True)
+    phase_paged_edges()
+
+
+def phase_paged_edges() -> None:
+    """The paged-decode kernel against its plain version away from the
+    serving shape: length 0, lengths on and one short of page boundaries,
+    unmapped table entries, a dead row (no mapped page: zeros), pages no
+    table names poisoned with 999 (the output must not move), head_dim 64,
+    one and eight query heads per kv head, pages of 16, and int8 pools
+    whose scale planes carry outliers."""
+    from kubeflow_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_ref,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    # (B, H, KH, D, page, lengths, quant, unmapped (slot, page slot))
+    cases = (
+        (6, 32, 8, 128, 128, [0, 127, 128, 255, 256, 1000], False,
+         ((5, 3),)),
+        (6, 32, 8, 128, 128, [0, 127, 128, 255, 256, 1000], True,
+         ((5, 3),)),
+        (3, 8, 8, 64, 16, [15, 16, 100], False, ((2, 1),)),
+        (3, 64, 8, 128, 16, [31, 32, 299], True, ()),
+        (2, 16, 2, 64, 32, [63, 64], True, ()),
+        (4, 8, 1, 128, 48, [47, 48, 95, 200], False, ()),
+    )
+    for B, H, KH, D, page, lengths, quant, unmapped in cases:
+        case = paged_case(gen, B, H, KH, D, page, lengths, quant=quant,
+                          unmapped=unmapped)
+        name = (f"paged_decode B={B} H={H} KH={KH} D={D} page={page} "
+                f"lengths={lengths} int8={quant} unmapped={list(unmapped)}")
+        if quant:
+            # Outlier tokens: a few scale entries 1000x their neighbours.
+            for plane in ("pool_ks", "pool_vs"):
+                s = case[plane]
+                idx = torch.randint(0, s.numel(), (max(s.numel() // 97, 1),),
+                                    generator=gen, device="cuda")
+                s.view(-1)[idx] *= 1000.0
+        out = paged_call(paged_decode_attention, case)
+        e = within(out, paged_call(paged_decode_ref, case), name)
+        # Pages no table entry names (the spare pages and the sink) hold
+        # 999; the output must not move by a bit.
+        named = case["table"][case["table"] >= 0].long().unique()
+        spare = torch.ones(case["pool_k"].shape[0], dtype=torch.bool,
+                           device="cuda")
+        spare[named] = False
+        poison = 99 if quant else 999          # int8 pages hold at most 127
+        for plane in ("pool_k", "pool_v"):
+            case[plane][spare] = poison
+        for plane in ("pool_ks", "pool_vs"):
+            if plane in case:
+                case[plane][spare] = 999.0
+        if not torch.equal(paged_call(paged_decode_attention, case), out):
+            fail(f"{name}: the output moved when unmapped pages changed")
+        # A dead row: every table entry unmapped, so the output is zeros.
+        case["table"][0] = -1
+        dead = paged_call(paged_decode_attention, case)[0]
+        if torch.count_nonzero(dead):
+            fail(f"{name}: a row with no mapped page is not all zeros")
+        print(f"edge {name}: max_abs_err {e:.3e}; poisoned unmapped pages "
+              "change nothing; a dead row is zeros", flush=True)
 
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -336,6 +512,122 @@ def _post(url: str, body: dict, timeout: float = 600.0):
         return resp.status, resp.read()
 
 
+def text(n_tokens: int, salt: int) -> str:
+    """A prompt of ``n_tokens`` tokens under the byte tokenizer (one token
+    per byte plus BOS)."""
+    return "".join(chr(97 + (i * 7 + salt) % 26) for i in range(n_tokens - 1))
+
+
+def _resident_pages(url: str) -> float:
+    """``kftpu_engine_kv_pages_resident`` as ``/metrics`` shows it."""
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+        for ln in resp.read().decode().splitlines():
+            if ln.startswith("kftpu_engine_kv_pages_resident"):
+                return float(ln.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def serve_http(engine, calls, wrappers: dict, label: str,
+               watch_pages: bool = False) -> dict:
+    """Serve ``calls`` ([(name, path, body)], all at once) over HTTP from a
+    ModelServer in front of ``engine``. Every launch count is set to 0 just
+    before and read just after. Each reply must be 200 and each stream
+    well-formed SSE; each request must finish with tokens in the
+    vocabulary. With ``watch_pages``, ``/metrics`` is polled meanwhile for
+    the most KV pages it showed resident."""
+    from kubeflow_tpu_torch.serve.server import ModelServer
+    from kubeflow_tpu_torch.serve.tokenizer import ByteTokenizer
+
+    submitted = []
+    submit = engine.submit
+
+    def recording_submit(*a, **kw):
+        req = submit(*a, **kw)
+        submitted.append(req)
+        return req
+
+    engine.submit = recording_submit
+    server = ModelServer("llama3-8b", engine)
+    results: dict[str, tuple] = {}
+    resident = [0.0]
+    done = threading.Event()
+
+    def run(name, path, body):
+        try:
+            results[name] = _post(server.url + path, body)
+        except Exception as exc:          # reported and failed below
+            results[name] = (None, repr(exc).encode())
+
+    def watch():
+        while not done.is_set():
+            try:
+                resident[0] = max(resident[0], _resident_pages(server.url))
+            except OSError:
+                pass                      # the maximum is checked by the caller
+            done.wait(0.05)
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    server.start()
+    try:
+        threads = [threading.Thread(target=run, args=c) for c in calls]
+        if watch_pages:
+            threads.append(threading.Thread(target=watch))
+        for th in threads:
+            th.start()
+        for th in threads[:len(calls)]:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in wrappers.items()}
+        snap = engine.metrics.snapshot()
+    finally:
+        done.set()
+        for th in threads[len(calls):]:
+            th.join(timeout=60)
+        server.stop()
+        engine.submit = submit
+    for name, path, body in calls:
+        status, payload = results.get(name, (None, b"no response"))
+        if status != 200:
+            fail(f"{label} {name}: HTTP {status}: {payload[:300]!r}")
+        if body.get("stream"):
+            chunks = [ln for ln in payload.decode().split("\n")
+                      if ln.startswith("data: ")]
+            if not chunks or chunks[-1] != "data: [DONE]":
+                fail(f"{label} {name}: malformed SSE stream")
+    by_prompt = {tuple(r.prompt_tokens[:len(r.prompt_tokens)
+                                       - r.resumed_from]): r
+                 for r in submitted}
+    reqs, total = {}, 0
+    for name, path, body in calls:
+        prompt = body.get("prompt") or body["instances"][0]
+        req = by_prompt.get(tuple(ByteTokenizer().encode(prompt)))
+        if req is None or not req.done.is_set():
+            fail(f"{label} {name}: no finished engine request")
+        reqs[name] = req
+        n = len(req.output_tokens)
+        total += n
+        print(f"{label} request {name}: status 200, prompt "
+              f"{len(req.prompt_tokens) - req.resumed_from} tokens, {n} "
+              f"tokens returned ({req.finish_reason}), ttft "
+              f"{req.ttft * 1e3:.1f} ms", flush=True)
+        if n == 0 or not all(0 <= t < engine.cfg.vocab_size
+                             for t in req.output_tokens):
+            fail(f"{label} {name}: bad output tokens {req.output_tokens}")
+    print(f"{label}: {len(calls)} requests, {total} tokens in {wall:.2f} s "
+          f"({total / wall:.1f} tok/s end to end), engine ttft p50 "
+          f"{snap.get('ttft_p50_ms', 0):.1f} ms, tpot p50 "
+          f"{snap.get('tpot_p50_ms', 0):.2f} ms, preemptions "
+          f"{snap.get('preemptions', 0)}", flush=True)
+    print(f"{label} kernels " + json.dumps(launches), flush=True)
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} never launched during {label}")
+    return {"reqs": reqs, "results": results, "launches": launches,
+            "resident": resident[0]}
+
+
 def phase_serve(rows: list[dict]):
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.models.config import preset
@@ -343,7 +635,6 @@ def phase_serve(rows: list[dict]):
     from kubeflow_tpu_torch.ops import fused_norm
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.serve.engine import LLMEngine
-    from kubeflow_tpu_torch.serve.server import ModelServer
 
     wrappers = {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
                 "add_rmsnorm_fwd": fused_norm.add_rmsnorm_fused,
@@ -361,23 +652,6 @@ def phase_serve(rows: list[dict]):
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
           flush=True)
-    submitted = []
-    submit = engine.submit
-
-    def recording_submit(*a, **kw):
-        req = submit(*a, **kw)
-        submitted.append(req)
-        return req
-
-    engine.submit = recording_submit
-    server = ModelServer("llama3-8b", engine)
-    results: dict[str, tuple] = {}
-
-    def text(n_tokens: int, salt: int) -> str:
-        # Byte tokenizer: one token per byte plus BOS.
-        return "".join(chr(97 + (i * 7 + salt) % 26)
-                       for i in range(n_tokens - 1))
-
     calls = [
         ("greedy_100", "/v1/completions",
          {"prompt": text(100, 1), "max_tokens": 16}),
@@ -396,61 +670,10 @@ def phase_serve(rows: list[dict]):
           "top_k": 50, "top_p": 0.9}),
     ]
 
-    def run(name, path, body):
-        try:
-            results[name] = _post(server.url + path, body)
-        except Exception as exc:          # reported and failed below
-            results[name] = (None, repr(exc).encode())
-
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
-    t0 = time.perf_counter()
-    server.start()
-    try:
-        threads = [threading.Thread(target=run, args=c) for c in calls]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
-        wall = time.perf_counter() - t0
-        launches = {n: w.launches for n, w in wrappers.items()}
-        snap = engine.metrics.snapshot()
-    finally:
-        server.stop()
-    for name, path, body in calls:
-        status, payload = results.get(name, (None, b"no response"))
-        if status != 200:
-            fail(f"{name}: HTTP {status}: {payload[:300]!r}")
-        if body.get("stream"):
-            chunks = [ln for ln in payload.decode().split("\n")
-                      if ln.startswith("data: ")]
-            if not chunks or chunks[-1] != "data: [DONE]":
-                fail(f"{name}: malformed SSE stream")
-    by_len = {len(r.prompt_tokens): r for r in submitted}
-    total = 0
-    for name, path, body in calls:
-        prompt = body.get("prompt") or body["instances"][0]
-        req = by_len.get(len(prompt) + 1)
-        if req is None or not req.done.is_set():
-            fail(f"{name}: no finished engine request")
-        n = len(req.output_tokens)
-        total += n
-        print(f"request {name}: status 200, prompt {len(req.prompt_tokens)} "
-              f"tokens, {n} tokens returned ({req.finish_reason}), "
-              f"ttft {req.ttft * 1e3:.1f} ms", flush=True)
-        if n == 0 or not all(0 <= t < cfg.vocab_size
-                             for t in req.output_tokens):
-            fail(f"{name}: bad output tokens {req.output_tokens}")
-    print(f"serve: {len(calls)} requests, {total} tokens in {wall:.2f} s "
-          f"({total / wall:.1f} tok/s end to end), engine ttft p50 "
-          f"{snap.get('ttft_p50_ms', 0):.1f} ms, tpot p50 "
-          f"{snap.get('tpot_p50_ms', 0):.2f} ms", flush=True)
-    print("kernels " + json.dumps(launches), flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} never launched during the serve phase")
+    launches = serve_http(engine, calls, wrappers, "serve")["launches"]
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        if r["name"] in launches:
+            r["launches"] = launches[r["name"]]
 
     # Bucketed prefill through the kernels vs the plain ops, same weights.
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -480,6 +703,183 @@ def phase_serve(rows: list[dict]):
     return engine
 
 
+def paged_engine(engine, **overrides):
+    """A paged LLMEngine over the contiguous engine's weights (shared, not
+    copied): 8 slots of up to 2048 tokens over a pool of 64 pages of 128,
+    chunks of 512, the paged-decode kernel, the radix prefix index."""
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    spec = dict(paged=True, page_size=128, max_pages=64, max_batch_size=8,
+                max_seq_len=2048, chunked_prefill_tokens=512,
+                paged_attn_impl="pallas", weights_dtype="bfloat16")
+    spec.update(overrides)
+    return LLMEngine(engine.cfg, BatchingSpec(**spec), params=engine.params,
+                     seed=SEED, device="cuda")
+
+
+def phase_paged_serve(engine, rows: list[dict]) -> None:
+    """The paged path over HTTP: Llama-3-8B on the page pool (bf16 pages,
+    then int8 pages). Concurrent requests, three of them sharing a 600-token
+    prefix; then a second turn of one conversation (it must match pages)
+    and a prompt that leaves a registered one inside a page (copy-on-write
+    of the shared tail). Every kernel of the path must launch, the prefix
+    index must hit, ``/metrics`` must show resident pages, and no page may
+    stay referenced at the end."""
+    from kubeflow_tpu_torch.ops import fused_norm
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    wrappers = {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
+                "add_rmsnorm_fwd": fused_norm.add_rmsnorm_fused,
+                "swiglu_fwd": fused_norm.swiglu_fused,
+                "paged_decode": paged_decode_attention}
+    prefix = text(601, 11)                   # 600 tokens with the BOS
+    calls = [
+        ("shared_a", "/v1/completions",
+         {"prompt": prefix + text(101, 21), "max_tokens": 16}),
+        ("shared_b", "/v1/completions",
+         {"prompt": prefix + text(101, 22), "max_tokens": 16}),
+        ("shared_c", "/v1/completions",
+         {"prompt": prefix + text(101, 23), "max_tokens": 16}),
+        ("chunked_1500", "/v1/completions",
+         {"prompt": text(1500, 4), "max_tokens": 16}),
+        ("stream_300", "/v1/completions",
+         {"prompt": text(300, 5), "max_tokens": 16, "stream": True}),
+        ("predict_200", "/v1/models/llama3-8b:predict",
+         {"instances": [text(200, 6)], "max_tokens": 16}),
+        ("sampled_150", "/v1/completions",
+         {"prompt": text(150, 7), "max_tokens": 16, "temperature": 0.8,
+          "top_k": 50, "top_p": 0.9}),
+    ]
+    t0 = time.perf_counter()
+    peng = paged_engine(engine)
+    torch.cuda.synchronize()
+    dens = peng.kv_pool_density()
+    print(f"paged serve: pool of {peng._num_pages} pages of "
+          f"{peng.page_size} tokens + the sink, {dens['pool_bytes'] / 1e9:.2f}"
+          f" GB, engine ready in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+          flush=True)
+    run = serve_http(peng, calls, wrappers, "paged serve", watch_pages=True)
+    launches = run["launches"]
+    # One after the other: a second turn of conversation a, then a prompt
+    # that leaves conversation b's registered prompt 60 tokens into its
+    # sixth page.
+    turn1 = calls[0][2]["prompt"]
+    said = json.loads(run["results"]["shared_a"][1])["choices"][0]["text"]
+    follow = [
+        ("turn2_a", {"prompt": turn1 + said + text(51, 31),
+                     "max_tokens": 16}),
+        ("diverge_b", {"prompt": calls[1][2]["prompt"][:659] + text(101, 41),
+                       "max_tokens": 16}),
+    ]
+    seen = {}
+    for name, body in follow:
+        before = peng.kv_tier_stats()
+        r = serve_http(peng, [(name, "/v1/completions", body)], wrappers,
+                       "paged serve")
+        for k, v in r["launches"].items():
+            launches[k] += v
+        after = peng.kv_tier_stats()
+        seen[name] = {k: after[k] - before[k]
+                      for k in ("tokens_matched", "tokens_cow", "cow_copies")}
+        print(f"paged serve {name}: {seen[name]}", flush=True)
+    stats = peng.kv_tier_stats()
+    snap = peng.metrics.snapshot()
+    leaks = peng._allocator.leak_report()
+    print(f"paged serve: prefix hits {stats['prefix_hits']} of "
+          f"{stats['prefix_queries']} queries, {stats['tokens_matched']} "
+          f"tokens matched, {stats['tokens_cow']} COW tokens in "
+          f"{stats['cow_copies']} copies, preemptions "
+          f"{snap.get('preemptions', 0)}, most pages resident on /metrics "
+          f"{run['resident']:.0f}, leak report {leaks}", flush=True)
+    print("paged serve kernels " + json.dumps(launches), flush=True)
+    if stats["prefix_hits"] <= 0:
+        fail("paged serve: the prefix index never hit")
+    if seen["turn2_a"]["tokens_matched"] <= 0:
+        fail("paged serve: the second turn matched no pages")
+    if seen["diverge_b"]["tokens_cow"] <= 0:
+        fail("paged serve: the diverging prompt took no copy-on-write tail")
+    if run["resident"] <= 0:
+        fail("paged serve: /metrics never showed a resident KV page")
+    if leaks:
+        fail(f"paged serve: pages still referenced at the end: {leaks}")
+    del peng
+    torch.cuda.empty_cache()
+
+    # int8 pages: four of the requests on a second paged engine.
+    qeng = paged_engine(engine, kv_cache_dtype="int8")
+    qrun = serve_http(qeng, calls[:3] + calls[4:5], wrappers,
+                      "paged int8 serve", watch_pages=True)
+    qleaks = qeng._allocator.leak_report()
+    print(f"paged int8 serve: {qeng.kv_pool_density()}, prefix hits "
+          f"{qeng.kv_tier_stats()['prefix_hits']}, leak report {qleaks}",
+          flush=True)
+    if qleaks:
+        fail(f"paged int8 serve: pages still referenced: {qleaks}")
+    del qeng
+    torch.cuda.empty_cache()
+    for r in rows:
+        if r["name"] == "paged_decode":
+            r["launches"] = launches["paged_decode"]
+        elif r["name"] == "paged_decode_int8":
+            r["launches"] = qrun["launches"]["paged_decode"]
+
+
+def phase_paged_check(engine) -> None:
+    """One 1000-token prompt prefilled into pages (``paged_chunk_prefill``),
+    then one decode step through the kernel and one through the gather
+    path on the same pool, 32 layers: last-token logits within rel L2
+    5e-2 with the same argmax. bf16 pages, then int8 pages (the gather path
+    dequantizing)."""
+    from kubeflow_tpu_torch.serve.paged import (
+        _paged_decode_step, context_bucket, paged_chunk_prefill,
+    )
+
+    cfg, pg, mpp, chunk, n = engine.cfg, 128, 16, 512, 1000
+    gen = torch.Generator().manual_seed(SEED + 5)
+    prompt = torch.randint(3, 259, (n,), generator=gen).to("cuda")
+    pages = -(-(n + 1) // pg)
+    for quant in (False, True):
+        shape = (cfg.n_layers, pages + 1, pg, cfg.n_kv_heads, cfg.head_dim)
+        dt = torch.int8 if quant else torch.bfloat16
+        cache = {"k": torch.zeros(shape, dtype=dt, device="cuda"),
+                 "v": torch.zeros(shape, dtype=dt, device="cuda")}
+        if quant:
+            cache["ks"] = torch.zeros(shape[:-1], device="cuda")
+            cache["vs"] = torch.zeros(shape[:-1], device="cuda")
+        table = torch.full((1, mpp), -1, dtype=torch.int32, device="cuda")
+        table[0, :pages] = torch.arange(pages, dtype=torch.int32)
+        with torch.no_grad():
+            for start in range(0, n, chunk):
+                real = min(chunk, n - start)
+                toks = torch.zeros((1, chunk), dtype=torch.int64,
+                                   device="cuda")
+                toks[0, :real] = prompt[start:start + real]
+                logits = paged_chunk_prefill(
+                    engine.params, cache, toks, table[0], start, real, cfg,
+                    context_pages=context_bucket(start, chunk, pg, mpp))
+            nxt = logits[real - 1].argmax().reshape(1)
+            outs = {}
+            for impl in ("pallas", "gather"):
+                outs[impl] = _paged_decode_step(
+                    engine.params, {**cache, "table": table}, nxt,
+                    torch.tensor([n], device="cuda"),
+                    torch.tensor([True], device="cuda"), cfg,
+                    attn_impl=impl)[0].float()
+        a, b = outs["pallas"], outs["gather"]
+        rel = float((a - b).norm() / b.norm())
+        same = int(a.argmax()) == int(b.argmax())
+        kind = "int8" if quant else "bf16"
+        print(f"paged decode check ({kind} pages, {n}-token prompt, "
+              f"{cfg.n_layers} layers): last-token logits kernel vs gather, "
+              f"rel L2 {rel:.3e} (tolerance {PREFILL_REL_L2:g}), argmax "
+              f"{'agrees' if same else 'differs'}", flush=True)
+        if not (rel <= PREFILL_REL_L2 and same):
+            fail(f"paged decode through the kernel disagrees with the "
+                 f"gather path ({kind} pages)")
+
+
 def _kernel_times(prof) -> tuple[float, list[tuple[str, float, int]]]:
     """(total device ms, [(kernel, device ms, launches)] by time) of the
     CUDA kernels a profile recorded."""
@@ -494,12 +894,14 @@ def _kernel_times(prof) -> tuple[float, list[tuple[str, float, int]]]:
 
 def phase_profile(engine) -> None:
     """Where the serve path's time goes: one 8-step decode dispatch at 8
-    live slots (cache position 1024) and one 2048-token bucketed prefill,
-    each timed on the host (enqueue, and wall to a synchronize) and under
-    torch.profiler (device time by kernel)."""
+    live slots (cache position 1024) on the contiguous cache, the same on
+    the page pool through the paged-decode kernel, and one 2048-token
+    bucketed prefill, each timed on the host (enqueue, and wall to a
+    synchronize) and under torch.profiler (device time by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_tpu_torch.serve import engine as E
+    from kubeflow_tpu_torch.serve.paged import paged_decode_multi
 
     cfg, dev, b = engine.cfg, engine.device, engine.num_slots
     steps = 8
@@ -519,6 +921,21 @@ def phase_profile(engine) -> None:
                         *(st[n] for n in names), engine._gen, cfg, steps,
                         sample_mode="greedy")
 
+    # The page pool of the paged dispatch: 9 pages of 128 per slot cover
+    # positions 0..1031, plus the sink page.
+    pg, mpp, per_slot = 128, 16, 9
+    shape = (cfg.n_layers, b * per_slot + 1, pg, cfg.n_kv_heads, cfg.head_dim)
+    pool = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "table": torch.full((b, mpp), -1, dtype=torch.int32, device=dev)}
+    pool["table"][:, :per_slot] = torch.arange(
+        b * per_slot, dtype=torch.int32, device=dev).reshape(b, per_slot)
+
+    def paged_decode():
+        paged_decode_multi(engine.params, pool, *(st[n] for n in names),
+                           engine._gen, cfg, steps, sample_mode="greedy",
+                           attn_impl="pallas")
+
     toks = torch.randint(3, 259, (1, 2048), device=dev)
     slots = torch.zeros((1,), dtype=torch.long, device=dev)
     plens = torch.full((1,), 2048, device=dev)
@@ -527,7 +944,9 @@ def phase_profile(engine) -> None:
         E._prefill_step(engine.params, engine.cache, toks, slots, plens, cfg,
                         "pallas")
 
-    for name, fn, per in (("decode", decode, steps), ("prefill", prefill, 1)):
+    for name, fn, per in (("decode", decode, steps),
+                          ("paged decode", paged_decode, steps),
+                          ("prefill", prefill, 1)):
         with torch.no_grad():
             fn()
             torch.cuda.synchronize()
@@ -568,6 +987,8 @@ def main() -> int:
     rows = phase_kernels()
     phase_edges()
     engine = phase_serve(rows)
+    phase_paged_serve(engine, rows)
+    phase_paged_check(engine)
     phase_profile(engine)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -3,9 +3,10 @@
 plus the QoS class table. (The JAX package's spec is a pydantic model; the
 port keeps to the standard library.)
 
-Fields for features a later slice brings (paged KV, int8, disaggregated
-roles, LoRA, speculative decoding) are kept so a config that sets them
-fails loudly at engine construction instead of being ignored.
+Fields for features a later slice brings (the host and remote KV tiers,
+weight quantization, disaggregated roles, LoRA, speculative decoding) are
+kept so a config that sets them fails loudly at engine construction
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -69,7 +70,28 @@ class BatchingSpec:
     role: str = "unified"
     max_batch_size: int = 8          # decode batch slots
     max_seq_len: int = 2048
+    # Paged KV cache: a pool of pages decoupled from slots x max_seq_len;
+    # shared-prefix requests reuse pages.
     paged: bool = False
+    page_size: int = 128             # KV cache page (tokens)
+    max_pages: Optional[int] = None  # default: slots x max_seq_len / page
+    enable_prefix_caching: bool = True
+    # Prefix-cache index: "radix" (token-block radix tree with live
+    # copy-on-write sharing, serve/kvtier.py) or "flat" (full-page chained
+    # hash in PageAllocator).
+    prefix_index: str = "radix"
+    # Host-RAM and remote-store KV tiers (a later slice: the engine refuses
+    # host_kv_pages > 0 and remote_kv_root).
+    host_kv_pages: int = 0
+    kv_demote_after_s: float = 2.0
+    kv_migrate_batch_pages: int = 32
+    remote_kv_root: Optional[str] = None
+    kv_remote_after_s: Optional[float] = None
+    kv_remote_deadline_s: Optional[float] = None
+    # Paged decode attention: "gather" (materialise pages, plain attention),
+    # "pallas" (the hand-written paged-decode kernel), or "auto" (the
+    # kernel on CUDA, gather on the CPU).
+    paged_attn_impl: str = "auto"
     # Long prompts split into chunks with decode interleaving; this many may
     # chunk concurrently.
     max_concurrent_prefills: int = 2
@@ -92,6 +114,9 @@ class BatchingSpec:
     # Cast model weights once at engine load (e.g. "bfloat16").
     weights_dtype: Optional[str] = None
     quantize: Optional[str] = None
+    # KV storage dtype of the PAGED pool: "int8" stores K/V as int8 with
+    # per-token-per-head scales (ops/quantization.py). None = the model's
+    # activation dtype.
     kv_cache_dtype: Optional[str] = None
     # "auto": the flash kernel on CUDA for buckets >= 2048 that are a
     # multiple of 128, plain attention elsewhere; or force "pallas"/"xla".
@@ -109,6 +134,18 @@ class BatchingSpec:
         if self.role not in ENGINE_ROLES:
             raise ValueError(
                 f"unknown engine role {self.role!r}; one of {ENGINE_ROLES}")
+        if self.prefix_index not in ("radix", "flat"):
+            raise ValueError(
+                f"unknown prefix_index {self.prefix_index!r}; "
+                "one of radix|flat")
+        if self.host_kv_pages and self.prefix_index != "radix":
+            raise ValueError(
+                "host_kv_pages requires prefix_index='radix' (the "
+                "flat hash has no tier lifecycle)")
+        if self.remote_kv_root and not self.host_kv_pages:
+            raise ValueError(
+                "remote_kv_root requires host_kv_pages > 0 (the third "
+                "tier spills from the host tier, not the device)")
         if self.prefill_attn_impl not in ("auto", "pallas", "xla"):
             raise ValueError(
                 f"unknown prefill_attn_impl {self.prefill_attn_impl!r}; "

@@ -1,5 +1,6 @@
-"""Continuous-batching LLM decode engine on the contiguous slot cache — the
-port of ``kubeflow_tpu/serve/engine.py``'s unified-role path.
+"""Continuous-batching LLM decode engine — the port of
+``kubeflow_tpu/serve/engine.py``'s unified-role path, on the contiguous
+slot cache or the paged pool.
 
 Design (what carries over, and what eager PyTorch changes):
 
@@ -33,10 +34,23 @@ Design (what carries over, and what eager PyTorch changes):
 - **Request lifecycle**: deadlines, cancellation, bounded admission
   (``EngineOverloaded`` → HTTP 429), queue-delay shedding, strict QoS
   priority and cross-class recompute preemption, exactly as the JAX
-  engine's contiguous path.
+  engine.
+- **Paged KV** (``paged=True``, serve/paged.py): a pool of pages
+  ``[L, P + 1, page, KV, Dh]`` (bf16, or int8 with per-token scale planes),
+  a host page-table mirror whose dirty rows sync to the device table, and
+  chunked admission into pages (every paged admission chunks). The radix
+  prefix index (serve/kvtier.py) shares prompt and conversation pages
+  live, with copy-on-write of a diverging partial tail; the flat index
+  keeps the full-page chained hash. Pool pressure preempts the youngest
+  slot (recompute), and a chunked prefill starved of pages aborts and
+  requeues. Decode attention reads pages through the hand-written
+  paged-decode kernel (``paged_attn_impl="pallas"``, the "auto" choice on
+  CUDA) or gathers them ("gather", the CPU's "auto"). The pool's last page
+  is a sink that takes every write the JAX engine would drop.
 
-Paged KV, int8, disaggregated roles, LoRA, speculative decoding, MoE and
-multi-device meshes arrive in later slices and raise ``NotImplementedError``.
+The host and remote KV tiers, weight quantization, disaggregated roles,
+LoRA, speculative decoding, MoE and multi-device meshes arrive in later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ import threading
 import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from kubeflow_tpu_torch.core.serving import (
@@ -64,6 +79,11 @@ from kubeflow_tpu_torch.models.decoder import (
 from kubeflow_tpu_torch.obs.stats import quantile as _quantile
 from kubeflow_tpu_torch.obs.trace import get_tracer
 from kubeflow_tpu_torch.serve.device_state import DEAD_SLOT, DecodeState
+from kubeflow_tpu_torch.serve.kvtier import RadixPrefixIndex
+from kubeflow_tpu_torch.serve.paged import (
+    PageAllocator, PagePoolExhausted, context_bucket, copy_pages,
+    paged_chunk_prefill, paged_decode_multi,
+)
 
 logger = logging.getLogger("kubeflow_tpu_torch.serve.engine")
 
@@ -360,6 +380,7 @@ class _Chunking:
     request: Request
     slot: int
     pos: int              # next prompt position to prefill
+    stalls: int = 0       # consecutive page-starved attempts (paged mode)
 
 
 @dataclasses.dataclass
@@ -589,16 +610,25 @@ class LLMEngine:
         for unsupported, what in (
                 (mesh is not None, "multi-device meshes"),
                 (cfg.is_moe, "MoE models"),
-                (b.paged, "paged KV (paged=True)"),
                 (b.quantize is not None, "weight quantization"),
-                (b.kv_cache_dtype is not None, "kv_cache_dtype"),
+                (b.host_kv_pages > 0, "the host-RAM KV tier (host_kv_pages)"),
+                (bool(b.remote_kv_root), "the remote KV tier (remote_kv_root)"),
                 (b.role != "unified", f"engine role {b.role!r}"),
                 (bool(b.lora), "LoRA adapters"),
                 (bool(b.speculative), "speculative decoding")):
             if unsupported:
                 raise NotImplementedError(
-                    f"{what}: not in the port's first serving slice (see "
+                    f"{what}: not in the port's serving slices yet (see "
                     "ROADMAP.md for the slice that brings it)")
+        if b.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(f"unknown kv_cache_dtype {b.kv_cache_dtype!r}; "
+                             "supported: int8")
+        self.kv_quant = b.kv_cache_dtype == "int8"
+        if self.kv_quant and not b.paged:
+            raise ValueError(
+                "kv_cache_dtype=int8 requires paged=True (the density win "
+                "is the page pool's; the contiguous slot cache pre-reserves "
+                "slots x max_seq_len either way)")
         if b.max_seq_len > cfg.max_seq_len:
             raise ValueError("batching.max_seq_len exceeds model max_seq_len")
         self.num_slots = b.max_batch_size
@@ -612,20 +642,79 @@ class LLMEngine:
             self.params = init_decoder_params(gen, cfg, dtype=wdt)
         else:
             self.params = _cast_params(params, self.device, wdt)
-        shape = (cfg.n_layers, self.num_slots, self.max_len,
-                 cfg.n_kv_heads, cfg.head_dim)
-        self.cache = {  # lockfree: scheduler-confined (written in place)
-            "k": torch.zeros(shape, dtype=cfg.activation_dtype,
-                             device=self.device),
-            "v": torch.zeros(shape, dtype=cfg.activation_dtype,
-                             device=self.device),
-        }
+        self.paged = bool(b.paged)
+        self.page_size = int(b.page_size)
+        self._allocator: Optional[PageAllocator] = None
+        self._kvtier: Optional[RadixPrefixIndex] = None  # lockfree: scheduler-confined
+        if self.paged:
+            pg = self.page_size
+            if pg <= 0 or self.max_len % pg:
+                raise ValueError("page_size must divide max_seq_len")
+            chunk = max(0, int(b.chunked_prefill_tokens)) or pg
+            if chunk % pg:
+                raise ValueError(
+                    "chunked_prefill_tokens must be a multiple of page_size "
+                    "in paged mode (chunk boundaries are page boundaries)")
+            self._mpp = self.max_len // pg
+            self._num_pages = int(b.max_pages or self.num_slots * self._mpp)
+            if self._num_pages * pg < self.max_len:
+                raise ValueError(
+                    "page pool smaller than one max-length sequence")
+            pattn = b.paged_attn_impl
+            if pattn == "auto":
+                pattn = "pallas" if self.device.type == "cuda" else "gather"
+            if pattn not in ("gather", "pallas"):
+                raise ValueError(
+                    f"unknown paged_attn_impl {b.paged_attn_impl!r}; "
+                    "one of auto|gather|pallas")
+            self.paged_attn_impl = pattn    # resolved (post-auto) impl
+            self._allocator = PageAllocator(
+                self._num_pages, pg,
+                enable_prefix_caching=b.enable_prefix_caching)
+            # lockfree: scheduler-confined (host page-table mirror)
+            self._table = np.full((self.num_slots, self._mpp), -1, np.int32)
+            self._slot_pages: list[list[int]] = [  # lockfree: scheduler-confined
+                [] for _ in range(self.num_slots)]
+            # One page past the pool: the sink (serve/paged.py) that takes
+            # every write the JAX engine drops out of bounds.
+            shape = (cfg.n_layers, self._num_pages + 1, pg, cfg.n_kv_heads,
+                     cfg.head_dim)
+            kv_dt = torch.int8 if self.kv_quant else cfg.activation_dtype
+            self.cache = {  # lockfree: scheduler-confined (written in place)
+                "k": torch.zeros(shape, dtype=kv_dt, device=self.device),
+                "v": torch.zeros(shape, dtype=kv_dt, device=self.device),
+            }
+            if self.kv_quant:
+                # Per-token-per-head scales: +4 bytes per token per kv head
+                # against the 2x density of the Dh-wide vectors.
+                for n in ("ks", "vs"):
+                    self.cache[n] = torch.zeros(shape[:-1],
+                                                dtype=torch.float32,
+                                                device=self.device)
+            if b.enable_prefix_caching and b.prefix_index == "radix":
+                self._kvtier = RadixPrefixIndex(
+                    self._allocator, pg, copy_pages_fn=self._kv_copy_pages,
+                    pressure_fn=self._kv_pressure)
+        else:
+            shape = (cfg.n_layers, self.num_slots, self.max_len,
+                     cfg.n_kv_heads, cfg.head_dim)
+            self.cache = {  # lockfree: scheduler-confined (written in place)
+                "k": torch.zeros(shape, dtype=cfg.activation_dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.activation_dtype,
+                                 device=self.device),
+            }
         self._gen = torch.Generator(self.device).manual_seed(seed + 1)  # lockfree: scheduler-confined
 
         self.prefill_batch_max = max(1, int(b.prefill_batch_max))
         self.prefill_batch_token_budget = max(
             0, int(b.prefill_batch_token_budget))
+        # In paged mode EVERY admission chunks (chunks write exactly the
+        # pages they fill), so chunking cannot be off: 0 means one page.
         self.chunk_size = max(0, int(b.chunked_prefill_tokens))
+        if self.paged and (self.chunk_size <= 0
+                           or self.chunk_size % self.page_size):
+            self.chunk_size = self.page_size
         self._chunkings: list[_Chunking] = []   # lockfree: scheduler-confined
         self.max_concurrent_prefills = max(1, int(b.max_concurrent_prefills))
         self.decode_steps = max(1, int(b.decode_steps))
@@ -634,7 +723,8 @@ class LLMEngine:
         self._backlog: list[Request] = []       # lockfree: scheduler-confined
         self._admit_seq = itertools.count()
         self.slots: list[Optional[_Slot]] = [None] * self.num_slots  # lockfree: scheduler-confined
-        self._dstate = DecodeState(self.num_slots, self.device)
+        self._dstate = DecodeState(self.num_slots, self.device,
+                                   mpp=self._mpp if self.paged else None)
         self.pipelined = bool(b.pipelined_decode)
         self._rounds: list[_InflightRound] = []  # lockfree: scheduler-confined
         # lockfree: scheduler-confined
@@ -691,14 +781,17 @@ class LLMEngine:
         return any(QOS_PRIORITY.get(r.qos, p) > p
                    for r in list(self.waiting.queue) + list(self._backlog))
 
-    # The contiguous cache has no pages, tiers or adapters: these report
-    # zero so every replica exposes the same /metrics series.
     def kv_pages_in_use(self) -> int:
-        return 0
+        """Pages live requests reference right now (0 for the contiguous
+        cache). Cached ref-0 prefix content is excluded: it is freely
+        evictable capacity, not load. A quiescent engine reports 0."""
+        return 0 if self._allocator is None else self._allocator.in_use()
 
     def kv_pages_cached(self) -> int:
-        return 0
+        """Ref-0 pages still holding reusable prefix content."""
+        return 0 if self._allocator is None else self._allocator.cached()
 
+    # The host and remote tiers are a later slice: no pages live there.
     def kv_pages_host(self) -> int:
         return 0
 
@@ -706,13 +799,33 @@ class LLMEngine:
         return 0
 
     def kv_tier_pressure(self) -> float:
-        return 0.0
+        """The radix index's pool-pressure ratio (>= 1.0 = urgent; 0 for
+        flat and contiguous engines)."""
+        return 0.0 if self._kvtier is None else float(self._kvtier.pressure())
 
     def kv_tier_stats(self) -> dict:
-        return {}
+        """Radix counters (empty on flat and contiguous engines): hits,
+        matched and COW token counts, COW copies, nodes, evictions — the
+        /metrics tier series' source."""
+        return {} if self._kvtier is None else self._kvtier.snapshot()
 
     def kv_pool_density(self) -> dict:
-        return {}
+        """Paged-pool capacity (empty on contiguous engines): token
+        capacity, pool bytes (int8 payload + scale planes when quantized;
+        the sink page is not capacity and is not counted) and tokens per
+        MiB."""
+        if not self.paged:
+            return {}
+        planes = ("k", "v", "ks", "vs") if self.kv_quant else ("k", "v")
+        pool_bytes = sum(self.cache[n][:, 0].nbytes for n in planes) \
+            * self._num_pages
+        tokens = self._num_pages * self.page_size
+        return {
+            "quant": int(self.kv_quant),
+            "pool_bytes": int(pool_bytes),
+            "token_capacity": int(tokens),
+            "tokens_per_mib": tokens / (pool_bytes / 2**20),
+        }
 
     def adapters_resident(self) -> list[str]:
         return []
@@ -832,23 +945,60 @@ class LLMEngine:
                                      last_token=tok,
                                      generated=len(req.output_tokens),
                                      admit_seq=next(self._admit_seq))
+        # New occupant: its decode state (and, paged, its page-table row)
+        # sync as deltas at the next dispatch.
         self._dstate.mark_slot(slot_idx)
+        self._dstate.mark_row(slot_idx)
         self._finish_if_done(slot_idx)
 
     def _advance_one(self, ch: _Chunking) -> int:
-        """Run ONE chunk of one in-flight chunked prefill."""
+        """Run ONE chunk of one in-flight chunked prefill. Returns work done
+        (0 when page-pool pressure defers the chunk to a later step)."""
         req, slot_idx = ch.request, ch.slot
         C = self.chunk_size
         plen = len(req.prompt_tokens)
         real = min(C, plen - ch.pos)
         chunk = [0] * C
         chunk[:real] = req.prompt_tokens[ch.pos:ch.pos + real]
-        logits = _chunk_prefill_step(self.params, self.cache,
-                                     self._upload([chunk], torch.int64),
-                                     slot_idx, ch.pos, self.cfg)
+        if self.paged:
+            if not self._ensure_pages(slot_idx, ch.pos + real):
+                # Pool pressure. A stalled chunking holds pages the decode
+                # preemption cannot see (its slot is None), so two growing
+                # prefills could deadlock: after a few starved attempts,
+                # abort this one — index what it wrote, release its pages,
+                # and requeue through the preempted lane, whose admission
+                # gate waits for room for the whole remaining run.
+                ch.stalls += 1
+                if ch.stalls >= 3:
+                    self._chunkings.remove(ch)
+                    self._kv_register(req.prompt_tokens, slot_idx, ch.pos)
+                    self._release_slot_pages(slot_idx)
+                    self._preempted.append(req)
+                    self.metrics.note_preempted(req.qos)
+                return 0    # otherwise retry next scheduler step
+            ch.stalls = 0
+            # The gather covers the pages this chunk can see (a power of
+            # two, as the JAX engine's trace bucket); writes address per
+            # token off the table row, so ch.pos may sit mid-page (the
+            # radix COW tail resume).
+            ctx = context_bucket(ch.pos, C, self.page_size, self._mpp)
+            logits = paged_chunk_prefill(
+                self.params, self.cache, self._upload([chunk], torch.int64),
+                self._upload(self._table[slot_idx].tolist(), torch.int32),
+                ch.pos, real, self.cfg, context_pages=ctx)
+        else:
+            logits = _chunk_prefill_step(self.params, self.cache,
+                                         self._upload([chunk], torch.int64),
+                                         slot_idx, ch.pos, self.cfg)
         ch.pos += real
         if ch.pos >= plen:
             self._chunkings.remove(ch)
+            if self.paged:
+                # Index the prompt's KV for cross-request reuse — live: the
+                # owner keeps decoding while sharers match through these
+                # pages (decode writes start at plen, past every claimed
+                # position).
+                self._kv_register(req.prompt_tokens, slot_idx, plen)
             # Logits row of the prompt's true last token in this chunk.
             self._pending_first.append((req, slot_idx, plen,
                                         logits[real - 1]))
@@ -857,6 +1007,9 @@ class LLMEngine:
     def _advance_chunked(self) -> int:
         """One chunk of EVERY in-flight chunked prefill."""
         return sum(self._advance_one(ch) for ch in list(self._chunkings))
+
+    def _pages_for(self, tokens: int) -> int:
+        return -(-min(tokens, self.max_len) // self.page_size)
 
     def _drain_waiting(self) -> None:
         while True:
@@ -893,6 +1046,11 @@ class LLMEngine:
                 continue
             reason = s.request.abandon_reason(now)
             if reason:
+                if self._kvtier is not None:
+                    # A cancelled conversation's computed KV is still valid
+                    # prefix content: index it before release.
+                    self._kv_register(self._context_tokens(s), i, s.length)
+                self._release_slot_pages(i)
                 self.slots[i] = None
                 # The device still thinks the row is live: sync next
                 # dispatch; a round already in flight is masked at consume.
@@ -903,6 +1061,7 @@ class LLMEngine:
             reason = ch.request.abandon_reason(now)
             if reason:
                 self._chunkings.remove(ch)
+                self._release_slot_pages(ch.slot)
                 self._fail_request(ch.request, reason)
                 n += 1
         for lane in (self._preempted, self._backlog):
@@ -940,16 +1099,31 @@ class LLMEngine:
 
     def _next_admissible(self) -> Optional[Request]:
         """Strict priority across QoS classes, FIFO within a class; within
-        a class the preempted lane resumes first."""
+        a class the preempted lane resumes first — paged, only once the
+        pool can hold its entire remaining run, and while it waits nothing
+        at its class or below is admitted (the livelock backpressure).
+        Fresh paged requests need room for their prompt plus one growth
+        page."""
         self._drain_waiting()
         for cls in sorted(QOS_PRIORITY, key=QOS_PRIORITY.get):
             pre = next((r for r in self._preempted if r.qos == cls), None)
             if pre is not None:
-                self._preempted.remove(pre)
-                return pre
+                if not self.paged:
+                    self._preempted.remove(pre)
+                    return pre
+                remaining = max(pre.params.max_new_tokens
+                                - len(pre.output_tokens), 0)
+                if self._allocator.available() >= self._pages_for(
+                        len(pre.prompt_tokens) + remaining):
+                    self._preempted.remove(pre)
+                    return pre
+                return None          # backpressure: this class and below wait
             req = next((r for r in self._backlog if r.qos == cls), None)
             if req is None:
                 continue
+            if self.paged and self._allocator.available() < self._pages_for(
+                    len(req.prompt_tokens)) + 1:
+                return None          # head-of-line within the priority order
             self._backlog.remove(req)
             self.metrics.observe_queue_delay(
                 time.monotonic() - req.arrival, qos=req.qos)
@@ -963,6 +1137,12 @@ class LLMEngine:
         n = self._advance_chunked()
         pending: list[tuple[Request, int, int, int]] = []   # req, slot, plen, bucket
         while True:
+            if self.paged and \
+                    len(self._chunkings) >= self.max_concurrent_prefills:
+                # Chunking slots exhausted: a strictly higher-class arrival
+                # may evict the lowest-class in-flight chunking.
+                if not self._maybe_preempt_chunking_for_priority():
+                    break
             slot_idx = self._free_slot(frozenset(p[1] for p in pending))
             if slot_idx is None:
                 if self._maybe_preempt_for_priority():
@@ -971,6 +1151,28 @@ class LLMEngine:
             req = self._next_admissible()
             if req is None:
                 break
+            if self.paged:
+                # Paged admission always chunks; the prefix index trims the
+                # work to the uncached tail (radix: live sharing and a COW
+                # tail, so the resume may start mid-page).
+                pages, covered = self._kv_match(req)
+                if req.trace_parent is not None:
+                    _span_close(req)       # queued →
+                    tier = self._kvtier
+                    if tier is not None and tier.last_cow_tokens:
+                        _span_open(req, "engine.kv_migrate",
+                                   cow_tokens=tier.last_cow_tokens)
+                        _span_close(req)
+                    _span_open(req, "engine.prefill", cached_tokens=covered)
+                self._release_slot_pages(slot_idx)
+                self._slot_pages[slot_idx] = list(pages)
+                self._table[slot_idx, :] = -1
+                self._table[slot_idx, :len(pages)] = pages
+                self._dstate.mark_row(slot_idx)
+                ch = _Chunking(req, slot_idx, covered)
+                self._chunkings.append(ch)
+                n += self._advance_one(ch)
+                continue
             if req.trace_parent is not None:
                 _span_close(req)
                 _span_open(req, "engine.prefill")
@@ -1041,17 +1243,151 @@ class LLMEngine:
                 n += len(group)
         return n
 
+    # -- paged bookkeeping -----------------------------------------------------
+
+    @staticmethod
+    def _context_tokens(s: _Slot) -> list[int]:
+        """The slot's true token sequence (prompt + emitted output past any
+        preemption fold-back); ``len == s.length + 1`` (the last token's KV
+        is not written yet)."""
+        req = s.request
+        return list(req.prompt_tokens) + req.output_tokens[req.resumed_from:]
+
+    def _kv_copy_pages(self, src, dst) -> None:
+        """COW tail copy: pool pages ``dst[i] <- src[i]``, enqueued on the
+        stream before the chunk prefill that reads them."""
+        copy_pages(self.cache, self._upload(list(src), torch.int64),
+                   self._upload(list(dst), torch.int64))
+
+    def _kv_register(self, tokens, slot_idx: int, n_tokens: int) -> None:
+        """Index ``tokens[:n_tokens]``'s written KV for cross-request reuse
+        (radix) or hash the full-page prefix (flat)."""
+        if self._allocator is None or n_tokens <= 0:
+            return
+        if self._kvtier is not None:
+            self._kvtier.insert(tokens, self._slot_pages[slot_idx], n_tokens)
+        else:
+            self._allocator.register_prefix(
+                list(tokens)[:n_tokens],
+                self._slot_pages[slot_idx][:n_tokens // self.page_size])
+
+    def _kv_match(self, req: Request) -> tuple[list[int], int]:
+        """Longest reusable prefix of ``req``'s prompt: (pages now owned by
+        the request, tokens covered)."""
+        if self._kvtier is not None:
+            return self._kvtier.match_and_acquire(req.prompt_tokens,
+                                                  owner=req.id)
+        hit = self._allocator.match_prefix(req.prompt_tokens, owner=req.id)
+        return list(hit), len(hit) * self.page_size
+
+    def _kv_pressure(self) -> float:
+        """Pool-pressure ratio (>= 1.0 = urgent): the pool-occupancy rule
+        folded with the queue-delay-vs-budget ratio, as the JAX engine
+        exports it."""
+        alloc = self._allocator
+        pool = (alloc.num_pages // 4) / max(alloc.available(), 1)
+        qd = 0.0
+        if self.queue_delay_budget:
+            snap = self.metrics.snapshot()
+            qd = (snap.get("queue_delay_p95_ms", 0.0) / 1e3
+                  / self.queue_delay_budget)
+        return max(pool, qd)
+
+    def _slot_owner(self, slot_idx: int) -> Optional[str]:
+        """Request id owning ``slot_idx`` (occupant or in-flight chunked
+        prefill): the refcount sanitizer's leak-attribution label."""
+        s = self.slots[slot_idx]
+        if s is not None:
+            return s.request.id
+        for ch in self._chunkings:
+            if ch.slot == slot_idx:
+                return ch.request.id
+        return None
+
+    def _ensure_pages(self, slot_idx: int, upto: int) -> bool:
+        """Grow ``slot_idx``'s page list to cover positions [0, upto)."""
+        need = min(-(-upto // self.page_size), self._mpp)
+        have = len(self._slot_pages[slot_idx])
+        if need <= have:
+            return True
+        try:
+            new = self._allocator.alloc(need - have,
+                                        owner=self._slot_owner(slot_idx))
+        except PagePoolExhausted:
+            return False
+        self._table[slot_idx, have:need] = new
+        self._slot_pages[slot_idx].extend(new)
+        self._dstate.mark_row(slot_idx)
+        return True
+
+    def _release_slot_pages(self, idx: int) -> None:
+        if self._allocator is not None and self._slot_pages[idx]:
+            # Leaf-first (reversed) release: indexed pages enter the
+            # reclaimable LRU children-before-parents, so pool-pressure
+            # eviction trims cached subtrees from the leaves.
+            self._allocator.free(list(reversed(self._slot_pages[idx])))
+            self._slot_pages[idx] = []
+            self._table[idx, :] = -1
+            self._dstate.mark_row(idx)
+
+    def _preempt_youngest(self, keep: int) -> bool:
+        """Page-pressure preemption victim: the youngest slot of the lowest
+        running QoS class, never ``keep``."""
+        candidates = [(QOS_PRIORITY.get(s.request.qos, 1), s.admit_seq, i)
+                      for i, s in enumerate(self.slots)
+                      if s is not None and i != keep]
+        if not candidates:
+            return False
+        _, _, idx = max(candidates)
+        self._preempt_slot(idx)
+        return True
+
+    def _maybe_preempt_chunking_for_priority(self) -> bool:
+        """Every chunking slot is held and a STRICTLY higher class waits →
+        evict the lowest-class in-flight chunked prefill. Its request
+        requeues through the preempted lane with nothing lost (no token was
+        emitted yet), and the chunks already written are indexed before
+        the pages release, so the resume usually matches straight back."""
+        if not self.qos_preemption or not self._chunkings:
+            return False
+        waiting = self._waiting_priority()
+        if waiting is None:
+            return False
+        ranked = sorted((QOS_PRIORITY.get(ch.request.qos, 1), i)
+                        for i, ch in enumerate(self._chunkings))
+        vrank, vidx = ranked[-1]
+        if vrank <= waiting:
+            return False
+        ch = self._chunkings[vidx]
+        req = ch.request
+        if req.trace_parent is not None:
+            _span_close(req, preempted=True, chunked=True)
+            _span_open(req, "engine.queued", requeued=True)
+        if ch.pos:
+            self._kv_register(req.prompt_tokens, ch.slot, ch.pos)
+        self._chunkings.remove(ch)
+        self._release_slot_pages(ch.slot)
+        self._preempted.append(req)
+        self.metrics.note_preempted(req.qos)
+        return True
+
     def _preempt_slot(self, idx: int) -> None:
-        """Recompute preemption: requeue the slot's request with prompt +
-        generated-so-far; re-admission recomputes and generation resumes."""
+        """Recompute preemption: release the slot's pages and requeue its
+        request with prompt + generated-so-far; re-admission recomputes
+        (prefix index permitting) and generation resumes."""
         s = self.slots[idx]
         req = s.request
         if req.trace_parent is not None:
             _span_close(req, preempted=True, tokens=len(req.output_tokens))
             _span_open(req, "engine.queued", requeued=True)
+        if self._kvtier is not None:
+            # The victim's computed KV stays matchable: its re-admission
+            # usually matches back to where it stopped.
+            self._kv_register(self._context_tokens(s), idx, s.length)
         req.prompt_tokens = list(req.prompt_tokens) \
             + req.output_tokens[req.resumed_from:]
         req.resumed_from = len(req.output_tokens)
+        self._release_slot_pages(idx)
         self.slots[idx] = None
         self._dstate.mark_slot(idx)
         self._preempted.append(req)
@@ -1101,6 +1437,13 @@ class LLMEngine:
         req.stream.put(None)
         req.done.set()
         self.metrics.observe(req)
+        if self.paged:
+            if self._kvtier is not None:
+                # Conversation reuse: index prompt + generated tokens (valid
+                # KV is ctx[:s.length]) before the pages release, so the
+                # next turn matches through prompt and history.
+                self._kv_register(self._context_tokens(s), idx, s.length)
+            self._release_slot_pages(idx)
         self.slots[idx] = None
         return True
 
@@ -1147,9 +1490,40 @@ class LLMEngine:
         k_steps = min(k_steps, max(self._steps_left(i, s) for i, s in active))
         if k_steps <= 0:
             return False
+        if self.paged:
+            # Pages must cover every live slot's next k_steps write
+            # positions PLUS the steps of the rounds in flight (the device
+            # may already be that far past the host's lengths), or a
+            # mid-dispatch write lands unmapped (on the sink, lost). Under
+            # pool pressure, preempt youngest-first.
+            slack = sum(r.k_steps for r in self._rounds)
+            for i, s in list(active):
+                if self.slots[i] is not s:
+                    continue    # preempted by an earlier slot's allocation
+                upto = min(s.length + slack + k_steps, self.max_len)
+                while not self._ensure_pages(i, upto):
+                    if self._preempt_youngest(keep=i):
+                        continue
+                    # Sole survivor: shrink the dispatch to one step (one
+                    # max-length sequence always fits the pool).
+                    k_steps = 1
+                    if not self._ensure_pages(i, min(s.length + slack + 1,
+                                                     self.max_len)):
+                        self._preempt_slot(i)
+                    break
+            active = [(i, s) for i, s in enumerate(self.slots)
+                      if s is not None]
+            if not active:
+                return False
+            k_steps = min(k_steps,
+                          max(self._steps_left(i, s) for i, s in active))
+            if k_steps <= 0:
+                return False
         mode = _mode_for([s.request.params for _, s in active])
         if self._dstate.dirty_slots:
             self._dstate.sync_slots(self._slot_state_values)
+        if self._dstate.dirty_rows:
+            self._dstate.sync_rows(lambda i: self._table[i])
         now = time.monotonic()
         gap = None
         if self._last_ready_t is not None:
@@ -1157,10 +1531,19 @@ class LLMEngine:
             self.metrics.observe_host_gap(gap)
         self.metrics.note_dispatch_depth(len(self._rounds))
         st = self._dstate.arrays
-        out, tokens, lengths, live, budgets = _decode_multi(
-            self.params, self.cache, st["tokens"], st["lengths"], st["live"],
-            st["temps"], st["top_k"], st["top_p"], st["stops"],
-            st["budgets"], self._gen, self.cfg, k_steps, sample_mode=mode)
+        if self.paged:
+            out, tokens, lengths, live, budgets = paged_decode_multi(
+                self.params, {**self.cache, "table": self._dstate.table},
+                st["tokens"], st["lengths"], st["live"], st["temps"],
+                st["top_k"], st["top_p"], st["stops"], st["budgets"],
+                self._gen, self.cfg, k_steps, sample_mode=mode,
+                attn_impl=self.paged_attn_impl)
+        else:
+            out, tokens, lengths, live, budgets = _decode_multi(
+                self.params, self.cache, st["tokens"], st["lengths"],
+                st["live"], st["temps"], st["top_k"], st["top_p"],
+                st["stops"], st["budgets"], self._gen, self.cfg, k_steps,
+                sample_mode=mode)
         self._dstate.adopt({**st, "tokens": tokens, "lengths": lengths,
                             "live": live, "budgets": budgets})
         host, ready = _to_host_async(out)

@@ -127,6 +127,31 @@ def test_chunked_prefill_and_pipelining_keep_greedy_identity(
     assert reqs[1].output_tokens == reference_greedy(params, cfg, SOLO, 10)
 
 
+@pytest.mark.parametrize("impl", ["gather", "pallas"])
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_paged_engine_keeps_greedy_identity(pipelined, impl, params, cfg):
+    """The paged engine (pages of 16, 16-token chunks, 4-step dispatches
+    whose writes cross page boundaries mid-dispatch, requests arriving
+    while others decode) against the full-forward reference: exact."""
+    eng = E.LLMEngine(cfg, _spec(paged=True, page_size=16,
+                                 chunked_prefill_tokens=16, decode_steps=4,
+                                 pipelined_decode=pipelined,
+                                 paged_attn_impl=impl),
+                      params=params, device="cpu")
+    long_prompt = [(i * 13) % 250 + 3 for i in range(40)]
+    prompts = [long_prompt] + INTERLEAVED
+    reqs = [eng.submit(p, E.SamplingParams(max_new_tokens=10))
+            for p in prompts[:2]]
+    for _ in range(3):
+        eng.step()
+    reqs += [eng.submit(p, E.SamplingParams(max_new_tokens=10))
+             for p in prompts[2:]]
+    _drive(eng, reqs)
+    for p, r in zip(prompts, reqs):
+        assert r.output_tokens == reference_greedy(params, cfg, p, 10)
+    eng._allocator.assert_quiescent()
+
+
 def test_batched_prefill_group_matches_solo(params, cfg):
     eng = E.LLMEngine(cfg, _spec(prefill_batch_max=4), params=params,
                       device="cpu")
@@ -303,13 +328,32 @@ def test_background_loop_streams(params, cfg):
 
 # -- refusals ---------------------------------------------------------------------
 
+# Paged KV and int8 pages are served now (tests/test_torch_paged.py); the
+# host and remote KV tiers behind them are still a later slice.
 @pytest.mark.parametrize("overrides", [
-    {"paged": True}, {"quantize": "int8"}, {"kv_cache_dtype": "int8"},
+    {"paged": True, "page_size": 16, "host_kv_pages": 8},
+    {"quantize": "int8"},
+    {"paged": True, "page_size": 16, "kv_cache_dtype": "int8",
+     "host_kv_pages": 8, "remote_kv_root": "kv-remote"},
     {"role": "prefill"}, {"lora": {"max_adapters": 2}},
     {"speculative": {"mode": "ngram"}}])
 def test_later_slice_features_raise(overrides, cfg):
     with pytest.raises(NotImplementedError):
         E.LLMEngine(cfg, _spec(**overrides), device="cpu")
+
+
+def test_int8_kv_needs_the_page_pool(cfg):
+    """As in the JAX engine: int8 KV exists only in paged mode, and no
+    other KV dtype is known."""
+    with pytest.raises(ValueError, match="paged=True"):
+        E.LLMEngine(cfg, _spec(kv_cache_dtype="int8"), device="cpu")
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        E.LLMEngine(cfg, _spec(paged=True, page_size=16,
+                               kv_cache_dtype="fp8"), device="cpu")
+    with pytest.raises(ValueError):
+        jengine.LLMEngine(jconfig.preset("tiny", dtype="float32"),
+                          JBatchingSpec(max_batch_size=4, max_seq_len=96,
+                                        kv_cache_dtype="int8"))
 
 
 def test_moe_and_mesh_raise(cfg):

@@ -9,6 +9,7 @@ has jax loaded already, hence the subprocess), and a static scan of every
 import statement in the package's source."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -20,9 +21,17 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "kubeflow_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
+#: Modules each slice added; the walk below must reach every one of them.
+SLICE_MODULES = (
+    "serve.engine", "serve.server", "serve.device_state", "ops.fused_norm",
+    "ops.flash_attention", "models.decoder",
+    # the paged-KV slice
+    "serve.paged", "serve.kvtier", "ops.paged_attention",
+    "ops.quantization", "runtime.sanitize",
+)
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 for name in %r:
     sys.modules[name] = None
 import kubeflow_tpu_torch
@@ -33,7 +42,7 @@ for m in mods:
 leaked = sorted(k for k in sys.modules
                 if k.split(".")[0] in %r and sys.modules[k] is not None)
 assert not leaked, leaked
-print(len(mods))
+print(json.dumps(mods))
 """ % (FORBIDDEN, FORBIDDEN + ("triton",))
 
 
@@ -43,7 +52,11 @@ def test_package_imports_with_jax_and_the_jax_package_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20      # every module was imported
+    mods = set(json.loads(out.stdout))
+    assert len(mods) >= 20
+    missing = [m for m in SLICE_MODULES
+               if f"kubeflow_tpu_torch.{m}" not in mods]
+    assert not missing, missing
 
 
 def _imports(tree):
@@ -60,6 +73,8 @@ def _imports(tree):
 def test_no_source_file_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 20
+    for m in SLICE_MODULES:
+        assert PKG.joinpath(*m.split(".")).with_suffix(".py") in files, m
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for name, module_level in _imports(tree):

@@ -6,6 +6,8 @@ unchanged. The copied wire constants (headers, tokenizer) are held to the
 JAX package's."""
 
 import json
+import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -126,6 +128,66 @@ def test_metrics_parse_and_count_traffic(server):
     assert by_name[("kftpu_serving_requests_total", "tiny")] >= 1
     assert by_name[("kftpu_serving_tokens_total", "tiny")] >= 1
     assert ("kftpu_serving_ttft_p50_ms", "tiny") in by_name
+
+
+def _series(srv, name):
+    samples = parse_exposition(_get(srv, "/metrics")[1].decode())
+    return next(v for n, lab, v in samples
+                if n == name and lab.get("model") == "tiny")
+
+
+def test_paged_metrics_show_the_real_pool():
+    """A paged replica's /metrics reads the page pool: pages resident while
+    a request holds them (its decode is held at a gate, so the scrape
+    cannot miss them), none after, and the cached prompt pages, prefix
+    hits and pool density once a second request shares the prompt."""
+    eng = LLMEngine(preset("tiny", vocab_size=512, dtype="float32"),
+                    BatchingSpec(**SPEC, paged=True, page_size=16,
+                                 chunked_prefill_tokens=32), device="cpu")
+    gate, held = threading.Event(), threading.Event()
+    dispatch = eng._dispatch_round
+
+    def gated(active):
+        held.set()
+        assert gate.wait(timeout=60)
+        return dispatch(active)
+
+    eng._dispatch_round = gated
+    srv = ModelServer("tiny", eng)
+    srv.start()
+    try:
+        body = {"prompt": "a shared prompt of some forty bytes or so",
+                "max_tokens": 4}
+        reply = []
+        th = threading.Thread(target=lambda: reply.append(
+            _post(srv, "/v1/completions", body)))
+        th.start()
+        assert held.wait(timeout=60)
+        # 42 prompt tokens (41 bytes and BOS) fill three pages of 16.
+        assert _series(srv, "kftpu_engine_kv_pages_resident") == 3
+        gate.set()
+        th.join(timeout=60)
+        assert reply and reply[0][0] == 200
+        # The reply can land before the scheduler thread releases the pages
+        # (the JAX engine's order too): wait for the release.
+        deadline = time.monotonic() + 30
+        while _series(srv, "kftpu_engine_kv_pages_resident") and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert _series(srv, "kftpu_engine_kv_pages_resident") == 0
+        assert _series(srv, "kftpu_engine_kv_pages_cached") >= 2
+        again = _post(srv, "/v1/completions", body)
+        assert again[0] == 200
+        assert json.loads(again[1])["choices"] == \
+            json.loads(reply[0][1])["choices"]
+        assert _series(srv, "kftpu_engine_kv_prefix_hits_total") == 1
+        assert _series(srv, "kftpu_engine_kv_prefix_tokens_reused_total") \
+            == 41                            # all but the last prompt token
+        assert _series(srv, "kftpu_engine_kv_quant_tokens_per_mib") > 0
+    finally:
+        gate.set()
+        srv.stop()
+    eng._allocator.assert_quiescent()
 
 
 def test_metrics_series_names_match_the_jax_server():
