@@ -35,7 +35,22 @@ package is not beside it. Phases, each a hard failure:
    (bf16 and int8 pages) after a 1000-token paged prefill;
 6. profile: host and device time of one decode dispatch on the contiguous
    cache and on the page pool, and of one 2048-token prefill, with the
-   kernels that take the device time.
+   kernels that take the device time;
+7. train check (serving engines freed first): Llama-3-8B at full width, 4
+   layers, one ``decoder_loss`` forward and backward through the flash
+   kernels (``attn_impl="pallas"``) against the plain attention on the
+   same weights and batch — loss and the layer-0 wq/wk/wv and embedding
+   gradients — then three steps on a repeated batch must lower the loss;
+8. train: the same model through ``Trainer.run()`` (fp32 params, AdamW,
+   ``fused_kernels="off"``, ``nothing_saveable`` remat, chunked CE,
+   synthetic 2 x 2048 batches): 6 steps uninterrupted, then 3 steps that
+   checkpoint at step 3 and crash, then a second ``Trainer`` that resumes
+   from step 3 and finishes; loss and grad norm finite every step, the
+   resumed step-6 loss within 1e-5 relative of the uninterrupted one, the
+   same optimizer count and the same layer-0 ``wq`` Adam moments at step 6,
+   and
+   per step 8 flash forward launches (forward and remat replay) and 4 of
+   each backward kernel; then a profile of one training step.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -43,7 +58,11 @@ one JSON object with every kernel's numbers.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -66,6 +85,20 @@ LSE_ATOL = 1e-3
 # Last-token logits of a bucketed prefill, kernel path vs plain path, both
 # bf16 over 32 layers: relative L2 error.
 PREFILL_REL_L2 = 5e-2
+# Flash backward kernels vs their plain version at the training shape:
+# relative L2 error over the whole output, beside the elementwise check.
+BWD_REL_L2 = 1e-2
+# Training check, kernel path vs plain attention, 4 layers of random bf16
+# activations: loss (relative) and gradients (relative L2).
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
+# Resumed run vs the uninterrupted one at step 6: the loss (relative) and
+# the layer-0 wq Adam moments (relative L2). Both runs do the same work on
+# the same inputs and have read bit-equal; the bands leave room for a
+# reduction order that changes between runs. A resume that lost the moments
+# misses half of their six terms and is off by tens of percent.
+RESUME_LOSS_REL = 1e-5
+RESUME_MOMENT_REL_L2 = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -161,7 +194,7 @@ def phase_build() -> None:
     k = torch.zeros((1, 64, 8, 128), dtype=torch.bfloat16, device="cuda")
     flash_attention(q, k, k)
     torch.cuda.synchronize()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc: "
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel: "
           f"{', '.join(_build.SOURCES)}; triton: rms_fwd, swiglu_fwd)",
           flush=True)
     for name, log in _build.PTXAS.items():
@@ -276,11 +309,110 @@ def phase_kernels() -> list[dict]:
         bound_ms=b_fl[0], bound_by=b_fl[1],
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))))
+    rows += flash_bwd_rows()
     rows += paged_kernel_rows()
     for r in rows:
         print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return rows
+
+
+def rel_l2(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out.float() - ref.float()).norm() / ref.float().norm())
+
+
+def bwd_case(gen, B, H, KH, Sq, Skv, D, *, causal=True, q_offset=0,
+             softcap=None):
+    """Inputs of one flash-backward call on the kernel layout: bf16 q, k,
+    v and dO; lse and delta from the plain forward (fp32)."""
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(B, H, Sq, D), rnd(B, KH, Skv, D), rnd(B, KH, Skv, D), \
+        rnd(B, H, Sq, D)
+    kw = dict(causal=causal, sm_scale=D ** -0.5, softcap=softcap,
+              q_offset=q_offset)
+    o, lse = FA.flash_ref(q, k, v, **kw)
+    return (q, k, v, do, lse, FA._delta(o, do)), kw
+
+
+def check_bwd(args, kw, name: str) -> tuple[dict, float, tuple]:
+    """Both backward kernels against the plain backward on ``args``:
+    ({"dq", "dk", "dv": max abs error}, worst relative L2, the kernels'
+    outputs)."""
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+
+    dk, dv = FA.flash_bwd_dkdv(*args, **kw)
+    dq = FA.flash_bwd_dq(*args, **kw)
+    ref = FA._bwd_ref(*args, **kw)
+    torch.cuda.synchronize()
+    errs, rel = {}, 0.0
+    for part, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        errs[part] = within(got, want, f"{name} {part}")
+        if float(want.float().norm()) > 0:
+            rel = max(rel, rel_l2(got, want))
+    return errs, rel, (dq, dk, dv)
+
+
+def flash_bwd_rows() -> list[dict]:
+    """Sites 7 and 8: the dK/dV and dQ kernels against the plain backward
+    at the training shape (B=2, H=32, KH=8, S=2048, D=128, causal). The
+    plain version and the library call (the backward of SDPA) each compute
+    dq, dk and dv together; their times stand in both rows."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+    B, H, KH, S, D = 2, 32, 8, 2048, 128
+    args, kw = bwd_case(gen, B, H, KH, S, S, D)
+    errs, rel, _ = check_bwd(args, kw, "flash_bwd S=2048")
+    print(f"kernel flash_bwd B={B} H={H} KH={KH} S={S} D={D} causal: "
+          f"max_abs_err dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
+          f"{errs['dv']:.3e}, worst rel L2 {rel:.3e} (tolerance "
+          f"{BWD_REL_L2:g})", flush=True)
+    if not rel <= BWD_REL_L2:
+        fail(f"flash backward kernels: rel L2 {rel:.3e} > {BWD_REL_L2:g}")
+    plain_ms = device_ms(lambda: FA._bwd_ref(*args, **kw), iters=2, reps=3)
+    # The library yardstick: SDPA's backward on the same tensors.
+    q, k, v, do = (t.detach().clone().requires_grad_(i < 3)
+                   for i, t in enumerate(args[:4]))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    grad = lambda: torch.autograd.grad(out, (q, k, v), do,  # noqa: E731
+                                       retain_graph=True)
+    for _ in range(3):
+        grad()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(10):
+        grad()
+    t1.record()
+    t1.synchronize()
+    library_ms = t0.elapsed_time(t1) / 10
+    pairs = S * (S + 1) / 2                      # causal (q, k) pairs
+    product = 2.0 * B * H * pairs * D            # one product's FLOPs
+    in_bytes = 2 * (B * H * S * D * 2) + 2 * (B * KH * S * D * 2) \
+        + 2 * (B * H * S * 4)
+    rows = []
+    for name, n_products, out_bytes, fn, site, err in (
+            ("flash_bwd_dkdv", 4, 2 * B * KH * S * D * 2,
+             lambda: FA.flash_bwd_dkdv(*args, **kw), 331,
+             max(errs["dk"], errs["dv"])),
+            ("flash_bwd_dq", 3, B * H * S * D * 2,
+             lambda: FA.flash_bwd_dq(*args, **kw), 372, errs["dq"])):
+        b = bound(in_bytes + out_bytes, n_products * product, BF16_FLOPS)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="kubeflow_tpu_torch/csrc/flash_bwd.cu",
+            replaces=f"kubeflow_tpu/ops/flash_attention.py:{site}",
+            max_abs_err=err, ms=device_ms(fn), plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
     return rows
 
 
@@ -442,7 +574,40 @@ def phase_edges() -> None:
         e_l = within(lse, rl, name + " lse", atol=LSE_ATOL, rtol=0.0)
         print(f"edge {name}: max_abs_err o {e_o:.3e}, lse {e_l:.3e}",
               flush=True)
+    phase_flash_bwd_edges()
     phase_paged_edges()
+
+
+def phase_flash_bwd_edges() -> None:
+    """The two backward kernels against the plain backward away from the
+    training shape: S = 1, 63, 64, 65, 1000 and 2047 (ragged tiles),
+    head_dim 64, one and eight query heads per kv head, softcap, Sq < Skv
+    at q_offset = Skv - Sq, a non-causal block, and rows that see no key
+    (negative q_offset: lse is NEG_INF, the gradient must be zero)."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    # (B, H, KH, Sq, Skv, D, causal, q_offset, softcap)
+    cases = ((1, 8, 2, 1, 1, 128, True, 0, None),
+             (1, 8, 2, 63, 63, 128, True, 0, None),
+             (1, 8, 2, 64, 64, 64, True, 0, None),
+             (1, 8, 8, 65, 65, 128, True, 0, None),
+             (1, 8, 1, 1000, 1000, 128, True, 0, 30.0),
+             (1, 4, 2, 2047, 2047, 128, True, 0, None),
+             (2, 4, 2, 300, 1000, 64, True, 700, None),
+             (1, 4, 2, 200, 200, 128, False, 0, 20.0),
+             (1, 4, 2, 128, 128, 64, True, -5, None))
+    for B, H, KH, Sq, Skv, D, causal, off, cap in cases:
+        args, kw = bwd_case(gen, B, H, KH, Sq, Skv, D, causal=causal,
+                            q_offset=off, softcap=cap)
+        name = (f"flash_bwd B={B} H={H} KH={KH} Sq={Sq} Skv={Skv} D={D} "
+                f"causal={causal} q_offset={off} softcap={cap}")
+        errs, rel, (dq, _, _) = check_bwd(args, kw, name)
+        note = ""
+        if off < 0:
+            if torch.count_nonzero(dq[:, :, :-off]):
+                fail(f"{name}: rows that see no key have a nonzero dq")
+            note = "; rows with no key give zero dq"
+        print(f"edge {name}: max_abs_err {max(errs.values()):.3e}, rel L2 "
+              f"{rel:.3e}{note}", flush=True)
 
 
 def phase_paged_edges() -> None:
@@ -970,6 +1135,252 @@ def phase_profile(engine) -> None:
                   flush=True)
 
 
+TRAIN_MODEL = dict(n_layers=4, fused_kernels="off",
+                   remat_policy="nothing_saveable")
+TRAIN_DATA = dict(seq_len=2048, global_batch=2)
+
+
+def _train_wrappers() -> dict:
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+
+    return {"flash_fwd": FA.flash_attention,
+            "flash_bwd_dkdv": FA.flash_bwd_dkdv,
+            "flash_bwd_dq": FA.flash_bwd_dq}
+
+
+def phase_train_check() -> None:
+    """Kernel path vs plain path on the training slice: Llama-3-8B widths,
+    4 layers, fp32 params from a seed, one synthetic 2 x 2048 batch; one
+    ``decoder_loss`` forward and backward with ``attn_impl="pallas"`` (the
+    flash kernels) and with ``"xla"`` (plain attention). Then three steps
+    on that batch, repeated, must lower the loss."""
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import decoder_loss
+    from kubeflow_tpu_torch.train.data import DataConfig, SyntheticLM
+    from kubeflow_tpu_torch.train.optim import OptimizerConfig
+    from kubeflow_tpu_torch.train.step import setup_train
+
+    cfg = preset("llama3-8b", **TRAIN_MODEL)
+    task = setup_train(cfg, OptimizerConfig(warmup_steps=0, total_steps=10),
+                       device="cuda", seed=SEED, attn_impl="pallas")
+    batch = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seed=SEED, **TRAIN_DATA)).batch_at(0))
+    batch = batch.to("cuda")
+    p = task.state["params"]
+    attn = p["layers"]["attn"]
+    leaves = {"wq[0]": attn["wq"], "wk[0]": attn["wk"], "wv[0]": attn["wv"],
+              "embed": p["embed"]}
+    got = {}
+    for impl in ("pallas", "xla"):
+        loss, _ = decoder_loss(p, batch, cfg, attn_impl=impl)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        got[impl] = (loss.item(), {
+            name: (g[0] if name != "embed" else g)
+            for name, g in zip(leaves, grads)})
+        del grads
+    (lk, gk), (lp, gp) = got["pallas"], got["xla"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    rels = {n: rel_l2(gk[n], gp[n]) for n in leaves}
+    print(f"train check: loss kernel path {lk:.6f} vs plain {lp:.6f} (rel "
+          f"{loss_rel:.3e}, tolerance {TRAIN_LOSS_REL:g}); grad rel L2 "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+          + f" (tolerance {TRAIN_GRAD_REL_L2:g})", flush=True)
+    if not loss_rel <= TRAIN_LOSS_REL:
+        fail("training loss through the kernels disagrees with the plain path")
+    bad = [n for n, r in rels.items() if not r <= TRAIN_GRAD_REL_L2]
+    if bad:
+        fail(f"training gradients through the kernels disagree: {bad}")
+    del got, gk, gp
+    losses = []
+    for _ in range(3):
+        _, m = task.step_fn(task.state, batch)
+        losses.append(float(m["loss"]))
+    print(f"train check: a repeated batch over 3 steps: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if not losses[-1] < losses[0]:
+        fail("three steps on a repeated batch did not lower the loss")
+    del task, p, attn, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _Crash(Exception):
+    """Ends a training run right after its step-3 checkpoint."""
+
+
+def _trainer_cfg(ckpt_dir=None):
+    from kubeflow_tpu_torch.train.trainer import TrainerConfig
+
+    return TrainerConfig(
+        model="llama3-8b", model_overrides=dict(TRAIN_MODEL),
+        data=dict(TRAIN_DATA), steps=6, log_every=1, seed=SEED,
+        attn_impl="pallas",
+        optimizer={"learning_rate": 3e-4, "warmup_steps": 2,
+                   "clip_norm": 1.0},
+        checkpoint_dir=ckpt_dir, checkpoint_every=3 if ckpt_dir else 0,
+        max_checkpoints=1)
+
+
+def _train_run(cfg, workdir: str, crash_at=None) -> tuple[dict, float]:
+    """One ``Trainer.run()``; returns ({step: metrics}, seconds). A
+    ``crash_at`` step raises after that step's checkpoint. The last step's
+    entry also holds ``opt_state``: the optimizer count and the layer-0 wq
+    Adam moments, on the host."""
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    seen: dict = {}
+
+    def on_step(step, metrics):
+        seen[step] = dict(metrics)
+        if step == cfg.steps:
+            opt = trainer.task.state["opt_state"]
+            seen[step]["opt_state"] = {
+                "count": int(opt["count"]),
+                **{k: opt[k]["layers"]["attn"]["wq"][0].float().cpu()
+                   for k in ("mu", "nu")}}
+        if step == crash_at:
+            raise _Crash()
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda", workdir=workdir)
+    try:
+        trainer.run(on_step=on_step)
+    except _Crash:
+        pass
+    finally:
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return seen, time.perf_counter() - t0
+
+
+def phase_train(rows: list[dict]) -> None:
+    """The training slice through its entry point, ``Trainer.run()``."""
+    import tempfile
+
+    wrappers = _train_wrappers()
+    # Under the checkout (git-ignored), not $TMPDIR: a step-3 checkpoint of
+    # this model is 23 GB, more than a small temporary filesystem holds.
+    work = tempfile.mkdtemp(prefix=".chip_smoke_train_",
+                            dir=Path(__file__).resolve().parent)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        for sub in ("whole", "resume"):
+            os.makedirs(os.path.join(work, sub))
+        whole, secs = _train_run(_trainer_cfg(), os.path.join(work, "whole"))
+        launches = {n: w.launches for n, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        for step, m in sorted(whole.items()):
+            print(f"train step {step}: loss {m['loss']:.6f} grad_norm "
+                  f"{m['grad_norm']:.4f} step_time_ms "
+                  f"{m.get('step_time_ms', float('nan')):.1f} tokens/s "
+                  f"{m.get('tokens_per_sec', float('nan')):.0f} mfu "
+                  f"{m.get('mfu', float('nan')):.4f}", flush=True)
+        print(f"train: 6 steps in {secs:.1f} s (init included), peak "
+              f"{peak / 2**30:.2f} GiB allocated; kernels "
+              + json.dumps(launches), flush=True)
+        if sorted(whole) != list(range(1, 7)):
+            fail(f"train: steps {sorted(whole)} reported, not 1..6")
+        for step, m in whole.items():
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+                fail(f"train step {step}: non-finite loss or grad norm {m}")
+        want = {"flash_fwd": 8 * 6, "flash_bwd_dkdv": 4 * 6,
+                "flash_bwd_dq": 4 * 6}
+        if launches != want:
+            fail(f"train: kernel launches {launches}, expected {want} "
+                 "(per step: 8 flash forward, 4 of each backward)")
+        for r in rows:
+            if r["name"] in ("flash_bwd_dkdv", "flash_bwd_dq"):
+                r["launches"] = launches[r["name"]]
+
+        ckpt = os.path.join(work, "ckpt")
+        resume_dir = os.path.join(work, "resume")
+        first, secs_a = _train_run(_trainer_cfg(ckpt), resume_dir, crash_at=3)
+        saved = sorted(os.listdir(ckpt))
+        size = sum(os.path.getsize(os.path.join(ckpt, "3", f))
+                   for f in os.listdir(os.path.join(ckpt, "3")))
+        print(f"train resume: first run stopped after step 3 in "
+              f"{secs_a:.1f} s; checkpoint dir {saved}, step 3 holds "
+              f"{size / 1e9:.2f} GB", flush=True)
+        resumed, secs_b = _train_run(_trainer_cfg(ckpt), resume_dir)
+        print(f"train resume: second run resumed and took steps "
+              f"{sorted(resumed)} in {secs_b:.1f} s", flush=True)
+        if sorted(resumed) != [4, 5, 6]:
+            fail(f"train resume: the second run took steps {sorted(resumed)}")
+        a, b = whole[6]["loss"], resumed[6]["loss"]
+        rel = abs(a - b) / abs(a)
+        print(f"train resume: step-6 loss uninterrupted {a:.6f}, resumed "
+              f"{b:.6f}, rel {rel:.3e} (tolerance {RESUME_LOSS_REL:g})",
+              flush=True)
+        if not rel <= RESUME_LOSS_REL:
+            fail("train resume: the resumed run diverged")
+        sa, sb = whole[6].pop("opt_state"), resumed[6].pop("opt_state")
+        moments = {k: rel_l2(sb[k], sa[k]) for k in ("mu", "nu")}
+        print(f"train resume: step-6 optimizer count uninterrupted "
+              f"{sa['count']}, resumed {sb['count']}; layer-0 wq moments rel "
+              f"L2 mu {moments['mu']:.3e}, nu {moments['nu']:.3e} (tolerance "
+              f"{RESUME_MOMENT_REL_L2:g})", flush=True)
+        if sa["count"] != sb["count"]:
+            fail("train resume: the optimizer count was not restored")
+        if not all(r <= RESUME_MOMENT_REL_L2 for r in moments.values()):
+            fail("train resume: the Adam moments were not restored")
+        for step, m in {**first, **resumed}.items():
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+                fail(f"train resume step {step}: non-finite {m}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train_profile() -> None:
+    """One training step (after two warm ones) at the train phase's
+    configuration: host enqueue, wall and device ms, the kernels that take
+    the device time, tokens/s and MFU against the card's bf16 peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.train.data import DataConfig, SyntheticLM
+    from kubeflow_tpu_torch.train.metrics import bf16_peak_flops
+    from kubeflow_tpu_torch.train.optim import OptimizerConfig
+    from kubeflow_tpu_torch.train.step import setup_train
+
+    cfg = preset("llama3-8b", **TRAIN_MODEL)
+    task = setup_train(cfg, OptimizerConfig(), device="cuda", seed=SEED,
+                       attn_impl="pallas")
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seed=SEED,
+                                 **TRAIN_DATA))
+    batches = [torch.from_numpy(src.batch_at(i)).to("cuda") for i in range(4)]
+    for b in batches[:2]:
+        task.step_fn(task.state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task.step_fn(task.state, batches[2])
+    t_enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        task.step_fn(task.state, batches[3])
+        torch.cuda.synchronize()
+    total, kernels = _kernel_times(prof)
+    tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    tps = tokens / t_wall
+    peak = bf16_peak_flops(torch.cuda.get_device_name(0))
+    mfu = (f"{cfg.flops_per_token() * tps / peak:.4f}" if peak
+           else "not measured (unknown card)")
+    dev_ms = f"{total:.2f} ms" if total else "not measured"
+    print(f"profile train step (llama3-8b widths, {cfg.n_layers} layers, "
+          f"{TRAIN_DATA['global_batch']} x {TRAIN_DATA['seq_len']} tokens): "
+          f"host enqueue {t_enq * 1e3:.2f} ms, wall {t_wall * 1e3:.2f} ms, "
+          f"device {dev_ms}, {tps:.0f} tokens/s, MFU {mfu}", flush=True)
+    for key, ms, count in kernels[:10]:
+        print(f"  {ms:8.3f} ms  {count:4d}x  {key[:90]}", flush=True)
+    del task, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
@@ -990,6 +1401,14 @@ def main() -> int:
     phase_paged_serve(engine, rows)
     phase_paged_check(engine)
     phase_profile(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " GiB still allocated", flush=True)
+    phase_train_check()
+    phase_train(rows)
+    phase_train_profile()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

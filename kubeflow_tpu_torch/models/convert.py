@@ -8,6 +8,13 @@ per leaf — this module imports no JAX), and keeps every key and layout:
 ``layers.ln1/ln2 [L,D]``, ``final_norm [D]`` and ``lm_head [D,V]``. A
 list-of-blocks ``layers`` (the JAX ``scan_layers=False`` layout) is stacked
 into the ``[L, ...]`` layout the port's forward walks.
+
+``opt_state_from_jax`` does the same for an optimizer state: the optax
+chain state of ``kubeflow_tpu.train.optim.make_optimizer`` (its
+``ScaleByAdamState`` count, mu and nu and its schedule count, or the SGD
+``TraceState``) or the ``FusedAdamW`` dict, to the dict the port's
+``train/optim.py`` keeps. With both, one step from the same state can be
+compared across the two packages.
 """
 
 from __future__ import annotations
@@ -50,3 +57,39 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict:
     if isinstance(tree.get("layers"), list):
         tree["layers"] = _stack(tree["layers"])
     return _convert(tree, dev)
+
+
+def _walk(state: Any):
+    """Every named-tuple node of an optax chain state (depth first)."""
+    if hasattr(state, "_fields"):
+        yield state
+        for x in state:
+            yield from _walk(x)
+    elif isinstance(state, (tuple, list)):
+        for x in state:
+            yield from _walk(x)
+
+
+def opt_state_from_jax(state: Any, device: str | torch.device = "cuda") -> dict:
+    """An optimizer state of the JAX package, converted to numpy leaf by
+    leaf (``jax.tree.map(np.asarray, state)`` keeps the named tuples) →
+    the port's ``{"count", "mu", "nu"}`` (Adam kinds, fused or chained) or
+    ``{"count", "trace"}`` (SGD)."""
+    if isinstance(state, dict):                      # FusedAdamW
+        return {"count": int(np.asarray(state["count"])),
+                "mu": params_from_jax(state["mu"], device),
+                "nu": params_from_jax(state["nu"], device)}
+    nodes = list(_walk(state))
+    adam = [n for n in nodes if {"count", "mu", "nu"} <= set(n._fields)]
+    trace = [n for n in nodes if "trace" in n._fields]
+    sched = [n for n in nodes if tuple(n._fields) == ("count",)]
+    if len(sched) != 1 or len(adam) + len(trace) != 1:
+        raise ValueError("not an optax chain of clip + adamw/adam/sgd: "
+                         f"{[type(n).__name__ for n in nodes]}")
+    count = int(np.asarray(sched[0].count))
+    if adam:
+        if int(np.asarray(adam[0].count)) != count:
+            raise ValueError("adam and schedule counts differ")
+        return {"count": count, "mu": params_from_jax(adam[0].mu, device),
+                "nu": params_from_jax(adam[0].nu, device)}
+    return {"count": count, "trace": params_from_jax(trace[0].trace, device)}

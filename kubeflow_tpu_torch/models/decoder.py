@@ -1,18 +1,24 @@
-"""The decoder LLM forward (port of ``kubeflow_tpu/models/decoder.py``,
-forward only, dense).
+"""The decoder LLM: forward and training loss (port of
+``kubeflow_tpu/models/decoder.py``, dense).
 
 Covers Llama-3 (RoPE+GQA+RMSNorm+SwiGLU) and Gemma ((1+w) norms, embed
 scale, GeGLU, tied embeddings, logit softcap) through ``DecoderConfig``
 flags. Layers are stacked on a leading ``[L, ...]`` axis exactly as the JAX
 package's scanned layout, and traversed with a Python loop over per-layer
-views. Remat and the training loss arrive with the training slice.
+views. While autograd records (training, no cache), each layer is
+rematerialized per ``cfg.remat_policy`` through
+``torch.utils.checkpoint`` (``_remat``). ``decoder_loss`` is the
+next-token cross-entropy with the chunked (``_chunked_ce``) and dense
+branches; the fused-CE branch needs kernels 9–11, which are not ported
+yet, and raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import DecoderConfig
@@ -84,6 +90,29 @@ def _block_forward(bp: dict, x: torch.Tensor, positions: torch.Tensor,
     return x, new_cache
 
 
+#: Remat policies ``_remat`` runs; the JAX package's others are queued.
+REMAT_POLICIES = ("none", "full", "nothing_saveable")
+_REMAT_LATER = ("dots_saveable", "block_outs", "dots_no_batch", "dots_flash")
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` rematerialized per ``policy`` (port of ``decoder._remat``).
+    ``"none"`` saves every activation; ``"full"`` and ``"nothing_saveable"``
+    save only the layer's inputs and replay the whole layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant; JAX's two policies save the
+    same nothing). The name-based and dot-based policies need a
+    saved-tensor selection the port does not have yet."""
+    if policy == "none":
+        return fn
+    if policy in ("full", "nothing_saveable"):
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy in _REMAT_LATER:
+        raise NotImplementedError(
+            f"remat policy {policy!r} is not ported yet; use one of "
+            f"{REMAT_POLICIES}")
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def decoder_forward(
     params: Params,
     tokens: torch.Tensor,              # [B, S] integer
@@ -119,14 +148,21 @@ def decoder_forward(
 
     prefill = bool(kv_caches.get("prefill", False)) if kv_caches else False
     new_caches = None
+    # While autograd records a cacheless forward (training), each layer is
+    # rematerialized per ``cfg.remat_policy``; its params reach autograd
+    # through the closure. A cache is written in place.
+    train = kv_caches is None and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         cache = None
         if kv_caches is not None:
             cache = {"k": kv_caches["k"][i], "v": kv_caches["v"][i],
                      "len": kv_caches["len"]}
-        x, _ = _block_forward(layer_view(params["layers"], i), x, positions,
-                              cfg, kv_cache=cache, attn_impl=attn_impl,
-                              prefill=prefill)
+
+        def block(x, bp=layer_view(params["layers"], i), cache=cache):
+            return _block_forward(bp, x, positions, cfg, kv_cache=cache,
+                                  attn_impl=attn_impl, prefill=prefill)[0]
+
+        x = (_remat(block, cfg.remat_policy) if train else block)(x)
     if kv_caches is not None:
         new_caches = {"k": kv_caches["k"], "v": kv_caches["v"],
                       "len": int(kv_caches["len"]) + s}
@@ -158,3 +194,88 @@ def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int,
         "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
         "len": 0,
     }
+
+
+def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
+                targets: torch.Tensor, cfg: DecoderConfig):
+    """Blockwise softmax-CE over sequence chunks, so only [B, chunk, V]
+    logits are live at once; each chunk is checkpointed (the JAX
+    ``@jax.checkpoint`` body), so the backward recomputes its logits.
+    ``head`` [D, V] is already in the activation dtype. The product runs
+    in that dtype and is widened to fp32 after it, as ``lm_head`` does.
+    Returns (nll [B,S] f32, correct [B,S] f32); argmax ties go to the
+    lowest index, as ``jnp.argmax``'s do."""
+    b, s, _ = hidden.shape
+    chunk = min(cfg.loss_chunk_size, s)
+    if s % chunk:
+        chunk = s  # odd tails: fall back to one chunk
+    cap = cfg.logits_softcap
+
+    def body(hc: torch.Tensor, tc: torch.Tensor):
+        logits = (hc @ head).float()
+        if cap is not None:
+            logits = torch.tanh(logits / cap) * cap
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tc[..., None])[..., 0]
+        correct = (logits.argmax(-1) == tc).float()
+        return logz - picked, correct
+
+    nll, correct = [], []
+    for c0 in range(0, s, chunk):
+        n, c = checkpoint(body, hidden[:, c0:c0 + chunk],
+                          targets[:, c0:c0 + chunk], use_reentrant=False)
+        nll.append(n)
+        correct.append(c)
+    return torch.cat(nll, dim=1), torch.cat(correct, dim=1)
+
+
+def decoder_loss(
+    params: Params,
+    tokens: torch.Tensor,        # [B, S+1]: input = [:, :-1], target = [:, 1:]
+    cfg: DecoderConfig,
+    *,
+    loss_mask: Optional[torch.Tensor] = None,   # [B, S] 1.0 = count it
+    attn_impl: str = "xla",
+):
+    """Next-token cross-entropy in fp32. Returns ``(loss, metrics)`` with
+    ``ce_loss``, ``aux_loss``, ``tokens`` and ``accuracy`` (detached).
+
+    Loss-path selection as in the JAX package: with fused kernels on
+    (``layers.fused_kernels_on``) the fused CE — kernels 9–11, not ported
+    yet, so that branch raises; otherwise ``cfg.loss_chunk_size`` streams
+    the head in sequence chunks, and the dense branch materializes the
+    full logits."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE decoders arrive with the MoE slice")
+    tokens = tokens.long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if L.fused_kernels_on(cfg, inputs):
+        raise NotImplementedError(
+            "the fused cross-entropy kernels are not ported yet (ROADMAP "
+            "Queue 1 item 3b); train with DecoderConfig(fused_kernels='off')"
+            " for the chunked or dense loss")
+    head_of = (lambda: params["embed"].T) if cfg.tie_embeddings \
+        else (lambda: params["lm_head"])
+    if cfg.loss_chunk_size:
+        hidden, _ = decoder_forward(params, inputs, cfg, attn_impl=attn_impl,
+                                    skip_head=True)
+        nll, correct = _chunked_ce(hidden, head_of().to(hidden.dtype),
+                                   targets, cfg)
+    else:
+        logits, _ = decoder_forward(params, inputs, cfg, attn_impl=attn_impl)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        correct = (logits.argmax(-1) == targets).float()
+    if loss_mask is None:
+        loss_mask = torch.ones_like(nll)
+    loss_mask = loss_mask.to(nll.dtype)
+    denom = torch.clamp(loss_mask.sum(), min=1.0)
+    ce = (nll * loss_mask).sum() / denom
+    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    metrics = {
+        "ce_loss": ce.detach(),
+        "aux_loss": aux,
+        "tokens": denom.detach(),
+        "accuracy": ((correct * loss_mask).sum() / denom).detach(),
+    }
+    return ce, metrics

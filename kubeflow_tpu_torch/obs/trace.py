@@ -120,15 +120,18 @@ class Tracer:
             contextvars.ContextVar("kftpu_torch_current_span", default=None)
 
     def start_span(self, name: str,
-                   parent: Optional[SpanContext | Span] = None,
-                   **attrs: Any) -> Span:
+                   parent: Optional[SpanContext | Span] = None, *,
+                   start: Optional[float] = None, **attrs: Any) -> Span:
         """Open a span without touching the contextvar; ``parent`` may be a
-        Span, a SpanContext, or None for a new root."""
+        Span, a SpanContext, or None for a new root. ``start`` (epoch
+        seconds) back-dates a retrospective span."""
         if parent is None:
             trace_id, parent_id = _new_id(16), None
         else:
             trace_id, parent_id = parent.trace_id, parent.span_id
         span = Span(self, name, trace_id, parent_id, attrs)
+        if start is not None:
+            span.start = start
         with self._lock:
             self._open += 1
             if trace_id not in self._traces:

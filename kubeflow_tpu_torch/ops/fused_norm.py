@@ -25,6 +25,13 @@ Each wrapper takes its plain PyTorch version only for a CPU tensor; on a
 CUDA tensor it launches its kernel (and adds one to its ``launches``
 count) or raises. Triton is imported inside the launching function, so
 this module imports on a machine without it.
+
+The kernels have no backward yet (the TPU package's ``_rms_bwd_kernel``
+and ``_swiglu_bwd_kernel`` are still to port), and a kernel's output has
+no autograd node: under ``loss.backward()`` every parameter before it
+would silently get no gradient. So each wrapper refuses to run while
+gradients are being recorded for one of its inputs, on either device;
+training runs with ``DecoderConfig(fused_kernels="off")``.
 """
 
 from __future__ import annotations
@@ -127,6 +134,18 @@ def _require_cuda(name: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors on different devices")
 
 
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """Raise when autograd records through this call: the kernel's output
+    would cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward yet, so its output would "
+            "cut the autograd graph; train with "
+            "DecoderConfig(fused_kernels='off') until the fused-kernel "
+            "training slice brings the RMSNorm and SwiGLU backward kernels "
+            "(ROADMAP Queue 1 item 3b)")
+
+
 def _norm_launch(x2, r2, w, eps: float, plus_one: bool):
     rows, d = x2.shape
     if w.shape != (d,):
@@ -149,6 +168,7 @@ def _norm_launch(x2, r2, w, eps: float, plus_one: bool):
 def rmsnorm_fused(x: torch.Tensor, w: torch.Tensor, *, eps: float,
                   plus_one: bool = False) -> torch.Tensor:
     """RMSNorm over the last dim; ``x`` [..., D], ``w`` [D]."""
+    _refuse_grad("rmsnorm_fused", x, w)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps, plus_one=plus_one)
     _require_cuda("rmsnorm_fused", x, w)
@@ -165,6 +185,7 @@ def add_rmsnorm_fused(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor,
     if x.shape != res.shape or x.dtype != res.dtype:
         raise ValueError(f"add_rmsnorm: x {tuple(x.shape)}/{x.dtype} vs "
                          f"res {tuple(res.shape)}/{res.dtype}")
+    _refuse_grad("add_rmsnorm_fused", x, res, w)
     if x.device.type == "cpu":
         return add_rmsnorm_ref(x, res, w, eps=eps, plus_one=plus_one)
     _require_cuda("add_rmsnorm_fused", x, res, w)
@@ -185,6 +206,7 @@ def swiglu_fused(gate: torch.Tensor, up: torch.Tensor, *,
                          f"up {tuple(up.shape)}/{up.dtype}")
     if act not in _ACT_CODE:
         raise ValueError(f"unknown activation {act!r}")
+    _refuse_grad("swiglu_fused", gate, up)
     if gate.device.type == "cpu":
         return swiglu_ref(gate, up, act=act)
     _require_cuda("swiglu_fused", gate, up)

@@ -28,6 +28,10 @@ SLICE_MODULES = (
     # the paged-KV slice
     "serve.paged", "serve.kvtier", "ops.paged_attention",
     "ops.quantization", "runtime.sanitize",
+    # the training slice
+    "train.tree", "train.optim", "train.data", "train.step", "train.metrics",
+    "train.staging", "train.checkpoint", "train.survival", "train.trainer",
+    "models.convert",
 )
 
 _IMPORT_ALL = """

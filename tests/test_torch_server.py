@@ -227,6 +227,11 @@ def test_trace_header_joins_engine_spans(server):
                       {"prompt": "trace me", "max_tokens": 3},
                       {theaders.TRACE_HEADER: f"{trace_id}-{parent}"})
     assert status == 200
+    # The handler closes its span after it has written the reply, so the
+    # client may read the reply first: give the close a moment to land.
+    deadline = time.monotonic() + 10.0
+    while get_tracer().open_spans() and time.monotonic() < deadline:
+        time.sleep(0.01)
     spans = get_tracer().trace(trace_id)["spans"]
     names = [s["name"] for s in spans]
     for name in ("server.request", "engine.queued", "engine.prefill",
