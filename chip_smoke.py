@@ -9,15 +9,23 @@ package is not beside it. Phases, each a hard failure:
 2. build: every hand-written kernel built from the checkout's sources (one
    ``nvcc`` per CUDA source, the Triton kernels compiled meanwhile);
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the Llama-3-8B serving shapes, with its time, the plain version's, one
-   library call's where there is one, and the least time the card could
-   take (the larger of bytes over 3.35 TB/s and operations over the peak
-   rate of their type, H100 SXM); then each kernel against its plain
+   the Llama-3-8B serving and training shapes, with its time, the plain
+   version's, one library call's where there is one, and the least time
+   the card could take (the larger of bytes over 3.35 TB/s and operations
+   over the peak rate of their type, H100 SXM); the fused CE's forward and
+   backward beside the chunked CE's. Then each kernel against its plain
    version at edge shapes (ragged lengths, q_offset, head_dim 64,
    non-causal, one query row, odd widths, strided inputs; for paged
    decode: length 0, page boundaries, unmapped and poisoned pages, a dead
    row, one and eight query heads per kv head, pages of 16, int8 scale
-   outliers);
+   outliers; for the fused CE: T of 1, 300 and 4096, vocabularies of 1000,
+   128256 and 256000, softcap, argmax ties inside a tile and across a
+   vocab-range boundary, targets 0, V-1 and out of vocab, masked rows that
+   must get exactly zero d_hidden; for the norm and SwiGLU backward:
+   D = 2048/3072/4096, T = 1 and 300, (1 + w), the residual cotangent,
+   gelu, odd M); then the memory probe: the fused CE's forward and
+   backward at T = 4096, V = 128256 must peak within one eighth of an
+   fp32 [T, V] tensor beyond its inputs and gradients;
 4. serve: Llama-3-8B at full width and depth (32 layers, random bf16
    weights from a seed) behind the port's ModelServer; greedy completions
    that land in the 128/512/2048 prefill buckets, a chunked-prefill prompt,
@@ -38,19 +46,22 @@ package is not beside it. Phases, each a hard failure:
    kernels that take the device time;
 7. train check (serving engines freed first): Llama-3-8B at full width, 4
    layers, one ``decoder_loss`` forward and backward through the flash
-   kernels (``attn_impl="pallas"``) against the plain attention on the
-   same weights and batch — loss and the layer-0 wq/wk/wv and embedding
-   gradients — then three steps on a repeated batch must lower the loss;
+   kernels alone and through every kernel (``fused_kernels="on"``)
+   against the plain path on the same weights and batch — the loss and
+   the layer-0 wq/wk/wv, ln1, ln2, gate and up, embedding, final-norm and
+   head gradients — then three steps on a repeated batch must lower the
+   loss;
 8. train: the same model through ``Trainer.run()`` (fp32 params, AdamW,
-   ``fused_kernels="off"``, ``nothing_saveable`` remat, chunked CE,
-   synthetic 2 x 2048 batches): 6 steps uninterrupted, then 3 steps that
-   checkpoint at step 3 and crash, then a second ``Trainer`` that resumes
-   from step 3 and finishes; loss and grad norm finite every step, the
-   resumed step-6 loss within 1e-5 relative of the uninterrupted one, the
-   same optimizer count and the same layer-0 ``wq`` Adam moments at step 6,
-   and
-   per step 8 flash forward launches (forward and remat replay) and 4 of
-   each backward kernel; then a profile of one training step.
+   the preset's ``fused_kernels="auto"``, which runs every kernel,
+   ``nothing_saveable`` remat, synthetic 2 x 2048 batches): 6 steps
+   uninterrupted, then 3 steps that checkpoint at step 3 and crash, then a
+   second ``Trainer`` that resumes from step 3 and finishes; loss and grad
+   norm finite every step, the resumed step-6 loss within 1e-5 relative
+   of the uninterrupted one, the same optimizer count and the same layer-0
+   ``wq`` Adam moments at step 6, and every kernel of the path launched at
+   its per-step count derived from the code; then 2 steps with
+   ``fused_kernels="off"`` (flash kernels, chunked CE) with their counts;
+   then a profile of one step of each.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -187,6 +198,13 @@ def phase_build() -> None:
     fused_norm.rmsnorm_fused(x, w, eps=1e-5)
     fused_norm.add_rmsnorm_fused(x, x, w, eps=1e-5)
     fused_norm.swiglu_fused(x, x, act="silu")
+    # ... and the training path's: fp32 norm weights, both backward passes.
+    w32 = w.float()
+    fused_norm.add_rmsnorm_fused(x, x, w32, eps=1e-5)
+    _, _, rstd = fused_norm._norm_launch(x, None, w32, 1e-5, False)
+    fused_norm.rmsnorm_bwd(x, w32, rstd, x)
+    fused_norm.rmsnorm_bwd(x, w32, rstd, x, dy=x)
+    fused_norm.swiglu_bwd(x, x, x, act="silu")
     th.join()
     if errors:
         raise errors[0]
@@ -195,7 +213,8 @@ def phase_build() -> None:
     flash_attention(q, k, k)
     torch.cuda.synchronize()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, in parallel: "
-          f"{', '.join(_build.SOURCES)}; triton: rms_fwd, swiglu_fwd)",
+          f"{', '.join(_build.SOURCES)}; triton: rms_fwd, rms_bwd, "
+          "rms_dw_sum, swiglu_fwd, swiglu_bwd)",
           flush=True)
     for name, log in _build.PTXAS.items():
         for ln in log.splitlines():
@@ -310,6 +329,8 @@ def phase_kernels() -> list[dict]:
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))))
     rows += flash_bwd_rows()
+    rows += norm_swiglu_bwd_rows()
+    rows += xent_rows()
     rows += paged_kernel_rows()
     for r in rows:
         print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
@@ -414,6 +435,364 @@ def flash_bwd_rows() -> list[dict]:
             max_abs_err=err, ms=device_ms(fn), plain_ms=plain_ms,
             bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
     return rows
+
+
+def event_ms(fn, iters: int = 3) -> float:
+    """Device time of one ``fn()`` call between CUDA events, after one warm
+    call: for work a CUDA graph cannot capture (autograd's own backward)
+    or whose temporaries are too large to keep for a graph's replays."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def grad_ms(make, inputs, cotangent) -> float:
+    """Device time of the backward alone of ``make(*inputs)`` for
+    ``cotangent`` (the library yardstick of a backward kernel)."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = make(*leaves)
+    return event_ms(lambda: torch.autograd.grad(out, leaves, cotangent,
+                                                retain_graph=True), iters=10)
+
+
+def argmax_agrees(got: torch.Tensor, want: torch.Tensor, logits, name: str):
+    """``correct`` from the kernel against the plain version's: a row may
+    differ only where the plain logits' two largest values lie within 1e-4
+    of each other (fp32 sums in another order may break such a near-tie
+    either way). Returns the number of rows that differ."""
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        top = logits[diff].topk(2, dim=-1).values
+        if torch.any(top[:, 0] - top[:, 1] > 1e-4 * top[:, 0].abs().clamp_min(1)):
+            fail(f"{name}: correct differs from the plain version on a row "
+                 "whose maximum is not a near-tie")
+    return int(diff.numel())
+
+
+def norm_swiglu_bwd_rows() -> list[dict]:
+    """Sites 3 and 5 at the training shapes: the RMSNorm backward (T = B·S
+    = 4096 rows of D = 4096, bf16 activations, the fp32 weight and its fp32
+    dw, as the trainer holds them) and the SwiGLU backward (M = 14336)."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    T, D, M, eps = 4096, 4096, 14336, 1e-5
+    x, dh = rnd(T, D), rnd(T, D)
+    w = 1.0 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
+    _, _, rstd = fn._norm_launch(x, None, w, eps, False)
+    dx, dw = fn.rmsnorm_bwd(x, w, rstd, dh)
+    rdx, rdw = fn.rmsnorm_bwd_ref(x, w, rstd, dh)
+    e_dx = within(dx, rdx, "rmsnorm_bwd dx")
+    e_dw = within(dw, rdw, "rmsnorm_bwd dw")
+    e_rms = max(e_dx, e_dw)
+    print(f"kernel rmsnorm_bwd T={T} D={D}: max_abs_err dx {e_dx:.3e}, dw "
+          f"{e_dw:.3e}", flush=True)
+    b_rms = bound(3 * T * D * 2 + 2 * D * 4 + T * 4, 8 * T * D, FP32_FLOPS)
+    rows = [dict(
+        name="rmsnorm_bwd", route="triton",
+        source="kubeflow_tpu_torch/ops/fused_norm.py",
+        replaces="kubeflow_tpu/ops/fused_norm.py:146", max_abs_err=e_rms,
+        ms=device_ms(lambda: fn.rmsnorm_bwd(x, w, rstd, dh)),
+        plain_ms=event_ms(lambda: fn.rmsnorm_bwd_ref(x, w, rstd, dh)),
+        bound_ms=b_rms[0], bound_by=b_rms[1],
+        # The library call takes the weight in x's dtype: its fused path
+        # refuses an fp32 weight beside bf16 x.
+        library_ms=grad_ms(lambda x, w: F.rms_norm(x, (D,), w, eps),
+                           (x, w.to(x.dtype)), dh))]
+    del x, dh, dx, rdx
+    g, u, do = rnd(T, M), rnd(T, M), rnd(T, M)
+    e_sw = 0.0
+    for act in ("silu", "gelu"):
+        dg, du = fn.swiglu_bwd(g, u, do, act=act)
+        rdg, rdu = fn.swiglu_bwd_ref(g, u, do, act=act)
+        e = max(within(dg, rdg, f"swiglu_bwd {act} dg"),
+                within(du, rdu, f"swiglu_bwd {act} du"))
+        e_sw = max(e_sw, e)
+        print(f"kernel swiglu_bwd {act} T={T} M={M}: max_abs_err {e:.3e}",
+              flush=True)
+    b_sw = bound(5 * T * M * 2, 10 * T * M, FP32_FLOPS)
+    rows.append(dict(
+        name="swiglu_bwd", route="triton",
+        source="kubeflow_tpu_torch/ops/fused_norm.py",
+        replaces="kubeflow_tpu/ops/fused_norm.py:301", max_abs_err=e_sw,
+        ms=device_ms(lambda: fn.swiglu_bwd(g, u, do, act="silu")),
+        plain_ms=event_ms(lambda: fn.swiglu_bwd_ref(g, u, do, act="silu")),
+        bound_ms=b_sw[0], bound_by=b_sw[1],
+        library_ms=grad_ms(lambda g, u: F.silu(g) * u, (g, u), do)))
+    return rows
+
+
+def xent_case(gen, T, D, V, *, softcap=None, ties=True):
+    """Inputs of one fused-CE call: bf16 h [T, D] and W [D, V] (scale
+    D^-1/2), int32 targets with 0 and V-1 in them, and an nll cotangent
+    (1/T, zero on a few rows as a loss mask gives). With ``ties``, pairs of
+    equal head columns are made the maxima of rows 2-5: columns 5 and 77
+    (one 128-column tile), and two columns on either side of the first
+    forward range boundary (or of a tile boundary when there is one range);
+    rows 2 and 4 target the lower column, rows 3 and 5 the higher. Row 6
+    targets V + 5, outside the vocab. Returns (h, W, t, g, expected correct
+    {row: value})."""
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+
+    h = torch.randn((T, D), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((D, V), generator=gen, device="cuda")
+         * D ** -0.5).to(torch.bfloat16)
+    t = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    g = torch.full((T,), 1.0 / T, device="cuda")
+    t[0] = 0
+    if T > 1:
+        t[1] = V - 1
+    expect = {}
+    if ties and T > 6:
+        slots = fx.forward_slots(torch.device("cuda", 0))
+        edge = fx._tiles_per_range(T, V, slots) * fx.TILE
+        edge = edge if edge < V else fx.TILE
+        for row, (a, b) in ((2, (5, 77)), (4, (edge - 3, edge + 5))):
+            w[:, b] = w[:, a]
+            h[row] = h[row + 1] = (8.0 * w[:, a].float()).to(torch.bfloat16)
+            t[row], t[row + 1] = a, b
+            expect[row], expect[row + 1] = 1.0, 0.0
+        t[6] = V + 5
+        expect[6] = 0.0
+    if T > 9:
+        g[7:10] = 0.0
+    return h, w, t, g, expect
+
+
+def check_xent(gen, T, D, V, *, softcap=None, name=None, keep=False):
+    """The fused CE kernels against their plain versions on one case;
+    returns ({"nll", "lse", "dh", "dw": max abs error}, the case when
+    ``keep``). The cotangent 1/T makes d_hidden and d_head small (about
+    1e-6 to 1e-3 at T = 4096), so their absolute floor is ATOL times the
+    plain output's largest magnitude, and each whole output is also held
+    to BWD_REL_L2: a zeroed or misplaced output fails both."""
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+
+    name = name or f"fused_xent T={T} D={D} V={V} softcap={softcap}"
+    h, w, t, g, expect = xent_case(gen, T, D, V, softcap=softcap)
+    nll, lse, cor = fx.xent_fwd(h, w, t, softcap)
+    dh, dw = fx.xent_bwd(h, w, t, lse, g, softcap)
+    rn, rl, rc = fx.xent_fwd_ref(h, w, t, softcap)
+    errs = {"nll": within(nll, rn, f"{name} nll"),
+            "lse": within(lse, rl, f"{name} lse", atol=LSE_ATOL, rtol=0.0)}
+    logits = fx._logits_ref(h, w, softcap)
+    n_diff = argmax_agrees(cor, rc, logits, name)
+    del logits
+    for row, want in expect.items():
+        if float(cor[row]) != want:
+            fail(f"{name}: row {row} correct {float(cor[row])}, expected "
+                 f"{want} (argmax ties go to the lowest index)")
+    if T > 6 and float(nll[6]) != float(lse[6]):
+        fail(f"{name}: an out-of-vocab target must give nll = lse")
+    rdh, rdw = fx.xent_bwd_ref(h, w, t, rl, g, softcap)
+    rels = {}
+    for part, got, want in (("dh", dh, rdh), ("dw", dw, rdw)):
+        scale = float(want.float().abs().max())
+        errs[part] = within(got, want, f"{name} {part}", atol=ATOL * scale)
+        rels[part] = rel_l2(got, want) if scale > 0 else 0.0
+        if not rels[part] <= BWD_REL_L2:
+            fail(f"{name} {part}: rel L2 {rels[part]:.3e} > {BWD_REL_L2:g}")
+        # The bound must tell a wrong output from this one: zeros, and the
+        # output shifted by one column.
+        for bad in (torch.zeros_like(got), got.roll(1, -1)):
+            if scale > 0 and rel_l2(bad, want) <= BWD_REL_L2:
+                fail(f"{name} {part}: the rel L2 bound does not reject a "
+                     "zeroed or shifted output")
+    if T > 9 and torch.count_nonzero(dh[7:10]):
+        fail(f"{name}: rows with a zero loss mask have a nonzero dh")
+    print(f"{name}: max_abs_err nll {errs['nll']:.3e}, lse "
+          f"{errs['lse']:.3e}, dh {errs['dh']:.3e}, dw {errs['dw']:.3e}; "
+          f"rel L2 dh {rels['dh']:.3e}, dw {rels['dw']:.3e} (tolerance "
+          f"{BWD_REL_L2:g}); "
+          f"correct differs on {n_diff} near-tie rows"
+          + ("; ties, targets 0 / V-1 / out of vocab and masked rows hold"
+             if expect else ""), flush=True)
+    del rdh, rdw
+    return errs, ((h, w, t, g, lse) if keep else None)
+
+
+def xent_rows() -> list[dict]:
+    """Sites 9-11 at the training shape (T = 2 x 2048 tokens, D = 4096,
+    V = 128256). The backward launches, per vocab chunk, the dl recompute
+    and then the d_hidden and d_head products from it; a profile of it
+    splits its device time: row 10 is the recompute and d_hidden (2
+    passes over the logits), row 11 the d_head product (1 pass), and the
+    two bounds add up to the backward's 3. No one PyTorch call fuses the
+    projection with the CE, so library_ms is null; the port's own
+    ``_chunked_ce`` (forward and backward, cuBLAS products, the path with
+    fused kernels off) is timed beside them."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import decoder as dec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 9)
+    T, D, V = 4096, 4096, 128256
+    errs, (h, w, t, g, lse) = check_xent(gen, T, D, V, keep=True)
+    unit = 2.0 * T * D * V                   # one pass over the logits
+    io = T * D * 2 + D * V * 2 + T * 4       # h, W, targets
+    fwd_ms = device_ms(lambda: fx.xent_fwd(h, w, t), iters=2, reps=2)
+    plain_fwd = event_ms(lambda: fx.xent_fwd_ref(h, w, t), iters=2)
+    plain_bwd = event_ms(lambda: fx.xent_bwd_ref(h, w, t, lse, g), iters=2)
+    both_ms = device_ms(lambda: fx.xent_bwd(h, w, t, lse, g), iters=2,
+                        reps=2)
+    calls = 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fx.xent_bwd(h, w, t, lse, g)
+        torch.cuda.synchronize()
+    _, kernels = _kernel_times(prof)
+    part = {k: sum(ms for key, ms, _ in kernels
+                   if f"xent_{k}_kernel" in key) / calls
+            for k in ("dl", "dh", "dw")}
+    if not all(part.values()):
+        fail(f"the CE backward's profile lacks one of its kernels: {part}")
+    rows = []
+    b = bound(io + 3 * T * 4, unit, BF16_FLOPS)
+    rows.append(dict(
+        name="fused_xent_fwd", route="cuda",
+        source="kubeflow_tpu_torch/csrc/fused_xent.cu",
+        replaces="kubeflow_tpu/ops/fused_xent.py:149",
+        max_abs_err=max(errs["nll"], errs["lse"]), ms=fwd_ms,
+        plain_ms=plain_fwd, bound_ms=b[0], bound_by=b[1], library_ms=None))
+    # Row 10 reads h, W, targets, lse and g and writes dh; row 11 reads h
+    # and the recompute's dl and writes dW.
+    for name, site, ms, nbytes, passes, err in (
+            ("fused_xent_bwd_dh", 245, part["dl"] + part["dh"],
+             io + 2 * T * 4 + T * D * 2, 2, errs["dh"]),
+            ("fused_xent_bwd_dw", 262, part["dw"],
+             T * D * 2 + T * V * 2 + D * V * 2, 1, errs["dw"])):
+        b = bound(nbytes, passes * unit, BF16_FLOPS)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="kubeflow_tpu_torch/csrc/fused_xent.cu",
+            replaces=f"kubeflow_tpu/ops/fused_xent.py:{site}",
+            max_abs_err=err, ms=ms, plain_ms=plain_bwd, bound_ms=b[0],
+            bound_by=b[1], library_ms=None))
+    b_both = bound(io + 2 * T * 4 + T * D * 2 + D * V * 2, 3 * unit,
+                   BF16_FLOPS)
+    # The chunked CE of the fused-off path at the same shape: forward and
+    # backward to hidden and head, 4 chunks of 512 positions.
+    cfg = dataclasses.replace(preset("llama3-8b"), loss_chunk_size=512)
+    hb = h.reshape(2, 2048, D).detach().clone().requires_grad_(True)
+    wb = w.detach().clone().requires_grad_(True)
+    tb = t.long().reshape(2, 2048).clamp(0, V - 1)
+
+    def chunked():
+        nll, _ = dec._chunked_ce(hb, wb, tb, cfg)
+        torch.autograd.grad(nll.sum() / T, (hb, wb))
+
+    chunked_ms = event_ms(chunked)
+    print(f"kernel fused_xent T={T} D={D} V={V}: forward {fwd_ms:.3f} ms "
+          f"(bound {rows[0]['bound_ms']:.3f}); backward {both_ms:.3f} ms "
+          f"(bound {b_both[0]:.3f}, 3 passes), profiled as dl recompute "
+          f"{part['dl']:.3f} + d_hidden {part['dh']:.3f} + d_head "
+          f"{part['dw']:.3f} ms; forward + backward {fwd_ms + both_ms:.3f} "
+          f"ms against the chunked CE's {chunked_ms:.3f} ms (cuBLAS, 4 "
+          f"passes)", flush=True)
+    return rows
+
+
+def phase_train_edges() -> None:
+    """The training kernels away from the training shape, each against its
+    plain version: the fused CE at T in {1, 300, 4096}, V in {1000,
+    128256, 256000} (ragged last tile, one tile, many ranges), D in {2048,
+    4096}, softcap 30, with argmax ties inside a tile and across a range
+    boundary, targets 0, V-1 and out of vocab, and masked rows (exactly
+    zero dh); the RMSNorm backward at D in {2048, 3072, 4096} (3072: a
+    masked row block), T in {1, 300}, with and without (1 + w) and the
+    residual cotangent; the SwiGLU backward (silu, gelu) at odd M."""
+    from kubeflow_tpu_torch.ops import fused_norm as fn
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 10)
+    for T, D, V, cap in ((1, 2048, 1000, None), (300, 4096, 1000, 30.0),
+                         (4096, 2048, 1000, None), (1, 4096, 128256, 30.0),
+                         (300, 2048, 128256, None), (300, 4096, 256000, 30.0),
+                         (4096, 2048, 256000, None)):
+        check_xent(gen, T, D, V, softcap=cap,
+                   name=f"edge fused_xent T={T} D={D} V={V} softcap={cap}")
+        torch.cuda.empty_cache()
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for T in (1, 300):
+        for D, plus_one, residual in ((2048, False, True), (3072, True, False),
+                                      (4096, True, True)):
+            x, dh, dy = rnd(T, D), rnd(T, D), rnd(T, D)
+            w = 0.1 * torch.randn((D,), generator=gen, device="cuda")
+            _, _, rstd = fn._norm_launch(x, None, w, 1e-6, plus_one)
+            kw = dict(plus_one=plus_one, dy=dy if residual else None)
+            dx, dw = fn.rmsnorm_bwd(x, w, rstd, dh, **kw)
+            rdx, rdw = fn.rmsnorm_bwd_ref(x, w, rstd, dh, **kw)
+            name = (f"edge rmsnorm_bwd T={T} D={D} plus_one={plus_one} "
+                    f"residual={residual}")
+            e = max(within(dx, rdx, name + " dx"), within(dw, rdw, name + " dw"))
+            print(f"{name}: max_abs_err {e:.3e}", flush=True)
+        for M in (1001, 14336):
+            g, u, do = rnd(T, M), rnd(T, M), rnd(T, M)
+            for act in ("silu", "gelu"):
+                dg, du = fn.swiglu_bwd(g, u, do, act=act)
+                rdg, rdu = fn.swiglu_bwd_ref(g, u, do, act=act)
+                name = f"edge swiglu_bwd {act} T={T} M={M}"
+                e = max(within(dg, rdg, name + " dg"),
+                        within(du, rdu, name + " du"))
+                print(f"{name}: max_abs_err {e:.3e}", flush=True)
+
+
+def phase_memory_probe() -> None:
+    """The fused CE never holds [T, V] logits: the peak allocation of its
+    forward and backward at T = 4096, D = 4096, V = 128256 (bf16), less
+    what was allocated before the call and the two gradients it must
+    return, stays within one eighth of one fp32 [T, V] tensor. The plain
+    path's peak is printed beside it."""
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)
+    T, D, V = 4096, 4096, 128256
+    h, w, t, g, _ = xent_case(gen, T, D, V, ties=False)
+    mask = (g > 0).float()
+    limit = T * V * 4 / 8
+    peaks = {}
+    for name, fn in (("fused", fx.fused_cross_entropy),
+                     ("plain", fx.reference_cross_entropy)):
+        hl = h.detach().clone().requires_grad_(True)
+        wl = w.detach().clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        nll, _ = fn(hl, wl, t)
+        loss = (nll * mask).sum() / mask.sum()
+        grads = torch.autograd.grad(loss, (hl, wl))
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - before
+                       - sum(x.numel() * x.element_size() for x in grads))
+        del hl, wl, nll, loss, grads
+        torch.cuda.empty_cache()
+    print(f"memory probe T={T} D={D} V={V}: fused CE forward+backward peak "
+          f"beyond its inputs and gradients {peaks['fused'] / 1e6:.1f} MB "
+          f"(limit {limit / 1e6:.1f} MB, one eighth of an fp32 [T, V]); the "
+          f"plain path's {peaks['plain'] / 1e6:.1f} MB", flush=True)
+    if not peaks["fused"] <= limit:
+        fail("the fused CE allocated more than its memory bound")
 
 
 def paged_case(gen, B, H, KH, D, page, lengths, *, quant=False, mpp=None,
@@ -575,6 +954,7 @@ def phase_edges() -> None:
         print(f"edge {name}: max_abs_err o {e_o:.3e}, lse {e_l:.3e}",
               flush=True)
     phase_flash_bwd_edges()
+    phase_train_edges()
     phase_paged_edges()
 
 
@@ -1135,25 +1515,63 @@ def phase_profile(engine) -> None:
                   flush=True)
 
 
-TRAIN_MODEL = dict(n_layers=4, fused_kernels="off",
-                   remat_policy="nothing_saveable")
+TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
 TRAIN_DATA = dict(seq_len=2048, global_batch=2)
 
 
 def _train_wrappers() -> dict:
+    """The launch counters of the training path: the flash kernels, and
+    with fused kernels on the norm, SwiGLU and CE kernels."""
     from kubeflow_tpu_torch.ops import flash_attention as FA
+    from kubeflow_tpu_torch.ops import fused_norm as fn
+    from kubeflow_tpu_torch.ops import fused_xent as fx
 
     return {"flash_fwd": FA.flash_attention,
             "flash_bwd_dkdv": FA.flash_bwd_dkdv,
-            "flash_bwd_dq": FA.flash_bwd_dq}
+            "flash_bwd_dq": FA.flash_bwd_dq,
+            "rmsnorm_fwd": fn.rmsnorm_fused,
+            "add_rmsnorm_fwd": fn.add_rmsnorm_fused,
+            "swiglu_fwd": fn.swiglu_fused,
+            "rmsnorm_bwd": fn.rmsnorm_bwd,
+            "swiglu_bwd": fn.swiglu_bwd,
+            "fused_xent_fwd": fx.xent_fwd,
+            "fused_xent_bwd_dh": fx.dh_kernel,
+            "fused_xent_bwd_dw": fx.dw_kernel}
+
+
+def _want_per_step(fused: bool, n_layers: int) -> dict:
+    """Launches per training step, derived from the code: each layer runs
+    under ``nothing_saveable`` remat, so its forward launches twice (the
+    forward and the backward's replay, which must reach the down
+    projection: it saves the SwiGLU output); the final norm and the CE run
+    once, outside the layers. Backward: one RMSNorm backward per norm (ln1,
+    the residual ln2, the final norm), one SwiGLU, dK/dV and dQ per layer,
+    one CE backward (its d_hidden and d_head kernels) per step."""
+    L = n_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+    fused_counts = {"rmsnorm_fwd": 2 * L + 1, "add_rmsnorm_fwd": 2 * L,
+                    "swiglu_fwd": 2 * L, "rmsnorm_bwd": 2 * L + 1,
+                    "swiglu_bwd": L, "fused_xent_fwd": 1,
+                    "fused_xent_bwd_dh": 1, "fused_xent_bwd_dw": 1}
+    for k, v in fused_counts.items():
+        want[k] = v if fused else 0
+    return want
 
 
 def phase_train_check() -> None:
-    """Kernel path vs plain path on the training slice: Llama-3-8B widths,
-    4 layers, fp32 params from a seed, one synthetic 2 x 2048 batch; one
-    ``decoder_loss`` forward and backward with ``attn_impl="pallas"`` (the
-    flash kernels) and with ``"xla"`` (plain attention). Then three steps
-    on that batch, repeated, must lower the loss."""
+    """Kernel paths vs the plain path on the training slice: Llama-3-8B
+    widths, 4 layers, fp32 params from a seed, one synthetic 2 x 2048
+    batch; one ``decoder_loss`` forward and backward three ways: plain
+    (``fused_kernels="off"``, ``attn_impl="xla"``), the flash kernels
+    alone (``"off"``, ``"pallas"``), and every kernel (``"on"``,
+    ``"pallas"``). Loss and gradients are held against the plain run's:
+    layer-0 wq/wk/wv and the embedding for the flash kernels; those and
+    layer-0 ln1, ln2, mlp gate and up, the final norm and the head for
+    every kernel. Then three steps of the preset configuration
+    (``fused_kernels="auto"``: on) on that batch, repeated, must lower the
+    loss."""
+    import dataclasses
+
     from kubeflow_tpu_torch.models.config import preset
     from kubeflow_tpu_torch.models.decoder import decoder_loss
     from kubeflow_tpu_torch.train.data import DataConfig, SyntheticLM
@@ -1167,39 +1585,52 @@ def phase_train_check() -> None:
         vocab_size=cfg.vocab_size, seed=SEED, **TRAIN_DATA)).batch_at(0))
     batch = batch.to("cuda")
     p = task.state["params"]
-    attn = p["layers"]["attn"]
-    leaves = {"wq[0]": attn["wq"], "wk[0]": attn["wk"], "wv[0]": attn["wv"],
-              "embed": p["embed"]}
-    got = {}
-    for impl in ("pallas", "xla"):
-        loss, _ = decoder_loss(p, batch, cfg, attn_impl=impl)
+    lay = p["layers"]
+    leaves = {"wq[0]": lay["attn"]["wq"], "wk[0]": lay["attn"]["wk"],
+              "wv[0]": lay["attn"]["wv"], "embed": p["embed"],
+              "ln1[0]": lay["ln1"], "ln2[0]": lay["ln2"],
+              "gate[0]": lay["mlp"]["gate"], "up[0]": lay["mlp"]["up"],
+              "final_norm": p["final_norm"], "lm_head": p["lm_head"]}
+    stacked = {"wq[0]", "wk[0]", "wv[0]", "ln1[0]", "ln2[0]", "gate[0]",
+               "up[0]"}
+    flash_leaves = ("wq[0]", "wk[0]", "wv[0]", "embed")
+
+    def run(fused: str, impl: str):
+        loss, _ = decoder_loss(p, batch, dataclasses.replace(
+            cfg, fused_kernels=fused), attn_impl=impl)
         grads = torch.autograd.grad(loss, list(leaves.values()))
-        got[impl] = (loss.item(), {
-            name: (g[0] if name != "embed" else g)
-            for name, g in zip(leaves, grads)})
-        del grads
-    (lk, gk), (lp, gp) = got["pallas"], got["xla"]
-    loss_rel = abs(lk - lp) / abs(lp)
-    rels = {n: rel_l2(gk[n], gp[n]) for n in leaves}
-    print(f"train check: loss kernel path {lk:.6f} vs plain {lp:.6f} (rel "
-          f"{loss_rel:.3e}, tolerance {TRAIN_LOSS_REL:g}); grad rel L2 "
-          + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
-          + f" (tolerance {TRAIN_GRAD_REL_L2:g})", flush=True)
-    if not loss_rel <= TRAIN_LOSS_REL:
-        fail("training loss through the kernels disagrees with the plain path")
-    bad = [n for n, r in rels.items() if not r <= TRAIN_GRAD_REL_L2]
-    if bad:
-        fail(f"training gradients through the kernels disagree: {bad}")
-    del got, gk, gp
+        return loss.item(), {n: (g[0] if n in stacked else g)
+                             for n, g in zip(leaves, grads)}
+
+    lp, gp = run("off", "xla")
+    for label, fused, names in (("flash kernels", "off", flash_leaves),
+                                ("every kernel", "on", tuple(leaves))):
+        lk, gk = run(fused, "pallas")
+        loss_rel = abs(lk - lp) / abs(lp)
+        rels = {n: rel_l2(gk[n], gp[n]) for n in names}
+        print(f"train check ({label}, fused_kernels={fused!r}, "
+              f"attn_impl='pallas'): loss {lk:.6f} vs plain {lp:.6f} (rel "
+              f"{loss_rel:.3e}, tolerance {TRAIN_LOSS_REL:g}); grad rel L2 "
+              + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+              + f" (tolerance {TRAIN_GRAD_REL_L2:g})", flush=True)
+        if not loss_rel <= TRAIN_LOSS_REL:
+            fail(f"training loss through the {label} disagrees with the "
+                 "plain path")
+        bad = [n for n, r in rels.items() if not r <= TRAIN_GRAD_REL_L2]
+        if bad:
+            fail(f"training gradients through the {label} disagree: {bad}")
+        del gk
+    del gp
     losses = []
     for _ in range(3):
         _, m = task.step_fn(task.state, batch)
         losses.append(float(m["loss"]))
-    print(f"train check: a repeated batch over 3 steps: losses "
-          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"train check: a repeated batch over 3 steps (fused_kernels "
+          f"{cfg.fused_kernels!r}): losses {[round(x, 4) for x in losses]}",
+          flush=True)
     if not losses[-1] < losses[0]:
         fail("three steps on a repeated batch did not lower the loss")
-    del task, p, attn, leaves
+    del task, p, lay, leaves
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1208,12 +1639,12 @@ class _Crash(Exception):
     """Ends a training run right after its step-3 checkpoint."""
 
 
-def _trainer_cfg(ckpt_dir=None):
+def _trainer_cfg(ckpt_dir=None, steps: int = 6, **model):
     from kubeflow_tpu_torch.train.trainer import TrainerConfig
 
     return TrainerConfig(
-        model="llama3-8b", model_overrides=dict(TRAIN_MODEL),
-        data=dict(TRAIN_DATA), steps=6, log_every=1, seed=SEED,
+        model="llama3-8b", model_overrides={**TRAIN_MODEL, **model},
+        data=dict(TRAIN_DATA), steps=steps, log_every=1, seed=SEED,
         attn_impl="pallas",
         optimizer={"learning_rate": 3e-4, "warmup_steps": 2,
                    "clip_norm": 1.0},
@@ -1254,45 +1685,64 @@ def _train_run(cfg, workdir: str, crash_at=None) -> tuple[dict, float]:
     return seen, time.perf_counter() - t0
 
 
-def phase_train(rows: list[dict]) -> None:
-    """The training slice through its entry point, ``Trainer.run()``."""
-    import tempfile
+def _counted_run(cfg, workdir: str, label: str) -> dict:
+    """``_train_run`` with every training kernel's count set to 0 just
+    before and read just after; checks finite losses, the steps taken and
+    the per-step launches derived by ``_want_per_step``. Returns the
+    metrics by step and the launches."""
+    from kubeflow_tpu_torch.models.config import preset
 
     wrappers = _train_wrappers()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    seen, secs = _train_run(cfg, workdir)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for step, m in sorted(seen.items()):
+        print(f"{label} step {step}: loss {m['loss']:.6f} grad_norm "
+              f"{m['grad_norm']:.4f} step_time_ms "
+              f"{m.get('step_time_ms', float('nan')):.1f} tokens/s "
+              f"{m.get('tokens_per_sec', float('nan')):.0f} mfu "
+              f"{m.get('mfu', float('nan')):.4f}", flush=True)
+    print(f"{label}: {cfg.steps} steps in {secs:.1f} s (init included), "
+          f"peak {peak / 2**30:.2f} GiB allocated; kernels "
+          + json.dumps(launches), flush=True)
+    if sorted(seen) != list(range(1, cfg.steps + 1)):
+        fail(f"{label}: steps {sorted(seen)} reported, not 1..{cfg.steps}")
+    for step, m in seen.items():
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            fail(f"{label} step {step}: non-finite loss or grad norm {m}")
+    mcfg = preset(cfg.model, **cfg.model_overrides)
+    fused = mcfg.fused_kernels in ("on", "auto")      # auto: on, on a card
+    want = {n: c * cfg.steps
+            for n, c in _want_per_step(fused, mcfg.n_layers).items()}
+    if launches != want:
+        fail(f"{label}: kernel launches {launches}, expected {want}")
+    return {"steps": seen, "launches": launches}
+
+
+def phase_train(rows: list[dict]) -> None:
+    """The training slice through its entry point, ``Trainer.run()``: the
+    preset configuration (``fused_kernels="auto"``, every kernel) for 6
+    steps, then a crash after a step-3 checkpoint and a resume; then 2
+    steps with ``fused_kernels="off"`` (the flash kernels, chunked CE)."""
+    import tempfile
+
     # Under the checkout (git-ignored), not $TMPDIR: a step-3 checkpoint of
     # this model is 23 GB, more than a small temporary filesystem holds.
     work = tempfile.mkdtemp(prefix=".chip_smoke_train_",
                             dir=Path(__file__).resolve().parent)
     try:
-        torch.cuda.reset_peak_memory_stats()
-        for w in wrappers.values():
-            w.launches = 0
-        for sub in ("whole", "resume"):
+        for sub in ("whole", "resume", "off"):
             os.makedirs(os.path.join(work, sub))
-        whole, secs = _train_run(_trainer_cfg(), os.path.join(work, "whole"))
-        launches = {n: w.launches for n, w in wrappers.items()}
-        peak = torch.cuda.max_memory_allocated()
-        for step, m in sorted(whole.items()):
-            print(f"train step {step}: loss {m['loss']:.6f} grad_norm "
-                  f"{m['grad_norm']:.4f} step_time_ms "
-                  f"{m.get('step_time_ms', float('nan')):.1f} tokens/s "
-                  f"{m.get('tokens_per_sec', float('nan')):.0f} mfu "
-                  f"{m.get('mfu', float('nan')):.4f}", flush=True)
-        print(f"train: 6 steps in {secs:.1f} s (init included), peak "
-              f"{peak / 2**30:.2f} GiB allocated; kernels "
-              + json.dumps(launches), flush=True)
-        if sorted(whole) != list(range(1, 7)):
-            fail(f"train: steps {sorted(whole)} reported, not 1..6")
-        for step, m in whole.items():
-            if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
-                fail(f"train step {step}: non-finite loss or grad norm {m}")
-        want = {"flash_fwd": 8 * 6, "flash_bwd_dkdv": 4 * 6,
-                "flash_bwd_dq": 4 * 6}
-        if launches != want:
-            fail(f"train: kernel launches {launches}, expected {want} "
-                 "(per step: 8 flash forward, 4 of each backward)")
+        run = _counted_run(_trainer_cfg(), os.path.join(work, "whole"),
+                           "train")
+        whole, launches = run["steps"], run["launches"]
         for r in rows:
-            if r["name"] in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            if r["name"] in ("flash_bwd_dkdv", "flash_bwd_dq", "rmsnorm_bwd",
+                             "swiglu_bwd", "fused_xent_fwd",
+                             "fused_xent_bwd_dh", "fused_xent_bwd_dw"):
                 r["launches"] = launches[r["name"]]
 
         ckpt = os.path.join(work, "ckpt")
@@ -1329,14 +1779,18 @@ def phase_train(rows: list[dict]) -> None:
         for step, m in {**first, **resumed}.items():
             if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
                 fail(f"train resume step {step}: non-finite {m}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        _counted_run(_trainer_cfg(steps=2, fused_kernels="off"),
+                     os.path.join(work, "off"), "train fused_kernels='off'")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def phase_train_profile() -> None:
+def phase_train_profile(fused: str) -> None:
     """One training step (after two warm ones) at the train phase's
-    configuration: host enqueue, wall and device ms, the kernels that take
-    the device time, tokens/s and MFU against the card's bf16 peak."""
+    configuration with ``fused_kernels=fused``: host enqueue, wall and
+    device ms, the kernels that take the device time, tokens/s and MFU
+    against the card's bf16 peak, and the peak memory."""
     from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_tpu_torch.models.config import preset
@@ -1345,7 +1799,7 @@ def phase_train_profile() -> None:
     from kubeflow_tpu_torch.train.optim import OptimizerConfig
     from kubeflow_tpu_torch.train.step import setup_train
 
-    cfg = preset("llama3-8b", **TRAIN_MODEL)
+    cfg = preset("llama3-8b", **TRAIN_MODEL, fused_kernels=fused)
     task = setup_train(cfg, OptimizerConfig(), device="cuda", seed=SEED,
                        attn_impl="pallas")
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seed=SEED,
@@ -1354,11 +1808,13 @@ def phase_train_profile() -> None:
     for b in batches[:2]:
         task.step_fn(task.state, b)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     task.step_fn(task.state, batches[2])
     t_enq = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_wall = time.perf_counter() - t0
+    peak_mem = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         task.step_fn(task.state, batches[3])
@@ -1370,10 +1826,12 @@ def phase_train_profile() -> None:
     mfu = (f"{cfg.flops_per_token() * tps / peak:.4f}" if peak
            else "not measured (unknown card)")
     dev_ms = f"{total:.2f} ms" if total else "not measured"
-    print(f"profile train step (llama3-8b widths, {cfg.n_layers} layers, "
-          f"{TRAIN_DATA['global_batch']} x {TRAIN_DATA['seq_len']} tokens): "
-          f"host enqueue {t_enq * 1e3:.2f} ms, wall {t_wall * 1e3:.2f} ms, "
-          f"device {dev_ms}, {tps:.0f} tokens/s, MFU {mfu}", flush=True)
+    print(f"profile train step fused_kernels={fused!r} (llama3-8b widths, "
+          f"{cfg.n_layers} layers, {TRAIN_DATA['global_batch']} x "
+          f"{TRAIN_DATA['seq_len']} tokens): host enqueue "
+          f"{t_enq * 1e3:.2f} ms, wall {t_wall * 1e3:.2f} ms, device "
+          f"{dev_ms}, {tps:.0f} tokens/s, MFU {mfu}, peak "
+          f"{peak_mem / 2**30:.2f} GiB allocated", flush=True)
     for key, ms, count in kernels[:10]:
         print(f"  {ms:8.3f} ms  {count:4d}x  {key[:90]}", flush=True)
     del task, batches
@@ -1397,6 +1855,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels()
     phase_edges()
+    phase_memory_probe()
     engine = phase_serve(rows)
     phase_paged_serve(engine, rows)
     phase_paged_check(engine)
@@ -1408,7 +1867,8 @@ def main() -> int:
           " GiB still allocated", flush=True)
     phase_train_check()
     phase_train(rows)
-    phase_train_profile()
+    phase_train_profile("auto")
+    phase_train_profile("off")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -8,9 +8,9 @@ package's scanned layout, and traversed with a Python loop over per-layer
 views. While autograd records (training, no cache), each layer is
 rematerialized per ``cfg.remat_policy`` through
 ``torch.utils.checkpoint`` (``_remat``). ``decoder_loss`` is the
-next-token cross-entropy with the chunked (``_chunked_ce``) and dense
-branches; the fused-CE branch needs kernels 9–11, which are not ported
-yet, and raises.
+next-token cross-entropy with the fused (``ops/fused_xent.py``, kernels
+9–11, with fused kernels on), chunked (``_chunked_ce``) and dense
+branches.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import DecoderConfig
+from kubeflow_tpu_torch.ops import fused_xent
 
 Params = dict[str, Any]
 
@@ -241,26 +242,25 @@ def decoder_loss(
     ``ce_loss``, ``aux_loss``, ``tokens`` and ``accuracy`` (detached).
 
     Loss-path selection as in the JAX package: with fused kernels on
-    (``layers.fused_kernels_on``) the fused CE — kernels 9–11, not ported
-    yet, so that branch raises; otherwise ``cfg.loss_chunk_size`` streams
-    the head in sequence chunks, and the dense branch materializes the
-    full logits."""
+    (``layers.fused_kernels_on``) the fused CE (``fused_xent``, kernels
+    9–11), which never materializes the [B, S, V] logits on the card;
+    otherwise ``cfg.loss_chunk_size`` streams the head in sequence chunks,
+    and the dense branch materializes the full logits."""
     if cfg.is_moe:
         raise NotImplementedError("MoE decoders arrive with the MoE slice")
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    if L.fused_kernels_on(cfg, inputs):
-        raise NotImplementedError(
-            "the fused cross-entropy kernels are not ported yet (ROADMAP "
-            "Queue 1 item 3b); train with DecoderConfig(fused_kernels='off')"
-            " for the chunked or dense loss")
-    head_of = (lambda: params["embed"].T) if cfg.tie_embeddings \
-        else (lambda: params["lm_head"])
-    if cfg.loss_chunk_size:
+    fused = L.fused_kernels_on(cfg, inputs)
+    if fused or cfg.loss_chunk_size:
         hidden, _ = decoder_forward(params, inputs, cfg, attn_impl=attn_impl,
                                     skip_head=True)
-        nll, correct = _chunked_ce(hidden, head_of().to(hidden.dtype),
-                                   targets, cfg)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        head = head.to(hidden.dtype)
+        if fused:
+            nll, correct = fused_xent.fused_cross_entropy(
+                hidden, head, targets, logits_softcap=cfg.logits_softcap)
+        else:
+            nll, correct = _chunked_ce(hidden, head, targets, cfg)
     else:
         logits, _ = decoder_forward(params, inputs, cfg, attn_impl=attn_impl)
         logp = torch.log_softmax(logits.float(), dim=-1)

@@ -37,7 +37,8 @@ def _init(gen: torch.Generator, shape, dtype: torch.dtype,
 def fused_kernels_on(cfg: DecoderConfig, x: torch.Tensor) -> bool:
     """Resolve ``cfg.fused_kernels`` ("auto"|"on"|"off") for tensor ``x``:
     "auto" routes CUDA tensors through the hand-written kernels and keeps
-    CPU tensors on the plain ops."""
+    CPU tensors on the plain ops. The kernels carry their own backward
+    (``autograd.Function``s), so serving and training take the same path."""
     fk = cfg.fused_kernels
     if fk == "on":
         return True

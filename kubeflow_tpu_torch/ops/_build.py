@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Every CUDA source of the port, by stem.
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "fused_xent")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

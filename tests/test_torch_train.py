@@ -18,9 +18,11 @@
   on ``tiny`` against JAX's from the same init.
 - Checkpoints (round trip, corruption → quarantine and fallback, tier
   preference), the ``Trainer`` (loss falls, resume is exact, SIGTERM
-  saves and exits with ``EXIT_PREEMPTED``), and the refusals: the Triton
-  wrappers under grad, the fused-CE branch, unported remat policies, and
-  entry points without ``device=`` when there is no card.
+  saves and exits with ``EXIT_PREEMPTED``; five steps with
+  ``fused_kernels="on"`` — the fused norm, SwiGLU and CE through their
+  autograd Functions' plain CPU paths — track five with ``"off"`` within
+  1e-5), and the refusals: unported remat policies, and entry points
+  without ``device=`` when there is no card.
 """
 
 import dataclasses
@@ -46,7 +48,6 @@ from kubeflow_tpu_torch.models import decoder as tdec  # noqa: E402
 from kubeflow_tpu_torch.models.convert import (  # noqa: E402
     opt_state_from_jax, params_from_jax,
 )
-from kubeflow_tpu_torch.ops import fused_norm  # noqa: E402
 from kubeflow_tpu_torch.train import checkpoint as tckpt  # noqa: E402
 from kubeflow_tpu_torch.train import data as tdata  # noqa: E402
 from kubeflow_tpu_torch.train import optim as toptim  # noqa: E402
@@ -129,33 +130,16 @@ def test_chunked_ce_argmax_ties_go_to_the_lowest_index():
     torch.testing.assert_close(nll, torch.full((1, 4), np.log(256.0)))
 
 
-def test_fused_ce_branch_and_unported_remat_policies_raise():
+def test_unported_remat_policies_raise():
     cfg = tconfig.preset("tiny", dtype="float32")
     params = tdec.init_decoder_params(torch.Generator().manual_seed(0), cfg)
     toks = torch.randint(0, cfg.vocab_size, (1, 9))
-    with pytest.raises(NotImplementedError, match="fused cross-entropy"):
-        tdec.decoder_loss(params, toks, dataclasses.replace(
-            cfg, fused_kernels="on"))
     with pytest.raises(NotImplementedError, match="dots_flash"):
         tdec.decoder_loss(params, toks, dataclasses.replace(
             cfg, fused_kernels="off", remat_policy="dots_flash"))
     with torch.no_grad():      # serving with such a config still runs
         tdec.decoder_forward(params, toks, dataclasses.replace(
             cfg, fused_kernels="off", remat_policy="dots_flash"))
-
-
-@pytest.mark.parametrize("fn", ["rmsnorm", "add_rmsnorm", "swiglu"])
-def test_triton_wrappers_refuse_to_cut_the_autograd_graph(fn):
-    x = torch.randn(4, 64, requires_grad=True)
-    w = torch.ones(64)
-    call = {"rmsnorm": lambda: fused_norm.rmsnorm_fused(x, w, eps=1e-5),
-            "add_rmsnorm": lambda: fused_norm.add_rmsnorm_fused(
-                x, x.detach(), w, eps=1e-5),
-            "swiglu": lambda: fused_norm.swiglu_fused(x, x.detach())}[fn]
-    with pytest.raises(RuntimeError, match="fused_kernels='off'"):
-        call()
-    with torch.no_grad():
-        call()
 
 
 # -- optimizer ----------------------------------------------------------------
@@ -412,6 +396,22 @@ def test_trainer_loss_falls_over_thirty_steps(tmp_path):
     last = np.mean([losses[s] for s in range(26, 31)])
     assert last < first - 1.0, (first, last)
     assert tr.emitter.stream.getvalue().count("step=") == 30
+
+
+@pytest.mark.parametrize("model", ["tiny", "tiny-gemma"])
+def test_trainer_with_fused_kernels_on_tracks_the_plain_run(tmp_path, model):
+    """Five steps through the fused kernels' CPU paths (the norms and
+    SwiGLU/GeGLU as autograd Functions, the fused CE instead of the
+    chunked one; tiny-gemma adds the (1 + w) norms, the tied head and the
+    softcap) against five plain steps from the same init and data."""
+    runs = {}
+    for fk in ("off", "on"):
+        cfg = _trainer_cfg(steps=5, model=model, model_overrides={
+            "dtype": "float32", "fused_kernels": fk, "loss_chunk_size": 16})
+        runs[fk] = _run(cfg, tmp_path / fk)[1]
+    assert sorted(runs["on"]) == list(range(1, 6))
+    for step in range(1, 6):
+        assert abs(runs["on"][step] - runs["off"][step]) <= 1e-5, step
 
 
 class _Crash(Exception):
