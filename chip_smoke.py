@@ -3,21 +3,32 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA card and exits nonzero — printing no result — without one, or when the
-package is not beside it. Phases, each a hard failure:
+package is not beside it. ``python3 chip_smoke.py --flash-only`` runs
+phases 1 and 2 and the flash kernels' part of phase 3 (their rows and edge
+cases; with ``CUDA_LAUNCH_BLOCKING=1`` a fault names its launch) and
+prints no result line. Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every hand-written kernel built from the checkout's sources (one
-   ``nvcc`` per CUDA source, the Triton kernels compiled meanwhile);
+   ``nvcc`` per CUDA source, the Triton kernels compiled meanwhile), each
+   kernel's registers and spills; a spill in the wgmma kernels (flash
+   forward, dK/dV) fails;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the Llama-3-8B serving and training shapes, with its time, the plain
    version's, one library call's where there is one, and the least time
    the card could take (the larger of bytes over 3.35 TB/s and operations
    over the peak rate of their type, H100 SXM); the fused CE's forward and
-   backward beside the chunked CE's. Then each kernel against its plain
-   version at edge shapes (ragged lengths, q_offset, head_dim 64,
-   non-causal, one query row, odd widths, strided inputs; for paged
-   decode: length 0, page boundaries, unmapped and poisoned pages, a dead
-   row, one and eight query heads per kv head, pages of 16, int8 scale
+   backward beside the chunked CE's; the flash forward timed on the
+   kernel layout, and the dK/dV kernel called twice must give the same
+   bits; both backward kernels on inputs with an attention sink (every
+   query puts p >= 1/2 on key 0), dK/dV timed there and on the random
+   inputs with and without its exact-score recompute. Then each kernel
+   against its plain version at edge shapes (ragged lengths around the
+   flash tiles, a diagonal off a tile boundary, q_offset, rows that see no
+   key, head_dim 64, one to eight query heads per kv head, non-causal, one
+   query row, odd widths, strided inputs; for
+   paged decode: length 0, page boundaries, unmapped and poisoned pages, a
+   dead row, one and eight query heads per kv head, pages of 16, int8 scale
    outliers; for the fused CE: T of 1, 300 and 4096, vocabularies of 1000,
    128256 and 256000, softcap, argmax ties inside a tile and across a
    vocab-range boundary, targets 0, V-1 and out of vocab, masked rows that
@@ -73,6 +84,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -154,9 +166,14 @@ def within(out: torch.Tensor, ref: torch.Tensor, name: str,
            atol: float = ATOL, rtol: float = RTOL) -> float:
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
-    if not torch.all(diff <= atol + rtol * ref.float().abs()):
+    excess = diff - (atol + rtol * ref.float().abs())
+    if not torch.all(excess <= 0):
+        at = int(excess.argmax())
         fail(f"{name}: kernel disagrees with its plain version "
-             f"(max abs err {err:.3e}, tolerance {atol:g} + {rtol:g}*|ref|)")
+             f"(max abs err {err:.3e}, tolerance {atol:g} + {rtol:g}*|ref|; "
+             f"worst at flat index {at}: kernel "
+             f"{float(out.flatten()[at].float()):.6g}, plain "
+             f"{float(ref.flatten()[at].float()):.6g})")
     return err
 
 
@@ -216,19 +233,63 @@ def phase_build() -> None:
           f"{', '.join(_build.SOURCES)}; triton: rms_fwd, rms_bwd, "
           "rms_dw_sum, swiglu_fwd, swiglu_bwd)",
           flush=True)
-    for name, log in _build.PTXAS.items():
+    report_ptxas(_build.PTXAS)
+
+
+#: Kernels whose products run on wgmma with register accumulators.
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel")
+
+
+def report_ptxas(logs: dict) -> None:
+    """Print each kernel's registers and spills from the ``ptxas -v`` logs
+    of a build, and fail if a kernel of ``WGMMA_KERNELS`` spills."""
+    for name, log in logs.items():
+        for kernel, used, spills in ptxas_kernels(log):
+            print(f"  ptxas {name}: {kernel}: {used}; {spills}", flush=True)
+            # The warp-specialised kernels keep their accumulators in
+            # registers: a spill undoes the design.
+            if kernel.startswith(WGMMA_KERNELS) and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in spills:
+                fail(f"{name}: {kernel} spills ({spills})")
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "warning" in ln.lower():
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
+
+
+def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
+    """(kernel, registers line, stack/spill line) of each entry function
+    in a ``ptxas -v`` log, the kernel as ``name<D>`` from its mangled
+    name."""
+    out, kernel, spills = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled = kernel = m.group(1)
+            i = 0
+            while i < len(mangled):              # length-prefixed names
+                k = re.match(r"\d+", mangled[i:])
+                if not k:
+                    i += 1
+                    continue
+                i += k.end()
+                name = mangled[i:i + int(k.group())]
+                i += len(name)
+                if name.endswith("_kernel"):
+                    arg = re.match(r"ILi(\d+)E", mangled[i:])
+                    kernel = name + (f"<{arg.group(1)}>" if arg else "")
+                    break
+        elif "spill stores" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln and kernel:
+            out.append((kernel, ln.split(":", 1)[-1].strip(), spills))
+            kernel, spills = None, ""
+    return out
 
 
 def phase_kernels() -> list[dict]:
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import fused_norm as fn
-    from kubeflow_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_ref,
-    )
 
     gen = torch.Generator("cuda").manual_seed(SEED)
 
@@ -296,38 +357,7 @@ def phase_kernels() -> list[dict]:
         bound_ms=b_sw[0], bound_by=b_sw[1],
         library_ms=device_ms(lambda: F.silu(g) * u)))
 
-    # Site 6: flash forward, B=1 H=32 KH=8 S=2048 D=128 causal (+ softcap).
-    B, H, KH, S, Dh = 1, 32, 8, 2048, 128
-    q, k, v = rnd(B, S, H, Dh), rnd(B, S, KH, Dh), rnd(B, S, KH, Dh)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    e_fl = 0.0
-    for cap in (None, 30.0):
-        o, lse = flash_attention(q, k, v, causal=True, logits_softcap=cap)
-        ro, rl = flash_ref(qt, kt, vt, causal=True, sm_scale=Dh ** -0.5,
-                           softcap=cap, q_offset=0)
-        e_o = within(o, ro.transpose(1, 2), f"flash o softcap={cap}")
-        e_l = within(lse, rl, f"flash lse softcap={cap}", atol=LSE_ATOL,
-                     rtol=0.0)
-        e_fl = max(e_fl, e_o)
-        print(f"kernel flash_fwd B={B} H={H} KH={KH} S={S} D={Dh} causal "
-              f"softcap={cap}: max_abs_err o {e_o:.3e}, lse {e_l:.3e}",
-              flush=True)
-    causal_pairs = S * (S + 1) / 2
-    b_fl = bound(2 * (B * S * H * Dh * 2) + 2 * (B * S * KH * Dh * 2)
-                 + B * H * S * 4, 4 * B * H * causal_pairs * Dh, BF16_FLOPS)
-    rows.append(dict(
-        name="flash_fwd", route="cuda",
-        source="kubeflow_tpu_torch/csrc/flash_fwd.cu",
-        replaces="kubeflow_tpu/ops/flash_attention.py:156",
-        max_abs_err=e_fl,
-        ms=device_ms(lambda: flash_attention(q, k, v, causal=True)),
-        plain_ms=device_ms(lambda: flash_ref(qt, kt, vt, causal=True,
-                                             sm_scale=Dh ** -0.5,
-                                             softcap=None, q_offset=0),
-                           iters=2, reps=3),
-        bound_ms=b_fl[0], bound_by=b_fl[1],
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))))
+    rows += flash_fwd_rows()
     rows += flash_bwd_rows()
     rows += norm_swiglu_bwd_rows()
     rows += xent_rows()
@@ -337,6 +367,63 @@ def phase_kernels() -> list[dict]:
               f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return rows
+
+
+def flash_fwd_rows() -> list[dict]:
+    """Site 6: the flash forward at the prefill shape (B=1, H=32, KH=8,
+    S=2048, D=128, causal; softcap too) against its plain version, timed
+    on the kernel layout (``FlashAttentionFn.apply``, like the SDPA
+    yardstick beside it); the three [B, S, H, D] -> [B, H, S, D] copies
+    that ``flash_attention`` adds are timed on a line of their own."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops.flash_attention import (
+        FlashAttentionFn, flash_attention, flash_ref,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    B, H, KH, S, Dh = 1, 32, 8, 2048, 128
+    scale = Dh ** -0.5
+    q, k, v = rnd(B, S, H, Dh), rnd(B, S, KH, Dh), rnd(B, S, KH, Dh)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    e_fl = 0.0
+    for cap in (None, 30.0):
+        o, lse = flash_attention(q, k, v, causal=True, logits_softcap=cap)
+        ro, rl = flash_ref(qt, kt, vt, causal=True, sm_scale=scale,
+                           softcap=cap, q_offset=0)
+        e_o = within(o, ro.transpose(1, 2), f"flash o softcap={cap}")
+        e_l = within(lse, rl, f"flash lse softcap={cap}", atol=LSE_ATOL,
+                     rtol=0.0)
+        e_fl = max(e_fl, e_o)
+        print(f"kernel flash_fwd B={B} H={H} KH={KH} S={S} D={Dh} causal "
+              f"softcap={cap}: max_abs_err o {e_o:.3e}, lse {e_l:.3e}",
+              flush=True)
+    copies = device_ms(lambda: [t.transpose(1, 2).contiguous()
+                                for t in (q, k, v)])
+    print(f"flash_attention layout copies (q, k, v to [B, H, S, D]): "
+          f"{copies:.4f} ms, outside the kernel's time", flush=True)
+    causal_pairs = S * (S + 1) / 2
+    b_fl = bound(2 * (B * S * H * Dh * 2) + 2 * (B * S * KH * Dh * 2)
+                 + B * H * S * 4, 4 * B * H * causal_pairs * Dh, BF16_FLOPS)
+    return [dict(
+        name="flash_fwd", route="cuda",
+        source="kubeflow_tpu_torch/csrc/flash_fwd.cu",
+        replaces="kubeflow_tpu/ops/flash_attention.py:156",
+        max_abs_err=e_fl,
+        ms=device_ms(lambda: FlashAttentionFn.apply(qt, kt, vt, True, scale,
+                                                    None, 0)),
+        plain_ms=device_ms(lambda: flash_ref(qt, kt, vt, causal=True,
+                                             sm_scale=scale, softcap=None,
+                                             q_offset=0),
+                           iters=2, reps=3),
+        bound_ms=b_fl[0], bound_by=b_fl[1],
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)))]
 
 
 def rel_l2(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -359,6 +446,24 @@ def bwd_case(gen, B, H, KH, Sq, Skv, D, *, causal=True, q_offset=0,
               q_offset=q_offset)
     o, lse = FA.flash_ref(q, k, v, **kw)
     return (q, k, v, do, lse, FA._delta(o, do)), kw
+
+
+def peaked_bwd_case(gen, B, H, KH, S, D):
+    """Backward inputs whose attention has a sink, as trained heads do:
+    a shared direction u (entries +-1) is added to every query and key 0
+    is 1.25 u, so every query puts p >= 1/2 on key 0. Returns the inputs,
+    the call's keywords and the share of query rows with p >= 1/2 there."""
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+
+    (q, k, v, do, _, _), kw = bwd_case(gen, B, H, KH, S, S, D)
+    u = torch.randint(0, 2, (D,), generator=gen, device="cuda").float() * 2 - 1
+    q = (q.float() + u).to(torch.bfloat16)
+    k = k.clone()
+    k[:, :, 0] = (1.25 * u).to(torch.bfloat16)
+    o, lse = FA.flash_ref(q, k, v, **kw)
+    p0 = torch.exp(q.float() @ k[0, 0, 0].float() * kw["sm_scale"] - lse)
+    return (q, k, v, do, lse, FA._delta(o, do)), kw, \
+        float((p0 >= 0.5).float().mean())
 
 
 def check_bwd(args, kw, name: str) -> tuple[dict, float, tuple]:
@@ -391,13 +496,44 @@ def flash_bwd_rows() -> list[dict]:
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     B, H, KH, S, D = 2, 32, 8, 2048, 128
     args, kw = bwd_case(gen, B, H, KH, S, S, D)
-    errs, rel, _ = check_bwd(args, kw, "flash_bwd S=2048")
+    errs, rel, (_, dk, dv) = check_bwd(args, kw, "flash_bwd S=2048")
+    dk2, dv2 = FA.flash_bwd_dkdv(*args, **kw)
+    if not (torch.equal(dk2, dk) and torch.equal(dv2, dv)):
+        fail("flash_bwd_dkdv: two calls on the same inputs differ (the GQA "
+             "sum must not depend on timing)")
+    print("kernel flash_bwd_dkdv: a second call is bit-identical", flush=True)
     print(f"kernel flash_bwd B={B} H={H} KH={KH} S={S} D={D} causal: "
           f"max_abs_err dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
           f"{errs['dv']:.3e}, worst rel L2 {rel:.3e} (tolerance "
           f"{BWD_REL_L2:g})", flush=True)
     if not rel <= BWD_REL_L2:
         fail(f"flash backward kernels: rel L2 {rel:.3e} > {BWD_REL_L2:g}")
+    # The dK/dV kernel recomputes, from exact scores, the p >= 1/4 that lie
+    # near a bf16 midpoint; attention with a sink has a p >= 1/4 in every
+    # query row. Its cost: the kernel against a build without the
+    # recompute, on those inputs and on the random ones.
+    pk_args, _, share = peaked_bwd_case(gen, B, H, KH, S, D)
+    if share < 0.99:
+        fail(f"peaked backward inputs: only {share:.3f} of the query rows "
+             "put p >= 1/2 on key 0")
+    pk_errs, pk_rel, _ = check_bwd(pk_args, kw, "flash_bwd S=2048 peaked")
+    if not pk_rel <= BWD_REL_L2:
+        fail(f"flash backward kernels, peaked: rel L2 {pk_rel:.3e} > "
+             f"{BWD_REL_L2:g}")
+    no_exact = ("FLASH_DKDV_EXACT_P=0",)
+    times = {(data, variant): device_ms(
+                 (lambda a=a: FA.flash_bwd_dkdv(*a, **kw)) if variant == "with"
+                 else (lambda a=a: FA._launch_bwd("dkdv", *a, **kw,
+                                                  defines=no_exact)))
+             for data, a in (("peaked", pk_args), ("random", args))
+             for variant in ("with", "without")}
+    print(f"kernel flash_bwd_dkdv peaked (p >= 1/2 on key 0 in "
+          f"{share:.4f} of the query rows): max_abs_err "
+          f"{max(pk_errs.values()):.3e}, rel L2 {pk_rel:.3e}; ms with the "
+          f"exact-score recompute {times['peaked', 'with']:.4f}, without "
+          f"{times['peaked', 'without']:.4f}; random inputs: with "
+          f"{times['random', 'with']:.4f}, without "
+          f"{times['random', 'without']:.4f}", flush=True)
     plain_ms = device_ms(lambda: FA._bwd_ref(*args, **kw), iters=2, reps=3)
     # The library yardstick: SDPA's backward on the same tensors.
     q, k, v, do = (t.detach().clone().requires_grad_(i < 3)
@@ -904,9 +1040,6 @@ def phase_edges() -> None:
     and an explicit scale, one query row, the (1 + w) norm, odd widths and
     strided inputs."""
     from kubeflow_tpu_torch.ops import fused_norm as fn
-    from kubeflow_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_ref,
-    )
 
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
 
@@ -934,13 +1067,48 @@ def phase_edges() -> None:
         print(f"edge swiglu {act} [6, 1000] strided: max_abs_err {e:.3e}",
               flush=True)
 
+    phase_flash_edges()
+    phase_flash_bwd_edges()
+    phase_train_edges()
+    phase_paged_edges()
+
+
+def phase_flash_edges() -> None:
+    """The flash forward against its plain version away from the prefill
+    shape: ragged lengths around its 128-row tiles (127, 128, 129, 255,
+    257), a static q_offset, a causal diagonal that crosses a q tile off
+    its boundary (Sq = 200, Skv = 328, q_offset = 128), head_dim 64 with
+    one and four query heads per kv head, eight query heads per kv head at
+    B = 3, a non-causal Sq != Skv block with softcap and an explicit scale,
+    one query row, and rows that see no key (q_offset -5, -70, and -200,
+    where a whole 128-row tile sees none): they average V over every key
+    and their lse is NEG_INF, as in the plain version."""
+    from kubeflow_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_ref,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 13)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
     # (B, H, KH, Sq, Skv, D, causal, q_offset, softcap, sm_scale)
     cases = ((2, 4, 2, 200, 200, 128, True, 0, None, None),
              (1, 8, 8, 130, 200, 64, True, 70, None, None),
              (1, 8, 2, 77, 333, 128, False, 0, 20.0, 0.1),
-             (3, 32, 8, 1, 517, 128, True, 516, None, None))
+             (3, 32, 8, 1, 517, 128, True, 516, None, None),
+             *((1, 8, 2, n, n, 128, True, 0, None, None)
+               for n in (127, 128, 129, 255, 257)),
+             (1, 8, 2, 200, 328, 128, True, 128, None, None),
+             (2, 8, 8, 257, 257, 64, True, 0, 30.0, None),
+             (1, 8, 2, 129, 129, 64, True, 0, None, None),
+             (3, 32, 4, 129, 129, 128, True, 0, None, None),
+             (1, 8, 2, 200, 200, 128, True, -5, None, None),
+             (1, 4, 2, 200, 200, 128, True, -70, None, None),
+             (1, 4, 2, 300, 300, 64, True, -200, None, None))
     for B, H, KH, Sq, Skv, Dh, causal, off, cap, scale in cases:
-        q, k, v = rnd(B, Sq, H, Dh), rnd(B, Skv, KH, Dh), rnd(B, Skv, KH, Dh)
+        q, k, v =rnd(B, Sq, H, Dh), rnd(B, Skv, KH, Dh), rnd(B, Skv, KH, Dh)
         o, lse = flash_attention(q, k, v, causal=causal, q_offset=off,
                                  logits_softcap=cap, sm_scale=scale)
         ro, rl = flash_ref(*(t.transpose(1, 2).contiguous()
@@ -953,39 +1121,58 @@ def phase_edges() -> None:
         e_l = within(lse, rl, name + " lse", atol=LSE_ATOL, rtol=0.0)
         print(f"edge {name}: max_abs_err o {e_o:.3e}, lse {e_l:.3e}",
               flush=True)
-    phase_flash_bwd_edges()
-    phase_train_edges()
-    phase_paged_edges()
+
+
+# Edge cases of the flash backward, in the order phase_flash_bwd_edges draws
+# their inputs from one generator: (B, H, KH, Sq, Skv, D, causal, q_offset,
+# softcap).
+FLASH_BWD_EDGES = (
+    (1, 8, 2, 1, 1, 128, True, 0, None),
+    (1, 8, 2, 63, 63, 128, True, 0, None),
+    (1, 8, 2, 64, 64, 64, True, 0, None),
+    (1, 8, 8, 65, 65, 128, True, 0, None),
+    (1, 8, 1, 1000, 1000, 128, True, 0, 30.0),
+    (1, 4, 2, 2047, 2047, 128, True, 0, None),
+    (2, 4, 2, 300, 1000, 64, True, 700, None),
+    (1, 4, 2, 200, 200, 128, False, 0, 20.0),
+    (1, 4, 2, 128, 128, 64, True, -5, None),
+    *((1, 8, 2, n, n, 128, True, 0, None)
+      for n in (127, 128, 129, 255, 257)),
+    (1, 8, 2, 200, 328, 128, True, 128, None),
+    (1, 8, 8, 257, 257, 64, True, 0, None),
+    (3, 32, 4, 129, 129, 128, True, 0, None),
+    (1, 4, 2, 200, 200, 128, True, -70, None))
 
 
 def phase_flash_bwd_edges() -> None:
     """The two backward kernels against the plain backward away from the
-    training shape: S = 1, 63, 64, 65, 1000 and 2047 (ragged tiles),
-    head_dim 64, one and eight query heads per kv head, softcap, Sq < Skv
-    at q_offset = Skv - Sq, a non-causal block, and rows that see no key
-    (negative q_offset: lse is NEG_INF, the gradient must be zero)."""
+    training shape: S = 1, 63, 64, 65, 127, 128, 129, 255, 257, 1000 and
+    2047 (ragged tiles of both kernels), a causal diagonal that crosses a
+    kv tile off its boundary (Sq = 200, Skv = 328, q_offset = 128),
+    head_dim 64, one, four and eight query heads per kv head (eight at
+    B = 3), softcap, Sq < Skv at q_offset = Skv - Sq, a non-causal block,
+    and rows that see no key (negative q_offset: lse is NEG_INF; their dq
+    must be zero and their cotangents must not move dk or dv)."""
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+
     gen = torch.Generator("cuda").manual_seed(SEED + 7)
-    # (B, H, KH, Sq, Skv, D, causal, q_offset, softcap)
-    cases = ((1, 8, 2, 1, 1, 128, True, 0, None),
-             (1, 8, 2, 63, 63, 128, True, 0, None),
-             (1, 8, 2, 64, 64, 64, True, 0, None),
-             (1, 8, 8, 65, 65, 128, True, 0, None),
-             (1, 8, 1, 1000, 1000, 128, True, 0, 30.0),
-             (1, 4, 2, 2047, 2047, 128, True, 0, None),
-             (2, 4, 2, 300, 1000, 64, True, 700, None),
-             (1, 4, 2, 200, 200, 128, False, 0, 20.0),
-             (1, 4, 2, 128, 128, 64, True, -5, None))
-    for B, H, KH, Sq, Skv, D, causal, off, cap in cases:
+    for B, H, KH, Sq, Skv, D, causal, off, cap in FLASH_BWD_EDGES:
         args, kw = bwd_case(gen, B, H, KH, Sq, Skv, D, causal=causal,
                             q_offset=off, softcap=cap)
         name = (f"flash_bwd B={B} H={H} KH={KH} Sq={Sq} Skv={Skv} D={D} "
                 f"causal={causal} q_offset={off} softcap={cap}")
-        errs, rel, (dq, _, _) = check_bwd(args, kw, name)
+        errs, rel, (dq, dk, dv) = check_bwd(args, kw, name)
         note = ""
         if off < 0:
             if torch.count_nonzero(dq[:, :, :-off]):
                 fail(f"{name}: rows that see no key have a nonzero dq")
-            note = "; rows with no key give zero dq"
+            do = args[3].clone()
+            do[:, :, :-off] = 100.0
+            dk2, dv2 = FA.flash_bwd_dkdv(*args[:3], do, *args[4:], **kw)
+            if not (torch.equal(dk2, dk) and torch.equal(dv2, dv)):
+                fail(f"{name}: the cotangents of rows that see no key move "
+                     "dk or dv")
+            note = "; rows with no key give zero dq and move no dk/dv"
         print(f"edge {name}: max_abs_err {max(errs.values()):.3e}, rel L2 "
               f"{rel:.3e}{note}", flush=True)
 
@@ -1832,8 +2019,10 @@ def phase_train_profile(fused: str) -> None:
           f"{t_enq * 1e3:.2f} ms, wall {t_wall * 1e3:.2f} ms, device "
           f"{dev_ms}, {tps:.0f} tokens/s, MFU {mfu}, peak "
           f"{peak_mem / 2**30:.2f} GiB allocated", flush=True)
-    for key, ms, count in kernels[:10]:
-        print(f"  {ms:8.3f} ms  {count:4d}x  {key[:90]}", flush=True)
+    # The ten largest, and the flash kernels wherever they rank.
+    for rank, (key, ms, count) in enumerate(kernels):
+        if rank < 10 or "flash" in key:
+            print(f"  {ms:8.3f} ms  {count:4d}x  {key[:90]}", flush=True)
     del task, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -1853,6 +2042,23 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
+    if sys.argv[1:] == ["--flash-only"]:
+        # The flash kernels alone: their rows, then their edge cases.
+        rows = flash_fwd_rows() + flash_bwd_rows()
+        phase_flash_edges()
+        phase_flash_bwd_edges()
+        for r in rows:
+            print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
+                  f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+                  f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})",
+                  flush=True)
+        print(f"chip_smoke: flash phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     rows = phase_kernels()
     phase_edges()
     phase_memory_probe()

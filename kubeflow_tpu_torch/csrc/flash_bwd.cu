@@ -24,42 +24,64 @@
 // three (q k^T, dO v^T, dS k): 103 GFLOP, ~0.104 ms. The bytes each kernel
 // must move are ~0.1 GB (~0.03 ms at 3.35 TB/s), far below.
 //
-// What the design does about it: every product runs on the tensor cores
-// (WMMA bf16 16x16x16 fragments, fp32 accumulation), tiles wholly above the
-// causal diagonal are skipped, and the score, probability and accumulator
-// tiles stay in shared memory, so device memory sees one read of each
-// needed input tile per sweep and one write of each output. This is the
-// simple correct design, not yet a fast one:
-//  - dK/dV: one block per (batch, kv head, 64-row kv tile). It loops over
-//    the H / KH query heads of its group and over every 64-row q tile at or
-//    after the diagonal -- the loop takes the place of the TPU grid's
-//    sequential (group, q block) axes -- and keeps the fp32 dK and dV
-//    accumulators in shared memory for the whole sweep. Summing the group
-//    inside the block is what makes dK and dV come out at the KH size with
-//    no atomics: the result is deterministic.
-//  - dQ: one block per (batch, q head, 64-row q tile), looping over the kv
-//    tiles up to the diagonal, as the forward does.
-// Four warps per block; in each q tile warp w computes the scores of query
-// rows 16w..16w+15, and in the dK/dV products it owns kv rows 16w..16w+15
-// of the accumulators. The transposed products (p^T dO, dS^T q) load their
-// A operand with `wmma::col_major` from the row-major tiles. Shared-memory
-// rows are padded by 16 bytes (bf16 and fp32 tiles alike) against bank
-// conflicts, as in flash_fwd.cu. A block of the dK/dV kernel takes ~187 KB
-// of shared memory at D = 128 (one block per SM), the dQ kernel ~144 KB.
-// cp.async/TMA double buffering, wgmma and register-resident accumulators
-// are later work.
+// dK/dV (namespace dkdv), the warp-specialised Hopper design: one block per
+// (batch x kv head, 128-row kv tile), three warpgroups, 1 KB-aligned tiles
+// in the layout of sm90.cuh.
+//  - Producer (warpgroup 2, setmaxnreg 40; its first warp): one thread
+//    TMA-loads the block's K and V tiles once, then streams the Q and dO
+//    tiles (64 rows) through a 2-stage ring with full and empty mbarriers,
+//    for every head of the GQA group and every q tile at or after the
+//    diagonal; the warp copies each tile's lse and delta rows beside them
+//    (a row's start need not be 16-byte aligned, which TMA requires) and
+//    each lane arrives on the stage's full barrier after its stores.
+//  - Consumers (warpgroups 0 and 1, setmaxnreg 232), 64 kv rows each:
+//    S^T = K Q^T and dP^T = V dO^T by wgmma SS (m64n64k16, all K-major);
+//    p, the causal/softcap/NEG_INF/2 rules and dS in registers, p as
+//    expf(s - lse) like the plain version (bf16(p) feeds dV, and exp2 with
+//    log2(e) folded in flips that rounding more often); then dV +=
+//    bf16(P^T) dO and dK += bf16(dS^T) Q by wgmma RS (m64nDk16), dO and Q
+//    read MN-major. Masks are applied only on diagonal and ragged tiles.
+//    A p >= 1/4 whose fp32 value lies near a midpoint between two bf16
+//    values (within 128 fp32 ulps, about 0.4% of values) is recomputed
+//    from its exact score: the tensor cores' fp32 accumulation is off by a
+//    few ulps of the score, enough to round such a p to the other bf16
+//    neighbour than the exact score does, which moves dV by ulp(p) |dO|
+//    (2^-8 |dO| for p >= 1/2). A warp marks its p >= 1/4 by a running max
+//    and, only if it holds one, filters them and sums each chosen score
+//    with all 32 lanes in fp64 (D / 32 products per lane, a fixed-order
+//    shuffle reduction). dS takes the new p, not an exact dP (recomputing
+//    dP too, for |dS| >= 1/2, cost 23% of the kernel's time). Cost at the
+//    training shape (PERF.md): about 9% on random inputs, where it rarely
+//    sums, and about 9% with an attention sink, where every query puts
+//    p >= 1/2 on one key. `-DFLASH_DKDV_EXACT_P=0` builds the kernel
+//    without the recompute, to measure that cost.
+//    dK and dV stay in registers for the whole sweep (2 x D / 2 fp32 per
+//    thread) and are rounded to bf16 once. The group's heads are summed
+//    inside the block in a fixed order, with no atomics: results repeat bit
+//    for bit.
+//  - Shared memory per block at D = 128: K 32 KB + V 32 KB + 2 x (Q 16 KB
+//    + dO 16 KB + 512 B of lse/delta) = 129 KB, one block per SM.
+//  - Order: the grid's slow axis walks kv tiles from 0, which meets the
+//    most q tiles under the causal mask, so the heaviest blocks start first.
+//
+// dQ is still the first, simple design (WMMA bf16 16x16x16 fragments, fp32
+// accumulation): one block per (batch, q head, 64-row q tile), looping over
+// the kv tiles up to the diagonal; four warps, warp w owning query rows
+// 16w..16w+15; scores, probabilities and the dQ accumulator in shared
+// memory (rows padded by 16 bytes against bank conflicts), ~144 KB per
+// block at D = 128. Its redesign is later work.
 //
 // Layout: q, dO, dQ [B, H, Sq, D]; k, v, dK, dV [B, KH, Skv, D] (bf16,
-// contiguous); lse, delta [B, H, Sq] fp32. q-head h reads kv-head
-// h / (H / KH). Ragged edges (Sq or Skv not a multiple of 64) are masked in
-// the kernel.
+// contiguous, 16-byte aligned); lse, delta [B, H, Sq] fp32. q-head h reads
+// kv-head h / (H / KH). Ragged edges are masked in the kernels (TMA fills
+// a ragged tile with zeros).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cfloat>
 #include <cstdint>
+
+#include "sm90.cuh"
 
 using namespace nvcuda;
 
@@ -74,7 +96,6 @@ constexpr float NEG_INF = -0.7f * FLT_MAX;
 
 using bf16 = __nv_bfloat16;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -92,8 +113,6 @@ struct Lay {
   static constexpr size_t pb = size_t(BQ) * LDP * sizeof(bf16);
   static constexpr size_t acc = size_t(64) * LDA * sizeof(float);
   static constexpr size_t rows = 2 * BQ * sizeof(float);   // lse, delta
-  // dK/dV: k, v, q, dO tiles; s, dP; p, dS; dK, dV accumulators; lse, delta.
-  static constexpr size_t dkdv = 4 * tile + 2 * sc + 2 * pb + 2 * acc + rows;
   // dQ: q, dO, k, v tiles; s, dP; dS; dQ accumulator; lse, delta.
   static constexpr size_t dq = 4 * tile + 2 * sc + pb + acc + rows;
 };
@@ -148,14 +167,14 @@ __device__ void rows_times_tile_t(float* c, const bf16* a, const bf16* b) {
 }
 
 // Scores and their gradient for this warp's 16 query rows (tile rows
-// row0..row0+15) against kv columns j0..j0+63: p (bf16, when `pb` is set)
-// and dS (bf16). Each lane owns two columns.
-__device__ void probs_and_ds(const float* sb, const float* dpb, bf16* pb,
-                             bf16* dsb, const float* lse_s,
-                             const float* delta_s, int row0, int q0, int j0,
-                             int Sq, int Skv, int causal, int q_offset,
-                             float sm_scale, int has_softcap, float softcap,
-                             int lds, int ldp) {
+// row0..row0+15) against kv columns j0..j0+63: dS (bf16). Each lane owns
+// two columns.
+__device__ void probs_and_ds(const float* sb, const float* dpb, bf16* dsb,
+                             const float* lse_s, const float* delta_s,
+                             int row0, int q0, int j0, int Sq, int Skv,
+                             int causal, int q_offset, float sm_scale,
+                             int has_softcap, float softcap, int lds,
+                             int ldp) {
   const int lane = threadIdx.x % 32;
   for (int r = row0; r < row0 + 16; ++r) {
     const int qi = q0 + r;
@@ -178,112 +197,7 @@ __device__ void probs_and_ds(const float* sb, const float* dpb, bf16* pb,
       float ds = p * (dpb[r * lds + c] - dl);
       if (has_softcap) ds *= (1.f - t * t);
       ds *= sm_scale;
-      if (pb != nullptr) pb[r * ldp + c] = __float2bfloat16(p);
       dsb[r * ldp + c] = __float2bfloat16(ds);
-    }
-  }
-}
-
-// acc[16 rows at row0, D] += X^T Y, X [64 x 64] bf16 (stride LDP) read
-// transposed, Y [64 x D] bf16 (stride LDQ): this warp's 16 accumulator rows
-// are columns row0..row0+15 of X.
-template <int D>
-__device__ void acc_xt_y(float* acc, const bf16* x, const bf16* y, int row0) {
-  constexpr int LDQ = Lay<D>::LDQ, LDP = Lay<D>::LDP, LDA = Lay<D>::LDA;
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) {
-    FragC c;
-    wmma::load_matrix_sync(c, acc + row0 * LDA + dt * 16, LDA,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      FragAT fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, x + kk * 16 * LDP + row0, LDP);
-      wmma::load_matrix_sync(fb, y + kk * 16 * LDQ + dt * 16, LDQ);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(acc + row0 * LDA + dt * 16, c, LDA,
-                            wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int H, int KH, int Sq, int Skv,
-                      int causal, int q_offset, float sm_scale,
-                      int has_softcap, float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using L = Lay<D>;
-  constexpr int LDQ = L::LDQ, LDS = L::LDS, LDP = L::LDP, LDA = L::LDA;
-  unsigned char* p = smem;
-  bf16* Ks = reinterpret_cast<bf16*>(p);   p += L::tile;
-  bf16* Vs = reinterpret_cast<bf16*>(p);   p += L::tile;
-  bf16* Qs = reinterpret_cast<bf16*>(p);   p += L::tile;
-  bf16* dOs = reinterpret_cast<bf16*>(p);  p += L::tile;
-  float* Sb = reinterpret_cast<float*>(p); p += L::sc;
-  float* dPb = reinterpret_cast<float*>(p); p += L::sc;
-  bf16* Pb = reinterpret_cast<bf16*>(p);   p += L::pb;
-  bf16* dSb = reinterpret_cast<bf16*>(p);  p += L::pb;
-  float* dKa = reinterpret_cast<float*>(p); p += L::acc;
-  float* dVa = reinterpret_cast<float*>(p); p += L::acc;
-  float* lse_s = reinterpret_cast<float*>(p);
-  float* delta_s = lse_s + BQ;
-
-  const int j0 = blockIdx.x * BKV;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = H / KH;
-  const int row0 = (threadIdx.x / 32) * 16;
-
-  const size_t kv_base = (size_t(b) * KH + kvh) * Skv * D;
-  load_tile<D>(Ks, k + kv_base + size_t(j0) * D, BKV, Skv - j0);
-  load_tile<D>(Vs, v + kv_base + size_t(j0) * D, BKV, Skv - j0);
-  for (int i = threadIdx.x; i < BKV * LDA; i += THREADS) {
-    dKa[i] = 0.f;
-    dVa[i] = 0.f;
-  }
-
-  const int n_q = (Sq + BQ - 1) / BQ;
-  for (int g = 0; g < G; ++g) {
-    const int h = kvh * G + g;
-    const size_t q_base = (size_t(b) * H + h) * Sq;
-    for (int t = 0; t < n_q; ++t) {
-      const int q0 = t * BQ;
-      // Causal skip: no query of this tile sits at or after the kv tile.
-      if (causal && q_offset + q0 + BQ - 1 < j0) continue;
-      __syncthreads();                  // previous tile's readers are done
-      load_tile<D>(Qs, q + (q_base + q0) * D, BQ, Sq - q0);
-      load_tile<D>(dOs, dout + (q_base + q0) * D, BQ, Sq - q0);
-      load_rows(lse_s, delta_s, lse + q_base, delta + q_base, q0, Sq);
-      __syncthreads();
-
-      // This warp's 16 query rows: S = Q K^T, dP = dO V^T, then p and dS.
-      rows_times_tile_t<D>(Sb + row0 * LDS, Qs + row0 * LDQ, Ks);
-      rows_times_tile_t<D>(dPb + row0 * LDS, dOs + row0 * LDQ, Vs);
-      __syncwarp();
-      probs_and_ds(Sb, dPb, Pb, dSb, lse_s, delta_s, row0, q0, j0, Sq, Skv,
-                   causal, q_offset, sm_scale, has_softcap, softcap, LDS,
-                   LDP);
-      __syncthreads();                  // every query row's p and dS
-
-      // This warp's 16 kv rows: dV += P^T dO, dK += dS^T Q.
-      acc_xt_y<D>(dVa, Pb, dOs, row0);
-      acc_xt_y<D>(dKa, dSb, Qs, row0);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BKV * D; i += THREADS) {
-    const int r = i / D;
-    const int c = i % D;
-    if (j0 + r < Skv) {
-      const size_t o = kv_base + size_t(j0 + r) * D + c;
-      dk[o] = __float2bfloat16(dKa[r * LDA + c]);
-      dv[o] = __float2bfloat16(dVa[r * LDA + c]);
     }
   }
 }
@@ -337,7 +251,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rows_times_tile_t<D>(Sb + row0 * LDS, Qs + row0 * LDQ, Ks);
     rows_times_tile_t<D>(dPb + row0 * LDS, dOs + row0 * LDQ, Vs);
     __syncwarp();
-    probs_and_ds(Sb, dPb, nullptr, dSb, lse_s, delta_s, row0, q0, j0, Sq,
+    probs_and_ds(Sb, dPb, dSb, lse_s, delta_s, row0, q0, j0, Sq,
                  Skv, causal, q_offset, sm_scale, has_softcap, softcap, LDS,
                  LDP);
     __syncwarp();
@@ -379,26 +293,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 }
 
 template <int D>
-cudaError_t launch_dkdv(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, int B, int H, int KH, int Sq,
-                        int Skv, int causal, int q_offset, float sm_scale,
-                        int has_softcap, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = Lay<D>::dkdv;
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, smem, &configured);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Skv + BKV - 1) / BKV, KH, B);
-  flash_bwd_dkdv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KH, Sq, Skv, causal,
-      q_offset, sm_scale, has_softcap, softcap);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int H, int KH, int Sq, int Skv,
@@ -418,6 +312,398 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- dK/dV: TMA, wgmma and warp specialisation ----------------------------
+
+namespace dkdv {
+
+constexpr int BQ = 64;         // query rows per streamed tile
+constexpr int BKV = 128;       // kv rows per block
+constexpr int STAGES = 2;      // Q/dO/lse/delta ring depth
+constexpr int CONSUMERS = 2;   // warpgroups of 64 kv rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+
+// Whether the fp32 `p` lies within NEAR_MID fp32 ulps of a midpoint
+// between two bf16 values, where bf16(p) can round either way under a
+// small error of p's score. The tensor cores' scores differ from exact
+// ones by a few ulps (4 ulps of p at the S = 255 edge case that showed a
+// flip); 128 ulps is 2^-9 of a bf16 step, so about 0.4% of values qualify.
+#ifndef FLASH_DKDV_EXACT_P
+#define FLASH_DKDV_EXACT_P 1    // 0 builds the kernel without the recompute
+#endif
+constexpr uint32_t NEAR_MID = 128;
+DEV bool near_bf16_midpoint(float p) {
+  return (__float_as_uint(p) & 0xffffu) - (0x8000u - NEAR_MID) < 2 * NEAR_MID;
+}
+
+// The exact score of query row `qr` of a staged Q tile (BQ rows) and kv
+// row `kr` of the K tile (BKV rows), both in the swizzled layout of
+// sm90.cuh, summed by the whole warp: each lane multiplies D / 32 elements
+// (bf16 products are exact in fp64) and the lanes' fp64 sums are reduced
+// in a fixed order, then rounded once to fp32. Every lane returns it.
+template <int D>
+DEV float exact_dot(const bf16* qt, const bf16* kt, int qr, int kr,
+                    int lane) {
+  constexpr int E = D / 32;                        // elements per lane
+  const int at = lane * E * 2;                     // byte in the D row
+  const int half = at / 128, chunk = (at % 128) / 16, within = at % 16;
+  const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(
+      reinterpret_cast<const unsigned char*>(qt + half * BQ * 64) +
+      qr * 128 + ((chunk ^ (qr & 7)) << 4) + within);
+  const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(
+      reinterpret_cast<const unsigned char*>(kt + half * BKV * 64) +
+      kr * 128 + ((chunk ^ (kr & 7)) << 4) + within);
+  double acc = 0.0;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    acc += double(__bfloat162float(a[e])) * double(__bfloat162float(b[e]));
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return float(acc);
+}
+
+// What p and dS need besides the scores: positions, lengths and the
+// logit transform.
+struct Rule {
+  int q0, krow, col2, Sq, Skv, causal, q_offset;
+  float sm_scale;
+  int has_softcap;
+  float softcap;
+};
+
+// p = exp(s - lse), forced to 0 where s <= NEG_INF / 2 (MASK: the causal
+// mask to NEG_INF, rows and columns past the tensors), and dS = p (dP -
+// delta) [(1 - tanh^2)] sm_scale, in place of the R score and dP registers
+// (register 4j + 2i + e is kv row krow + 8i, query column 8j + col2 + e).
+// Returns the largest p.
+template <bool MASK, int R>
+DEV float probs_and_grads(float (&st)[R], float (&dpt)[R],
+                          const float* lrow, const float* drow,
+                          const Rule& u) {
+  float pmax = 0.f;
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * j + u.col2 + e;
+      const int qi = u.q0 + c;
+      const float l = lrow[c];
+      const float dl = drow[c];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = 4 * j + 2 * i + e;
+        const int kpos = u.krow + 8 * i;
+        const float s_raw = st[r] * u.sm_scale;
+        float x = s_raw, t = 0.f;
+        if (u.has_softcap) {
+          t = tanhf(s_raw / u.softcap);
+          x = t * u.softcap;
+        }
+        bool keep = x > NEG_INF * 0.5f;
+        if (MASK) {
+          if (u.causal && kpos > u.q_offset + qi) x = NEG_INF;
+          keep = x > NEG_INF * 0.5f && qi < u.Sq && kpos < u.Skv;
+        }
+        const float p = keep ? expf(x - l) : 0.f;
+        float ds = p * (dpt[r] - dl);
+        if (u.has_softcap) ds *= 1.f - t * t;
+        st[r] = p;
+        dpt[r] = keep ? ds * u.sm_scale : 0.f;
+        pmax = fmaxf(pmax, p);
+      }
+    }
+  }
+  return pmax;
+}
+
+template <int D>
+struct Smem {
+  static constexpr uint32_t kv_bytes = BKV * D * 2;
+  static constexpr uint32_t q_bytes = BQ * D * 2;
+  static constexpr uint32_t row_bytes = BQ * 4;
+  static constexpr uint32_t stage_tx = 2 * q_bytes;   // Q and dO by TMA
+  static constexpr size_t v = kv_bytes;
+  static constexpr size_t q = v + kv_bytes;                 // STAGES tiles
+  static constexpr size_t dout = q + STAGES * q_bytes;      // STAGES tiles
+  static constexpr size_t lse = dout + STAGES * q_bytes;    // STAGES rows
+  static constexpr size_t delta = lse + STAGES * row_bytes;
+  static constexpr size_t bars = delta + STAGES * row_bytes;
+  // kv_full, full[STAGES], empty[STAGES]; 1 KB of slack to align the base.
+  static constexpr size_t total = bars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                      int KH, int Sq, int Skv, int causal, int q_offset,
+                      float sm_scale, int has_softcap, float softcap) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + S::v);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + S::q);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + S::dout);
+  float* lse_s = reinterpret_cast<float*>(smem + S::lse);
+  float* delta_s = reinterpret_cast<float*>(smem + S::delta);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::bars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bkv = blockIdx.x;                    // b * KH + kv head
+  const int j0 = blockIdx.y * BKV;               // kv tile 0 (heaviest) first
+  const int G = H / KH;
+  const int bh0 = (bkv / KH) * H + (bkv % KH) * G;   // first head of the group
+  const int n_q = (Sq + BQ - 1) / BQ;
+  // Causal skip: q tiles whose last query sits before this kv tile.
+  int t_first = 0;
+  if (causal) {
+    const int need = j0 - q_offset - BQ + 1;     // q0 >= need
+    t_first = need <= 0 ? 0 : min(n_q, (need + BQ - 1) / BQ);
+  }
+  const int per_head = n_q - t_first;
+  const int n_it = G * per_head;
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1 + 32);   // TMA bytes + the warp
+      sm90::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: K and V once, then (Q, dO, lse, delta) per q tile ------
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x / 32 == CONSUMERS * 4) {       // the first warp
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        sm90::prefetch_map(&qmap);
+        sm90::prefetch_map(&domap);
+        sm90::mbar_expect_tx(kv_full, 2 * S::kv_bytes);
+        for (int half = 0; half < D / 64; ++half) {
+          sm90::tma_load_3d(Ks + half * BKV * 64, &kmap, kv_full, half * 64,
+                            j0, bkv);
+          sm90::tma_load_3d(Vs + half * BKV * 64, &vmap, kv_full, half * 64,
+                            j0, bkv);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES;
+        const int bh = bh0 + it / per_head;
+        const int q0 = (t_first + it % per_head) * BQ;
+        if (it >= STAGES) sm90::mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        if (lane == 0) {
+          sm90::mbar_expect_tx(&full[s], S::stage_tx);
+          for (int half = 0; half < D / 64; ++half) {
+            sm90::tma_load_3d(Qs + s * BQ * D + half * BQ * 64, &qmap,
+                              &full[s], half * 64, q0, bh);
+            sm90::tma_load_3d(dOs + s * BQ * D + half * BQ * 64, &domap,
+                              &full[s], half * 64, q0, bh);
+          }
+        }
+        // lse and delta rows (a row start need not be 16-byte aligned, so
+        // not TMA): the warp stores them, each lane arrives once after its
+        // stores. Rows past Sq get 0 and are masked out below.
+        for (int c = lane; c < BQ; c += 32) {
+          const bool ok = q0 + c < Sq;
+          const size_t at = size_t(bh) * Sq + q0 + c;
+          lse_s[s * BQ + c] = ok ? lse[at] : 0.f;
+          delta_s[s * BQ + c] = ok ? delta[at] : 0.f;
+        }
+        sm90::mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 kv rows each ---------------------------------------
+    sm90::regs_alloc<232>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int kloc = wg * 64 + (tid / 32) * 16 + lane / 4;   // in the tile
+    const int krow = j0 + kloc;                                  // i = 0
+    const int col2 = 2 * (lane % 4);
+
+    float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) {
+      acc_dk[r] = 0.f;
+      acc_dv[r] = 0.f;
+    }
+    sm90::mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % STAGES;
+      const int q0 = (t_first + it % per_head) * BQ;
+      sm90::mbar_wait(&full[s], (it / STAGES) & 1);
+      const bf16* qt = Qs + s * BQ * D;
+      const bf16* dot = dOs + s * BQ * D;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 kv rows by the tile's 64 queries.
+      float st[BQ / 2], dpt[BQ / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int half = kk / 4, step = (kk % 4) * 16;
+        const int a_off = half * BKV * 64 + wg * 64 * 64 + step;
+        const int b_off = half * BQ * 64 + step;
+        sm90::wgmma_ss<BQ, 0>(st, sm90::smem_desc(Ks + a_off, 16, 1024),
+                              sm90::smem_desc(qt + b_off, 16, 1024), kk > 0);
+        sm90::wgmma_ss<BQ, 0>(dpt, sm90::smem_desc(Vs + a_off, 16, 1024),
+                              sm90::smem_desc(dot + b_off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // p and dS in registers; masks only where a key can lie in a
+      // query's future or a row or column past the tensors.
+      const float* lrow = lse_s + s * BQ;
+      const float* drow = delta_s + s * BQ;
+      const bool edge = (causal && q_offset + q0 < j0 + wg * 64 + 63) ||
+                        q0 + BQ > Sq || j0 + wg * 64 + 64 > Skv;
+      const Rule rule{q0, krow, col2, Sq, Skv, causal, q_offset, sm_scale,
+                      has_softcap, softcap};
+      const float pmax = edge ? probs_and_grads<true, BQ / 2>(st, dpt, lrow,
+                                                               drow, rule)
+                              : probs_and_grads<false, BQ / 2>(st, dpt, lrow,
+                                                                drow, rule);
+      // bf16(p) feeds dV with a weight of ulp(p) |dO|, 2^-8 |dO| for
+      // p >= 1/2: each p >= 1/4 near a bf16 midpoint comes from its exact
+      // score, so it rounds as it does from exact scores and not by the
+      // tensor cores' accumulation error; dS follows it. The warp takes
+      // its lanes' terms one at a time, all 32 lanes summing each.
+#if FLASH_DKDV_EXACT_P
+      uint32_t large = 0, lanes = 0;
+      if (__any_sync(0xffffffffu, pmax >= 0.25f)) {
+#pragma unroll
+        for (int k = 0; k < BQ / 2; ++k)
+          large |= uint32_t(st[k] >= 0.25f && near_bf16_midpoint(st[k])) << k;
+        lanes = __ballot_sync(0xffffffffu, large != 0);
+      }
+      for (; lanes; lanes = __ballot_sync(0xffffffffu, large != 0)) {
+        const int src = __ffs(lanes) - 1;
+        const int r = __ffs(__shfl_sync(0xffffffffu, large, src)) - 1;
+        const int c = 8 * (r / 4) + 2 * (src % 4) + r % 2;
+        const int kr = kloc - lane / 4 + src / 4 + 8 * ((r / 2) % 2);
+        const float s_raw = exact_dot<D>(qt, Ks, c, kr, lane) * sm_scale;
+        if (lane == src) {
+          large &= large - 1;
+          const float x =
+              has_softcap ? tanhf(s_raw / softcap) * softcap : s_raw;
+          const float p = expf(x - lrow[c]);
+          float old = 0.f;
+#pragma unroll
+          for (int k = 0; k < BQ / 2; ++k) old = k == r ? st[k] : old;
+          const float ratio = p / old;
+#pragma unroll
+          for (int k = 0; k < BQ / 2; ++k) {
+            if (k == r) {
+              dpt[k] *= ratio;
+              st[k] = p;
+            }
+          }
+        }
+      }
+#else
+      (void)pmax;
+#endif
+
+      // dV += bf16(P^T) dO, dK += bf16(dS^T) Q: A from registers, dO and Q
+      // read MN-major (transpose bit).
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int k = 0; k < BQ / 16; ++k) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          pa[k][f] = sm90::pack_bf16(st[8 * k + 2 * f], st[8 * k + 2 * f + 1]);
+          da[k][f] =
+              sm90::pack_bf16(dpt[8 * k + 2 * f], dpt[8 * k + 2 * f + 1]);
+        }
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BQ / 16; ++k) {
+        sm90::wgmma_rs<D, 1>(
+            acc_dv, pa[k], sm90::smem_desc(dot + k * 16 * 64, BQ * 128, 1024),
+            1);
+        sm90::wgmma_rs<D, 1>(
+            acc_dk, da[k], sm90::smem_desc(qt + k * 16 * 64, BQ * 128, 1024),
+            1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc_dv);
+      sm90::fence_regs(acc_dk);
+#pragma unroll
+      for (int k = 0; k < BQ / 16; ++k) {
+        sm90::fence_regs(pa[k]);
+        sm90::fence_regs(da[k]);
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);   // stage s is free
+    }
+
+    // dK and dV, summed over the group in fp32, rounded once.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kpos = krow + 8 * i;
+      if (kpos < Skv) {
+        const size_t base = (size_t(bkv) * Skv + kpos) * D + col2;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * j) =
+              __floats2bfloat162_rn(acc_dk[4 * j + 2 * i],
+                                    acc_dk[4 * j + 2 * i + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * j) =
+              __floats2bfloat162_rn(acc_dv[4 * j + 2 * i],
+                                    acc_dv[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int B, int H, int KH, int Sq, int Skv,
+                   int causal, int q_offset, float sm_scale, int has_softcap,
+                   float softcap, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!sm90::map_tiles(&qmap, q, B * H, Sq, D, BQ) ||
+      !sm90::map_tiles(&domap, dout, B * H, Sq, D, BQ) ||
+      !sm90::map_tiles(&kmap, k, B * KH, Skv, D, BKV) ||
+      !sm90::map_tiles(&vmap, v, B * KH, Skv, D, BKV))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Smem<D>::total;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid(B * KH, (Skv + BKV - 1) / BKV);
+  flash_bwd_dkdv_kernel<D><<<grid, THREADS, smem, stream>>>(
+      qmap, kmap, vmap, domap, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, KH, Sq, Skv, causal, q_offset, sm_scale,
+      has_softcap, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace dkdv
+
 }  // namespace
 
 extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
@@ -431,11 +717,11 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KH, Sq,
+      return dkdv::launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KH, Sq,
                              Skv, causal, q_offset, sm_scale, has_softcap,
                              softcap, s);
     case 128:
-      return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KH,
+      return dkdv::launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KH,
                               Sq, Skv, causal, q_offset, sm_scale,
                               has_softcap, softcap, s);
     default:

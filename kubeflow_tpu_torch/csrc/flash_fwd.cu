@@ -4,253 +4,285 @@
 // `pl.pallas_call` of `_fwd_kernel`): online-softmax attention with GQA,
 // causal masking at a static `q_offset`, tanh logit softcap and `sm_scale`;
 // rows that attend to nothing (l == 0) are written as 0, and the per-row
-// log-sum-exp `lse = m + log(l)` is written beside the output.
+// log-sum-exp `lse = m + log(l)` is written beside the output. A row that
+// sees no key (q_offset + row < 0) has every logit at the finite NEG_INF:
+// it averages V over all Skv keys and its lse is NEG_INF, as in the JAX
+// package's plain attention (`multi_head_attention`) and `flash_ref`. (The
+// TPU kernel averages over the kv blocks its q block visits, which is all
+// of them when one block holds the whole length.)
 //
 // Bound on an H100 SXM: operations. A causal prefill at S = 2048, H = 32,
 // D = 128 does ~34 GFLOP of QK^T and PV against ~34 MB of Q/K/V/O traffic,
 // ~1000 FLOP per byte -- well above the card's ~295 FLOP/byte ridge, so the
 // tensor cores set the floor (~35 us at 989 bf16 TFLOP/s).
 //
-// What the design does about it: both products run on the tensor cores
-// (WMMA bf16 16x16x16 fragments, fp32 accumulation), kv tiles wholly above
-// the causal diagonal are never loaded, and the fp32 score tile, the bf16
-// probability tile and the fp32 output accumulator stay in shared memory,
-// so the only device-memory traffic is one read of Q and of each needed
-// K/V tile and one write of O and lse. This is the simple correct design:
-// one block per (batch, q-head, 64-row q tile), four warps each owning 16
-// query rows, a loop over 64-row kv tiles in place of the TPU's sequential
-// kv grid axis. Shared-memory rows are padded (16 bytes for bf16 tiles,
-// 16 bytes for fp32 tiles) so the WMMA fragment loads of 16 consecutive
-// rows spread over the banks instead of hitting one bank group, and each
-// warp keeps its Q fragments in registers for the whole kv loop. TMA, wgmma
-// and warp specialisation are later work.
+// Design (the warp-specialised shape of FlashAttention-3): one block per
+// (batch x q head, 128-row q tile), three warpgroups.
+//  - Producer (warpgroup 2, setmaxnreg 40; one of its threads): TMA loads
+//    the Q tile once and the 128-row K and V tiles into a 2-stage ring,
+//    each stage with a "full" mbarrier (TMA bytes) and an "empty" one (one
+//    arrival per consumer warp).
+//  - Consumers (warpgroups 0 and 1, setmaxnreg 232), 64 query rows each:
+//    S = Q K^T by wgmma SS (m64n128k16, both K-major); the online softmax
+//    on the accumulator fragment in registers (each thread holds two rows,
+//    a row's max reduced over the 4 threads of a quad, its sum kept per
+//    thread and reduced once at the end; exp2 with log2(e) folded into the
+//    scale); P rounded to bf16 in registers and fed as the A operand of
+//    wgmma RS for O += P V, V read MN-major (transpose bit). O stays in
+//    registers; masks are applied only on the diagonal and ragged tiles.
+//  - Shared memory per block: Q 32 KB + 2 x (K 32 KB + V 32 KB) at D = 128
+//    (160 KB, one block per SM); 16 + 2 x 32 = 80 KB at D = 64, with the
+//    same 128 x 128 tiles.
+//  - Schedule: the grid's slow axis walks q tiles from the last (which sees
+//    every kv tile under the causal mask) to the first, so the heaviest
+//    blocks start first and the light ones fill the tail.
+// Tiles wholly above the causal diagonal are never loaded, except by a
+// block that holds rows that see no key. The tile layouts and descriptors
+// are those of sm90.cuh.
 //
 // Layout: q [B, H, Sq, D], k/v [B, KH, Skv, D], o [B, H, Sq, D] (all bf16,
-// contiguous), lse [B, H, Sq] fp32. q-head h reads kv-head h / (H / KH).
-// Ragged edges (Sq or Skv not a multiple of 64) are masked in the kernel.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+// contiguous, 16-byte aligned), lse [B, H, Sq] fp32. q-head h reads kv-head
+// h / (H / KH). TMA reads each tensor as [planes, rows, D], so a ragged
+// tile is filled with zeros, not the next head's rows, and masked here.
 
 #include <cfloat>
 #include <cstdint>
 
-using namespace nvcuda;
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKV = 64;       // kv rows per tile
-constexpr int WARPS = 4;      // each warp owns BQ / WARPS = 16 query rows
-constexpr int THREADS = WARPS * 32;
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 128;        // query rows per block
+constexpr int BKV = 128;       // kv rows per tile
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr int CONSUMERS = 2;   // warpgroups of 64 query rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
 // The masked-logit value of kubeflow_tpu/ops/attention.py (NEG_INF): a
 // finite value, so a row masked in every column of a tile behaves exactly
 // as the TPU kernel's (exp(NEG_INF - NEG_INF) = 1).
 constexpr float NEG_INF = -0.7f * FLT_MAX;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// Row strides (elements) of the shared-memory tiles. Each keeps WMMA's
-// rules (a multiple of 8 bf16 / 4 floats; every fragment pointer 32-byte
-// aligned) and is padded by 16 bytes against bank conflicts.
 template <int D>
 struct Smem {
-  static constexpr int LDQ = D + 8;              // Q, K, V (bf16)
-  static constexpr int LDS = BKV + 4;            // scores (fp32)
-  static constexpr int LDP = BKV + 8;            // probabilities (bf16)
-  static constexpr int LDO = D + 4;              // accumulator (fp32)
-  static constexpr size_t q = size_t(BQ) * LDQ * sizeof(__nv_bfloat16);
-  static constexpr size_t kv = size_t(BKV) * LDQ * sizeof(__nv_bfloat16);
-  static constexpr size_t s = size_t(BQ) * LDS * sizeof(float);
-  static constexpr size_t p = size_t(BQ) * LDP * sizeof(__nv_bfloat16);
-  static constexpr size_t o = size_t(BQ) * LDO * sizeof(float);
-  static constexpr size_t stats = 3 * BQ * sizeof(float);
-  static constexpr size_t total = q + 2 * kv + s + p + o + stats;
+  static constexpr uint32_t q_bytes = BQ * D * 2;
+  static constexpr uint32_t kv_bytes = BKV * D * 2;
+  static constexpr size_t k = q_bytes;
+  static constexpr size_t v = k + STAGES * kv_bytes;
+  static constexpr size_t bars = v + STAGES * kv_bytes;
+  // q_full, full[STAGES], empty[STAGES]; 1 KB of slack to align the base.
+  static constexpr size_t total = bars + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// Copy `rows` x D bf16 rows (row-major, contiguous) into shared memory rows
-// of stride LDQ with 16-byte vectors; rows past `valid` are zero-filled.
 template <int D>
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                          int rows, int valid) {
-  constexpr int LDQ = Smem<D>::LDQ;
-  constexpr int VEC = 8;                         // bf16 per 16-byte vector
-  constexpr int PER_ROW = D / VEC;
-  const int total = rows * PER_ROW;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(src + size_t(r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int KH, int Sq, int Skv, int causal, int q_offset,
-                 float sm_scale, int has_softcap, float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 bf16* __restrict__ o, float* __restrict__ lse, int H, int KH,
+                 int Sq, int Skv, int causal, int q_offset, float sm_scale,
+                 int has_softcap, float softcap) {
   using S = Smem<D>;
-  constexpr int LDQ = S::LDQ, LDS = S::LDS, LDP = S::LDP, LDO = S::LDO;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + S::q);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + S::q + S::kv);
-  float* Sb = reinterpret_cast<float*>(smem + S::q + 2 * S::kv);
-  __nv_bfloat16* Pb =
-      reinterpret_cast<__nv_bfloat16*>(smem + S::q + 2 * S::kv + S::s);
-  float* Ob = reinterpret_cast<float*>(smem + S::q + 2 * S::kv + S::s + S::p);
-  float* m_s = reinterpret_cast<float*>(smem + S::q + 2 * S::kv + S::s +
-                                        S::p + S::o);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + S::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + S::v);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = warp * 16;                    // this warp's first row
+  const int bh = blockIdx.x;                     // b * H + h
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - int(blockIdx.y)) * BQ;   // heaviest first
+  const int bkv = (bh / H) * KH + (bh % H) / (H / KH);
+  const int n_kv = (Skv + BKV - 1) / BKV;
+  int n_tiles = n_kv;
+  if (causal) {
+    // Tiles starting past the last query row's position are in the future
+    // of every row of this block.
+    const int last_pos = q_offset + q0 + BQ - 1;
+    n_tiles = last_pos < 0 ? 0 : min(n_kv, last_pos / BKV + 1);
+    // A block whose first row sees no key sweeps every tile: such a row's
+    // logits are all the finite NEG_INF, so it averages V over all Skv
+    // keys, as the plain attention does; a row that sees keys gets exactly
+    // 0 from the tiles past its diagonal.
+    if (q_offset + q0 < 0) n_tiles = n_kv;
+  }
 
-  const __nv_bfloat16* qg = q + (size_t(b) * H + h) * Sq * D;
-  const __nv_bfloat16* kg = k + (size_t(b) * KH + kvh) * Skv * D;
-  const __nv_bfloat16* vg = v + (size_t(b) * KH + kvh) * Skv * D;
-
-  load_tile<D>(Qs, qg + size_t(q0) * D, BQ, Sq - q0);
-  for (int i = threadIdx.x; i < BQ * LDO; i += THREADS) Ob[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    m_s[i] = NEG_INF;
-    l_s[i] = 0.f;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  // This warp's 16 query rows, as D/16 fragments held for the whole loop.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      qf[D / 16];
+  if (wg == CONSUMERS) {
+    // ---- producer --------------------------------------------------------
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      sm90::prefetch_map(&qmap);
+      sm90::prefetch_map(&kmap);
+      sm90::prefetch_map(&vmap);
+      sm90::mbar_expect_tx(q_full, S::q_bytes);
+      for (int half = 0; half < D / 64; ++half)
+        sm90::tma_load_3d(Qs + half * BQ * 64, &qmap, q_full, half * 64, q0,
+                          bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) sm90::mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        sm90::mbar_expect_tx(&full[s], 2 * S::kv_bytes);
+        bf16* kd = Ks + s * BKV * D;
+        bf16* vd = Vs + s * BKV * D;
+        for (int half = 0; half < D / 64; ++half) {
+          sm90::tma_load_3d(kd + half * BKV * 64, &kmap, &full[s], half * 64,
+                            t * BKV, bkv);
+          sm90::tma_load_3d(vd + half * BKV * 64, &vmap, &full[s], half * 64,
+                            t * BKV, bkv);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ------------------------------------
+    sm90::regs_alloc<232>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int row = q0 + wg * 64 + (tid / 32) * 16 + lane / 4;   // i = 0
+    const int col2 = 2 * (lane % 4);
+    // Logits in log2 units: x2 = s * sm_scale * log2(e) (softcap: the
+    // capped natural logit times log2(e)).
+    const float scale2 = has_softcap ? sm_scale / softcap : sm_scale * LOG2E;
+    const float cap2 = softcap * LOG2E;
+
+    float acc[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], Qs + row0 * LDQ + kk * 16, LDQ);
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};
 
-  // Causal skip: tiles starting past the last query row's position are in
-  // the future of every row of this block (and so are all later tiles).
-  const int last_pos = q_offset + q0 + BQ - 1;
-  const int n_tiles = (Skv + BKV - 1) / BKV;
+    sm90::mbar_wait(q_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % STAGES;
+      const int j0 = t * BKV;
+      sm90::mbar_wait(&full[s], (t / STAGES) & 1);
+      const bf16* kt = Ks + s * BKV * D;
+      const bf16* vt = Vs + s * BKV * D;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int j0 = t * BKV;
-    if (causal && j0 > last_pos) break;
-    __syncthreads();                             // previous tile's readers done
-    load_tile<D>(Ks, kg + size_t(j0) * D, BKV, Skv - j0);
-    load_tile<D>(Vs, vg + size_t(j0) * D, BKV, Skv - j0);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows (4 fragments across the 64 columns).
-#pragma unroll
-    for (int jt = 0; jt < BKV / 16; ++jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+      // S = Q K^T: this warpgroup's 64 rows against the tile's 128 keys.
+      float sc[BKV / 2];
+      sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, Ks + jt * 16 * LDQ + kk * 16, LDQ);
-        wmma::mma_sync(acc, qf[kk], fb, acc);
+        const int half = kk / 4, step = (kk % 4) * 16;
+        const uint64_t da = sm90::smem_desc(
+            Qs + half * BQ * 64 + wg * 64 * 64 + step, 16, 1024);
+        const uint64_t db =
+            sm90::smem_desc(kt + half * BKV * 64 + step, 16, 1024);
+        sm90::wgmma_ss<BKV, 0>(sc, da, db, kk > 0);
       }
-      wmma::store_matrix_sync(Sb + row0 * LDS + jt * 16, acc, LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
 
-    // Online softmax over this warp's rows; each lane owns two columns.
-    for (int r = row0; r < row0 + 16; ++r) {
-      const int qpos = q_offset + q0 + r;
-      float s[2];
+      if (has_softcap) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = lane + 32 * c;
-        const int kpos = j0 + col;
-        float x = Sb[r * LDS + col] * sm_scale;
-        if (has_softcap) x = tanhf(x / softcap) * softcap;
-        if (causal && kpos > qpos) x = NEG_INF;
-        if (kpos >= Skv) x = -INFINITY;          // ragged edge: no weight
-        s[c] = x;
+        for (int r = 0; r < BKV / 2; ++r) sc[r] = tanhf(sc[r] * scale2) * cap2;
+      } else {
+#pragma unroll
+        for (int r = 0; r < BKV / 2; ++r) sc[r] *= scale2;
       }
-      float mx = fmaxf(s[0], s[1]);
+      // Masks only where a column can lie in a row's future or past Skv.
+      const bool diag = causal && j0 + BKV - 1 > q_offset + q0 + wg * 64;
+      if (diag || j0 + BKV > Skv) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = expf(s[0] - m_new);
-      const float p1 = expf(s[1] - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      Pb[r * LDP + lane] = __float2bfloat16(p0);
-      Pb[r * LDP + lane + 32] = __float2bfloat16(p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_new;
+        for (int r = 0; r < BKV / 2; ++r) {
+          const int kpos = j0 + 8 * (r / 4) + col2 + (r % 2);
+          const int qpos = q_offset + row + 8 * ((r / 2) % 2);
+          if (causal && kpos > qpos) sc[r] = NEG_INF;
+          if (kpos >= Skv) sc[r] = -INFINITY;    // ragged edge: no weight
+        }
       }
-      __syncwarp();
+
+      // Online softmax on the fragment: row i of this thread is registers
+      // 4j + 2i + {0, 1}; the quad (lane ^ 1, lane ^ 2) shares the row.
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        alpha[i] = exp2f(m[i] - mx);
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(sc[4 * j + 2 * i + e] - mx);
+            sc[4 * j + 2 * i + e] = p;
+            sum += p;
+          }
+        }
+        l[i] = l[i] * alpha[i] + sum;
+      }
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) acc[r] *= alpha[(r / 2) % 2];
+
+      // O += P V: P as bf16 A fragments straight from the score registers.
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          pa[k][f] = sm90::pack_bf16(sc[8 * k + 2 * f], sc[8 * k + 2 * f + 1]);
+      }
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) {
+        const uint64_t db =
+            sm90::smem_desc(vt + k * 16 * 64, BKV * 128, 1024);
+        sm90::wgmma_rs<D, 1>(acc, pa[k], db, 1);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+#pragma unroll
+      for (int k = 0; k < BKV / 16; ++k) sm90::fence_regs(pa[k]);
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);   // stage s is free
     }
 
-    // Rescale this warp's accumulator rows, then O += P V on the tensor cores.
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int r = row0 + i / D;
-      Ob[r * LDO + i % D] *= a_s[r];
-    }
-    __syncwarp();
+    // o = O / l (l == 0 -> 0), lse = m + log(l), m back in natural units.
 #pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Ob + row0 * LDO + dt * 16, LDO,
-                             wmma::mem_row_major);
+    for (int i = 0; i < 2; ++i) {
+      float sum = l[i];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float safe = sum == 0.f ? 1.f : sum;
+      const int qi = row + 8 * i;
+      if (qi < Sq) {
+        bf16* orow = o + (size_t(bh) * Sq + qi) * D + col2;
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pb + row0 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, Vs + kk * 16 * LDQ + dt * 16, LDQ);
-        wmma::mma_sync(acc, fa, fb, acc);
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i] / safe,
+                                    acc[4 * j + 2 * i + 1] / safe);
+        }
+        if (lane % 4 == 0) {
+          const float m_nat = m[i] == NEG_INF ? NEG_INF : m[i] * LN2;
+          lse[size_t(bh) * Sq + qi] = m_nat + logf(safe);
+        }
       }
-      wmma::store_matrix_sync(Ob + row0 * LDO + dt * 16, acc, LDO,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  // Finalize this warp's rows: o = acc / l (l == 0 -> 0), lse = m + log(l).
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int r = row0 + i / D;
-    const int c = i % D;
-    const int qi = q0 + r;
-    if (qi < Sq) {
-      const float l = l_s[r];
-      const float safe = (l == 0.f) ? 1.f : l;
-      o[((size_t(b) * H + h) * Sq + qi) * D + c] =
-          __float2bfloat16(Ob[r * LDO + c] / safe);
-    }
-  }
-  if (lane < 16) {
-    const int r = row0 + lane;
-    const int qi = q0 + r;
-    if (qi < Sq) {
-      const float l = l_s[r];
-      const float safe = (l == 0.f) ? 1.f : l;
-      lse[(size_t(b) * H + h) * Sq + qi] = m_s[r] + logf(safe);
     }
   }
 }
@@ -260,6 +292,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int H, int KH, int Sq, int Skv,
                    int causal, int q_offset, float sm_scale, int has_softcap,
                    float softcap, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!sm90::map_tiles(&qmap, q, B * H, Sq, D, BQ) ||
+      !sm90::map_tiles(&kmap, k, B * KH, Skv, D, BKV) ||
+      !sm90::map_tiles(&vmap, v, B * KH, Skv, D, BKV))
+    return cudaErrorInvalidValue;
   constexpr size_t smem = Smem<D>::total;
   static bool configured = false;
   if (!configured) {
@@ -269,13 +306,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, KH, Sq, Skv, causal, q_offset, sm_scale,
-      has_softcap, softcap);
+      qmap, kmap, vmap, static_cast<bf16*>(o), static_cast<float*>(lse), H,
+      KH, Sq, Skv, causal, q_offset, sm_scale, has_softcap, softcap);
   return cudaGetLastError();
 }
 

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with
 ``nvcc`` for ``sm_90a`` into ``csrc/build/lib<name>-<hash>.so`` at first use
-(the build directory is git-ignored). The library is loaded with
-``ctypes``; pointers and the CUDA stream cross as ``c_void_p``. Nothing
-here runs when the module is imported: building needs ``nvcc`` and a card,
-which only the machine that runs the kernels has.
+(the build directory is git-ignored); the sources share the headers in
+``csrc/*.cuh`` (``sm90.cuh``: TMA, mbarriers, wgmma). The library is
+loaded with ``ctypes``; pointers and the CUDA stream cross as
+``c_void_p``. Nothing here runs when the module is imported: building needs
+``nvcc`` and a card, which only the machine that runs the kernels has.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
 them — the way a cold process (``chip_smoke.py``) pays the compile once.
@@ -31,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "fused_xent")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
 #: ptxas resource report (registers, shared memory, spills) per source,
 #: from the build that produced the loaded library.
 PTXAS: dict[str, str] = {}
@@ -49,20 +50,32 @@ def _nvcc() -> str:
         "that runs them (CUDA toolkit with nvcc on PATH or /usr/local/cuda)")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
 
 
-def _start(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """The library path of ``csrc/<name>.cu``: its tag hashes the source,
+    every header under ``csrc/`` (a source may include any of them) and the
+    flags with any ``defines``, so an edit to any of them builds a new
+    library."""
+    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        tag.update(header.name.encode() + b"\0" + header.read_bytes())
+    tag.update(" ".join(_flags(defines)).encode())
+    return BUILD_DIR / f"lib{name}-{tag.hexdigest()[:12]}.so"
+
+
+def _start(name: str, defines: tuple[str, ...] = ()
+           ) -> Optional[tuple[subprocess.Popen, Path, Path]]:
     """Launch nvcc for ``name`` unless its library is already built."""
-    out = _target(name)
+    out = _target(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -72,7 +85,7 @@ def _finish(name: str, job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     PTXAS[name] = log
     os.replace(tmp, out)           # atomic: a reader never sees half a library
 
@@ -88,19 +101,22 @@ def build_all() -> dict[str, Path]:
     return {n: _target(n) for n in SOURCES}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it on first use."""
-    lib = _libs.get(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, building it on first use.
+    ``defines`` (``NAME=VALUE``, passed as ``-D``) build a variant in a
+    library of its own; the port's wrappers load none."""
+    key = (name, *defines)
+    lib = _libs.get(key)
     if lib is not None:
         return lib
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            job = _start(name)
+            job = _start(name, defines)
             if job is not None:
-                _finish(name, job)
-            lib = ctypes.CDLL(str(_target(name)))
-            _libs[name] = lib
+                _finish(" ".join(key), job)
+            lib = ctypes.CDLL(str(_target(name, defines)))
+            _libs[key] = lib
     return lib
 
 

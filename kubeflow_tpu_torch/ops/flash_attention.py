@@ -6,13 +6,16 @@
 The kernels are CUDA C++ bound through ``ctypes``: ``csrc/flash_fwd.cu``
 (o and the per-row log-sum-exp) and ``csrc/flash_bwd.cu`` (dK/dV summed
 over each GQA group, and dQ); their notes there give the bounds and the
-designs. ``FlashAttentionFn`` is the ``torch.autograd.Function`` that ties
-them together as the JAX package's custom VJP does: the forward saves
-``(q, k, v, o, lse)``, the backward forms ``delta = rowsum(dO·O)`` in fp32
+designs. The forward and dK/dV kernels load their tiles with TMA, so the
+tensors in ``TMA_INPUTS`` must start on a 16-byte boundary.
+``FlashAttentionFn`` is the ``torch.autograd.Function`` that ties them
+together as the JAX package's custom VJP does: the forward saves ``(q, k,
+v, o, lse)``, the backward forms ``delta = rowsum(dO·O)`` in fp32
 (outside the kernels, as the JAX package does) and runs the two backward
-kernels. This module keeps the JAX function's public layout — ``[B, S, H,
-D]`` in and out, swapped to ``[B, H, S, D]`` for the kernels — and
-``flash_attention`` also returns ``lse [B, H, Sq]``.
+kernels. This module
+keeps the JAX function's public layout — ``[B, S, H, D]`` in and out,
+swapped to ``[B, H, S, D]`` for the kernels — and ``flash_attention``
+also returns ``lse [B, H, Sq]``.
 
 Every wrapper takes its plain version (``flash_ref``, ``flash_bwd_ref``)
 only for CPU tensors; on CUDA tensors it launches its kernel (adding one to
@@ -47,10 +50,10 @@ def _flash_fwd_bf16():
 
 
 @functools.lru_cache(maxsize=None)
-def _flash_bwd_bf16(name: str):
+def _flash_bwd_bf16(name: str, defines: tuple[str, ...] = ()):
     """``flash_bwd_dkdv_bf16`` (8 pointers) or ``flash_bwd_dq_bf16`` (7),
-    built and bound on first use."""
-    fn = getattr(_build.load("flash_bwd"), name)
+    built (with ``defines``, a variant) and bound on first use."""
+    fn = getattr(_build.load("flash_bwd", defines), name)
     fn.restype = ctypes.c_int
     n_ptr = 8 if name == "flash_bwd_dkdv_bf16" else 7
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
@@ -151,6 +154,27 @@ def _check(name: str, tensors: dict, kinds: dict) -> None:
                              f"{kinds[n]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} is not contiguous")
+    _check_tma(name, tensors)
+
+
+#: The inputs each kernel reads through TMA tensor maps. The dK/dV kernel
+#: copies lse and delta rows with plain loads, and dQ uses no TMA.
+TMA_INPUTS = {"flash_attention": ("q", "k", "v"),
+              "flash_bwd_dkdv": ("q", "k", "v", "do"),
+              "flash_bwd_dq": ()}
+
+
+def _check_tma(name: str, tensors: dict) -> None:
+    """A TMA tensor map's global address must be 16-byte aligned: check
+    the inputs of ``TMA_INPUTS[name]``. (Their row strides, D * 2 bytes with
+    D in ``SUPPORTED_HEAD_DIMS``, and plane strides are multiples of 16
+    bytes once the tensor is contiguous.)"""
+    for n in TMA_INPUTS[name]:
+        t = tensors[n]
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} starts {t.data_ptr() % 16} bytes "
+                             "past a 16-byte boundary; the kernel's TMA "
+                             "loads need 16-byte aligned tensors")
 
 
 def _check_shapes(name: str, q, k, v) -> None:
@@ -186,9 +210,11 @@ def _launch(qt, kt, vt, *, causal: bool, sm_scale: float,
 
 
 def _launch_bwd(which: str, q, k, v, do, lse, delta, *, causal: bool,
-                sm_scale: float, softcap: Optional[float], q_offset: int):
+                sm_scale: float, softcap: Optional[float], q_offset: int,
+                defines: tuple[str, ...] = ()):
     """Launch ``flash_bwd_dkdv_bf16`` (returns (dk, dv)) or
-    ``flash_bwd_dq_bf16`` (returns dq) on the kernel layout."""
+    ``flash_bwd_dq_bf16`` (returns dq) on the kernel layout; ``defines``
+    select a variant build of ``csrc/flash_bwd.cu`` (to measure one)."""
     b, h, sq, d = q.shape
     _, kh, skv, _ = k.shape
     bf, f32 = torch.bfloat16, torch.float32
@@ -207,7 +233,7 @@ def _launch_bwd(which: str, q, k, v, do, lse, delta, *, causal: bool,
     else:
         outs = (torch.empty_like(q),)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _flash_bwd_bf16(f"{name}_bf16")(
+    err = _flash_bwd_bf16(f"{name}_bf16", defines)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
         b, h, kh, sq, skv, d, int(causal), q_offset, float(sm_scale),

@@ -140,3 +140,80 @@ def test_kernel_launch_refuses_what_it_does_not_take():
     k3 = torch.zeros((1, 3, 8, 64), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple"):
         F._check_shapes("t", q, k3, k3)
+
+
+# The kernels' tile edges (128-row tiles; 64-row q tiles in dK/dV): lengths
+# 127 and 129, a diagonal that crosses a tile off its boundary (Sq = 200,
+# Skv = 328, q_offset = 128) and a negative q_offset (rows that see no
+# key), head_dim 64 and 128. (kh, sq, skv, d, q_offset, softcap, JAX
+# (block_q, block_kv): blocks that divide the lengths where its
+# _fit_block refuses them).
+EDGE_CASES = [
+    (2, 127, 127, 64, 0, None, (None, None)),
+    (2, 129, 129, 128, 0, None, (129, 129)),
+    (4, 129, 129, 64, 0, 5.0, (43, 43)),
+    (2, 200, 328, 128, 128, None, (100, 82)),
+    (2, 127, 127, 128, -5, None, (None, None)),
+]
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("kh,sq,skv,d,off,cap,blocks", EDGE_CASES)
+def test_flash_bwd_ref_matches_the_jax_vjp_at_kernel_edges(
+        kh, sq, skv, d, off, cap, blocks, impl):
+    rng = np.random.default_rng(sq + skv + d + off)
+    q, do = (rng.standard_normal((1, 4, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, kh, skv, d)).astype(np.float32)
+            for _ in range(2))
+    scale = d ** -0.5
+    bq, bkv = blocks
+    o, vjp = jax.vjp(
+        lambda q, k, v: jflash._flash(q, k, v, True, scale, cap, off, bq,
+                                      bkv, True, impl), q, k, v)
+    _, lse = jflash._flash_fwd(q, k, v, causal=True, sm_scale=scale,
+                               softcap=cap, q_offset=off, block_q=bq,
+                               block_kv=bkv, interpret=True)
+    want = [np.array(g) for g in vjp(jnp.asarray(do))]
+    kw = dict(causal=True, sm_scale=scale, softcap=cap, q_offset=off)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    to, tlse = F.flash_ref(tq, tk, tv, **kw)
+    _assert_close(to.numpy(), np.array(o), "o")
+    _assert_close(tlse.numpy(), np.array(lse), "lse")
+    got = F.flash_bwd_ref(tq, tk, tv, to, tlse, tdo, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape
+        _assert_close(g.numpy(), w, name)
+    if off < 0:
+        assert torch.count_nonzero(got[0][:, :, :-off]) == 0
+
+
+def test_tma_alignment_is_checked():
+    """The forward and dK/dV kernels read q, k, v (and dO) through TMA
+    tensor maps: such a tensor that does not start on a 16-byte boundary
+    is refused before any launch; an aligned one passes."""
+    base = torch.zeros(4 * 8 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:4 * 8 * 64].view(1, 4, 8, 64)
+    shifted = base[1:1 + 4 * 8 * 64].view(1, 4, 8, 64)     # 2 bytes in
+    qkv = {"q": aligned, "k": aligned, "v": aligned}
+    F._check_tma("flash_attention", qkv)
+    F._check_tma("flash_bwd_dkdv", {**qkv, "do": aligned})
+    for name, bad in (("flash_attention", "k"), ("flash_bwd_dkdv", "do")):
+        with pytest.raises(ValueError, match="16-byte"):
+            F._check_tma(name, {**qkv, "do": aligned, bad: shifted})
+
+
+def test_misaligned_lse_delta_and_dq_inputs_are_accepted():
+    """lse and delta are copied with plain loads (their rows start
+    anywhere) and the dQ kernel uses no TMA: none of these is refused for
+    its alignment."""
+    base = torch.zeros(4 * 8 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:4 * 8 * 64].view(1, 4, 8, 64)
+    shifted = base[1:1 + 4 * 8 * 64].view(1, 4, 8, 64)
+    rows = torch.zeros(4 * 8 + 1)[1:].view(1, 4, 8)         # 4 bytes in
+    assert rows.data_ptr() % 16
+    F._check_tma("flash_bwd_dkdv", {"q": aligned, "k": aligned,
+                                    "v": aligned, "do": aligned,
+                                    "lse": rows, "delta": rows})
+    F._check_tma("flash_bwd_dq", {"q": shifted, "k": shifted, "v": shifted,
+                                  "do": shifted, "lse": rows, "delta": rows})

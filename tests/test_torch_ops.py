@@ -124,12 +124,26 @@ FLASH_CASES = {
     "q_offset": (1, 4, 1, 16, 48, 16, True, 32, None),
     "softcap": (1, 4, 2, 32, 32, 16, True, 0, 5.0),
     "full": (1, 2, 2, 16, 32, 8, False, 0, None),
+    # The kernels' tile edges (128-row q and kv tiles), head_dim 64 and 128.
+    "len127_d64": (1, 4, 2, 127, 127, 64, True, 0, None),
+    "len129_d128": (1, 4, 2, 129, 129, 128, True, 0, None),
+    "len129_d64_softcap": (1, 4, 4, 129, 129, 64, True, 0, 5.0),
+    "diag_off128_d128": (1, 4, 2, 200, 328, 128, True, 128, None),
+    "neg_offset_d128": (1, 4, 2, 127, 127, 128, True, -5, None),
+}
+# JAX (block_q, block_kv) where its _fit_block refuses the length (no
+# 128-aligned divisor): blocks that divide it; (None, None) otherwise.
+FLASH_BLOCKS = {
+    "len129_d128": (129, 129),
+    "len129_d64_softcap": (43, 43),
+    "diag_off128_d128": (100, 82),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_plain_matches_jax(case):
     b, h, kh, sq, skv, d, causal, off, cap = FLASH_CASES[case]
+    bq, bkv = FLASH_BLOCKS.get(case, (None, None))
     r = _rng(6)
     q = r.standard_normal((b, sq, h, d)).astype(np.float32)
     k = r.standard_normal((b, skv, kh, d)).astype(np.float32)
@@ -138,7 +152,7 @@ def test_flash_plain_matches_jax(case):
     wo, wl = jflash._flash_fwd(
         jnp.asarray(q.transpose(swap)), jnp.asarray(k.transpose(swap)),
         jnp.asarray(v.transpose(swap)), causal=causal, sm_scale=d ** -0.5,
-        softcap=cap, q_offset=off, block_q=None, block_kv=None,
+        softcap=cap, q_offset=off, block_q=bq, block_kv=bkv,
         interpret=True)
     o, lse = flash_attention(_t(q), _t(k), _t(v), causal=causal, q_offset=off,
                              logits_softcap=cap)
@@ -148,8 +162,33 @@ def test_flash_plain_matches_jax(case):
     # The JAX public function returns o only, in the [B,S,H,D] layout.
     pub = jflash.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), causal=causal, q_offset=off,
-                                 logits_softcap=cap, interpret=True)
+                                 logits_softcap=cap, block_q=bq,
+                                 block_kv=bkv, interpret=True)
     assert _maxdiff(o, pub) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("q_offset", [-5, -70, -200])
+def test_flash_rows_that_see_no_key_average_every_value(q_offset):
+    """A row with no visible key (q_offset + row < 0) has every logit at
+    the finite NEG_INF: it averages V over all Skv keys, with lse NEG_INF,
+    as the JAX package's plain attention does; at -200 the first 128-row
+    tile of the CUDA kernel sees nothing at all."""
+    r = _rng(8)
+    sq = skv = 300
+    q = r.standard_normal((1, sq, 4, 16)).astype(np.float32)
+    k = r.standard_normal((1, skv, 2, 16)).astype(np.float32)
+    v = r.standard_normal((1, skv, 2, 16)).astype(np.float32)
+    o, lse = flash_attention(_t(q), _t(k), _t(v), causal=True,
+                             q_offset=q_offset)
+    want = jattn.multi_head_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), q_offset=q_offset)
+    assert _maxdiff(o, want) <= ATTN_TOL
+    blind = -q_offset
+    mean_v = np.repeat(v.mean(axis=1, keepdims=True), 2, axis=2)
+    assert _maxdiff(o[:, :blind], np.broadcast_to(
+        mean_v, (1, blind, 4, 16))) <= ATTN_TOL
+    assert torch.all(lse[:, :, :blind] == tattn.NEG_INF)
+    assert torch.all(lse[:, :, blind:] > tattn.NEG_INF / 2)
 
 
 @pytest.mark.parametrize("q_offset,softcap,masked", [
