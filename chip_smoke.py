@@ -6,30 +6,36 @@ CUDA card and exits nonzero — printing no result — without one, or when the
 package is not beside it. ``python3 chip_smoke.py --flash-only`` runs
 phases 1 and 2 and the flash kernels' part of phase 3 (their rows and edge
 cases; with ``CUDA_LAUNCH_BLOCKING=1`` a fault names its launch) and
-prints no result line. Phases, each a hard failure:
+prints no result line; ``--paged-only`` does the same for the paged-decode
+kernels. Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every hand-written kernel built from the checkout's sources (one
    ``nvcc`` per CUDA source, the Triton kernels compiled meanwhile), each
    kernel's registers and spills; a spill in the wgmma kernels (flash
-   forward, dK/dV) fails;
+   forward, dK/dV, dQ) fails;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the Llama-3-8B serving and training shapes, with its time, the plain
    version's, one library call's where there is one, and the least time
    the card could take (the larger of bytes over 3.35 TB/s and operations
    over the peak rate of their type, H100 SXM); the fused CE's forward and
    backward beside the chunked CE's; the flash forward timed on the
-   kernel layout, and the dK/dV kernel called twice must give the same
-   bits; both backward kernels on inputs with an attention sink (every
-   query puts p >= 1/2 on key 0), dK/dV timed there and on the random
-   inputs with and without its exact-score recompute. Then each kernel
+   kernel layout, and the dK/dV and dQ kernels each called twice must
+   give the same bits; both backward kernels on inputs with an attention
+   sink (every query puts p >= 1/2 on key 0), dQ timed there and on the
+   random inputs, dK/dV too, with and without its exact-score recompute;
+   paged decode with the wrapper's split count at 8 slots (1 and 32
+   printed beside), and its combine kernel alone. Then each kernel
    against its plain version at edge shapes (ragged lengths around the
    flash tiles, a diagonal off a tile boundary, q_offset, rows that see no
    key, head_dim 64, one to eight query heads per kv head, non-causal, one
    query row, odd widths, strided inputs; for
    paged decode: length 0, page boundaries, unmapped and poisoned pages, a
    dead row, one and eight query heads per kv head, pages of 16, int8 scale
-   outliers; for the fused CE: T of 1, 300 and 4096, vocabularies of 1000,
+   outliers, two calls bit-identical, and named split counts (1 to mpp,
+   splits past a slot's length, a split all unmapped between counted ones,
+   mpp = 13 under counts that do not divide it); for the fused CE: T of 1,
+   300 and 4096, vocabularies of 1000,
    128256 and 256000, softcap, argmax ties inside a tile and across a
    vocab-range boundary, targets 0, V-1 and out of vocab, masked rows that
    must get exactly zero d_hidden; for the norm and SwiGLU backward:
@@ -237,7 +243,8 @@ def phase_build() -> None:
 
 
 #: Kernels whose products run on wgmma with register accumulators.
-WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel")
+WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel")
 
 
 def report_ptxas(logs: dict) -> None:
@@ -252,7 +259,8 @@ def report_ptxas(logs: dict) -> None:
                     "0 bytes spill stores, 0 bytes spill loads" not in spills:
                 fail(f"{name}: {kernel} spills ({spills})")
         for ln in log.splitlines():
-            if "warning" in ln.lower():
+            # Warnings, and notes that wgmma instructions were serialized.
+            if "warning" in ln.lower() or "performance" in ln.lower():
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
 
 
@@ -486,9 +494,11 @@ def check_bwd(args, kw, name: str) -> tuple[dict, float, tuple]:
 
 def flash_bwd_rows() -> list[dict]:
     """Sites 7 and 8: the dK/dV and dQ kernels against the plain backward
-    at the training shape (B=2, H=32, KH=8, S=2048, D=128, causal). The
-    plain version and the library call (the backward of SDPA) each compute
-    dq, dk and dv together; their times stand in both rows."""
+    at the training shape (B=2, H=32, KH=8, S=2048, D=128, causal), each
+    called twice on the same inputs for the same bits, then on inputs with
+    an attention sink, where both are timed too. The plain version and the
+    library call (the backward of SDPA) each compute dq, dk and dv
+    together; their times stand in both rows."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import flash_attention as FA
@@ -496,12 +506,16 @@ def flash_bwd_rows() -> list[dict]:
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     B, H, KH, S, D = 2, 32, 8, 2048, 128
     args, kw = bwd_case(gen, B, H, KH, S, S, D)
-    errs, rel, (_, dk, dv) = check_bwd(args, kw, "flash_bwd S=2048")
+    errs, rel, (dq, dk, dv) = check_bwd(args, kw, "flash_bwd S=2048")
     dk2, dv2 = FA.flash_bwd_dkdv(*args, **kw)
     if not (torch.equal(dk2, dk) and torch.equal(dv2, dv)):
         fail("flash_bwd_dkdv: two calls on the same inputs differ (the GQA "
              "sum must not depend on timing)")
-    print("kernel flash_bwd_dkdv: a second call is bit-identical", flush=True)
+    if not torch.equal(FA.flash_bwd_dq(*args, **kw), dq):
+        fail("flash_bwd_dq: two calls on the same inputs differ (the kv sum "
+             "must not depend on timing)")
+    print("kernels flash_bwd_dkdv and flash_bwd_dq: a second call is "
+          "bit-identical", flush=True)
     print(f"kernel flash_bwd B={B} H={H} KH={KH} S={S} D={D} causal: "
           f"max_abs_err dq {errs['dq']:.3e}, dk {errs['dk']:.3e}, dv "
           f"{errs['dv']:.3e}, worst rel L2 {rel:.3e} (tolerance "
@@ -534,6 +548,11 @@ def flash_bwd_rows() -> list[dict]:
           f"{times['peaked', 'without']:.4f}; random inputs: with "
           f"{times['random', 'with']:.4f}, without "
           f"{times['random', 'without']:.4f}", flush=True)
+    dq_ms = {data: device_ms(lambda a=a: FA.flash_bwd_dq(*a, **kw))
+             for data, a in (("peaked", pk_args), ("random", args))}
+    print(f"kernel flash_bwd_dq: max_abs_err peaked {pk_errs['dq']:.3e}; ms "
+          f"peaked {dq_ms['peaked']:.4f}, random {dq_ms['random']:.4f}",
+          flush=True)
     plain_ms = device_ms(lambda: FA._bwd_ref(*args, **kw), iters=2, reps=3)
     # The library yardstick: SDPA's backward on the same tensors.
     q, k, v, do = (t.detach().clone().requires_grad_(i < 3)
@@ -557,18 +576,17 @@ def flash_bwd_rows() -> list[dict]:
     in_bytes = 2 * (B * H * S * D * 2) + 2 * (B * KH * S * D * 2) \
         + 2 * (B * H * S * 4)
     rows = []
-    for name, n_products, out_bytes, fn, site, err in (
+    for name, n_products, out_bytes, ms, site, err in (
             ("flash_bwd_dkdv", 4, 2 * B * KH * S * D * 2,
-             lambda: FA.flash_bwd_dkdv(*args, **kw), 331,
-             max(errs["dk"], errs["dv"])),
-            ("flash_bwd_dq", 3, B * H * S * D * 2,
-             lambda: FA.flash_bwd_dq(*args, **kw), 372, errs["dq"])):
+             times["random", "with"], 331, max(errs["dk"], errs["dv"])),
+            ("flash_bwd_dq", 3, B * H * S * D * 2, dq_ms["random"], 372,
+             errs["dq"])):
         b = bound(in_bytes + out_bytes, n_products * product, BF16_FLOPS)
         rows.append(dict(
             name=name, route="cuda",
             source="kubeflow_tpu_torch/csrc/flash_bwd.cu",
             replaces=f"kubeflow_tpu/ops/flash_attention.py:{site}",
-            max_abs_err=err, ms=device_ms(fn), plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b[0], bound_by=b[1], library_ms=library_ms))
     return rows
 
@@ -988,48 +1006,88 @@ def paged_flops(case) -> float:
 
 
 def paged_kernel_rows() -> list[dict]:
-    """Site 12: the paged-decode kernel against its plain version at the
-    serving shape (8 slots, 32 query over 8 kv heads of 128, pages of
-    128), bf16 and int8 pools. The recorded time is at length 2047, whose
-    ~67 MB of bf16 K/V exceeds the 50 MB L2; length 1024 (~34 MB, served
-    from L2 on back-to-back replays) is printed beside it."""
-    from kubeflow_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_ref,
-    )
+    """Site 12: the paged-decode kernels (the split kernel and the combine)
+    against their plain version at the serving shape (8 slots, 32 query
+    over 8 kv heads of 128, pages of 128, 16 page slots), bf16 and int8
+    pools, with the split count the wrapper chose. The recorded time is at
+    length 2047, whose ~67 MB of bf16 K/V exceeds the 50 MB L2; length 1024
+    (~34 MB, served from L2 on back-to-back replays) is printed beside it,
+    and so are 1 and 32 slots at length 2047 and the recorded case at
+    named split counts. Then the combine kernel alone against
+    ``paged_decode_combine_ref`` on plain partials of the recorded
+    case."""
+    from kubeflow_tpu_torch.ops import paged_attention as PA
 
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
-    B, H, KH, D, page = 8, 32, 8, 128, 128
-    rows = []
+    H, KH, D, page, mpp = 32, 8, 128, 128, 16
+    rows, recorded = [], {}
     for name, quant in (("paged_decode", False), ("paged_decode_int8", True)):
+        slots = PA._slots(0, D, page, H // KH, quant)
+        print(f"kernel {name}: the card holds {slots} split blocks at once",
+              flush=True)
         err, timed = 0.0, None
-        for length in (2047, 1024):
+        for B, length in ((8, 2047), (8, 1024), (1, 2047), (32, 2047)):
             case = paged_case(gen, B, H, KH, D, page, [length] * B,
-                              quant=quant, mpp=16)
-            e = within(paged_call(paged_decode_attention, case),
-                       paged_call(paged_decode_ref, case),
-                       f"{name} length {length}")
+                              quant=quant, mpp=mpp)
+            e = within(paged_call(PA.paged_decode_attention, case),
+                       paged_call(PA.paged_decode_ref, case),
+                       f"{name} B={B} length {length}")
             err = max(err, e)
-            ms = device_ms(lambda: paged_call(paged_decode_attention, case))
+            ms = device_ms(lambda: paged_call(PA.paged_decode_attention,
+                                              case))
             b = bound(paged_bytes(case), paged_flops(case), FP32_FLOPS)
             print(f"kernel {name} B={B} H={H} KH={KH} D={D} page={page} "
-                  f"length={length}: max_abs_err {e:.3e}, ms {ms:.4f}, "
-                  f"bound_ms {b[0]:.4f} ({b[1]}, "
+                  f"length={length} splits "
+                  f"{PA._num_splits(B, KH, mpp, slots)}: max_abs_err "
+                  f"{e:.3e}, ms {ms:.4f}, bound_ms {b[0]:.4f} ({b[1]}, "
                   f"{paged_bytes(case) / 1e6:.1f} MB"
                   f"{', fits the 50 MB L2' if length == 1024 else ''})",
                   flush=True)
             if timed is None:
                 timed = (case, ms, b)
         case, ms, b = timed
+        recorded[name] = case
         rows.append(dict(
             name=name, route="cuda",
             source="kubeflow_tpu_torch/csrc/paged_decode.cu",
             replaces="kubeflow_tpu/ops/paged_attention.py:169",
             max_abs_err=err, ms=ms,
-            plain_ms=device_ms(lambda: paged_call(paged_decode_ref, case),
+            plain_ms=device_ms(lambda: paged_call(PA.paged_decode_ref, case),
                                iters=2, reps=3),
             bound_ms=b[0], bound_by=b[1],
             # No single PyTorch call attends over a page table.
             library_ms=None))
+    # The recorded bf16 case at named split counts (the wrapper's choice
+    # from shapes is printed above).
+    case = recorded["paged_decode"]
+    sweep = {n: device_ms(lambda n=n: PA._launch(
+        case["q"], case["pool_k"], case["pool_v"], case["table"],
+        case["lengths"], None, None, D ** -0.5, splits=n))
+        for n in (1, 2, 4, 8, 16)}
+    print("kernel paged_decode B=8 length=2047 ms by split count: "
+          + ", ".join(f"{n}: {ms:.4f}" for n, ms in sweep.items()),
+          flush=True)
+    # The combine alone, on the bf16 case's plain partials.
+    splits = PA._num_splits(8, KH, mpp, PA._slots(0, D, page, H // KH, False))
+    o_part, ml = PA.paged_decode_split_ref(
+        case["q"], case["pool_k"], case["pool_v"], case["table"],
+        case["lengths"], splits)
+    e = within(PA.paged_decode_combine(o_part, ml),
+               PA.paged_decode_combine_ref(o_part, ml), "paged_decode_combine")
+    b = bound(o_part.numel() * 4 + ml.numel() * 4 + 8 * H * D * 2,
+              4.0 * o_part.numel(), FP32_FLOPS)
+    print(f"kernel paged_decode_combine B=8 H={H} D={D} splits {splits}: "
+          f"max_abs_err {e:.3e}", flush=True)
+    rows.append(dict(
+        name="paged_decode_combine", route="cuda",
+        source="kubeflow_tpu_torch/csrc/paged_decode.cu",
+        replaces="kubeflow_tpu/ops/paged_attention.py:169",
+        max_abs_err=e,
+        ms=device_ms(lambda: PA.paged_decode_combine(o_part, ml)),
+        plain_ms=device_ms(lambda: PA.paged_decode_combine_ref(o_part, ml)),
+        bound_ms=b[0], bound_by=b[1],
+        # No single PyTorch call merges softmax partials by their maxima.
+        library_ms=None))
     return rows
 
 
@@ -1214,18 +1272,9 @@ def phase_paged_edges() -> None:
                 s.view(-1)[idx] *= 1000.0
         out = paged_call(paged_decode_attention, case)
         e = within(out, paged_call(paged_decode_ref, case), name)
-        # Pages no table entry names (the spare pages and the sink) hold
-        # 999; the output must not move by a bit.
-        named = case["table"][case["table"] >= 0].long().unique()
-        spare = torch.ones(case["pool_k"].shape[0], dtype=torch.bool,
-                           device="cuda")
-        spare[named] = False
-        poison = 99 if quant else 999          # int8 pages hold at most 127
-        for plane in ("pool_k", "pool_v"):
-            case[plane][spare] = poison
-        for plane in ("pool_ks", "pool_vs"):
-            if plane in case:
-                case[plane][spare] = 999.0
+        if not torch.equal(paged_call(paged_decode_attention, case), out):
+            fail(f"{name}: two calls on the same inputs differ")
+        poison_spare_pages(case)
         if not torch.equal(paged_call(paged_decode_attention, case), out):
             fail(f"{name}: the output moved when unmapped pages changed")
         # A dead row: every table entry unmapped, so the output is zeros.
@@ -1233,8 +1282,84 @@ def phase_paged_edges() -> None:
         dead = paged_call(paged_decode_attention, case)[0]
         if torch.count_nonzero(dead):
             fail(f"{name}: a row with no mapped page is not all zeros")
-        print(f"edge {name}: max_abs_err {e:.3e}; poisoned unmapped pages "
-              "change nothing; a dead row is zeros", flush=True)
+        print(f"edge {name}: max_abs_err {e:.3e}; a second call is "
+              "bit-identical; poisoned unmapped pages change nothing; a dead "
+              "row is zeros", flush=True)
+    phase_paged_split_edges()
+
+
+def poison_spare_pages(case) -> None:
+    """Fill the pages no table entry names (the spare pages and the sink)
+    with 999 (99 in int8 pages, which hold at most 127; their scales with
+    999): a kernel that reads none of them gives the same bits."""
+    named = case["table"][case["table"] >= 0].long().unique()
+    spare = torch.ones(case["pool_k"].shape[0], dtype=torch.bool,
+                       device="cuda")
+    spare[named] = False
+    poison = 99 if "pool_ks" in case else 999
+    for plane in ("pool_k", "pool_v"):
+        case[plane][spare] = poison
+    for plane in ("pool_ks", "pool_vs"):
+        if plane in case:
+            case[plane][spare] = 999.0
+
+
+# Edge cases of the split over pages, each run at the split counts listed
+# (the wrapper's own choice aside): (B, H, KH, D, page, mpp, lengths, int8,
+# unmapped (slot, page slot), split counts).
+PAGED_SPLIT_EDGES = (
+    # Slots whose later splits all start past their length.
+    (4, 32, 8, 128, 128, 16, [100, 700, 2047, 128], False, (),
+     (1, 2, 3, 5, 16)),
+    # With 3 splits of 4 page slots, slot 0's split 1 is all unmapped
+    # between counted splits 0 and 2.
+    (2, 8, 2, 128, 16, 12, [190, 100], False,
+     ((0, 4), (0, 5), (0, 6), (0, 7)), (3, 4)),
+    # mpp = 13 under split counts that do not divide it.
+    (3, 16, 4, 64, 16, 13, [207, 150, 0], False, ((1, 6),),
+     (2, 3, 4, 5, 6, 13)),
+    (3, 16, 4, 128, 16, 13, [207, 150, 0], True, ((1, 6),), (4, 5)),
+)
+
+
+def phase_paged_split_edges() -> None:
+    """The split kernel and the combine against the plain version at split
+    counts the caller names: every count must agree with
+    ``paged_decode_ref``, repeat its bits on a second call, and keep them
+    when the pages no table names are poisoned."""
+    from kubeflow_tpu_torch.ops import paged_attention as PA
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    for (B, H, KH, D, page, mpp, lengths, quant, unmapped,
+         counts) in PAGED_SPLIT_EDGES:
+        case = paged_case(gen, B, H, KH, D, page, lengths, quant=quant,
+                          mpp=mpp, unmapped=unmapped)
+        name = (f"paged_decode split B={B} H={H} KH={KH} D={D} page={page} "
+                f"mpp={mpp} lengths={lengths} int8={quant} "
+                f"unmapped={list(unmapped)}")
+
+        def run(n):
+            return PA._launch(case["q"], case["pool_k"], case["pool_v"],
+                              case["table"], case["lengths"],
+                              case.get("pool_ks"), case.get("pool_vs"),
+                              D ** -0.5, splits=n)
+
+        ref = paged_call(PA.paged_decode_ref, case)
+        outs, err = {}, 0.0
+        for n in counts:
+            outs[n] = run(n)
+            err = max(err, within(outs[n], ref, f"{name} splits={n}"))
+            if not torch.equal(run(n), outs[n]):
+                fail(f"{name} splits={n}: two calls on the same inputs "
+                     "differ")
+        poison_spare_pages(case)
+        for n in counts:
+            if not torch.equal(run(n), outs[n]):
+                fail(f"{name} splits={n}: the output moved when unmapped "
+                     "pages changed")
+        print(f"edge {name}: splits {list(counts)} max_abs_err {err:.3e}; "
+              "each bit-identical on a second call and with poisoned "
+              "unmapped pages", flush=True)
 
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -1459,12 +1584,15 @@ def phase_paged_serve(engine, rows: list[dict]) -> None:
     index must hit, ``/metrics`` must show resident pages, and no page may
     stay referenced at the end."""
     from kubeflow_tpu_torch.ops import fused_norm
-    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+    from kubeflow_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_combine,
+    )
 
     wrappers = {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
                 "add_rmsnorm_fwd": fused_norm.add_rmsnorm_fused,
                 "swiglu_fwd": fused_norm.swiglu_fused,
-                "paged_decode": paged_decode_attention}
+                "paged_decode": paged_decode_attention,
+                "paged_decode_combine": paged_decode_combine}
     prefix = text(601, 11)                   # 600 tokens with the BOS
     calls = [
         ("shared_a", "/v1/completions",
@@ -1556,6 +1684,9 @@ def phase_paged_serve(engine, rows: list[dict]) -> None:
             r["launches"] = launches["paged_decode"]
         elif r["name"] == "paged_decode_int8":
             r["launches"] = qrun["launches"]["paged_decode"]
+        elif r["name"] == "paged_decode_combine":      # both pools' runs
+            r["launches"] = (launches["paged_decode_combine"]
+                             + qrun["launches"]["paged_decode_combine"])
 
 
 def phase_paged_check(engine) -> None:
@@ -2042,17 +2173,21 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    if sys.argv[1:] == ["--flash-only"]:
-        # The flash kernels alone: their rows, then their edge cases.
-        rows = flash_fwd_rows() + flash_bwd_rows()
-        phase_flash_edges()
-        phase_flash_bwd_edges()
+    if sys.argv[1:] in (["--flash-only"], ["--paged-only"]):
+        # One family of kernels alone: its rows, then its edge cases.
+        if sys.argv[1] == "--flash-only":
+            rows = flash_fwd_rows() + flash_bwd_rows()
+            phase_flash_edges()
+            phase_flash_bwd_edges()
+        else:
+            rows = paged_kernel_rows()
+            phase_paged_edges()
         for r in rows:
             print(f"kernel {r['name']}: ms {r['ms']:.4f} plain_ms "
-                  f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+                  f"{r['plain_ms']:.4f} library_ms {r['library_ms']} "
                   f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})",
                   flush=True)
-        print(f"chip_smoke: flash phases passed in "
+        print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
     if sys.argv[1:]:

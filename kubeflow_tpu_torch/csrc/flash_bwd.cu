@@ -64,253 +64,59 @@
 //  - Order: the grid's slow axis walks kv tiles from 0, which meets the
 //    most q tiles under the causal mask, so the heaviest blocks start first.
 //
-// dQ is still the first, simple design (WMMA bf16 16x16x16 fragments, fp32
-// accumulation): one block per (batch, q head, 64-row q tile), looping over
-// the kv tiles up to the diagonal; four warps, warp w owning query rows
-// 16w..16w+15; scores, probabilities and the dQ accumulator in shared
-// memory (rows padded by 16 bytes against bank conflicts), ~144 KB per
-// block at D = 128. Its redesign is later work.
+// dQ (namespace dq), the same shape turned around: one block per (batch x
+// q head, 128-row q tile), three warpgroups.
+//  - Producer (warpgroup 2, setmaxnreg 24; one of its threads): TMA-loads
+//    the block's Q and dO tiles once, then streams the 64-row K and V tiles
+//    of kv head h / (H / KH) through a 3-stage ring with full and empty
+//    mbarriers, up to the causal diagonal of the block's last row.
+//  - Consumers (warpgroups 0 and 1, setmaxnreg 240), 64 query rows each:
+//    S = Q K^T and dP = dO V^T by wgmma SS (m64n64k16, all K-major); p and
+//    dS in registers under the rules of dK/dV, but in base 2 with the
+//    scales folded into lse and delta (a multiply-add and one ex2 per
+//    element; with expf and the scales applied per element this math took
+//    more time than the products); masks only on diagonal and ragged
+//    tiles; then dQ +=
+//    bf16(dS) K by wgmma RS (m64nDk16), dS packed straight from the dP
+//    accumulator into the A fragment and K read MN-major (transpose bit).
+//    The two warpgroups take turns at the tensor cores (named barriers, as
+//    FlashAttention-3's ping-pong): turn k issues tile k - 1's dQ product
+//    and tile k's S and dP, hands over, and waits for them; tile k's p
+//    and dS are then computed on the CUDA cores while the other
+//    warpgroup's products run. No wgmma is in flight while other
+//    instructions write its registers, so ptxas does not serialize them
+//    (its C7515 note). The ring holds three tiles.
+//    Each thread's two rows of lse and delta are read once into registers
+//    (a row's start need not be 16-byte aligned, so not TMA). A tile wholly
+//    in a warpgroup's future is skipped. dQ stays in fp32 registers for the
+//    sweep (D / 2 per thread) and is rounded to bf16 once.
+//  - No atomics: each block owns its rows and sums its kv tiles in a fixed
+//    order, so dQ repeats bit for bit. Rows that see no key (negative
+//    q_offset) have every p = 0 and get dQ exactly 0; a block all of whose
+//    rows see none loads nothing and writes zeros.
+//  - Shared memory per block at D = 128: Q 32 KB + dO 32 KB + 3 x (K 16 KB
+//    + V 16 KB) = 161 KB with the barriers, one block per SM; half at
+//    D = 64.
+//  - Order: the grid's slow axis walks q tiles from the last, which meets
+//    the most kv tiles under the causal mask, so the heaviest blocks start
+//    first.
 //
 // Layout: q, dO, dQ [B, H, Sq, D]; k, v, dK, dV [B, KH, Skv, D] (bf16,
-// contiguous, 16-byte aligned); lse, delta [B, H, Sq] fp32. q-head h reads
-// kv-head h / (H / KH). Ragged edges are masked in the kernels (TMA fills
-// a ragged tile with zeros).
-
-#include <mma.h>
+// contiguous; q, k, v and dO 16-byte aligned for TMA); lse, delta
+// [B, H, Sq] fp32. q-head h reads kv-head h / (H / KH). TMA reads each
+// tensor as [planes, rows, D], so a ragged tile is filled with zeros, not
+// the next head's rows, and masked in the kernels.
 
 #include <cfloat>
 #include <cstdint>
 
 #include "sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BKV = 64;       // kv rows per tile
-constexpr int WARPS = 4;      // each warp owns 16 rows of a 64-row tile
-constexpr int THREADS = WARPS * 32;
+using bf16 = __nv_bfloat16;
 // The masked-logit value of kubeflow_tpu/ops/attention.py (NEG_INF).
 constexpr float NEG_INF = -0.7f * FLT_MAX;
-
-using bf16 = __nv_bfloat16;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// Row strides (elements) of the shared-memory tiles: multiples of 8 bf16 /
-// 4 floats (WMMA's rule), padded by 16 bytes.
-template <int D>
-struct Lay {
-  static constexpr int LDQ = D + 8;              // q, dO, k, v tiles (bf16)
-  static constexpr int LDS = BKV + 4;            // scores, dP (fp32)
-  static constexpr int LDP = BKV + 8;            // p, dS (bf16)
-  static constexpr int LDA = D + 4;              // accumulators (fp32)
-  static constexpr size_t tile = size_t(64) * LDQ * sizeof(bf16);
-  static constexpr size_t sc = size_t(BQ) * LDS * sizeof(float);
-  static constexpr size_t pb = size_t(BQ) * LDP * sizeof(bf16);
-  static constexpr size_t acc = size_t(64) * LDA * sizeof(float);
-  static constexpr size_t rows = 2 * BQ * sizeof(float);   // lse, delta
-  // dQ: q, dO, k, v tiles; s, dP; dS; dQ accumulator; lse, delta.
-  static constexpr size_t dq = 4 * tile + 2 * sc + pb + acc + rows;
-};
-
-// Copy `rows` x D bf16 rows (row-major, contiguous) into shared memory rows
-// of stride LDQ with 16-byte vectors; rows past `valid` are zero-filled.
-template <int D>
-__device__ void load_tile(bf16* dst, const bf16* src, int rows, int valid) {
-  constexpr int LDQ = Lay<D>::LDQ;
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  const int total = rows * PER_ROW;
-  for (int i = threadIdx.x; i < total; i += THREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + size_t(r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LDQ + c) = val;
-  }
-}
-
-// lse and delta of q rows q0..q0+63 (0 past Sq: such rows get p = 0).
-__device__ void load_rows(float* lse_s, float* delta_s, const float* lse,
-                          const float* delta, int q0, int Sq) {
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    const bool ok = q0 + i < Sq;
-    lse_s[i] = ok ? lse[q0 + i] : 0.f;
-    delta_s[i] = ok ? delta[q0 + i] : 0.f;
-  }
-}
-
-// This warp's 16 rows of C[16 x 64] = A[16 x D] B^T, with A rows at
-// `a` (stride LDQ) and B rows at `b` (64 rows, stride LDQ), into `c`
-// (stride LDS).
-template <int D>
-__device__ void rows_times_tile_t(float* c, const bf16* a, const bf16* b) {
-  constexpr int LDQ = Lay<D>::LDQ, LDS = Lay<D>::LDS;
-#pragma unroll
-  for (int jt = 0; jt < BKV / 16; ++jt) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBT fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, LDQ);
-      wmma::load_matrix_sync(fb, b + jt * 16 * LDQ + kk * 16, LDQ);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + jt * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// Scores and their gradient for this warp's 16 query rows (tile rows
-// row0..row0+15) against kv columns j0..j0+63: dS (bf16). Each lane owns
-// two columns.
-__device__ void probs_and_ds(const float* sb, const float* dpb, bf16* dsb,
-                             const float* lse_s, const float* delta_s,
-                             int row0, int q0, int j0, int Sq, int Skv,
-                             int causal, int q_offset, float sm_scale,
-                             int has_softcap, float softcap, int lds,
-                             int ldp) {
-  const int lane = threadIdx.x % 32;
-  for (int r = row0; r < row0 + 16; ++r) {
-    const int qi = q0 + r;
-    const float l = lse_s[r];
-    const float dl = delta_s[r];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h;
-      const int kpos = j0 + c;
-      const float s_raw = sb[r * lds + c] * sm_scale;
-      float s = s_raw;
-      float t = 0.f;
-      if (has_softcap) {
-        t = tanhf(s_raw / softcap);
-        s = t * softcap;
-      }
-      if (causal && kpos > q_offset + qi) s = NEG_INF;
-      float p = expf(s - l);
-      if (s <= NEG_INF * 0.5f || qi >= Sq || kpos >= Skv) p = 0.f;
-      float ds = p * (dpb[r * lds + c] - dl);
-      if (has_softcap) ds *= (1.f - t * t);
-      ds *= sm_scale;
-      dsb[r * ldp + c] = __float2bfloat16(ds);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int KH, int Sq, int Skv, int causal, int q_offset,
-                    float sm_scale, int has_softcap, float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  using L = Lay<D>;
-  constexpr int LDQ = L::LDQ, LDS = L::LDS, LDP = L::LDP, LDA = L::LDA;
-  unsigned char* p = smem;
-  bf16* Qs = reinterpret_cast<bf16*>(p);   p += L::tile;
-  bf16* dOs = reinterpret_cast<bf16*>(p);  p += L::tile;
-  bf16* Ks = reinterpret_cast<bf16*>(p);   p += L::tile;
-  bf16* Vs = reinterpret_cast<bf16*>(p);   p += L::tile;
-  float* Sb = reinterpret_cast<float*>(p); p += L::sc;
-  float* dPb = reinterpret_cast<float*>(p); p += L::sc;
-  bf16* dSb = reinterpret_cast<bf16*>(p);  p += L::pb;
-  float* dQa = reinterpret_cast<float*>(p); p += L::acc;
-  float* lse_s = reinterpret_cast<float*>(p);
-  float* delta_s = lse_s + BQ;
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KH);
-  const int row0 = (threadIdx.x / 32) * 16;
-
-  const size_t q_base = (size_t(b) * H + h) * Sq;
-  const size_t kv_base = (size_t(b) * KH + kvh) * Skv * D;
-  load_tile<D>(Qs, q + (q_base + q0) * D, BQ, Sq - q0);
-  load_tile<D>(dOs, dout + (q_base + q0) * D, BQ, Sq - q0);
-  load_rows(lse_s, delta_s, lse + q_base, delta + q_base, q0, Sq);
-  for (int i = threadIdx.x; i < BQ * LDA; i += THREADS) dQa[i] = 0.f;
-
-  const int last_pos = q_offset + q0 + BQ - 1;
-  const int n_kv = (Skv + BKV - 1) / BKV;
-  for (int t = 0; t < n_kv; ++t) {
-    const int j0 = t * BKV;
-    if (causal && j0 > last_pos) break;  // this and later tiles: all future
-    __syncthreads();                     // previous tile's readers are done
-    load_tile<D>(Ks, k + kv_base + size_t(j0) * D, BKV, Skv - j0);
-    load_tile<D>(Vs, v + kv_base + size_t(j0) * D, BKV, Skv - j0);
-    __syncthreads();
-
-    rows_times_tile_t<D>(Sb + row0 * LDS, Qs + row0 * LDQ, Ks);
-    rows_times_tile_t<D>(dPb + row0 * LDS, dOs + row0 * LDQ, Vs);
-    __syncwarp();
-    probs_and_ds(Sb, dPb, dSb, lse_s, delta_s, row0, q0, j0, Sq,
-                 Skv, causal, q_offset, sm_scale, has_softcap, softcap, LDS,
-                 LDP);
-    __syncwarp();
-
-    // dQ[this warp's rows] += dS[rows, 64] K[64, D].
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      FragC c;
-      wmma::load_matrix_sync(c, dQa + row0 * LDA + dt * 16, LDA,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, dSb + row0 * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(fb, Ks + kk * 16 * LDQ + dt * 16, LDQ);
-        wmma::mma_sync(c, fa, fb, c);
-      }
-      wmma::store_matrix_sync(dQa + row0 * LDA + dt * 16, c, LDA,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) {
-    const int r = i / D;
-    const int c = i % D;
-    if (q0 + r < Sq)
-      dq[(q_base + q0 + r) * D + c] = __float2bfloat16(dQa[r * LDA + c]);
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
-template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int H, int KH, int Sq, int Skv,
-                      int causal, int q_offset, float sm_scale,
-                      int has_softcap, float softcap, cudaStream_t stream) {
-  constexpr size_t smem = Lay<D>::dq;
-  static bool configured = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem, &configured);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, KH, Sq, Skv, causal, q_offset, sm_scale,
-      has_softcap, softcap);
-  return cudaGetLastError();
-}
 
 // ---- dK/dV: TMA, wgmma and warp specialisation ----------------------------
 
@@ -704,6 +510,317 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace dkdv
 
+// ---- dQ: TMA, wgmma and warp specialisation ------------------------------
+
+namespace dq {
+
+constexpr int BQ = 128;        // query rows per block
+constexpr int BKV = 64;        // kv rows per streamed tile
+constexpr int STAGES = 3;      // K/V ring depth
+constexpr int CONSUMERS = 2;   // warpgroups of 64 query rows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by the special-function unit (max relative error 2^-22; results
+// below 2^-126 flush to 0).
+DEV float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// What p and dS need besides the scores: positions, lengths and the
+// logit transform (scale2 = sm_scale * log2(e)).
+struct Rule {
+  int row, col2, Sq, Skv, causal, q_offset;
+  float sm_scale, scale2;
+  int has_softcap;
+  float softcap;
+};
+
+// p = exp(s - lse), forced to 0 where s <= NEG_INF / 2 (MASK: the causal
+// mask to NEG_INF, rows and columns past the tensors), and dS = p (dP -
+// delta) [(1 - tanh^2)] sm_scale, in place of the dP registers (register
+// 4j + 2i + e is query row `row` + 8i, kv column j0 + 8j + col2 + e).
+// In base 2 with the scales folded in: p = 2^(s * scale2 - lse2) with
+// lse2 = lse * log2(e), and dS = p (dP * sm_scale - dls) with dls = delta
+// * sm_scale, a multiply-add and one ex2 per element.
+template <bool MASK, int R>
+DEV void grads(const float (&s)[R], float (&dp)[R], const float (&lse2)[2],
+               const float (&dls)[2], int j0, const Rule& u) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = u.row + 8 * i;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 4 * j + 2 * i + e;
+        const int kpos = j0 + 8 * j + u.col2 + e;
+        float x2, t = 0.f;                       // the logit times log2(e)
+        if (u.has_softcap) {
+          t = tanhf(s[r] * u.sm_scale / u.softcap);
+          x2 = t * (u.softcap * LOG2E);
+        } else {
+          x2 = s[r] * u.scale2;
+        }
+        bool keep = x2 > NEG_INF * 0.5f * LOG2E;
+        if (MASK)
+          keep = keep && !(u.causal && kpos > u.q_offset + qi) &&
+                 qi < u.Sq && kpos < u.Skv;
+        const float p = keep ? ex2(x2 - lse2[i]) : 0.f;
+        float ds = p * fmaf(dp[r], u.sm_scale, -dls[i]);
+        if (u.has_softcap) ds *= 1.f - t * t;
+        dp[r] = keep ? ds : 0.f;
+      }
+    }
+  }
+}
+
+template <int D>
+struct Smem {
+  static constexpr uint32_t q_bytes = BQ * D * 2;
+  static constexpr uint32_t kv_bytes = BKV * D * 2;
+  static constexpr size_t dout = q_bytes;
+  static constexpr size_t k = dout + q_bytes;
+  static constexpr size_t v = k + STAGES * kv_bytes;
+  static constexpr size_t bars = v + STAGES * kv_bytes;
+  // q_full, full[STAGES], empty[STAGES]; 1 KB of slack to align the base.
+  static constexpr size_t total = bars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int KH, int Sq, int Skv, int causal, int q_offset,
+                    float sm_scale, int has_softcap, float softcap) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + S::dout);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + S::k);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + S::v);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::bars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x;                     // b * H + h
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - int(blockIdx.y)) * BQ;   // heaviest first
+  const int bkv = (bh / H) * KH + (bh % H) / (H / KH);
+  const int n_kv = (Skv + BKV - 1) / BKV;
+  int n_tiles = n_kv;
+  if (causal) {
+    // Tiles starting past the last query row's position are in the future
+    // of every row of this block; a block that sees no key loads nothing.
+    const int last_pos = q_offset + q0 + BQ - 1;
+    n_tiles = last_pos < 0 ? 0 : min(n_kv, last_pos / BKV + 1);
+  }
+
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: Q and dO once, then (K, V) per kv tile ----------------
+    sm90::regs_dealloc<24>();
+    if (threadIdx.x == CONSUMERS * 128 && n_tiles > 0) {
+      sm90::prefetch_map(&kmap);
+      sm90::prefetch_map(&vmap);
+      sm90::mbar_expect_tx(q_full, 2 * S::q_bytes);
+      for (int half = 0; half < D / 64; ++half) {
+        sm90::tma_load_3d(Qs + half * BQ * 64, &qmap, q_full, half * 64, q0,
+                          bh);
+        sm90::tma_load_3d(dOs + half * BQ * 64, &domap, q_full, half * 64,
+                          q0, bh);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) sm90::mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
+        sm90::mbar_expect_tx(&full[s], 2 * S::kv_bytes);
+        bf16* kd = Ks + s * BKV * D;
+        bf16* vd = Vs + s * BKV * D;
+        for (int half = 0; half < D / 64; ++half) {
+          sm90::tma_load_3d(kd + half * BKV * 64, &kmap, &full[s], half * 64,
+                            t * BKV, bkv);
+          sm90::tma_load_3d(vd + half * BKV * 64, &vmap, &full[s], half * 64,
+                            t * BKV, bkv);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ------------------------------------
+    sm90::regs_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int row = q0 + wg * 64 + (tid / 32) * 16 + lane / 4;   // i = 0
+    const Rule rule{row, 2 * (lane % 4), Sq, Skv, causal, q_offset, sm_scale,
+                    sm_scale * LOG2E, has_softcap, softcap};
+    // This thread's two rows of lse and delta, as lse * log2(e) and delta *
+    // sm_scale (0 past Sq: masked below).
+    float lrow[2], drow[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bool ok = row + 8 * i < Sq;
+      const size_t at = size_t(bh) * Sq + row + 8 * i;
+      lrow[i] = ok ? lse[at] * LOG2E : 0.f;
+      drow[i] = ok ? delta[at] * sm_scale : 0.f;
+    }
+    // Tiles starting after the last position among this warpgroup's rows
+    // are wholly in their future: it only releases them.
+    int n_mine = n_tiles;
+    if (causal) {
+      const int wg_last = q_offset + q0 + wg * 64 + 63;
+      n_mine = wg_last < 0 ? 0 : min(n_tiles, wg_last / BKV + 1);
+    }
+
+    float acc[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+    float sc[BKV / 2], dp[BKV / 2];
+    uint32_t da[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      da[kk][0] = da[kk][1] = da[kk][2] = da[kk][3] = 0u;
+
+    // Turns at the tensor cores, warpgroup 0 first (n_tiles + 1 each):
+    // turn k issues tile k - 1's dQ product and tile k's S and dP, hands
+    // the tensor cores to the other warpgroup and waits for its products;
+    // then tile k's p and dS are computed on the CUDA cores while the other
+    // warpgroup's products run. The products are issued on every turn
+    // k <= n_mine, with no branch around them (a branch makes ptxas
+    // serialize them, its C7520 note): turn 0's dQ product adds the zero
+    // fragment, turn n_mine's S and dP go unread.
+    const int mine = 1 + wg, theirs = 2 - wg;    // named barrier ids
+    if (wg == 1) sm90::bar_arrive(1, 2 * 128);
+    if (n_tiles > 0) sm90::mbar_wait(q_full, 0);
+    const int n_issue = n_mine > 0 ? n_mine + 1 : 0;
+    for (int k = 0; k < n_issue; ++k) {
+      const int s = k % STAGES;
+      if (k < n_tiles) sm90::mbar_wait(&full[s], (k / STAGES) & 1);
+      sm90::bar_sync(mine, 2 * 128);
+      sm90::wgmma_fence();
+      // dQ += bf16(dS) K of tile k - 1: A from registers, K MN-major.
+      const bf16* kp = Ks + (max(k - 1, 0) % STAGES) * BKV * D;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        sm90::wgmma_rs<D, 1>(
+            acc, da[kk], sm90::smem_desc(kp + kk * 16 * 64, BKV * 128, 1024),
+            1);
+      // S = Q K^T and dP = dO V^T of tile k: this warpgroup's 64 rows
+      // against the tile's 64 keys.
+      const bf16* kt = Ks + s * BKV * D;
+      const bf16* vt = Vs + s * BKV * D;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int half = kk / 4, step = (kk % 4) * 16;
+        const int a_off = half * BQ * 64 + wg * 64 * 64 + step;
+        const int b_off = half * BKV * 64 + step;
+        sm90::wgmma_ss<BKV, 0>(sc, sm90::smem_desc(Qs + a_off, 16, 1024),
+                               sm90::smem_desc(kt + b_off, 16, 1024), kk > 0);
+        sm90::wgmma_ss<BKV, 0>(dp, sm90::smem_desc(dOs + a_off, 16, 1024),
+                               sm90::smem_desc(vt + b_off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+      if (wg == 0 || k < n_tiles) sm90::bar_arrive(theirs, 2 * 128);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+      sm90::fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) sm90::fence_regs(da[kk]);
+      if (k >= 1 && lane == 0) sm90::mbar_arrive(&empty[(k - 1) % STAGES]);
+
+      if (k < n_mine) {
+        // dS in registers; masks only where a key can lie in a query's
+        // future or a row or column past the tensors.
+        const int j0 = k * BKV;
+        const bool edge =
+            (causal && q_offset + q0 + wg * 64 < j0 + BKV - 1) ||
+            q0 + wg * 64 + 64 > Sq || j0 + BKV > Skv;
+        if (edge)
+          grads<true, BKV / 2>(sc, dp, lrow, drow, j0, rule);
+        else
+          grads<false, BKV / 2>(sc, dp, lrow, drow, j0, rule);
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+          for (int f = 0; f < 4; ++f)
+            da[kk][f] = sm90::pack_bf16(dp[8 * kk + 2 * f],
+                                        dp[8 * kk + 2 * f + 1]);
+        }
+      }
+    }
+    // The turns past this warpgroup's last tile: release the tiles.
+    for (int k = n_issue; k <= n_tiles; ++k) {
+      if (k < n_tiles) sm90::mbar_wait(&full[k % STAGES], (k / STAGES) & 1);
+      sm90::bar_sync(mine, 2 * 128);
+      if (wg == 0 || k < n_tiles) sm90::bar_arrive(theirs, 2 * 128);
+      if (k >= 1 && lane == 0) sm90::mbar_arrive(&empty[(k - 1) % STAGES]);
+    }
+
+    // dQ, rounded once.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = row + 8 * i;
+      if (qi < Sq) {
+        bf16* out = dq + (size_t(bh) * Sq + qi) * D + rule.col2;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dq, int B, int H, int KH, int Sq, int Skv,
+                   int causal, int q_offset, float sm_scale, int has_softcap,
+                   float softcap, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap, domap;
+  if (!sm90::map_tiles(&qmap, q, B * H, Sq, D, BQ) ||
+      !sm90::map_tiles(&domap, dout, B * H, Sq, D, BQ) ||
+      !sm90::map_tiles(&kmap, k, B * KH, Skv, D, BKV) ||
+      !sm90::map_tiles(&vmap, v, B * KH, Skv, D, BKV))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = Smem<D>::total;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
+      qmap, kmap, vmap, domap, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, KH, Sq,
+      Skv, causal, q_offset, sm_scale, has_softcap, softcap);
+  return cudaGetLastError();
+}
+
+}  // namespace dq
+
 }  // namespace
 
 extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
@@ -731,7 +848,7 @@ extern "C" int flash_bwd_dkdv_bf16(const void* q, const void* k,
 
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq, int B, int H,
+                                 const void* delta, void* dq_out, int B, int H,
                                  int KH, int Sq, int Skv, int D, int causal,
                                  int q_offset, float sm_scale,
                                  int has_softcap, float softcap,
@@ -739,13 +856,13 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Skv,
-                           causal, q_offset, sm_scale, has_softcap, softcap,
-                           s);
+      return dq::launch<64>(q, k, v, dout, lse, delta, dq_out, B, H, KH, Sq,
+                            Skv, causal, q_offset, sm_scale, has_softcap,
+                            softcap, s);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, KH, Sq, Skv,
-                            causal, q_offset, sm_scale, has_softcap, softcap,
-                            s);
+      return dq::launch<128>(q, k, v, dout, lse, delta, dq_out, B, H, KH, Sq,
+                             Skv, causal, q_offset, sm_scale, has_softcap,
+                             softcap, s);
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 // Paged one-token decode attention for Hopper (sm_90a): GQA over a page
-// table, bf16 or int8 pages (int8 dequantized in registers), fp32 math.
+// table, bf16 or int8 pages (int8 dequantized in registers), fp32 math,
+// split over each slot's pages (flash-decoding) with a combine kernel.
 //
 // Replaces: kubeflow_tpu/ops/paged_attention.py, `paged_decode_attention`
 // (the `pl.pallas_call` of `_kernel`). For every slot b it computes exact
@@ -16,24 +17,37 @@
 // over 8 kv heads of 128, 2048 positions) one call reads ~67 MB of bf16
 // K/V (~34 MB int8 plus ~1 MB of scales) and does ~2 FLOP per byte read,
 // far below the ~295 FLOP/byte ridge, so the floor is the read at
-// 3.35 TB/s (~20 us bf16, ~10 us int8).
+// 3.35 TB/s (~20 us bf16, ~10 us int8). Tensor cores are not needed.
 //
-// What the design does about it: every K/V byte is read from device memory
-// once, with 16-byte vector loads, and each (slot, kv head) block computes
-// all g = H / KH query heads of its group against the rows it loaded, so
-// the GQA group shares one read. One block per (kv head, slot) holds its g
-// query rows (fp32), the tile's scores and the fp32 output accumulator in
-// shared memory and walks the slot's counted pages in tiles of TR rows: a
-// tile's K and V rows (strided by KH * D in the pool) land in shared memory
-// through registers, all of a thread's loads issued before any store; then
-// lanes split each K row (an LPR-lane group per row, shuffle-reduced dot
-// products), one warp per query row updates the online softmax, and each
-// thread accumulates P V for its (query row, column) entries. Tiles past
-// lengths[b] are skipped, and rows past it are never loaded. The design
-// under-fills the card at the serving shape (B * KH = 64 blocks on 132
-// SMs) and does not overlap a tile's loads with the previous tile's math;
-// a split over pages with a combine pass (flash-decoding), cp.async or TMA
-// double buffering and tensor cores are later work.
+// What the design does about it:
+//  - Split over pages. The grid is (kv head, slot, split): split s takes
+//    the contiguous page slots [s * pps, (s + 1) * pps), pps = ceil(mpp /
+//    splits). The caller picks `splits` from shapes alone: enough blocks
+//    to fill the block slots the card holds at once (the occupancy of
+//    this kernel at these shapes), so 8 slots x 8 kv heads fill the card
+//    instead of 64 of its 132 SMs. Each (slot, kv head, split) block computes all
+//    g = H / KH query heads of its group against the rows it loads, so the
+//    GQA group shares one read of every K/V byte.
+//  - Overlap. A block walks the counted pages of its split in tiles of TR
+//    rows through a 2-stage shared-memory ring filled by cp.async 16-byte
+//    copies (int8 scales by 4-byte copies): tile n + 1 is in flight while
+//    tile n computes. Rows past lengths[b] are never loaded, and tiles and
+//    pages past it are skipped.
+//  - Math per tile, 128 threads: lanes split each K row (an LPR-lane group
+//    per row; a lane converts its slices of its rows once, then the rows'
+//    dot products with each query row and their shuffle reductions run
+//    side by side; an int8 row's scale is applied once to the dot), one
+//    warp per query row updates the online softmax (an int8 tile's V
+//    scales folded into p), and each thread accumulates P V for four
+//    adjacent columns of a query row. int8 is converted to fp32 by byte
+//    permutes and one subtraction, not the slower integer conversion.
+//  - Output. With one split the block writes bf16 o / l directly.
+//    Otherwise it writes an fp32 partial (unnormalised o, running max m and
+//    sum l per query head) to scratch [B, H, splits, D] and [B, H, splits,
+//    2]; a split with no counted page writes o = 0, l = 0, m = -inf.
+//    `paged_decode_combine` then merges the splits of each (slot, head) in
+//    split order (so the bits repeat): M = max m over live splits, o =
+//    sum exp(m - M) o_s / sum exp(m - M) l_s, zeros where every l is 0.
 //
 // Layout: q [B, 1, H, D] bf16; pool_k/pool_v [P, page, KH, D] bf16 or int8;
 // pool_ks/pool_vs [P, page, KH] fp32 (int8 only); table [B, mpp] int32
@@ -44,6 +58,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -69,62 +84,143 @@ struct Elem<__nv_bfloat16> {
       f[2 * i + 1] = x.y;
     }
   }
-  __device__ static float one(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
+  // Four adjacent elements (8 bytes).
+  __device__ static float4 four(const __nv_bfloat16* p) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
   }
 };
+
+// int8 to fp32 without the slow integer conversion: byte x + 128 becomes
+// the low byte of the float 2^23 + (x + 128), from which 2^23 + 128 is
+// subtracted exactly.
+__device__ __forceinline__ float4 int8x4_to_float4(uint32_t u) {
+  u ^= 0x80808080u;                              // x + 128, as unsigned
+  constexpr uint32_t TWO23 = 0x4B000000u;        // 2^23 as a float
+  constexpr float BIAS = 8388736.f;              // 2^23 + 128
+  return make_float4(__uint_as_float(__byte_perm(u, TWO23, 0x7540)) - BIAS,
+                     __uint_as_float(__byte_perm(u, TWO23, 0x7541)) - BIAS,
+                     __uint_as_float(__byte_perm(u, TWO23, 0x7542)) - BIAS,
+                     __uint_as_float(__byte_perm(u, TWO23, 0x7543)) - BIAS);
+}
 
 template <>
 struct Elem<int8_t> {
   static constexpr int VEC = 16;
   __device__ static void unpack(const uint4& u, float* f) {
-    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = float(c[i]);
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = int8x4_to_float4(w[i]);
+      f[4 * i] = x.x;
+      f[4 * i + 1] = x.y;
+      f[4 * i + 2] = x.z;
+      f[4 * i + 3] = x.w;
+    }
   }
-  __device__ static float one(const int8_t* p) { return float(*p); }
+  __device__ static float4 four(const int8_t* p) {
+    return int8x4_to_float4(*reinterpret_cast<const uint32_t*>(p));
+  }
 };
 
-// Shared-memory carve-up for one block (bytes).
+// -- cp.async ----------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared-memory carve-up for one block (bytes): two ring stages, each the
+// K and V rows of one tile and their int8 scales, then the block's state
+// (q, the tile's scores, the output accumulator, m, l and the rescale of
+// each query row).
 struct Layout {
-  size_t kv, scale, q, s, acc, stats, total;
+  size_t kv, scale, stage, q, s, acc, stats, total;
   __host__ __device__ Layout(int TR, int D, int esize, int g) {
     kv = size_t(TR) * D * esize;                 // one of K or V
     scale = size_t(TR) * sizeof(float);          // one of ks or vs
+    stage = 2 * kv + 2 * scale;
     q = size_t(g) * D * sizeof(float);
     s = size_t(g) * TR * sizeof(float);
     acc = size_t(g) * D * sizeof(float);
     stats = size_t(3) * g * sizeof(float);
-    total = 2 * kv + 2 * scale + q + s + acc + stats;
+    total = 2 * stage + q + s + acc + stats;
   }
 };
 
+// One tile of a counted page: page slot j, first row t0 in the page, the
+// pool page id (-1: no tile left) and the rows up to lengths[b].
+struct Tile {
+  int j, t0, pid, nvalid;
+};
+
+// The first counted tile at or after row t0 of page slot j, before j_end.
+template <int TR>
+__device__ Tile seek(const int* trow, int j, int t0, int j_end, int page,
+                     int P, long long len) {
+  for (; j < j_end; ++j, t0 = 0) {
+    const long long pos0 = (long long)j * page;
+    if (pos0 > len) break;                       // later pages are past too
+    const int pid = trow[j];
+    if (pid < 0 || pid >= P) continue;           // unmapped: no weight
+    if (t0 < page && pos0 + t0 <= len) {
+      const long long left = len - (pos0 + t0) + 1;
+      return {j, t0, pid, left < TR ? int(left) : TR};
+    }
+  }
+  return {j_end, 0, -1, 0};
+}
+
 template <typename T, int D, int TR>
 __global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const T* __restrict__ pool_k, const T* __restrict__ pool_v,
-                    const float* __restrict__ pool_ks,
-                    const float* __restrict__ pool_vs,
-                    const int* __restrict__ table,
-                    const long long* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ out, int H, int KH, int page,
-                    int P, int mpp, float sm_scale) {
+paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
+                          const T* __restrict__ pool_k,
+                          const T* __restrict__ pool_v,
+                          const float* __restrict__ pool_ks,
+                          const float* __restrict__ pool_vs,
+                          const int* __restrict__ table,
+                          const long long* __restrict__ lengths,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ o_part, float* __restrict__ ml,
+                          int H, int KH, int page, int P, int mpp, int splits,
+                          float sm_scale) {
   constexpr bool QUANT = sizeof(T) == 1;
   constexpr int VEC = Elem<T>::VEC;
   constexpr int VPR = D / VEC;                   // 16-byte vectors per row
   constexpr int LPR = VPR;                       // lanes per row (scores)
   constexpr int RPW = 32 / LPR;                  // rows per warp pass
   constexpr int NV = (TR * VPR + THREADS - 1) / THREADS;
+  // Score passes: rows (p * WARPS + warp) * RPW + lane / LPR of the tile.
+  constexpr int PASSES = (TR + WARPS * RPW - 1) / (WARPS * RPW);
   static_assert(TR % RPW == 0, "tile rows must split over the warp");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = H / KH;
   const Layout lay(TR, D, sizeof(T), g);
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = reinterpret_cast<T*>(smem + lay.kv);
-  float* ks_s = reinterpret_cast<float*>(smem + 2 * lay.kv);
-  float* vs_s = ks_s + TR;
-  float* q_s = vs_s + TR;
+  float* q_s = reinterpret_cast<float*>(smem + 2 * lay.stage);
   float* s_s = q_s + g * D;
   float* acc_s = s_s + g * TR;
   float* m_s = acc_s + g * D;
@@ -133,9 +229,13 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long long len = lengths[b];
+  const int pps = (mpp + splits - 1) / splits;   // page slots per split
+  const int j_end = min(mpp, (split + 1) * pps);
+  const int* trow = table + size_t(b) * mpp;
   const __nv_bfloat16* qg = q + (size_t(b) * H + size_t(kvh) * g) * D;
 
   for (int e = threadIdx.x; e < g * D; e += THREADS) {
@@ -147,215 +247,339 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     l_s[i] = 0.f;
   }
 
+  // Rows [0, nvalid) of a tile's K and V (and their scales) into stage st.
   const size_t row_stride = size_t(KH) * D;      // elements between rows
-  for (int j = 0; j < mpp; ++j) {
-    const long long pos0 = (long long)j * page;
-    if (pos0 > len) break;                       // later pages are past too
-    const int pid = table[size_t(b) * mpp + j];
-    if (pid < 0 || pid >= P) continue;           // unmapped: no weight
-    for (int t0 = 0; t0 < page; t0 += TR) {
-      const long long tpos = pos0 + t0;
-      if (tpos > len) break;
-      const long long left = len - tpos + 1;
-      const int nvalid = left < TR ? int(left) : TR;
-      const size_t base = (size_t(pid) * page + t0) * row_stride +
-                          size_t(kvh) * D;
-      __syncthreads();                           // previous tile's readers
-
-      // K and V rows [0, nvalid) of this tile -> shared, 16-byte vectors;
-      // every load of the thread is in flight before its first store.
-      uint4 kr[NV], vr[NV];
+  auto issue = [&](const Tile& tl, int st) {
+    unsigned char* base = smem + st * lay.stage;
+    T* Kd = reinterpret_cast<T*>(base);
+    T* Vd = reinterpret_cast<T*>(base + lay.kv);
+    const size_t src = (size_t(tl.pid) * page + tl.t0) * row_stride +
+                       size_t(kvh) * D;
 #pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int idx = threadIdx.x + i * THREADS;
-        const int r = idx / VPR, c = idx % VPR;
-        if (idx < TR * VPR && r < nvalid) {
-          const size_t off = base + size_t(r) * row_stride + size_t(c) * VEC;
-          kr[i] = *reinterpret_cast<const uint4*>(pool_k + off);
-          vr[i] = *reinterpret_cast<const uint4*>(pool_v + off);
-        }
-      }
-      if (QUANT && threadIdx.x < nvalid) {
-        const size_t soff = (size_t(pid) * page + t0 + threadIdx.x) * KH + kvh;
-        ks_s[threadIdx.x] = pool_ks[soff];
-        vs_s[threadIdx.x] = pool_vs[soff];
-      }
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int idx = threadIdx.x + i * THREADS;
-        const int r = idx / VPR, c = idx % VPR;
-        if (idx < TR * VPR && r < nvalid) {
-          *reinterpret_cast<uint4*>(Ks + r * D + c * VEC) = kr[i];
-          *reinterpret_cast<uint4*>(Vs + r * D + c * VEC) = vr[i];
-        }
-      }
-      __syncthreads();
-
-      // Scores: an LPR-lane group per K row, each lane a 16-byte slice of
-      // the row against the same slice of every query row of the group.
-      {
-        const int sub = lane % LPR, subrow = lane / LPR;
-        for (int r0 = warp * RPW; r0 < TR; r0 += WARPS * RPW) {
-          const int r = r0 + subrow;
-          const bool valid = r < nvalid;
-          float kf[VEC];
-          if (valid) {
-            const uint4 u =
-                *reinterpret_cast<const uint4*>(Ks + r * D + sub * VEC);
-            Elem<T>::unpack(u, kf);
-            if (QUANT) {
-              const float sc = ks_s[r];
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) kf[e] *= sc;
-            }
-          } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) kf[e] = 0.f;
-          }
-          for (int gi = 0; gi < g; ++gi) {
-            const float* qr = q_s + gi * D + sub * VEC;
-            float dot = 0.f;
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) dot += qr[e] * kf[e];
-#pragma unroll
-            for (int off = LPR / 2; off > 0; off >>= 1)
-              dot += __shfl_xor_sync(FULL, dot, off);
-            if (sub == 0) s_s[gi * TR + r] = valid ? dot * sm_scale : NEG_INF;
-          }
-        }
-      }
-      __syncthreads();
-
-      // Online softmax: one warp per query row of the group.
-      for (int gi = warp; gi < g; gi += WARPS) {
-        float* srow = s_s + gi * TR;
-        float mx = NEG_INF;
-        for (int c = lane; c < TR; c += 32) mx = fmaxf(mx, srow[c]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-        const float m_prev = m_s[gi];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int c = lane; c < TR; c += 32) {
-          const float p = expf(srow[c] - m_new);
-          srow[c] = p;
-          sum += p;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          sum += __shfl_xor_sync(FULL, sum, off);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          a_s[gi] = alpha;
-          l_s[gi] = alpha * l_s[gi] + sum;
-          m_s[gi] = m_new;
-        }
-      }
-      __syncthreads();
-
-      // acc = acc * alpha + P V over the tile's valid rows; each thread owns
-      // (query row, column) entries, neighbouring threads neighbouring
-      // columns.
-      for (int e = threadIdx.x; e < g * D; e += THREADS) {
-        const int gi = e / D, d = e % D;
-        const float* prow = s_s + gi * TR;
-        float acc = acc_s[e] * a_s[gi];
-        for (int r = 0; r < nvalid; ++r) {
-          float v = Elem<T>::one(Vs + r * D + d);
-          if (QUANT) v *= vs_s[r];
-          acc += prow[r] * v;
-        }
-        acc_s[e] = acc;
+    for (int i = 0; i < NV; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      const int r = idx / VPR, c = idx % VPR;
+      if (idx < TR * VPR && r < tl.nvalid) {
+        const size_t off = src + size_t(r) * row_stride + size_t(c) * VEC;
+        copy16(Kd + r * D + c * VEC, pool_k + off);
+        copy16(Vd + r * D + c * VEC, pool_v + off);
       }
     }
+    if (QUANT && threadIdx.x < tl.nvalid) {
+      float* ks_d = reinterpret_cast<float*>(base + 2 * lay.kv);
+      const size_t soff =
+          (size_t(tl.pid) * page + tl.t0 + threadIdx.x) * KH + kvh;
+      copy4(ks_d + threadIdx.x, pool_ks + soff);
+      copy4(ks_d + TR + threadIdx.x, pool_vs + soff);
+    }
+  };
+
+  Tile cur = seek<TR>(trow, split * pps, 0, j_end, page, P, len);
+  if (cur.pid >= 0) issue(cur, 0);
+  copy_commit();
+  for (int n = 0; cur.pid >= 0; ++n) {
+    const Tile nxt = seek<TR>(trow, cur.j, cur.t0 + TR, j_end, page, P, len);
+    if (nxt.pid >= 0) issue(nxt, (n + 1) & 1);
+    copy_commit();
+    copy_wait<1>();                              // tile n has landed
+    __syncthreads();
+
+    const unsigned char* base = smem + (n & 1) * lay.stage;
+    const T* Ks = reinterpret_cast<const T*>(base);
+    const T* Vs = reinterpret_cast<const T*>(base + lay.kv);
+    const float* ks_s = reinterpret_cast<const float*>(base + 2 * lay.kv);
+    const float* vs_s = ks_s + TR;
+    const int nvalid = cur.nvalid;
+
+    // Scores: an LPR-lane group per K row, each lane a 16-byte slice of
+    // the row against the same slice of every query row of the group. A
+    // lane converts its slices of all its rows once, then takes the query
+    // rows one by one, the rows' dot products and shuffle reductions
+    // independent of each other.
+    {
+      const int sub = lane % LPR, subrow = lane / LPR;
+      float kf[PASSES][VEC];
+      float scale[PASSES];
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p) {
+        const int r = (p * WARPS + warp) * RPW + subrow;
+        if (r < nvalid) {
+          Elem<T>::unpack(
+              *reinterpret_cast<const uint4*>(Ks + r * D + sub * VEC), kf[p]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) kf[p][e] = 0.f;
+        }
+        scale[p] = QUANT && r < nvalid ? ks_s[r] * sm_scale : sm_scale;
+      }
+      for (int gi = 0; gi < g; ++gi) {
+        float qf[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; e += 4) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(q_s + gi * D + sub * VEC + e);
+          qf[e] = x.x;
+          qf[e + 1] = x.y;
+          qf[e + 2] = x.z;
+          qf[e + 3] = x.w;
+        }
+        float dot[PASSES];
+#pragma unroll
+        for (int p = 0; p < PASSES; ++p) {
+          dot[p] = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot[p] += qf[e] * kf[p][e];
+        }
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1) {
+#pragma unroll
+          for (int p = 0; p < PASSES; ++p)
+            dot[p] += __shfl_xor_sync(FULL, dot[p], off);
+        }
+        if (sub == 0) {
+#pragma unroll
+          for (int p = 0; p < PASSES; ++p) {
+            const int r = (p * WARPS + warp) * RPW + subrow;
+            if (r < TR)
+              s_s[gi * TR + r] = r < nvalid ? dot[p] * scale[p] : NEG_INF;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // Online softmax: one warp per query row of the group. p stays fp32;
+    // an int8 tile's V scale is folded into the weight PV reads.
+    for (int gi = warp; gi < g; gi += WARPS) {
+      float* srow = s_s + gi * TR;
+      float mx = NEG_INF;
+      for (int c = lane; c < TR; c += 32) mx = fmaxf(mx, srow[c]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float m_prev = m_s[gi];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int c = lane; c < TR; c += 32) {
+        const float p = expf(srow[c] - m_new);
+        sum += p;
+        srow[c] = QUANT && c < nvalid ? p * vs_s[c] : p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(FULL, sum, off);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        a_s[gi] = alpha;
+        l_s[gi] = alpha * l_s[gi] + sum;
+        m_s[gi] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P V over the tile's valid rows; each thread owns
+    // four adjacent columns of a query row, neighbouring threads
+    // neighbouring columns.
+    for (int u = threadIdx.x; u < g * D / 4; u += THREADS) {
+      const int gi = u / (D / 4), d = (u % (D / 4)) * 4;
+      const float* prow = s_s + gi * TR;
+      float* ap = acc_s + gi * D + d;
+      const float alpha = a_s[gi];
+      float4 a = *reinterpret_cast<const float4*>(ap);
+      a.x *= alpha;
+      a.y *= alpha;
+      a.z *= alpha;
+      a.w *= alpha;
+      for (int r = 0; r < nvalid; ++r) {
+        const float p = prow[r];
+        const float4 v = Elem<T>::four(Vs + r * D + d);
+        a.x += p * v.x;
+        a.y += p * v.y;
+        a.z += p * v.z;
+        a.w += p * v.w;
+      }
+      *reinterpret_cast<float4*>(ap) = a;
+    }
+    __syncthreads();                             // stage n & 1 is free
+    cur = nxt;
   }
   __syncthreads();
 
-  __nv_bfloat16* og = out + (size_t(b) * H + size_t(kvh) * g) * D;
+  if (splits == 1) {
+    __nv_bfloat16* og = out + (size_t(b) * H + size_t(kvh) * g) * D;
+    for (int e = threadIdx.x; e < g * D; e += THREADS) {
+      const float l = l_s[e / D];
+      og[e] = __float2bfloat16(acc_s[e] / (l == 0.f ? 1.f : l));
+    }
+    return;
+  }
+  // Partial of split `split` for each query head h = kvh * g + gi.
   for (int e = threadIdx.x; e < g * D; e += THREADS) {
-    const float l = l_s[e / D];
-    og[e] = __float2bfloat16(acc_s[e] / (l == 0.f ? 1.f : l));
+    const size_t h = size_t(b) * H + size_t(kvh) * g + e / D;
+    o_part[(h * splits + split) * D + e % D] = acc_s[e];
+  }
+  for (int gi = threadIdx.x; gi < g; gi += THREADS) {
+    const size_t h = size_t(b) * H + size_t(kvh) * g + gi;
+    const float l = l_s[gi];
+    ml[(h * splits + split) * 2] = l > 0.f ? m_s[gi] : -INFINITY;
+    ml[(h * splits + split) * 2 + 1] = l;
   }
 }
 
+// One block per (slot, query head): the splits merged in split order.
+__global__ void __launch_bounds__(THREADS)
+paged_decode_combine_kernel(const float* __restrict__ o_part,
+                            const float* __restrict__ ml,
+                            __nv_bfloat16* __restrict__ out, int splits,
+                            int D) {
+  const size_t bh = blockIdx.x;                  // b * H + h
+  const float* mrow = ml + bh * splits * 2;
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s)
+    if (mrow[2 * s + 1] > 0.f) M = fmaxf(M, mrow[2 * s]);
+  for (int d = threadIdx.x; d < D; d += THREADS) {
+    float L = 0.f, O = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float l = mrow[2 * s + 1];
+      if (l > 0.f) {                             // a dead split weighs nothing
+        const float w = expf(mrow[2 * s] - M);
+        L += w * l;
+        O += w * o_part[(bh * splits + s) * D + d];
+      }
+    }
+    out[bh * D + d] = __float2bfloat16(L > 0.f ? O / L : 0.f);
+  }
+}
+
+int tile_rows(int page) {
+  return page % 64 == 0 ? 64 : (page % 32 == 0 ? 32 : 16);
+}
+
+// Raises the kernel's dynamic shared-memory limit to `bytes` once.
 template <typename T, int D, int TR>
-cudaError_t launch(const void* q, const void* pk, const void* pv,
-                   const void* pks, const void* pvs, const void* table,
-                   const void* lengths, void* out, int B, int H, int KH,
-                   int page, int P, int mpp, float sm_scale,
-                   cudaStream_t stream) {
-  const Layout lay(TR, D, sizeof(T), H / KH);
+cudaError_t allow_smem(size_t bytes) {
   static size_t configured = 48 * 1024;          // the default opt-in limit
-  if (lay.total > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, D, TR>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(lay.total));
-    if (err != cudaSuccess) return err;
-    configured = lay.total;
-  }
-  dim3 grid(KH, B);
-  paged_decode_kernel<T, D, TR><<<grid, THREADS, lay.total, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(pk),
-      static_cast<const T*>(pv), static_cast<const float*>(pks),
-      static_cast<const float*>(pvs), static_cast<const int*>(table),
-      static_cast<const long long*>(lengths),
-      static_cast<__nv_bfloat16*>(out), H, KH, page, P, mpp, sm_scale);
-  return cudaGetLastError();
+  if (bytes <= configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_split_kernel<T, D, TR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err == cudaSuccess) configured = bytes;
+  return err;
 }
 
-template <typename T, int D>
-cudaError_t by_tile(const void* q, const void* pk, const void* pv,
-                    const void* pks, const void* pvs, const void* table,
-                    const void* lengths, void* out, int B, int H, int KH,
-                    int page, int P, int mpp, float sm_scale,
-                    cudaStream_t s) {
-  if (page % 64 == 0)
-    return launch<T, D, 64>(q, pk, pv, pks, pvs, table, lengths, out, B, H,
-                            KH, page, P, mpp, sm_scale, s);
-  if (page % 32 == 0)
-    return launch<T, D, 32>(q, pk, pv, pks, pvs, table, lengths, out, B, H,
-                            KH, page, P, mpp, sm_scale, s);
-  return launch<T, D, 16>(q, pk, pv, pks, pvs, table, lengths, out, B, H, KH,
-                          page, P, mpp, sm_scale, s);
+// One launch of the split kernel.
+struct Launch {
+  const void *q, *pk, *pv, *pks, *pvs, *table, *lengths;
+  void *out, *o_part, *ml;
+  int B, H, KH, page, P, mpp, splits;
+  float sm_scale;
+  cudaStream_t stream;
+
+  template <typename T, int D, int TR>
+  int run() const {
+    const Layout lay(TR, D, sizeof(T), H / KH);
+    cudaError_t err = allow_smem<T, D, TR>(lay.total);
+    if (err != cudaSuccess) return int(err);
+    dim3 grid(KH, B, splits);
+    paged_decode_split_kernel<T, D, TR><<<grid, THREADS, lay.total, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(pk),
+        static_cast<const T*>(pv), static_cast<const float*>(pks),
+        static_cast<const float*>(pvs), static_cast<const int*>(table),
+        static_cast<const long long*>(lengths),
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(o_part),
+        static_cast<float*>(ml), H, KH, page, P, mpp, splits, sm_scale);
+    return int(cudaGetLastError());
+  }
+};
+
+// How many split blocks of g query heads per kv head one SM holds at once
+// (0 on error).
+struct Resident {
+  int g;
+
+  template <typename T, int D, int TR>
+  int run() const {
+    const Layout lay(TR, D, sizeof(T), g);
+    int blocks = 0;
+    if (allow_smem<T, D, TR>(lay.total) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, paged_decode_split_kernel<T, D, TR>, THREADS,
+            lay.total) != cudaSuccess)
+      return 0;
+    return blocks;
+  }
+};
+
+// f.run<T, D, TR>() for the page type, head size and tile of a call;
+// `invalid` for a head size without a kernel.
+template <typename T, int D, typename F>
+int by_tile(int page, const F& f) {
+  switch (tile_rows(page)) {
+    case 64: return f.template run<T, D, 64>();
+    case 32: return f.template run<T, D, 32>();
+    default: return f.template run<T, D, 16>();
+  }
+}
+
+template <typename F>
+int by_kind(int quantized, int D, int page, const F& f, int invalid) {
+  if (D == 64)
+    return quantized ? by_tile<int8_t, 64>(page, f)
+                     : by_tile<__nv_bfloat16, 64>(page, f);
+  if (D == 128)
+    return quantized ? by_tile<int8_t, 128>(page, f)
+                     : by_tile<__nv_bfloat16, 128>(page, f);
+  return invalid;
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks it
-// against the card's per-block limit before launching).
+// Bytes of dynamic shared memory one split block needs, its 2-stage ring
+// included (the wrapper checks it against the card's per-block limit
+// before launching).
 extern "C" long long paged_decode_smem(int D, int page, int g, int quantized) {
-  const int tr = page % 64 == 0 ? 64 : (page % 32 == 0 ? 32 : 16);
-  return (long long)Layout(tr, D, quantized ? 1 : 2, g).total;
+  return (long long)Layout(tile_rows(page), D, quantized ? 1 : 2, g).total;
 }
 
+// Split blocks one SM holds at once for these shapes (0 on error): the
+// wrapper sizes the split from it.
+extern "C" int paged_decode_blocks_per_sm(int D, int page, int g,
+                                          int quantized) {
+  if (g <= 0 || page <= 0 || page % 16 != 0) return 0;
+  return by_kind(quantized, D, page, Resident{g}, 0);
+}
+
+// The split kernel: with splits == 1 it writes `out` (bf16) and reads
+// neither scratch pointer; otherwise it writes the partials `o_part`
+// [B, H, splits, D] and `ml` [B, H, splits, 2] (fp32) for
+// `paged_decode_combine`.
 extern "C" int paged_decode(const void* q, const void* pool_k,
                             const void* pool_v, const void* pool_ks,
                             const void* pool_vs, const void* table,
-                            const void* lengths, void* out, int B, int H,
-                            int KH, int D, int page, int P, int mpp,
-                            int quantized, float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (KH <= 0 || H % KH != 0 || page <= 0 || page % 16 != 0)
+                            const void* lengths, void* out, void* o_part,
+                            void* ml, int B, int H, int KH, int D, int page,
+                            int P, int mpp, int splits, int quantized,
+                            float sm_scale, void* stream) {
+  if (KH <= 0 || H % KH != 0 || page <= 0 || page % 16 != 0 || splits < 1 ||
+      (splits > 1 && (o_part == nullptr || ml == nullptr)) ||
+      (splits == 1 && out == nullptr))
     return int(cudaErrorInvalidValue);
-  if (quantized) {
-    if (D == 64)
-      return by_tile<int8_t, 64>(q, pool_k, pool_v, pool_ks, pool_vs, table,
-                                 lengths, out, B, H, KH, page, P, mpp,
-                                 sm_scale, s);
-    if (D == 128)
-      return by_tile<int8_t, 128>(q, pool_k, pool_v, pool_ks, pool_vs, table,
-                                  lengths, out, B, H, KH, page, P, mpp,
-                                  sm_scale, s);
-  } else {
-    if (D == 64)
-      return by_tile<__nv_bfloat16, 64>(q, pool_k, pool_v, pool_ks, pool_vs,
-                                        table, lengths, out, B, H, KH, page,
-                                        P, mpp, sm_scale, s);
-    if (D == 128)
-      return by_tile<__nv_bfloat16, 128>(q, pool_k, pool_v, pool_ks, pool_vs,
-                                         table, lengths, out, B, H, KH, page,
-                                         P, mpp, sm_scale, s);
-  }
-  return int(cudaErrorInvalidValue);
+  const Launch f{q, pool_k, pool_v, pool_ks, pool_vs, table, lengths, out,
+                 o_part, ml, B, H, KH, page, P, mpp, splits, sm_scale,
+                 static_cast<cudaStream_t>(stream)};
+  return by_kind(quantized, D, page, f, int(cudaErrorInvalidValue));
+}
+
+// The combine kernel: out [B * H, D] bf16 from the partials of
+// `paged_decode`.
+extern "C" int paged_decode_combine(const void* o_part, const void* ml,
+                                    void* out, int BH, int D, int splits,
+                                    void* stream) {
+  if (BH < 0 || D <= 0 || splits < 1) return int(cudaErrorInvalidValue);
+  if (BH == 0) return 0;
+  paged_decode_combine_kernel<<<BH, THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(ml),
+      static_cast<__nv_bfloat16*>(out), splits, D);
+  return int(cudaGetLastError());
 }

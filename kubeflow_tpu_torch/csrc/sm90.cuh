@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
 // mbarriers, TMA tensor loads, wgmma shared-memory descriptors for the
-// 128-byte swizzle, wgmma.mma_async in its SS and RS forms, and setmaxnreg,
-// each as inline PTX; on the host, tensor-map encoding.
+// 128-byte swizzle, wgmma.mma_async in its SS and RS forms, named barriers
+// and setmaxnreg, each as inline PTX; on the host, tensor-map encoding.
 //
 // Tiles. A tile of `rows` x D bf16 rows (row-major in device memory, D = 64
 // or 128) is loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B as D / 64
@@ -285,6 +285,18 @@ DEV void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
 DEV uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// -- named barriers ---------------------------------------------------------
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `count` threads: bar_sync
+// waits for them all, bar_arrive counts this warp without waiting.
+DEV void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+DEV void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 // -- registers ---------------------------------------------------------------

@@ -6,8 +6,8 @@
 The kernels are CUDA C++ bound through ``ctypes``: ``csrc/flash_fwd.cu``
 (o and the per-row log-sum-exp) and ``csrc/flash_bwd.cu`` (dK/dV summed
 over each GQA group, and dQ); their notes there give the bounds and the
-designs. The forward and dK/dV kernels load their tiles with TMA, so the
-tensors in ``TMA_INPUTS`` must start on a 16-byte boundary.
+designs. All three kernels load their tiles with TMA, so the tensors in
+``TMA_INPUTS`` must start on a 16-byte boundary.
 ``FlashAttentionFn`` is the ``torch.autograd.Function`` that ties them
 together as the JAX package's custom VJP does: the forward saves ``(q, k,
 v, o, lse)``, the backward forms ``delta = rowsum(dO·O)`` in fp32
@@ -157,11 +157,11 @@ def _check(name: str, tensors: dict, kinds: dict) -> None:
     _check_tma(name, tensors)
 
 
-#: The inputs each kernel reads through TMA tensor maps. The dK/dV kernel
-#: copies lse and delta rows with plain loads, and dQ uses no TMA.
+#: The inputs each kernel reads through TMA tensor maps. Both backward
+#: kernels read lse and delta rows with plain loads (a row starts anywhere).
 TMA_INPUTS = {"flash_attention": ("q", "k", "v"),
               "flash_bwd_dkdv": ("q", "k", "v", "do"),
-              "flash_bwd_dq": ()}
+              "flash_bwd_dq": ("q", "k", "v", "do")}
 
 
 def _check_tma(name: str, tensors: dict) -> None:

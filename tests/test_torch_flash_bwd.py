@@ -204,16 +204,27 @@ def test_tma_alignment_is_checked():
 
 
 def test_misaligned_lse_delta_and_dq_inputs_are_accepted():
-    """lse and delta are copied with plain loads (their rows start
-    anywhere) and the dQ kernel uses no TMA: none of these is refused for
-    its alignment."""
+    """lse and delta are read with plain loads (their rows start anywhere):
+    neither backward kernel refuses them for their alignment, beside
+    aligned q, k, v and dO."""
     base = torch.zeros(4 * 8 * 64 + 8, dtype=torch.bfloat16)
     aligned = base[:4 * 8 * 64].view(1, 4, 8, 64)
-    shifted = base[1:1 + 4 * 8 * 64].view(1, 4, 8, 64)
     rows = torch.zeros(4 * 8 + 1)[1:].view(1, 4, 8)         # 4 bytes in
     assert rows.data_ptr() % 16
-    F._check_tma("flash_bwd_dkdv", {"q": aligned, "k": aligned,
-                                    "v": aligned, "do": aligned,
-                                    "lse": rows, "delta": rows})
-    F._check_tma("flash_bwd_dq", {"q": shifted, "k": shifted, "v": shifted,
-                                  "do": shifted, "lse": rows, "delta": rows})
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        F._check_tma(name, {"q": aligned, "k": aligned, "v": aligned,
+                            "do": aligned, "lse": rows, "delta": rows})
+
+
+@pytest.mark.parametrize("bad", ["q", "k", "v", "do"])
+def test_misaligned_dq_tma_input_is_refused(bad):
+    """The dQ kernel reads q and dO (its Q and dO tiles) and k and v (the
+    streamed K/V ring) through TMA: each must start on a 16-byte boundary."""
+    base = torch.zeros(4 * 8 * 64 + 8, dtype=torch.bfloat16)
+    aligned = base[:4 * 8 * 64].view(1, 4, 8, 64)
+    shifted = base[1:1 + 4 * 8 * 64].view(1, 4, 8, 64)     # 2 bytes in
+    rows = torch.zeros(1, 4, 8)
+    inputs = {"q": aligned, "k": aligned, "v": aligned, "do": aligned,
+              "lse": rows, "delta": rows}
+    with pytest.raises(ValueError, match="16-byte"):
+        F._check_tma("flash_bwd_dq", {**inputs, bad: shifted})
