@@ -7,19 +7,24 @@ package is not beside it. ``python3 chip_smoke.py --flash-only`` runs
 phases 1 and 2 and the flash kernels' part of phase 3 (their rows and edge
 cases; with ``CUDA_LAUNCH_BLOCKING=1`` a fault names its launch) and
 prints no result line; ``--paged-only`` does the same for the paged-decode
-kernels. Phases, each a hard failure:
+kernels, and ``--xent-only`` for the fused cross-entropy kernels (their
+rows with the cuBLAS yardstick, a repeat call's bits, sink inputs, and
+their edge cases). Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every hand-written kernel built from the checkout's sources (one
    ``nvcc`` per CUDA source, the Triton kernels compiled meanwhile), each
    kernel's registers and spills; a spill in the wgmma kernels (flash
-   forward, dK/dV, dQ) fails;
+   forward, dK/dV, dQ; the fused CE's forward, dl recompute and d_hidden),
+   or a ptxas note that it serialized their wgmma instructions, fails;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the Llama-3-8B serving and training shapes, with its time, the plain
    version's, one library call's where there is one, and the least time
    the card could take (the larger of bytes over 3.35 TB/s and operations
    over the peak rate of their type, H100 SXM); the fused CE's forward and
-   backward beside the chunked CE's; the flash forward timed on the
+   backward beside the chunked CE's and cuBLAS's h W, two calls of them
+   bit-identical, and timed on sink inputs (h = 0) beside the random
+   ones; the flash forward timed on the
    kernel layout, and the dK/dV and dQ kernels each called twice must
    give the same bits; both backward kernels on inputs with an attention
    sink (every query puts p >= 1/2 on key 0), dQ timed there and on the
@@ -244,12 +249,14 @@ def phase_build() -> None:
 
 #: Kernels whose products run on wgmma with register accumulators.
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
-                 "flash_bwd_dq_kernel")
+                 "flash_bwd_dq_kernel", "xent_fwd_kernel", "xent_dl_kernel",
+                 "xent_dh_kernel")
 
 
 def report_ptxas(logs: dict) -> None:
     """Print each kernel's registers and spills from the ``ptxas -v`` logs
-    of a build, and fail if a kernel of ``WGMMA_KERNELS`` spills."""
+    of a build, and fail if a kernel of ``WGMMA_KERNELS`` spills or if
+    ptxas serialized its wgmma instructions (notes C7515, C7520)."""
     for name, log in logs.items():
         for kernel, used, spills in ptxas_kernels(log):
             print(f"  ptxas {name}: {kernel}: {used}; {spills}", flush=True)
@@ -262,6 +269,9 @@ def report_ptxas(logs: dict) -> None:
             # Warnings, and notes that wgmma instructions were serialized.
             if "warning" in ln.lower() or "performance" in ln.lower():
                 print(f"  ptxas {name}: {ln.strip()}", flush=True)
+                if "wgmma" in ln and any(k in ln for k in WGMMA_KERNELS):
+                    fail(f"{name}: ptxas serialized the wgmma instructions "
+                         f"of a warp-specialised kernel: {ln.strip()}")
 
 
 def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
@@ -615,6 +625,48 @@ def grad_ms(make, inputs, cotangent) -> float:
                                                 retain_graph=True), iters=10)
 
 
+def clocks_during(fn, seconds: float = 0.8) -> tuple[float, float]:
+    """Median SM clock (MHz) and power draw (W) that ``nvidia-smi`` reads
+    while ``fn()`` runs back to back for about ``seconds``: the card lowers
+    its clock under load near its power limit, by how much depending on the
+    operands' bits."""
+    samples: list[tuple[float, float]] = []
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=60).stdout.strip().splitlines()
+            except (OSError, subprocess.SubprocessError):
+                return
+            try:
+                clk, watts = (float(x) for x in out[0].split(","))
+            except (IndexError, ValueError):
+                continue
+            samples.append((clk, watts))
+
+    fn()
+    torch.cuda.synchronize()
+    th = threading.Thread(target=sample, name="nvidia-smi")
+    th.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds or (len(samples) < 3
+                                                  and th.is_alive()):
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 > 10 * seconds:
+            break
+    stop.set()
+    th.join()
+    if not samples:
+        return math.nan, math.nan
+    return (sorted(c for c, _ in samples)[len(samples) // 2],
+            sorted(w for _, w in samples)[len(samples) // 2])
+
+
 def argmax_agrees(got: torch.Tensor, want: torch.Tensor, logits, name: str):
     """``correct`` from the kernel against the plain version's: a row may
     differ only where the plain logits' two largest values lie within 1e-4
@@ -779,6 +831,42 @@ def check_xent(gen, T, D, V, *, softcap=None, name=None, keep=False):
     return errs, ((h, w, t, g, lse) if keep else None)
 
 
+def xent_bwd_parts(h, w, t, lse, g, calls: int = 2) -> dict:
+    """Device ms per ``xent_bwd`` call of each of its kernels (dl
+    recompute, d_hidden, d_head), from a profile of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fx.xent_bwd(h, w, t, lse, g)
+        torch.cuda.synchronize()
+    _, kernels = _kernel_times(prof)
+    part = {k: sum(ms for key, ms, _ in kernels
+                   if f"xent_{k}_kernel" in key) / calls
+            for k in ("dl", "dh", "dw")}
+    if not all(part.values()):
+        fail(f"the CE backward's profile lacks one of its kernels: {part}")
+    return part
+
+
+def xent_repeat(h, w, t, g, name: str) -> None:
+    """A second ``xent_fwd`` and ``xent_bwd`` on the same inputs must give
+    the same bits: no atomics, fixed orders of every sum."""
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+
+    outs = []
+    for _ in range(2):
+        nll, lse, cor = fx.xent_fwd(h, w, t)
+        outs.append((nll, lse, cor, *fx.xent_bwd(h, w, t, lse, g)))
+    for part, a, b in zip(("nll", "lse", "correct", "dh", "dw"), *outs):
+        if not torch.equal(a, b):
+            fail(f"{name}: a second call gave other bits in {part}")
+    print(f"{name}: a second xent_fwd and xent_bwd gave the same bits (nll, "
+          "lse, correct, dh, dw)", flush=True)
+
+
 def xent_rows() -> list[dict]:
     """Sites 9-11 at the training shape (T = 2 x 2048 tokens, D = 4096,
     V = 128256). The backward launches, per vocab chunk, the dl recompute
@@ -788,10 +876,16 @@ def xent_rows() -> list[dict]:
     two bounds add up to the backward's 3. No one PyTorch call fuses the
     projection with the CE, so library_ms is null; the port's own
     ``_chunked_ce`` (forward and backward, cuBLAS products, the path with
-    fused kernels off) is timed beside them."""
+    fused kernels off) is timed beside them, and so is cuBLAS's product
+    h W alone (``torch.matmul``, one pass, [T, V] bf16 out) as a yardstick
+    of the card's GEMM rate. Then the same calls twice must give the same
+    bits, and the forward and backward are timed on sink inputs, where
+    every logit of a row is equal and every tile's maximum a tie (h = 0,
+    and W with all columns equal), beside the random ones, after a check
+    of each against the plain version (correct is then exactly
+    target == 0); cuBLAS's product is timed on them too, and the SM clock
+    is read under the forward, as the card's own speed on such operands."""
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_tpu_torch.models import decoder as dec
     from kubeflow_tpu_torch.models.config import preset
@@ -807,17 +901,7 @@ def xent_rows() -> list[dict]:
     plain_bwd = event_ms(lambda: fx.xent_bwd_ref(h, w, t, lse, g), iters=2)
     both_ms = device_ms(lambda: fx.xent_bwd(h, w, t, lse, g), iters=2,
                         reps=2)
-    calls = 2
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fx.xent_bwd(h, w, t, lse, g)
-        torch.cuda.synchronize()
-    _, kernels = _kernel_times(prof)
-    part = {k: sum(ms for key, ms, _ in kernels
-                   if f"xent_{k}_kernel" in key) / calls
-            for k in ("dl", "dh", "dw")}
-    if not all(part.values()):
-        fail(f"the CE backward's profile lacks one of its kernels: {part}")
+    part = xent_bwd_parts(h, w, t, lse, g)
     rows = []
     b = bound(io + 3 * T * 4, unit, BF16_FLOPS)
     rows.append(dict(
@@ -854,35 +938,93 @@ def xent_rows() -> list[dict]:
         torch.autograd.grad(nll.sum() / T, (hb, wb))
 
     chunked_ms = event_ms(chunked)
+    del hb, wb, tb
+    torch.cuda.empty_cache()
+    cublas_ms = event_ms(lambda: torch.matmul(h, w), iters=5)
+    torch.cuda.empty_cache()
+    tflops = lambda passes, ms: passes * unit / (ms * 1e-3) / 1e12  # noqa: E731
     print(f"kernel fused_xent T={T} D={D} V={V}: forward {fwd_ms:.3f} ms "
-          f"(bound {rows[0]['bound_ms']:.3f}); backward {both_ms:.3f} ms "
-          f"(bound {b_both[0]:.3f}, 3 passes), profiled as dl recompute "
-          f"{part['dl']:.3f} + d_hidden {part['dh']:.3f} + d_head "
-          f"{part['dw']:.3f} ms; forward + backward {fwd_ms + both_ms:.3f} "
-          f"ms against the chunked CE's {chunked_ms:.3f} ms (cuBLAS, 4 "
-          f"passes)", flush=True)
+          f"({tflops(1, fwd_ms):.0f} TFLOP/s; bound "
+          f"{rows[0]['bound_ms']:.3f}); backward {both_ms:.3f} ms (bound "
+          f"{b_both[0]:.3f}, 3 passes), profiled as dl recompute "
+          f"{part['dl']:.3f} ({tflops(1, part['dl']):.0f} TFLOP/s) + "
+          f"d_hidden {part['dh']:.3f} ({tflops(1, part['dh']):.0f}) + "
+          f"d_head {part['dw']:.3f} ({tflops(1, part['dw']):.0f}) ms; "
+          f"forward + backward {fwd_ms + both_ms:.3f} ms against the chunked "
+          f"CE's {chunked_ms:.3f} ms (cuBLAS, 4 passes); yardstick: "
+          f"torch.matmul(h, W) [{T}, {D}] x [{D}, {V}] {cublas_ms:.3f} ms "
+          f"({tflops(1, cublas_ms):.0f} TFLOP/s, one pass, [T, V] bf16 "
+          "written)", flush=True)
+    xent_repeat(h, w, t, g, f"fused_xent T={T} D={D} V={V}")
+    clk = clocks_during(lambda: fx.xent_fwd(h, w, t))
+    # Sink inputs, every row one long tie: h = 0 (every logit 0, zero
+    # operands), and W with every column equal (random nonzero operands).
+    sinks = (("h = 0", torch.zeros_like(h), w),
+             ("equal columns", h, w[:, :1].expand(D, V).contiguous()))
+    for label, hs, ws in sinks:
+        nll0, lse0, cor0 = fx.xent_fwd(hs, ws, t)
+        rn, rl, rc = fx.xent_fwd_ref(hs, ws, t)
+        within(nll0, rn, f"sink ({label}) fused_xent nll")
+        within(lse0, rl, f"sink ({label}) fused_xent lse", atol=LSE_ATOL,
+               rtol=0.0)
+        if not torch.equal(cor0, (t == 0).float()) or \
+                not torch.equal(cor0, rc):
+            fail(f"sink ({label}) fused_xent: with every logit of a row "
+                 "equal, correct must be exactly target == 0 (the lowest "
+                 "index)")
+        rdh, _ = fx.xent_bwd_ref(hs, ws, t, rl, g)
+        dh0, _ = fx.xent_bwd(hs, ws, t, lse0, g)
+        within(dh0, rdh, f"sink ({label}) fused_xent dh",
+               atol=ATOL * float(rdh.float().abs().max()))
+        del rn, rl, rc, rdh, dh0
+        sink_fwd = device_ms(lambda: fx.xent_fwd(hs, ws, t), iters=2, reps=2)
+        sink = xent_bwd_parts(hs, ws, t, lse0, g)
+        sink_mm = event_ms(lambda: torch.matmul(hs, ws), iters=5)
+        sink_clk = clocks_during(lambda: fx.xent_fwd(hs, ws, t))
+        print(f"kernel fused_xent sink inputs ({label}): forward "
+              f"{sink_fwd:.3f} ms ({sink_fwd / fwd_ms:.3f}x random), dl "
+              f"recompute + d_hidden {sink['dl'] + sink['dh']:.3f} ms "
+              f"({(sink['dl'] + sink['dh']) / (part['dl'] + part['dh']):.3f}"
+              f"x random), d_head {sink['dw']:.3f} ms; cuBLAS's h W "
+              f"{sink_mm:.3f} ms ({sink_mm / cublas_ms:.3f}x random); SM "
+              f"clock under the forward {sink_clk[0]:.0f} MHz at "
+              f"{sink_clk[1]:.0f} W (random: {clk[0]:.0f} MHz at "
+              f"{clk[1]:.0f} W); the results match the plain version",
+              flush=True)
+        del hs, ws
+        torch.cuda.empty_cache()
     return rows
+
+
+def phase_xent_edges(gen=None) -> None:
+    """The fused CE away from the training shape, against its plain
+    version: T in {1, 300, 4096}, V in {1000, 128256, 256000, 20000}
+    (ragged last tile, one tile, many ranges, the backward's last chunk of
+    13568 columns at 128256, and at 20000 a last chunk of 3616, ragged in
+    its tiles and in the d_hidden product's K, after one whole chunk),
+    D in {2048, 4096}, softcap 30, with argmax ties inside a tile and
+    across a range boundary, targets 0, V-1 and out of vocab, and masked
+    rows (exactly zero dh)."""
+    gen = gen or torch.Generator("cuda").manual_seed(SEED + 10)
+    for T, D, V, cap in ((1, 2048, 1000, None), (300, 4096, 1000, 30.0),
+                         (4096, 2048, 1000, None), (1, 4096, 128256, 30.0),
+                         (300, 2048, 128256, None), (300, 4096, 256000, 30.0),
+                         (4096, 2048, 256000, None), (300, 2048, 20000, None)):
+        check_xent(gen, T, D, V, softcap=cap,
+                   name=f"edge fused_xent T={T} D={D} V={V} softcap={cap}")
+        torch.cuda.empty_cache()
 
 
 def phase_train_edges() -> None:
     """The training kernels away from the training shape, each against its
-    plain version: the fused CE at T in {1, 300, 4096}, V in {1000,
-    128256, 256000} (ragged last tile, one tile, many ranges), D in {2048,
-    4096}, softcap 30, with argmax ties inside a tile and across a range
-    boundary, targets 0, V-1 and out of vocab, and masked rows (exactly
-    zero dh); the RMSNorm backward at D in {2048, 3072, 4096} (3072: a
-    masked row block), T in {1, 300}, with and without (1 + w) and the
-    residual cotangent; the SwiGLU backward (silu, gelu) at odd M."""
+    plain version: the fused CE (``phase_xent_edges``); the RMSNorm
+    backward at D in {2048, 3072, 4096} (3072: a masked row block), T in
+    {1, 300}, with and without (1 + w) and the residual cotangent; the
+    SwiGLU backward (silu, gelu) at odd M."""
     from kubeflow_tpu_torch.ops import fused_norm as fn
 
     gen = torch.Generator("cuda").manual_seed(SEED + 10)
-    for T, D, V, cap in ((1, 2048, 1000, None), (300, 4096, 1000, 30.0),
-                         (4096, 2048, 1000, None), (1, 4096, 128256, 30.0),
-                         (300, 2048, 128256, None), (300, 4096, 256000, 30.0),
-                         (4096, 2048, 256000, None)):
-        check_xent(gen, T, D, V, softcap=cap,
-                   name=f"edge fused_xent T={T} D={D} V={V} softcap={cap}")
-        torch.cuda.empty_cache()
+    phase_xent_edges(gen)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
@@ -2150,9 +2292,9 @@ def phase_train_profile(fused: str) -> None:
           f"{t_enq * 1e3:.2f} ms, wall {t_wall * 1e3:.2f} ms, device "
           f"{dev_ms}, {tps:.0f} tokens/s, MFU {mfu}, peak "
           f"{peak_mem / 2**30:.2f} GiB allocated", flush=True)
-    # The ten largest, and the flash kernels wherever they rank.
+    # The ten largest, and the flash and CE kernels wherever they rank.
     for rank, (key, ms, count) in enumerate(kernels):
-        if rank < 10 or "flash" in key:
+        if rank < 10 or "flash" in key or "xent" in key:
             print(f"  {ms:8.3f} ms  {count:4d}x  {key[:90]}", flush=True)
     del task, batches
     gc.collect()
@@ -2173,12 +2315,16 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    if sys.argv[1:] in (["--flash-only"], ["--paged-only"]):
+    if sys.argv[1:] in (["--flash-only"], ["--paged-only"],
+                        ["--xent-only"]):
         # One family of kernels alone: its rows, then its edge cases.
         if sys.argv[1] == "--flash-only":
             rows = flash_fwd_rows() + flash_bwd_rows()
             phase_flash_edges()
             phase_flash_bwd_edges()
+        elif sys.argv[1] == "--xent-only":
+            rows = xent_rows()
+            phase_xent_edges()
         else:
             rows = paged_kernel_rows()
             phase_paged_edges()

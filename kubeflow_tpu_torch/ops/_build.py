@@ -125,3 +125,15 @@ def check(err: int, what: str) -> None:
     refused launch never runs, and a later synchronize would not say so)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_tma_aligned(name: str, tensors: dict, names) -> None:
+    """A TMA tensor map's global address must be 16-byte aligned: raise,
+    naming the tensor, for any of ``tensors[n]`` (n in ``names``) that
+    does not start on a 16-byte boundary."""
+    for n in names:
+        off = tensors[n].data_ptr() % 16
+        if off:
+            raise ValueError(f"{name}: {n} starts {off} bytes past a "
+                             "16-byte boundary; the kernel's TMA loads "
+                             "need 16-byte aligned tensors")

@@ -169,12 +169,7 @@ def _check_tma(name: str, tensors: dict) -> None:
     the inputs of ``TMA_INPUTS[name]``. (Their row strides, D * 2 bytes with
     D in ``SUPPORTED_HEAD_DIMS``, and plane strides are multiples of 16
     bytes once the tensor is contiguous.)"""
-    for n in TMA_INPUTS[name]:
-        t = tensors[n]
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {n} starts {t.data_ptr() % 16} bytes "
-                             "past a 16-byte boundary; the kernel's TMA "
-                             "loads need 16-byte aligned tensors")
+    _build.check_tma_aligned(name, tensors, TMA_INPUTS[name])
 
 
 def _check_shapes(name: str, q, k, v) -> None:

@@ -36,10 +36,14 @@ import torch
 
 from kubeflow_tpu_torch.ops import _build
 
-#: Vocab columns per backward chunk: the chunk's dl scratch is [T, 8192]
-#: bf16 (67 MB at T = 4096).
-VOCAB_CHUNK = 8192
-TILE = 128                  # the kernels' row and vocab tile
+#: Vocab columns per backward chunk: the chunk's dl scratch is [T, 16384]
+#: bf16 (134 MB at T = 4096). Each chunk reads and writes d_hidden's fp32
+#: [T, D] accumulator once, so wider chunks pass over it less often; the
+#: scratch and the accumulator must stay within an eighth of the fp32
+#: [T, V] logits (``chip_smoke.py``'s memory probe).
+VOCAB_CHUNK = 16384
+TILE = 256                  # the forward's vocab tile (columns)
+ROW_TILE = 128              # its row tile
 
 
 # -- plain versions (the CPU path, and the card's reference) -------------------
@@ -74,6 +78,18 @@ def xent_fwd_ref(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
     return lse - picked, lse, correct
 
 
+def _dlogits_ref(s: torch.Tensor, t: torch.Tensor, lse: torch.Tensor,
+                 g: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """fp32 d_logits [T, V] from the (capped) logits ``s`` — the TPU
+    kernels' ``_dlogits``: ``(exp(s - lse) - onehot) * g``, times ``1 -
+    (s / c)^2`` with a softcap."""
+    dl = torch.exp(s - lse.float()[:, None])
+    dl.sub_(_onehot(t, s.shape[1])).mul_(g.float()[:, None])
+    if softcap is not None:
+        dl.mul_(1.0 - (s / softcap) ** 2)
+    return dl
+
+
 def xent_bwd_ref(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
                  lse: torch.Tensor, g: torch.Tensor,
                  softcap: Optional[float] = None):
@@ -82,12 +98,7 @@ def xent_bwd_ref(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
     the d_hidden product and to h's before the d_head product, where the
     TPU kernels cast it. Returns (dh [T, D] in h's dtype, dw [D, V] in W's
     dtype)."""
-    s = _logits_ref(h2, w, softcap)
-    dl = torch.exp(s - lse.float()[:, None])
-    dl.sub_(_onehot(t, w.shape[1])).mul_(g.float()[:, None])
-    if softcap is not None:
-        dl.mul_(1.0 - (s / softcap) ** 2)
-    del s
+    dl = _dlogits_ref(_logits_ref(h2, w, softcap), t, lse, g, softcap)
     dh = dl.to(w.dtype).float() @ w.float().T
     dw = h2.float().T @ dl.to(h2.dtype).float()
     return dh.to(h2.dtype), dw.to(w.dtype)
@@ -112,7 +123,7 @@ def _entry(name: str):
     fn = getattr(_build.load("fused_xent"), name)
     fn.restype = ctypes.c_int
     if name == "fused_xent_fwd_bf16":
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
     elif name == "fused_xent_bwd_bf16":
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
@@ -124,8 +135,8 @@ def _entry(name: str):
 
 def _check(name: str, h2, w, t, *rows) -> None:
     """What the kernels take: CUDA tensors on one device; bf16 h [T, D]
-    and W [D, V], row-major and 16-byte aligned, D and V multiples of 8;
-    int32 targets and fp32 per-row vectors [T]; all contiguous."""
+    and W [D, V], row-major, D and V multiples of 8; int32 targets and fp32
+    per-row vectors [T]; all contiguous. ``_check_tma`` checks alignment."""
     dev = h2.device
     for x in (h2, w, t, *rows):
         if x.device.type != "cuda" or x.device != dev:
@@ -152,9 +163,20 @@ def _check(name: str, h2, w, t, *rows) -> None:
     for x in (h2, w, t, *rows):
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if h2.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError(f"{name}: h and W must be 16-byte aligned (the "
-                         "kernel copies 16-byte vectors)")
+
+
+#: The tensors each entry point reads through TMA tensor maps (and, for
+#: ``xent_bwd``'s d_head product, 16-byte cp.async vectors). Targets, lse
+#: and g are read with plain loads: they may start anywhere.
+TMA_INPUTS = {"xent_fwd": ("h", "w"), "xent_bwd": ("h", "w", "scratch")}
+
+
+def _check_tma(name: str, tensors: dict) -> None:
+    """A TMA tensor map's global address must be 16-byte aligned: check
+    the tensors of ``TMA_INPUTS[name]``. (Their row strides, D, V and the
+    chunk width times 2 bytes, are multiples of 16 once D and V are
+    multiples of 8.)"""
+    _build.check_tma_aligned(name, tensors, TMA_INPUTS[name])
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -177,10 +199,11 @@ def _tiles_per_range(rows: int, vocab: int, slots: int) -> int:
     range of vocab tiles, and the card runs ``slots`` blocks at once, so
     the split is the one that minimises waves of ``slots`` blocks × tiles
     per block, among splits of at most one wave's blocks (which keeps the
-    partials and their combine small): T = 4096 gives 32 row tiles, and at
-    264 slots (132 SMs of two blocks) 8 ranges of 126 tiles fill 256 of
-    them in one wave where 9 ranges would take two."""
-    row_tiles, n_tiles = _cdiv(rows, TILE), _cdiv(vocab, TILE)
+    partials and their combine small): T = 4096 gives 32 row tiles of 128,
+    V = 128256 gives 501 tiles of 256, and at 132 slots (132 SMs of one
+    block) 4 ranges of 126 tiles fill 128 of them in one wave where 5
+    ranges would take two."""
+    row_tiles, n_tiles = _cdiv(rows, ROW_TILE), _cdiv(vocab, TILE)
     best = None
     for ranges in range(1, min(n_tiles, _cdiv(slots, row_tiles)) + 1):
         per = _cdiv(n_tiles, ranges)
@@ -196,18 +219,19 @@ def xent_fwd(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
     if h2.device.type == "cpu":
         return xent_fwd_ref(h2, w, t, softcap)
     _check("xent_fwd", h2, w, t)
+    _check_tma("xent_fwd", {"h": h2, "w": w})
     rows, d = h2.shape
     vocab = w.shape[1]
     per_range = _tiles_per_range(rows, vocab, forward_slots(h2.device))
     ranges = _cdiv(_cdiv(vocab, TILE), per_range)
     f32 = dict(dtype=torch.float32, device=h2.device)
-    part = torch.empty((4, ranges, rows), **f32)
+    part = torch.empty((3, ranges, rows), **f32)
     part_i = torch.empty((ranges, rows), dtype=torch.int32, device=h2.device)
     nll, lse, correct = (torch.empty((rows,), **f32) for _ in range(3))
     if rows:
         err = _entry("fused_xent_fwd_bf16")(
             h2.data_ptr(), w.data_ptr(), t.data_ptr(),
-            *(part[i].data_ptr() for i in range(4)), part_i.data_ptr(),
+            *(part[i].data_ptr() for i in range(3)), part_i.data_ptr(),
             nll.data_ptr(), lse.data_ptr(), correct.data_ptr(), rows, d,
             vocab, per_range, int(softcap is not None),
             float(softcap or 0.0),
@@ -234,6 +258,7 @@ def xent_bwd(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
         return dh, dw.zero_()
     scratch = torch.empty((rows, chunk), dtype=torch.bfloat16,
                           device=h2.device)
+    _check_tma("xent_bwd", {"h": h2, "w": w, "scratch": scratch})
     acc = torch.empty((rows, d) if vocab > chunk else (1,),
                       dtype=torch.float32, device=h2.device)
     err = _entry("fused_xent_bwd_bf16")(

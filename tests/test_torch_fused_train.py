@@ -190,11 +190,12 @@ def test_fused_ce_wrappers_launch_nothing_on_the_cpu():
 
 
 def test_forward_ranges_fill_the_card_in_few_waves():
-    # T = 4096, V = 128256 at 264 slots (132 SMs of two blocks): 8 ranges
-    # of 126 tiles, one wave.
-    assert txent._tiles_per_range(4096, 128256, 264) == 126
+    # T = 4096, V = 128256 at 132 slots (132 SMs of one block): 32 row
+    # tiles of 128 and 501 vocab tiles of 256 in 4 ranges of 126 tiles,
+    # one wave of 128 blocks.
+    assert txent._tiles_per_range(4096, 128256, 132) == 126
     for rows, vocab in ((1, 1000), (300, 128256), (4096, 256000)):
-        per = txent._tiles_per_range(rows, vocab, 264)
+        per = txent._tiles_per_range(rows, vocab, 132)
         n_tiles = -(-vocab // txent.TILE)
         ranges = -(-n_tiles // per)
         assert 1 <= per <= n_tiles and (ranges - 1) * per < n_tiles
