@@ -15,16 +15,18 @@ their edge cases). Phases, each a hard failure:
 2. build: every hand-written kernel built from the checkout's sources (one
    ``nvcc`` per CUDA source, the Triton kernels compiled meanwhile), each
    kernel's registers and spills; a spill in the wgmma kernels (flash
-   forward, dK/dV, dQ; the fused CE's forward, dl recompute and d_hidden),
-   or a ptxas note that it serialized their wgmma instructions, fails;
+   forward, dK/dV, dQ; the fused CE's forward, dl recompute, d_hidden and
+   d_head), or a ptxas note that it serialized their wgmma instructions,
+   fails;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the Llama-3-8B serving and training shapes, with its time, the plain
    version's, one library call's where there is one, and the least time
    the card could take (the larger of bytes over 3.35 TB/s and operations
    over the peak rate of their type, H100 SXM); the fused CE's forward and
-   backward beside the chunked CE's and cuBLAS's h W, two calls of them
-   bit-identical, and timed on sink inputs (h = 0) beside the random
-   ones; the flash forward timed on the
+   backward beside the chunked CE's and cuBLAS's h W, the d_head product
+   beside cuBLAS's h^T dl over the same chunks, two calls of them
+   bit-identical, and checked and timed on sink inputs (h = 0; W with
+   equal columns) beside the random ones; the flash forward timed on the
    kernel layout, and the dK/dV and dQ kernels each called twice must
    give the same bits; both backward kernels on inputs with an attention
    sink (every query puts p >= 1/2 on key 0), dQ timed there and on the
@@ -40,10 +42,10 @@ their edge cases). Phases, each a hard failure:
    outliers, two calls bit-identical, and named split counts (1 to mpp,
    splits past a slot's length, a split all unmapped between counted ones,
    mpp = 13 under counts that do not divide it); for the fused CE: T of 1,
-   300 and 4096, vocabularies of 1000,
-   128256 and 256000, softcap, argmax ties inside a tile and across a
-   vocab-range boundary, targets 0, V-1 and out of vocab, masked rows that
-   must get exactly zero d_hidden; for the norm and SwiGLU backward:
+   300 and 4096, D of 1160 (ragged in 64), 2048 and 4096, vocabularies of
+   1000, 20000, 128256 and 256000, softcap, argmax ties inside a tile and
+   across a vocab-range boundary, targets 0, V-1 and out of vocab, masked
+   rows that must get exactly zero d_hidden; for the norm and SwiGLU backward:
    D = 2048/3072/4096, T = 1 and 300, (1 + w), the residual cotangent,
    gelu, odd M); then the memory probe: the fused CE's forward and
    backward at T = 4096, V = 128256 must peak within one eighth of an
@@ -250,7 +252,7 @@ def phase_build() -> None:
 #: Kernels whose products run on wgmma with register accumulators.
 WGMMA_KERNELS = ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                  "flash_bwd_dq_kernel", "xent_fwd_kernel", "xent_dl_kernel",
-                 "xent_dh_kernel")
+                 "xent_dh_kernel", "xent_dw_kernel")
 
 
 def report_ptxas(logs: dict) -> None:
@@ -874,7 +876,12 @@ def xent_rows() -> list[dict]:
     splits its device time: row 10 is the recompute and d_hidden (2
     passes over the logits), row 11 the d_head product (1 pass), and the
     two bounds add up to the backward's 3. No one PyTorch call fuses the
-    projection with the CE, so library_ms is null; the port's own
+    projection with the CE, so rows 9 and 10 have no library_ms. Row 11's
+    is cuBLAS on the same work: ``torch.matmul(h.t(), dl_c)`` ([D, vc]
+    bf16 out) for each vocab chunk at its width, the chunks' products in
+    one timed call, on each chunk's dl from the plain recompute (the
+    values the kernel writes to its scratch, up to the rounding of exp).
+    The port's own
     ``_chunked_ce`` (forward and backward, cuBLAS products, the path with
     fused kernels off) is timed beside them, and so is cuBLAS's product
     h W alone (``torch.matmul``, one pass, [T, V] bf16 out) as a yardstick
@@ -910,20 +917,29 @@ def xent_rows() -> list[dict]:
         replaces="kubeflow_tpu/ops/fused_xent.py:149",
         max_abs_err=max(errs["nll"], errs["lse"]), ms=fwd_ms,
         plain_ms=plain_fwd, bound_ms=b[0], bound_by=b[1], library_ms=None))
+    ht, dls = h.t(), []
+    for c0 in range(0, V, fx.VOCAB_CHUNK):
+        logits = fx._logits_ref(h, w[:, c0:c0 + fx.VOCAB_CHUNK], None)
+        dls.append(fx._dlogits_ref(logits, t - c0, lse, g, None).to(
+            torch.bfloat16))
+        del logits
+    dw_cublas = event_ms(lambda: [torch.matmul(ht, d) for d in dls], iters=5)
+    del dls
+    torch.cuda.empty_cache()
     # Row 10 reads h, W, targets, lse and g and writes dh; row 11 reads h
     # and the recompute's dl and writes dW.
-    for name, site, ms, nbytes, passes, err in (
+    for name, site, ms, nbytes, passes, err, library_ms in (
             ("fused_xent_bwd_dh", 245, part["dl"] + part["dh"],
-             io + 2 * T * 4 + T * D * 2, 2, errs["dh"]),
+             io + 2 * T * 4 + T * D * 2, 2, errs["dh"], None),
             ("fused_xent_bwd_dw", 262, part["dw"],
-             T * D * 2 + T * V * 2 + D * V * 2, 1, errs["dw"])):
+             T * D * 2 + T * V * 2 + D * V * 2, 1, errs["dw"], dw_cublas)):
         b = bound(nbytes, passes * unit, BF16_FLOPS)
         rows.append(dict(
             name=name, route="cuda",
             source="kubeflow_tpu_torch/csrc/fused_xent.cu",
             replaces=f"kubeflow_tpu/ops/fused_xent.py:{site}",
             max_abs_err=err, ms=ms, plain_ms=plain_bwd, bound_ms=b[0],
-            bound_by=b[1], library_ms=None))
+            bound_by=b[1], library_ms=library_ms))
     b_both = bound(io + 2 * T * 4 + T * D * 2 + D * V * 2, 3 * unit,
                    BF16_FLOPS)
     # The chunked CE of the fused-off path at the same shape: forward and
@@ -949,7 +965,9 @@ def xent_rows() -> list[dict]:
           f"{b_both[0]:.3f}, 3 passes), profiled as dl recompute "
           f"{part['dl']:.3f} ({tflops(1, part['dl']):.0f} TFLOP/s) + "
           f"d_hidden {part['dh']:.3f} ({tflops(1, part['dh']):.0f}) + "
-          f"d_head {part['dw']:.3f} ({tflops(1, part['dw']):.0f}) ms; "
+          f"d_head {part['dw']:.3f} ({tflops(1, part['dw']):.0f}) ms, "
+          f"cuBLAS h^T dl over the same {len(range(0, V, fx.VOCAB_CHUNK))} "
+          f"chunks {dw_cublas:.3f} ms ({tflops(1, dw_cublas):.0f} TFLOP/s); "
           f"forward + backward {fwd_ms + both_ms:.3f} ms against the chunked "
           f"CE's {chunked_ms:.3f} ms (cuBLAS, 4 passes); yardstick: "
           f"torch.matmul(h, W) [{T}, {D}] x [{D}, {V}] {cublas_ms:.3f} ms "
@@ -972,11 +990,12 @@ def xent_rows() -> list[dict]:
             fail(f"sink ({label}) fused_xent: with every logit of a row "
                  "equal, correct must be exactly target == 0 (the lowest "
                  "index)")
-        rdh, _ = fx.xent_bwd_ref(hs, ws, t, rl, g)
-        dh0, _ = fx.xent_bwd(hs, ws, t, lse0, g)
-        within(dh0, rdh, f"sink ({label}) fused_xent dh",
-               atol=ATOL * float(rdh.float().abs().max()))
-        del rn, rl, rc, rdh, dh0
+        rdh, rdw = fx.xent_bwd_ref(hs, ws, t, rl, g)
+        dh0, dw0 = fx.xent_bwd(hs, ws, t, lse0, g)
+        for grad, got, want in (("dh", dh0, rdh), ("dw", dw0, rdw)):
+            within(got, want, f"sink ({label}) fused_xent {grad}",
+                   atol=ATOL * float(want.float().abs().max()))
+        del rn, rl, rc, rdh, rdw, dh0, dw0
         sink_fwd = device_ms(lambda: fx.xent_fwd(hs, ws, t), iters=2, reps=2)
         sink = xent_bwd_parts(hs, ws, t, lse0, g)
         sink_mm = event_ms(lambda: torch.matmul(hs, ws), iters=5)
@@ -1002,14 +1021,17 @@ def phase_xent_edges(gen=None) -> None:
     (ragged last tile, one tile, many ranges, the backward's last chunk of
     13568 columns at 128256, and at 20000 a last chunk of 3616, ragged in
     its tiles and in the d_hidden product's K, after one whole chunk),
-    D in {2048, 4096}, softcap 30, with argmax ties inside a tile and
-    across a range boundary, targets 0, V-1 and out of vocab, and masked
-    rows (exactly zero dh)."""
+    D in {1160, 2048, 4096} (1160, a multiple of 8 and not of 64: ragged K
+    in the forward and dl, ragged N in d_hidden, and in d_head ragged A
+    boxes, one wholly past D, and ragged output rows), softcap 30, with
+    argmax ties inside a tile and across a range boundary, targets 0, V-1
+    and out of vocab, and masked rows (exactly zero dh)."""
     gen = gen or torch.Generator("cuda").manual_seed(SEED + 10)
     for T, D, V, cap in ((1, 2048, 1000, None), (300, 4096, 1000, 30.0),
                          (4096, 2048, 1000, None), (1, 4096, 128256, 30.0),
                          (300, 2048, 128256, None), (300, 4096, 256000, 30.0),
-                         (4096, 2048, 256000, None), (300, 2048, 20000, None)):
+                         (4096, 2048, 256000, None), (300, 2048, 20000, None),
+                         (300, 1160, 20000, None)):
         check_xent(gen, T, D, V, softcap=cap,
                    name=f"edge fused_xent T={T} D={D} V={V} softcap={cap}")
         torch.cuda.empty_cache()

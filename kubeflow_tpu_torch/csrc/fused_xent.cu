@@ -14,23 +14,26 @@
 // Layouts: h [T, D] bf16 row-major; W [D, V] bf16 row-major (the JAX
 // layout of `lm_head`; a tied head, `embed.T`, is made contiguous by the
 // caller); targets int32 [T]; lse, g (the nll cotangent) fp32 [T]. D and V
-// are multiples of 8 (16-byte rows for TMA and cp.async); T is free. The
-// ragged edges -- rows past T, vocab columns past V -- are zero-filled by
-// TMA and masked here: a column >= V never enters max, sum-exp or argmax,
-// and is never written. A target outside [0, V) picks nothing (nll = lse),
-// as in the TPU kernel.
+// are multiples of 8 (16-byte rows for TMA and for the epilogues' 16-byte
+// stores); T is free. The ragged edges -- rows past T, columns past D and
+// V -- are zero-filled by TMA and masked here: a column >= V never enters
+// max, sum-exp or argmax, and is never written. A target outside [0, V)
+// picks nothing (nll = lse), as in the TPU kernel.
 //
 // Bound on an H100 SXM: operations. One pass of 2 T D V (4.30 TFLOP at
 // T = 4096, D = 4096, V = 128256) takes ~4.35 ms at 989 bf16 TFLOP/s; the
-// bytes (W once, 1.05 GB, ~0.31 ms) are far below. The forward is one pass.
+// bytes (W once, 1.05 GB, ~0.31 ms) are far below. The forward is one pass,
+// and so is each of the backward's three kernels: the dl recompute, the
+// d_hidden product and the d_head product (4.351 ms each at that shape).
 // The TPU backward is four (each of its two kernels recomputes the logits
 // and does one product); this backward is three: per vocab chunk of
 // `vchunk` columns (16384 from ops/fused_xent.py) it recomputes the logits
 // once and writes that chunk's dl (bf16, [T, vchunk], 134 MB at T = 4096)
 // to scratch, then runs the two products from it.
 //
-// Design. The forward (`xent_fwd`), the dl recompute (`xent_dl`) and the
-// d_hidden product (`xent_dh`) share one warp-specialised wgmma core:
+// Design. The forward (`xent_fwd`), the dl recompute (`xent_dl`), the
+// d_hidden product (`xent_dh`) and the d_head product (`xent_dw`) share one
+// warp-specialised wgmma core:
 //  - a block of three warpgroups and one block per SM: a producer
 //    (setmaxnreg 40; one of its threads issues TMA) and two consumers
 //    (setmaxnreg 232) of 64 output rows each;
@@ -40,9 +43,13 @@
 //    step (SS, 128 fp32 accumulators per thread) and keeps one step in
 //    flight;
 //  - operands through 2-D tensor maps (sm90.cuh, 128-byte swizzle): h and
-//    dl K-major; W MN-major (transpose bit) as B of s = h W; W K-major as
-//    B of dh = dl W^T, its rows of D read along the chunk's vocab. W and dl
-//    are mapped per chunk, so TMA zero-fills past V and past the chunk;
+//    dl K-major as A of s = h W and dh = dl W^T; W MN-major (transpose bit)
+//    as B of s = h W; W K-major as B of dh = dl W^T, its rows of D read
+//    along the chunk's vocab. d_head = h^T dl reduces along T, so both of
+//    its operands are MN-major (both transpose bits): A = h^T from h in
+//    boxes of 64 D columns by 64 T rows, one per consumer, and B = dl from
+//    the scratch, as W is read for the forward. W and dl are mapped per
+//    chunk, so TMA zero-fills past V and past the chunk;
 //  - the producer runs the ring across tile boundaries, so the next tile's
 //    first steps load under this tile's epilogue.
 //  - forward: the TPU grid walks the vocab in order and carries its
@@ -65,31 +72,26 @@
 //    writes bf16 dh through the staging buffer). Both walk their tiles as
 //    a persistent grid, one block per SM, in groups of 16 row tiles, so
 //    the blocks that run together share h or dl rows and W columns in L2.
-//    One block owns each output tile and chunks run in order, so the sum
-//    is deterministic; no atomics anywhere.
-//  - `xent_dw` (d_head, dW_c = h^T dl over the whole T sweep) keeps the
-//    first design's core: a 128 x 128 tile per block of 8 warps, bf16 WMMA
-//    16x16x16 fragments, K in steps of 32 through a 4-stage cp.async ring,
-//    the fp32 tile staged in shared memory for the epilogue.
+//    `xent_dw` writes dW_c [D, vc] = h^T dl in tiles of 128 rows of D by
+//    256 chunk columns on the same grid, the whole T sweep in one
+//    accumulator, and casts it to bf16 through the staging buffer once.
+//    One block owns each output tile and chunks run in order, so every sum
+//    is deterministic; no split-K and no atomics anywhere.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include "sm90.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-// -- the warp-specialised wgmma core (xent_fwd, xent_dl, xent_dh) --------------
+// -- the warp-specialised wgmma core ------------------------------------------
 
 constexpr int TM = 128, TN = 256, TK = 64;     // output tile, K step
 constexpr int RING = 4;                        // TMA ring depth
@@ -98,7 +100,7 @@ constexpr int WG_THREADS = (CONSUMERS + 1) * 128;
 constexpr int GROUP_M = 16;                    // row tiles per raster group
 constexpr uint32_t A_BYTES = TM * TK * 2;      // 16 KB
 constexpr uint32_t B_BYTES = TK * TN * 2;      // 32 KB
-constexpr uint32_t B_BOX_BYTES = TK * 64 * 2;  // one MN-major box of B
+constexpr uint32_t BOX_BYTES = TK * 64 * 2;    // one MN-major 64 x 64 box
 // A warp's bf16 staging block: 16 rows of 64 columns, rows padded by 16
 // bytes so the fragment's writes and the 16-byte row reads are free of
 // bank conflicts.
@@ -141,22 +143,32 @@ DEV void tile_at(int tile, int n_m, int n_n, int& m, int& n) {
 }
 
 // Producer: K step kb of the output tile at (m0, n0) into ring step `it`.
-// A is K-major ([rows, K] boxes of 64 columns). B_MN: B is [K, N] read
-// MN-major, four boxes of 64 x 64; otherwise [N, K] read K-major, one box
-// of 256 rows.
-template <bool B_MN>
+// A_MN: A is [K, M] read MN-major, one box of 64 x 64 per consumer;
+// otherwise [M, K] read K-major, one box of 128 rows. B_MN: B is [K, N]
+// read MN-major, four boxes of 64 x 64; otherwise [N, K] read K-major, one
+// box of 256 rows. Either way consumer c's 64 rows of A start c x 8 KB
+// into the stage.
+template <bool A_MN, bool B_MN>
 DEV void load_step(unsigned char* smem, uint64_t* full, uint64_t* empty,
                    uint32_t it, const CUtensorMap* amap,
                    const CUtensorMap* bmap, int m0, int n0, int kb) {
   const int s = it % RING;
   if (it >= RING) sm90::mbar_wait(&empty[s], ((it / RING) - 1) & 1);
   sm90::mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
-  sm90::tma_load_2d(smem + SM_A + s * A_BYTES, amap, &full[s], kb * TK, m0);
+  unsigned char* a = smem + SM_A + s * A_BYTES;
+  if (A_MN) {
+#pragma unroll
+    for (int c = 0; c < CONSUMERS; ++c)
+      sm90::tma_load_2d(a + c * BOX_BYTES, amap, &full[s], m0 + 64 * c,
+                        kb * TK);
+  } else {
+    sm90::tma_load_2d(a, amap, &full[s], kb * TK, m0);
+  }
   unsigned char* b = smem + SM_B + s * B_BYTES;
   if (B_MN) {
 #pragma unroll
     for (int q = 0; q < TN / 64; ++q)
-      sm90::tma_load_2d(b + q * B_BOX_BYTES, bmap, &full[s], n0 + 64 * q,
+      sm90::tma_load_2d(b + q * BOX_BYTES, bmap, &full[s], n0 + 64 * q,
                         kb * TK);
   } else {
     sm90::tma_load_2d(b, bmap, &full[s], kb * TK, n0);
@@ -167,7 +179,7 @@ DEV void load_step(unsigned char* smem, uint64_t* full, uint64_t* empty,
 // K steps from ring step `it` on. One step's products stay in flight while
 // the next is issued; a step's slot is released once its products are done.
 // No other instruction touches acc until the last wait.
-template <bool B_MN>
+template <bool A_MN, bool B_MN>
 DEV void mainloop(float (&acc)[TN / 2], unsigned char* smem, uint64_t* full,
                   uint64_t* empty, int wg, int nk, uint32_t& it, int lane) {
   for (int kb = 0; kb < nk; ++kb, ++it) {
@@ -179,11 +191,14 @@ DEV void mainloop(float (&acc)[TN / 2], unsigned char* smem, uint64_t* full,
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TK / 16; ++kk) {
-      const uint64_t da = sm90::smem_desc(a + kk * 16, 16, 1024);
+      const uint64_t da =
+          A_MN ? sm90::smem_desc(a + kk * 16 * 64, BOX_BYTES, 1024)
+               : sm90::smem_desc(a + kk * 16, 16, 1024);
       const uint64_t db =
-          B_MN ? sm90::smem_desc(b + kk * 16 * 64, B_BOX_BYTES, 1024)
+          B_MN ? sm90::smem_desc(b + kk * 16 * 64, BOX_BYTES, 1024)
                : sm90::smem_desc(b + kk * 16, 16, 1024);
-      sm90::wgmma_ss<TN, B_MN ? 1 : 0>(acc, da, db, kb > 0 || kk > 0);
+      sm90::wgmma_ss<TN, B_MN ? 1 : 0, A_MN ? 1 : 0>(acc, da, db,
+                                                     kb > 0 || kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
@@ -259,8 +274,8 @@ xent_fwd_kernel(const __grid_constant__ CUtensorMap hmap,
       uint32_t it = 0;
       for (int tile = t_begin; tile < t_end; ++tile)
         for (int kb = 0; kb < nk; ++kb, ++it)
-          load_step<true>(smem, full, empty, it, &hmap, &wmap, m0, tile * TN,
-                          kb);
+          load_step<false, true>(smem, full, empty, it, &hmap, &wmap, m0,
+                                 tile * TN, kb);
     }
     return;
   }
@@ -282,7 +297,7 @@ xent_fwd_kernel(const __grid_constant__ CUtensorMap hmap,
   uint32_t it = 0;
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int n0 = tile * TN;
-    mainloop<true>(acc, smem, full, empty, wg, nk, it, lane);
+    mainloop<false, true>(acc, smem, full, empty, wg, nk, it, lane);
     if (has_softcap) {
 #pragma unroll
       for (int r = 0; r < TN / 2; ++r) acc[r] = tanhf(acc[r] / softcap) * softcap;
@@ -408,8 +423,8 @@ xent_dl_kernel(const __grid_constant__ CUtensorMap hmap,
         int mt, nt;
         tile_at(tile, n_m, n_n, mt, nt);
         for (int kb = 0; kb < nk; ++kb, ++it)
-          load_step<true>(smem, full, empty, it, &hmap, &wmap, mt * TM,
-                          nt * TN, kb);
+          load_step<false, true>(smem, full, empty, it, &hmap, &wmap,
+                                 mt * TM, nt * TN, kb);
       }
     }
     return;
@@ -428,7 +443,7 @@ xent_dl_kernel(const __grid_constant__ CUtensorMap hmap,
     const int n0 = nt * TN;
     const int w0 = mt * TM + wg * 64 + warp * 16;     // this warp's rows
     const int r0 = w0 + lane / 4;
-    mainloop<true>(acc, smem, full, empty, wg, nk, it, lane);
+    mainloop<false, true>(acc, smem, full, empty, wg, nk, it, lane);
     // Per row, once: lse in log2 units, the cotangent, the target's column
     // within this tile.
     float lse2[2], gr[2];
@@ -500,8 +515,8 @@ xent_dh_kernel(const __grid_constant__ CUtensorMap dlmap,
         int mt, nt;
         tile_at(tile, n_m, n_n, mt, nt);
         for (int kb = 0; kb < nk; ++kb, ++it)
-          load_step<false>(smem, full, empty, it, &dlmap, &wmap, mt * TM,
-                           nt * TN, kb);
+          load_step<false, false>(smem, full, empty, it, &dlmap, &wmap,
+                                  mt * TM, nt * TN, kb);
       }
     }
     return;
@@ -520,7 +535,7 @@ xent_dh_kernel(const __grid_constant__ CUtensorMap dlmap,
     const int n0 = nt * TN;
     const int w0 = mt * TM + wg * 64 + warp * 16;
     const int r0 = w0 + lane / 4;
-    mainloop<false>(acc, smem, full, empty, wg, nk, it, lane);
+    mainloop<false, false>(acc, smem, full, empty, wg, nk, it, lane);
     if (!last) {
       // fp32 pairs straight from the fragment: a quad writes 32 bytes.
 #pragma unroll
@@ -568,179 +583,70 @@ xent_dh_kernel(const __grid_constant__ CUtensorMap dlmap,
   }
 }
 
-// -- the first design's WMMA core (xent_dw) -------------------------------------
+// dW[:, c0:c0+vc] = h^T dl_c over the whole T sweep (`dw` points at column
+// c0; row stride V): output tiles of 128 rows of D x 256 chunk columns,
+// walked as a persistent grid. Both operands are MN-major: A = h^T through
+// `htmap` (h [T, D] in boxes of 64 D columns by 64 T rows) and B = dl_c
+// through `dlmap` (the scratch in boxes of 64 x 64). TMA's zeros cover
+// ragged T, D and chunk columns; rows past D and columns past vc are not
+// written.
+__global__ void __launch_bounds__(WG_THREADS, 1)
+xent_dw_kernel(const __grid_constant__ CUtensorMap htmap,
+               const __grid_constant__ CUtensorMap dlmap,
+               bf16* __restrict__ dw, int T, int D, int V, int vc) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + SM_BARS);
+  uint64_t* empty = full + RING;
+  const int n_m = (D + TM - 1) / TM, n_n = (vc + TN - 1) / TN;
+  const int n_work = n_m * n_n;
+  const int nk = (T + TK - 1) / TK;
+  init_ring(full, empty);
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int WARPS = 8, THREADS = WARPS * 32;
-constexpr int WM = 64, WN = 32;                  // one warp's sub-tile
-constexpr int FM = WM / 16, FN = WN / 16;        // fragments per warp
-constexpr int LD_ROW = BK + 8;                   // [128][32] tiles, padded
-constexpr int LD_COL = BM + 8;                   // [32][128] tiles, padded
-constexpr int STAGE_ELEMS = BM * LD_ROW;         // >= BK * LD_COL
-constexpr int STAGES = 4;                        // cp.async pipeline depth
-constexpr int LDC = BN + 4;                      // fp32 output tile
-constexpr size_t STAGE_BYTES = size_t(STAGE_ELEMS) * sizeof(bf16);
-constexpr size_t PIPE_BYTES = 2 * STAGES * STAGE_BYTES;
-constexpr size_t C_BYTES = size_t(BM) * LDC * sizeof(float);
-// The fp32 output tile reuses the pipeline's buffers once the K loop ends.
-constexpr size_t SMEM_GEMM = PIPE_BYTES > C_BYTES ? PIPE_BYTES : C_BYTES;
-
-static_assert(BK * LD_COL <= STAGE_ELEMS, "stage buffer too small");
-
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;                   // 0: zero-fill, no read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One stage of operand tiles at k0. A element (m, k) is A[m*lda + k]
-// (A_T false) or A[k*lda + m] (A_T true); B element (k, n) is B[k*ldb + n]
-// (B_T false) or B[n*ldb + k] (B_T true). A and B point at the block's
-// (m0, 0) and (0, n0). Out-of-range vectors are zero-filled.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void load_stage(bf16* As, bf16* Bs, const bf16* A,
-                                           int lda, int m_valid,
-                                           const bf16* B, int ldb,
-                                           int n_valid, int K, int k0) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int v = threadIdx.x + THREADS * j;     // 512 vectors of 8 per tile
-    if (!A_T) {
-      const int r = v / 4, kv = (v % 4) * 8;
-      const bool ok = r < m_valid && k0 + kv < K;
-      cp_async16(As + r * LD_ROW + kv,
-                 ok ? A + size_t(r) * lda + k0 + kv : A, ok);
-    } else {
-      const int kr = v / 16, mv = (v % 16) * 8;
-      const bool ok = k0 + kr < K && mv < m_valid;
-      cp_async16(As + kr * LD_COL + mv,
-                 ok ? A + size_t(k0 + kr) * lda + mv : A, ok);
-    }
-    if (!B_T) {
-      const int kr = v / 16, nv = (v % 16) * 8;
-      const bool ok = k0 + kr < K && nv < n_valid;
-      cp_async16(Bs + kr * LD_COL + nv,
-                 ok ? B + size_t(k0 + kr) * ldb + nv : B, ok);
-    } else {
-      const int r = v / 4, kv = (v % 4) * 8;
-      const bool ok = r < n_valid && k0 + kv < K;
-      cp_async16(Bs + r * LD_ROW + kv,
-                 ok ? B + size_t(r) * ldb + k0 + kv : B, ok);
-    }
-  }
-}
-
-// C[128 x 128] = A[128 x K] B[K x 128] into the fp32 tile Cs (stride LDC).
-// `stages` holds STAGES A and STAGES B stage buffers; Cs may overlay them.
-template <bool A_T, bool B_T>
-__device__ void gemm_tile(float* Cs, bf16* stages, const bf16* A, int lda,
-                          int m_valid, const bf16* B, int ldb, int n_valid,
-                          int K) {
-  using LayA = typename std::conditional<A_T, wmma::col_major,
-                                         wmma::row_major>::type;
-  using LayB = typename std::conditional<B_T, wmma::col_major,
-                                         wmma::row_major>::type;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB>;
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / (BN / WN)) * WM, wn = (warp % (BN / WN)) * WN;
-  FragC acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int n_k = (K + BK - 1) / BK;
-  __syncthreads();                 // earlier readers of the buffers are done
-  // Keep STAGES - 1 steps in flight; every iteration commits one group
-  // (maybe empty), so waiting for all but STAGES - 2 means step kt landed.
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_k)
-      load_stage<A_T, B_T>(stages + st * STAGE_ELEMS,
-                           stages + (STAGES + st) * STAGE_ELEMS, A, lda,
-                           m_valid, B, ldb, n_valid, K, st * BK);
-    cp_commit();
-  }
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();               // step kt landed; step kt - 1 is read
-    const int nk = kt + STAGES - 1;
-    if (nk < n_k) {
-      const int ns = nk % STAGES;  // the buffer step kt - 1 used
-      load_stage<A_T, B_T>(stages + ns * STAGE_ELEMS,
-                           stages + (STAGES + ns) * STAGE_ELEMS, A, lda,
-                           m_valid, B, ldb, n_valid, K, nk * BK);
-    }
-    cp_commit();
-    const int cur = kt % STAGES;
-    const bf16* As = stages + cur * STAGE_ELEMS;
-    const bf16* Bs = stages + (STAGES + cur) * STAGE_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      FragA fa[FM];
-      FragB fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int m = wm + i * 16;
-        if (!A_T)
-          wmma::load_matrix_sync(fa[i], As + m * LD_ROW + kk * 16, LD_ROW);
-        else
-          wmma::load_matrix_sync(fa[i], As + kk * 16 * LD_COL + m, LD_COL);
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    sm90::regs_dealloc<40>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      sm90::prefetch_map(&htmap);
+      sm90::prefetch_map(&dlmap);
+      uint32_t it = 0;
+      for (int tile = blockIdx.x; tile < n_work; tile += gridDim.x) {
+        int mt, nt;
+        tile_at(tile, n_m, n_n, mt, nt);
+        for (int kb = 0; kb < nk; ++kb, ++it)
+          load_step<true, true>(smem, full, empty, it, &htmap, &dlmap,
+                                mt * TM, nt * TN, kb);
       }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int n = wn + j * 16;
-        if (!B_T)
-          wmma::load_matrix_sync(fb[j], Bs + kk * 16 * LD_COL + n, LD_COL);
-        else
-          wmma::load_matrix_sync(fb[j], Bs + n * LD_ROW + kk * 16, LD_ROW);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
+    return;
   }
-  cp_wait<0>();
-  __syncthreads();                 // every warp is done with the buffers
+  sm90::regs_alloc<232>();
+  const int tid = threadIdx.x % 128, lane = tid % 32, warp = tid / 32;
+  const int c2 = 2 * (lane % 4);
+  bf16* st = reinterpret_cast<bf16*>(smem + SM_OUT) + (wg * 4 + warp) * OUT_WARP;
+  float acc[TN / 2];
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+  for (int r = 0; r < TN / 2; ++r) acc[r] = 0.f;
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < n_work; tile += gridDim.x) {
+    int mt, nt;
+    tile_at(tile, n_m, n_n, mt, nt);
+    const int n0 = nt * TN;
+    const int w0 = mt * TM + wg * 64 + warp * 16;
+    mainloop<true, true>(acc, smem, full, empty, wg, nk, it, lane);
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-}
-
-// dW[:, c0:c0+vc] tile (D tile, chunk column tile) = h^T dl over all T.
-__global__ void __launch_bounds__(THREADS, 2)
-xent_dw_kernel(const bf16* __restrict__ h, const bf16* __restrict__ dl,
-               bf16* __restrict__ dw, int T, int D, int V, int c0, int vc,
-               int ldc) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-  const int m0 = blockIdx.x * BM;              // a row block of D
-  const int n0 = blockIdx.y * BN;              // within the chunk
-  gemm_tile<true, false>(Cs, stages, h + m0, D, D - m0, dl + n0, ldc,
-                         vc - n0, T);
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    if (m0 + r >= D || n0 + c >= vc) continue;
-    dw[size_t(m0 + r) * V + c0 + n0 + c] = __float2bfloat16(Cs[r * LDC + c]);
+    for (int q = 0; q < TN / 64; ++q) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * q + jj;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<uint32_t*>(st + (lane / 4 + 8 * i) * OUT_LD +
+                                       8 * jj + c2) =
+              sm90::pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+      flush_stage(st, dw, size_t(V), w0, D, n0 + 64 * q, vc, lane);
+    }
   }
 }
 
@@ -756,7 +662,7 @@ cudaError_t configure() {
   cudaError_t err = allow_smem(xent_fwd_kernel, SMEM_WG);
   if (err == cudaSuccess) err = allow_smem(xent_dl_kernel, SMEM_WG);
   if (err == cudaSuccess) err = allow_smem(xent_dh_kernel, SMEM_WG);
-  if (err == cudaSuccess) err = allow_smem(xent_dw_kernel, SMEM_GEMM);
+  if (err == cudaSuccess) err = allow_smem(xent_dw_kernel, SMEM_WG);
   if (err == cudaSuccess) done = true;
   return err;
 }
@@ -830,11 +736,13 @@ extern "C" int fused_xent_bwd_bf16(const void* h, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = configure();
   if (err != cudaSuccess) return int(err);
-  const bf16* hb = static_cast<const bf16*>(h);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* dlb = static_cast<bf16*>(scratch);
-  CUtensorMap hmap;
-  if (!sm90::map_2d(&hmap, h, T, D, D, TM)) return int(cudaErrorInvalidValue);
+  // h K-major (A of s = h W) and MN-major (A = h^T of d_head).
+  CUtensorMap hmap, htmap;
+  if (!sm90::map_2d(&hmap, h, T, D, D, TM) ||
+      !sm90::map_2d(&htmap, h, T, D, D, TK))
+    return int(cudaErrorInvalidValue);
   const int sms = sm_count();
   const int n_m = cdiv(T, TM);
   const int n_chunks = cdiv(V, vchunk);
@@ -842,12 +750,14 @@ extern "C" int fused_xent_bwd_bf16(const void* h, const void* w,
     const int c0 = c * vchunk;
     const int vc = V - c0 < vchunk ? V - c0 : vchunk;
     // This chunk's columns of W, read MN-major (B of s = h W_c) and
-    // K-major (B of dh = dl W_c^T); its dl as A of dh. Each map ends at the
-    // chunk's last column, so TMA fills zeros past it.
-    CUtensorMap wmn, wk, dlmap;
+    // K-major (B of dh = dl W_c^T); its dl K-major (A of dh) and MN-major
+    // (B of d_head). Each map ends at the chunk's last column, so TMA fills
+    // zeros past it.
+    CUtensorMap wmn, wk, dlmap, dlmn;
     if (!sm90::map_2d(&wmn, wb + c0, D, vc, V, TK) ||
         !sm90::map_2d(&wk, wb + c0, D, vc, V, TN) ||
-        !sm90::map_2d(&dlmap, dlb, T, vc, vchunk, TM))
+        !sm90::map_2d(&dlmap, dlb, T, vc, vchunk, TM) ||
+        !sm90::map_2d(&dlmn, dlb, T, vc, vchunk, TK))
       return int(cudaErrorInvalidValue);
     const int dl_tiles = n_m * cdiv(vc, TN);
     xent_dl_kernel<<<dl_tiles < sms ? dl_tiles : sms, WG_THREADS, SMEM_WG,
@@ -864,9 +774,10 @@ extern "C" int fused_xent_bwd_bf16(const void* h, const void* w,
                           c == n_chunks - 1);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
-    xent_dw_kernel<<<dim3(cdiv(D, BM), cdiv(vc, BN)), THREADS, SMEM_GEMM,
-                     s>>>(hb, dlb, static_cast<bf16*>(dw), T, D, V, c0, vc,
-                          vchunk);
+    const int dw_tiles = cdiv(D, TM) * cdiv(vc, TN);
+    xent_dw_kernel<<<dw_tiles < sms ? dw_tiles : sms, WG_THREADS, SMEM_WG,
+                     s>>>(htmap, dlmn, static_cast<bf16*>(dw) + c0, T, D, V,
+                          vc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return int(err);
   }

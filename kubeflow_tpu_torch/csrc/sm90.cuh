@@ -16,7 +16,8 @@
 //    SBO = 1024 bytes (the next 8 rows), LBO unused; the k16 step j of a
 //    half starts 32 * j bytes into it, step j >= 4 in the next half.
 //  - MN-major (the reduction runs down the rows: V in O = P V, dO and Q in
-//    dV = P^T dO, dK = dS^T Q), read with the transpose bit: SBO = 1024
+//    dV = P^T dO, dK = dS^T Q; both h and dl in the CE's d_head = h^T dl),
+//    read with the transpose bit (of B, or of A in the SS form): SBO = 1024
 //    bytes (the next 8 rows of the reduction), LBO = the half's size (the
 //    next 64 output columns); the k16 step j starts 16 rows, 2048 bytes, on.
 //
@@ -150,9 +151,10 @@ DEV void fence_regs(uint32_t (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
-// D[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T (B transposed in storage
-// when TRANS_B), A and B in shared memory; `accumulate` 0 overwrites D.
-template <int TRANS_B>
+// D[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T (A or B transposed in
+// storage when TRANS_A or TRANS_B: read MN-major), A and B in shared
+// memory; `accumulate` 0 overwrites D.
+template <int TRANS_B, int TRANS_A = 0>
 DEV void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                      int accumulate) {
   asm volatile(
@@ -162,7 +164,7 @@ DEV void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -171,7 +173,7 @@ DEV void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T with A from registers: the
@@ -199,9 +201,8 @@ DEV void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
         "n"(TRANS_B));
 }
 
-// D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T (B transposed in storage
-// when TRANS_B), A and B in shared memory; `accumulate` 0 overwrites D.
-template <int TRANS_B>
+// D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, as wgmma_ss_n64.
+template <int TRANS_B, int TRANS_A = 0>
 DEV void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                      int accumulate) {
   asm volatile(
@@ -215,7 +216,7 @@ DEV void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -232,7 +233,7 @@ DEV void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T with A from registers: the
@@ -271,9 +272,8 @@ DEV void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate),
         "n"(TRANS_B));
 }
-// D[64 x 256] (+)= A[64 x 16] * B[256 x 16]^T (B transposed in storage
-// when TRANS_B), A and B in shared memory; `accumulate` 0 overwrites D.
-template <int TRANS_B>
+// D[64 x 256] (+)= A[64 x 16] * B[256 x 16]^T, as wgmma_ss_n64.
+template <int TRANS_B, int TRANS_A = 0>
 DEV void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db,
                        int accumulate) {
   asm volatile(
@@ -295,7 +295,7 @@ DEV void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db,
       "%104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, "
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -328,20 +328,20 @@ DEV void wgmma_ss_n256(float (&d)[128], uint64_t da, uint64_t db,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x N] (+)= A B for the widths the kernels use.
-template <int N, int TRANS_B>
+template <int N, int TRANS_B, int TRANS_A = 0>
 DEV void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
                   int accumulate) {
   if constexpr (N == 64) {
-    wgmma_ss_n64<TRANS_B>(d, da, db, accumulate);
+    wgmma_ss_n64<TRANS_B, TRANS_A>(d, da, db, accumulate);
   } else if constexpr (N == 128) {
-    wgmma_ss_n128<TRANS_B>(d, da, db, accumulate);
+    wgmma_ss_n128<TRANS_B, TRANS_A>(d, da, db, accumulate);
   } else {
     static_assert(N == 256, "wgmma_ss: N is 64, 128 or 256");
-    wgmma_ss_n256<TRANS_B>(d, da, db, accumulate);
+    wgmma_ss_n256<TRANS_B, TRANS_A>(d, da, db, accumulate);
   }
 }
 

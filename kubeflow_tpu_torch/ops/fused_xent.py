@@ -165,8 +165,8 @@ def _check(name: str, h2, w, t, *rows) -> None:
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-#: The tensors each entry point reads through TMA tensor maps (and, for
-#: ``xent_bwd``'s d_head product, 16-byte cp.async vectors). Targets, lse
+#: The tensors each entry point reads through TMA tensor maps (the dl
+#: scratch twice: K-major for d_hidden, MN-major for d_head). Targets, lse
 #: and g are read with plain loads: they may start anywhere.
 TMA_INPUTS = {"xent_fwd": ("h", "w"), "xent_bwd": ("h", "w", "scratch")}
 
