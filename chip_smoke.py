@@ -7,9 +7,11 @@ package is not beside it. ``python3 chip_smoke.py --flash-only`` runs
 phases 1 and 2 and the flash kernels' part of phase 3 (their rows and edge
 cases; with ``CUDA_LAUNCH_BLOCKING=1`` a fault names its launch) and
 prints no result line; ``--paged-only`` does the same for the paged-decode
-kernels, and ``--xent-only`` for the fused cross-entropy kernels (their
-rows with the cuBLAS yardstick, a repeat call's bits, sink inputs, and
-their edge cases). Phases, each a hard failure:
+kernel, ``--xent-only`` for the fused cross-entropy kernels (their rows
+with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
+edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
+and backward rows, the RMSNorm backward's kernels timed apart, and their
+edge cases). Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every hand-written kernel built from the checkout's sources (one
@@ -31,23 +33,30 @@ their edge cases). Phases, each a hard failure:
    give the same bits; both backward kernels on inputs with an attention
    sink (every query puts p >= 1/2 on key 0), dQ timed there and on the
    random inputs, dK/dV too, with and without its exact-score recompute;
-   paged decode with the wrapper's split count at 8 slots (1 and 32
-   printed beside), and its combine kernel alone. Then each kernel
+   the RMSNorm backward without and with the residual cotangent, each
+   timed whole and per kernel (row pass, dw column sum) beside its bound,
+   two calls bit-identical; paged decode with the wrapper's split count
+   at 8 slots (1 and 32 printed beside): one kernel launch per call (the
+   last split block of each slot and kv head merges the splits), the
+   ticket counters zero after every call, and 20 calls in a CUDA graph
+   replayed 50 times giving an eager call's bits. Then each kernel
    against its plain version at edge shapes (ragged lengths around the
    flash tiles, a diagonal off a tile boundary, q_offset, rows that see no
    key, head_dim 64, one to eight query heads per kv head, non-causal, one
    query row, odd widths, strided inputs; for
    paged decode: length 0, page boundaries, unmapped and poisoned pages, a
    dead row, one and eight query heads per kv head, pages of 16, int8 scale
-   outliers, two calls bit-identical, and named split counts (1 to mpp,
+   outliers, two calls bit-identical, the counters zero after every call,
+   and named split counts (1 to mpp,
    splits past a slot's length, a split all unmapped between counted ones,
    mpp = 13 under counts that do not divide it); for the fused CE: T of 1,
    300 and 4096, D of 1160 (ragged in 64), 2048 and 4096, vocabularies of
    1000, 20000, 128256 and 256000, softcap, argmax ties inside a tile and
    across a vocab-range boundary, targets 0, V-1 and out of vocab, masked
    rows that must get exactly zero d_hidden; for the norm and SwiGLU backward:
-   D = 2048/3072/4096, T = 1 and 300, (1 + w), the residual cotangent,
-   gelu, odd M); then the memory probe: the fused CE's forward and
+   D = 2048/3072/4096, T = 1 and 300, (1 + w), the residual cotangent
+   (the RMSNorm backward called twice for the same bits), gelu, odd M);
+   then the memory probe: the fused CE's forward and
    backward at T = 4096, V = 128256 must peak within one eighth of an
    fp32 [T, V] tensor beyond its inputs and gradients;
 4. serve: Llama-3-8B at full width and depth (32 layers, random bf16
@@ -306,7 +315,10 @@ def ptxas_kernels(log: str) -> list[tuple[str, str, str]]:
     return out
 
 
-def phase_kernels() -> list[dict]:
+def norm_fwd_rows() -> list[dict]:
+    """Sites 1, 2 and 4: RMSNorm, residual + RMSNorm and SwiGLU at the
+    decode (T = 8) and bucketed prefill (T = 2048) shapes; the prefill
+    shape is the one recorded."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import fused_norm as fn
@@ -376,7 +388,11 @@ def phase_kernels() -> list[dict]:
         plain_ms=device_ms(lambda: fn.swiglu_ref(g, u, act="silu")),
         bound_ms=b_sw[0], bound_by=b_sw[1],
         library_ms=device_ms(lambda: F.silu(g) * u)))
+    return rows
 
+
+def phase_kernels() -> list[dict]:
+    rows = norm_fwd_rows()
     rows += flash_fwd_rows()
     rows += flash_bwd_rows()
     rows += norm_swiglu_bwd_rows()
@@ -701,26 +717,46 @@ def norm_swiglu_bwd_rows() -> list[dict]:
     x, dh = rnd(T, D), rnd(T, D)
     w = 1.0 + 0.1 * torch.randn((D,), generator=gen, device="cuda")
     _, _, rstd = fn._norm_launch(x, None, w, eps, False)
-    dx, dw = fn.rmsnorm_bwd(x, w, rstd, dh)
-    rdx, rdw = fn.rmsnorm_bwd_ref(x, w, rstd, dh)
-    e_dx = within(dx, rdx, "rmsnorm_bwd dx")
-    e_dw = within(dw, rdw, "rmsnorm_bwd dw")
-    e_rms = max(e_dx, e_dw)
-    print(f"kernel rmsnorm_bwd T={T} D={D}: max_abs_err dx {e_dx:.3e}, dw "
-          f"{e_dw:.3e}", flush=True)
-    b_rms = bound(3 * T * D * 2 + 2 * D * 4 + T * 4, 8 * T * D, FP32_FLOPS)
+    e_rms, timed = 0.0, {}
+    # Without and with the residual cotangent dy (the residual norm ln2,
+    # 4 of the 9 launches of a training step): each held against the
+    # plain version, called twice for the same bits, timed whole and per
+    # kernel (the row pass and the dw column sum).
+    for label, kw in (("", {}), (" dy", {"dy": rnd(T, D)})):
+        dx, dw = fn.rmsnorm_bwd(x, w, rstd, dh, **kw)
+        rdx, rdw = fn.rmsnorm_bwd_ref(x, w, rstd, dh, **kw)
+        e_dx = within(dx, rdx, f"rmsnorm_bwd{label} dx")
+        e_dw = within(dw, rdw, f"rmsnorm_bwd{label} dw")
+        e_rms = max(e_rms, e_dx, e_dw)
+        dx2, dw2 = fn.rmsnorm_bwd(x, w, rstd, dh, **kw)
+        if not (torch.equal(dx2, dx) and torch.equal(dw2, dw)):
+            fail(f"rmsnorm_bwd{label}: two calls on the same inputs differ")
+        reads = (4 if kw else 3) * T * D * 2
+        b = bound(reads + 2 * D * 4 + T * 4, (9 if kw else 8) * T * D,
+                  FP32_FLOPS)
+        ms = device_ms(lambda kw=kw: fn.rmsnorm_bwd(x, w, rstd, dh, **kw))
+        parts = kernel_parts(lambda kw=kw: fn.rmsnorm_bwd(x, w, rstd, dh,
+                                                          **kw))
+        print(f"kernel rmsnorm_bwd{label} T={T} D={D}: max_abs_err dx "
+              f"{e_dx:.3e}, dw {e_dw:.3e}; a second call is bit-identical; "
+              f"ms {ms:.6f}, bound_ms {b[0]:.6f} ({b[1]}), "
+              f"{b[0] / ms:.1%} of it; per kernel (profiler): "
+              + ", ".join(f"{k} {v:.6f} ms x{n:g}"
+                          for k, v, n in parts), flush=True)
+        timed[label] = (ms, b)
+        del dx, dw, rdx, rdw, dx2, dw2
+    ms, b_rms = timed[""]
     rows = [dict(
         name="rmsnorm_bwd", route="triton",
         source="kubeflow_tpu_torch/ops/fused_norm.py",
         replaces="kubeflow_tpu/ops/fused_norm.py:146", max_abs_err=e_rms,
-        ms=device_ms(lambda: fn.rmsnorm_bwd(x, w, rstd, dh)),
-        plain_ms=event_ms(lambda: fn.rmsnorm_bwd_ref(x, w, rstd, dh)),
+        ms=ms, plain_ms=event_ms(lambda: fn.rmsnorm_bwd_ref(x, w, rstd, dh)),
         bound_ms=b_rms[0], bound_by=b_rms[1],
         # The library call takes the weight in x's dtype: its fused path
         # refuses an fp32 weight beside bf16 x.
         library_ms=grad_ms(lambda x, w: F.rms_norm(x, (D,), w, eps),
                            (x, w.to(x.dtype)), dh))]
-    del x, dh, dx, rdx
+    del x, dh
     g, u, do = rnd(T, M), rnd(T, M), rnd(T, M)
     e_sw = 0.0
     for act in ("silu", "gelu"):
@@ -1043,10 +1079,19 @@ def phase_train_edges() -> None:
     backward at D in {2048, 3072, 4096} (3072: a masked row block), T in
     {1, 300}, with and without (1 + w) and the residual cotangent; the
     SwiGLU backward (silu, gelu) at odd M."""
-    from kubeflow_tpu_torch.ops import fused_norm as fn
-
     gen = torch.Generator("cuda").manual_seed(SEED + 10)
     phase_xent_edges(gen)
+    phase_norm_bwd_edges(gen)
+
+
+def phase_norm_bwd_edges(gen=None) -> None:
+    """The RMSNorm backward at D in {2048, 3072, 4096} (3072: a masked row
+    block), T in {1, 300}, with and without (1 + w) and the residual
+    cotangent, each called twice for the same bits; the SwiGLU backward
+    (silu, gelu) at odd M."""
+    from kubeflow_tpu_torch.ops import fused_norm as fn
+
+    gen = gen or torch.Generator("cuda").manual_seed(SEED + 10)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(
@@ -1064,7 +1109,11 @@ def phase_train_edges() -> None:
             name = (f"edge rmsnorm_bwd T={T} D={D} plus_one={plus_one} "
                     f"residual={residual}")
             e = max(within(dx, rdx, name + " dx"), within(dw, rdw, name + " dw"))
-            print(f"{name}: max_abs_err {e:.3e}", flush=True)
+            dx2, dw2 = fn.rmsnorm_bwd(x, w, rstd, dh, **kw)
+            if not (torch.equal(dx2, dx) and torch.equal(dw2, dw)):
+                fail(f"{name}: two calls on the same inputs differ")
+            print(f"{name}: max_abs_err {e:.3e}; a second call is "
+                  "bit-identical", flush=True)
         for M in (1001, 14336):
             g, u, do = rnd(T, M), rnd(T, M), rnd(T, M)
             for act in ("silu", "gelu"):
@@ -1169,17 +1218,90 @@ def paged_flops(case) -> float:
     return 4.0 * H * D * float((case["lengths"] + 1).sum())
 
 
+def tickets_zero(name: str) -> None:
+    """Fail unless every ticket counter the paged-decode kernel has been
+    given is back at zero (the last split block of each (slot, kv head)
+    resets its own; one left nonzero breaks every later call there)."""
+    from kubeflow_tpu_torch.ops import paged_attention as PA
+
+    torch.cuda.synchronize()
+    for held in PA._TICKETS.values():
+        for buf in held:
+            if torch.count_nonzero(buf):
+                fail(f"{name}: the paged-decode kernel left a ticket "
+                     "counter nonzero")
+
+
+def paged_checked(fn, case, name: str) -> torch.Tensor:
+    """``paged_call`` of the kernel's wrapper, then the counters checked."""
+    out = paged_call(fn, case)
+    tickets_zero(name)
+    return out
+
+
+def paged_one_launch(case, name: str) -> None:
+    """One call of the wrapper runs exactly one CUDA kernel, the split
+    kernel, which merges its own splits (the profiler's count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.ops import paged_attention as PA
+
+    paged_call(PA.paged_decode_attention, case)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        paged_call(PA.paged_decode_attention, case)
+        torch.cuda.synchronize()
+    _, kernels = _kernel_times(prof)
+    if [("paged_decode_split_kernel" in k, n) for k, _, n in kernels] != \
+            [(True, 1)]:
+        fail(f"{name}: one call ran {kernels}, not the split kernel once")
+    tickets_zero(name)
+
+
+def paged_graph_repeat(case, name: str, calls: int = 20,
+                       replays: int = 50) -> None:
+    """``calls`` calls of ``case`` captured in one CUDA graph and replayed
+    ``replays`` times: every call of every replay must give the bits of an
+    eager call (a counter left nonzero, or a block that merges before its
+    peers' partials land, shows here), and the counters end at zero."""
+    from kubeflow_tpu_torch.ops import paged_attention as PA
+
+    want = paged_checked(PA.paged_decode_attention, case, name)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            paged_call(PA.paged_decode_attention, case)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [paged_call(PA.paged_decode_attention, case)
+                for _ in range(calls)]
+    differ = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(replays):
+        graph.replay()
+        differ += (torch.stack(outs) != want).sum()
+    if int(differ):
+        fail(f"{name}: {int(differ)} output elements over {replays} graph "
+             f"replays of {calls} calls differ from an eager call")
+    tickets_zero(name)
+    print(f"kernel {name}: {calls} calls in a CUDA graph, replayed "
+          f"{replays} times, give an eager call's bits every time; the "
+          "counters end at zero", flush=True)
+
+
 def paged_kernel_rows() -> list[dict]:
-    """Site 12: the paged-decode kernels (the split kernel and the combine)
-    against their plain version at the serving shape (8 slots, 32 query
-    over 8 kv heads of 128, pages of 128, 16 page slots), bf16 and int8
-    pools, with the split count the wrapper chose. The recorded time is at
-    length 2047, whose ~67 MB of bf16 K/V exceeds the 50 MB L2; length 1024
-    (~34 MB, served from L2 on back-to-back replays) is printed beside it,
-    and so are 1 and 32 slots at length 2047 and the recorded case at
-    named split counts. Then the combine kernel alone against
-    ``paged_decode_combine_ref`` on plain partials of the recorded
-    case."""
+    """Site 12: the paged-decode kernel (the split kernel, whose last block
+    of each (slot, kv head) merges the splits) against its plain version at
+    the serving shape (8 slots, 32 query over 8 kv heads of 128, pages of
+    128, 16 page slots), bf16 and int8 pools, with the split count the
+    wrapper chose: one kernel launch per call, the ticket counters zero
+    after every call, and a CUDA graph of the recorded case whose replays
+    repeat its bits. The recorded time is at length 2047, whose ~67 MB of
+    bf16 K/V exceeds the 50 MB L2; length 1024 (~34 MB, served from L2 on
+    back-to-back replays) is printed beside it, and so are 1 and 32 slots
+    at length 2047 and the recorded case at named split counts."""
     from kubeflow_tpu_torch.ops import paged_attention as PA
 
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
@@ -1193,12 +1315,13 @@ def paged_kernel_rows() -> list[dict]:
         for B, length in ((8, 2047), (8, 1024), (1, 2047), (32, 2047)):
             case = paged_case(gen, B, H, KH, D, page, [length] * B,
                               quant=quant, mpp=mpp)
-            e = within(paged_call(PA.paged_decode_attention, case),
-                       paged_call(PA.paged_decode_ref, case),
-                       f"{name} B={B} length {length}")
+            label = f"{name} B={B} length {length}"
+            e = within(paged_checked(PA.paged_decode_attention, case, label),
+                       paged_call(PA.paged_decode_ref, case), label)
             err = max(err, e)
             ms = device_ms(lambda: paged_call(PA.paged_decode_attention,
                                               case))
+            tickets_zero(label)
             b = bound(paged_bytes(case), paged_flops(case), FP32_FLOPS)
             print(f"kernel {name} B={B} H={H} KH={KH} D={D} page={page} "
                   f"length={length} splits "
@@ -1211,6 +1334,8 @@ def paged_kernel_rows() -> list[dict]:
                 timed = (case, ms, b)
         case, ms, b = timed
         recorded[name] = case
+        paged_one_launch(case, name)
+        paged_graph_repeat(case, name)
         rows.append(dict(
             name=name, route="cuda",
             source="kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -1228,30 +1353,10 @@ def paged_kernel_rows() -> list[dict]:
         case["q"], case["pool_k"], case["pool_v"], case["table"],
         case["lengths"], None, None, D ** -0.5, splits=n))
         for n in (1, 2, 4, 8, 16)}
+    tickets_zero("paged_decode split sweep")
     print("kernel paged_decode B=8 length=2047 ms by split count: "
           + ", ".join(f"{n}: {ms:.4f}" for n, ms in sweep.items()),
           flush=True)
-    # The combine alone, on the bf16 case's plain partials.
-    splits = PA._num_splits(8, KH, mpp, PA._slots(0, D, page, H // KH, False))
-    o_part, ml = PA.paged_decode_split_ref(
-        case["q"], case["pool_k"], case["pool_v"], case["table"],
-        case["lengths"], splits)
-    e = within(PA.paged_decode_combine(o_part, ml),
-               PA.paged_decode_combine_ref(o_part, ml), "paged_decode_combine")
-    b = bound(o_part.numel() * 4 + ml.numel() * 4 + 8 * H * D * 2,
-              4.0 * o_part.numel(), FP32_FLOPS)
-    print(f"kernel paged_decode_combine B=8 H={H} D={D} splits {splits}: "
-          f"max_abs_err {e:.3e}", flush=True)
-    rows.append(dict(
-        name="paged_decode_combine", route="cuda",
-        source="kubeflow_tpu_torch/csrc/paged_decode.cu",
-        replaces="kubeflow_tpu/ops/paged_attention.py:169",
-        max_abs_err=e,
-        ms=device_ms(lambda: PA.paged_decode_combine(o_part, ml)),
-        plain_ms=device_ms(lambda: PA.paged_decode_combine_ref(o_part, ml)),
-        bound_ms=b[0], bound_by=b[1],
-        # No single PyTorch call merges softmax partials by their maxima.
-        library_ms=None))
     return rows
 
 
@@ -1261,6 +1366,17 @@ def phase_edges() -> None:
     static q_offset, head_dim 64, a non-causal Sq != Skv block with softcap
     and an explicit scale, one query row, the (1 + w) norm, odd widths and
     strided inputs."""
+    phase_norm_edges()
+    phase_flash_edges()
+    phase_flash_bwd_edges()
+    phase_train_edges()
+    phase_paged_edges()
+
+
+def phase_norm_edges() -> None:
+    """The norm and SwiGLU forwards away from the serving shapes: T of 1, 5
+    and 37, D of 1000 and 3072 (masked row blocks), the (1 + w) norm, and
+    SwiGLU/GeGLU on strided [6, 1000] views."""
     from kubeflow_tpu_torch.ops import fused_norm as fn
 
     gen = torch.Generator("cuda").manual_seed(SEED + 2)
@@ -1288,11 +1404,6 @@ def phase_edges() -> None:
                    fn.swiglu_ref(g, u, act=act), f"swiglu {act} 6x1000")
         print(f"edge swiglu {act} [6, 1000] strided: max_abs_err {e:.3e}",
               flush=True)
-
-    phase_flash_edges()
-    phase_flash_bwd_edges()
-    phase_train_edges()
-    phase_paged_edges()
 
 
 def phase_flash_edges() -> None:
@@ -1405,7 +1516,8 @@ def phase_paged_edges() -> None:
     unmapped table entries, a dead row (no mapped page: zeros), pages no
     table names poisoned with 999 (the output must not move), head_dim 64,
     one and eight query heads per kv head, pages of 16, and int8 pools
-    whose scale planes carry outliers."""
+    whose scale planes carry outliers. The ticket counters must be zero
+    after every call."""
     from kubeflow_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_ref,
     )
@@ -1434,21 +1546,23 @@ def phase_paged_edges() -> None:
                 idx = torch.randint(0, s.numel(), (max(s.numel() // 97, 1),),
                                     generator=gen, device="cuda")
                 s.view(-1)[idx] *= 1000.0
-        out = paged_call(paged_decode_attention, case)
+        out = paged_checked(paged_decode_attention, case, name)
         e = within(out, paged_call(paged_decode_ref, case), name)
-        if not torch.equal(paged_call(paged_decode_attention, case), out):
+        if not torch.equal(paged_checked(paged_decode_attention, case, name),
+                           out):
             fail(f"{name}: two calls on the same inputs differ")
         poison_spare_pages(case)
-        if not torch.equal(paged_call(paged_decode_attention, case), out):
+        if not torch.equal(paged_checked(paged_decode_attention, case, name),
+                           out):
             fail(f"{name}: the output moved when unmapped pages changed")
         # A dead row: every table entry unmapped, so the output is zeros.
         case["table"][0] = -1
-        dead = paged_call(paged_decode_attention, case)[0]
+        dead = paged_checked(paged_decode_attention, case, name)[0]
         if torch.count_nonzero(dead):
             fail(f"{name}: a row with no mapped page is not all zeros")
         print(f"edge {name}: max_abs_err {e:.3e}; a second call is "
               "bit-identical; poisoned unmapped pages change nothing; a dead "
-              "row is zeros", flush=True)
+              "row is zeros; the counters are zero after every call", flush=True)
     phase_paged_split_edges()
 
 
@@ -1487,10 +1601,11 @@ PAGED_SPLIT_EDGES = (
 
 
 def phase_paged_split_edges() -> None:
-    """The split kernel and the combine against the plain version at split
-    counts the caller names: every count must agree with
-    ``paged_decode_ref``, repeat its bits on a second call, and keep them
-    when the pages no table names are poisoned."""
+    """The split kernel, merging in its last block, against the plain
+    version at split counts the caller names: every count must agree with
+    ``paged_decode_ref``, repeat its bits on a second call, keep them when
+    the pages no table names are poisoned, and leave the ticket counters
+    zero after every call."""
     from kubeflow_tpu_torch.ops import paged_attention as PA
 
     gen = torch.Generator("cuda").manual_seed(SEED + 8)
@@ -1503,10 +1618,12 @@ def phase_paged_split_edges() -> None:
                 f"unmapped={list(unmapped)}")
 
         def run(n):
-            return PA._launch(case["q"], case["pool_k"], case["pool_v"],
-                              case["table"], case["lengths"],
-                              case.get("pool_ks"), case.get("pool_vs"),
-                              D ** -0.5, splits=n)
+            out = PA._launch(case["q"], case["pool_k"], case["pool_v"],
+                             case["table"], case["lengths"],
+                             case.get("pool_ks"), case.get("pool_vs"),
+                             D ** -0.5, splits=n)
+            tickets_zero(f"{name} splits={n}")
+            return out
 
         ref = paged_call(PA.paged_decode_ref, case)
         outs, err = {}, 0.0
@@ -1523,7 +1640,8 @@ def phase_paged_split_edges() -> None:
                      "pages changed")
         print(f"edge {name}: splits {list(counts)} max_abs_err {err:.3e}; "
               "each bit-identical on a second call and with poisoned "
-              "unmapped pages", flush=True)
+              "unmapped pages; the counters zero after every call",
+              flush=True)
 
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -1748,15 +1866,12 @@ def phase_paged_serve(engine, rows: list[dict]) -> None:
     index must hit, ``/metrics`` must show resident pages, and no page may
     stay referenced at the end."""
     from kubeflow_tpu_torch.ops import fused_norm
-    from kubeflow_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_combine,
-    )
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
 
     wrappers = {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
                 "add_rmsnorm_fwd": fused_norm.add_rmsnorm_fused,
                 "swiglu_fwd": fused_norm.swiglu_fused,
-                "paged_decode": paged_decode_attention,
-                "paged_decode_combine": paged_decode_combine}
+                "paged_decode": paged_decode_attention}
     prefix = text(601, 11)                   # 600 tokens with the BOS
     calls = [
         ("shared_a", "/v1/completions",
@@ -1848,9 +1963,7 @@ def phase_paged_serve(engine, rows: list[dict]) -> None:
             r["launches"] = launches["paged_decode"]
         elif r["name"] == "paged_decode_int8":
             r["launches"] = qrun["launches"]["paged_decode"]
-        elif r["name"] == "paged_decode_combine":      # both pools' runs
-            r["launches"] = (launches["paged_decode_combine"]
-                             + qrun["launches"]["paged_decode_combine"])
+    tickets_zero("paged serve")
 
 
 def phase_paged_check(engine) -> None:
@@ -1917,6 +2030,24 @@ def _kernel_times(prof) -> tuple[float, list[tuple[str, float, int]]]:
     total = sum(e.self_device_time_total for e in kernels) / 1e3
     return total, [(e.key, e.self_device_time_total / 1e3, e.count)
                    for e in kernels]
+
+
+def kernel_parts(fn, calls: int = 20) -> list[tuple[str, float, float]]:
+    """(kernel, device ms per call, launches per call) of every CUDA kernel
+    that ``calls`` eager calls of ``fn`` run, from ``torch.profiler``
+    (each kernel's own execution time, whatever the host's launch gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, kernels = _kernel_times(prof)
+    return [(key[:60], ms / calls, count / calls)
+            for key, ms, count in kernels]
 
 
 def phase_profile(engine) -> None:
@@ -2338,7 +2469,7 @@ def main() -> int:
     card = phase_card()
     phase_build()
     if sys.argv[1:] in (["--flash-only"], ["--paged-only"],
-                        ["--xent-only"]):
+                        ["--xent-only"], ["--norm-only"]):
         # One family of kernels alone: its rows, then its edge cases.
         if sys.argv[1] == "--flash-only":
             rows = flash_fwd_rows() + flash_bwd_rows()
@@ -2347,6 +2478,10 @@ def main() -> int:
         elif sys.argv[1] == "--xent-only":
             rows = xent_rows()
             phase_xent_edges()
+        elif sys.argv[1] == "--norm-only":
+            rows = norm_fwd_rows() + norm_swiglu_bwd_rows()
+            phase_norm_edges()
+            phase_norm_bwd_edges()
         else:
             rows = paged_kernel_rows()
             phase_paged_edges()

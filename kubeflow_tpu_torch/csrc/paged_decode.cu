@@ -1,6 +1,7 @@
 // Paged one-token decode attention for Hopper (sm_90a): GQA over a page
 // table, bf16 or int8 pages (int8 dequantized in registers), fp32 math,
-// split over each slot's pages (flash-decoding) with a combine kernel.
+// split over each slot's pages (flash-decoding), the splits merged by the
+// last of them to finish.
 //
 // Replaces: kubeflow_tpu/ops/paged_attention.py, `paged_decode_attention`
 // (the `pl.pallas_call` of `_kernel`). For every slot b it computes exact
@@ -45,14 +46,26 @@
 //    Otherwise it writes an fp32 partial (unnormalised o, running max m and
 //    sum l per query head) to scratch [B, H, splits, D] and [B, H, splits,
 //    2]; a split with no counted page writes o = 0, l = 0, m = -inf.
-//    `paged_decode_combine` then merges the splits of each (slot, head) in
-//    split order (so the bits repeat): M = max m over live splits, o =
-//    sum exp(m - M) o_s / sum exp(m - M) l_s, zeros where every l is 0.
+//  - Merge in the last block, not a second kernel. A separate merge
+//    kernel sat near its own floor (it reads ~0.8 MB at the serving
+//    shape) and cost a launch and two dependent trips to memory; only
+//    removing the launch moves it. So each split block, after writing its
+//    partial, fences it and takes a ticket from its (slot, kv head)'s
+//    counter; the block that draws the last ticket reads every split's
+//    partial through L2 (never the non-coherent L1) and merges them in
+//    split order, whichever block it is, so the bits repeat: M = max m
+//    over live splits, o = sum exp(m - M) o_s / sum exp(m - M) l_s, zeros
+//    where every l is 0. It then stores 0 back into the counter, so the
+//    counters are zero between calls. A split with no counted page takes
+//    its ticket too. Thread-block clusters would not do: a slot may have
+//    hundreds of splits, past a cluster's limit of 8 (16 non-portable).
 //
 // Layout: q [B, 1, H, D] bf16; pool_k/pool_v [P, page, KH, D] bf16 or int8;
 // pool_ks/pool_vs [P, page, KH] fp32 (int8 only); table [B, mpp] int32
 // (-1 = unmapped; ids >= P are treated as unmapped); lengths [B] int64;
-// out [B, 1, H, D] bf16. All contiguous. Query head h = kvh * g + i.
+// out [B, 1, H, D] bf16; counts [B, KH] int32, zero on entry and on exit
+// (splits > 1 only). All contiguous. Query head h = kvh * g + i. Calls that
+// share `counts` must not run at the same time (one stream).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +79,9 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
+// Splits whose partials the merging block loads at once (the serving
+// shapes take 6 bf16 and 8 int8).
+constexpr int MERGE_PRE = 8;
 // The masked-score value of kubeflow_tpu/ops/attention.py (NEG_INF).
 constexpr float NEG_INF = -0.7f * FLT_MAX;
 
@@ -194,6 +210,72 @@ __device__ Tile seek(const int* trow, int j, int t0, int j_end, int page,
   return {j_end, 0, -1, 0};
 }
 
+// The last split block of a (slot, kv head) merges the splits of its g
+// query heads h0 .. h0 + g - 1 in split order, reading the partials through
+// L2 (__ldcg); each thread takes four adjacent columns of a query head. The
+// first MERGE_PRE splits' (m, l) and o are loaded at once, so at the serving
+// split counts the merge is one trip to memory. A dead split (l = 0) weighs
+// nothing. Not inlined: compiled into the split kernel's body, it changed
+// the main loop's register allocation (150 to 128 registers and a spill at
+// bf16, D = 128), which cost the body ~2 us at the serving shape on an H100.
+template <int D>
+__device__ __noinline__ void merge_splits(const float* __restrict__ o_part,
+                                          const float* __restrict__ ml,
+                                          __nv_bfloat16* __restrict__ out,
+                                          size_t h0, int g, int splits) {
+  const float2* ml2 = reinterpret_cast<const float2*>(ml);
+  for (int u = threadIdx.x; u < g * D / 4; u += THREADS) {
+    const int gi = u / (D / 4), d = (u % (D / 4)) * 4;
+    const size_t h = h0 + gi;
+    const float2* mrow = ml2 + h * splits;
+    const float4* orow =
+        reinterpret_cast<const float4*>(o_part + h * splits * D + d);
+    float2 mp[MERGE_PRE];
+    float4 op[MERGE_PRE];
+#pragma unroll
+    for (int s = 0; s < MERGE_PRE; ++s) {
+      mp[s] = s < splits ? __ldcg(mrow + s) : make_float2(-INFINITY, 0.f);
+      op[s] = s < splits ? __ldcg(orow + size_t(s) * (D / 4))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < MERGE_PRE; ++s)
+      if (mp[s].y > 0.f) M = fmaxf(M, mp[s].x);
+    for (int s = MERGE_PRE; s < splits; ++s) {
+      const float2 v = __ldcg(mrow + s);
+      if (v.y > 0.f) M = fmaxf(M, v.x);
+    }
+    float L = 0.f;
+    float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](const float2 v, const float4 o) {
+      if (v.y > 0.f) {
+        const float w = expf(v.x - M);
+        L += w * v.y;
+        O.x += w * o.x;
+        O.y += w * o.y;
+        O.z += w * o.z;
+        O.w += w * o.w;
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < MERGE_PRE; ++s) add(mp[s], op[s]);
+    for (int s = MERGE_PRE; s < splits; ++s)
+      add(__ldcg(mrow + s), __ldcg(orow + size_t(s) * (D / 4)));
+    __nv_bfloat162 lo, hi;
+    if (L > 0.f) {
+      lo = __floats2bfloat162_rn(O.x / L, O.y / L);
+      hi = __floats2bfloat162_rn(O.z / L, O.w / L);
+    } else {
+      lo = hi = __floats2bfloat162_rn(0.f, 0.f);
+    }
+    uint2 packed;
+    packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+    packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + h * D + d) = packed;
+  }
+}
+
 template <typename T, int D, int TR>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
@@ -205,8 +287,8 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           const long long* __restrict__ lengths,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ o_part, float* __restrict__ ml,
-                          int H, int KH, int page, int P, int mpp, int splits,
-                          float sm_scale) {
+                          int* __restrict__ counts, int H, int KH, int page,
+                          int P, int mpp, int splits, float sm_scale) {
   constexpr bool QUANT = sizeof(T) == 1;
   constexpr int VEC = Elem<T>::VEC;
   constexpr int VPR = D / VEC;                   // 16-byte vectors per row
@@ -414,41 +496,29 @@ paged_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
   // Partial of split `split` for each query head h = kvh * g + gi.
+  const size_t h0 = size_t(b) * H + size_t(kvh) * g;
   for (int e = threadIdx.x; e < g * D; e += THREADS) {
-    const size_t h = size_t(b) * H + size_t(kvh) * g + e / D;
+    const size_t h = h0 + e / D;
     o_part[(h * splits + split) * D + e % D] = acc_s[e];
   }
   for (int gi = threadIdx.x; gi < g; gi += THREADS) {
-    const size_t h = size_t(b) * H + size_t(kvh) * g + gi;
+    const size_t h = h0 + gi;
     const float l = l_s[gi];
     ml[(h * splits + split) * 2] = l > 0.f ? m_s[gi] : -INFINITY;
     ml[(h * splits + split) * 2 + 1] = l;
   }
-}
 
-// One block per (slot, query head): the splits merged in split order.
-__global__ void __launch_bounds__(THREADS)
-paged_decode_combine_kernel(const float* __restrict__ o_part,
-                            const float* __restrict__ ml,
-                            __nv_bfloat16* __restrict__ out, int splits,
-                            int D) {
-  const size_t bh = blockIdx.x;                  // b * H + h
-  const float* mrow = ml + bh * splits * 2;
-  float M = -INFINITY;
-  for (int s = 0; s < splits; ++s)
-    if (mrow[2 * s + 1] > 0.f) M = fmaxf(M, mrow[2 * s]);
-  for (int d = threadIdx.x; d < D; d += THREADS) {
-    float L = 0.f, O = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float l = mrow[2 * s + 1];
-      if (l > 0.f) {                             // a dead split weighs nothing
-        const float w = expf(mrow[2 * s] - M);
-        L += w * l;
-        O += w * o_part[(bh * splits + s) * D + d];
-      }
-    }
-    out[bh * D + d] = __float2bfloat16(L > 0.f ? O / L : 0.f);
-  }
+  // Every thread's partial is visible on the card before the ticket.
+  __threadfence();
+  __syncthreads();
+  int* count = counts + size_t(b) * KH + kvh;
+  int ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(count, 1);
+  if (!__syncthreads_or(threadIdx.x == 0 && ticket == splits - 1)) return;
+  __threadfence();                               // the peers' partials
+
+  merge_splits<D>(o_part, ml, out, h0, g, splits);
+  if (threadIdx.x == 0) *count = 0;              // ready for the next call
 }
 
 int tile_rows(int page) {
@@ -470,7 +540,7 @@ cudaError_t allow_smem(size_t bytes) {
 // One launch of the split kernel.
 struct Launch {
   const void *q, *pk, *pv, *pks, *pvs, *table, *lengths;
-  void *out, *o_part, *ml;
+  void *out, *o_part, *ml, *counts;
   int B, H, KH, page, P, mpp, splits;
   float sm_scale;
   cudaStream_t stream;
@@ -487,7 +557,8 @@ struct Launch {
         static_cast<const float*>(pvs), static_cast<const int*>(table),
         static_cast<const long long*>(lengths),
         static_cast<__nv_bfloat16*>(out), static_cast<float*>(o_part),
-        static_cast<float*>(ml), H, KH, page, P, mpp, splits, sm_scale);
+        static_cast<float*>(ml), static_cast<int*>(counts), H, KH, page, P,
+        mpp, splits, sm_scale);
     return int(cudaGetLastError());
   }
 };
@@ -549,37 +620,24 @@ extern "C" int paged_decode_blocks_per_sm(int D, int page, int g,
   return by_kind(quantized, D, page, Resident{g}, 0);
 }
 
-// The split kernel: with splits == 1 it writes `out` (bf16) and reads
-// neither scratch pointer; otherwise it writes the partials `o_part`
-// [B, H, splits, D] and `ml` [B, H, splits, 2] (fp32) for
-// `paged_decode_combine`.
+// The split kernel: bf16 `out` always. With splits > 1 it also writes
+// the partials `o_part` [B, H, splits, D] and `ml` [B, H, splits, 2]
+// (fp32 scratch) and takes tickets from `counts` [B, KH] (int32, zero on
+// entry, zero again on exit); with splits == 1 it touches none of them.
 extern "C" int paged_decode(const void* q, const void* pool_k,
                             const void* pool_v, const void* pool_ks,
                             const void* pool_vs, const void* table,
                             const void* lengths, void* out, void* o_part,
-                            void* ml, int B, int H, int KH, int D, int page,
-                            int P, int mpp, int splits, int quantized,
-                            float sm_scale, void* stream) {
+                            void* ml, void* counts, int B, int H, int KH,
+                            int D, int page, int P, int mpp, int splits,
+                            int quantized, float sm_scale, void* stream) {
   if (KH <= 0 || H % KH != 0 || page <= 0 || page % 16 != 0 || splits < 1 ||
-      (splits > 1 && (o_part == nullptr || ml == nullptr)) ||
-      (splits == 1 && out == nullptr))
+      out == nullptr ||
+      (splits > 1 &&
+       (o_part == nullptr || ml == nullptr || counts == nullptr)))
     return int(cudaErrorInvalidValue);
   const Launch f{q, pool_k, pool_v, pool_ks, pool_vs, table, lengths, out,
-                 o_part, ml, B, H, KH, page, P, mpp, splits, sm_scale,
-                 static_cast<cudaStream_t>(stream)};
+                 o_part, ml, counts, B, H, KH, page, P, mpp, splits,
+                 sm_scale, static_cast<cudaStream_t>(stream)};
   return by_kind(quantized, D, page, f, int(cudaErrorInvalidValue));
-}
-
-// The combine kernel: out [B * H, D] bf16 from the partials of
-// `paged_decode`.
-extern "C" int paged_decode_combine(const void* o_part, const void* ml,
-                                    void* out, int BH, int D, int splits,
-                                    void* stream) {
-  if (BH < 0 || D <= 0 || splits < 1) return int(cudaErrorInvalidValue);
-  if (BH == 0) return 0;
-  paged_decode_combine_kernel<<<BH, THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o_part), static_cast<const float*>(ml),
-      static_cast<__nv_bfloat16*>(out), splits, D);
-  return int(cudaGetLastError());
 }

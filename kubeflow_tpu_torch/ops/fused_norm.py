@@ -15,15 +15,24 @@ Kernels and what they replace:
 - ``rms_bwd`` + ``rms_dw_sum`` (behind ``rmsnorm_bwd``) — replace
   ``_rms_bwd_call``'s ``pl.pallas_call`` (``_rms_bwd_kernel``): dx from the
   saved rstd, and dw summed over every row. The TPU grid walks the row
-  blocks in order and carries dw in VMEM; here the row blocks run in
-  parallel, so each program keeps its fp32 dw partial in registers over
-  its rows and writes it as one row of a ``[programs, D]`` scratch, and a
-  second pass sums the partials in a fixed order. No float atomics: the
-  result is the same bit for bit from run to run. With ``dy`` (the
-  residual stream's cotangent of ``add_rmsnorm``) the kernel also adds it:
-  dx is rounded to the activation dtype first, then added, as the JAX
-  package's ``_add_rmsnorm_vjp_bwd`` does. Bound: bytes (x, dh, dy read
-  once, dx written once).
+  blocks in order and carries dw in VMEM; here rows run in parallel, so
+  each program keeps its fp32 dw partial in registers over its rows and
+  writes it as one row of a ``[programs, D]`` scratch, and a second pass
+  sums the partials. No float atomics: the result is the same bit for bit
+  from run to run. With ``dy`` (the residual stream's cotangent of
+  ``add_rmsnorm``) the kernel also adds it: dx is rounded to the
+  activation dtype first, then added, as the JAX package's
+  ``_add_rmsnorm_vjp_bwd`` does. Bound: bytes (x, dh, dy read once, dx
+  written once). Design: the row pass is persistent, ``k`` programs per SM
+  (``k`` from the compiled kernel's occupancy, at most
+  ``RMS_BWD_PER_SM``, which bounds the scratch), each taking rows in a
+  fixed stride; it loads the next row's x, dh (and dy) and rstd before it
+  reduces the current one, so two rows per program are in flight and the
+  SM does not wait on memory between one row's reduction and the next
+  row's loads. The column sum runs on strips of ``RMS_DW_COLS`` columns
+  (128 programs at D = 4096), each loading its whole ``[programs, strip]``
+  tile at once and summing it with ``tl.sum``'s fixed tree: one trip to
+  memory, not a serial loop over the partial rows.
 - ``swiglu_fwd`` (behind ``swiglu_fused``) — replaces ``_swiglu``'s
   ``pl.pallas_call`` (``_swiglu_fwd_kernel``): ``act(g) · u`` in fp32
   (silu = ``g·sigmoid(g)``, gelu = the tanh form with the TPU kernel's
@@ -54,11 +63,12 @@ import torch.nn.functional as F
 
 _ACT_CODE = {"silu": 0, "gelu": 1}
 SWIGLU_BLOCK = 1024
-# Rows per program of the RMSNorm backward (its dw partials are
-# [cdiv(rows, RMS_BWD_ROWS), D] fp32), and columns per program of the pass
-# that sums them.
-RMS_BWD_ROWS = 32
-RMS_DW_COLS = 256
+# Programs per SM of the RMSNorm backward's row pass at most (its dw
+# partials are [programs, D] fp32, at most RMS_BWD_PER_SM x SMs x D x 4
+# bytes: ~4% over the row pass's bytes at T = D = 4096 on 132 SMs), and
+# columns per program of the pass that sums them.
+RMS_BWD_PER_SM = 2
+RMS_DW_COLS = 32
 GELU_A = 0.7978845608028654          # sqrt(2 / pi)
 GELU_B = 0.044715
 
@@ -168,9 +178,9 @@ def _kernels():
         tl.store(RSTD + row, inv)
 
     @triton.jit
-    def rms_bwd(X, W, RSTD, DH, DY, DX, DWP, T, D,
+    def rms_bwd(X, W, RSTD, DH, DY, DX, DWP, T, D, PROGS,
                 HAS_DY: tl.constexpr, PLUS_ONE: tl.constexpr,
-                ROWS: tl.constexpr, BLOCK: tl.constexpr):
+                BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK)
         mask = cols < D
@@ -178,35 +188,51 @@ def _kernels():
         if PLUS_ONE:
             wf = 1.0 + wf
         dw = tl.zeros([BLOCK], dtype=tl.float32)
-        row0 = pid * ROWS
-        for i in range(0, ROWS):
-            row = row0 + i
-            if row < T:
-                off = row.to(tl.int64) * D + cols
-                inv = tl.load(RSTD + row)
-                xhat = tl.load(X + off, mask=mask, other=0.0).to(
-                    tl.float32) * inv
-                dh = tl.load(DH + off, mask=mask, other=0.0).to(tl.float32)
-                dxhat = dh * wf
-                dw += dh * xhat
-                c = tl.sum(dxhat * xhat, axis=0) / D
-                dx = ((dxhat - xhat * c) * inv).to(DX.dtype.element_ty)
-                if HAS_DY:
-                    dy = tl.load(DY + off, mask=mask, other=0.0)
-                    dx = (dy.to(tl.float32) + dx.to(tl.float32)).to(
-                        DX.dtype.element_ty)
-                tl.store(DX + off, dx, mask=mask)
+        # Rows pid, pid + PROGS, ...; each iteration loads the next row
+        # (masked past T) before it reduces this one.
+        live = pid < T
+        off = pid.to(tl.int64) * D + cols
+        x_n = tl.load(X + off, mask=mask & live, other=0.0)
+        dh_n = tl.load(DH + off, mask=mask & live, other=0.0)
+        inv_n = tl.load(RSTD + pid, mask=live, other=0.0)
+        if HAS_DY:
+            dy_n = tl.load(DY + off, mask=mask & live, other=0.0)
+        for row in range(pid, T, PROGS):
+            off = row.to(tl.int64) * D + cols
+            x, dh, inv = x_n, dh_n, inv_n
+            if HAS_DY:
+                dy = dy_n
+            nxt = row + PROGS
+            live = nxt < T
+            noff = nxt.to(tl.int64) * D + cols
+            x_n = tl.load(X + noff, mask=mask & live, other=0.0)
+            dh_n = tl.load(DH + noff, mask=mask & live, other=0.0)
+            inv_n = tl.load(RSTD + nxt, mask=live, other=0.0)
+            if HAS_DY:
+                dy_n = tl.load(DY + noff, mask=mask & live, other=0.0)
+            xhat = x.to(tl.float32) * inv
+            dhf = dh.to(tl.float32)
+            dxhat = dhf * wf
+            dw += dhf * xhat
+            c = tl.sum(dxhat * xhat, axis=0) / D
+            dx = ((dxhat - xhat * c) * inv).to(DX.dtype.element_ty)
+            if HAS_DY:
+                dx = (dy.to(tl.float32) + dx.to(tl.float32)).to(
+                    DX.dtype.element_ty)
+            tl.store(DX + off, dx, mask=mask)
         tl.store(DWP + pid.to(tl.int64) * D + cols, dw, mask=mask)
 
     @triton.jit
-    def rms_dw_sum(DWP, DW, P, D, COLS: tl.constexpr):
+    def rms_dw_sum(DWP, DW, P, D, ROWS: tl.constexpr, COLS: tl.constexpr):
+        # The whole [P, COLS] strip at once, summed in tl.sum's fixed tree:
+        # deterministic.
         cols = tl.program_id(0) * COLS + tl.arange(0, COLS)
-        mask = cols < D
-        acc = tl.zeros([COLS], dtype=tl.float32)
-        for p in range(0, P):              # a fixed order: deterministic
-            acc += tl.load(DWP + p.to(tl.int64) * D + cols, mask=mask,
-                           other=0.0)
-        tl.store(DW + cols, acc.to(DW.dtype.element_ty), mask=mask)
+        rows = tl.arange(0, ROWS)
+        mask = (rows[:, None] < P) & (cols[None, :] < D)
+        tile = tl.load(DWP + rows[:, None].to(tl.int64) * D + cols[None, :],
+                       mask=mask, other=0.0)
+        tl.store(DW + cols, tl.sum(tile, axis=0).to(DW.dtype.element_ty),
+                 mask=cols < D)
 
     @triton.jit
     def swiglu_fwd(G, U, O, N, ACT: tl.constexpr, BLOCK: tl.constexpr):
@@ -249,7 +275,9 @@ def _kernels():
 
     return {"rms": rms_fwd, "rms_bwd": rms_bwd, "rms_dw_sum": rms_dw_sum,
             "swiglu": swiglu_fwd, "swiglu_bwd": swiglu_bwd,
-            "next_pow2": triton.next_power_of_2}
+            "next_pow2": triton.next_power_of_2,
+            "device_properties":
+                triton.runtime.driver.active.utils.get_device_properties}
 
 
 def _require_cuda(name: str, *ts: torch.Tensor) -> None:
@@ -319,6 +347,45 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def rms_bwd_grid(rows: int, d: int, sms: int, per_sm: int):
+    """Launch geometry of the RMSNorm backward over ``rows`` x ``d`` on
+    ``sms`` SMs that hold ``per_sm`` row-pass programs each: (programs of
+    the row pass, program p taking rows p, p + programs, ...; column strips
+    of the dw sum, ``RMS_DW_COLS`` wide; rows of its tile, the programs
+    rounded up to a power of two)."""
+    progs = max(1, min(rows, max(1, min(per_sm, RMS_BWD_PER_SM)) * sms))
+    return progs, -(-d // RMS_DW_COLS), 1 << (progs - 1).bit_length()
+
+
+#: Row-pass programs per SM by (card, specialisation), from the compiled
+#: kernel (``_rms_bwd_per_sm``).
+_RMS_BWD_OCCUPANCY: dict[tuple, int] = {}
+
+
+def _rms_bwd_per_sm(index: int, num_warps: int, args: list,
+                    consts: dict) -> int:
+    """Row-pass programs card ``index`` holds per SM, from the registers
+    and shared memory of the kernel compiled for ``args`` (``warmup``
+    compiles it without launching, into the cache the launch then uses)."""
+    key = (index, num_warps, *(a.dtype for a in args[:6]),
+           *sorted(consts.items()))
+    per_sm = _RMS_BWD_OCCUPANCY.get(key)
+    if per_sm is None:
+        k = _kernels()
+        kernel = k["rms_bwd"].warmup(*args, grid=(1,), num_warps=num_warps,
+                                     **consts)
+        kernel._init_handles()
+        props = k["device_properties"](index)
+        threads = 32 * num_warps
+        per_sm = max(1, min(
+            props["max_num_regs"] // max(kernel.n_regs * threads, 1),
+            props["max_shared_mem"] // max(kernel.metadata.shared, 1),
+            torch.cuda.get_device_properties(
+                index).max_threads_per_multi_processor // threads))
+        _RMS_BWD_OCCUPANCY[key] = per_sm
+    return per_sm
+
+
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
                 dh: torch.Tensor, *, plus_one: bool = False,
                 dy: torch.Tensor | None = None):
@@ -338,17 +405,26 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
     rstd = rstd.contiguous().float()
     dy = dy.contiguous() if dy is not None else None
     block = _row_block("rmsnorm_bwd", d)
-    progs = max(-(-rows // RMS_BWD_ROWS), 1)
+    num_warps = min(max(block // 512, 1), 16)
+    k = _kernels()
     dx = torch.empty_like(x)
+    args = [x, w, rstd, dh, dy if dy is not None else dh, dx]
+    consts = dict(HAS_DY=dy is not None, PLUS_ONE=bool(plus_one),
+                  BLOCK=block)
+    index = x.device.index
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    # The occupancy probe compiles the launch's kernel before the program
+    # count is known: rstd stands in for the fp32 scratch, the SM count for
+    # the program count.
+    per_sm = _rms_bwd_per_sm(index, num_warps,
+                             [*args, rstd, rows, d, sms], consts)
+    progs, strips, tile = rms_bwd_grid(rows, d, sms, per_sm)
     partial = torch.empty((progs, d), dtype=torch.float32, device=x.device)
     dw = torch.empty((d,), dtype=w.dtype, device=x.device)
-    k = _kernels()
-    k["rms_bwd"][(progs,)](
-        x, w, rstd, dh, dy if dy is not None else dh, dx, partial, rows, d,
-        HAS_DY=dy is not None, PLUS_ONE=bool(plus_one), ROWS=RMS_BWD_ROWS,
-        BLOCK=block, num_warps=min(max(block // 512, 1), 16))
-    k["rms_dw_sum"][(-(-d // RMS_DW_COLS),)](partial, dw, progs, d,
-                                             COLS=RMS_DW_COLS, num_warps=4)
+    k["rms_bwd"][(progs,)](*args, partial, rows, d, progs,
+                           num_warps=num_warps, **consts)
+    k["rms_dw_sum"][(strips,)](partial, dw, progs, d, ROWS=tile,
+                               COLS=RMS_DW_COLS, num_warps=8)
     rmsnorm_bwd.launches += 1
     return dx, dw
 

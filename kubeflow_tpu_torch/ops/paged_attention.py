@@ -2,17 +2,23 @@
 ``kubeflow_tpu/ops/paged_attention.py`` (``paged_decode_attention`` over
 ``_kernel``'s ``pl.pallas_call``).
 
-The kernels are CUDA C++ (``csrc/paged_decode.cu``, bound through
+The kernel is CUDA C++ (``csrc/paged_decode.cu``, bound through
 ``ctypes``); the note there gives the bound and the design. The TPU kernel
 walks a sequential (slot, page) grid and keeps the kv-head dimension whole
 for Mosaic; on Hopper each slot's page slots are split over several blocks
-(flash-decoding): the split kernel runs one block per (kv head, slot,
-split), each writing an fp32 partial (unnormalised o, running max and sum),
-and ``paged_decode_combine`` merges the splits in a fixed order. The number
-of splits comes from shapes alone (``_num_splits``), never from
-``lengths``, so a call reads nothing back to the host and can be captured
-in a CUDA graph. With one split the split kernel writes the output itself
-and no combine runs.
+(flash-decoding): one block per (kv head, slot, split), each writing an
+fp32 partial (unnormalised o, running max and sum), and the last block of
+each (slot, kv head) to finish merges its splits in a fixed order — one
+launch per call. The blocks find the last one through ticket counters
+([B·KH] int32 per device, kept here by ``_tickets``: zero between calls,
+grown with zeros when a call has more (slot, kv head) pairs, never
+shrunk). The number of splits comes from shapes alone (``_num_splits``),
+never from ``lengths``, so a call reads nothing back to the host and can
+be captured in a CUDA graph; the counters cannot grow while a graph is
+being captured, so a call with more pairs than any before it raises there
+(run it once before capturing). With one split the kernel writes the
+output directly and touches no counter. Calls on one device share its
+counters, so they run on one stream at a time.
 
 ``paged_decode_attention`` keeps the JAX function's signature and
 semantics: page ``j`` of slot ``b`` counts only if ``j * page <=
@@ -22,11 +28,10 @@ are fp32 with no rounding of the probabilities; an int8 pool is
 dequantized as ``k * ks[..., None]``; a slot with no counted page outputs
 zeros; the output has ``q``'s dtype. It takes the plain version
 (``paged_decode_ref``) only for CPU tensors; on CUDA tensors it launches
-the split kernel (adding one to ``paged_decode_attention.launches``, once
-per call) and, with more than one split, the combine kernel through
-``paged_decode_combine`` (adding one to ``paged_decode_combine.launches``,
-counted separately), or raises. ``paged_decode_split_ref`` and
-``paged_decode_combine_ref`` are the plain versions of the two kernels.
+the kernel (adding one to ``paged_decode_attention.launches``, once per
+call) or raises. ``paged_decode_split_ref`` and
+``paged_decode_combine_ref`` are the plain versions of the splits and of
+their merge.
 """
 
 from __future__ import annotations
@@ -50,12 +55,8 @@ def _lib():
     """The C entry points, built and bound on first use."""
     lib = _build.load("paged_decode")
     lib.paged_decode.restype = ctypes.c_int
-    lib.paged_decode.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    lib.paged_decode.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                                  + [ctypes.c_float, ctypes.c_void_p])
-    lib.paged_decode_combine.restype = ctypes.c_int
-    lib.paged_decode_combine.argtypes = ([ctypes.c_void_p] * 3
-                                         + [ctypes.c_int] * 3
-                                         + [ctypes.c_void_p])
     lib.paged_decode_smem.restype = ctypes.c_longlong
     lib.paged_decode_smem.argtypes = [ctypes.c_int] * 4
     lib.paged_decode_blocks_per_sm.restype = ctypes.c_int
@@ -73,6 +74,40 @@ def _slots(index: int, d: int, page: int, g: int, quantized: bool) -> int:
                            f"g={g}, int8={quantized}) found no occupancy")
     return per_sm * torch.cuda.get_device_properties(
         index).multi_processor_count
+
+
+#: Ticket counters of the split kernel per device: the buffers handed out,
+#: the newest last. A buffer is never freed, since a captured CUDA graph
+#: keeps its address.
+_TICKETS: dict[torch.device, list[torch.Tensor]] = {}
+
+
+def _grown(have: Optional[torch.Tensor], n: int,
+           device: torch.device) -> torch.Tensor:
+    """Counters for ``n`` (slot, kv head) pairs: ``have`` itself when it
+    holds at least ``n``, else a new zeroed int32 buffer of ``n`` (never
+    smaller than ``have``)."""
+    if have is not None and have.numel() >= n:
+        return have
+    size = max(n, 0 if have is None else have.numel())
+    return torch.zeros((size,), dtype=torch.int32, device=device)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The device's counters, grown to ``n`` pairs if need be; raises
+    rather than grow while the current stream captures a CUDA graph (the
+    new zeros would be written by no replay)."""
+    held = _TICKETS.setdefault(device, [])
+    have = held[-1] if held else None
+    buf = _grown(have, n, device)
+    if buf is not have:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged_decode_attention: {n} (slot, kv head) pairs need new "
+                "ticket counters while a CUDA graph is capturing; run one "
+                "call of this size before capturing")
+        held.append(buf)
+    return buf
 
 
 def _num_splits(b: int, kh: int, mpp: int, slots: int) -> int:
@@ -192,11 +227,11 @@ def paged_decode_split_ref(q: torch.Tensor, pool_k: torch.Tensor,
 
 def paged_decode_combine_ref(o_part: torch.Tensor,
                              ml: torch.Tensor) -> torch.Tensor:
-    """Plain version of the combine kernel: the splits of each (slot,
-    head) merged as ``sum_s w_s o_s / sum_s w_s l_s`` with ``w_s =
-    exp(m_s - max m)`` over the splits with l > 0 (a split with l = 0
-    weighs nothing); zeros where every l is 0. Returns [B, 1, H, D]
-    fp32."""
+    """Plain version of the merge the split kernel's last block does: the
+    splits of each (slot, head) merged as ``sum_s w_s o_s / sum_s w_s
+    l_s`` with ``w_s = exp(m_s - max m)`` over the splits with l > 0 (a
+    split with l = 0 weighs nothing); zeros where every l is 0. Returns
+    [B, 1, H, D] fp32."""
     m, l = ml[..., 0], ml[..., 1]
     live = l > 0
     top = torch.where(live, m, float("-inf")).amax(dim=-1, keepdim=True)
@@ -209,43 +244,11 @@ def paged_decode_combine_ref(o_part: torch.Tensor,
     return o.unsqueeze(1)
 
 
-def paged_decode_combine(o_part: torch.Tensor, ml: torch.Tensor
-                         ) -> torch.Tensor:
-    """The combine kernel: bf16 [B, 1, H, D] from the split kernel's
-    partials ``o_part`` [B, H, splits, D] and ``ml`` [B, H, splits, 2]
-    (fp32). A CPU tensor takes ``paged_decode_combine_ref``; on CUDA
-    tensors it launches the kernel (adding one to
-    ``paged_decode_combine.launches``) or raises."""
-    if o_part.device.type == "cpu":
-        return paged_decode_combine_ref(o_part, ml).to(torch.bfloat16)
-    b, h, splits, d = o_part.shape
-    for name, t in (("o_part", o_part), ("ml", ml)):
-        if t.device.type != "cuda" or t.device != o_part.device:
-            raise ValueError(f"paged_decode_combine: {name} on {t.device}; "
-                             "the kernel takes CUDA tensors on one device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"paged_decode_combine: {name} must be "
-                             "contiguous float32")
-    if ml.shape != (b, h, splits, 2):
-        raise ValueError(f"paged_decode_combine: ml {tuple(ml.shape)} does "
-                         f"not match o_part {tuple(o_part.shape)}")
-    out = torch.empty((b, 1, h, d), dtype=torch.bfloat16,
-                      device=o_part.device)
-    stream = torch.cuda.current_stream(o_part.device).cuda_stream
-    err = _lib().paged_decode_combine(o_part.data_ptr(), ml.data_ptr(),
-                                      out.data_ptr(), b * h, d, splits,
-                                      stream)
-    _build.check(err, f"paged_decode_combine(B={b}, H={h}, D={d}, "
-                      f"splits={splits})")
-    paged_decode_combine.launches += 1
-    return out
-
-
 def _launch(q, pool_k, pool_v, table, lengths, pool_ks, pool_vs,
             scale: float, splits: Optional[int] = None) -> torch.Tensor:
-    """Check the inputs, launch the split kernel and, with more than one
-    split, the combine. ``splits`` defaults to ``_num_splits`` of the
-    shapes; a caller may name it (``chip_smoke.py``'s edge cases do)."""
+    """Check the inputs and launch the kernel. ``splits`` defaults to
+    ``_num_splits`` of the shapes; a caller may name it
+    (``chip_smoke.py``'s edge cases do)."""
     b, _, h, d = q.shape
     p_total, pg, kh, _ = pool_k.shape
     quantized = pool_ks is not None
@@ -292,25 +295,26 @@ def _launch(q, pool_k, pool_v, table, lengths, pool_ks, pool_vs,
     if splits < 1:
         raise ValueError(f"paged_decode_attention: {splits} splits")
     f32 = torch.float32
-    out = o_part = ml = None
-    if splits == 1:
-        out = torch.empty_like(q)
-    else:
+    out = torch.empty_like(q)
+    o_part = ml = counts = None
+    if splits > 1:
         o_part = torch.empty((b, h, splits, d), dtype=f32, device=q.device)
         ml = torch.empty((b, h, splits, 2), dtype=f32, device=q.device)
+        counts = _tickets(q.device, b * kh)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().paged_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         pool_ks.data_ptr() if quantized else None,
         pool_vs.data_ptr() if quantized else None,
         table.data_ptr(), lengths.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in (out, o_part, ml)),
+        *(None if t is None else t.data_ptr()
+          for t in (out, o_part, ml, counts)),
         b, h, kh, d, pg, p_total, mpp, splits, int(quantized),
         float(scale), stream)
     _build.check(err, f"paged_decode(B={b}, H={h}, KH={kh}, D={d}, "
                       f"page={pg}, mpp={mpp}, splits={splits}, "
                       f"int8={quantized})")
-    return out if splits == 1 else paged_decode_combine(o_part, ml)
+    return out
 
 
 def paged_decode_attention(
@@ -339,4 +343,3 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
-paged_decode_combine.launches = 0

@@ -15,8 +15,14 @@ CPU, with the plain versions of its two kernels:
   in interpret mode (2e-5, the tolerance of tests/test_torch_paged.py);
 - a split with no counted page is the sentinel (o = 0, l = 0, m = -inf)
   and weighs nothing in the combine, whatever its o holds;
-- ``paged_decode_combine`` takes its plain version on the CPU and counts
-  no launch."""
+- the merge runs inside the split kernel: the port has no separate
+  combine wrapper, and ``paged_decode_attention`` on CPU tensors takes
+  its plain version and counts no launch;
+- the split kernel's ticket counters: the same buffer is reused while it
+  holds a call's (slot, kv head) pairs, a larger call gets a new zeroed
+  one, a buffer never shrinks, earlier buffers stay held (a captured CUDA
+  graph keeps their addresses), and growing while a graph captures
+  raises."""
 
 import numpy as np
 import pytest
@@ -153,16 +159,52 @@ def test_combine_weighs_a_dead_split_as_nothing():
     assert not got[5].any()
 
 
-def test_combine_wrapper_contract():
-    """A CPU tensor takes the plain version (rounded to bf16, the kernel's
-    output type) and counts no launch; a tensor on neither the CPU nor a
-    card raises."""
-    before = PA.paged_decode_combine.launches
-    o_part, ml = _call(PA.paged_decode_split_ref, _case(False), 4)
-    got = PA.paged_decode_combine(o_part, ml)
-    assert got.dtype == torch.bfloat16
-    assert torch.equal(got, PA.paged_decode_combine_ref(o_part, ml).to(
-        torch.bfloat16))
-    assert PA.paged_decode_combine.launches == before
-    with pytest.raises(ValueError):
-        PA.paged_decode_combine(o_part.to("meta"), ml.to("meta"))
+def test_the_merge_has_no_wrapper_of_its_own():
+    """The splits are merged inside the split kernel: no combine wrapper
+    or launch counter is left, and a CPU call takes the plain version and
+    counts no launch."""
+    assert not hasattr(PA, "paged_decode_combine")
+    c = _case(False)
+    before = PA.paged_decode_attention.launches
+    got = _call(PA.paged_decode_attention, c)
+    assert PA.paged_decode_attention.launches == before
+    assert torch.equal(got, _call(PA.paged_decode_ref, c))
+
+
+@pytest.mark.parametrize("have,n", [
+    (None, 1), (None, 64), (64, 64), (64, 8), (64, 65), (8, 256), (256, 0)])
+def test_ticket_counters_grow_with_zeros_and_never_shrink(have, n):
+    cpu = torch.device("cpu")
+    old = None if have is None else torch.full((have,), 7, dtype=torch.int32)
+    got = PA._grown(old, n, cpu)
+    assert got.dtype == torch.int32 and got.device == cpu
+    if old is not None and have >= n:
+        assert got is old                            # reused as it is
+    else:
+        assert got is not old
+        assert got.numel() == max(n, 0 if have is None else have)
+        assert not got.any()                         # new zeros
+    assert got.numel() >= max(n, 0 if have is None else have)
+
+
+def test_ticket_counters_are_kept_per_device(monkeypatch):
+    """``_tickets`` hands out one buffer per device, grows it for a call
+    with more (slot, kv head) pairs, keeps the earlier buffers, and raises
+    rather than grow while a CUDA graph is capturing."""
+    monkeypatch.setattr(PA, "_TICKETS", {})
+    capturing = [False]
+    monkeypatch.setattr(PA.torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing[0])
+    cpu = torch.device("cpu")
+    first = PA._tickets(cpu, 64)
+    assert first.numel() == 64 and PA._tickets(cpu, 8) is first
+    capturing[0] = True
+    assert PA._tickets(cpu, 64) is first             # no growth: allowed
+    with pytest.raises(RuntimeError, match="capturing"):
+        PA._tickets(cpu, 65)
+    capturing[0] = False
+    second = PA._tickets(cpu, 65)
+    assert second.numel() == 65 and not second.any()
+    held = PA._TICKETS[cpu]
+    assert len(held) == 2 and held[0] is first and held[1] is second
+    assert PA._tickets(cpu, 64) is second
