@@ -11,7 +11,9 @@ kernel, ``--xent-only`` for the fused cross-entropy kernels (their rows
 with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
 edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
-edge cases). Phases, each a hard failure:
+edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c)
+without the kernel rows. Every phase prints its seconds. Phases, each a
+hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every hand-written kernel built from the checkout's sources (one
@@ -55,7 +57,9 @@ edge cases). Phases, each a hard failure:
    across a vocab-range boundary, targets 0, V-1 and out of vocab, masked
    rows that must get exactly zero d_hidden; for the norm and SwiGLU backward:
    D = 2048/3072/4096, T = 1 and 300, (1 + w), the residual cotangent
-   (the RMSNorm backward called twice for the same bits), gelu, odd M);
+   (the RMSNorm backward called twice for the same bits), gelu, odd M, and
+   the explainer's T = 37 with a bf16 weight that needs no gradient, timed,
+   through the kernels and through the ``autograd.Function``s);
    then the memory probe: the fused CE's forward and
    backward at T = 4096, V = 128256 must peak within one eighth of an
    fp32 [T, V] tensor beyond its inputs and gradients;
@@ -66,6 +70,14 @@ edge cases). Phases, each a hard failure:
    over HTTP. Every kernel must have
    launched during this phase; then the bucketed prefill's last-token
    logits are held against the plain path's;
+   (a) explain, on the same engine in process: ``grad_x_input`` on a
+   37-token prompt through the kernels against the plain path (same target
+   token, scores rel L2 <= 5e-2), with exactly 2L + 1 RMSNorm backward and
+   L SwiGLU backward launches; ``leave_one_out`` finite, same target;
+   (b) loadgen in process: ``bursty_qos`` of ``standard_matrix`` (24
+   requests at 4 req/s, prompts up to 512 tokens, 64 new) through
+   ``EngineTarget`` on the contiguous engine; every request ok or shed;
+   TTFT, TPOT, req/s, tokens/s and the generator's lag beside the card;
 5. paged serve: the same weights on the page pool (bf16 pages, then int8
    pages) behind a ModelServer: shared-prefix, chunked, streamed, predict
    and sampled requests at once, then a second conversation turn and a
@@ -76,7 +88,20 @@ edge cases). Phases, each a hard failure:
    (bf16 and int8 pages) after a 1000-token paged prefill;
 6. profile: host and device time of one decode dispatch on the contiguous
    cache and on the page pool, and of one 2048-token prefill, with the
-   kernels that take the device time;
+   kernels that take the device time; then the greedy tokens of the
+   worker's three prompts from an in-process paged engine, and the
+   serving engine is freed;
+   (c) the worker: ``python -m kubeflow_tpu_torch.runtime.worker_main``
+   (``KFTPU_ENTRYPOINT=model_server``, ``KFTPU_PLATFORM=gpu``) serving
+   Llama-3-8B from ``random://`` (the same seed, bf16) on the page pool
+   with the ``strip`` transformer and the ``grad_x_input`` explainer; its
+   kernels found built (no ``nvcc``); its greedy tokens identical to the
+   in-process engine's (which proves its kernels ran: the same path
+   computed them); chat, streamed and not, and ``:explain`` answer;
+   ``uniform`` and ``shared_prefix`` through ``ServerTarget`` with
+   ``/metrics`` showing resident pages under load and none after, prefix
+   hits in ``shared_prefix``; SIGTERM ends it with 143 and closes its
+   port;
 7. train check (serving engines freed first): Llama-3-8B at full width, 4
    layers, one ``decoder_loss`` forward and backward through the flash
    kernels alone and through every kernel (``fused_kernels="on"``)
@@ -92,9 +117,13 @@ edge cases). Phases, each a hard failure:
    norm finite every step, the resumed step-6 loss within 1e-5 relative
    of the uninterrupted one, the same optimizer count and the same layer-0
    ``wq`` Adam moments at step 6, and every kernel of the path launched at
-   its per-step count derived from the code; then 2 steps with
-   ``fused_kernels="off"`` (flash kernels, chunked CE) with their counts;
-   then a profile of one step of each.
+   its per-step count derived from the code;
+   (d) ``load_params("file://...")`` of the resumed step-6 checkpoint into
+   the 4-layer preset with bf16 params: the same bits as the trainer's
+   params cast in memory, the same greedy tokens from an engine on each,
+   and ``FileNotFoundError`` for an empty directory; the checkpoint is
+   then deleted; then 2 steps with ``fused_kernels="off"`` (flash kernels,
+   chunked CE) with their counts; then a profile of one step of each.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -1123,6 +1152,70 @@ def phase_norm_bwd_edges(gen=None) -> None:
                 e = max(within(dg, rdg, name + " dg"),
                         within(du, rdu, name + " du"))
                 print(f"{name}: max_abs_err {e:.3e}", flush=True)
+    explain_bwd_edges(gen)
+
+
+def explain_bwd_edges(gen) -> None:
+    """The explainer's backward shapes: a 37-token prompt (a multiple of no
+    tile) through serving weights — bf16 and needing no gradient, so the
+    RMSNorm backward neither stores dw partials nor sums them. Each kernel
+    against its plain version, timed (the kernel table's T = 37 note); then
+    the norm and SwiGLU ``autograd.Function``s with only the activation
+    requiring grad must give the weight no gradient and the plain
+    backward's dx."""
+    from kubeflow_tpu_torch.ops import fused_norm as fn
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    T, D, M, eps = 37, 4096, 14336, 1e-5
+    w = (1.0 + 0.1 * torch.randn((D,), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    x, dh, dy = rnd(T, D), rnd(T, D), rnd(T, D)
+    _, _, rstd = fn._norm_launch(x, None, w, eps, False)
+    for label, kw in (("", {}), (" dy", {"dy": dy})):
+        name = f"edge rmsnorm_bwd{label} T={T} D={D} bf16 w"
+        dx, dw = fn.rmsnorm_bwd(x, w, rstd, dh, **kw)
+        rdx, rdw = fn.rmsnorm_bwd_ref(x, w, rstd, dh, **kw)
+        e = max(within(dx, rdx, name + " dx"), within(dw, rdw, name + " dw"))
+        dx2, none = fn.rmsnorm_bwd(x, w, rstd, dh, need_dw=False, **kw)
+        if none is not None or not torch.equal(dx2, dx):
+            fail(f"{name}: need_dw=False changed dx or returned a dw")
+        b = bound((4 if kw else 3) * T * D * 2 + D * 2 + T * 4,
+                  (9 if kw else 8) * T * D, FP32_FLOPS)
+        ms = device_ms(lambda kw=kw: fn.rmsnorm_bwd(x, w, rstd, dh,
+                                                    need_dw=False, **kw))
+        print(f"{name}: max_abs_err {e:.3e}; without dw (the explainer's "
+              f"call) bit-identical dx, ms {ms:.6f}, bound_ms {b[0]:.6f} "
+              f"({b[1]})", flush=True)
+    g, u, do = rnd(T, M), rnd(T, M), rnd(T, M)
+    dg, du = fn.swiglu_bwd(g, u, do, act="silu")
+    rdg, rdu = fn.swiglu_bwd_ref(g, u, do, act="silu")
+    name = f"edge swiglu_bwd silu T={T} M={M}"
+    e = max(within(dg, rdg, name + " dg"), within(du, rdu, name + " du"))
+    b = bound(5 * T * M * 2, 10 * T * M, FP32_FLOPS)
+    ms = device_ms(lambda: fn.swiglu_bwd(g, u, do, act="silu"))
+    print(f"{name}: max_abs_err {e:.3e}, ms {ms:.6f}, bound_ms {b[0]:.6f} "
+          f"({b[1]})", flush=True)
+    # The autograd Functions, weight without grad: dx of the plain backward.
+    xg = x[None].clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(fn.rmsnorm_fused(xg, w, eps=eps), xg,
+                                 dh[None])
+    within(got[0], fn.rmsnorm_bwd_ref(x, w, rstd, dh)[0],
+           "edge rmsnorm_fused autograd, bf16 w without grad")
+    yg, hg = fn.add_rmsnorm_fused(xg, dy[None], w, eps=eps)
+    (got,) = torch.autograd.grad((yg, hg), xg, (dy[None], dh[None]))
+    _, _, rstd_y = fn._norm_launch(x + dy, None, w, eps, False)
+    within(got[0], fn.rmsnorm_bwd_ref(x + dy, w, rstd_y, dh, dy=dy)[0],
+           "edge add_rmsnorm_fused autograd, bf16 w without grad")
+    gg = g.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(fn.swiglu_fused(gg, u), gg, do)
+    within(got, rdg, "edge swiglu_fused autograd, up without grad")
+    if w.grad is not None or u.grad is not None:
+        fail("edge autograd: a tensor that needs no gradient got one")
+    print(f"edge norm and SwiGLU autograd.Functions T={T}: weights without "
+          "grad get none; dx equals the plain backward's", flush=True)
 
 
 def phase_memory_probe() -> None:
@@ -1842,16 +1935,21 @@ def phase_serve(rows: list[dict]):
     return engine
 
 
+#: The page pool every paged engine here runs (and the worker of phase (c)):
+#: 8 slots of up to 2048 tokens over 64 pages of 128, chunks of 512, the
+#: paged-decode kernel, the radix prefix index.
+PAGED_SPEC = dict(paged=True, page_size=128, max_pages=64, max_batch_size=8,
+                  max_seq_len=2048, chunked_prefill_tokens=512,
+                  paged_attn_impl="pallas", weights_dtype="bfloat16")
+
+
 def paged_engine(engine, **overrides):
-    """A paged LLMEngine over the contiguous engine's weights (shared, not
-    copied): 8 slots of up to 2048 tokens over a pool of 64 pages of 128,
-    chunks of 512, the paged-decode kernel, the radix prefix index."""
+    """A paged LLMEngine (``PAGED_SPEC``) over the contiguous engine's
+    weights (shared, not copied)."""
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.serve.engine import LLMEngine
 
-    spec = dict(paged=True, page_size=128, max_pages=64, max_batch_size=8,
-                max_seq_len=2048, chunked_prefill_tokens=512,
-                paged_attn_impl="pallas", weights_dtype="bfloat16")
+    spec = dict(PAGED_SPEC)
     spec.update(overrides)
     return LLMEngine(engine.cfg, BatchingSpec(**spec), params=engine.params,
                      seed=SEED, device="cuda")
@@ -2128,6 +2226,340 @@ def phase_profile(engine) -> None:
                   flush=True)
 
 
+# -- the predictor replica: explain, loadgen, the worker, file:// ------------
+
+# grad_x_input's per-token scores, kernel path vs plain path over 32 bf16
+# layers: relative L2, the prefill's band.
+EXPLAIN_REL_L2 = PREFILL_REL_L2
+#: The offered traffic of every loadgen phase (``standard_matrix``).
+LOADGEN = dict(num_requests=24, rate_rps=4.0, prompt_len=512, max_new=64,
+               seed=SEED)
+#: The worker's greedy prompts: a 128-bucket prompt, a 512-bucket one and a
+#: chunked one.
+WORKER_PROMPTS = ((60, 51), (300, 52), (700, 53))
+
+
+class TokenIdText:
+    """The byte tokenizer's encoding, with every token id decoded as decimal
+    text ("17 4093 "): a served random-weight model's greedy ids come back
+    over HTTP exactly, where the byte tokenizer drops every id past 258.
+    The worker of phase (c) loads it as ``chip_smoke:TokenIdText``."""
+
+    PAD, BOS, EOS, OFFSET = 0, 1, 2, 3
+    bos_id, eos_id, vocab_size = BOS, EOS, 256 + OFFSET
+
+    def encode(self, text: str) -> list[int]:
+        return [self.BOS] + [b + self.OFFSET for b in text.encode("utf-8")]
+
+    def decode(self, ids: list[int]) -> str:
+        return "".join(f"{i} " for i in ids)
+
+
+def phase_explain(engine) -> None:
+    """(a) The explainer hop on the 32-layer serving engine, in process, on
+    a 37-token prompt: ``grad_x_input`` through the kernels (the norm and
+    SwiGLU backward on serving weights that need no gradient; each kernel's
+    count set to 0 just before and read just after: 2L + 1 RMSNorm backward
+    calls — ln1, the residual ln2, the final norm — and L SwiGLU backward
+    calls) against the plain path (``fused_kernels="off"``) on the same
+    weights: the same target token, scores within ``EXPLAIN_REL_L2``. Then
+    ``leave_one_out``: finite scores and the same target."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.ops import fused_norm as fn
+    from kubeflow_tpu_torch.serve.explain import grad_x_input, leave_one_out
+
+    cfg = engine.cfg
+    gen = torch.Generator().manual_seed(SEED + 20)
+    prompt = torch.randint(3, 259, (37,), generator=gen).tolist()
+    wrappers = {"rmsnorm_fwd": fn.rmsnorm_fused,
+                "add_rmsnorm_fwd": fn.add_rmsnorm_fused,
+                "swiglu_fwd": fn.swiglu_fused,
+                "rmsnorm_bwd": fn.rmsnorm_bwd, "swiglu_bwd": fn.swiglu_bwd}
+    grad_x_input(prompt, params=engine.params, cfg=cfg)       # warm
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    kern = grad_x_input(prompt, params=engine.params, cfg=cfg)
+    t_kern = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    plain = grad_x_input(prompt, params=engine.params,
+                         cfg=dataclasses.replace(cfg, fused_kernels="off"))
+    a = torch.tensor(kern["scores"], dtype=torch.float64)
+    b = torch.tensor(plain["scores"], dtype=torch.float64)
+    rel = float((a - b).norm() / b.norm())
+    t0 = time.perf_counter()
+    loo = leave_one_out(prompt, params=engine.params, cfg=cfg)
+    t_loo = time.perf_counter() - t0
+    print(f"explain grad_x_input ({len(prompt)} tokens, {cfg.n_layers} "
+          f"layers): {t_kern:.3f} s, target {kern['target_token']} (plain "
+          f"path {plain['target_token']}), scores rel L2 {rel:.3e} "
+          f"(tolerance {EXPLAIN_REL_L2:g}), kernels " + json.dumps(launches),
+          flush=True)
+    print(f"explain leave_one_out ([{len(prompt)}, {len(prompt)}] forward): "
+          f"{t_loo:.3f} s, target {loo['target_token']}, scores "
+          f"[{min(loo['scores']):.4f}, {max(loo['scores']):.4f}]", flush=True)
+    if kern["target_token"] != plain["target_token"]:
+        fail("explain: the kernel path's target token differs from the "
+             "plain path's")
+    if not rel <= EXPLAIN_REL_L2:
+        fail("explain: grad_x_input through the kernels disagrees with the "
+             "plain path")
+    want = {"rmsnorm_bwd": 2 * cfg.n_layers + 1, "swiglu_bwd": cfg.n_layers}
+    for name, count in launches.items():
+        if count != want.get(name, count) or count <= 0:
+            fail(f"explain: {name} launched {count} times, expected "
+                 f"{want.get(name, '> 0')}")
+    if len(loo["scores"]) != len(prompt) or not all(
+            math.isfinite(v) for v in loo["scores"] + kern["scores"]):
+        fail("explain: non-finite or missing scores")
+    if loo["target_token"] != kern["target_token"]:
+        fail("explain: leave_one_out's target differs from grad_x_input's")
+
+
+def report_line(label: str, rep: dict, card: str) -> None:
+    """Print one loadgen report's client-side numbers on a line, with the
+    card."""
+    ttft, tpot, lag = rep["ttft_ms"], rep["tpot_ms"], rep["schedule_lag_ms"]
+    line = (f"loadgen {label}: {rep['requests']} requests "
+            f"{json.dumps(rep['by_status'])}, TTFT p50 {ttft.get('p50')} p95 "
+            f"{ttft.get('p95')} ms, TPOT p50 {tpot.get('p50')} p95 "
+            f"{tpot.get('p95')} ms, {rep['req_s']} req/s, "
+            f"{rep['tokens_per_sec']} tokens/s, generator lag p50 "
+            f"{lag.get('p50')} p95 {lag.get('p95')} ms; {card}")
+    print(line, flush=True)
+
+
+def check_statuses(label: str, rep: dict) -> None:
+    bad = {k: v for k, v in rep["by_status"].items() if k not in ("ok", "shed")}
+    if bad or not rep["by_status"].get("ok"):
+        fail(f"loadgen {label}: statuses {rep['by_status']}")
+
+
+def phase_loadgen_engine(engine, card: str) -> None:
+    """(b) The open-loop load generator in process (``EngineTarget``) on the
+    contiguous serving engine: ``bursty_qos`` of ``standard_matrix``
+    (``LOADGEN``). Every request ok or shed; the report's TTFT, TPOT,
+    req/s, tokens/s and the generator's own lag."""
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.serve.server import serving_metrics_registry
+
+    sc = next(x for x in loadgen.standard_matrix(**LOADGEN)
+              if x.name == "bursty_qos")
+    engine.start()
+    try:
+        run = loadgen.run_scenario(
+            loadgen.EngineTarget(engine), sc, vocab_size=engine.cfg.vocab_size,
+            max_prompt_len=engine.max_len - sc.output_len.value - 1)
+        text = serving_metrics_registry([("llama3-8b", engine)]).render()
+    finally:
+        engine.stop()
+    rep = loadgen.build_report(run, metrics_text=text)
+    report_line("bursty_qos (EngineTarget, contiguous cache)", rep, card)
+    print(f"loadgen bursty_qos phases {json.dumps(rep['phases'])}, per class "
+          f"{json.dumps(rep.get('qos', {}))}", flush=True)
+    check_statuses("bursty_qos", rep)
+
+
+def worker_reference(engine) -> list[list[int]]:
+    """The greedy tokens phase (c)'s worker must give its three prompts: a
+    paged engine of the worker's spec (``PAGED_SPEC``) over the serving
+    weights, which ``random://`` with the same seed reproduces in the
+    worker; each prompt alone, as the worker gets them."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+    tok = TokenIdText()
+    peng = paged_engine(engine)
+    out = []
+    for n, salt in WORKER_PROMPTS:
+        got = peng.generate(tok.encode(text(n, salt)), SamplingParams(
+            max_new_tokens=16, temperature=0.0, stop_token=tok.eos_id))
+        out.append([t for t in got if t != tok.eos_id])
+    del peng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _get(url: str, timeout: float = 30.0) -> tuple[int, str]:
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.status, resp.read().decode()
+
+
+def phase_worker(want: list[list[int]], card: str) -> None:
+    """(c) The predictor replica as a process: ``python -m
+    kubeflow_tpu_torch.runtime.worker_main`` with ``KFTPU_ENTRYPOINT=
+    model_server``, ``KFTPU_PLATFORM=gpu``, Llama-3-8B from ``random://``
+    (bf16, the serving seed) on the page pool, the ``strip`` transformer and
+    the ``grad_x_input`` explainer. Its kernels must already be built (no
+    ``nvcc`` in the worker). Greedy completions must give ``want`` token for
+    token; chat (streamed and not) and ``:explain`` must answer; then
+    ``uniform`` and ``shared_prefix`` through ``ServerTarget``, with
+    ``/metrics`` showing resident pages under load and none after it, and
+    prefix hits in ``shared_prefix``. SIGTERM must end it with 143 and
+    close its port."""
+    import signal
+    import tempfile
+
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
+
+    repo = Path(__file__).resolve().parent
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    conf = {"model": {"preset": "llama3-8b",
+                      "overrides": {"param_dtype": "bfloat16"}},
+            "storage_uri": "random://",
+            "batching": PAGED_SPEC, "port": port, "service": "llama",
+            "explainer": {"handler": "grad_x_input"},
+            "transformer": {"handler": "strip"},
+            "tokenizer": "chip_smoke:TokenIdText"}
+    wenv = WorkerEnv(coordinator_address="127.0.0.1:0", num_processes=1,
+                     process_id=0, job="default/llama-predictor",
+                     replica_index=0, entrypoint="model_server", config=conf,
+                     parallelism={}, platform="gpu")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KFTPU_")}
+    env.update(wenv.to_env())
+    env["PYTHONPATH"] = str(repo)
+    log = tempfile.NamedTemporaryFile(prefix="chip_smoke_worker_",
+                                      suffix=".log", delete=False)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.runtime.worker_main"],
+        cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+    ok = False
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"worker exited {proc.returncode} before it was ready")
+            try:
+                if _get(url + "/v2/health/ready", timeout=2.0)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                fail("worker not ready after 300 s")
+            time.sleep(0.5)
+        t_ready = time.perf_counter() - t0
+        logged = Path(log.name).read_text()
+        m = re.search(r"CUDA kernels ready in ([0-9.]+) s \(compiled here: "
+                      r"([^)]*)\)", logged)
+        if m is None:
+            fail("worker: no kernel build line in its log")
+        print(f"worker: ready in {t_ready:.1f} s; kernels ready in "
+              f"{m.group(1)} s, compiled in the worker: {m.group(2)}",
+              flush=True)
+        if m.group(2) != "none":
+            fail("worker: ran nvcc for kernels the checkout already built")
+
+        tok = TokenIdText()
+        for (n, salt), ref in zip(WORKER_PROMPTS, want):
+            status, raw = _post(url + "/v1/completions",
+                                {"prompt": text(n, salt), "max_tokens": 16})
+            out = json.loads(raw)
+            got = [int(t) for t in out["choices"][0]["text"].split()]
+            print(f"worker greedy {n} tokens: {got} "
+                  f"({'identical to' if got == ref else 'differs from'} the "
+                  f"in-process paged engine's)", flush=True)
+            if got != ref:
+                fail(f"worker: greedy tokens {got} differ from the "
+                     f"in-process engine's {ref}")
+        msgs = {"messages": [{"role": "user", "content": text(40, 54)}],
+                "max_tokens": 8}
+        out = json.loads(_post(url + "/v1/chat/completions", msgs)[1])
+        if out["object"] != "chat.completion" or not \
+                out["choices"][0]["message"]["content"].split():
+            fail(f"worker: chat completion {out}")
+        raw = _post(url + "/v1/chat/completions",
+                    {**msgs, "stream": True})[1].decode()
+        chunks = [ln[6:] for ln in raw.split("\n") if ln.startswith("data: ")]
+        if not chunks or chunks[-1] != "[DONE]" or not all(
+                "delta" in json.loads(c)["choices"][0] for c in chunks[:-1]):
+            fail("worker: malformed chat stream")
+        prompt = text(40, 55)
+        (exp,) = json.loads(_post(url + "/v1/models/llama:explain",
+                                  {"instances": [prompt]})[1])["explanations"]
+        if len(exp["scores"]) != len(tok.encode(prompt)) or not all(
+                math.isfinite(v) for v in exp["scores"]):
+            fail(f"worker: explain gave {len(exp['scores'])} scores for "
+                 f"{len(tok.encode(prompt))} tokens")
+        print(f"worker: chat {len(chunks) - 1} streamed chunks; explain "
+              f"{exp['method']} {len(exp['scores'])} scores, target "
+              f"{exp['target_token']}", flush=True)
+
+        hits = {}
+        for name in ("uniform", "shared_prefix"):
+            sc = next(x for x in loadgen.standard_matrix(**LOADGEN)
+                      if x.name == name)
+            resident, done = [0.0], threading.Event()
+
+            def watch():
+                while not done.is_set():
+                    try:
+                        resident[0] = max(resident[0], _resident_pages(url))
+                    except OSError:
+                        pass
+                    done.wait(0.05)
+
+            th = threading.Thread(target=watch)
+            th.start()
+            try:
+                run = loadgen.run_scenario(
+                    loadgen.ServerTarget(url, model="llama"), sc,
+                    vocab_size=128256, max_prompt_len=1024)
+            finally:
+                done.set()
+                th.join(timeout=60)
+            metrics = _get(url + "/metrics")[1]
+            rep = loadgen.build_report(run, metrics_text=metrics)
+            report_line(f"{name} (ServerTarget, worker, page pool)", rep,
+                        card)
+            check_statuses(name, rep)
+            hits[name] = rep["engine"].get("kv_tier", {}).get(
+                "prefix_hits", 0)
+            # No leak: once the last stream ended, the scheduler releases
+            # its pages within a step or two.
+            for _ in range(50):
+                after = _resident_pages(url)
+                if after == 0:
+                    break
+                time.sleep(0.1)
+            print(f"worker {name}: most pages resident on /metrics "
+                  f"{resident[0]:.0f}, after the run {after:.0f}, prefix "
+                  f"hits so far {hits[name]}", flush=True)
+            if resident[0] <= 0:
+                fail(f"worker {name}: /metrics never showed a resident page")
+            if after:
+                fail(f"worker {name}: pages still resident after the run")
+        if hits["shared_prefix"] - hits["uniform"] <= 0:
+            fail("worker shared_prefix: the prefix index never hit")
+
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            fail("worker: still alive 30 s after SIGTERM")
+        print(f"worker: SIGTERM -> exit code {rc} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if rc != 143:
+            fail(f"worker: SIGTERM gave exit code {rc}, not 143")
+        try:
+            _get(url + "/v2/health/ready", timeout=2.0)
+            fail("worker: its port still answers after SIGTERM")
+        except OSError:
+            pass
+        ok = True
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log.close()
+        if not ok:
+            print("worker log (tail):\n" + Path(log.name).read_text()[-4000:],
+                  file=sys.stderr, flush=True)
+        os.unlink(log.name)
+
+
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
 TRAIN_DATA = dict(seq_len=2048, global_batch=2)
 
@@ -2265,11 +2697,14 @@ def _trainer_cfg(ckpt_dir=None, steps: int = 6, **model):
         max_checkpoints=1)
 
 
-def _train_run(cfg, workdir: str, crash_at=None) -> tuple[dict, float]:
+def _train_run(cfg, workdir: str, crash_at=None,
+               keep_params: bool = False) -> tuple[dict, float]:
     """One ``Trainer.run()``; returns ({step: metrics}, seconds). A
     ``crash_at`` step raises after that step's checkpoint. The last step's
     entry also holds ``opt_state``: the optimizer count and the layer-0 wq
-    Adam moments, on the host."""
+    Adam moments, on the host; with ``keep_params``, ``params16``: the
+    params cast to bf16 in memory, on the card."""
+    from kubeflow_tpu_torch.train import tree as T
     from kubeflow_tpu_torch.train.trainer import Trainer
 
     seen: dict = {}
@@ -2282,6 +2717,10 @@ def _train_run(cfg, workdir: str, crash_at=None) -> tuple[dict, float]:
                 "count": int(opt["count"]),
                 **{k: opt[k]["layers"]["attn"]["wq"][0].float().cpu()
                    for k in ("mu", "nu")}}
+            if keep_params:
+                seen[step]["params16"] = T.map_tree(
+                    lambda t: t.detach().to(torch.bfloat16),
+                    trainer.task.state["params"])
         if step == crash_at:
             raise _Crash()
 
@@ -2367,7 +2806,8 @@ def phase_train(rows: list[dict]) -> None:
         print(f"train resume: first run stopped after step 3 in "
               f"{secs_a:.1f} s; checkpoint dir {saved}, step 3 holds "
               f"{size / 1e9:.2f} GB", flush=True)
-        resumed, secs_b = _train_run(_trainer_cfg(ckpt), resume_dir)
+        resumed, secs_b = _train_run(_trainer_cfg(ckpt), resume_dir,
+                                     keep_params=True)
         print(f"train resume: second run resumed and took steps "
               f"{sorted(resumed)} in {secs_b:.1f} s", flush=True)
         if sorted(resumed) != [4, 5, 6]:
@@ -2389,14 +2829,75 @@ def phase_train(rows: list[dict]) -> None:
             fail("train resume: the optimizer count was not restored")
         if not all(r <= RESUME_MOMENT_REL_L2 for r in moments.values()):
             fail("train resume: the Adam moments were not restored")
+        params16 = resumed[6].pop("params16")
         for step, m in {**first, **resumed}.items():
             if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
                 fail(f"train resume step {step}: non-finite {m}")
+        timed_phase("file:// serve", phase_file_params, ckpt, params16)
+        del params16
         shutil.rmtree(ckpt, ignore_errors=True)
         _counted_run(_trainer_cfg(steps=2, fused_kernels="off"),
                      os.path.join(work, "off"), "train fused_kernels='off'")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_file_params(ckpt: str, params16: dict) -> None:
+    """(d) ``load_params("file://...")`` of the resumed run's step-6
+    checkpoint into the 4-layer preset with bf16 params: the same bits as
+    the trainer's params cast to bf16 in memory, and the same greedy tokens
+    from an engine on each (three prompts: a 128-bucket, a 512-bucket and a
+    chunked one). An empty directory must raise ``FileNotFoundError``."""
+    import tempfile
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.serve.storage import load_params
+    from kubeflow_tpu_torch.train import tree as T
+
+    cfg = preset("llama3-8b", n_layers=TRAIN_MODEL["n_layers"],
+                 param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    loaded = load_params(f"file://{ckpt}", cfg, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    fl, fm = T.flatten(loaded), T.flatten(params16)
+    same = list(fl) == list(fm) and all(
+        fl[k].dtype == fm[k].dtype and torch.equal(fl[k], fm[k]) for k in fl)
+    spec = dict(max_batch_size=8, max_seq_len=2048, prefill_attn_impl="pallas",
+                chunked_prefill_tokens=1024)
+    tok = TokenIdText()
+    prompts = [tok.encode(text(n, salt))
+               for n, salt in ((90, 71), (400, 72), (1200, 73))]
+    outs = {}
+    for label, params in (("file://", loaded), ("in memory", params16)):
+        eng = LLMEngine(cfg, BatchingSpec(**spec), params=params,
+                        device="cuda")
+        outs[label] = [eng.generate(p, SamplingParams(max_new_tokens=16))
+                       for p in prompts]
+        del eng
+        torch.cuda.empty_cache()
+    print(f"file:// serve: step-6 params loaded in {t_load:.1f} s "
+          f"({sum(t.numel() for t in fl.values()) / 1e9:.3f} B bf16), "
+          f"{'the same bits as' if same else 'NOT the same bits as'} the "
+          f"trainer's params cast in memory; greedy tokens "
+          f"{'identical' if outs['file://'] == outs['in memory'] else 'DIFFER'}"
+          f": {outs['file://']}", flush=True)
+    if not same:
+        fail("file:// serve: the loaded params differ from the trainer's")
+    if outs["file://"] != outs["in memory"]:
+        fail("file:// serve: greedy tokens differ from the in-memory params'")
+    with tempfile.TemporaryDirectory() as empty:
+        try:
+            load_params(f"file://{empty}", cfg, device="cuda")
+        except FileNotFoundError as exc:
+            print(f"file:// serve: an empty directory raises "
+                  f"FileNotFoundError: {exc}", flush=True)
+        else:
+            fail("file:// serve: an empty directory gave params")
+    del loaded
+    torch.cuda.empty_cache()
 
 
 def phase_train_profile(fused: str) -> None:
@@ -2454,6 +2955,34 @@ def phase_train_profile(fused: str) -> None:
     torch.cuda.empty_cache()
 
 
+def timed_phase(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def serve_phases(rows: list[dict], card: str, *, full: bool) -> None:
+    """Phases 4 on: serve, (a) explain, (b) loadgen in process, then (with
+    ``full``) the paged serve, paged check and profile; then the engine is
+    freed and (c) the worker runs."""
+    engine = timed_phase("serve", phase_serve, rows)
+    timed_phase("explain", phase_explain, engine)
+    timed_phase("loadgen in process", phase_loadgen_engine, engine, card)
+    if full:
+        timed_phase("paged serve", phase_paged_serve, engine, rows)
+        timed_phase("paged check", phase_paged_check, engine)
+        timed_phase("profile", phase_profile, engine)
+    want = timed_phase("worker reference", worker_reference, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " GiB still allocated", flush=True)
+    timed_phase("worker", phase_worker, want, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
@@ -2467,7 +2996,12 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     t0 = time.perf_counter()
     card = phase_card()
-    phase_build()
+    timed_phase("build", phase_build)
+    if sys.argv[1:] == ["--serve-only"]:
+        serve_phases([], card, full=False)
+        print(f"chip_smoke: serve-only phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] in (["--flash-only"], ["--paged-only"],
                         ["--xent-only"], ["--norm-only"]):
         # One family of kernels alone: its rows, then its edge cases.
@@ -2497,22 +3031,14 @@ def main() -> int:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
-    rows = phase_kernels()
-    phase_edges()
-    phase_memory_probe()
-    engine = phase_serve(rows)
-    phase_paged_serve(engine, rows)
-    phase_paged_check(engine)
-    phase_profile(engine)
-    del engine
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f}"
-          " GiB still allocated", flush=True)
-    phase_train_check()
-    phase_train(rows)
-    phase_train_profile("auto")
-    phase_train_profile("off")
+    rows = timed_phase("kernels", phase_kernels)
+    timed_phase("edges", phase_edges)
+    timed_phase("memory probe", phase_memory_probe)
+    serve_phases(rows, card, full=True)
+    timed_phase("train check", phase_train_check)
+    timed_phase("train", phase_train, rows)
+    timed_phase("train profile auto", phase_train_profile, "auto")
+    timed_phase("train profile off", phase_train_profile, "off")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -123,6 +123,7 @@ def decoder_forward(
     kv_caches: Optional[dict] = None,  # {"k","v": [L,B,Smax,K,Dh], "len": int}
     attn_impl: str = "xla",
     skip_head: bool = False,
+    inputs_embeds: Optional[torch.Tensor] = None,
     lora: Optional[dict] = None,
 ):
     """Returns (logits [B,S,V] float32, new_kv_caches|None). With
@@ -130,7 +131,10 @@ def decoder_forward(
     logits. A cache is written in place: the returned caches hold the same
     tensors with ``len`` advanced. ``kv_caches["prefill"] = True`` marks a
     scratch cache whose start is 0 (the engine's bucketed prefill), which
-    lets ``attn_impl="pallas"`` run the flash kernel."""
+    lets ``attn_impl="pallas"`` run the flash kernel. ``inputs_embeds``
+    [B,S,D] replaces the embedding lookup (pre-scale): the differentiable
+    input the attribution explainers need (``serve/explain.py``);
+    ``tokens`` still supplies shapes and positions."""
     if cfg.is_moe:
         raise NotImplementedError("MoE decoders arrive with the MoE slice")
     if lora is not None:
@@ -143,7 +147,10 @@ def decoder_forward(
                      + offset)[None, :].expand(b, s)
 
     dt = cfg.activation_dtype
-    x = params["embed"][tokens].to(dt)
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(dt)
+    else:
+        x = params["embed"][tokens].to(dt)
     if cfg.embed_scale:
         x = x * L.embed_scale_value(cfg)
 

@@ -1,7 +1,8 @@
 """Request tracing: one trace id from the model server to the decode step
 (the surface of ``kubeflow_tpu/obs/trace.py`` the port's engine and server
 use, copied: spans, cross-thread parents, header propagation and a bounded
-ring of recent traces).
+ring of recent traces, and the per-phase rollup ``phase_durations`` the
+loadgen's reports read).
 
 The server joins the ``X-Kftpu-Trace`` header and spans the request; the
 engine scheduler spans each request's queued → prefill → decode lifecycle
@@ -37,6 +38,9 @@ class SpanContext:
     trace_id: str
     span_id: str
 
+    def header_value(self) -> str:
+        return f"{self.trace_id}-{self.span_id}"
+
 
 def parse_trace_header(value: Optional[str]) -> Optional[SpanContext]:
     """``<trace_id>-<span_id>`` → SpanContext, or None on absent/garbage
@@ -69,6 +73,10 @@ class Span:
         self.attrs = attrs
         self.events: list[dict] = []
         self.status = "ok"
+
+    @property
+    def context(self) -> SpanContext:
+        return SpanContext(trace_id=self.trace_id, span_id=self.span_id)
 
     @property
     def duration(self) -> Optional[float]:
@@ -186,6 +194,33 @@ class Tracer:
                 return None
             return {"trace_id": trace_id, "root": rec["root"],
                     "spans": list(rec["spans"])}
+
+
+#: Engine lifecycle phases, in order (the ``engine.<phase>`` span names).
+ENGINE_PHASES = ("queued", "adapter_load", "kv_migrate", "prefill",
+                 "handoff", "decode")
+
+
+def phase_durations(spans: list[dict]) -> dict:
+    """Total engine time per lifecycle phase in a span list, in ms:
+    ``{"queued_ms": ..., "prefill_ms": ..., "decode_ms": ...}``.
+
+    Sums every closed ``engine.<phase>`` span — a preempted request
+    contributes two queued (and prefill) spans, and the sum is the real
+    time it spent in that phase. Phases with no closed span are absent;
+    a trace with no engine spans returns {}. The loadgen's attribution
+    reports aggregate this per-request breakdown."""
+    out: dict = {}
+    for s in spans:
+        name = s.get("name", "")
+        if not name.startswith("engine."):
+            continue
+        phase = name.split(".", 1)[1]
+        if phase not in ENGINE_PHASES or s.get("duration_ms") is None:
+            continue
+        key = f"{phase}_ms"
+        out[key] = round(out.get(key, 0.0) + s["duration_ms"], 3)
+    return out
 
 
 #: The process-wide tracer every layer shares.

@@ -97,11 +97,12 @@ def add_rmsnorm_ref(x: torch.Tensor, res: torch.Tensor, w: torch.Tensor, *,
 
 def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
                     dh: torch.Tensor, *, plus_one: bool = False,
-                    dy: torch.Tensor | None = None):
+                    dy: torch.Tensor | None = None, need_dw: bool = True):
     """RMSNorm backward from the saved fp32 ``rstd`` ([T] or [T, 1]), as
     ``_rms_bwd_kernel`` computes it: x, dh [T, D] → (dx in x's dtype, dw
-    [D] in w's dtype). With ``dy``, dx is rounded to x's dtype and then
-    ``dy`` is added in that dtype (``_add_rmsnorm_vjp_bwd``)."""
+    [D] in w's dtype, or None without ``need_dw``). With ``dy``, dx is
+    rounded to x's dtype and then ``dy`` is added in that dtype
+    (``_add_rmsnorm_vjp_bwd``)."""
     inv = rstd.float().reshape(-1, 1)
     xhat = x.float() * inv
     dhf = dh.float()
@@ -112,7 +113,7 @@ def rmsnorm_bwd_ref(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
     dx = ((dxhat - xhat * c) * inv).to(x.dtype)
     if dy is not None:
         dx = (dy + dx).to(x.dtype)
-    return dx, dw.to(w.dtype)
+    return dx, (dw.to(w.dtype) if need_dw else None)
 
 
 def act_ref(g: torch.Tensor, act: str) -> torch.Tensor:
@@ -179,8 +180,8 @@ def _kernels():
 
     @triton.jit
     def rms_bwd(X, W, RSTD, DH, DY, DX, DWP, T, D, PROGS,
-                HAS_DY: tl.constexpr, PLUS_ONE: tl.constexpr,
-                BLOCK: tl.constexpr):
+                HAS_DY: tl.constexpr, HAS_DW: tl.constexpr,
+                PLUS_ONE: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         cols = tl.arange(0, BLOCK)
         mask = cols < D
@@ -213,14 +214,16 @@ def _kernels():
             xhat = x.to(tl.float32) * inv
             dhf = dh.to(tl.float32)
             dxhat = dhf * wf
-            dw += dhf * xhat
+            if HAS_DW:
+                dw += dhf * xhat
             c = tl.sum(dxhat * xhat, axis=0) / D
             dx = ((dxhat - xhat * c) * inv).to(DX.dtype.element_ty)
             if HAS_DY:
                 dx = (dy.to(tl.float32) + dx.to(tl.float32)).to(
                     DX.dtype.element_ty)
             tl.store(DX + off, dx, mask=mask)
-        tl.store(DWP + pid.to(tl.int64) * D + cols, dw, mask=mask)
+        if HAS_DW:
+            tl.store(DWP + pid.to(tl.int64) * D + cols, dw, mask=mask)
 
     @triton.jit
     def rms_dw_sum(DWP, DW, P, D, ROWS: tl.constexpr, COLS: tl.constexpr):
@@ -388,11 +391,16 @@ def _rms_bwd_per_sm(index: int, num_warps: int, args: list,
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
                 dh: torch.Tensor, *, plus_one: bool = False,
-                dy: torch.Tensor | None = None):
+                dy: torch.Tensor | None = None, need_dw: bool = True):
     """Kernel 3: RMSNorm backward over rows, x, dh (and ``dy``) [T, D],
-    fp32 ``rstd`` [T] → (dx [T, D] in x's dtype, dw [D] in w's dtype)."""
+    fp32 ``rstd`` [T] → (dx [T, D] in x's dtype, dw [D] in w's dtype).
+    Without ``need_dw`` (a weight that needs no gradient, as when the
+    explainer differentiates serving weights) the row pass neither sums
+    nor stores dw partials, the column sum is not launched and dw is
+    None."""
     if x.device.type == "cpu":
-        return rmsnorm_bwd_ref(x, w, rstd, dh, plus_one=plus_one, dy=dy)
+        return rmsnorm_bwd_ref(x, w, rstd, dh, plus_one=plus_one, dy=dy,
+                               need_dw=need_dw)
     extra = () if dy is None else (dy,)
     _require_cuda("rmsnorm_bwd", x, w, rstd, dh, *extra)
     rows, d = x.shape
@@ -409,8 +417,8 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
     k = _kernels()
     dx = torch.empty_like(x)
     args = [x, w, rstd, dh, dy if dy is not None else dh, dx]
-    consts = dict(HAS_DY=dy is not None, PLUS_ONE=bool(plus_one),
-                  BLOCK=block)
+    consts = dict(HAS_DY=dy is not None, HAS_DW=bool(need_dw),
+                  PLUS_ONE=bool(plus_one), BLOCK=block)
     index = x.device.index
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     # The occupancy probe compiles the launch's kernel before the program
@@ -419,12 +427,16 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
     per_sm = _rms_bwd_per_sm(index, num_warps,
                              [*args, rstd, rows, d, sms], consts)
     progs, strips, tile = rms_bwd_grid(rows, d, sms, per_sm)
-    partial = torch.empty((progs, d), dtype=torch.float32, device=x.device)
-    dw = torch.empty((d,), dtype=w.dtype, device=x.device)
+    # Without dw the row pass stores no partials: rstd stands in for them.
+    partial = (torch.empty((progs, d), dtype=torch.float32, device=x.device)
+               if need_dw else rstd)
     k["rms_bwd"][(progs,)](*args, partial, rows, d, progs,
                            num_warps=num_warps, **consts)
-    k["rms_dw_sum"][(strips,)](partial, dw, progs, d, ROWS=tile,
-                               COLS=RMS_DW_COLS, num_warps=8)
+    dw = None
+    if need_dw:
+        dw = torch.empty((d,), dtype=w.dtype, device=x.device)
+        k["rms_dw_sum"][(strips,)](partial, dw, progs, d, ROWS=tile,
+                                   COLS=RMS_DW_COLS, num_warps=8)
     rmsnorm_bwd.launches += 1
     return dx, dw
 
@@ -442,9 +454,10 @@ class _RMSNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         x2, w, rstd = ctx.saved_tensors
+        need_dx, need_dw = ctx.needs_input_grad[:2]
         dx, dw = rmsnorm_bwd(x2, w, rstd, dh.reshape(x2.shape),
-                             plus_one=ctx.plus_one)
-        return dx.reshape(dh.shape), dw, None, None
+                             plus_one=ctx.plus_one, need_dw=need_dw)
+        return (dx.reshape(dh.shape) if need_dx else None), dw, None, None
 
 
 class _AddRMSNormFn(torch.autograd.Function):
@@ -462,10 +475,13 @@ class _AddRMSNormFn(torch.autograd.Function):
         y, w, rstd = ctx.saved_tensors
         # y = x + res feeds both outputs: each input's cotangent is the
         # stream's cotangent plus the norm's dx.
+        need_x, need_res, need_dw = ctx.needs_input_grad[:3]
         dx, dw = rmsnorm_bwd(y, w, rstd, dh.reshape(y.shape),
-                             plus_one=ctx.plus_one, dy=dy.reshape(y.shape))
+                             plus_one=ctx.plus_one, dy=dy.reshape(y.shape),
+                             need_dw=need_dw)
         dx = dx.reshape(dh.shape)
-        return dx, dx, dw, None, None
+        return (dx if need_x else None), (dx if need_res else None), dw, \
+            None, None
 
 
 def rmsnorm_fused(x: torch.Tensor, w: torch.Tensor, *, eps: float,
@@ -534,7 +550,8 @@ class _SwiGLUFn(torch.autograd.Function):
     def backward(ctx, do):
         gate, up = ctx.saved_tensors
         dg, du = swiglu_bwd(gate, up, do, act=ctx.act)
-        return dg, du, None
+        need_g, need_u = ctx.needs_input_grad[:2]
+        return (dg if need_g else None), (du if need_u else None), None
 
 
 def swiglu_fused(gate: torch.Tensor, up: torch.Tensor, *,

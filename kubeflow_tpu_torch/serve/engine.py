@@ -846,7 +846,14 @@ class LLMEngine:
                params: Optional[SamplingParams] = None,
                request_id: Optional[str] = None, *,
                deadline: Optional[float] = None,
-               trace_parent=None, qos: str = QOS_DEFAULT) -> Request:
+               trace_parent=None, qos: str = QOS_DEFAULT,
+               adapter: Optional[str] = None) -> Request:
+        """Queue one request. ``adapter`` names a LoRA model id; the port
+        serves no adapters yet, so any id is unknown here (``KeyError``,
+        the JAX engine's answer to an unregistered id)."""
+        if adapter is not None:
+            raise KeyError(f"unknown adapter {adapter!r}: this engine serves "
+                           "no LoRA adapters")
         if not prompt_tokens:
             raise ValueError("empty prompt")
         if len(prompt_tokens) >= self.max_len:

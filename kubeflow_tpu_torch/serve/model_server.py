@@ -1,0 +1,116 @@
+"""The ``model_server`` worker entrypoint: what an InferenceService predictor
+replica runs (port of ``kubeflow_tpu/serve/model_server.py``; the
+kserve-container and storage-initializer pair in one process).
+
+Config (``KFTPU_CONFIG_JSON``):
+    model:       {"preset": str, "overrides": {...}}  decoder architecture
+    storage_uri: str | None                           weights (serve/storage.py)
+    batching:    BatchingSpec fields                  engine knobs
+    port:        int                                  HTTP port (pre-assigned)
+    service:     str                                  exposed model name
+    transformer: {"handler": str, "config": {...}}    pre/post hop
+    explainer:   {"handler": str, "config": {...}}    :explain hop
+    tokenizer:   str                                  registered name or
+                                                      "module:factory"
+                                                      (default "byte")
+
+It runs ``preset`` → ``load_params`` → ``LLMEngine`` → ``ModelServer`` on
+the worker's device (``WorkerContext.device``: the card unless
+``KFTPU_PLATFORM=cpu``) and serves until SIGTERM (exit 143 through
+``runtime/worker_main.py``).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable
+
+from kubeflow_tpu_torch.runtime.entrypoints import (
+    WorkerContext, register_entrypoint, resolve_handler,
+)
+
+logger = logging.getLogger(__name__)
+
+#: Named transformer handlers (the "registered name" form of
+#: TransformerSpec.handler; the alternative is "module:function").
+transformer_registry: dict[str, Callable] = {}
+
+
+def register_transformer(name: str):
+    def deco(fn: Callable) -> Callable:
+        transformer_registry[name] = fn
+        return fn
+    return deco
+
+
+def resolve_transformer(handler: str) -> Callable:
+    return resolve_handler(handler, transformer_registry, "transformer")
+
+
+@register_transformer("strip")
+def strip(text: str, phase: str) -> str:
+    """Trims surrounding whitespace from the prompt and the output."""
+    return text.strip()
+
+
+@register_entrypoint("model_server")
+def model_server(ctx: WorkerContext) -> int:
+    import dataclasses
+    import functools
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+    from kubeflow_tpu_torch.serve.explain import build_explainer
+    from kubeflow_tpu_torch.serve.server import ModelServer
+    from kubeflow_tpu_torch.serve.storage import load_params
+    from kubeflow_tpu_torch.serve.tokenizer import tokenizer_registry
+
+    conf = ctx.config
+    model_conf = conf.get("model", {})
+    cfg = preset(model_conf.get("preset", "tiny"),
+                 **model_conf.get("overrides", {}))
+    batching_conf = dict(conf.get("batching", {}))
+    known = {f.name for f in dataclasses.fields(BatchingSpec)}
+    unknown = sorted(set(batching_conf) - known)
+    if unknown:
+        raise ValueError(f"batching fields {unknown} are not in the port's "
+                         f"BatchingSpec; known: {sorted(known)}")
+    device = ctx.device
+    if device.startswith("cuda"):
+        # Kernels are built before the first request, not inside it; a
+        # checkout whose csrc/build already holds them loads them as is.
+        from kubeflow_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        _build.build_all()
+        logger.info("CUDA kernels ready in %.2f s (compiled here: %s)",
+                    time.perf_counter() - t0,
+                    ", ".join(sorted(_build.PTXAS)) or "none")
+    params = load_params(conf.get("storage_uri"), cfg, device=device)
+    engine = LLMEngine(cfg, BatchingSpec(**batching_conf), params=params,
+                       device=device)
+    del params
+    transformer = None
+    t_conf = conf.get("transformer")
+    if t_conf:
+        # kserve-transformer analog: fn(text, phase, **config).
+        transformer = resolve_transformer(t_conf["handler"])
+        if t_conf.get("config"):
+            transformer = functools.partial(transformer, **t_conf["config"])
+    tokenizer = resolve_handler(conf.get("tokenizer", "byte"),
+                                tokenizer_registry, "tokenizer")()
+    server = ModelServer(conf.get("service", "model"), engine,
+                         tokenizer=tokenizer, transformer=transformer,
+                         explainer=build_explainer(conf.get("explainer")),
+                         port=int(conf["port"]))
+    server.start()
+    logger.info("serving %s (%s, %s) on port %d", server.name,
+                model_conf.get("preset", "tiny"), device, server.port)
+    try:
+        while True:          # serve until SIGTERM (exit 143 via worker_main)
+            time.sleep(0.5)
+    finally:
+        server.stop()
+    return 0

@@ -7,13 +7,18 @@ Routes:
   ``GET /v1/models``; ``GET /v2/models/{name}`` (metadata);
   ``GET /metrics`` (Prometheus text, the same series names as the JAX
   package's ``serving_metrics_registry``);
-- ``POST /v1/completions`` (OpenAI-compatible; ``stream=true`` → SSE);
+- ``POST /v1/completions``, ``/v1/chat/completions`` (OpenAI-compatible;
+  ``stream=true`` → SSE);
 - ``POST /v1/models/{name}:predict`` (v1 protocol);
+- ``POST /v1/models/{name}:explain`` (per-token attribution from the
+  configured explainer hop, ``serve/explain.py``);
 - ``POST /v2/models/{name}/infer`` (v2 open-inference protocol).
 
-Chat completions, explain, the KV handoff relay, the model repository and
-gRPC arrive with later slices (404 here). Threaded stdlib server: handlers
-block on the engine's request stream; the engine thread batches.
+A transformer hop ``transformer(text, phase)`` rewrites the prompt
+(``"pre"``) and the non-streamed output (``"post"``). The KV handoff
+relay, the model repository and gRPC arrive with later slices (404 here).
+Threaded stdlib server: handlers block on the engine's request stream;
+the engine thread batches.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ def _quiet_handle_error(httpd) -> None:
 
 
 _V1_PREDICT = re.compile(r"^/v1/models/([^/:]+):predict$")
+_V1_EXPLAIN = re.compile(r"^/v1/models/([^/:]+):explain$")
 _V2_MODEL = re.compile(r"^/v2/models/([^/]+)$")
 _V2_INFER = re.compile(r"^/v2/models/([^/]+)/infer$")
 
@@ -76,10 +82,18 @@ _V2_INFER = re.compile(r"^/v2/models/([^/]+)/infer$")
 class ModelServer:
     def __init__(self, name: str, engine: LLMEngine, *,
                  tokenizer: Optional[Tokenizer] = None,
+                 transformer=None,
+                 explainer=None,
                  host: str = "127.0.0.1", port: int = 0):
         self.name = name
         self.engine = engine
         self.tokenizer = tokenizer or get_tokenizer("byte")
+        # Pre/post-processing hop (≈ kserve transformer):
+        # transformer(text, phase) with phase in {"pre", "post"}.
+        self.transformer = transformer
+        # Explanation hop (≈ kserve explainer): explainer(tokens,
+        # params=..., cfg=...) -> attribution dict, on the v1 :explain route.
+        self.explainer = explainer
         self._in_flight = 0             # guarded_by: _in_flight_lock
         self._in_flight_lock = threading.Lock()
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
@@ -129,6 +143,27 @@ class ModelServer:
             timeout = min(timeout, max(deadline_s, 0.0))
         return timeout
 
+    def explain_text(self, prompt: str, model: Optional[str]) -> dict:
+        """Tokenize → attribution handler → per-token scores with their
+        decoded token strings (the v1 ``:explain`` payload)."""
+        if self.explainer is None:
+            raise ValueError("no explainer configured on this service")
+        if self.transformer is not None:
+            prompt = self.transformer(prompt, "pre")
+        self.check_model(model, strict=True)
+        engine, tokenizer = self.engine, self.tokenizer
+        toks = tokenizer.encode(prompt)
+        # Attribution is O(S) forwards (leave_one_out batches an [S, S]
+        # block): an uncapped prompt would exhaust the serving card.
+        limit = min(engine.max_len, engine.cfg.max_seq_len)
+        if len(toks) > limit:
+            raise ValueError(
+                f"explain prompt is {len(toks)} tokens; limit {limit}")
+        out = self.explainer(toks, params=engine.params, cfg=engine.cfg)
+        out["tokens"] = [tokenizer.decode([t]) for t in toks]
+        out["predicted_text"] = tokenizer.decode([out["target_token"]])
+        return out
+
     def submit_text(self, prompt: str, body: dict, *,
                     deadline_s: Optional[float], qos: str) -> tuple:
         """Tokenize and submit; returns (request, timeout). The engine-side
@@ -145,8 +180,10 @@ class ModelServer:
                       strict: bool = False,
                       deadline_s: Optional[float] = None,
                       qos: str = QOS_DEFAULT) -> tuple[str, Request]:
-        """Tokenize → engine → detokenize: the generation path every route
-        shares."""
+        """Pre-hop → tokenize → engine → detokenize → post-hop: the
+        generation path every non-streaming route shares."""
+        if self.transformer is not None:
+            prompt = self.transformer(prompt, "pre")
         self.check_model(model, strict=strict)
         req, timeout = self.submit_text(prompt, body, deadline_s=deadline_s,
                                         qos=qos)
@@ -159,6 +196,8 @@ class ModelServer:
         with get_tracer().span("server.detokenize", tokens=len(out)):
             text = self.tokenizer.decode(
                 [t for t in out if t != self.tokenizer.eos_id])
+        if self.transformer is not None:
+            text = self.transformer(text, "post")
         return text, req
 
     # -- request plumbing ------------------------------------------------------
@@ -413,11 +452,16 @@ def _make_handler(server: ModelServer):
                     m = _V1_PREDICT.match(self.path)
                     if m:
                         return self._v1_predict(body, m.group(1))
+                    m = _V1_EXPLAIN.match(self.path)
+                    if m:
+                        return self._v1_explain(body, m.group(1))
                     m = _V2_INFER.match(self.path)
                     if m:
                         return self._v2_infer(body, m.group(1))
                     if self.path == "/v1/completions":
-                        return self._completions(body)
+                        return self._completions(body, chat=False)
+                    if self.path == "/v1/chat/completions":
+                        return self._completions(body, chat=True)
                     self._json(404, {"error": f"not found: {self.path}"})
             except KeyError as exc:
                 self._json(404, {"error": str(exc)})
@@ -449,6 +493,14 @@ def _make_handler(server: ModelServer):
                      for inst in instances]
             self._json(200, {"predictions": preds})
 
+        def _v1_explain(self, body: dict, model: str) -> None:
+            instances = body.get("instances")
+            if not isinstance(instances, list):
+                raise ValueError("body must contain 'instances': [...]")
+            exps = [server.explain_text(str(inst), model)
+                    for inst in instances]
+            self._json(200, {"explanations": exps})
+
         def _v2_infer(self, body: dict, model: str) -> None:
             inputs = body.get("inputs")
             if not isinstance(inputs, list) or not inputs:
@@ -464,25 +516,36 @@ def _make_handler(server: ModelServer):
                              "shape": [len(texts)], "data": texts}],
             })
 
-        def _completions(self, body: dict) -> None:
+        def _completions(self, body: dict, *, chat: bool) -> None:
             model = self.headers.get(MODEL_HEADER) or body.get("model")
-            prompt = body.get("prompt", "")
-            if isinstance(prompt, list):
-                prompt = prompt[0] if prompt else ""
+            if chat:
+                msgs = body.get("messages", [])
+                prompt = "\n".join(
+                    f"{m.get('role', 'user')}: {m.get('content', '')}"
+                    for m in msgs) + "\nassistant:"
+            else:
+                prompt = body.get("prompt", "")
+                if isinstance(prompt, list):
+                    prompt = prompt[0] if prompt else ""
             if body.get("stream"):
-                return self._completions_stream(str(prompt), body,
+                return self._completions_stream(str(prompt), body, chat=chat,
                                                 model=model)
             text, req = self._generate_text(str(prompt), body, model)
             usage = {"prompt_tokens": len(req.prompt_tokens),
                      "completion_tokens": len(req.output_tokens),
                      "total_tokens": len(req.prompt_tokens)
                      + len(req.output_tokens)}
+            if chat:
+                choice = {"index": 0, "finish_reason": req.finish_reason,
+                          "message": {"role": "assistant", "content": text}}
+                obj = "chat.completion"
+            else:
+                choice = {"index": 0, "finish_reason": req.finish_reason,
+                          "text": text}
+                obj = "text_completion"
             self._json(200, {
-                "id": req.id, "object": "text_completion",
-                "created": int(time.time()),
-                "model": model or server.name,
-                "choices": [{"index": 0, "finish_reason": req.finish_reason,
-                             "text": text}],
+                "id": req.id, "object": obj, "created": int(time.time()),
+                "model": model or server.name, "choices": [choice],
                 "usage": usage,
             })
 
@@ -500,7 +563,12 @@ def _make_handler(server: ModelServer):
             self.wfile.flush()
 
         def _completions_stream(self, prompt: str, body: dict, *,
-                                model: Optional[str]) -> None:
+                                chat: bool, model: Optional[str]) -> None:
+            # The pre-hook applies to the prompt as on the non-streaming
+            # path; the post-hook cannot (output streams piecewise), as in
+            # kserve's non-streaming transformer scope.
+            if server.transformer is not None:
+                prompt = server.transformer(prompt, "pre")
             req, timeout = server.submit_text(
                 prompt, body, deadline_s=self._deadline_s(),
                 qos=self._qos(body))
@@ -519,11 +587,15 @@ def _make_handler(server: ModelServer):
                         break
                     if tok == tokenizer.eos_id:
                         continue
+                    piece = tokenizer.decode([tok])
+                    if chat:
+                        choice = {"index": 0, "delta": {"content": piece}}
+                    else:
+                        choice = {"index": 0, "text": piece}
                     self._chunk(json.dumps({
                         "id": req.id, "object": "chunk",
                         "model": model or server.name,
-                        "choices": [{"index": 0,
-                                     "text": tokenizer.decode([tok])}]}))
+                        "choices": [choice]}))
             except OSError:
                 # Client hung up mid-stream: free the slot now.
                 req.cancel()

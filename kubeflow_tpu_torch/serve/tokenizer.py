@@ -166,14 +166,17 @@ class BPETokenizer:
         return cls([tuple(m) for m in doc["merges"]])
 
 
-_registry: dict[str, Callable[[], Tokenizer]] = {"byte": ByteTokenizer}
+#: Named tokenizer factories (a worker config's ``tokenizer`` is one of
+#: these names or a "module:factory" path).
+tokenizer_registry: dict[str, Callable[[], Tokenizer]] = {"byte": ByteTokenizer}
 
 
 def register_tokenizer(name: str, factory: Callable[[], Tokenizer]) -> None:
-    _registry[name] = factory
+    tokenizer_registry[name] = factory
 
 
 def get_tokenizer(name: str = "byte") -> Tokenizer:
-    if name not in _registry:
-        raise KeyError(f"unknown tokenizer {name!r}; known: {sorted(_registry)}")
-    return _registry[name]()
+    if name not in tokenizer_registry:
+        raise KeyError(f"unknown tokenizer {name!r}; known: "
+                       f"{sorted(tokenizer_registry)}")
+    return tokenizer_registry[name]()

@@ -123,22 +123,36 @@ class CheckpointManager:
             self._drop_manifest(step)
 
     def restore(self, step: Optional[int] = None, *, device="cpu",
-                verify: bool = True) -> Optional[Any]:
+                verify: bool = True,
+                subtree: Optional[str] = None) -> Optional[Any]:
         """The state saved as ``step`` (default: the newest), tensors on
         ``device``; None when nothing is saved. The manifest is verified
-        first, before any tensor is loaded."""
+        first, before any tensor is loaded. ``subtree`` (e.g. ``"params"``)
+        loads only that key's leaves and returns that subtree; the manifest
+        check then covers the files it reads (and ``meta.json``)."""
         target = step if step is not None else self.latest_step()
         if target is None:
             return None
-        if verify:
-            self.verify_step(target)
         root = self._step_dir(target)
+        head = f"{subtree}/" if subtree else ""
+
+        def wanted(entries: dict) -> dict:
+            return {p[len(head):]: v for p, v in entries.items()
+                    if p.startswith(head)}
+
+        if verify and not subtree:
+            self.verify_step(target)
         with open(os.path.join(root, _META)) as f:
             meta = json.load(f)
-        flat = dict(meta["values"])
-        for path, rel in meta["tensors"].items():
+        if verify and subtree:
+            self.verify_step(target, only={_META, *wanted(
+                meta["tensors"]).values()})
+        flat = wanted(meta["values"])
+        for path, rel in wanted(meta["tensors"]).items():
             flat[path] = torch.load(os.path.join(root, rel),
                                     map_location=device, weights_only=True)
+        if subtree and not flat:
+            raise KeyError(f"step {target} holds no {subtree!r} subtree")
         return T.unflatten(flat)
 
     def latest_step(self) -> Optional[int]:
@@ -170,14 +184,17 @@ class CheckpointManager:
         except OSError:
             pass
 
-    def _step_files(self, step: int) -> dict[str, dict]:
+    def _step_files(self, step: int,
+                    only: Optional[set] = None) -> dict[str, dict]:
         root = self._step_dir(step)
         out: dict[str, dict] = {}
         for base, _, files in os.walk(root):
             for fn in files:
                 p = os.path.join(base, fn)
-                out[os.path.relpath(p, root)] = {
-                    "size": os.path.getsize(p), "sha256": _sha256(p)}
+                rel = os.path.relpath(p, root)
+                if only is None or rel in only:
+                    out[rel] = {"size": os.path.getsize(p),
+                                "sha256": _sha256(p)}
         return out
 
     def flush_manifests(self) -> None:
@@ -193,10 +210,12 @@ class CheckpointManager:
                 json.dump({"step": step, "files": files}, f)
             os.replace(tmp, mpath)
 
-    def verify_step(self, step: int) -> bool:
+    def verify_step(self, step: int, only: Optional[set] = None) -> bool:
         """Check the step's bytes against its manifest. True = verified,
         False = no manifest to verify against. Raises
-        ``CheckpointCorruptionError`` on any mismatch."""
+        ``CheckpointCorruptionError`` on any mismatch. ``only`` (relative
+        file names) checks just those files: each must be in the manifest,
+        on disk, and match."""
         try:
             with open(self._manifest_path(step)) as f:
                 manifest = json.load(f)
@@ -206,7 +225,13 @@ class CheckpointManager:
             raise CheckpointCorruptionError(
                 f"step {step}: manifest unreadable: {exc}") from exc
         expect: dict = manifest.get("files", {})
-        actual = self._step_files(step)
+        if only is not None:
+            unknown = sorted(only - set(expect))
+            if unknown:
+                raise CheckpointCorruptionError(
+                    f"step {step}: {unknown[:3]} not in its manifest")
+            expect = {rel: expect[rel] for rel in only}
+        actual = self._step_files(step, only)
         if set(expect) != set(actual):
             missing = sorted(set(expect) - set(actual))[:3]
             extra = sorted(set(actual) - set(expect))[:3]

@@ -32,6 +32,10 @@ SLICE_MODULES = (
     "train.tree", "train.optim", "train.data", "train.step", "train.metrics",
     "train.staging", "train.checkpoint", "train.survival", "train.trainer",
     "models.convert",
+    # the predictor-replica slice
+    "runtime.bootstrap", "runtime.entrypoints", "runtime.worker_main",
+    "serve.storage", "serve.explain", "serve.model_server",
+    "loadgen.scenario", "loadgen.runner", "loadgen.report", "loadgen.gate",
 )
 
 _IMPORT_ALL = """

@@ -109,7 +109,12 @@ def test_errors_map_to_http_status(server):
     assert _post(server, "/v1/models/other:predict",
                  {"instances": ["x"]})[0] == 404
     assert _post(server, "/v1/models/tiny:predict", {"bad": 1})[0] == 400
-    assert _post(server, "/v1/chat/completions", {"messages": []})[0] == 404
+    # Routes of later slices (the KV handoff relay, the model repository)
+    # are 404; :explain on a server without an explainer hop is a 400.
+    assert _post(server, "/v1/handoff", {})[0] == 404
+    assert _post(server, "/v2/repository/models/tiny/load", {})[0] == 404
+    assert _post(server, "/v1/models/tiny:explain",
+                 {"instances": ["x"]})[0] == 400
     assert _post(server, "/v1/completions", {"prompt": "x"},
                  {theaders.QOS_HEADER: "platinum"})[0] == 400
     assert _post(server, "/v1/completions",
