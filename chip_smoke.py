@@ -11,9 +11,9 @@ kernel, ``--xent-only`` for the fused cross-entropy kernels (their rows
 with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
 edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
-edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c)
-without the kernel rows. Every phase prints its seconds. Phases, each a
-hard failure:
+edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
+then (e), without the kernel rows. Every phase prints its seconds.
+Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
 2. build: every hand-written kernel built from the checkout's sources (one
@@ -100,8 +100,9 @@ hard failure:
    computed them); chat, streamed and not, and ``:explain`` answer;
    ``uniform`` and ``shared_prefix`` through ``ServerTarget`` with
    ``/metrics`` showing resident pages under load and none after, prefix
-   hits in ``shared_prefix``; SIGTERM ends it with 143 and closes its
-   port;
+   hits in ``shared_prefix``; then ``mixed_interference`` (prompts of
+   384, so its batch class's 1536-token prompts fit) against it, every
+   request ok; SIGTERM ends it with 143 and closes its port;
 7. train check (serving engines freed first): Llama-3-8B at full width, 4
    layers, one ``decoder_loss`` forward and backward through the flash
    kernels alone and through every kernel (``fused_kernels="on"``)
@@ -123,7 +124,27 @@ hard failure:
    params cast in memory, the same greedy tokens from an engine on each,
    and ``FileNotFoundError`` for an empty directory; the checkpoint is
    then deleted; then 2 steps with ``fused_kernels="off"`` (flash kernels,
-   chunked CE) with their counts; then a profile of one step of each.
+   chunked CE) with their counts; then a profile of one step of each;
+9. (e) disaggregated serving and the host KV tier, on a fresh 32-layer
+   paged engine (the serving seed): a prefill-role and a decode-role
+   engine over its weights hand the worker's three prompts off through
+   the wire format, and the tokens must equal the unified engine's (bf16
+   pages, then int8 pages), with no page referenced after the acks; a
+   host-tier engine (64 host pages) demotes a conversation while idle and
+   promotes it on the next turn: the pages' bytes equal before demotion
+   and after promotion (bf16, int8 with scales), turn 2's tokens equal an
+   engine's without the tier, the paged-decode kernel runs on adopted and
+   on promoted pages; ``multi_turn`` (10 s of think time) through
+   ``EngineTarget`` on it, no request failing, pages demoted and
+   promoted, none left referenced. Then a prefill and a decode worker
+   process share the card: the three prompts through the prefill worker
+   (the decode worker's URL in ``X-Kftpu-Decode-Backend``) must give the
+   worker's tokens; ``mixed_interference`` through them, every request
+   ok, one export per request with tokens to decode, as many adoptions,
+   no failed or fallback handoff, no page resident after, its report
+   beside (c)'s unified one; with the decode worker stopped, a prompt
+   must still give its tokens by recompute and the fallback counter read
+   1; both workers end with 143 on SIGTERM.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -1737,9 +1758,11 @@ def phase_paged_split_edges() -> None:
               flush=True)
 
 
-def _post(url: str, body: dict, timeout: float = 600.0):
+def _post(url: str, body: dict, timeout: float = 600.0,
+          headers: dict | None = None):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+                                 headers={"Content-Type": "application/json",
+                                          **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as resp:
         return resp.status, resp.read()
 
@@ -1750,13 +1773,18 @@ def text(n_tokens: int, salt: int) -> str:
     return "".join(chr(97 + (i * 7 + salt) % 26) for i in range(n_tokens - 1))
 
 
-def _resident_pages(url: str) -> float:
-    """``kftpu_engine_kv_pages_resident`` as ``/metrics`` shows it."""
+def _series(url: str, name: str) -> float:
+    """One series of a replica's ``/metrics`` (its single model's sample)."""
     with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
         for ln in resp.read().decode().splitlines():
-            if ln.startswith("kftpu_engine_kv_pages_resident"):
+            if ln.startswith(name + "{") or ln.startswith(name + " "):
                 return float(ln.rsplit(" ", 1)[1])
     return 0.0
+
+
+def _resident_pages(url: str) -> float:
+    """``kftpu_engine_kv_pages_resident`` as ``/metrics`` shows it."""
+    return _series(url, "kftpu_engine_kv_pages_resident")
 
 
 def serve_http(engine, calls, wrappers: dict, label: str,
@@ -2385,7 +2413,125 @@ def _get(url: str, timeout: float = 30.0) -> tuple[int, str]:
         return resp.status, resp.read().decode()
 
 
-def phase_worker(want: list[list[int]], card: str) -> None:
+#: The workers' model and platform: Llama-3-8B in bf16 on the card.
+WORKER_MODEL = {"preset": "llama3-8b", "overrides": {"param_dtype": "bfloat16"}}
+WORKER_PLATFORM = "gpu"
+
+
+def spawn_worker(batching: dict, label: str):
+    """Start ``python -m kubeflow_tpu_torch.runtime.worker_main`` serving
+    Llama-3-8B from ``random://`` (bf16, the serving seed) with
+    ``batching``, the ``strip`` transformer, the ``grad_x_input`` explainer
+    and the ``chip_smoke:TokenIdText`` tokenizer, on a free port of this
+    host. Returns (process, url, log file)."""
+    import tempfile
+
+    from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
+
+    repo = Path(__file__).resolve().parent
+    port = free_port()
+    conf = {"model": WORKER_MODEL,
+            "storage_uri": "random://",
+            "batching": batching, "port": port, "service": "llama",
+            "explainer": {"handler": "grad_x_input"},
+            "transformer": {"handler": "strip"},
+            "tokenizer": "chip_smoke:TokenIdText"}
+    wenv = WorkerEnv(coordinator_address="127.0.0.1:0", num_processes=1,
+                     process_id=0, job=f"default/llama-{label}",
+                     replica_index=0, entrypoint="model_server", config=conf,
+                     parallelism={}, platform=WORKER_PLATFORM)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KFTPU_")}
+    env.update(wenv.to_env())
+    env["PYTHONPATH"] = str(repo)
+    log = tempfile.NamedTemporaryFile(prefix=f"chip_smoke_{label}_",
+                                      suffix=".log", delete=False)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.runtime.worker_main"],
+        cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", log
+
+
+def wait_ready(proc, url: str, label: str, t0: float) -> float:
+    """Seconds from ``t0`` until the worker answers its readiness probe."""
+    while True:
+        if proc.poll() is not None:
+            fail(f"{label} exited {proc.returncode} before it was ready")
+        try:
+            if _get(url + "/v2/health/ready", timeout=2.0)[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > 300:
+            fail(f"{label} not ready after 300 s")
+        time.sleep(0.5)
+
+
+def sigterm_worker(proc, url: str, label: str) -> None:
+    """SIGTERM must end the worker with 143 within 30 s and close its
+    port."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: still alive 30 s after SIGTERM")
+    print(f"{label}: SIGTERM -> exit code {rc} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 143:
+        fail(f"{label}: SIGTERM gave exit code {rc}, not 143")
+    try:
+        _get(url + "/v2/health/ready", timeout=2.0)
+        fail(f"{label}: its port still answers after SIGTERM")
+    except OSError:
+        pass
+
+
+def reap_worker(proc, log, label: str, ok: bool) -> None:
+    """Kill a worker still running (a failed phase) and drop its log,
+    printing its tail when the phase failed."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+    log.close()
+    if not ok:
+        print(f"{label} log (tail):\n" + Path(log.name).read_text()[-4000:],
+              file=sys.stderr, flush=True)
+    os.unlink(log.name)
+
+
+#: ``mixed_interference``'s offered traffic: LOADGEN with 384-token prompts,
+#: so its batch class's 4 x 384 = 1536-token prompts fit ``PAGED_SPEC``'s
+#: max_seq_len of 2048 (at 512 they would be 2048 and every one refused).
+MIXED = dict(LOADGEN, prompt_len=384)
+
+
+def run_mixed(target, label: str, card: str, metrics_url: str) -> tuple:
+    """``mixed_interference`` through ``target``; prints its report line
+    and per-class split. Returns (run, report)."""
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.obs import stats
+
+    sc = next(x for x in loadgen.standard_matrix(**MIXED)
+              if x.name == "mixed_interference")
+    run = loadgen.run_scenario(target, sc, vocab_size=128256,
+                               max_prompt_len=PAGED_SPEC["max_seq_len"]
+                               - sc.output_len.value - 1)
+    rep = loadgen.build_report(run, metrics_text=_get(metrics_url
+                                                      + "/metrics")[1])
+    # The report splits TTFT by class; TPOT per class from the outcomes.
+    for cls, entry in rep.get("qos", {}).items():
+        entry["tpot_ms"] = stats.quantiles_ms(
+            [t for o in run.outcomes if o.ok and o.qos == cls
+             for t in [o.tpot_s()] if t is not None], qs=(0.5, 0.95))
+    report_line(f"mixed_interference ({label})", rep, card)
+    print(f"loadgen mixed_interference ({label}) per class "
+          f"{json.dumps(rep.get('qos', {}))}", flush=True)
+    return run, rep
+
+
+def phase_worker(want: list[list[int]], card: str) -> dict:
     """(c) The predictor replica as a process: ``python -m
     kubeflow_tpu_torch.runtime.worker_main`` with ``KFTPU_ENTRYPOINT=
     model_server``, ``KFTPU_PLATFORM=gpu``, Llama-3-8B from ``random://``
@@ -2396,50 +2542,16 @@ def phase_worker(want: list[list[int]], card: str) -> None:
     ``uniform`` and ``shared_prefix`` through ``ServerTarget``, with
     ``/metrics`` showing resident pages under load and none after it, and
     prefix hits in ``shared_prefix``. SIGTERM must end it with 143 and
-    close its port."""
-    import signal
-    import tempfile
-
+    close its port. Before the SIGTERM, ``mixed_interference`` (``MIXED``)
+    runs against it, the unified side of (e)'s comparison; its report is
+    returned."""
     from kubeflow_tpu_torch import loadgen
-    from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
 
-    repo = Path(__file__).resolve().parent
-    port = free_port()
-    url = f"http://127.0.0.1:{port}"
-    conf = {"model": {"preset": "llama3-8b",
-                      "overrides": {"param_dtype": "bfloat16"}},
-            "storage_uri": "random://",
-            "batching": PAGED_SPEC, "port": port, "service": "llama",
-            "explainer": {"handler": "grad_x_input"},
-            "transformer": {"handler": "strip"},
-            "tokenizer": "chip_smoke:TokenIdText"}
-    wenv = WorkerEnv(coordinator_address="127.0.0.1:0", num_processes=1,
-                     process_id=0, job="default/llama-predictor",
-                     replica_index=0, entrypoint="model_server", config=conf,
-                     parallelism={}, platform="gpu")
-    env = {k: v for k, v in os.environ.items() if not k.startswith("KFTPU_")}
-    env.update(wenv.to_env())
-    env["PYTHONPATH"] = str(repo)
-    log = tempfile.NamedTemporaryFile(prefix="chip_smoke_worker_",
-                                      suffix=".log", delete=False)
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "kubeflow_tpu_torch.runtime.worker_main"],
-        cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc, url, log = spawn_worker(PAGED_SPEC, "worker")
     ok = False
     try:
-        while True:
-            if proc.poll() is not None:
-                fail(f"worker exited {proc.returncode} before it was ready")
-            try:
-                if _get(url + "/v2/health/ready", timeout=2.0)[0] == 200:
-                    break
-            except OSError:
-                pass
-            if time.perf_counter() - t0 > 300:
-                fail("worker not ready after 300 s")
-            time.sleep(0.5)
-        t_ready = time.perf_counter() - t0
+        t_ready = wait_ready(proc, url, "worker", t0)
         logged = Path(log.name).read_text()
         m = re.search(r"CUDA kernels ready in ([0-9.]+) s \(compiled here: "
                       r"([^)]*)\)", logged)
@@ -2532,32 +2644,430 @@ def phase_worker(want: list[list[int]], card: str) -> None:
                 fail(f"worker {name}: pages still resident after the run")
         if hits["shared_prefix"] - hits["uniform"] <= 0:
             fail("worker shared_prefix: the prefix index never hit")
-
-        proc.send_signal(signal.SIGTERM)
-        t0 = time.perf_counter()
-        try:
-            rc = proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            fail("worker: still alive 30 s after SIGTERM")
-        print(f"worker: SIGTERM -> exit code {rc} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        if rc != 143:
-            fail(f"worker: SIGTERM gave exit code {rc}, not 143")
-        try:
-            _get(url + "/v2/health/ready", timeout=2.0)
-            fail("worker: its port still answers after SIGTERM")
-        except OSError:
-            pass
+        _, mixed = run_mixed(loadgen.ServerTarget(url, model="llama"),
+                             "ServerTarget, unified worker", card, url)
+        check_statuses("mixed_interference (unified worker)", mixed)
+        sigterm_worker(proc, url, "worker")
         ok = True
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
-        log.close()
-        if not ok:
-            print("worker log (tail):\n" + Path(log.name).read_text()[-4000:],
-                  file=sys.stderr, flush=True)
-        os.unlink(log.name)
+        reap_worker(proc, log, "worker", ok)
+    return mixed
+
+
+# -- (e) disaggregated prefill/decode and the host KV tier -------------------
+
+#: The host tier's engine: PAGED_SPEC with 64 host pages and a short demote
+#: time; ``multi_turn`` thinks longer than that between turns.
+HOST_TIER = dict(host_kv_pages=64, kv_demote_after_s=0.5)
+#: The host tier's conversation: turn 1's prompt, and the new text of turn
+#: 2 ((tokens, salt) of ``text``).
+HOST_TURNS = ((700, 71), (61, 72))
+MULTI_TURN_THINK_S = 10.0
+
+
+def _drive(eng, req, timeout: float = 600.0):
+    """Step an engine without its thread until ``req`` finishes."""
+    t0 = time.perf_counter()
+    while not req.done.is_set():
+        eng.step()
+        if time.perf_counter() - t0 > timeout:
+            fail(f"request {req.id} did not finish in {timeout} s")
+    return req
+
+
+def _settle(eng, label: str) -> None:
+    """Step until no page is referenced and no hold or round is left; then
+    every page of the pool must be free or cached, with no owner left."""
+    t0 = time.perf_counter()
+    while eng.kv_pages_in_use() or eng._handoff_holds or eng._rounds:
+        eng.step()
+        if time.perf_counter() - t0 > 60:
+            fail(f"{label}: pages still referenced after 60 s")
+    alloc = eng._allocator
+    leaks = alloc.leak_report_by_owner()
+    if leaks or alloc.available() != alloc.num_pages:
+        fail(f"{label}: {alloc.num_pages - alloc.available()} pages neither "
+             f"free nor cached, owners {leaks}")
+
+
+def _timed(obj, name: str, sink: list, when=lambda: True) -> None:
+    """Wrap ``obj.name`` to append its synchronized seconds to ``sink``
+    (only for calls where ``when()`` holds)."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        if not when():
+            return fn(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, run)
+
+
+def _planes(eng, pages: list[int]) -> dict:
+    names = ("k", "v", "ks", "vs") if eng.kv_quant else ("k", "v")
+    return {n: eng.cache[n][:, pages].clone() for n in names}
+
+
+def handoff_in_process(uni) -> int:
+    """(e) 1. A prefill-role and a decode-role engine over ``uni``'s weights
+    (``PAGED_SPEC``): the worker's three greedy prompts exported, sent
+    through ``to_wire`` → ``from_wire`` and adopted must give the unified
+    paged engine's tokens exactly, bf16 pages and int8 pages; after the
+    acks no page is referenced on either engine. Returns the paged-decode
+    launches on adopted pages."""
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+    from kubeflow_tpu_torch.serve.handoff import HandoffPayload
+
+    tok = TokenIdText()
+    params = SamplingParams(max_new_tokens=16, temperature=0.0,
+                            stop_token=tok.eos_id)
+    total = 0
+    for quant in (None, "int8"):
+        label = "handoff in process " + ("int8" if quant else "bf16")
+        ref = uni if quant is None else paged_engine(uni,
+                                                     kv_cache_dtype=quant)
+        pre = paged_engine(uni, role="prefill", kv_cache_dtype=quant)
+        dec = paged_engine(uni, role="decode", kv_cache_dtype=quant)
+        t_export, t_adopt = [], []
+        _timed(pre, "_export_handoff", t_export)
+        _timed(pre, "_flush_handoffs", t_export,
+               when=lambda: bool(pre._pending_exports))
+        _timed(dec, "_adopt_handoff", t_adopt)
+        launches = 0
+        for n, salt in WORKER_PROMPTS:
+            prompt = tok.encode(text(n, salt))
+            want = ref.generate(prompt, params)
+            t_export.clear()
+            t_adopt.clear()
+            p_req = _drive(pre, pre.submit(prompt, params))
+            if p_req.finish_reason != "handoff":
+                fail(f"{label}: the prefill engine finished "
+                     f"{p_req.finish_reason!r}, not with a handoff")
+            wire = p_req.handoff.to_wire()
+            payload = HandoffPayload.from_wire(wire)
+            paged_decode_attention.launches = 0
+            d_req = _drive(dec, dec.submit_handoff(payload))
+            launches += paged_decode_attention.launches
+            got = [payload.first_token] + d_req.output_tokens
+            pre.complete_handoff(p_req.id)
+            print(f"{label}: {len(prompt)}-token prompt, wire "
+                  f"{len(wire)} bytes ({payload.wire_bytes} of KV), export "
+                  f"{sum(t_export) * 1e3:.2f} ms, adopt "
+                  f"{sum(t_adopt) * 1e3:.2f} ms, {len(got)} tokens "
+                  f"{'identical to' if got == want else 'differ from'} the "
+                  f"unified paged engine's", flush=True)
+            if got != want:
+                fail(f"{label}: tokens {got} differ from {want}")
+        _settle(pre, label + " (prefill engine)")
+        _settle(dec, label + " (decode engine)")
+        print(f"{label}: paged_decode launches on adopted pages {launches}; "
+              f"no page referenced on either engine after the acks",
+              flush=True)
+        if launches <= 0:
+            fail(f"{label}: the paged-decode kernel never ran on adopted "
+                 "pages")
+        total += launches
+        del pre, dec, ref
+        torch.cuda.empty_cache()
+    return total
+
+
+def host_tier_in_process(uni, card: str) -> int:
+    """(e) 2. A paged engine with the host tier (``HOST_TIER``): turn 1,
+    an idle gap past the demote time, turn 2. The pages' bytes before
+    demotion and after promotion must be equal, bf16 and int8 pools with
+    their scales, and turn 2's tokens must equal those of an engine
+    without the tier (where the prefix hits on the device). Then
+    ``multi_turn`` through ``EngineTarget`` on the bf16 engine, thinking
+    ``MULTI_TURN_THINK_S`` between turns: no request errors, pages demote
+    and promote, none stays referenced. Returns the paged-decode launches
+    on promoted pages."""
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+    from kubeflow_tpu_torch.serve.kvtier import TIER_DEVICE
+    from kubeflow_tpu_torch.serve.server import serving_metrics_registry
+
+    tok = TokenIdText()
+    params = SamplingParams(max_new_tokens=16, temperature=0.0,
+                            stop_token=tok.eos_id)
+    turn1 = tok.encode(text(*HOST_TURNS[0]))
+    total = 0
+    for quant in (None, "int8"):
+        label = "host tier " + ("int8" if quant else "bf16")
+        teng = paged_engine(uni, kv_cache_dtype=quant, **HOST_TIER)
+        base = paged_engine(uni, kv_cache_dtype=quant)
+        out1 = teng.generate(turn1, params)
+        torch.cuda.synchronize()
+        nodes = {p: teng._kvtier._by_page[p]
+                 for p in teng._allocator.reclaimable_lru()}
+        before = _planes(teng, list(nodes))
+        # The index holds the engine's closures: time them there.
+        fetched = []
+        fetch = teng._kvtier._fetch_pages
+
+        def timed_fetch(ids, fetch=fetch, fetched=fetched):
+            fetched.append(time.perf_counter())
+            return fetch(ids)
+
+        teng._kvtier._fetch_pages = timed_fetch
+        t0 = time.perf_counter()
+        while teng.kv_pages_host() < len(nodes):
+            teng.step()
+            teng._kvtier.drain_migrations(60.0)
+            if time.perf_counter() - t0 > 60:
+                fail(f"{label}: {teng.kv_pages_host()} of {len(nodes)} "
+                     "pages demoted after 60 s")
+            time.sleep(0.02)
+        t_demote = time.perf_counter() - fetched[0]
+        turn2 = turn1 + out1 + tok.encode(text(*HOST_TURNS[1]))[1:]
+        t_up = []
+        _timed(teng._kvtier, "_upload_pages", t_up)
+        paged_decode_attention.launches = 0
+        out2 = teng.generate(turn2, params)
+        launches = paged_decode_attention.launches
+        after = {old: n.page for old, n in nodes.items()
+                 if n.tier == TIER_DEVICE}
+        now = _planes(teng, list(after.values()))
+        idx = [list(nodes).index(old) for old in after]
+        equal = bool(after) and all(torch.equal(now[n], t[:, idx])
+                                    for n, t in before.items())
+        base.generate(turn1, params)
+        want2 = base.generate(turn2, params)
+        stats = teng.kv_tier_stats()
+        print(f"{label}: {len(nodes)} pages demoted ({stats['demote_wire_bytes']}"
+              f" wire bytes) in {t_demote:.3f} s from the gather to the last "
+              f"blob; {len(after)} promoted and {stats['cow_copies']} "
+              f"copy-on-write tail from the host ({stats['promote_wire_bytes']}"
+              f" wire bytes) in {sum(t_up):.4f} s; page bytes "
+              f"{'equal' if equal else 'DIFFER'} after promotion "
+              f"({', '.join(before)}); turn 2 tokens "
+              f"{'identical to' if out2 == want2 else 'differ from'} the "
+              f"engine without the tier; paged_decode launches on promoted "
+              f"pages {launches}", flush=True)
+        if not equal:
+            fail(f"{label}: promoted page bytes differ from the demoted "
+                 "ones")
+        if out2 != want2:
+            fail(f"{label}: turn 2 tokens {out2} differ from {want2}")
+        if stats["pages_demoted"] <= 0 or stats["pages_promoted"] <= 0 \
+                or launches <= 0:
+            fail(f"{label}: demoted {stats['pages_demoted']}, promoted "
+                 f"{stats['pages_promoted']}, decode launches {launches}")
+        total += launches
+        _settle(base, label + " (without the tier)")
+        del base
+        if quant is None:
+            sc = next(x for x in loadgen.standard_matrix(
+                **LOADGEN, multi_turn_think_s=MULTI_TURN_THINK_S)
+                if x.name == "multi_turn")
+            before_run = teng.kv_tier_stats()
+            teng.start()
+            try:
+                run = loadgen.run_scenario(
+                    loadgen.EngineTarget(teng), sc,
+                    vocab_size=teng.cfg.vocab_size,
+                    max_prompt_len=teng.max_len - sc.output_len.value - 1)
+                metrics = serving_metrics_registry(
+                    [("llama3-8b", teng)]).render()
+                t0 = time.perf_counter()
+                while teng.kv_pages_in_use() and \
+                        time.perf_counter() - t0 < 30:
+                    time.sleep(0.05)
+            finally:
+                teng.stop()
+            rep = loadgen.build_report(run, metrics_text=metrics)
+            report_line("multi_turn (EngineTarget, page pool, host tier)",
+                        rep, card)
+            st = teng.kv_tier_stats()
+            moved = {k: st[k] - before_run[k]
+                     for k in ("pages_demoted", "pages_promoted",
+                               "demote_wire_bytes", "promote_wire_bytes",
+                               "tokens_matched")}
+            print(f"multi_turn host tier: {json.dumps(moved)}, pages on the "
+                  f"host after the run {teng.kv_pages_host()}, resident "
+                  f"{teng.kv_pages_in_use()}, phases "
+                  f"{json.dumps(rep['phases'])}", flush=True)
+            bad = {k: v for k, v in rep["by_status"].items()
+                   if k not in ("ok", "shed")}
+            if bad or not rep["by_status"].get("ok"):
+                fail(f"multi_turn: statuses {rep['by_status']}")
+            if moved["pages_demoted"] <= 0 or moved["pages_promoted"] <= 0:
+                fail(f"multi_turn: no demotion or promotion: {moved}")
+            if teng.kv_pages_in_use():
+                fail("multi_turn: pages still referenced after the run")
+        teng.stop()             # ends its migration thread, which holds it
+        del teng
+        torch.cuda.empty_cache()
+    return total
+
+
+def _decode_backend_target(url: str, decode_url: str):
+    """A ``ServerTarget`` that stamps ``X-Kftpu-Decode-Backend`` on its
+    requests, as the router would (the loadgen itself stays the JAX
+    package's): while its requests are issued, ``http.client``'s connection
+    class is a subclass that adds the header for the issuing thread only."""
+    import http.client
+
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.core.headers import DECODE_BACKEND_HEADER
+
+    local = threading.local()
+    base = http.client.HTTPConnection
+
+    class Stamped(base):
+        def request(self, method, url, body=None, headers=None, **kw):
+            extra = getattr(local, "headers", None)
+            headers = {**(headers or {}), **(extra or {})}
+            return super().request(method, url, body, headers, **kw)
+
+    class Target(loadgen.ServerTarget):
+        def issue(self, sr, root, timeout_s, prompt=None):
+            local.headers = {DECODE_BACKEND_HEADER: decode_url}
+            try:
+                return super().issue(sr, root, timeout_s, prompt=prompt)
+            finally:
+                local.headers = None
+
+    return Target(url, model="llama"), Stamped, base
+
+
+def phase_worker_pair(want: list[list[int]], unified: dict,
+                      card: str) -> None:
+    """(e) 3. A prefill-role and a decode-role worker process on the one
+    card, each as (c)'s worker with its ``batching.role``: the three
+    greedy prompts through the prefill worker (with the decode worker's URL
+    in ``X-Kftpu-Decode-Backend``) must give ``want``; ``mixed_interference``
+    (``MIXED``) through them must be all ok, with one export per request
+    that had tokens to decode, one adoption per export, no failed or
+    fallback handoff and no page resident after; its report sits beside
+    the unified worker's from (c). Then the fallback: with the decode
+    worker gone, a prompt still gives ``want[0]`` and the fallback counter
+    reads 1. Both workers end with 143 on SIGTERM."""
+    import http.client
+
+    from kubeflow_tpu_torch.core.headers import DECODE_BACKEND_HEADER
+
+    t0 = time.perf_counter()
+    pre, pre_url, pre_log = spawn_worker(dict(PAGED_SPEC, role="prefill"),
+                                         "prefill-worker")
+    dec, dec_url, dec_log = spawn_worker(dict(PAGED_SPEC, role="decode"),
+                                         "decode-worker")
+    ok = False
+    try:
+        t_pre = wait_ready(pre, pre_url, "prefill worker", t0)
+        t_dec = wait_ready(dec, dec_url, "decode worker", t0)
+        print(f"worker pair: prefill ready in {t_pre:.1f} s, decode ready in "
+              f"{t_dec:.1f} s", flush=True)
+        hdr = {DECODE_BACKEND_HEADER: dec_url}
+        for (n, salt), ref in zip(WORKER_PROMPTS, want):
+            raw = _post(pre_url + "/v1/completions",
+                        {"prompt": text(n, salt), "max_tokens": 16},
+                        headers=hdr)[1]
+            got = [int(t) for t in
+                   json.loads(raw)["choices"][0]["text"].split()]
+            print(f"worker pair greedy {n} tokens: "
+                  f"{'identical to' if got == ref else 'differs from'} the "
+                  f"in-process paged engine's", flush=True)
+            if got != ref:
+                fail(f"worker pair: tokens {got} differ from {ref}")
+        names = ("exported", "adopted", "failed", "fallback")
+
+        def counters():
+            return {k: _series(pre_url if k != "adopted" else dec_url,
+                               f"kftpu_engine_handoffs_{k}_total")
+                    for k in names}
+
+        c0 = counters()
+        target, stamped, base = _decode_backend_target(pre_url, dec_url)
+        http.client.HTTPConnection = stamped
+        try:
+            run, rep = run_mixed(target, "ServerTarget, prefill + decode "
+                                 "workers", card, pre_url)
+        finally:
+            http.client.HTTPConnection = base
+        c1 = counters()
+        moved = {k: c1[k] - c0[k] for k in names}
+        multi = sum(1 for o in run.outcomes if o.tokens > 1)
+        for _ in range(100):
+            resident = (_resident_pages(pre_url), _resident_pages(dec_url))
+            if resident == (0.0, 0.0):
+                break
+            time.sleep(0.1)
+        print(f"worker pair mixed_interference: handoffs {json.dumps(moved)}"
+              f", requests with tokens to decode {multi}, pages resident "
+              f"after the run (prefill, decode) {resident}", flush=True)
+        if rep["by_status"] != {"ok": rep["requests"]}:
+            fail(f"worker pair: statuses {rep['by_status']}")
+        if not (moved["exported"] == moved["adopted"] == multi) or \
+                moved["failed"] or moved["fallback"]:
+            fail(f"worker pair: handoff counters {moved} against {multi} "
+                 "requests with tokens to decode")
+        if resident != (0.0, 0.0):
+            fail(f"worker pair: pages resident after the run {resident}")
+        for label, r in (("unified worker", unified),
+                         ("prefill + decode workers", rep)):
+            cls = {k: {"completed": v["completed"], "ttft_ms": v["ttft_ms"],
+                       "tpot_ms": v["tpot_ms"]}
+                   for k, v in r.get("qos", {}).items()}
+            print(f"mixed_interference side by side, {label}: TTFT p50 "
+                  f"{r['ttft_ms'].get('p50')} p95 {r['ttft_ms'].get('p95')} "
+                  f"ms, TPOT p50 {r['tpot_ms'].get('p50')} p95 "
+                  f"{r['tpot_ms'].get('p95')} ms, {r['tokens_per_sec']} "
+                  f"tokens/s, per class {json.dumps(cls)}; {card}",
+                  flush=True)
+
+        sigterm_worker(dec, dec_url, "decode worker")
+        raw = _post(pre_url + "/v1/completions",
+                    {"prompt": text(*WORKER_PROMPTS[0]), "max_tokens": 16},
+                    headers=hdr)[1]
+        got = [int(t) for t in json.loads(raw)["choices"][0]["text"].split()]
+        fb = _series(pre_url, "kftpu_engine_handoffs_fallback_total")
+        print(f"worker pair fallback with the decode worker gone: tokens "
+              f"{'identical to' if got == want[0] else 'differ from'} "
+              f"want[0], fallback counter {fb:.0f}", flush=True)
+        if got != want[0] or fb != 1:
+            fail(f"worker pair fallback: tokens {got}, counter {fb}")
+        sigterm_worker(pre, pre_url, "prefill worker")
+        ok = True
+    finally:
+        reap_worker(dec, dec_log, "decode worker", ok)
+        reap_worker(pre, pre_log, "prefill worker", ok)
+
+
+def phase_disaggregated(want: list[list[int]], unified: dict,
+                        card: str) -> None:
+    """(e): the handoff and the host tier in process on a fresh 32-layer
+    engine (the serving seed, so the same weights as the workers'), then
+    the prefill/decode worker pair once those engines are freed."""
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    uni = LLMEngine(preset("llama3-8b"), BatchingSpec(**PAGED_SPEC),
+                    seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"disaggregated: unified paged engine ready in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+          flush=True)
+    adopted = handoff_in_process(uni)
+    promoted = host_tier_in_process(uni, card)
+    print(f"disaggregated kernels: paged_decode launches on adopted pages "
+          f"{adopted}, on promoted pages {promoted}", flush=True)
+    del uni
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_worker_pair(want, unified, card)
 
 
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
@@ -2963,10 +3473,11 @@ def timed_phase(name: str, fn, *args):
     return out
 
 
-def serve_phases(rows: list[dict], card: str, *, full: bool) -> None:
+def serve_phases(rows: list[dict], card: str, *, full: bool) -> tuple:
     """Phases 4 on: serve, (a) explain, (b) loadgen in process, then (with
     ``full``) the paged serve, paged check and profile; then the engine is
-    freed and (c) the worker runs."""
+    freed and (c) the worker runs. Returns the worker's greedy tokens and
+    its ``mixed_interference`` report, for (e)."""
     engine = timed_phase("serve", phase_serve, rows)
     timed_phase("explain", phase_explain, engine)
     timed_phase("loadgen in process", phase_loadgen_engine, engine, card)
@@ -2980,7 +3491,8 @@ def serve_phases(rows: list[dict], card: str, *, full: bool) -> None:
     torch.cuda.empty_cache()
     print(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f}"
           " GiB still allocated", flush=True)
-    timed_phase("worker", phase_worker, want, card)
+    mixed = timed_phase("worker", phase_worker, want, card)
+    return want, mixed
 
 
 def main() -> int:
@@ -2998,7 +3510,8 @@ def main() -> int:
     card = phase_card()
     timed_phase("build", phase_build)
     if sys.argv[1:] == ["--serve-only"]:
-        serve_phases([], card, full=False)
+        want, mixed = serve_phases([], card, full=False)
+        timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
         print(f"chip_smoke: serve-only phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
@@ -3034,11 +3547,12 @@ def main() -> int:
     rows = timed_phase("kernels", phase_kernels)
     timed_phase("edges", phase_edges)
     timed_phase("memory probe", phase_memory_probe)
-    serve_phases(rows, card, full=True)
+    want, mixed = serve_phases(rows, card, full=True)
     timed_phase("train check", phase_train_check)
     timed_phase("train", phase_train, rows)
     timed_phase("train profile auto", phase_train_profile, "auto")
     timed_phase("train profile off", phase_train_profile, "off")
+    timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -3,10 +3,9 @@
 plus the QoS class table. (The JAX package's spec is a pydantic model; the
 port keeps to the standard library.)
 
-Fields for features a later slice brings (the host and remote KV tiers,
-weight quantization, disaggregated roles, LoRA, speculative decoding) are
-kept so a config that sets them fails loudly at engine construction
-instead of being ignored.
+Fields for features a later slice brings (the remote KV tier, weight
+quantization, LoRA, speculative decoding) are kept so a config that sets
+them fails loudly at engine construction instead of being ignored.
 """
 
 from __future__ import annotations
@@ -26,7 +25,12 @@ QOS_PRIORITY = {c: i for i, c in enumerate(QOS_CLASSES)}
 #: Default class for requests that declare none.
 QOS_DEFAULT = "standard"
 
-#: Engine roles (``unified`` is the only one this slice serves).
+#: Engine roles for disaggregated prefill/decode serving. ``unified`` is
+#: the classic engine; ``prefill`` runs the prompt, samples the FIRST token
+#: and exports the slot's KV as a handoff instead of decoding; ``decode``
+#: adopts handed-off KV into its own page pool and runs the decode loop.
+#: Every role keeps the whole engine, so any replica can serve a request
+#: alone (the unified fallback).
 ENGINE_ROLES = ("unified", "prefill", "decode")
 
 
@@ -67,6 +71,7 @@ class QoSSpec:
 class BatchingSpec:
     """Continuous-batching engine knobs (≈ vLLM engine args)."""
 
+    # Disaggregated serving role (ENGINE_ROLES).
     role: str = "unified"
     max_batch_size: int = 8          # decode batch slots
     max_seq_len: int = 2048
@@ -80,11 +85,16 @@ class BatchingSpec:
     # copy-on-write sharing, serve/kvtier.py) or "flat" (full-page chained
     # hash in PageAllocator).
     prefix_index: str = "radix"
-    # Host-RAM and remote-store KV tiers (a later slice: the engine refuses
-    # host_kv_pages > 0 and remote_kv_root).
+    # Host-RAM overflow tier (radix index only): cold sharer-free prefix
+    # pages migrate device→host on a background thread and promote back on
+    # a radix hit before prefill admits. Page budget of the host tier;
+    # 0 = off.
     host_kv_pages: int = 0
+    # A cached (sharer-free) device page idle this long may demote; one
+    # migration batch moves at most kv_migrate_batch_pages pages.
     kv_demote_after_s: float = 2.0
     kv_migrate_batch_pages: int = 32
+    # Remote-store third tier (a later slice: the engine refuses it).
     remote_kv_root: Optional[str] = None
     kv_remote_after_s: Optional[float] = None
     kv_remote_deadline_s: Optional[float] = None

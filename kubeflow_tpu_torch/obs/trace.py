@@ -143,9 +143,11 @@ class Tracer:
         with self._lock:
             self._open += 1
             if trace_id not in self._traces:
-                self._traces[trace_id] = {"spans": [], "root": None}
+                self._traces[trace_id] = {"spans": [], "root": None,
+                                          "open": 0}
                 while len(self._traces) > self._max_traces:
                     self._traces.popitem(last=False)
+            self._traces[trace_id]["open"] += 1
         return span
 
     @contextlib.contextmanager
@@ -169,6 +171,12 @@ class Tracer:
     def current(self) -> Optional[Span]:
         return self._current.get()
 
+    def inject(self, span: Optional[Span]) -> Optional[str]:
+        """Header value carrying ``span``'s context (None when untraced)."""
+        if span is None:
+            return None
+        return span.context.header_value()
+
     def extract(self, header_value: Optional[str]) -> Optional[SpanContext]:
         return parse_trace_header(header_value)
 
@@ -178,14 +186,19 @@ class Tracer:
             self._open -= 1
             rec = self._traces.get(span.trace_id)
             if rec is not None:        # may have been evicted while open
+                rec["open"] -= 1
                 rec["spans"].append(d)
                 if span.parent_id is None:
                     rec["root"] = d
 
-    def open_spans(self) -> int:
-        """Started-but-not-ended spans (an idle stack holds zero)."""
+    def open_spans(self, trace_id: Optional[str] = None) -> int:
+        """Started-but-not-ended spans (an idle stack holds zero); with
+        ``trace_id``, those of that one trace."""
         with self._lock:
-            return self._open
+            if trace_id is None:
+                return self._open
+            rec = self._traces.get(trace_id)
+            return 0 if rec is None else rec["open"]
 
     def trace(self, trace_id: str) -> Optional[dict]:
         with self._lock:

@@ -48,9 +48,19 @@ Design (what carries over, and what eager PyTorch changes):
   CUDA) or gathers them ("gather", the CPU's "auto"). The pool's last page
   is a sink that takes every write the JAX engine would drop.
 
-The host and remote KV tiers, weight quantization, disaggregated roles,
-LoRA, speculative decoding, MoE and multi-device meshes arrive in later
-slices and raise ``NotImplementedError``.
+- **Disaggregated roles** (``BatchingSpec.role``, serve/handoff.py): a
+  ``prefill`` engine stops a request at its first token and exports the
+  prompt's KV (its pages move to a hold released by the decode side's ack);
+  a ``decode`` engine adopts a payload into fresh pages with one scatter
+  and decodes from the second token. Every role keeps the whole engine, so
+  any replica can still serve a request alone (``handoff=False``).
+- **Host-RAM KV tier** (``host_kv_pages``, serve/kvtier.py): cold cached
+  prefix pages demote to host memory on a background thread and promote
+  back on a radix hit before the admission's prefill.
+
+The remote KV tier, weight quantization, LoRA, speculative decoding, MoE
+and multi-device meshes arrive in later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -79,10 +89,13 @@ from kubeflow_tpu_torch.models.decoder import (
 from kubeflow_tpu_torch.obs.stats import quantile as _quantile
 from kubeflow_tpu_torch.obs.trace import get_tracer
 from kubeflow_tpu_torch.serve.device_state import DEAD_SLOT, DecodeState
+from kubeflow_tpu_torch.serve.handoff import (
+    host_array, payload_from_export, to_torch, torch_dtype_of,
+)
 from kubeflow_tpu_torch.serve.kvtier import RadixPrefixIndex
 from kubeflow_tpu_torch.serve.paged import (
     PageAllocator, PagePoolExhausted, context_bucket, copy_pages,
-    paged_chunk_prefill, paged_decode_multi,
+    paged_chunk_prefill, paged_decode_multi, upload_pages,
 )
 
 logger = logging.getLogger("kubeflow_tpu_torch.serve.engine")
@@ -306,6 +319,14 @@ class Request:
     # Recompute-preemption bookkeeping: output tokens already folded back
     # into prompt_tokens when the slot was preempted.
     resumed_from: int = 0
+    # Disaggregated serving (serve/handoff.py). ``handoff_requested``: this
+    # prefill-side request stops at the first token and exports its KV
+    # instead of decoding (finish_reason="handoff", payload in
+    # ``handoff``). ``adopt``: this decode-side request was born from a
+    # handoff payload — admission uploads its KV instead of prefilling.
+    handoff_requested: bool = False
+    handoff: Optional[Any] = None
+    adopt: Optional[Any] = None
     # results
     output_tokens: list[int] = dataclasses.field(default_factory=list)
     first_token_time: Optional[float] = None
@@ -425,6 +446,18 @@ class EngineMetrics:
         self.requests_cancelled = 0     # guarded_by: _lock
         self.requests_expired = 0       # guarded_by: _lock
         self.preemptions = 0            # guarded_by: _lock
+        # Handoff health: exports leaving a prefill engine, adoptions
+        # landing on a decode engine, failed handoffs (no ack: the hold was
+        # released without one), relay retries to another decode replica,
+        # local recomputes after every replica failed, and the KV bytes
+        # shipped and received (pages + scale rows).
+        self.handoffs_exported = 0      # guarded_by: _lock
+        self.handoffs_adopted = 0       # guarded_by: _lock
+        self.handoffs_failed = 0        # guarded_by: _lock
+        self.handoffs_retried = 0       # guarded_by: _lock
+        self.handoffs_fallback = 0      # guarded_by: _lock
+        self.handoff_bytes_exported = 0  # guarded_by: _lock
+        self.handoff_bytes_adopted = 0   # guarded_by: _lock
         self._qd_counts = [0] * (len(QUEUE_DELAY_BUCKETS) + 1)  # guarded_by: _lock
         self._qd_sum = 0.0              # guarded_by: _lock
         self._qd_n = 0                  # guarded_by: _lock
@@ -474,6 +507,24 @@ class EngineMetrics:
         with self._lock:
             self.preemptions += 1
             self._qos_entry(qos)["preempted"] += 1
+
+    def note_handoff(self, event: str, wire_bytes: int = 0) -> None:
+        """One handoff lifecycle event: ``exported`` | ``adopted`` |
+        ``retried`` | ``fallback`` | ``failed``; exports and adoptions also
+        count their payload's KV wire bytes."""
+        with self._lock:
+            if event == "exported":
+                self.handoffs_exported += 1
+                self.handoff_bytes_exported += wire_bytes
+            elif event == "adopted":
+                self.handoffs_adopted += 1
+                self.handoff_bytes_adopted += wire_bytes
+            elif event == "retried":
+                self.handoffs_retried += 1
+            elif event == "fallback":
+                self.handoffs_fallback += 1
+            else:
+                self.handoffs_failed += 1
 
     def note_abandoned(self, reason: str) -> None:
         with self._lock:
@@ -541,6 +592,13 @@ class EngineMetrics:
                 "requests_cancelled": self.requests_cancelled,
                 "requests_expired": self.requests_expired,
                 "preemptions": self.preemptions,
+                "handoffs_exported": self.handoffs_exported,
+                "handoffs_adopted": self.handoffs_adopted,
+                "handoffs_failed": self.handoffs_failed,
+                "handoffs_retried": self.handoffs_retried,
+                "handoffs_fallback": self.handoffs_fallback,
+                "handoff_bytes_exported": self.handoff_bytes_exported,
+                "handoff_bytes_adopted": self.handoff_bytes_adopted,
             }
             if self._qd_n:
                 out["queue_delay_avg_ms"] = self._qd_sum / self._qd_n * 1e3
@@ -585,6 +643,16 @@ def _to_host_async(t: torch.Tensor):
     return host, ev
 
 
+def _fill(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Copy a host array (bf16 as its uint16 bits, serve/handoff.py) into a
+    CPU tensor: straight through numpy when the dtypes agree (one copy,
+    and a read-only wire array is only read), else through a cast."""
+    if torch_dtype_of(src) == dst.dtype:
+        host_array(dst)[...] = src
+    else:
+        dst.copy_(to_torch(src))
+
+
 def _cast_params(tree: Any, device: torch.device,
                  dtype: Optional[torch.dtype]) -> Any:
     if isinstance(tree, dict):
@@ -611,9 +679,7 @@ class LLMEngine:
                 (mesh is not None, "multi-device meshes"),
                 (cfg.is_moe, "MoE models"),
                 (b.quantize is not None, "weight quantization"),
-                (b.host_kv_pages > 0, "the host-RAM KV tier (host_kv_pages)"),
                 (bool(b.remote_kv_root), "the remote KV tier (remote_kv_root)"),
-                (b.role != "unified", f"engine role {b.role!r}"),
                 (bool(b.lora), "LoRA adapters"),
                 (bool(b.speculative), "speculative decoding")):
             if unsupported:
@@ -631,6 +697,10 @@ class LLMEngine:
                 "slots x max_seq_len either way)")
         if b.max_seq_len > cfg.max_seq_len:
             raise ValueError("batching.max_seq_len exceeds model max_seq_len")
+        if b.host_kv_pages > 0 and not (b.paged and b.enable_prefix_caching):
+            raise ValueError(
+                "host_kv_pages requires paged=True with prefix caching (the "
+                "host tier holds radix-indexed pool pages)")
         self.num_slots = b.max_batch_size
         self.max_len = b.max_seq_len
         self.buckets = sorted(set(
@@ -692,8 +762,17 @@ class LLMEngine:
                                                 dtype=torch.float32,
                                                 device=self.device)
             if b.enable_prefix_caching and b.prefix_index == "radix":
+                # Device work of the index rides the closures below, all
+                # enqueued on the scheduler thread in stream order with the
+                # dispatches that read their results.
                 self._kvtier = RadixPrefixIndex(
-                    self._allocator, pg, copy_pages_fn=self._kv_copy_pages,
+                    self._allocator, pg,
+                    host_pages=int(b.host_kv_pages),
+                    demote_after_s=float(b.kv_demote_after_s),
+                    migrate_batch_pages=int(b.kv_migrate_batch_pages),
+                    copy_pages_fn=self._kv_copy_pages,
+                    upload_pages_fn=self._kv_upload_pages,
+                    fetch_pages_fn=self._kv_fetch_pages,
                     pressure_fn=self._kv_pressure)
         else:
             shape = (cfg.n_layers, self.num_slots, self.max_len,
@@ -722,6 +801,21 @@ class LLMEngine:
         self._preempted: list[Request] = []     # lockfree: scheduler-confined
         self._backlog: list[Request] = []       # lockfree: scheduler-confined
         self._admit_seq = itertools.count()
+        # Disaggregated serving (serve/handoff.py): "prefill" submits
+        # default to handoff at the first token; "decode" engines adopt
+        # payloads through submit_handoff; every role keeps the whole
+        # engine (the unified fallback).
+        self.role = b.role
+        # Exports awaiting their batched copy to host (one per admit round).
+        self._pending_exports: list = []        # lockfree: scheduler-confined
+        # Pages backing an exported payload, held until the decode side acks
+        # (request id -> (request, pages)). Server-thread acks marshal
+        # through ``_handoff_release`` and free on the next step.
+        self._handoff_holds: dict[str, tuple] = {}  # lockfree: scheduler-confined
+        self._handoff_release: "queue.Queue[tuple[str, bool]]" = queue.Queue()
+        # The side stream of the copies to host (exports, demotions): they
+        # wait on their gather's event instead of holding up decode.
+        self._copy_stream = None                # lockfree: scheduler-confined
         self.slots: list[Optional[_Slot]] = [None] * self.num_slots  # lockfree: scheduler-confined
         self._dstate = DecodeState(self.num_slots, self.device,
                                    mpp=self._mpp if self.paged else None)
@@ -791,10 +885,12 @@ class LLMEngine:
         """Ref-0 pages still holding reusable prefix content."""
         return 0 if self._allocator is None else self._allocator.cached()
 
-    # The host and remote tiers are a later slice: no pages live there.
     def kv_pages_host(self) -> int:
-        return 0
+        """Prefix pages demoted to the host-RAM tier."""
+        return 0 if self._kvtier is None else \
+            self._kvtier.host_pages_resident()
 
+    # The remote tier is a later slice: no pages live there.
     def kv_pages_remote(self) -> int:
         return 0
 
@@ -847,10 +943,14 @@ class LLMEngine:
                request_id: Optional[str] = None, *,
                deadline: Optional[float] = None,
                trace_parent=None, qos: str = QOS_DEFAULT,
+               handoff: Optional[bool] = None,
                adapter: Optional[str] = None) -> Request:
-        """Queue one request. ``adapter`` names a LoRA model id; the port
-        serves no adapters yet, so any id is unknown here (``KeyError``,
-        the JAX engine's answer to an unregistered id)."""
+        """Queue one request. ``handoff`` (default: this engine is a
+        prefill role) stops the request at its first token and exports its
+        KV (finish_reason "handoff"); ``handoff=False`` decodes locally on
+        any role. ``adapter`` names a LoRA model id; the port serves no
+        adapters yet, so any id is unknown here (``KeyError``, the JAX
+        engine's answer to an unregistered id)."""
         if adapter is not None:
             raise KeyError(f"unknown adapter {adapter!r}: this engine serves "
                            "no LoRA adapters")
@@ -883,15 +983,72 @@ class LLMEngine:
                 raise EngineOverloaded(
                     f"admission queue full ({depth} >= "
                     f"max_queue={self.max_queue})", qos=qos)
+        wants_handoff = (self.role == "prefill" if handoff is None
+                         else bool(handoff))
         req = Request(prompt_tokens=list(prompt_tokens),
                       params=params or SamplingParams(),
                       id=request_id or f"req-{next(self._id_gen)}",
-                      deadline=deadline, trace_parent=trace_parent, qos=qos)
+                      deadline=deadline, trace_parent=trace_parent, qos=qos,
+                      handoff_requested=wants_handoff)
         _span_open(req, "engine.queued", prompt_tokens=len(prompt_tokens),
                    qos=qos)
         self.waiting.put(req)
         self._wake.set()
         return req
+
+    def submit_handoff(self, payload, *, deadline: Optional[float] = None,
+                       trace_parent=None) -> Request:
+        """Adopt a handed-off request (the decode side of
+        serve/handoff.py). Its prompt KV arrives in the payload and its
+        first token was emitted by the prefill replica; ``prompt_tokens``
+        carries ``prompt + [first_token]`` so the slot invariant (the last
+        token's KV is not written yet) and recompute preemption hold as for
+        a local request. Admission uploads the KV instead of prefilling;
+        the request streams from the SECOND token."""
+        payload.validate()
+        want = "int8" if self.kv_quant else None
+        if payload.cache_dtype != want:
+            raise ValueError(
+                f"handoff cache-dtype mismatch: payload carries "
+                f"{payload.cache_dtype or 'full-dtype'} KV, engine pool is "
+                f"{want or 'full-dtype'}")
+        plen = payload.kv_len
+        if plen + 1 >= self.max_len:
+            raise ValueError(
+                f"handoff KV length {plen} does not fit max_seq_len "
+                f"{self.max_len}")
+        expect = (self.cfg.n_layers, plen, self.cfg.n_kv_heads,
+                  self.cfg.head_dim)
+        if tuple(payload.kv_k.shape) != expect:
+            raise ValueError(
+                f"handoff KV shape {payload.kv_k.shape} != {expect}")
+        if payload.qos not in QOS_PRIORITY:
+            raise ValueError(f"unknown QoS class {payload.qos!r}")
+        params = SamplingParams(
+            max_new_tokens=payload.max_new_tokens,
+            temperature=payload.temperature, top_k=payload.top_k,
+            top_p=payload.top_p, stop_token=payload.stop_token)
+        req = Request(
+            prompt_tokens=list(payload.prompt_tokens) + [payload.first_token],
+            params=params, id=payload.request_id, deadline=deadline,
+            trace_parent=trace_parent, qos=payload.qos, adopt=payload)
+        _span_open(req, "engine.queued", prompt_tokens=plen, qos=payload.qos,
+                   adopted=True)
+        self.waiting.put(req)
+        self._wake.set()
+        return req
+
+    def complete_handoff(self, request_id: str) -> None:
+        """The decode side acked: release the exported pages (marshalled to
+        the scheduler thread; safe from any thread)."""
+        self._handoff_release.put((request_id, True))
+        self._wake.set()
+
+    def fail_handoff(self, request_id: str) -> None:
+        """The decode side never acked: release the hold and count the
+        failure; the caller recomputes (re-submits locally)."""
+        self._handoff_release.put((request_id, False))
+        self._wake.set()
 
     # -- scheduler -------------------------------------------------------------
 
@@ -940,8 +1097,12 @@ class LLMEngine:
     def _admit_with_token(self, req: Request, slot_idx: int, plen: int,
                           tok: int) -> None:
         if req.trace_parent is not None:
+            # prefill → decode. A handoff-bound request opens no decode
+            # span: its decode runs on the adopting engine, and the
+            # server's handoff span fills the gap in the same trace.
             _span_close(req, prompt_tokens=plen)
-            _span_open(req, "engine.decode", slot=slot_idx)
+            if not req.handoff_requested:
+                _span_open(req, "engine.decode", slot=slot_idx)
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
         req.output_tokens.append(tok)
@@ -956,7 +1117,11 @@ class LLMEngine:
         # sync as deltas at the next dispatch.
         self._dstate.mark_slot(slot_idx)
         self._dstate.mark_row(slot_idx)
-        self._finish_if_done(slot_idx)
+        if not self._finish_if_done(slot_idx) and req.handoff_requested:
+            # Prefill role: the first token is out and decode remains —
+            # export the slot's KV instead of decoding here. The slot
+            # leaves ``slots`` before any decode round can include it.
+            self._export_handoff(slot_idx)
 
     def _advance_one(self, ch: _Chunking) -> int:
         """Run ONE chunk of one in-flight chunked prefill. Returns work done
@@ -1071,6 +1236,15 @@ class LLMEngine:
                 self._release_slot_pages(ch.slot)
                 self._fail_request(ch.request, reason)
                 n += 1
+        # Handoff holds whose request was cancelled or deadlined (the
+        # decode side died and the relay gave up) release here: a hold
+        # never outlives its request, so a dead server strands no page.
+        for rid, (hreq, pages) in list(self._handoff_holds.items()):
+            if hreq.abandon_reason(now):
+                del self._handoff_holds[rid]
+                self._allocator.free(list(reversed(pages)))
+                self.metrics.note_handoff("failed")
+                n += 1
         for lane in (self._preempted, self._backlog):
             for req in list(lane):
                 reason = req.abandon_reason(now)
@@ -1158,6 +1332,12 @@ class LLMEngine:
             req = self._next_admissible()
             if req is None:
                 break
+            if req.adopt is not None:
+                # Handed-off request: its KV arrives in the payload —
+                # upload instead of prefilling (spans handled inside).
+                self._adopt_handoff(req, slot_idx)
+                n += 1
+                continue
             if self.paged:
                 # Paged admission always chunks; the prefix index trims the
                 # work to the uncached tail (radix: live sharing and a COW
@@ -1166,7 +1346,15 @@ class LLMEngine:
                 if req.trace_parent is not None:
                     _span_close(req)       # queued →
                     tier = self._kvtier
-                    if tier is not None and tier.last_cow_tokens:
+                    if tier is not None and tier.last_promoted:
+                        # The promotion's upload was enqueued ahead of this
+                        # prefill: a near-instant phase on the trace.
+                        _span_open(req, "engine.kv_migrate",
+                                   direction="promote",
+                                   promoted_pages=tier.last_promoted,
+                                   cow_tokens=tier.last_cow_tokens)
+                        _span_close(req)
+                    elif tier is not None and tier.last_cow_tokens:
                         _span_open(req, "engine.kv_migrate",
                                    cow_tokens=tier.last_cow_tokens)
                         _span_close(req)
@@ -1196,6 +1384,8 @@ class LLMEngine:
             pending.append((req, slot_idx, plen, self._bucket_for(plen)))
         n += self._flush_prefills(pending)
         self._flush_first_tokens()
+        # Prefill-role exports queued this round: one batched host copy.
+        self._flush_handoffs()
         if n:
             # The device just ran prefill work — the next round's host-gap
             # sample would measure admission, not the hot loop.
@@ -1250,6 +1440,202 @@ class LLMEngine:
                 n += len(group)
         return n
 
+    # -- disaggregated handoff (serve/handoff.py) ------------------------------
+
+    def _copy_to_host(self, tensors) -> tuple:
+        """Enqueue copies of device ``tensors`` into pinned host memory on
+        the side stream, after everything the scheduler's stream has
+        enqueued so far (the gathers that made them). Returns (host
+        tensors, event that completes with the copies). The sources are
+        recorded on the side stream, so the caching allocator reuses them
+        only after the copies. On the CPU: the tensors themselves, no
+        event."""
+        if self.device.type != "cuda":
+            return tuple(tensors), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        side = self._copy_stream
+        gathered = torch.cuda.Event()
+        gathered.record()
+        hosts = []
+        with torch.cuda.stream(side):
+            side.wait_event(gathered)
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                hosts.append(h)
+            done = torch.cuda.Event()
+            done.record(side)
+        return tuple(hosts), done
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """A filled (pinned, on CUDA) host buffer on the engine's device,
+        without waiting for the device."""
+        if self.device.type == "cpu":
+            return host
+        return host.to(self.device, non_blocking=True)
+
+    def _host_buffer(self, shape, dtype: torch.dtype, *,
+                     zeros: bool = True) -> torch.Tensor:
+        pin = self.device.type == "cuda"
+        if zeros:
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+        return torch.empty(shape, dtype=dtype, pin_memory=pin)
+
+    def _export_handoff(self, slot_idx: int) -> None:
+        """Queue one just-prefilled slot's KV for export: enqueue the
+        device-side gather into new tensors now (stream order: it reads the
+        slot's KV before any later kernel could overwrite it), copy to host
+        batched in ``_flush_handoffs``. Paged ownership moves to the ack
+        hold; the slot and its table row clear either way, before any
+        decode round can include the slot."""
+        s = self.slots[slot_idx]
+        req = s.request
+        plen = s.length
+        cfg = self.cfg
+        if self.paged:
+            pages = self._slot_pages[slot_idx]
+            need = -(-plen // self.page_size)
+            ids = self._upload(pages[:need], torch.int64)
+            width = need * self.page_size
+            planes = [self.cache[n][:, ids].reshape(
+                (cfg.n_layers, width) + self.cache[n].shape[3:])
+                for n in (("k", "v", "ks", "vs") if self.kv_quant
+                          else ("k", "v"))]
+            # The slot's page references back the payload until the decode
+            # side acks: NOT freed, NOT in the table.
+            self._handoff_holds[req.id] = (req, pages)
+            self._slot_pages[slot_idx] = []
+            self._table[slot_idx, :] = -1
+            self._dstate.mark_row(slot_idx)
+        else:
+            planes = [self.cache[n][:, slot_idx, :plen].clone()
+                      for n in ("k", "v")]
+        self.slots[slot_idx] = None
+        self._dstate.mark_slot(slot_idx)
+        self._pending_exports.append((req, planes, plen))
+
+    def _flush_handoffs(self) -> int:
+        """ONE batched copy to host for every export queued this admit
+        round, then finish each request with its payload attached
+        (finish_reason "handoff": the model server relays from there)."""
+        if not self._pending_exports:
+            return 0
+        items, self._pending_exports = self._pending_exports, []
+        hosts, ready = self._copy_to_host(
+            [t for _, planes, _ in items for t in planes])
+        if ready is not None:
+            ready.synchronize()
+        now = time.monotonic()
+        i = 0
+        for req, planes, plen in items:
+            got = [host_array(t) for t in hosts[i:i + len(planes)]]
+            i += len(planes)
+            req.handoff = payload_from_export(
+                req, got[0], got[1], plen,
+                kv_sk=got[2] if len(got) == 4 else None,
+                kv_sv=got[3] if len(got) == 4 else None)
+            req.finish_reason = "handoff"
+            req.finish_time = now
+            self.metrics.observe(req)
+            self.metrics.note_handoff(
+                "exported", wire_bytes=req.handoff.wire_bytes)
+            req.stream.put(None)
+            req.done.set()
+        return len(items)
+
+    def _adopt_handoff(self, req: Request, slot_idx: int) -> None:
+        """Admission of a handed-off request: upload its KV into this
+        engine's own pool (alloc + one scatter + table row, owner stamped)
+        and seed the slot where the prefill side stopped — length = plen,
+        last_token = first_token, budget intact."""
+        p = req.adopt
+        plen = p.kv_len
+        if req.trace_parent is not None:
+            # queued → decode directly: the prefill phase happened on the
+            # exporting engine, in the same trace.
+            _span_close(req)
+            _span_open(req, "engine.decode", slot=slot_idx, adopted=True)
+        cfg = self.cfg
+        planes = {"k": p.kv_k, "v": p.kv_v}
+        if self.kv_quant:
+            planes.update(ks=p.kv_scale_k, vs=p.kv_scale_v)
+        if self.paged:
+            pg = self.page_size
+            need = -(-plen // pg)
+            self._release_slot_pages(slot_idx)
+            # Pages this pool already holds for the prompt's prefix are
+            # adopted by reference; only the uncovered tail uploads. The
+            # match is page-aligned (no COW tail): the upload is per page.
+            hit, start = self._kv_match(req, allow_cow=False)
+            fresh = self._allocator.alloc(need - len(hit), owner=req.id)
+            try:
+                if fresh:
+                    n2 = 1
+                    while n2 < len(fresh):
+                        n2 *= 2
+                    blocks = {}
+                    for name, arr in planes.items():
+                        pool = self.cache[name]
+                        buf = self._host_buffer(
+                            (cfg.n_layers, n2 * pg) + pool.shape[3:],
+                            pool.dtype)
+                        _fill(buf[:, :plen - start], arr[:, start:plen])
+                        blocks[name] = self._to_device(buf).view(
+                            (cfg.n_layers, n2) + pool.shape[2:])
+                    # Power-of-two padding: the pad ids aim at the sink.
+                    pidx = [self._num_pages] * n2
+                    pidx[:len(fresh)] = fresh
+                    upload_pages(self.cache, blocks,
+                                 self._upload(pidx, torch.int64))
+            except Exception:
+                # A failed upload must not strand the refs just taken.
+                self._allocator.free(fresh)
+                self._allocator.free(hit)
+                raise
+            pages = list(hit) + fresh
+            self._slot_pages[slot_idx] = pages
+            self._table[slot_idx, :] = -1
+            self._table[slot_idx, :need] = pages
+            self._dstate.mark_row(slot_idx)
+            # The adopted pages hold the prompt's KV: index them, so
+            # same-prefix traffic on this engine reuses them (decode writes
+            # start at plen, past every claimed position).
+            self._kv_register(p.prompt_tokens, slot_idx, plen)
+        else:
+            for name, arr in planes.items():
+                pool = self.cache[name]
+                buf = self._host_buffer(
+                    (cfg.n_layers, plen) + pool.shape[3:], pool.dtype,
+                    zeros=False)
+                _fill(buf, arr)
+                pool[:, slot_idx, :plen] = self._to_device(buf)
+        self.slots[slot_idx] = _Slot(request=req, length=plen,
+                                     last_token=p.first_token, generated=0,
+                                     admit_seq=next(self._admit_seq))
+        self._dstate.mark_slot(slot_idx)
+        self._dstate.mark_row(slot_idx)
+        self.metrics.note_handoff("adopted", wire_bytes=p.wire_bytes)
+        self._finish_if_done(slot_idx)
+
+    def _drain_handoff_releases(self) -> int:
+        """Apply server-thread acks and aborts on the scheduler thread (the
+        allocator's single owner). Returns releases applied."""
+        n = 0
+        while True:
+            try:
+                rid, ok = self._handoff_release.get_nowait()
+            except queue.Empty:
+                break
+            hold = self._handoff_holds.pop(rid, None)
+            if hold is not None:
+                self._allocator.free(list(reversed(hold[1])))
+            if not ok:
+                self.metrics.note_handoff("failed")
+            n += 1
+        return n
+
     # -- paged bookkeeping -----------------------------------------------------
 
     @staticmethod
@@ -1266,6 +1652,49 @@ class LLMEngine:
         copy_pages(self.cache, self._upload(list(src), torch.int64),
                    self._upload(list(dst), torch.int64))
 
+    def _kv_upload_pages(self, page_ids, k_blocks, v_blocks,
+                         sk_blocks=None, sv_blocks=None) -> None:
+        """Host→device promotion: per-page blocks (``[L, pg, KV, Dh]``,
+        scale rows ``[L, pg, KV]`` for an int8 pool) into ``page_ids``
+        through the scatter adoption uses, enqueued on the scheduler's
+        stream before the admission's chunk prefill, so stream order makes
+        the prefill read the promoted content. One host copy: the blocks
+        pack straight into the power-of-two padded buffer (the pad columns
+        go to the sink)."""
+        if self.kv_quant and sk_blocks is None:
+            raise ValueError(
+                "int8 pool promotion requires scale blocks (wire v2 blobs) "
+                "— got a full-dtype batch")
+        n = len(page_ids)
+        n2 = 1
+        while n2 < n:
+            n2 *= 2
+        planes = {"k": k_blocks, "v": v_blocks}
+        if self.kv_quant:
+            planes.update(ks=sk_blocks, vs=sv_blocks)
+        blocks = {}
+        for name, blks in planes.items():
+            pool = self.cache[name]
+            buf = self._host_buffer((pool.shape[0], n2) + pool.shape[2:],
+                                    pool.dtype, zeros=False)
+            for j, blk in enumerate(blks):
+                _fill(buf[:, j], blk)
+            blocks[name] = self._to_device(buf)
+        pidx = [self._num_pages] * n2
+        pidx[:n] = page_ids
+        upload_pages(self.cache, blocks, self._upload(pidx, torch.int64))
+
+    def _kv_fetch_pages(self, page_ids):
+        """Demotion batch: the device-side gather of the pages' planes into
+        new tensors (the pages may free at once: stream order puts every
+        later write behind the gather), and their copy to pinned host
+        memory on the side stream. Returns (host planes, event): the
+        migration thread waits on that event, the scheduler never does.
+        An int8 pool returns four planes (k, v, scale_k, scale_v)."""
+        ids = self._upload(list(page_ids), torch.int64)
+        names = ("k", "v", "ks", "vs") if self.kv_quant else ("k", "v")
+        return self._copy_to_host([self.cache[n][:, ids] for n in names])
+
     def _kv_register(self, tokens, slot_idx: int, n_tokens: int) -> None:
         """Index ``tokens[:n_tokens]``'s written KV for cross-request reuse
         (radix) or hash the full-page prefix (flat)."""
@@ -1278,12 +1707,15 @@ class LLMEngine:
                 list(tokens)[:n_tokens],
                 self._slot_pages[slot_idx][:n_tokens // self.page_size])
 
-    def _kv_match(self, req: Request) -> tuple[list[int], int]:
+    def _kv_match(self, req: Request, *, allow_cow: bool = True
+                  ) -> tuple[list[int], int]:
         """Longest reusable prefix of ``req``'s prompt: (pages now owned by
-        the request, tokens covered)."""
+        the request, tokens covered). Radix: live sharing, host-tier
+        promotion and, with ``allow_cow``, a sub-page COW tail."""
         if self._kvtier is not None:
             return self._kvtier.match_and_acquire(req.prompt_tokens,
-                                                  owner=req.id)
+                                                  owner=req.id,
+                                                  allow_cow=allow_cow)
         hit = self._allocator.match_prefix(req.prompt_tokens, owner=req.id)
         return list(hit), len(hit) * self.page_size
 
@@ -1394,6 +1826,11 @@ class LLMEngine:
         req.prompt_tokens = list(req.prompt_tokens) \
             + req.output_tokens[req.resumed_from:]
         req.resumed_from = len(req.output_tokens)
+        # An adopted request resumes like any other: its prompt now holds
+        # the payload's prompt, first token and every decoded token, so
+        # re-admission prefills it (the prefix index permitting) instead of
+        # adopting the payload's stale KV again.
+        req.adopt = None
         self._release_slot_pages(idx)
         self.slots[idx] = None
         self._dstate.mark_slot(idx)
@@ -1583,6 +2020,10 @@ class LLMEngine:
                 s.generated += 1
                 n_emit += 1
             emitted += n_emit
+            if n_emit and s.request.first_token_time is None:
+                # An adopted request's first LOCAL token: this engine's
+                # TTFT is its decode-side scheduling latency.
+                s.request.first_token_time = time.monotonic()
             if s.request.span is not None and n_emit:
                 if rnd.gap_ms is None:
                     s.request.span.add_event("decode_round", tokens=n_emit,
@@ -1600,7 +2041,14 @@ class LLMEngine:
         Returns work done (a dispatched round counts, so the loop never
         idles with a round in flight)."""
         n = self._reap_abandoned() + self._enforce_queue_bound() \
-            + self._admit()
+            + self._drain_handoff_releases() + self._admit()
+        if self._kvtier is not None:
+            # Host-tier demotion scan: cold cached prefix pages go to the
+            # migration thread in batches (interval-gated inside tick; it
+            # yields to foreground work unless the pool is under pressure).
+            busy = bool(self._backlog) or bool(self._chunkings) \
+                or any(s is not None for s in self.slots)
+            self._kvtier.tick(busy=busy)
         n += self._decode_once()
         if n == 0:
             self._last_ready_t = None
@@ -1625,6 +2073,8 @@ class LLMEngine:
         ``stopped_clean``) whether the thread actually exited."""
         self._stop.set()
         self._wake.set()
+        if self._kvtier is not None:
+            self._kvtier.close()
         self.stopped_clean = True
         if self._thread is not None:
             self._thread.join(timeout=timeout)

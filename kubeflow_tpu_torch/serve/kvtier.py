@@ -1,5 +1,7 @@
-"""Radix prefix index with copy-on-write page sharing over the paged pool —
-the device tier of ``kubeflow_tpu/serve/kvtier.py``.
+"""Tiered KV cache: a radix prefix index with copy-on-write page sharing
+over the paged pool, and a host-RAM overflow tier with asynchronous
+device↔host page migration — the port of ``kubeflow_tpu/serve/kvtier.py``
+(the device and host tiers; the remote store tier is a later slice).
 
 **Radix prefix index.** One tree over the page pool; a node is one
 page-sized token block (partial leaves hold the sub-page tail of a
@@ -14,7 +16,7 @@ mid-page (``paged_chunk_prefill`` scatters per token). Shared pages are
 never written: decode and chunk writes land past the claimed content, and
 the partial tail is private after the copy. Registration happens at
 prefill completion (live), at slot release (prompt + generated tokens), at
-reap, and at chunking preemption.
+reap, at chunking preemption and at handoff adoption.
 
 **Ownership model** (extends the allocator's): the tree holds NO
 references. A node page's refcount is exactly its sharer count; at ref==0
@@ -27,21 +29,45 @@ every ancestor on its path). An allocation inside a match can fire that
 callback back into the index (the COW tail's alloc may evict the very node
 it wanted to copy), so every step after an alloc re-checks the node.
 
-The host-RAM and remote-store tiers (demotion, promotion, the migration
-thread) are a later slice: this index keeps everything on the device and
-starts no thread. Like the allocator it extends, it is scheduler-confined:
-the engine calls it from its scheduler thread only.
+**Host-RAM tier** (``host_pages > 0``). Cold prefix pages — sharer-free
+device pages idle past ``demote_after_s`` — migrate device→host in batches.
+The scheduler enqueues ONE device-side gather per batch into new tensors
+(``fetch_pages_fn``): stream order makes the gather read the pages before
+any later kernel can reuse them, so the pages free at once. The gather's
+copy into pinned host memory waits on the gather's event and runs on a
+side stream; the background migration thread waits on the copy's event
+(never on the whole device) and encodes each page with
+``serve/handoff.pages_to_wire`` — the handoff's byte layout — so the
+scheduler never blocks on a demotion. A radix hit on a host node promotes
+it BEFORE prefill admits: the blob decodes zero-copy, fresh device pages
+are allocated, and one batched upload (``upload_pages_fn``) is enqueued on
+the scheduler's stream ahead of the chunk prefill, so stream order makes
+the prefill read the promoted content.
+
+The tree and every public method are scheduler-confined — the engine
+calls them from its scheduler thread only, like the allocator. The one
+cross-thread seam is the migration thread installing host blobs; ``_lock``
+guards the tier/blob/host-count transitions it shares with the scheduler.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
 from typing import Callable, Optional, Sequence
+
+from kubeflow_tpu_torch.obs.trace import get_tracer
+from kubeflow_tpu_torch.serve.handoff import (
+    host_array, pages_from_wire, pages_to_wire,
+)
 
 logger = logging.getLogger("kubeflow_tpu_torch.serve.kvtier")
 
 TIER_DEVICE = "device"
+TIER_HOST = "host"
+TIER_MIGRATING = "migrating"   # gather enqueued, blob not installed yet
 TIER_DEAD = "dead"             # evicted; structure detached
 
 #: Partial (sub-page) leaves kept per parent.
@@ -51,15 +77,17 @@ MAX_PARTIALS = 4
 class _Node:
     """One page-sized token block. ``block`` is the claimed content
     (len == page_size for full blocks; shorter for partial leaves —
-    positions past ``len(block)`` in the page are unclaimed)."""
+    positions past ``len(block)`` in the page are unclaimed). Exactly one
+    of: ``page`` set (device) or ``blob`` set (host)."""
 
-    __slots__ = ("block", "page", "tier", "children", "partials", "parent",
-                 "last_used")
+    __slots__ = ("block", "page", "tier", "blob", "children", "partials",
+                 "parent", "last_used")
 
     def __init__(self, block: tuple, page: Optional[int], parent):
         self.block = block
         self.page = page
         self.tier = TIER_DEVICE
+        self.blob: Optional[bytes] = None
         self.children: dict = {}     # full-block tuple -> _Node
         self.partials: list = []     # sub-page leaves
         self.parent = parent
@@ -78,31 +106,74 @@ def _lcp(a: Sequence[int], b: Sequence[int]) -> int:
 
 
 class RadixPrefixIndex:
-    """Radix tree over one ``PageAllocator`` (device tier).
+    """Radix tree + host-tier lifecycle over one ``PageAllocator``.
 
-    ``copy_pages_fn(src_ids, dst_ids)`` is the engine's pool page copy
-    (COW tails); it enqueues on the device stream in program order with the
-    chunk prefill that reads the copy. ``pressure_fn`` returns the
-    pool-pressure ratio exported as ``kv_tier_pressure`` (>= 1.0 = urgent);
+    Device operations are the engine's closures:
+
+    - ``copy_pages_fn(src_ids, dst_ids)`` — pool page copy (COW tails),
+      enqueued in stream order with the chunk prefill that reads it;
+    - ``upload_pages_fn(page_ids, k, v[, sk, sv])`` — host→device
+      promotion of per-page numpy blocks ``[L, pg, KV, Dh]`` (scale rows
+      ``[L, pg, KV]`` for an int8 pool);
+    - ``fetch_pages_fn(page_ids)`` — the demotion gather: returns
+      ``(planes, ready)``, host tensors ``[L, n, pg, ...]`` (k, v, and the
+      scale planes of an int8 pool) whose copy completes with ``ready``
+      (an event, or None when they are complete already).
+
+    ``pressure_fn`` returns the pool-pressure ratio exported as
+    ``kv_tier_pressure`` (>= 1.0 = urgent: demote now even under load);
     None keeps the default rule (free + cached pages down to a quarter of
     the pool)."""
 
     def __init__(self, allocator, page_size: int, *,
+                 host_pages: int = 0,
+                 demote_after_s: float = 2.0,
+                 migrate_batch_pages: int = 32,
+                 scan_interval_s: Optional[float] = None,
                  copy_pages_fn: Optional[Callable] = None,
+                 upload_pages_fn: Optional[Callable] = None,
+                 fetch_pages_fn: Optional[Callable] = None,
                  pressure_fn: Optional[Callable[[], float]] = None):
         self._allocator = allocator
         self.page_size = int(page_size)
+        self.host_pages = max(0, int(host_pages))
+        self.demote_after_s = float(demote_after_s)
+        self.migrate_batch_pages = max(1, int(migrate_batch_pages))
+        self._scan_interval = (float(scan_interval_s)
+                               if scan_interval_s is not None
+                               else max(self.demote_after_s / 4, 0.05))
         self._copy_pages = copy_pages_fn
+        self._upload_pages = upload_pages_fn
+        self._fetch_pages = fetch_pages_fn
         self._pressure_fn = pressure_fn
         self._root = _Node((), None, None)
-        self._by_page: dict[int, _Node] = {}
-        self.stats = {
+        self._by_page: dict[int, _Node] = {}  # lockfree: scheduler-confined
+        # Tier transitions and host accounting cross the migration-thread
+        # seam (reentrant: an alloc inside a match can fire on_evict back
+        # into the index).
+        self._lock = threading.RLock()
+        self._host_count = 0          # guarded_by: _lock
+        self._migrating = 0           # guarded_by: _lock
+        self.stats = {                # guarded_by: _lock
             "prefix_queries": 0, "prefix_hits": 0,
             "tokens_matched": 0, "tokens_cow": 0,
-            "cow_copies": 0, "nodes": 0, "evictions": 0,
+            "cow_copies": 0, "nodes": 0,
+            "pages_demoted": 0, "pages_promoted": 0,
+            "demote_batches": 0, "demote_dropped": 0,
+            "host_evictions": 0, "evictions": 0,
+            "demote_wire_bytes": 0, "promote_wire_bytes": 0,
         }
-        self.last_cow_tokens = 0
+        self._last_scan = 0.0         # lockfree: scheduler-confined
+        self.last_promoted = 0        # lockfree: scheduler-confined
+        self.last_cow_tokens = 0      # lockfree: scheduler-confined
+        self._queue: "queue.Queue" = queue.Queue()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
         allocator.on_evict = self._on_evict
+        if self.host_pages > 0:
+            self._thread = threading.Thread(
+                target=self._migrate_loop, daemon=True, name="kv-migrate")
+            self._thread.start()
 
     # -- observability -------------------------------------------------------
 
@@ -113,8 +184,16 @@ class RadixPrefixIndex:
         quarter = self._allocator.num_pages // 4
         return quarter / max(self._allocator.available(), 1)
 
+    def host_pages_resident(self) -> int:
+        with self._lock:
+            return self._host_count
+
     def snapshot(self) -> dict:
-        return dict(self.stats)
+        with self._lock:
+            out = dict(self.stats)
+            out["host_pages_resident"] = self._host_count
+            out["migrating_pages"] = self._migrating
+        return out
 
     # -- match (admission path) ----------------------------------------------
 
@@ -124,99 +203,166 @@ class RadixPrefixIndex:
         """Longest shared prefix of ``tokens``, capped one token short (the
         first sampled token needs real last-token logits). Returns
         ``(pages, covered_tokens)``: device pages the caller now owns one
-        reference to each, in table order. Full-block hits share by incref
-        (live, ref>0); a sub-page divergence allocates a fresh private page
-        and device-copies the shared tail (``allow_cow=False`` keeps the
-        match page-aligned). Pool exhaustion truncates the match rather
+        reference to each, in table order. Full-block device hits share by
+        incref (live, ref>0); host blocks promote in one batched upload; a
+        sub-page divergence allocates a fresh private page and copies the
+        shared tail (``allow_cow=False`` keeps the match page-aligned, as
+        handoff adoption needs). Pool exhaustion truncates the match rather
         than failing the admission; any failure misses cleanly (the prefix
         is recomputed)."""
         pg = self.page_size
         cap = len(tokens) - 1
         pages: list[int] = []
+        promote: list[tuple[int, bytes]] = []
+        self.last_promoted = 0
         self.last_cow_tokens = 0
         try:
-            return self._match(tokens, owner, allow_cow, pg, cap, pages)
+            return self._match_locked(tokens, owner, allow_cow, pg, cap,
+                                      pages, promote)
         except Exception as exc:
             # Balance the books and miss: every acquired page holds exactly
-            # one of our references.
-            if pages:
-                self._allocator.free(pages)
+            # one of our references, and a promoted node whose upload may
+            # not have landed must not stay matchable.
+            with self._lock:
+                for pid, _ in promote:
+                    node = self._by_page.get(pid)
+                    if node is not None:
+                        self._drop_subtree(node)
+                if pages:
+                    self._allocator.free(pages)
             logger.error("radix match failed; recomputing prefix: %s", exc)
             return [], 0
 
-    def _match(self, tokens, owner, allow_cow, pg, cap,
-               pages) -> tuple[list[int], int]:
-        self.stats["prefix_queries"] += 1
-        # Mirror into the allocator's counters: one hit/query surface
-        # whichever index is active.
-        self._allocator.stats["prefix_queries"] += 1
-        now = time.monotonic()
-        covered = 0
-        node = self._root
-        while covered + pg <= cap:
-            child = node.children.get(tuple(tokens[covered:covered + pg]))
-            if child is None or child.tier == TIER_DEAD:
-                break
-            # Device hit (possibly still owned by a decoding request): one
-            # more sharer, stamped per owner.
-            self._allocator.incref([child.page], owner=owner)
-            child.last_used = now
-            pages.append(child.page)
-            covered += pg
-            node = child
-        # Sub-page tail: the query continues into (or diverges inside) a
-        # cached block — copy only the shared part.
-        rem = cap - covered
-        if allow_cow and rem > 0 and self._copy_pages is not None:
-            window = tuple(tokens[covered:covered + pg])
-            best, best_len = None, 0
-            for cand in list(node.children.values()) + node.partials:
-                if cand.tier == TIER_DEAD:
-                    continue
-                n = min(_lcp(cand.block, window), rem)
-                if n > best_len:
-                    best, best_len = cand, n
-            if best is not None and best_len > 0:
-                cow = self._cow_tail(best, owner)
-                if cow is not None:
-                    pages.append(cow)
-                    covered += best_len
-                    best.last_used = now
-                    self.stats["tokens_cow"] += best_len
-                    self.last_cow_tokens = best_len
-        if covered:
-            self.stats["prefix_hits"] += 1
-            self._allocator.stats["prefix_hits"] += 1
-            self.stats["tokens_matched"] += covered
+    def _match_locked(self, tokens, owner, allow_cow, pg, cap,
+                      pages, promote) -> tuple[list[int], int]:
+        from kubeflow_tpu_torch.serve.paged import PagePoolExhausted
+
+        with self._lock:
+            self.stats["prefix_queries"] += 1
+            # Mirror into the allocator's counters: one hit/query surface
+            # whichever index is active.
+            self._allocator.stats["prefix_queries"] += 1
+            now = time.monotonic()
+            covered = 0
+            node = self._root
+            while covered + pg <= cap:
+                child = node.children.get(tuple(tokens[covered:covered + pg]))
+                if child is None or child.tier in (TIER_MIGRATING,
+                                                   TIER_DEAD):
+                    break
+                if child.tier == TIER_HOST:
+                    try:
+                        pid = self._allocator.alloc(1, owner=owner)[0]
+                    except PagePoolExhausted:
+                        break
+                    if child.tier != TIER_HOST:
+                        # The alloc's eviction callback can cascade a
+                        # dropped subtree over ``child`` (the COW tail's
+                        # hazard): its blob is gone — miss.
+                        self._allocator.free([pid])
+                        break
+                    # Promotion: the node returns to the device tier; the
+                    # fresh ref is the matcher's sharer ref, and
+                    # ``retained`` keeps the page cached after release.
+                    child.page = pid
+                    child.tier = TIER_DEVICE
+                    blob, child.blob = child.blob, None
+                    self._host_count -= 1
+                    self._by_page[pid] = child
+                    self._allocator.retained.add(pid)
+                    promote.append((pid, blob))
+                    self.stats["pages_promoted"] += 1
+                else:
+                    # Device hit (possibly still owned by a decoding
+                    # request): one more sharer, stamped per owner.
+                    self._allocator.incref([child.page], owner=owner)
+                child.last_used = now
+                pages.append(child.page)
+                covered += pg
+                node = child
+            # Sub-page tail: the query continues into (or diverges inside)
+            # a cached block — copy only the shared part.
+            rem = cap - covered
+            if allow_cow and rem > 0 and self._copy_pages is not None:
+                window = tuple(tokens[covered:covered + pg])
+                best, best_len = None, 0
+                for cand in list(node.children.values()) + node.partials:
+                    if cand.tier == TIER_DEAD:
+                        continue
+                    n = min(_lcp(cand.block, window), rem)
+                    if n > best_len:
+                        best, best_len = cand, n
+                if best is not None and best_len > 0:
+                    cow = self._cow_tail(best, owner)
+                    if cow is not None:
+                        pages.append(cow)
+                        covered += best_len
+                        best.last_used = now
+                        self.stats["tokens_cow"] += best_len
+                        self.last_cow_tokens = best_len
+            if covered:
+                self.stats["prefix_hits"] += 1
+                self._allocator.stats["prefix_hits"] += 1
+                self.stats["tokens_matched"] += covered
+        if promote:
+            self._upload_blobs(promote)
+            self.last_promoted = len(promote)
         return pages, covered
 
     def _cow_tail(self, src: _Node, owner) -> Optional[int]:
-        """Fresh private page holding ``src``'s claimed content (a device
-        copy). Returns the page id, or None when the pool is dry or the
-        source was evicted by this very allocation."""
+        """Fresh private page holding ``src``'s claimed content: a device
+        copy for a device source, a blob upload for a host one. Returns the
+        page id, or None when the pool is dry or the source is mid-migration
+        or was evicted by this very allocation."""
         from kubeflow_tpu_torch.serve.paged import PagePoolExhausted
 
-        if src.tier != TIER_DEVICE:
+        if src.tier not in (TIER_DEVICE, TIER_HOST):
             return None
         try:
             fresh = self._allocator.alloc(1, owner=owner)[0]
         except PagePoolExhausted:
             return None
-        if src.tier != TIER_DEVICE:
+        if src.tier not in (TIER_DEVICE, TIER_HOST):
             # The alloc reclaims ref-0 indexed pages through the eviction
             # callback — under pool pressure the coldest cached page is
-            # often ``src`` itself, which arrives here DEAD. Nothing left
-            # to copy.
+            # often ``src`` itself, which arrives here DEAD.
             self._allocator.free([fresh])
             return None
         try:
-            self._copy_pages([src.page], [fresh])
+            if src.tier == TIER_DEVICE:
+                self._copy_pages([src.page], [fresh])
+            else:
+                self._upload_blobs([(fresh, src.blob)])
         except Exception:
             # The fresh ref must not strand on a failed device call.
             self._allocator.free([fresh])
             raise
         self.stats["cow_copies"] += 1
         return fresh
+
+    def _upload_blobs(self, items: list) -> None:
+        """ONE batched host→device upload for ``items`` of ``(page_id,
+        wire_blob)``. Blobs decode zero-copy; the engine's upload closure
+        packs them into its buffer (one host copy on the admission path).
+        int8 blobs carry their scale rows through the same upload."""
+        ids = [pid for pid, _ in items]
+        with self._lock:
+            self.stats["promote_wire_bytes"] += sum(
+                len(blob) for _, blob in items)
+        ks, vs, sks, svs = [], [], [], []
+        for _, blob in items:
+            k, v, sk, sv = pages_from_wire(blob)
+            ks.append(k)
+            vs.append(v)
+            sks.append(sk)
+            svs.append(sv)
+        if any(s is not None for s in sks):
+            if any(s is None for s in sks):
+                raise ValueError(
+                    "mixed quantized/full-dtype blobs in one promote batch")
+            self._upload_pages(ids, ks, vs, sks, svs)
+        else:
+            self._upload_pages(ids, ks, vs)
 
     # -- registration --------------------------------------------------------
 
@@ -231,35 +377,37 @@ class RadixPrefixIndex:
         pg = self.page_size
         n_tokens = len(tokens) if n_tokens is None else min(n_tokens,
                                                             len(tokens))
-        now = time.monotonic()
-        node = self._root
-        nfull = n_tokens // pg
-        for i in range(min(nfull, len(pages))):
-            blk = tuple(tokens[i * pg:(i + 1) * pg])
-            child = node.children.get(blk)
-            if child is None:
-                page = pages[i]
-                if page in self._by_page:
-                    break      # already indexed on another path
-                child = _Node(blk, page, node)
-                node.children[blk] = child
-                self._by_page[page] = child
-                self._allocator.retained.add(page)
-                self.stats["nodes"] += 1
-                # A full block subsumes any partial leaf it extends.
-                for pn in list(node.partials):
-                    if blk[:len(pn.block)] == pn.block:
-                        self._drop_subtree(pn)
-            elif child.tier == TIER_DEAD:
-                break
-            child.last_used = now
-            node = child
-        tail = tuple(tokens[nfull * pg:n_tokens])
-        if tail and nfull < len(pages):
-            self._insert_partial(node, tail, pages[nfull], now)
+        with self._lock:
+            now = time.monotonic()
+            node = self._root
+            nfull = n_tokens // pg
+            for i in range(min(nfull, len(pages))):
+                blk = tuple(tokens[i * pg:(i + 1) * pg])
+                child = node.children.get(blk)
+                if child is None:
+                    page = pages[i]
+                    if page in self._by_page:
+                        break      # already indexed on another path
+                    child = _Node(blk, page, node)
+                    node.children[blk] = child
+                    self._by_page[page] = child
+                    self._allocator.retained.add(page)
+                    self.stats["nodes"] += 1
+                    # A full block subsumes any partial leaf it extends.
+                    for pn in list(node.partials):
+                        if blk[:len(pn.block)] == pn.block:
+                            self._drop_subtree(pn)
+                elif child.tier == TIER_DEAD:
+                    break
+                child.last_used = now
+                node = child
+            tail = tuple(tokens[nfull * pg:n_tokens])
+            if tail and nfull < len(pages):
+                self._insert_partial(node, tail, pages[nfull], now)
 
     def _insert_partial(self, parent: _Node, tail: tuple, page: int,
                         now: float) -> None:
+        # requires_lock: _lock
         if any(blk[:len(tail)] == tail for blk in parent.children):
             return                       # a full block already covers it
         for pn in parent.partials:
@@ -292,20 +440,22 @@ class RadixPrefixIndex:
         self._allocator.retained.add(page)
         self.stats["nodes"] += 1
 
-    # -- eviction (allocator callback) ---------------------------------------
+    # -- eviction (allocator callback + host capacity) -----------------------
 
     def _on_evict(self, page: int) -> None:
         """The allocator reclaimed a ref-0 indexed page for a fresh alloc:
         drop the node; its subtree is unreachable now and cascades back to
-        the free list."""
-        node = self._by_page.pop(page, None)
-        if node is None:
-            return
-        self.stats["evictions"] += 1
-        node.page = None             # the allocator owns it again
-        self._drop_subtree(node)
+        the free list (device pages) or out of host memory (blobs)."""
+        with self._lock:
+            node = self._by_page.pop(page, None)
+            if node is None:
+                return
+            self.stats["evictions"] += 1
+            node.page = None             # the allocator owns it again
+            self._drop_subtree(node)
 
     def _drop_subtree(self, node: _Node) -> None:
+        # requires_lock: _lock
         parent = node.parent
         if parent is not None:
             parent.children.pop(node.block, None)
@@ -324,10 +474,170 @@ class RadixPrefixIndex:
                     # Still shared by a live request: the sharer keeps its
                     # reference; the page just stops being indexed.
                     self._allocator.retained.discard(n.page)
-            n.tier = TIER_DEAD
+            elif n.tier == TIER_HOST:
+                n.blob = None
+                self._host_count -= 1
+            n.tier = TIER_DEAD       # a mid-migration install discards
             n.page = None
             n.children = {}
             n.partials = []
             self.stats["nodes"] -= 1
         if drop_pages:
             self._allocator.drop_cached(drop_pages)
+
+    def _evict_host_lru(self, n: int) -> None:
+        # requires_lock: _lock
+        while n > 0:
+            hosts = [node for node in self._iter_nodes()
+                     if node.tier == TIER_HOST]
+            if not hosts:
+                return
+            victim = min(hosts, key=lambda nd: nd.last_used)
+            before = self._host_count
+            self._drop_subtree(victim)
+            self.stats["host_evictions"] += 1
+            n -= max(before - self._host_count, 1)
+
+    def _iter_nodes(self):
+        # requires_lock: _lock
+        stack = list(self._root.children.values()) + self._root.partials
+        while stack:
+            n = stack.pop()
+            yield n
+            stack.extend(n.children.values())
+            stack.extend(n.partials)
+
+    # -- demotion (scheduler side) + migration thread ------------------------
+
+    def tick(self, now: Optional[float] = None, *,
+             busy: bool = False, force: bool = False) -> int:
+        """Periodic demotion scan (called from the engine's scheduler step):
+        pick cold sharer-free device pages LRU, enqueue ONE batched gather
+        and its copy to host, free the device pages (stream order makes
+        that safe: the gather reads them before any later kernel can write
+        them), and hand the batch to the migration thread. Returns pages
+        demoted this pass.
+
+        ``busy`` = the scheduler has foreground work this step. Demotion
+        then yields unless the pool is under pressure, where demoting now
+        is what saves the cached content from lossy LRU eviction."""
+        if self.host_pages <= 0 or self._fetch_pages is None:
+            return 0
+        now = time.monotonic() if now is None else now
+        if not force and now - self._last_scan < self._scan_interval:
+            return 0
+        urgent = self.pressure() >= 1.0
+        if busy and not urgent and not force:
+            return 0
+        self._last_scan = now
+        with self._lock:
+            cands: list[_Node] = []
+            # Urgent mode still protects HOT pages (used within two scan
+            # windows): demoting a prefix the next arrival matches would
+            # buy one free page at the cost of a promotion round trip.
+            floor = (0.0 if force
+                     else 2 * self._scan_interval if urgent
+                     else self.demote_after_s)
+            for p in self._allocator.reclaimable_lru():
+                node = self._by_page.get(p)
+                if node is None or node.tier != TIER_DEVICE:
+                    continue
+                if now - node.last_used < floor:
+                    continue
+                cands.append(node)
+                if len(cands) >= self.migrate_batch_pages:
+                    break
+            if not cands:
+                return 0
+            room = self.host_pages - self._host_count - self._migrating
+            if len(cands) > room:
+                self._evict_host_lru(len(cands) - room)
+                room = self.host_pages - self._host_count - self._migrating
+                cands = cands[:max(room, 0)]
+            if not cands:
+                return 0
+            ids = [n.page for n in cands]
+            planes, ready = self._fetch_pages(ids)
+            for n in cands:
+                self._by_page.pop(n.page, None)
+                n.page = None
+                n.tier = TIER_MIGRATING
+                self._migrating += 1
+            self._allocator.drop_cached(ids)
+            self.stats["demote_batches"] += 1
+        self._queue.put(("demote", cands, planes, ready))
+        return len(ids)
+
+    def _migrate_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                # Bounded get: close() pushes a None sentinel, and the
+                # timeout rechecks the stop flag if it is lost.
+                item = self._queue.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if item is None:
+                return
+            _, nodes, planes, ready = item
+            span = get_tracer().start_span(
+                "engine.kv_migrate", direction="demote", pages=len(nodes))
+            try:
+                if ready is not None:
+                    # The batch's own copy event: this thread blocks, the
+                    # scheduler's stream never does.
+                    ready.synchronize()
+                host = [host_array(t) for t in planes]
+                k, v = host[0], host[1]
+                if len(host) == 4:
+                    blobs = [pages_to_wire(k[:, j], v[:, j],
+                                           kv_sk=host[2][:, j],
+                                           kv_sv=host[3][:, j])
+                             for j in range(len(nodes))]
+                else:
+                    blobs = [pages_to_wire(k[:, j], v[:, j])
+                             for j in range(len(nodes))]
+            except Exception as exc:
+                # A failed batch loses cached content (it was freed on the
+                # device already) but never correctness: its nodes leave
+                # the tree and the prefix is recomputed.
+                logger.error("kv migration batch failed: %s", exc)
+                with self._lock:
+                    for n in nodes:
+                        self._migrating -= 1
+                        if n.tier == TIER_MIGRATING:
+                            self._drop_subtree(n)
+                span.end("error")
+                continue
+            with self._lock:
+                for n, blob in zip(nodes, blobs):
+                    self._migrating -= 1
+                    if n.tier != TIER_MIGRATING:
+                        # Evicted while the bytes were in flight: the
+                        # content is unreachable — discard.
+                        self.stats["demote_dropped"] += 1
+                        continue
+                    n.blob = blob
+                    n.tier = TIER_HOST
+                    self._host_count += 1
+                    self.stats["pages_demoted"] += 1
+                    self.stats["demote_wire_bytes"] += len(blob)
+            span.end("ok")
+
+    def drain_migrations(self, timeout_s: float = 5.0) -> None:
+        """Wait until no demotion batch is in flight (tests, audits)."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                if self._migrating == 0:
+                    return
+            time.sleep(0.005)
+        raise TimeoutError("kv migration batches still in flight")
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._queue.put(None)
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        if getattr(self._allocator, "on_evict", None) is self._on_evict:
+            self._allocator.on_evict = None

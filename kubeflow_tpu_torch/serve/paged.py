@@ -426,6 +426,20 @@ def copy_pages(cache: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
     return cache
 
 
+def upload_pages(cache: dict, blocks: dict, ids: torch.Tensor) -> dict:
+    """Page upload ``pool[:, ids[i]] <- blocks[name][:, i]`` for every plane
+    in ``blocks`` (k/v and, for an int8 pool, their scales; each
+    ``[L, n, page, ...]`` on the pool's device and dtype), in place — handoff
+    adoption's and host-tier promotion's scatter. Ids outside the real
+    pages (the power-of-two padding) land on the sink page."""
+    for name, blk in blocks.items():
+        pool = cache[name]
+        sink = pool.shape[1] - 1
+        d = torch.where((ids >= 0) & (ids < sink), ids, sink).long()
+        pool[:, d] = blk
+    return cache
+
+
 def context_bucket(pos: int, chunk: int, page_size: int, mpp: int) -> int:
     """Context-page bucket for a chunk prefill at ``pos``: the next power
     of two covering ceil((pos + chunk) / page_size), clamped to the slot's

@@ -1,5 +1,6 @@
 """Model server: the HTTP protocol surface over one port LLM engine (port of
-``kubeflow_tpu/serve/server.py``, single-engine routes).
+``kubeflow_tpu/serve/server.py``, single-engine routes and the KV handoff
+relay).
 
 Routes:
 
@@ -12,17 +13,31 @@ Routes:
 - ``POST /v1/models/{name}:predict`` (v1 protocol);
 - ``POST /v1/models/{name}:explain`` (per-token attribution from the
   configured explainer hop, ``serve/explain.py``);
-- ``POST /v2/models/{name}/infer`` (v2 open-inference protocol).
+- ``POST /v2/models/{name}/infer`` (v2 open-inference protocol);
+- ``POST /v1/handoff`` (the decode side of disaggregated serving: adopt a
+  ``serve/handoff.py`` payload and stream the second token on as SSE, each
+  chunk with its token id).
+
+Disaggregated serving: on a ``prefill``-role engine, a request carrying
+``X-Kftpu-Decode-Backend`` (the router stamps it) stops at its first
+token, and the server POSTs the KV handoff to that decode replica — or to
+the alternates of ``X-Kftpu-Decode-Alts``, one after another under the
+retry policy of ``serve/retry.py`` — and relays its tokens. The decode
+side's 200 is the ack that releases the prefill side's pages; if no
+replica acks, the prefill side recomputes the request locally under
+``{id}-recompute``. Without the header a prefill replica decodes locally.
 
 A transformer hop ``transformer(text, phase)`` rewrites the prompt
-(``"pre"``) and the non-streamed output (``"post"``). The KV handoff
-relay, the model repository and gRPC arrive with later slices (404 here).
-Threaded stdlib server: handlers block on the engine's request stream;
-the engine thread batches.
+(``"pre"``) and the non-streamed output (``"post"``). The model
+repository and gRPC arrive with later slices (404 here). Threaded stdlib
+server: handlers block on the engine's request stream; the engine thread
+batches.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import http.client
 import json
 import queue
 import re
@@ -32,9 +47,12 @@ import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
+from urllib.parse import urlparse
 
 from kubeflow_tpu_torch.core.headers import (
-    DEADLINE_HEADER, MODEL_HEADER, QOS_HEADER, TRACE_HEADER,
+    DEADLINE_HEADER, DECODE_ALTS_HEADER, DECODE_BACKEND_HEADER,
+    HANDOFF_DTYPE_HEADER, HANDOFF_WIRE_HEADER, MODEL_HEADER, QOS_HEADER,
+    TRACE_HEADER,
 )
 from kubeflow_tpu_torch.core.serving import QOS_DEFAULT
 from kubeflow_tpu_torch.obs.registry import MetricsRegistry
@@ -43,7 +61,15 @@ from kubeflow_tpu_torch.serve.engine import (
     EngineOverloaded, HOST_GAP_BUCKETS, LLMEngine, QUEUE_DELAY_BUCKETS,
     Request, SamplingParams,
 )
+from kubeflow_tpu_torch.serve.handoff import HandoffPayload
+from kubeflow_tpu_torch.serve.retry import (
+    call_with_retry, env_float, handoff_policy,
+)
 from kubeflow_tpu_torch.serve.tokenizer import Tokenizer, get_tokenizer
+
+#: Handoff wire versions this server adopts (serve/handoff.py): 1 = raw
+#: K/V planes, 2 = with int8 scale rows. Anything else is a 409.
+SUPPORTED_HANDOFF_WIRE = ("1", "2")
 
 
 def _raise_for_reaped(req: Request) -> None:
@@ -58,6 +84,94 @@ def _raise_for_reaped(req: Request) -> None:
             f"request {req.id} shed: queue delay exceeded budget")
     if req.finish_reason == "error":
         raise RuntimeError(f"request {req.id} failed in-engine")
+
+
+def open_handoff(decode_url: str, payload, *, chat: bool, qos: str,
+                 trace_hdr: Optional[str], deadline_s: Optional[float],
+                 timeout: float):
+    """POST a KV handoff to a decode replica; returns ``(conn, resp)`` once
+    the decode side ACKED (HTTP 200: the payload is in its memory, so the
+    prefill side may release its page hold). Raises OSError on anything
+    short of an ack — the caller's signal to try another replica or
+    ``fail_handoff`` and recompute.
+
+    Connect+send and the ack wait have separate budgets
+    (``KFTPU_HANDOFF_CONNECT_S``, ``KFTPU_HANDOFF_ACK_S``): a dead host
+    fails the connect in seconds, and a wedged decode replica fails the ack
+    wait without holding the prefill's pages for the whole request
+    deadline. The POST declares its cache dtype and wire version, so a
+    mismatched replica rejects it (409) before reading any page byte."""
+    connect_s = min(env_float("KFTPU_HANDOFF_CONNECT_S", 5.0), timeout)
+    ack_s = min(env_float("KFTPU_HANDOFF_ACK_S", 30.0), timeout)
+    parsed = urlparse(decode_url)
+    conn = http.client.HTTPConnection(parsed.hostname or "127.0.0.1",
+                                      parsed.port or 80, timeout=connect_s)
+    headers = {"Content-Type": "application/octet-stream",
+               QOS_HEADER: qos,
+               HANDOFF_DTYPE_HEADER: payload.cache_dtype or "full",
+               HANDOFF_WIRE_HEADER: "2" if payload.cache_dtype else "1"}
+    if trace_hdr:
+        headers[TRACE_HEADER] = trace_hdr
+    if deadline_s is not None:
+        headers[DEADLINE_HEADER] = str(int(max(deadline_s, 0.0) * 1e3))
+    path = "/v1/handoff" + ("?chat=1" if chat else "")
+    try:
+        conn.request("POST", path, body=payload.to_wire(), headers=headers)
+        if conn.sock is not None:
+            conn.sock.settimeout(ack_s)     # the ack-hold budget
+        resp = conn.getresponse()
+    except (OSError, http.client.HTTPException) as exc:
+        conn.close()
+        raise OSError(f"handoff POST to {decode_url} failed: {exc}") from exc
+    if resp.status != 200:
+        body = resp.read()
+        conn.close()
+        raise OSError(
+            f"handoff to {decode_url} rejected: HTTP {resp.status} "
+            f"{body[:200]!r}")
+    if conn.sock is not None:
+        # Acked: the token relay may idle between decode rounds — back to
+        # the request-wide budget.
+        conn.sock.settimeout(timeout)
+    return conn, resp
+
+
+def open_handoff_with_retry(engine, candidates: list, payload, *,
+                            chat: bool, qos: str, trace_fn,
+                            deadline_s: Optional[float], timeout: float):
+    """Try ``candidates`` in order under the handoff retry policy, each
+    attempt a DIFFERENT decode replica. Returns ``(url, conn, resp)`` on the
+    first ack; raises the last OSError once every candidate (or the attempt
+    budget) is spent — the caller then fails the handoff and recomputes
+    locally (a request is never dropped)."""
+    policy = handoff_policy()
+    policy = dataclasses.replace(policy, attempts=max(
+        1, min(policy.attempts, len(candidates))))
+
+    def attempt(i: int):
+        url = candidates[i]
+        conn, resp = open_handoff(url, payload, chat=chat, qos=qos,
+                                  trace_hdr=trace_fn(), deadline_s=deadline_s,
+                                  timeout=timeout)
+        return url, conn, resp
+
+    def on_retry(_attempt: int, _exc) -> None:
+        engine.metrics.note_handoff("retried")
+
+    return call_with_retry(attempt, policy=policy, on_retry=on_retry)
+
+
+def iter_sse_data(resp):
+    """Yield the value of every ``data:`` line of an SSE response (the
+    decode replica's token chunks), ending at stream end."""
+    while True:
+        line = resp.readline()
+        if not line:
+            return
+        line = line.strip()
+        if not line.startswith(b"data:"):
+            continue
+        yield line[5:].strip().decode()
 
 
 def _quiet_handle_error(httpd) -> None:
@@ -165,40 +279,134 @@ class ModelServer:
         return out
 
     def submit_text(self, prompt: str, body: dict, *,
-                    deadline_s: Optional[float], qos: str) -> tuple:
-        """Tokenize and submit; returns (request, timeout). The engine-side
-        deadline equals the client budget, so the scheduler reaps the
-        request the moment the client can no longer use the answer."""
+                    deadline_s: Optional[float], qos: str,
+                    decode_url: Optional[str] = None) -> tuple:
+        """Tokenize and submit; returns (request, timeout, tokens). The
+        engine-side deadline equals the client budget, so the scheduler
+        reaps the request the moment the client can no longer use the
+        answer. On a prefill-role engine, a ``decode_url`` makes the
+        request stop at its first token for a handoff; without one it
+        decodes locally."""
         timeout = self.request_timeout(body, deadline_s)
         toks = self.tokenizer.encode(prompt)
+        handoff = (bool(decode_url) if self.engine.role == "prefill"
+                   else None)
         req = self.engine.submit(toks, self.sampling_from(body, self.tokenizer),
                                  deadline=time.monotonic() + timeout,
-                                 trace_parent=get_tracer().current(), qos=qos)
-        return req, timeout
+                                 trace_parent=get_tracer().current(), qos=qos,
+                                 handoff=handoff)
+        return req, timeout, toks
 
     def generate_text(self, prompt: str, body: dict, model: Optional[str],
                       strict: bool = False,
                       deadline_s: Optional[float] = None,
-                      qos: str = QOS_DEFAULT) -> tuple[str, Request]:
-        """Pre-hop → tokenize → engine → detokenize → post-hop: the
-        generation path every non-streaming route shares."""
+                      qos: str = QOS_DEFAULT,
+                      decode_url: Optional[str] = None,
+                      decode_alts: tuple = ()) -> tuple[str, Request]:
+        """Pre-hop → tokenize → engine (→ handoff relay) → detokenize →
+        post-hop: the generation path every non-streaming route shares."""
         if self.transformer is not None:
             prompt = self.transformer(prompt, "pre")
         self.check_model(model, strict=strict)
-        req, timeout = self.submit_text(prompt, body, deadline_s=deadline_s,
-                                        qos=qos)
+        req, timeout, toks = self.submit_text(
+            prompt, body, deadline_s=deadline_s, qos=qos,
+            decode_url=decode_url)
         try:
             out = req.result(timeout=timeout + 1.0)
         except TimeoutError:
             req.cancel()
             raise
-        _raise_for_reaped(req)
-        with get_tracer().span("server.detokenize", tokens=len(out)):
-            text = self.tokenizer.decode(
-                [t for t in out if t != self.tokenizer.eos_id])
+        if req.finish_reason == "handoff":
+            text = self._relay_handoff_text(req, toks, body, decode_url,
+                                            qos=qos, timeout=timeout,
+                                            decode_alts=decode_alts)
+        else:
+            _raise_for_reaped(req)
+            with get_tracer().span("server.detokenize", tokens=len(out)):
+                text = self.tokenizer.decode(
+                    [t for t in out if t != self.tokenizer.eos_id])
         if self.transformer is not None:
             text = self.transformer(text, "post")
         return text, req
+
+    def _relay_handoff_text(self, req: Request, toks: list[int], body: dict,
+                            decode_url: str, *, qos: str, timeout: float,
+                            decode_alts: tuple = ()) -> str:
+        """Non-streaming half of the handoff relay: POST the payload, then
+        join the decode replica's tokens after the locally sampled first
+        token. A failure before the ack tries the next decode replica;
+        when none acks, the request is recomputed locally (a failed
+        handoff costs a prefill, never the request)."""
+        engine, tokenizer = self.engine, self.tokenizer
+        tracer = get_tracer()
+        deadline = time.monotonic() + timeout
+        candidates = [decode_url] + [u for u in decode_alts
+                                     if u and u != decode_url]
+        with tracer.span("engine.handoff", backend=decode_url,
+                         request=req.id) as sp:
+            try:
+                used_url, conn, resp = open_handoff_with_retry(
+                    engine, candidates, req.handoff, chat=False, qos=qos,
+                    trace_fn=lambda: tracer.inject(sp),
+                    deadline_s=timeout, timeout=timeout + 5.0)
+                sp.set_attrs(backend=used_url)
+                if used_url != decode_url:
+                    sp.add_event("connect_failure", backend=decode_url)
+            except OSError as exc:
+                sp.set_attrs(error=str(exc), fallback="recompute")
+                engine.metrics.note_handoff("fallback")
+                engine.fail_handoff(req.id)
+                return self._recompute_locally(req, toks, body, qos=qos,
+                                               timeout=timeout)
+            engine.complete_handoff(req.id)
+            # Collect the raw token ids (the handoff SSE carries them) and
+            # decode the WHOLE sequence once: piecewise decoding would
+            # split multi-byte characters the unified path decodes whole.
+            tokens = list(req.output_tokens)
+            try:
+                try:
+                    for data in iter_sse_data(resp):
+                        if data == "[DONE]":
+                            break
+                        choice = json.loads(data)["choices"][0]
+                        tokens.append(int(choice["token"]))
+                        if time.monotonic() > deadline + 1.0:
+                            raise TimeoutError(
+                                f"handoff relay for {req.id} exceeded "
+                                "its deadline")
+                finally:
+                    conn.close()
+            except (OSError, ValueError, KeyError) as exc:
+                # After the ack the pages are gone: the decode side died
+                # mid-stream, and that is an explicit error.
+                raise RuntimeError(
+                    f"decode replica failed mid-handoff for {req.id}: "
+                    f"{exc}") from exc
+            sp.set_attrs(tokens=len(tokens))
+        return tokenizer.decode([t for t in tokens if t != tokenizer.eos_id])
+
+    def _recompute_locally(self, req: Request, toks: list[int], body: dict,
+                           *, qos: str, timeout: float) -> str:
+        """Handoff failure = recompute: run the request again as a local
+        decode (the prefix index usually makes the second prefill short)."""
+        req2 = self.recompute_request(req, toks, body, qos=qos,
+                                      timeout=timeout)
+        try:
+            out = req2.result(timeout=timeout + 1.0)
+        except TimeoutError:
+            req2.cancel()
+            raise
+        _raise_for_reaped(req2)
+        return self.tokenizer.decode(
+            [t for t in out if t != self.tokenizer.eos_id])
+
+    def recompute_request(self, req: Request, toks: list[int], body: dict,
+                          *, qos: str, timeout: float) -> Request:
+        return self.engine.submit(
+            toks, self.sampling_from(body, self.tokenizer),
+            deadline=time.monotonic() + timeout,
+            trace_parent=get_tracer().current(), qos=qos, handoff=False,
+            request_id=f"{req.id}-recompute")
 
     # -- request plumbing ------------------------------------------------------
 
@@ -447,6 +655,9 @@ def _make_handler(server: ModelServer):
                         "server.request",
                         parent=tracer.extract(self.headers.get(TRACE_HEADER)),
                         path=self.path, server=server.name):
+                    if self.path.split("?", 1)[0] == "/v1/handoff":
+                        # A binary payload: it must not ride the JSON drain.
+                        return self._handoff()
                     # Drain the body first: keep-alive breaks on unread bytes.
                     body = self._body()
                     m = _V1_PREDICT.match(self.path)
@@ -477,12 +688,26 @@ def _make_handler(server: ModelServer):
             finally:
                 server.track(-1)
 
+        def _decode_backend(self) -> Optional[str]:
+            """The decode replica the router picked for this request's KV
+            handoff (absent = decode locally)."""
+            url = self.headers.get(DECODE_BACKEND_HEADER)
+            return url.strip() if url else None
+
+        def _decode_alts(self) -> tuple:
+            """Alternate decode replicas for the handoff's retry (absent =
+            no retry)."""
+            raw = self.headers.get(DECODE_ALTS_HEADER) or ""
+            return tuple(u.strip() for u in raw.split(",") if u.strip())
+
         def _generate_text(self, prompt: str, body: dict,
                            model: Optional[str],
                            strict: bool = False) -> tuple[str, Request]:
             return server.generate_text(prompt, body, model, strict=strict,
                                         deadline_s=self._deadline_s(),
-                                        qos=self._qos(body))
+                                        qos=self._qos(body),
+                                        decode_url=self._decode_backend(),
+                                        decode_alts=self._decode_alts())
 
         def _v1_predict(self, body: dict, model: str) -> None:
             instances = body.get("instances")
@@ -562,16 +787,14 @@ def _make_handler(server: ModelServer):
                              + payload + b"\r\n")
             self.wfile.flush()
 
-        def _completions_stream(self, prompt: str, body: dict, *,
-                                chat: bool, model: Optional[str]) -> None:
-            # The pre-hook applies to the prompt as on the non-streaming
-            # path; the post-hook cannot (output streams piecewise), as in
-            # kserve's non-streaming transformer scope.
-            if server.transformer is not None:
-                prompt = server.transformer(prompt, "pre")
-            req, timeout = server.submit_text(
-                prompt, body, deadline_s=self._deadline_s(),
-                qos=self._qos(body))
+        def _stream_tokens(self, req: Request, *, chat: bool,
+                           model: Optional[str], timeout: float,
+                           with_token_ids: bool = False) -> None:
+            """Send SSE headers and stream one engine request's tokens (the
+            local-decode half of every streaming path: unified, the decode
+            side of a handoff, and the recompute fallback).
+            ``with_token_ids`` adds each raw token id to its chunk: the
+            handoff relay re-decodes the WHOLE sequence from them."""
             tokenizer = server.tokenizer
             self._send_sse_headers()
             try:
@@ -587,15 +810,9 @@ def _make_handler(server: ModelServer):
                         break
                     if tok == tokenizer.eos_id:
                         continue
-                    piece = tokenizer.decode([tok])
-                    if chat:
-                        choice = {"index": 0, "delta": {"content": piece}}
-                    else:
-                        choice = {"index": 0, "text": piece}
-                    self._chunk(json.dumps({
-                        "id": req.id, "object": "chunk",
-                        "model": model or server.name,
-                        "choices": [choice]}))
+                    self._chunk(json.dumps(self._delta(
+                        req, tokenizer.decode([tok]), chat=chat,
+                        model=model, token=tok if with_token_ids else None)))
             except OSError:
                 # Client hung up mid-stream: free the slot now.
                 req.cancel()
@@ -603,5 +820,146 @@ def _make_handler(server: ModelServer):
                 return
             self._chunk("[DONE]")
             self.wfile.write(b"0\r\n\r\n")
+
+        @staticmethod
+        def _delta(req: Request, piece: str, *, chat: bool,
+                   model: Optional[str], token: Optional[int] = None) -> dict:
+            if chat:
+                choice = {"index": 0, "delta": {"content": piece}}
+            else:
+                choice = {"index": 0, "text": piece}
+            if token is not None:
+                choice["token"] = token
+            return {"id": req.id, "object": "chunk",
+                    "model": model or server.name, "choices": [choice]}
+
+        def _completions_stream(self, prompt: str, body: dict, *,
+                                chat: bool, model: Optional[str]) -> None:
+            # The pre-hook applies to the prompt as on the non-streaming
+            # path; the post-hook cannot (output streams piecewise), as in
+            # kserve's non-streaming transformer scope.
+            if server.transformer is not None:
+                prompt = server.transformer(prompt, "pre")
+            decode_url = self._decode_backend()
+            req, timeout, toks = server.submit_text(
+                prompt, body, deadline_s=self._deadline_s(),
+                qos=self._qos(body), decode_url=decode_url)
+            if server.engine.role == "prefill" and decode_url:
+                return self._stream_disaggregated(
+                    req, toks, body, decode_url, chat=chat, model=model,
+                    timeout=timeout, decode_alts=self._decode_alts())
+            self._stream_tokens(req, chat=chat, model=model, timeout=timeout)
+
+        def _stream_disaggregated(self, req: Request, toks: list[int],
+                                  body: dict, decode_url: str, *,
+                                  chat: bool, model: Optional[str],
+                                  timeout: float,
+                                  decode_alts: tuple = ()) -> None:
+            """Streaming handoff relay. The client's SSE response opens only
+            AFTER the decode side acks (or the fallback engages), so a
+            prefill replica that dies mid-handoff has written no response
+            byte, and the client may retry elsewhere."""
+            engine, tokenizer = server.engine, server.tokenizer
+            tracer = get_tracer()
+            if not req.done.wait(timeout + 1.0):
+                req.cancel()
+                return self._json(504, {"error": f"request {req.id} timed "
+                                        "out in prefill"})
+            if req.finish_reason != "handoff":
+                # Finished at the first token (stop/length): nothing to hand
+                # off; stream the one-token answer.
+                if req.finish_reason in ("stop", "length"):
+                    return self._stream_tokens(req, chat=chat, model=model,
+                                               timeout=timeout)
+                _raise_for_reaped(req)
+                raise RuntimeError(
+                    f"request {req.id} ended {req.finish_reason!r}")
+            candidates = [decode_url] + [u for u in decode_alts
+                                         if u and u != decode_url]
+            with tracer.span("engine.handoff", backend=decode_url,
+                             request=req.id) as sp:
+                try:
+                    used_url, conn, resp = open_handoff_with_retry(
+                        engine, candidates, req.handoff, chat=chat,
+                        qos=self._qos(body),
+                        trace_fn=lambda: tracer.inject(sp),
+                        deadline_s=timeout, timeout=timeout + 5.0)
+                    sp.set_attrs(backend=used_url)
+                    if used_url != decode_url:
+                        sp.add_event("connect_failure", backend=decode_url)
+                except OSError as exc:
+                    # No replica acked: recompute locally (failure costs a
+                    # prefill, never the request).
+                    sp.set_attrs(error=str(exc), fallback="recompute")
+                    engine.metrics.note_handoff("fallback")
+                    engine.fail_handoff(req.id)
+                    req2 = server.recompute_request(
+                        req, toks, body, qos=self._qos(body),
+                        timeout=timeout)
+                    return self._stream_tokens(req2, chat=chat, model=model,
+                                               timeout=timeout)
+                engine.complete_handoff(req.id)
+            self._send_sse_headers()
+            try:
+                # The first token was sampled here; its chunk opens the
+                # client stream, then the decode chunks relay verbatim.
+                first = [t for t in req.output_tokens
+                         if t != tokenizer.eos_id]
+                if first:
+                    self._chunk(json.dumps(self._delta(
+                        req, tokenizer.decode(first), chat=chat,
+                        model=model)))
+                done = False
+                try:
+                    for data in iter_sse_data(resp):
+                        self._chunk(data)
+                        if data == "[DONE]":
+                            done = True
+                            break
+                finally:
+                    conn.close()
+                if done:
+                    self.wfile.write(b"0\r\n\r\n")
+                    return
+                # Upstream ended without [DONE]: the decode side died
+                # mid-stream — close, so the client sees an explicit error.
+                self.close_connection = True
+            except OSError:
+                self.close_connection = True
+
+        def _handoff(self) -> None:
+            """The decode side of a handoff: adopt the payload into this
+            engine's pool and stream the SECOND token on as SSE. The 200
+            response line IS the ack: the payload is in this process's
+            memory, so the prefill side's page hold may release. A wire
+            version or cache dtype this pool cannot take is a 409 before
+            any page byte is read."""
+            wire_v = (self.headers.get(HANDOFF_WIRE_HEADER) or "").strip()
+            if wire_v and wire_v not in SUPPORTED_HANDOFF_WIRE:
+                return self._json(409, {
+                    "error": f"handoff wire version {wire_v!r} not "
+                             f"supported (speaks {SUPPORTED_HANDOFF_WIRE})"})
+            dtype = (self.headers.get(HANDOFF_DTYPE_HEADER) or "").strip()
+            want = "int8" if server.engine.kv_quant else "full"
+            if dtype and dtype != want:
+                return self._json(409, {
+                    "error": f"handoff cache-dtype mismatch: payload is "
+                             f"{dtype!r}, this pool stores {want!r}"})
+            n = int(self.headers.get("Content-Length", 0))
+            raw = self.rfile.read(n)
+            chat = "chat=1" in (self.path.split("?", 1) + [""])[1]
+            payload = HandoffPayload.from_wire(raw)
+            deadline_s = self._deadline_s()
+            timeout = deadline_s if deadline_s is not None else 300.0
+            try:
+                req = server.engine.submit_handoff(
+                    payload, deadline=time.monotonic() + timeout,
+                    trace_parent=get_tracer().current())
+            except ValueError as exc:
+                # submit_handoff's own checks (shape, dtype, length) back
+                # up the headers: the same clean reject.
+                return self._json(409, {"error": str(exc)})
+            self._stream_tokens(req, chat=chat, model=None, timeout=timeout,
+                                with_token_ids=True)
 
     return Handler

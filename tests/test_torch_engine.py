@@ -328,18 +328,35 @@ def test_background_loop_streams(params, cfg):
 
 # -- refusals ---------------------------------------------------------------------
 
-# Paged KV and int8 pages are served now (tests/test_torch_paged.py); the
-# host and remote KV tiers behind them are still a later slice.
+# Paged KV, int8 pages, the engine roles and the host KV tier are served
+# now (tests/test_torch_paged.py, test_torch_handoff.py,
+# test_torch_kvtier_host.py); the remote KV tier behind the host tier, and
+# the features below, are still a later slice — also beside a served one.
 @pytest.mark.parametrize("overrides", [
-    {"paged": True, "page_size": 16, "host_kv_pages": 8},
+    {"paged": True, "page_size": 16, "host_kv_pages": 8,
+     "remote_kv_root": "kv-remote"},
     {"quantize": "int8"},
     {"paged": True, "page_size": 16, "kv_cache_dtype": "int8",
      "host_kv_pages": 8, "remote_kv_root": "kv-remote"},
-    {"role": "prefill"}, {"lora": {"max_adapters": 2}},
+    {"role": "decode", "speculative": {"mode": "ngram"}},
+    {"lora": {"max_adapters": 2}},
     {"speculative": {"mode": "ngram"}}])
 def test_later_slice_features_raise(overrides, cfg):
     with pytest.raises(NotImplementedError):
         E.LLMEngine(cfg, _spec(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [
+    {"role": "prefill"}, {"role": "decode"},
+    {"role": "prefill", "paged": True, "page_size": 16},
+    {"paged": True, "page_size": 16, "host_kv_pages": 8}])
+def test_roles_and_the_host_tier_construct(overrides, cfg):
+    eng = E.LLMEngine(cfg, _spec(**overrides), device="cpu")
+    try:
+        assert eng.role == overrides.get("role", "unified")
+        assert eng.kv_pages_host() == 0
+    finally:
+        eng.stop()
 
 
 def test_int8_kv_needs_the_page_pool(cfg):

@@ -36,6 +36,8 @@ SLICE_MODULES = (
     "runtime.bootstrap", "runtime.entrypoints", "runtime.worker_main",
     "serve.storage", "serve.explain", "serve.model_server",
     "loadgen.scenario", "loadgen.runner", "loadgen.report", "loadgen.gate",
+    # the engine-roles and host-tier slice: copies of jax-free JAX modules
+    "serve.handoff", "serve.retry",
 )
 
 _IMPORT_ALL = """

@@ -639,8 +639,11 @@ def test_paged_engine_resolution_and_density(cfg, params, jcfg, jparams):
         _port(cfg, params, max_pages=2)
 
 
+# The host tier is served now (tests/test_torch_kvtier_host.py); the remote
+# tier behind it is not, over a bf16 or an int8 pool.
 @pytest.mark.parametrize("overrides", [
-    {"host_kv_pages": 8}, {"host_kv_pages": 8, "remote_kv_root": "kv"}])
+    {"host_kv_pages": 8, "remote_kv_root": "kv", "kv_cache_dtype": "int8"},
+    {"host_kv_pages": 8, "remote_kv_root": "kv"}])
 def test_host_and_remote_tiers_raise(overrides, cfg):
     with pytest.raises(NotImplementedError):
         E.LLMEngine(cfg, BatchingSpec(**_spec(**overrides)), device="cpu")

@@ -11,6 +11,7 @@ import time
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
@@ -54,6 +55,18 @@ def _post(srv, path, body, headers=None):
     req = urllib.request.Request(
         srv.url + path, data=json.dumps(body).encode(),
         headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _post_raw(srv, path, data: bytes, headers=None):
+    req = urllib.request.Request(
+        srv.url + path, data=data,
+        headers={"Content-Type": "application/octet-stream",
+                 **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=60) as r:
             return r.status, r.read()
@@ -109,9 +122,11 @@ def test_errors_map_to_http_status(server):
     assert _post(server, "/v1/models/other:predict",
                  {"instances": ["x"]})[0] == 404
     assert _post(server, "/v1/models/tiny:predict", {"bad": 1})[0] == 400
-    # Routes of later slices (the KV handoff relay, the model repository)
-    # are 404; :explain on a server without an explainer hop is a 400.
-    assert _post(server, "/v1/handoff", {})[0] == 404
+    # /v1/handoff without a payload (an empty or a JSON body) is a clean
+    # client error, never a 500; the model repository's routes belong to a
+    # later slice (404); :explain without an explainer hop is a 400.
+    assert 400 <= _post_raw(server, "/v1/handoff", b"")[0] < 500
+    assert 400 <= _post(server, "/v1/handoff", {})[0] < 500
     assert _post(server, "/v2/repository/models/tiny/load", {})[0] == 404
     assert _post(server, "/v1/models/tiny:explain",
                  {"instances": ["x"]})[0] == 400
@@ -233,9 +248,10 @@ def test_trace_header_joins_engine_spans(server):
                       {theaders.TRACE_HEADER: f"{trace_id}-{parent}"})
     assert status == 200
     # The handler closes its span after it has written the reply, so the
-    # client may read the reply first: give the close a moment to land.
+    # client may read the reply first: wait for this trace's own spans to
+    # close (other tests' spans in this process are not this test's).
     deadline = time.monotonic() + 10.0
-    while get_tracer().open_spans() and time.monotonic() < deadline:
+    while get_tracer().open_spans(trace_id) and time.monotonic() < deadline:
         time.sleep(0.01)
     spans = get_tracer().trace(trace_id)["spans"]
     names = [s["name"] for s in spans]
@@ -247,4 +263,175 @@ def test_trace_header_joins_engine_spans(server):
     engine_parents = {s["parent_id"] for s in spans
                       if s["name"].startswith("engine.")}
     assert engine_parents == {request["span_id"]}
-    assert get_tracer().open_spans() == 0
+    assert get_tracer().open_spans(trace_id) == 0
+
+
+# -- disaggregated serving: a prefill server relaying to a decode server -------
+
+PAGED = dict(SPEC, paged=True, page_size=16, chunked_prefill_tokens=32)
+PROMPT_BODY = {"prompt": "a prompt the prefill replica hands off", "max_tokens": 8}
+
+
+def _paged_server(role="unified", **kw):
+    srv = ModelServer("tiny", LLMEngine(
+        preset("tiny", vocab_size=512, dtype="float32"),
+        BatchingSpec(**PAGED, role=role, **kw), device="cpu"))
+    srv.start()
+    return srv
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """A unified, a prefill and a decode server on the same weights."""
+    servers = {role: _paged_server(role)
+               for role in ("unified", "prefill", "decode")}
+    yield servers
+    for srv in servers.values():
+        srv.stop()
+
+
+def _text(raw: bytes, stream: bool) -> str:
+    if not stream:
+        return json.loads(raw)["choices"][0]["text"]
+    events = [ln[len("data: "):] for ln in raw.decode().split("\n")
+              if ln.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    return "".join(json.loads(e)["choices"][0]["text"] for e in events[:-1])
+
+
+def _dead_url() -> str:
+    """The URL of a decode server that has stopped."""
+    srv = _paged_server("decode")
+    srv.stop()
+    return srv.url
+
+
+def _drained(srv) -> None:
+    deadline = time.monotonic() + 30
+    while (srv.engine.kv_pages_in_use() or srv.engine._handoff_holds) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    srv.engine._allocator.assert_quiescent()
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["json", "sse"])
+def test_prefill_server_relays_to_the_decode_server(pair, stream):
+    """A prefill-role server given the decode server's URL returns the
+    unified server's text; the prefill side exported, the decode side
+    adopted, and no page stays held on either."""
+    body = {**PROMPT_BODY, "stream": stream}
+    status, raw = _post(pair["unified"], "/v1/completions", body)
+    assert status == 200
+    want = _text(raw, stream)
+    pre, dec = pair["prefill"], pair["decode"]
+    out0 = pre.engine.metrics.snapshot()["handoffs_exported"]
+    in0 = dec.engine.metrics.snapshot()["handoffs_adopted"]
+    status, raw = _post(pre, "/v1/completions", body,
+                        {theaders.DECODE_BACKEND_HEADER: dec.url})
+    assert status == 200
+    assert _text(raw, stream) == want
+    assert pre.engine.metrics.snapshot()["handoffs_exported"] == out0 + 1
+    assert dec.engine.metrics.snapshot()["handoffs_adopted"] == in0 + 1
+    # Without the header a prefill replica decodes locally.
+    status, raw = _post(pre, "/v1/completions", body)
+    assert status == 200 and _text(raw, stream) == want
+    assert pre.engine.metrics.snapshot()["handoffs_exported"] == out0 + 1
+    _drained(pre)
+    _drained(dec)
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["json", "sse"])
+def test_prefill_server_falls_back_when_the_decode_server_is_gone(stream):
+    uni, pre = _paged_server(), _paged_server("prefill")
+    try:
+        body = {**PROMPT_BODY, "stream": stream}
+        want = _text(_post(uni, "/v1/completions", body)[1], stream)
+        status, raw = _post(pre, "/v1/completions", body,
+                            {theaders.DECODE_BACKEND_HEADER: _dead_url()})
+        assert status == 200
+        assert _text(raw, stream) == want
+        snap = pre.engine.metrics.snapshot()
+        assert snap["handoffs_fallback"] == 1
+        assert snap["handoffs_failed"] == 1
+        assert _series(pre, "kftpu_engine_handoffs_fallback_total") == 1
+        _drained(pre)
+    finally:
+        uni.stop()
+        pre.stop()
+
+
+def test_prefill_server_tries_the_alternate_decode_server(pair):
+    pre, dec = pair["prefill"], pair["decode"]
+    want = _text(_post(pair["unified"], "/v1/completions", PROMPT_BODY)[1],
+                 False)
+    before = pre.engine.metrics.snapshot()
+    status, raw = _post(pre, "/v1/completions", PROMPT_BODY, {
+        theaders.DECODE_BACKEND_HEADER: _dead_url(),
+        theaders.DECODE_ALTS_HEADER: dec.url})
+    assert status == 200 and _text(raw, False) == want
+    snap = pre.engine.metrics.snapshot()
+    assert snap["handoffs_retried"] == before["handoffs_retried"] + 1
+    assert snap["handoffs_fallback"] == before["handoffs_fallback"]
+    assert snap["handoffs_exported"] == before["handoffs_exported"] + 1
+    assert _series(pre, "kftpu_engine_handoffs_retried_total") >= 1
+    _drained(pre)
+
+
+def test_handoff_route_refuses_foreign_wire_and_cache_dtype(pair):
+    """409 before any page byte is read: a wire version the server does
+    not speak, a cache dtype its pool does not store (header), and the
+    same mismatch in the payload itself (no headers)."""
+    from kubeflow_tpu_torch.serve.handoff import HandoffPayload
+
+    cfg = pair["decode"].engine.cfg
+    kv = np.zeros((cfg.n_layers, 3, cfg.n_kv_heads, cfg.head_dim), np.int8)
+    sc = np.ones(kv.shape[:-1], np.float32)
+    int8_payload = HandoffPayload(
+        request_id="h", prompt_tokens=[5, 6, 7], first_token=8,
+        max_new_tokens=3, temperature=0.0, top_k=0, top_p=1.0,
+        stop_token=None, qos="standard", kv_k=kv, kv_v=kv,
+        kv_scale_k=sc, kv_scale_v=sc).to_wire()
+    dec = pair["decode"]
+    status, raw = _post_raw(dec, "/v1/handoff", int8_payload,
+                            {theaders.HANDOFF_WIRE_HEADER: "3"})
+    assert status == 409 and b"wire version" in raw
+    status, raw = _post_raw(dec, "/v1/handoff", int8_payload,
+                            {theaders.HANDOFF_DTYPE_HEADER: "int8",
+                             theaders.HANDOFF_WIRE_HEADER: "2"})
+    assert status == 409 and b"cache-dtype" in raw
+    status, raw = _post_raw(dec, "/v1/handoff", int8_payload)
+    assert status == 409 and b"cache-dtype" in raw
+    assert dec.engine.queue_depth() == 0
+
+
+def test_handoff_keeps_one_trace(pair):
+    """The prefill server's request, its engine spans, the engine.handoff
+    span, and the decode server's adopted queued → decode spans share the
+    trace of the caller's header."""
+    from kubeflow_tpu_torch.obs.trace import get_tracer
+
+    pre, dec = pair["prefill"], pair["decode"]
+    trace_id, parent = "ef" * 16, "12" * 8
+    status, _ = _post(pre, "/v1/completions", PROMPT_BODY, {
+        theaders.TRACE_HEADER: f"{trace_id}-{parent}",
+        theaders.DECODE_BACKEND_HEADER: dec.url})
+    assert status == 200
+    deadline = time.monotonic() + 10.0
+    while get_tracer().open_spans(trace_id) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert get_tracer().open_spans(trace_id) == 0
+    spans = get_tracer().trace(trace_id)["spans"]
+    names = [s["name"] for s in spans]
+    assert names.count("server.request") == 2, names
+    assert names.count("engine.queued") == 2, names
+    for name in ("engine.prefill", "engine.handoff", "engine.decode"):
+        assert names.count(name) == 1, names
+    handoff = next(s for s in spans if s["name"] == "engine.handoff")
+    assert handoff["attrs"]["backend"] == dec.url
+    decode = next(s for s in spans if s["name"] == "engine.decode")
+    assert decode["attrs"]["adopted"] is True
+    # The decode server's request span hangs off the handoff span.
+    remote = next(s for s in spans if s["name"] == "server.request"
+                  and s["parent_id"] == handoff["span_id"])
+    assert remote["attrs"]["path"] == "/v1/handoff"
+    _drained(pre)
