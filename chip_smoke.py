@@ -12,7 +12,7 @@ with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
 edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
 edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
-then (e), without the kernel rows. Every phase prints its seconds.
+then (e) and (f), without the kernel rows. Every phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -144,7 +144,32 @@ Phases, each a hard failure:
    no failed or fallback handoff, no page resident after, its report
    beside (c)'s unified one; with the decode worker stopped, a prompt
    must still give its tokens by recompute and the fallback counter read
-   1; both workers end with 143 on SIGTERM.
+   1; both workers end with 143 on SIGTERM;
+10. (f) the fleet's failure path, on a fresh 32-layer paged engine (the
+   serving seed) and a store root in a temporary directory, removed at the
+   end: an engine with the host and remote KV tiers (16 host pages, 0.5 s
+   to demote and 0.5 s more to spill, a 2 s store deadline) serves a
+   700-token turn and spills its five full pages into the artifact store
+   while idle, each blob decoding to the page's bytes read before
+   demotion; a second engine on the same root serves turn 2 (turn 1, its
+   output and 16 tokens) with the greedy tokens of a cold engine without
+   the tier, its registry hits and remote promotions at least 5 and a
+   prefix hit, the paged-decode kernel running on the promoted pages; a
+   ``ChaosStore`` with one truncated read counts a corrupt blob and a
+   wedged one a promote timeout, both with the same tokens, the wedged
+   turn's first token within the deadline plus a cold prefill; bf16 pages,
+   then int8; spill seconds per page, the promote's probe, read + hash and
+   upload seconds, wire bytes per page and turn 2's TTFT from the store
+   against the cold one are printed with the card. Then, with the engines
+   freed, two ``model_server`` workers with the tier on one shared root
+   behind a port ``Router`` in this process: turn 1 through the router,
+   the worker holding it SIGKILLed once five pages are in the store, turn 2
+   through the router answered 200 by the survivor from the store
+   (promoted bytes > 0, a prefix hit) with the tokens of the same path in
+   process (one engine spills turn 1, a fresh one serves turn 2 from the
+   store; a cold engine's and a copy-on-write engine's printed), 8 more
+   requests with explicit statuses, at least 4 ok, the dead worker
+   ejected, and the survivor's SIGTERM giving 143.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -162,6 +187,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -3070,6 +3096,390 @@ def phase_disaggregated(want: list[list[int]], unified: dict,
     phase_worker_pair(want, unified, card)
 
 
+# -- (f) the fleet's failure path: the remote KV tier, the router, chaos -----
+
+#: The remote tier's engines: PAGED_SPEC with 16 host pages, 0.5 s to
+#: demote and 0.5 s more to spill, and an explicit store deadline. The
+#: default deadline (0.5 s, the JAX package's, left as it is) bounds all of
+#: one match's probes and reads; one bf16 page blob of Llama-3-8B holds
+#: 16,777,216 B of KV, so a 700-token turn reads and hashes ~84 MB inside
+#: it. 2 s leaves a loaded host room, so the phase measures the promote
+#: instead of cutting it; the printed promote time says whether 0.5 s would
+#: have.
+FLEET_TIER = dict(host_kv_pages=16, kv_demote_after_s=0.5,
+                  kv_remote_after_s=0.5, kv_remote_deadline_s=2.0)
+#: (f)1's conversation: turn 1 (700 tokens: five full 128-token pages and a
+#: partial one), then turn 1 + its output + 16 new tokens.
+FLEET_TURNS = ((700, 81), (17, 82))
+#: (f)2's conversation over HTTP: turn 2 is turn 1's text and 16 more
+#: characters (``TokenIdText`` encodes bytes, so the random model's output
+#: ids cannot ride in a prompt; the five stored pages are the same prefix).
+FLEET_HTTP_TURNS = ((700, 91), (17, 92))
+#: A wedged store may cost at most the deadline plus a cold prefill, and
+#: this much more for the scheduler step around the match.
+WEDGE_SLACK_S = 0.5
+EXPLICIT_STATUSES = {200, 429, 500, 502, 503, 504}
+
+
+def _host_timed(obj, name: str, sink: list) -> None:
+    """Wrap ``obj.name`` to append its host seconds to ``sink`` (no device
+    sync: the store's work is host work, some of it on the migration
+    thread)."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            sink.append(time.perf_counter() - t0)
+
+    setattr(obj, name, run)
+
+
+def _wait_spilled(eng, pages: int, label: str) -> float:
+    """Step the idle engine until ``pages`` pages are in the store and no
+    spill is in flight; returns the seconds it took."""
+    t0 = time.perf_counter()
+    while eng.kv_tier_stats()["pages_demoted_remote"] < pages:
+        eng.step()
+        time.sleep(0.02)
+        if time.perf_counter() - t0 > 60:
+            fail(f"{label}: not {pages} pages spilled after 60 s: "
+                 f"{eng.kv_tier_stats()}")
+    eng._kvtier.drain_migrations(60.0)
+    return time.perf_counter() - t0
+
+
+def _first_difference(a: list, b: list) -> str:
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             None if len(a) == len(b) else min(len(a), len(b)))
+    return "equal" if i is None else f"first different at token {i}"
+
+
+def _blobs_equal_planes(nodes: dict, before: dict, store) -> int:
+    """Every node of ``nodes`` (old page -> node) that reached the store:
+    its blob must decode to the planes read before demotion. Returns how
+    many were checked."""
+    from kubeflow_tpu_torch.serve.handoff import pages_from_wire, to_torch
+    from kubeflow_tpu_torch.serve.kvtier import TIER_REMOTE
+
+    checked = 0
+    for j, node in enumerate(nodes.values()):
+        if node.tier != TIER_REMOTE:
+            continue
+        planes = pages_from_wire(store.get_bytes(node.blob))
+        for name, arr in zip(("k", "v", "ks", "vs"), planes):
+            if name not in before:
+                continue
+            if arr is None or not torch.equal(to_torch(arr),
+                                              before[name][:, j].cpu()):
+                fail(f"store blob {node.blob}: plane {name} differs from "
+                     "the page read before demotion")
+        checked += 1
+    return checked
+
+
+def fleet_in_process(uni, root: str, card: str) -> int:
+    """(f)1. Engine A (``FLEET_TIER`` on ``root``) serves a 700-token turn,
+    demotes and spills it while idle: five full pages reach the store (the
+    partial page stays on the host), each blob decoding to the page's bytes
+    read before demotion. A closes; engine B on the same weights and root
+    serves turn 2, whose greedy tokens must equal a cold engine's without
+    the tier, adopting the prefix from the store (registry hits, remote
+    promotions >= 5, a prefix hit) with the paged-decode kernel running on
+    the promoted pages. Then a ``ChaosStore`` under a fresh engine: one
+    truncated read counts a corrupt blob, a wedged store a promote timeout,
+    both with the same tokens, the wedged turn's TTFT within the deadline
+    plus a cold prefill. bf16 pages, then int8. Returns the paged-decode
+    launches on promoted pages."""
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+    from kubeflow_tpu_torch.pipelines.artifacts import ArtifactStore
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+    from kubeflow_tpu_torch.serve.faults import ChaosStore
+
+    tok = TokenIdText()
+    params = SamplingParams(max_new_tokens=16, temperature=0.0,
+                            stop_token=tok.eos_id)
+    turn1 = tok.encode(text(*FLEET_TURNS[0]))
+    store = ArtifactStore(root)
+    deadline_s = FLEET_TIER["kv_remote_deadline_s"]
+    total = 0
+    for quant in (None, "int8"):
+        label = "fleet " + ("int8" if quant else "bf16")
+
+        def tiered():
+            return paged_engine(uni, kv_cache_dtype=quant,
+                                remote_kv_root=root, **FLEET_TIER)
+
+        a = tiered()
+        spills: list = []
+        _host_timed(a._kvtier, "_remote_publish", spills)
+        out1 = _drive(a, a.submit(turn1, params)).output_tokens
+        torch.cuda.synchronize()
+        nodes = {p: a._kvtier._by_page[p]
+                 for p in a._allocator.reclaimable_lru()}
+        before = _planes(a, list(nodes))
+        t_spill = _wait_spilled(a, 5, label)
+        st_a = a.kv_tier_stats()
+        checked = _blobs_equal_planes(nodes, before, store)
+        if checked < 5:
+            fail(f"{label}: {checked} of {len(nodes)} pages in the store")
+        wire = st_a["remote_demote_bytes"] / st_a["pages_demoted_remote"]
+        _settle(a, label + " (engine A)")
+        a.stop()
+        del a, before
+        torch.cuda.empty_cache()
+
+        turn2 = turn1 + out1 + tok.encode(text(*FLEET_TURNS[1]))[1:]
+        base = paged_engine(uni, kv_cache_dtype=quant)
+        cold = _drive(base, base.submit(turn2, params))
+        want = cold.output_tokens
+        _settle(base, label + " (without the tier)")
+        del base
+
+        b = tiered()
+        probe, fetch, upload = [], [], []
+        _host_timed(b._kvtier, "_probe_remote_child", probe)
+        _host_timed(b._kvtier, "_fetch_remote_blob", fetch)
+        _timed(b._kvtier, "_upload_pages", upload)
+        paged_decode_attention.launches = 0
+        hot = _drive(b, b.submit(turn2, params))
+        launches = paged_decode_attention.launches
+        st_b = b.kv_tier_stats()
+        print(f"{label}: turn 1 {len(turn1)} tokens, {checked} pages spilled "
+              f"to the store in {t_spill:.3f} s after the turn (idle timers "
+              f"{FLEET_TIER['kv_demote_after_s']} + "
+              f"{FLEET_TIER['kv_remote_after_s']} s included), each blob "
+              f"equal to its page's bytes; spill {sum(spills) / len(spills):.4f}"
+              f" s per page (put + sha256 + register; the migration thread "
+              f"is busy {sum(spills):.3f} s, which a demotion batch queued "
+              f"behind the spill waits), {wire:.0f} wire bytes per page; "
+              f"turn 2 ({len(turn2)} tokens) promoted "
+              f"{st_b['pages_promoted_remote']} pages "
+              f"({st_b['remote_promote_bytes']} bytes): probe "
+              f"{sum(probe):.4f} s, read + sha256 {sum(fetch):.4f} s, upload "
+              f"{sum(upload):.4f} s (deadline {deadline_s} s; the 0.5 s "
+              f"default {'holds' if sum(probe) + sum(fetch) < 0.5 else 'would cut it'}"
+              f"); TTFT {hot.ttft:.4f} s from the store against "
+              f"{cold.ttft:.4f} s cold without the tier; tokens "
+              f"{'identical to' if hot.output_tokens == want else 'differ from'}"
+              f" the cold engine's; registry hits "
+              f"{st_b['remote_registry_hits']}, prefix hits "
+              f"{st_b['prefix_hits']}; paged_decode launches on promoted "
+              f"pages {launches}; {card}", flush=True)
+        if hot.output_tokens != want:
+            fail(f"{label}: turn 2 tokens {hot.output_tokens} differ from "
+                 f"{want}")
+        if st_b["remote_registry_hits"] < 5 or \
+                st_b["pages_promoted_remote"] < 5 or st_b["prefix_hits"] < 1 \
+                or launches <= 0:
+            fail(f"{label}: store hit counters {st_b}, decode launches "
+                 f"{launches}")
+        total += launches
+        _settle(b, label + " (engine B)")
+        b.stop()
+        del b
+
+        for fault, counter in (("truncate", "remote_blobs_corrupt"),
+                               ("wedge", "remote_promote_timeouts")):
+            c = tiered()
+            chaos = ChaosStore(c._kvtier._remote_store)
+            c._kvtier._remote_store = chaos
+            if fault == "truncate":
+                chaos.truncate_next(1)
+            else:
+                chaos.wedge_promote()
+            try:
+                r = _drive(c, c.submit(turn2, params))
+            finally:
+                chaos.unwedge()
+                chaos.truncate_next(0)
+            st_c = c.kv_tier_stats()
+            print(f"{label} chaos {fault}: {counter} {st_c[counter]}, "
+                  f"chaos {json.dumps(chaos.stats)}, TTFT {r.ttft:.4f} s, "
+                  f"tokens {'identical to' if r.output_tokens == want else 'differ from'}"
+                  f" the cold engine's", flush=True)
+            if st_c[counter] < 1 or r.output_tokens != want:
+                fail(f"{label} chaos {fault}: {counter} {st_c[counter]}, "
+                     f"tokens {r.output_tokens} against {want}")
+            if fault == "wedge" and \
+                    r.ttft > deadline_s + cold.ttft + WEDGE_SLACK_S:
+                fail(f"{label}: the wedged turn's TTFT {r.ttft:.3f} s is over "
+                     f"the deadline {deadline_s} s + the cold prefill "
+                     f"{cold.ttft:.3f} s + {WEDGE_SLACK_S} s")
+            _settle(c, f"{label} chaos {fault}")
+            c.stop()
+            del c
+        torch.cuda.empty_cache()
+    return total
+
+
+def _ask(url: str, prompt: str, timeout: float = 600.0):
+    """(status, token ids) of one completion; a connection-level failure is
+    the explicit 502."""
+    try:
+        status, raw = _post(url + "/v1/completions",
+                            {"prompt": prompt, "max_tokens": 16},
+                            timeout=timeout)
+    except urllib.error.HTTPError as exc:
+        exc.read()
+        return exc.code, None
+    except OSError:
+        return 502, None
+    return status, [int(t) for t in
+                    json.loads(raw)["choices"][0]["text"].split()]
+
+
+def fleet_workers(want: list[list[int]], root: str, card: str) -> None:
+    """(f)2. Two ``model_server`` workers (unified, page pool,
+    ``FLEET_TIER`` on one shared ``root``) behind a port ``Router`` in this
+    process. Turn 1 through the router; the home worker (the one whose
+    ``kftpu_engine_kv_pages_remote`` reaches 5) is SIGKILLed; turn 2
+    through the router must answer 200 with ``want[1]``, served by the
+    survivor from the store (promoted bytes > 0, a prefix hit). Then 8
+    requests: every status explicit, at least 4 ok, the dead backend
+    ejected. SIGTERM ends the survivor with 143."""
+    from kubeflow_tpu_torch.serve.router import Router
+
+    batching = dict(PAGED_SPEC, remote_kv_root=root, **FLEET_TIER)
+    t0 = time.perf_counter()
+    workers = [spawn_worker(batching, f"fleet-worker-{i}") for i in (0, 1)]
+    router = Router(queue_timeout=30.0, eject_threshold=2, eject_period=60.0,
+                    max_retries=2, upstream_timeout=600.0)
+    ok = False
+    try:
+        for i, (proc, url, _log) in enumerate(workers):
+            wait_ready(proc, url, f"fleet worker {i}", t0)
+        urls = [url for _, url, _ in workers]
+        router.set_backends({"latest": urls})
+        router.start()
+        print(f"fleet workers ready in {time.perf_counter() - t0:.1f} s "
+              f"behind the router at {router.url}", flush=True)
+        turn1 = text(*FLEET_HTTP_TURNS[0])
+        st, got = _ask(router.url, turn1)
+        if st != 200 or got != want[0]:
+            fail(f"fleet turn 1: status {st}, tokens {got} against {want[0]}")
+        t1 = time.perf_counter()
+        while True:
+            remote = [_series(u, "kftpu_engine_kv_pages_remote") for u in urls]
+            if max(remote) >= 5:
+                break
+            if time.perf_counter() - t1 > 60:
+                fail(f"fleet: no worker spilled five pages in 60 s: {remote}")
+            time.sleep(0.2)
+        home = remote.index(max(remote))
+        hproc, hurl, _ = workers[home]
+        surv_url = urls[1 - home]
+        t_spill = time.perf_counter() - t1
+        hproc.kill()
+        rc = hproc.wait(timeout=60)
+        print(f"fleet: worker {home} held the conversation ({remote[home]:.0f}"
+              f" pages in the store {t_spill:.2f} s after turn 1); SIGKILL ->"
+              f" exit code {rc}", flush=True)
+        turn2 = turn1 + text(*FLEET_HTTP_TURNS[1])
+        t2 = time.perf_counter()
+        st, got = _ask(router.url, turn2)
+        t_turn2 = time.perf_counter() - t2
+        promoted = _series(surv_url, "kftpu_engine_kv_remote_promoted_bytes_total")
+        hits = _series(surv_url, "kftpu_engine_kv_prefix_hits_total")
+        print(f"fleet turn 2 through the router: status {st}, tokens "
+              f"{'identical to' if got == want[1] else 'differ from'} the "
+              f"in-process engine's, {t_turn2:.3f} s; the survivor promoted "
+              f"{promoted:.0f} bytes from the store, prefix hits {hits:.0f}; "
+              f"router {json.dumps(router.snapshot())}; {card}", flush=True)
+        if st != 200 or got != want[1]:
+            fail(f"fleet turn 2: status {st}, tokens {got} against {want[1]}")
+        if promoted <= 0 or hits < 1:
+            fail(f"fleet: the survivor did not adopt from the store "
+                 f"(promoted bytes {promoted}, prefix hits {hits})")
+        statuses = [_ask(router.url, text(60, 100 + i))[0] for i in range(8)]
+        snap = router.snapshot()
+        print(f"fleet: 8 requests after the kill {statuses}; router "
+              f"{json.dumps(snap)}", flush=True)
+        if not set(statuses) <= EXPLICIT_STATUSES or \
+                statuses.count(200) < 4:
+            fail(f"fleet: statuses {statuses}")
+        if snap["ejections"] < 1 or snap["ejected"] < 1:
+            fail(f"fleet: the dead worker was not ejected: {snap}")
+        sproc, _, _ = workers[1 - home]
+        sigterm_worker(sproc, surv_url, "fleet survivor")
+        ok = True
+    finally:
+        router.stop()
+        for i, (proc, _url, log) in enumerate(workers):
+            # The SIGKILLed worker's log is dropped like a clean one's.
+            reap_worker(proc, log, f"fleet worker {i}", ok)
+
+
+def phase_fleet(card: str) -> None:
+    """(f): the remote KV tier in process on a fresh 32-layer engine (the
+    serving seed), bf16 and int8 pages, then — with that engine freed —
+    two worker processes behind the router, one SIGKILLed. The store roots
+    are a temporary directory, removed at the end."""
+    import tempfile
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_kv_store_")
+    try:
+        uni = LLMEngine(preset("llama3-8b"), BatchingSpec(**PAGED_SPEC),
+                        seed=SEED, device="cuda")
+        promoted = fleet_in_process(uni, os.path.join(root, "engines"), card)
+        # (f)2's reference: the survivor's path in process on its own
+        # store root — one engine serves turn 1 and spills it, a fresh one
+        # serves turn 2 from the store (five full pages adopted, the rest
+        # prefilled). Greedy bf16 tokens of a random-weight model follow
+        # the prefill's chunk boundaries, so a cold engine (chunks from 0)
+        # and one that saw turn 1 (a copy-on-write tail) may pick others:
+        # both are printed beside it, not held. Tokens equal to this
+        # reference show the survivor adopted the stored KV; a recompute
+        # would give the cold engine's.
+        tok = TokenIdText()
+        params = SamplingParams(max_new_tokens=16, temperature=0.0,
+                                stop_token=tok.eos_id)
+        turns = [text(*FLEET_HTTP_TURNS[0])]
+        turns.append(turns[0] + text(*FLEET_HTTP_TURNS[1]))
+
+        def greedy(eng, prompt):
+            return [t for t in eng.generate(tok.encode(prompt), params)
+                    if t != tok.eos_id]
+
+        ref_root = os.path.join(root, "reference")
+        home = paged_engine(uni, remote_kv_root=ref_root, **FLEET_TIER)
+        want = [greedy(home, turns[0])]
+        _wait_spilled(home, 5, "fleet reference")
+        home.stop()
+        survivor = paged_engine(uni, remote_kv_root=ref_root, **FLEET_TIER)
+        want.append(greedy(survivor, turns[1]))
+        if survivor.kv_tier_stats()["pages_promoted_remote"] < 5:
+            fail(f"fleet reference: turn 2 missed the store: "
+                 f"{survivor.kv_tier_stats()}")
+        survivor.stop()
+        cold = paged_engine(uni, enable_prefix_caching=False)
+        warm = paged_engine(uni)
+        cow = [greedy(warm, p) for p in turns][1]
+        print(f"fleet reference turn 2 from the store against a cold "
+              f"engine: {_first_difference(want[1], greedy(cold, turns[1]))};"
+              f" against an engine that saw turn 1 (copy-on-write tail of "
+              f"{warm.kv_tier_stats()['tokens_cow']} tokens): "
+              f"{_first_difference(want[1], cow)}; {card}", flush=True)
+        del home, survivor, cold, warm, uni
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"fleet: paged_decode launches on pages promoted from the "
+              f"store {promoted}; in-process engines freed, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
+        fleet_workers(want, os.path.join(root, "workers"), card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
 TRAIN_DATA = dict(seq_len=2048, global_batch=2)
 
@@ -3512,6 +3922,7 @@ def main() -> int:
     if sys.argv[1:] == ["--serve-only"]:
         want, mixed = serve_phases([], card, full=False)
         timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
+        timed_phase("fleet", phase_fleet, card)
         print(f"chip_smoke: serve-only phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
@@ -3553,6 +3964,7 @@ def main() -> int:
     timed_phase("train profile auto", phase_train_profile, "auto")
     timed_phase("train profile off", phase_train_profile, "off")
     timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
+    timed_phase("fleet", phase_fleet, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

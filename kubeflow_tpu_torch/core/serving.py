@@ -3,9 +3,9 @@
 plus the QoS class table. (The JAX package's spec is a pydantic model; the
 port keeps to the standard library.)
 
-Fields for features a later slice brings (the remote KV tier, weight
-quantization, LoRA, speculative decoding) are kept so a config that sets
-them fails loudly at engine construction instead of being ignored.
+Fields for features a later slice brings (weight quantization, LoRA,
+speculative decoding) are kept so a config that sets them fails loudly at
+engine construction instead of being ignored.
 """
 
 from __future__ import annotations
@@ -94,7 +94,12 @@ class BatchingSpec:
     # migration batch moves at most kv_migrate_batch_pages pages.
     kv_demote_after_s: float = 2.0
     kv_migrate_batch_pages: int = 32
-    # Remote-store third tier (a later slice: the engine refuses it).
+    # Remote-store third tier (radix index with a host tier): host blobs
+    # idle past kv_remote_after_s (default 2 x kv_demote_after_s) spill into
+    # the artifact store at remote_kv_root (or $KFTPU_KV_REMOTE_ROOT), and
+    # a radix miss on any replica probes it, every match's store work
+    # bounded by kv_remote_deadline_s (default $KFTPU_KV_REMOTE_DEADLINE_S,
+    # else 0.5 s).
     remote_kv_root: Optional[str] = None
     kv_remote_after_s: Optional[float] = None
     kv_remote_deadline_s: Optional[float] = None

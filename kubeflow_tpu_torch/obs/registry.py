@@ -1,5 +1,7 @@
 """Prometheus-exposition metrics registry (a copy of
-``kubeflow_tpu/obs/registry.py`` without the runtime contract auditor).
+``kubeflow_tpu/obs/registry.py`` without the runtime contract auditor:
+``contract_note_series`` and ``contract_note_header`` keep the JAX call
+sites and record nothing).
 
 One Counter/Gauge/Histogram implementation and one ``render()`` path: label
 escaping, histogram rendering (cumulative ``_bucket`` series with the
@@ -17,6 +19,19 @@ from typing import Any, Iterable, Optional
 
 METRIC_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 LABEL_NAME_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def contract_note_series(name: str, direction: str = "produced") -> None:
+    """Where the JAX package records one metric-series exchange with its
+    contract auditor (``KFTPU_SANITIZE=contract``). The port has no
+    auditor (``runtime/sanitize.py`` parses the mode only), so this
+    records nothing."""
+
+
+def contract_note_header(name: str, direction: str) -> None:
+    """Where the JAX package records one ``X-Kftpu-*`` header exchange
+    (``set``/``read``) with its contract auditor; records nothing in the
+    port (see ``contract_note_series``)."""
 
 
 def escape_label_value(value: Any) -> str:

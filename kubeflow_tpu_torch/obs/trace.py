@@ -1,8 +1,9 @@
 """Request tracing: one trace id from the model server to the decode step
-(the surface of ``kubeflow_tpu/obs/trace.py`` the port's engine and server
-use, copied: spans, cross-thread parents, header propagation and a bounded
-ring of recent traces, and the per-phase rollup ``phase_durations`` the
-loadgen's reports read).
+(the surface of ``kubeflow_tpu/obs/trace.py`` the port's engine, server and
+router use, copied: spans, cross-thread parents, header propagation, a
+bounded ring of recent traces with its read surfaces — ``traces``, the
+Chrome trace-event export and the shared ``/debug/traces`` payload — and
+the per-phase rollup ``phase_durations`` the loadgen's reports read).
 
 The server joins the ``X-Kftpu-Trace`` header and spans the request; the
 engine scheduler spans each request's queued → prefill → decode lifecycle
@@ -200,6 +201,28 @@ class Tracer:
             rec = self._traces.get(trace_id)
             return 0 if rec is None else rec["open"]
 
+    def traces(self, slowest: Optional[int] = None,
+               limit: int = 64) -> list[dict]:
+        """Recent traces, newest first (or the N slowest by root duration
+        when ``slowest`` is given). Each entry: trace_id, root span and the
+        full span list."""
+        with self._lock:
+            items = [
+                {"trace_id": tid,
+                 "root": rec["root"],
+                 "spans": list(rec["spans"])}
+                for tid, rec in self._traces.items()
+            ]
+        items.reverse()
+        if slowest is not None:
+            items = [t for t in items if t["root"] is not None]
+            items.sort(key=lambda t: t["root"]["duration_ms"] or 0.0,
+                       reverse=True)
+            items = items[:max(slowest, 0)]
+        else:
+            items = items[:limit]
+        return items
+
     def trace(self, trace_id: str) -> Optional[dict]:
         with self._lock:
             rec = self._traces.get(trace_id)
@@ -207,6 +230,40 @@ class Tracer:
                 return None
             return {"trace_id": trace_id, "root": rec["root"],
                     "spans": list(rec["spans"])}
+
+    def export_chrome(self, trace_id: Optional[str] = None) -> dict:
+        """Chrome trace-event JSON (``about:tracing`` / Perfetto): complete
+        "X" events, microsecond timestamps, one pid per process and the
+        span id folded into tid so sibling spans stack visibly; span events
+        are thread-scoped instants on their span's lane."""
+        selected = ([self.trace(trace_id)] if trace_id is not None
+                    else self.traces())
+        events = []
+        for t in selected:
+            if not t:
+                continue
+            for s in t["spans"]:
+                if s["end"] is None:
+                    continue
+                events.append({
+                    "name": s["name"], "cat": "kftpu", "ph": "X",
+                    "ts": s["start"] * 1e6,
+                    "dur": (s["end"] - s["start"]) * 1e6,
+                    "pid": os.getpid(),
+                    "tid": int(s["span_id"][:6], 16),
+                    "args": {**s["attrs"], "trace_id": s["trace_id"],
+                             "status": s["status"]},
+                })
+                for ev in s.get("events", []):
+                    events.append({
+                        "name": ev["name"], "cat": "kftpu", "ph": "i",
+                        "ts": ev["ts"] * 1e6, "s": "t",
+                        "pid": os.getpid(),
+                        "tid": int(s["span_id"][:6], 16),
+                        "args": {k: v for k, v in ev.items()
+                                 if k not in ("name", "ts")},
+                    })
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
 #: Engine lifecycle phases, in order (the ``engine.<phase>`` span names).
@@ -234,6 +291,31 @@ def phase_durations(spans: list[dict]) -> dict:
         key = f"{phase}_ms"
         out[key] = round(out.get(key, 0.0) + s["duration_ms"], 3)
     return out
+
+
+def debug_traces_payload(path: str,
+                         tracer: Optional[Tracer] = None) -> dict:
+    """The shared ``/debug/traces`` response body: recent traces as JSON,
+    ``?slowest=N`` for the N slowest by root duration, ``?chrome=1`` for a
+    Chrome trace-event export. Traces touching the engine carry a
+    ``phases`` rollup (queued/prefill/decode ms)."""
+    from urllib.parse import parse_qs, urlparse
+
+    t = tracer or get_tracer()
+    q = parse_qs(urlparse(path).query)
+    if q.get("chrome", ["0"])[0] not in ("0", "", "false"):
+        return t.export_chrome()
+    slowest_raw = q.get("slowest", [None])[0]
+    try:
+        slowest = int(slowest_raw) if slowest_raw is not None else None
+    except ValueError:
+        slowest = None
+    traces = t.traces(slowest=slowest)
+    for tr in traces:
+        phases = phase_durations(tr["spans"])
+        if phases:
+            tr["phases"] = phases
+    return {"traces": traces}
 
 
 #: The process-wide tracer every layer shares.

@@ -1,0 +1,1 @@
+"""pipelines of the PyTorch/CUDA port (see the package docstring)."""

@@ -57,10 +57,16 @@ Design (what carries over, and what eager PyTorch changes):
 - **Host-RAM KV tier** (``host_kv_pages``, serve/kvtier.py): cold cached
   prefix pages demote to host memory on a background thread and promote
   back on a radix hit before the admission's prefill.
+- **Remote KV tier** (``remote_kv_root`` or ``$KFTPU_KV_REMOTE_ROOT``,
+  serve/storage.kv_fabric_store): host blobs idle past
+  ``kv_remote_after_s`` spill into the artifact store under keys any
+  replica of the same cache geometry derives from the tokens, so a
+  conversation's next turn on another replica adopts its prefix;
+  ``drain_kv_to_remote`` pushes every cached prefix out before a scale
+  down.
 
-The remote KV tier, weight quantization, LoRA, speculative decoding, MoE
-and multi-device meshes arrive in later slices and raise
-``NotImplementedError``.
+Weight quantization, LoRA, speculative decoding, MoE and multi-device
+meshes arrive in later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ from kubeflow_tpu_torch.serve.paged import (
     PageAllocator, PagePoolExhausted, context_bucket, copy_pages,
     paged_chunk_prefill, paged_decode_multi, upload_pages,
 )
+from kubeflow_tpu_torch.serve.storage import kv_fabric_store
 
 logger = logging.getLogger("kubeflow_tpu_torch.serve.engine")
 
@@ -679,7 +686,6 @@ class LLMEngine:
                 (mesh is not None, "multi-device meshes"),
                 (cfg.is_moe, "MoE models"),
                 (b.quantize is not None, "weight quantization"),
-                (bool(b.remote_kv_root), "the remote KV tier (remote_kv_root)"),
                 (bool(b.lora), "LoRA adapters"),
                 (bool(b.speculative), "speculative decoding")):
             if unsupported:
@@ -764,7 +770,15 @@ class LLMEngine:
             if b.enable_prefix_caching and b.prefix_index == "radix":
                 # Device work of the index rides the closures below, all
                 # enqueued on the scheduler thread in stream order with the
-                # dispatches that read their results.
+                # dispatches that read their results. The fabric signature
+                # is the JAX engine's string: it folds every shape fact a
+                # wire blob depends on (fp32 and bf16 pools both say
+                # "full"; a blob of another float dtype is cast on upload),
+                # so a port and a JAX replica of one model share keys and
+                # replicas of different models never adopt each other's.
+                fabric_sig = (f"L{cfg.n_layers}.H{cfg.n_kv_heads}"
+                              f".D{cfg.head_dim}.P{pg}"
+                              f".{'int8' if self.kv_quant else 'full'}")
                 self._kvtier = RadixPrefixIndex(
                     self._allocator, pg,
                     host_pages=int(b.host_kv_pages),
@@ -773,7 +787,11 @@ class LLMEngine:
                     copy_pages_fn=self._kv_copy_pages,
                     upload_pages_fn=self._kv_upload_pages,
                     fetch_pages_fn=self._kv_fetch_pages,
-                    pressure_fn=self._kv_pressure)
+                    pressure_fn=self._kv_pressure,
+                    remote_store=kv_fabric_store(b.remote_kv_root),
+                    remote_after_s=b.kv_remote_after_s,
+                    remote_deadline_s=b.kv_remote_deadline_s,
+                    fabric_sig=fabric_sig)
         else:
             shape = (cfg.n_layers, self.num_slots, self.max_len,
                      cfg.n_kv_heads, cfg.head_dim)
@@ -890,9 +908,20 @@ class LLMEngine:
         return 0 if self._kvtier is None else \
             self._kvtier.host_pages_resident()
 
-    # The remote tier is a later slice: no pages live there.
     def kv_pages_remote(self) -> int:
-        return 0
+        """Pages this replica's radix tree indexes in the remote store tier
+        (0 when the tier is off)."""
+        return 0 if self._kvtier is None else \
+            self._kvtier.remote_pages_resident()
+
+    def drain_kv_to_remote(self, timeout_s: float = 10.0) -> int:
+        """Scale-down drain: demote and publish every cached prefix this
+        engine still holds to the remote tier, so its conversations
+        survive the replica leaving the fleet. Call when idle (traffic
+        drained first). Returns pages published."""
+        if self._kvtier is None:
+            return 0
+        return self._kvtier.spill_all_to_remote(timeout_s)
 
     def kv_tier_pressure(self) -> float:
         """The radix index's pool-pressure ratio (>= 1.0 = urgent; 0 for

@@ -14,8 +14,8 @@ Timeout knobs (read once per call site):
   first handoff target fails (each attempt goes to a different replica;
   when all fail, the prefill side recomputes locally).
 
-The router's scrape probe policy of the JAX module belongs to the router,
-which the port does not have yet.
+``PROBE_POLICY`` is the router's ``/metrics`` scrape probe
+(``serve/router.py``).
 """
 
 from __future__ import annotations
@@ -110,4 +110,9 @@ def handoff_policy() -> RetryPolicy:
 #: Store I/O of the KV tiers: a small budget, since a promotion's own
 #: deadline bounds the whole operation.
 STORE_POLICY = RetryPolicy(attempts=2, base_s=0.02, cap_s=0.2,
+                           jitter_frac=0.5)
+
+#: Router /metrics scrape probe: one quick second chance before the
+#: scrape-failure counter advances toward ejection.
+PROBE_POLICY = RetryPolicy(attempts=2, base_s=0.05, cap_s=0.2,
                            jitter_frac=0.5)

@@ -7,7 +7,9 @@ Routes:
 - ``GET /healthz``, ``/v2/health/ready``, ``/v2/health/live``;
   ``GET /v1/models``; ``GET /v2/models/{name}`` (metadata);
   ``GET /metrics`` (Prometheus text, the same series names as the JAX
-  package's ``serving_metrics_registry``);
+  package's ``serving_metrics_registry``); ``GET /debug/traces`` (recent
+  traces, ``?slowest=N``, ``?chrome=1``) and ``/debug/spans/export`` (the
+  completed spans, for a fleet collector);
 - ``POST /v1/completions``, ``/v1/chat/completions`` (OpenAI-compatible;
   ``stream=true`` → SSE);
 - ``POST /v1/models/{name}:predict`` (v1 protocol);
@@ -27,6 +29,12 @@ side's 200 is the ack that releases the prefill side's pages; if no
 replica acks, the prefill side recomputes the request locally under
 ``{id}-recompute``. Without the header a prefill replica decodes locally.
 
+Behind ``serve/router.py`` a fleet of these servers takes one URL: the
+router retries a refused connection on another replica and ejects a dead
+one, and with the remote KV tier on (``BatchingSpec.remote_kv_root``) the
+replica that takes a conversation's next turn adopts its prefix from the
+store.
+
 A transformer hop ``transformer(text, phase)`` rewrites the prompt
 (``"pre"``) and the non-streamed output (``"post"``). The model
 repository and gRPC arrive with later slices (404 here). Threaded stdlib
@@ -41,10 +49,8 @@ import http.client
 import json
 import queue
 import re
-import sys
 import threading
 import time
-import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 from urllib.parse import urlparse
@@ -55,8 +61,9 @@ from kubeflow_tpu_torch.core.headers import (
     TRACE_HEADER,
 )
 from kubeflow_tpu_torch.core.serving import QOS_DEFAULT
+from kubeflow_tpu_torch.obs.fleet import SPANS_EXPORT_PATH, spans_export_payload
 from kubeflow_tpu_torch.obs.registry import MetricsRegistry
-from kubeflow_tpu_torch.obs.trace import get_tracer
+from kubeflow_tpu_torch.obs.trace import debug_traces_payload, get_tracer
 from kubeflow_tpu_torch.serve.engine import (
     EngineOverloaded, HOST_GAP_BUCKETS, LLMEngine, QUEUE_DELAY_BUCKETS,
     Request, SamplingParams,
@@ -65,6 +72,7 @@ from kubeflow_tpu_torch.serve.handoff import HandoffPayload
 from kubeflow_tpu_torch.serve.retry import (
     call_with_retry, env_float, handoff_policy,
 )
+from kubeflow_tpu_torch.serve.router import quiet_handle_error
 from kubeflow_tpu_torch.serve.tokenizer import Tokenizer, get_tokenizer
 
 #: Handoff wire versions this server adopts (serve/handoff.py): 1 = raw
@@ -174,19 +182,6 @@ def iter_sse_data(resp):
         yield line[5:].strip().decode()
 
 
-def _quiet_handle_error(httpd) -> None:
-    """Client hang-ups mid-response are routine under load shedding, not a
-    traceback worth printing; anything else still prints."""
-
-    def handle_error(request, client_address):
-        exc = sys.exc_info()[1]
-        if isinstance(exc, (ConnectionError, TimeoutError)):
-            return
-        traceback.print_exc()
-
-    httpd.handle_error = handle_error
-
-
 _V1_PREDICT = re.compile(r"^/v1/models/([^/:]+):predict$")
 _V1_EXPLAIN = re.compile(r"^/v1/models/([^/:]+):explain$")
 _V2_MODEL = re.compile(r"^/v2/models/([^/]+)$")
@@ -212,7 +207,7 @@ class ModelServer:
         self._in_flight_lock = threading.Lock()
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
-        _quiet_handle_error(self.httpd)
+        quiet_handle_error(self.httpd)
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
 
@@ -626,6 +621,11 @@ def _make_handler(server: ModelServer):
                 return self._json(200, {"status": "ok", "name": server.name})
             if self.path == "/metrics":
                 return self._text(200, server.metrics_text())
+            if self.path.startswith("/debug/traces"):
+                return self._json(200, debug_traces_payload(self.path))
+            if self.path.startswith(SPANS_EXPORT_PATH):
+                return self._json(200, spans_export_payload(
+                    process=f"server:{server.name}"))
             if self.path == "/v1/models":
                 return self._json(200, {"models": server.model_names()})
             m = _V2_MODEL.match(self.path)

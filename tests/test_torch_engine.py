@@ -328,22 +328,45 @@ def test_background_loop_streams(params, cfg):
 
 # -- refusals ---------------------------------------------------------------------
 
-# Paged KV, int8 pages, the engine roles and the host KV tier are served
-# now (tests/test_torch_paged.py, test_torch_handoff.py,
-# test_torch_kvtier_host.py); the remote KV tier behind the host tier, and
-# the features below, are still a later slice — also beside a served one.
+# Paged KV, int8 pages, the engine roles and the host and remote KV tiers
+# are served now (tests/test_torch_paged.py, test_torch_handoff.py,
+# test_torch_kvtier_host.py, test_torch_kvtier_remote.py); the features
+# below are still a later slice — also beside a served one (the remote
+# tier with LoRA, and with speculative decoding over int8 pages).
 @pytest.mark.parametrize("overrides", [
     {"paged": True, "page_size": 16, "host_kv_pages": 8,
-     "remote_kv_root": "kv-remote"},
+     "remote_kv_root": "kv-remote", "lora": {"max_adapters": 2}},
     {"quantize": "int8"},
     {"paged": True, "page_size": 16, "kv_cache_dtype": "int8",
-     "host_kv_pages": 8, "remote_kv_root": "kv-remote"},
+     "host_kv_pages": 8, "remote_kv_root": "kv-remote",
+     "speculative": {"mode": "ngram"}},
     {"role": "decode", "speculative": {"mode": "ngram"}},
     {"lora": {"max_adapters": 2}},
     {"speculative": {"mode": "ngram"}}])
-def test_later_slice_features_raise(overrides, cfg):
+def test_later_slice_features_raise(overrides, cfg, tmp_path):
+    if "remote_kv_root" in overrides:
+        overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
     with pytest.raises(NotImplementedError):
         E.LLMEngine(cfg, _spec(**overrides), device="cpu")
+    assert not (tmp_path / "kv").exists()    # refused before the store
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["float", "int8"])
+def test_remote_tier_engine_builds(kv_dtype, cfg, tmp_path):
+    """The served combination: the remote tier behind the host tier builds
+    its store at the root and starts the migration thread."""
+    eng = E.LLMEngine(cfg, _spec(paged=True, page_size=16, host_kv_pages=8,
+                                 kv_cache_dtype=kv_dtype,
+                                 remote_kv_root=str(tmp_path / "kv")),
+                      device="cpu")
+    try:
+        assert eng._kvtier._remote_store.root == str(tmp_path / "kv")
+        assert (tmp_path / "kv").is_dir()
+        assert eng._kvtier._thread.is_alive()
+        assert eng.kv_pages_remote() == 0
+        assert eng.drain_kv_to_remote() == 0      # nothing cached yet
+    finally:
+        assert eng.stop()
 
 
 @pytest.mark.parametrize("overrides", [

@@ -38,6 +38,9 @@ SLICE_MODULES = (
     "loadgen.scenario", "loadgen.runner", "loadgen.report", "loadgen.gate",
     # the engine-roles and host-tier slice: copies of jax-free JAX modules
     "serve.handoff", "serve.retry",
+    # the fleet's failure path: the remote KV tier's store, the router,
+    # the chaos harness and the span export (copies of jax-free modules)
+    "pipelines.artifacts", "serve.router", "serve.faults", "obs.fleet",
 )
 
 _IMPORT_ALL = """

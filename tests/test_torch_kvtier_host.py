@@ -372,8 +372,12 @@ def test_host_tier_needs_the_radix_pool():
     with pytest.raises(ValueError, match="paged"):
         LLMEngine(CFG, BatchingSpec(max_seq_len=128, host_kv_pages=4),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="remote"):
+    # The remote tier behind it is served; beside LoRA it is still refused.
+    with pytest.raises(NotImplementedError, match="LoRA"):
         LLMEngine(CFG, BatchingSpec(max_seq_len=128, paged=True,
                                     page_size=16, host_kv_pages=4,
-                                    remote_kv_root="/nowhere"),
+                                    remote_kv_root="/nowhere",
+                                    lora={"max_adapters": 2}),
                   device="cpu")
+    with pytest.raises(ValueError, match="host_kv_pages"):
+        BatchingSpec(paged=True, remote_kv_root="/nowhere")

@@ -639,14 +639,19 @@ def test_paged_engine_resolution_and_density(cfg, params, jcfg, jparams):
         _port(cfg, params, max_pages=2)
 
 
-# The host tier is served now (tests/test_torch_kvtier_host.py); the remote
-# tier behind it is not, over a bf16 or an int8 pool.
+# The host and remote tiers are served now (tests/test_torch_kvtier_host.py,
+# test_torch_kvtier_remote.py); beside LoRA or speculative decoding, over an
+# int8 or a float pool, they are still refused.
 @pytest.mark.parametrize("overrides", [
-    {"host_kv_pages": 8, "remote_kv_root": "kv", "kv_cache_dtype": "int8"},
-    {"host_kv_pages": 8, "remote_kv_root": "kv"}])
-def test_host_and_remote_tiers_raise(overrides, cfg):
+    {"host_kv_pages": 8, "remote_kv_root": "kv", "kv_cache_dtype": "int8",
+     "lora": {"max_adapters": 2}},
+    {"host_kv_pages": 8, "remote_kv_root": "kv",
+     "speculative": {"mode": "ngram"}}])
+def test_host_and_remote_tiers_raise(overrides, cfg, tmp_path):
+    overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
     with pytest.raises(NotImplementedError):
         E.LLMEngine(cfg, BatchingSpec(**_spec(**overrides)), device="cpu")
+    assert not (tmp_path / "kv").exists()
 
 
 def test_paged_engine_without_device_raises_here(cfg):

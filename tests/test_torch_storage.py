@@ -75,7 +75,7 @@ def test_file_scheme_round_trips_a_port_trainer_run(tmp_path):
         lambda t: t.detach().to(torch.bfloat16), trained))
 
 
-def test_missing_checkpoints_and_other_schemes_raise(tmp_path):
+def test_missing_checkpoints_and_other_schemes_raise(tmp_path, monkeypatch):
     cfg = preset("tiny", dtype="float32")
     empty = tmp_path / "empty"
     empty.mkdir()
@@ -102,7 +102,13 @@ def test_missing_checkpoints_and_other_schemes_raise(tmp_path):
         load_params(f"file://{good}", cfg, device="cpu")
     with pytest.raises(ValueError, match="unsupported storageUri scheme"):
         load_params("s3://bucket/model", cfg, device="cpu")
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    # artifact:// loads now (test_torch_artifacts.py); a name nobody
+    # registered is missing, and no store at all is an error naming the env.
+    with pytest.raises(FileNotFoundError, match="m0"):
+        load_params("artifact://m0@1", cfg, device="cpu",
+                    artifact_root=str(tmp_path / "store"))
+    monkeypatch.delenv("KFTPU_ARTIFACT_ROOT", raising=False)
+    with pytest.raises(RuntimeError, match="KFTPU_ARTIFACT_ROOT"):
         load_params("artifact://m0@1", cfg, device="cpu")
 
 
