@@ -12,7 +12,8 @@ with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
 edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
 edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
-then (e) and (f), without the kernel rows. Every phase prints its seconds.
+then (e), (f) and (g), without the kernel rows. Every phase prints its
+seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -169,7 +170,40 @@ Phases, each a hard failure:
    process (one engine spills turn 1, a fresh one serves turn 2 from the
    store; a cold engine's and a copy-on-write engine's printed), 8 more
    requests with explicit statuses, at least 4 ok, the dead worker
-   ejected, and the survivor's SIGTERM giving 143.
+   ejected, and the survivor's SIGTERM giving 143;
+11. (g) many models and many adapters on one card. (g)1: 8 LoRA tenants
+   of rank 16 over wq, wk, wv and wo (fp32 factors from seeded
+   generators on the host; two published to a temporary artifact store
+   and pulled at their first hot-load) on engines over one 32-layer
+   engine's weights with 4 packed adapter slots: four equal-length
+   prompts, two base and two under adapters, give the base rows the
+   greedy tokens of a LoRA-free engine exactly (bf16 pages, then int8),
+   the adapter rows printed against a merged-weights engine's; a
+   512-token bucketed prefill (the flash kernel) under two adapters
+   within rel L2 5e-2 of the merged weights' last-token logits and at
+   least 5x that away from the base weights'; one prompt under two
+   adapters shares no KV (no prefix hit across adapters, a hit on the
+   first adapter's second turn); ``packed_bytes()`` 109,051,904;
+   ``multi_adapter`` (24 requests at 4 req/s, 512-token prompts, 64 new,
+   zipf over the 8 tenants) through ``EngineTarget`` on the page pool,
+   every request ok or shed, at least 5 hot-loads and an eviction, no
+   leaked page or adapter reference, the norms, SwiGLU and paged decode
+   launched, per-adapter TTFT and TPOT and each hot-load's ms printed;
+   the 8-step paged decode dispatch at 8 slots with and without adapters
+   (host enqueue, device time, launches per step); 12 requests of the
+   mix on a contiguous engine whose bucketed prefill runs the flash
+   kernel under adapters. (g)2: two Llama-3-8B models (the serving seed
+   and the next) behind ``ModelServer(repository=...)`` with
+   ``max_loaded=1`` on the page pool: alpha, beta, alpha over HTTP, the
+   v2 index after each, each eviction freeing at least the evicted
+   model's weight bytes (``gc.collect()``, then the allocation at the
+   next build's start), alpha's reloaded greedy tokens equal to its
+   first, ``estimate_model_bytes`` printed beside the allocation, and an
+   unload while a streamed request holds alpha's lease, which must end
+   200 with ``[DONE]``. (g)3, where grpcio and protobuf are installed:
+   ``ModelInfer`` on the same server's gRPC port gives the REST text and
+   ``ModelReady`` of an unknown name is false; elsewhere it prints that
+   (g)3 did not run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -1997,15 +2031,16 @@ PAGED_SPEC = dict(paged=True, page_size=128, max_pages=64, max_batch_size=8,
                   paged_attn_impl="pallas", weights_dtype="bfloat16")
 
 
-def paged_engine(engine, **overrides):
+def paged_engine(engine, params=None, **overrides):
     """A paged LLMEngine (``PAGED_SPEC``) over the contiguous engine's
-    weights (shared, not copied)."""
+    weights (shared, not copied), or over ``params``."""
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.serve.engine import LLMEngine
 
     spec = dict(PAGED_SPEC)
     spec.update(overrides)
-    return LLMEngine(engine.cfg, BatchingSpec(**spec), params=engine.params,
+    return LLMEngine(engine.cfg, BatchingSpec(**spec),
+                     params=engine.params if params is None else params,
                      seed=SEED, device="cuda")
 
 
@@ -3480,6 +3515,556 @@ def phase_fleet(card: str) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- (g) many models and many adapters on one card: LoRA, repository, gRPC --
+
+#: The adapters of (g)1: 8 registered tenants of rank 16 over all four
+#: attention projections, 4 packed slots (so the traffic evicts).
+LORA_IDS = tuple(f"tenant-{i}" for i in range(8))
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+LORA_SPEC = dict(max_adapters=4, rank=16, alpha=16.0, targets=LORA_TARGETS)
+#: Tenants published to the artifact store and pulled at hot-load.
+LORA_FROM_STORE = ("tenant-6", "tenant-7")
+#: 4 slots x 32 layers x rank 16 x (8192 + 5120 + 5120 + 8192) x 2 B.
+LORA_PACKED_BYTES = 109_051_904
+#: Last-token prefill logits under an adapter against the merged weights'.
+LORA_MERGED_REL_L2 = 5e-2
+#: The adapter's move of those logits off the base's, in units of that error.
+LORA_MOVE_FACTOR = 5.0
+
+
+def lora_specs(cfg, store) -> list:
+    """The 8 tenants' specs: factors drawn in fp32 on the host from a seeded
+    ``torch.Generator`` (as adapters arrive from storage); two of them
+    published to ``store`` as the JAX package's npz blob and registered by
+    name, so their weights are read only at hot-load."""
+    from kubeflow_tpu_torch.serve.lora import (
+        AdapterSpec, adapter_spec_from_store, adapter_to_bytes,
+        init_adapter_weights,
+    )
+
+    rank, alpha = LORA_SPEC["rank"], LORA_SPEC["alpha"]
+    specs = []
+    for i, name in enumerate(LORA_IDS):
+        gen = torch.Generator().manual_seed(SEED + 100 + i)
+        w = init_adapter_weights(gen, cfg, rank, LORA_TARGETS)
+        if name in LORA_FROM_STORE:
+            uri = store.put_bytes(adapter_to_bytes(w, rank=rank, alpha=alpha))
+            store.register(name, "1", uri)
+            specs.append(adapter_spec_from_store(
+                store, name, f"artifact://{name}", rank=rank, alpha=alpha))
+        else:
+            specs.append(AdapterSpec(name, rank=rank, alpha=alpha, weights=w))
+    return specs
+
+
+def lora_engine(uni, specs, **overrides):
+    """A LoRA engine over ``uni``'s weights (``PAGED_SPEC`` unless
+    overridden) with every spec registered."""
+    from kubeflow_tpu_torch.core.serving import LoRASpec
+
+    eng = paged_engine(uni, lora=LoRASpec(**LORA_SPEC), **overrides)
+    for s in specs:
+        eng._lora.register(s)
+    return eng
+
+
+def _drive_all(eng, reqs, timeout: float = 600.0) -> list[list[int]]:
+    t0 = time.perf_counter()
+    while not all(r.done.is_set() for r in reqs):
+        eng.step()
+        if time.perf_counter() - t0 > timeout:
+            fail(f"requests not finished in {timeout} s")
+    return [r.output_tokens for r in reqs]
+
+
+def _lora_wrappers() -> dict:
+    from kubeflow_tpu_torch.ops import fused_norm
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    return {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
+            "add_rmsnorm_fwd": fused_norm.add_rmsnorm_fused,
+            "swiglu_fwd": fused_norm.swiglu_fused,
+            "flash_fwd": flash_attention,
+            "paged_decode": paged_decode_attention}
+
+
+def lora_base_rows(uni, specs, kv_dtype, card: str) -> None:
+    """(g)1, base rows and adapter tokens: four equal-length prompts in four
+    slots, two base and two under adapters, against the same four on a
+    LoRA-free engine, all base. The base rows' greedy tokens must be
+    identical (the delta of an index -1 row is an exact zero; equal lengths
+    give equal page tables and split counts). The adapter rows beside a
+    merged-weights engine's: the first differing token is printed (bf16
+    rounds the factored and the merged product differently)."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+    from kubeflow_tpu_torch.serve.lora import merged_params
+
+    label = f"lora {kv_dtype or 'bf16'} pages"
+    prompts = [[3 + (i * 7 + 13 * k) % 50000 for i in range(300)]
+               for k in range(4)]
+    adapters = [None, None, LORA_IDS[0], LORA_IDS[1]]
+    params = SamplingParams(max_new_tokens=32, temperature=0.0)
+    eng = lora_engine(uni, specs, kv_cache_dtype=kv_dtype)
+    got = _drive_all(eng, [eng.submit(p, params, adapter=a)
+                           for p, a in zip(prompts, adapters)])
+    eng._lora.assert_quiescent()
+    eng._allocator.assert_quiescent()
+    bare = paged_engine(uni, kv_cache_dtype=kv_dtype)
+    want = _drive_all(bare, [bare.submit(p, params) for p in prompts])
+    for k in (0, 1):
+        if got[k] != want[k]:
+            fail(f"{label}: base row {k} differs from the LoRA-free engine: "
+                 f"{_first_difference(got[k], want[k])}")
+    for k in (2, 3):
+        if got[k] == want[k]:
+            fail(f"{label}: adapter {adapters[k]} left its row unchanged")
+    merged = []
+    for k in (2, 3):
+        spec = next(s for s in specs if s.name == adapters[k])
+        meng = paged_engine(uni, kv_cache_dtype=kv_dtype,
+                            params=merged_params(uni.params, uni.cfg, spec))
+        ref = _drive_all(meng, [meng.submit(prompts[k], params)])[0]
+        merged.append(f"{adapters[k]} against its merged weights: "
+                      f"{_first_difference(got[k], ref)}")
+        del meng
+    print(f"{label}: base rows 0 and 1 identical to the LoRA-free engine "
+          f"(32 tokens each); {'; '.join(merged)}; {card}", flush=True)
+    del eng, bare
+    gc.collect()
+
+
+def lora_merged_logits(ceng, specs, card: str) -> None:
+    """(g)1, adapter logits: the last-token logits of a 512-token bucketed
+    prefill (the flash kernel, the engine's ``_prefill_step``) under an
+    adapter, against the same prefill on its merged weights (merged in
+    fp32, cast to bf16) and on the base weights."""
+    from kubeflow_tpu_torch.serve import engine as E
+    from kubeflow_tpu_torch.serve.lora import merged_params
+
+    cfg, dev = ceng.cfg, ceng.device
+    gen = torch.Generator().manual_seed(SEED + 7)
+    toks = torch.randint(3, 50000, (1, 512), generator=gen).to(dev)
+    slots = torch.zeros((1,), dtype=torch.long, device=dev)
+    plens = torch.full((1,), 512, device=dev)
+    for name in LORA_IDS[:2]:
+        slot, _ = ceng._lora.acquire(name, owner="chip_smoke")
+        spec = next(s for s in specs if s.name == name)
+        with torch.no_grad():
+            lora = E._prefill_step(ceng.params, ceng.cache, toks, slots,
+                                   plens, cfg, "pallas",
+                                   lora=ceng._lora_rows([slot]))[0].float()
+            mp = merged_params(ceng.params, cfg, spec)
+            ref = E._prefill_step(mp, ceng.cache, toks, slots, plens, cfg,
+                                  "pallas")[0].float()
+            base = E._prefill_step(ceng.params, ceng.cache, toks, slots,
+                                   plens, cfg, "pallas")[0].float()
+        del mp
+        ceng._lora.release(name)
+        err = float((lora - ref).norm() / ref.norm())
+        move = float((lora - base).norm() / base.norm())
+        same = int(lora.argmax()) == int(ref.argmax())
+        print(f"lora logits {name}: rel L2 against the merged weights "
+              f"{err:.3e} (tolerance {LORA_MERGED_REL_L2:g}), against the "
+              f"base weights {move:.3e} ({move / max(err, 1e-12):.1f}x the "
+              f"merge error), argmax {'agrees' if same else 'differs'} with "
+              f"the merged; {card}", flush=True)
+        if not err <= LORA_MERGED_REL_L2:
+            fail(f"lora logits {name}: off the merged weights' by {err:.3e}")
+        if not move >= LORA_MOVE_FACTOR * err:
+            fail(f"lora logits {name}: the adapter moved the logits by "
+                 f"{move:.3e}, under {LORA_MOVE_FACTOR}x the merge error")
+    ceng._lora.assert_quiescent()
+
+
+def lora_no_shared_kv(eng) -> None:
+    """(g)1, KV isolation: one 600-token prompt under tenant 0, then under
+    tenant 1 (no prefix hit: another namespace), then tenant 0's second
+    turn (it hits its own)."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+    params = SamplingParams(max_new_tokens=16, temperature=0.0)
+    prompt = [3 + (i * 11) % 60000 for i in range(600)]
+    a, b = LORA_IDS[0], LORA_IDS[1]
+
+    def matched(tokens, adapter) -> tuple[int, list]:
+        before = eng.kv_tier_stats()["tokens_matched"]
+        out = _drive_all(eng, [eng.submit(tokens, params, adapter=adapter)])
+        return eng.kv_tier_stats()["tokens_matched"] - before, out[0]
+
+    first, out_a = matched(prompt, a)
+    other, _ = matched(prompt, b)
+    turn2, _ = matched(prompt + out_a + prompt[:50], a)
+    print(f"lora KV isolation: {a} first turn matched {first} tokens, {b} on "
+          f"the same prompt {other}, {a}'s second turn {turn2}", flush=True)
+    if first or other:
+        fail(f"lora KV isolation: a prefix crossed adapters ({first}, "
+             f"{other} tokens matched)")
+    if turn2 < 512:
+        fail(f"lora KV isolation: {a}'s second turn matched {turn2} tokens")
+    eng._lora.assert_quiescent()
+    eng._allocator.assert_quiescent()
+
+
+def lora_traffic(eng, card: str, label: str, num_requests: int,
+                 want_rows: tuple, churn: bool) -> None:
+    """(g)1, traffic: ``multi_adapter`` (zipf over the 8 tenants) through
+    ``EngineTarget``; every status ok or shed, no leaked page or adapter
+    reference, each of ``want_rows``' kernels launched (counts set to 0
+    just before), and with ``churn`` at least 5 hot-loads and an
+    eviction."""
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.serve.server import serving_metrics_registry
+
+    sc = next(x for x in loadgen.standard_matrix(
+        **dict(LOADGEN, num_requests=num_requests), adapter_ids=LORA_IDS)
+        if x.name == "multi_adapter")
+    loads: list[float] = []
+    _timed(eng._lora, "_load_slot", loads)
+    wrappers = _lora_wrappers()
+    before = dict(eng.adapter_stats())
+    for w in wrappers.values():
+        w.launches = 0
+    eng.start()
+    try:
+        run = loadgen.run_scenario(
+            loadgen.EngineTarget(eng), sc, vocab_size=eng.cfg.vocab_size,
+            max_prompt_len=eng.max_len - sc.output_len.value - 1)
+        launches = {n: w.launches for n, w in wrappers.items()}
+        metrics = serving_metrics_registry([("llama3-8b", eng)]).render()
+    finally:
+        eng.stop()
+    rep = loadgen.build_report(run, metrics_text=metrics)
+    report_line(f"multi_adapter ({label})", rep, card)
+    stats = eng.adapter_stats()
+    got = {k: stats[k] - before.get(k, 0) for k in ("loads", "evictions",
+                                                     "hits", "acquires")}
+    print(f"lora traffic {label}: per adapter "
+          f"{json.dumps(rep.get('adapters', {}))}; phases "
+          f"{json.dumps(rep['phases'])}; registry {json.dumps(got)}; "
+          f"hot-loads {len(loads)}: "
+          f"{', '.join(f'{x * 1e3:.2f}' for x in loads)} ms", flush=True)
+    print(f"lora traffic {label} kernels {json.dumps(launches)}", flush=True)
+    check_statuses(f"multi_adapter ({label})", rep)
+    if churn and (got["loads"] < 5 or got["evictions"] < 1):
+        fail(f"lora traffic {label}: {got['loads']} loads, "
+             f"{got['evictions']} evictions")
+    for name in want_rows:
+        if launches[name] <= 0:
+            fail(f"lora traffic {label}: kernel {name} never launched")
+    eng._lora.assert_quiescent()
+    if eng.paged:
+        _settle(eng, f"lora traffic {label}")
+
+
+def lora_step_cost(eng, card: str) -> None:
+    """(g)1, the decode step's cost: one 8-step paged decode dispatch at 8
+    live slots (position 1024) with and without the adapters (rows on the
+    4 packed slots), host enqueue and device time (profiler) per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.serve.paged import paged_decode_multi
+
+    cfg, dev, b, steps = eng.cfg, eng.device, 8, 8
+    st = {"tokens": torch.full((b,), 5, device=dev),
+          "lengths": torch.full((b,), 1024, device=dev),
+          "live": torch.ones((b,), dtype=torch.bool, device=dev),
+          "temps": torch.zeros((b,), device=dev),
+          "top_k": torch.zeros((b,), dtype=torch.long, device=dev),
+          "top_p": torch.ones((b,), device=dev),
+          "stops": torch.full((b,), -1, device=dev),
+          "budgets": torch.full((b,), 1 << 20, device=dev)}
+    # 9 pages of 128 per slot cover positions 0..1031; then the sink page.
+    pg, mpp, per_slot = 128, 16, 9
+    shape = (cfg.n_layers, b * per_slot + 1, pg, cfg.n_kv_heads, cfg.head_dim)
+    table = torch.full((b, mpp), -1, dtype=torch.int32, device=dev)
+    table[:, :per_slot] = torch.arange(
+        b * per_slot, dtype=torch.int32, device=dev).reshape(b, per_slot)
+    pool = {"k": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=dev),
+            "table": table}
+    aidx = torch.arange(b, device=dev) % eng._lora.max_adapters
+    out = {}
+    for label, lora in (("without adapters", None),
+                        ("with adapters", {**eng._lora.buffers,
+                                           "aidx": aidx})):
+        def fn():
+            paged_decode_multi(eng.params, pool, *st.values(), eng._gen, cfg,
+                               steps, sample_mode="greedy",
+                               attn_impl="pallas", lora=lora)
+        with torch.no_grad():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enq = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        total, kernels = _kernel_times(prof)
+        launches = sum(c for _, _, c in kernels) // steps
+        out[label] = total / steps
+        print(f"lora decode step {label} (8 slots, position 1024): host "
+              f"enqueue {enq * 1e3 / steps:.2f} ms, wall "
+              f"{wall * 1e3 / steps:.2f} ms, device "
+              f"{total / steps:.2f} ms, {launches} kernel launches per step; "
+              f"{card}", flush=True)
+    print(f"lora decode step: adapters add "
+          f"{out['with adapters'] - out['without adapters']:.2f} ms of device "
+          f"time per step", flush=True)
+
+
+def phase_adapters(card: str) -> None:
+    """(g)1: multi-tenant LoRA in process over one 32-layer paged engine's
+    weights (the serving seed): base rows exact and adapter tokens beside
+    the merged weights' (bf16 pages, then int8), adapter logits against
+    the merged weights', KV isolation, the packed bytes, ``multi_adapter``
+    traffic on the page pool and through the bucketed prefill, and the
+    decode step's cost with and without adapters."""
+    import tempfile
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.pipelines.artifacts import ArtifactStore
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_adapters_")
+    try:
+        t0 = time.perf_counter()
+        uni = LLMEngine(preset("llama3-8b"), BatchingSpec(**PAGED_SPEC),
+                        seed=SEED, device="cuda")
+        specs = lora_specs(uni.cfg, ArtifactStore(root))
+        torch.cuda.synchronize()
+        print(f"adapters: base engine and {len(specs)} adapters ready in "
+              f"{time.perf_counter() - t0:.1f} s "
+              f"({len(LORA_FROM_STORE)} in the artifact store), "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated",
+              flush=True)
+        for kv_dtype in (None, "int8"):
+            lora_base_rows(uni, specs, kv_dtype, card)
+        eng = lora_engine(uni, specs)
+        packed = eng._lora.packed_bytes()
+        print(f"lora packed buffers: {packed} B (want {LORA_PACKED_BYTES}), "
+              f"one slot {packed // LORA_SPEC['max_adapters']} B", flush=True)
+        if packed != LORA_PACKED_BYTES:
+            fail(f"lora packed buffers hold {packed} B")
+        lora_no_shared_kv(eng)
+        del eng
+        paged = lora_engine(uni, specs)
+        lora_traffic(paged, card, "page pool", LOADGEN["num_requests"],
+                     ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd",
+                      "paged_decode"), churn=True)
+        lora_step_cost(paged, card)
+        del paged
+        gc.collect()
+        ceng = lora_engine(uni, specs, paged=False, max_pages=None,
+                           prefill_attn_impl="pallas")
+        lora_merged_logits(ceng, specs, card)
+        # The page pool prefills in chunks through the plain attention (as
+        # the JAX engine does), so the flash kernel runs under adapters in
+        # the contiguous engine's bucketed prefill.
+        lora_traffic(ceng, card, "contiguous, bucketed prefill", 12,
+                     ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd",
+                      "flash_fwd"), churn=False)
+        del ceng, uni
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"adapters: engines freed, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.nbytes
+
+
+def _index_states(url: str) -> dict:
+    status, raw = _get(url + "/v2/repository/index")
+    if status != 200:
+        fail(f"repository index: HTTP {status}")
+    return {m["name"]: m["state"] for m in json.loads(raw)["models"]}
+
+
+def phase_repository(card: str) -> None:
+    """(g)2: two Llama-3-8B models (alpha: the serving seed; beta: the next)
+    behind ``ModelServer(repository=...)`` with ``max_loaded=1`` on the page
+    pool; requests alpha → beta → alpha over HTTP, each switch an LRU
+    eviction whose freed bytes (after ``gc.collect()``, at the start of the
+    next build) must cover the evicted model's weights; alpha's reloaded
+    greedy tokens equal its first answer; then an unload while a streamed
+    request holds alpha's lease, which must finish 200. (g)3 where grpcio is
+    installed: ``ModelInfer`` on the same server gives the REST text, and
+    ``ModelReady`` of an unknown name is false."""
+    import importlib.util
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+    from kubeflow_tpu_torch.serve.repository import (
+        ModelRepository, estimate_model_bytes,
+    )
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    has_grpc = all(importlib.util.find_spec(m) is not None
+                   for m in ("grpc", "google.protobuf"))
+    # bf16 weights in the config, so estimate_model_bytes books them at 2 B.
+    cfg = preset("llama3-8b", param_dtype="bfloat16")
+    spec = BatchingSpec(**PAGED_SPEC)
+    repo = ModelRepository(max_loaded=1, device="cuda")
+    builds: list[tuple[str, float, int]] = []   # name, seconds, bytes at start
+
+    for name, seed in (("alpha", SEED), ("beta", SEED + 1)):
+        def make(name=name, seed=seed):
+            gc.collect()
+            at_start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng = LLMEngine(cfg, spec, seed=seed, device="cuda")
+            torch.cuda.synchronize()
+            builds.append((name, time.perf_counter() - t0, at_start))
+            return eng
+
+        repo.register(name, cfg, make_engine=make, tokenizer=TokenIdText(),
+                      batching=spec)
+    estimate = estimate_model_bytes(cfg, spec)
+    server = ModelServer("alpha", repository=repo,
+                         grpc_port=0 if has_grpc else None)
+    server.start()
+    prompt = text(300, 61)
+    body = {"prompt": prompt, "max_tokens": 16, "temperature": 0.0}
+    answers: list[str] = []
+    try:
+        if _index_states(server.url) != {"alpha": "UNLOADED",
+                                         "beta": "UNLOADED"}:
+            fail("repository: models loaded before any request")
+        weights = {}
+        for k, name in enumerate(("alpha", "beta", "alpha")):
+            gc.collect()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            status, raw = _post(server.url + "/v1/completions",
+                                {**body, "model": name})
+            wall = time.perf_counter() - t0
+            if status != 200:
+                fail(f"repository {name}: HTTP {status}")
+            answers.append(json.loads(raw)["choices"][0]["text"])
+            states = _index_states(server.url)
+            other = "beta" if name == "alpha" else "alpha"
+            if states != {name: "READY", other: "UNLOADED"}:
+                fail(f"repository after {name}: index {states}")
+            weights[name] = _tree_bytes(repo.peek(name).engine.params)
+            bname, build_s, at_start = builds[-1]
+            line = (f"repository request {k + 1} ({name}): 200 in "
+                    f"{wall:.2f} s, build {build_s:.2f} s, index {states}")
+            if k:
+                freed = held - at_start
+                line += (f", eviction of {other} freed {freed} B against its "
+                         f"{weights[other]} B of weights")
+                if freed < weights[other]:
+                    fail(f"repository: evicting {other} freed {freed} B, "
+                         f"under its weights' {weights[other]} B")
+            print(line + f"; {card}", flush=True)
+        print(f"repository: estimate_model_bytes {estimate} B per model, "
+              f"weights {weights['alpha']} B, "
+              f"{torch.cuda.memory_allocated()} B allocated with one loaded",
+              flush=True)
+        if answers[2] != answers[0]:
+            fail("repository: alpha's reloaded tokens differ: "
+                 + _first_difference(answers[2].split(), answers[0].split()))
+        if has_grpc:
+            grpc_check(server, body, answers[0])
+        else:
+            print("grpc: not installed on this machine; (g)3 not run",
+                  flush=True)
+        leased_unload(server, repo, body)
+    finally:
+        server.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"repository: server stopped, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+
+
+def grpc_check(server, body: dict, want: str) -> None:
+    """(g)3: ``ModelInfer`` of alpha on the server's gRPC port gives the
+    REST completion's text; ``ModelReady`` is true for alpha and false for
+    an unknown name."""
+    from kubeflow_tpu_torch.serve.grpc_server import oip_connect
+    from kubeflow_tpu_torch.serve.protos import oip_pb2 as pb
+
+    channel, stub = oip_connect(server.grpc_server.target)
+    try:
+        req = pb.ModelInferRequest(model_name="alpha")
+        req.parameters["max_tokens"].int64_param = body["max_tokens"]
+        req.parameters["temperature"].double_param = body["temperature"]
+        tin = req.inputs.add(name="text", datatype="BYTES", shape=[1])
+        tin.contents.bytes_contents.append(body["prompt"].encode())
+        t0 = time.perf_counter()
+        got = stub.ModelInfer(req, timeout=600).outputs[0] \
+            .contents.bytes_contents[0].decode()
+        wall = time.perf_counter() - t0
+        ready = stub.ModelReady(pb.ModelReadyRequest(name="alpha")).ready
+        ghost = stub.ModelReady(pb.ModelReadyRequest(name="ghost")).ready
+    finally:
+        channel.close()
+    print(f"grpc: ModelInfer alpha {wall:.2f} s, text "
+          f"{'equals' if got == want else 'differs from'} the REST "
+          f"completion's; ModelReady alpha {ready}, ghost {ghost}", flush=True)
+    if got != want or not ready or ghost:
+        fail("grpc: ModelInfer or ModelReady disagrees with the server")
+
+
+def leased_unload(server, repo, body: dict) -> None:
+    """(g)2: unload alpha while a streamed completion holds its lease; the
+    stream must finish 200 with ``[DONE]`` and the detached engine stop
+    when the lease releases."""
+    entry = repo.peek("alpha")
+    reply: list = []
+    th = threading.Thread(target=lambda: reply.append(_post(
+        server.url + "/v1/completions",
+        {**body, "model": "alpha", "max_tokens": 64, "stream": True})))
+    th.start()
+    t0 = time.perf_counter()
+    while entry.refs < 1:
+        if time.perf_counter() - t0 > 60 or not th.is_alive():
+            fail("repository: the streamed request never took its lease")
+        time.sleep(0.005)
+    engine = entry.engine
+    status, raw = _post(server.url + "/v2/repository/models/alpha/unload", {})
+    states = _index_states(server.url)
+    if status != 200 or states["alpha"] != "UNLOADED":
+        fail(f"repository unload: HTTP {status}, index {states}")
+    th.join(timeout=600)
+    ok = bool(reply) and reply[0][0] == 200 \
+        and reply[0][1].rstrip().endswith(b"data: [DONE]")
+    t0 = time.perf_counter()
+    while entry.draining and time.perf_counter() - t0 < 60:
+        time.sleep(0.01)
+    print(f"repository leased unload: the stream finished "
+          f"{reply[0][0] if reply else None} with [DONE] {ok}, draining "
+          f"{len(entry.draining)}, engine stopped {engine.stopped_clean}",
+          flush=True)
+    if not ok or entry.draining or engine.stopped_clean is not True:
+        fail("repository: the leased unload did not drain cleanly")
+
+
+def phase_many_models(card: str) -> None:
+    """(g): adapters in process, then the repository and gRPC over HTTP."""
+    timed_phase("adapters", phase_adapters, card)
+    timed_phase("repository", phase_repository, card)
+
+
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
 TRAIN_DATA = dict(seq_len=2048, global_batch=2)
 
@@ -3923,6 +4508,7 @@ def main() -> int:
         want, mixed = serve_phases([], card, full=False)
         timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
         timed_phase("fleet", phase_fleet, card)
+        timed_phase("many models", phase_many_models, card)
         print(f"chip_smoke: serve-only phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
@@ -3965,6 +4551,7 @@ def main() -> int:
     timed_phase("train profile off", phase_train_profile, "off")
     timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
     timed_phase("fleet", phase_fleet, card)
+    timed_phase("many models", phase_many_models, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -1,11 +1,12 @@
 """Engine knobs for the port's serving path — a dataclass copy of the
 ``kubeflow_tpu/core/serving.py`` ``BatchingSpec`` fields this slice reads,
-plus the QoS class table. (The JAX package's spec is a pydantic model; the
-port keeps to the standard library.)
+plus the QoS class table and the multi-tenant ``LoRASpec``. (The JAX
+package's specs are pydantic models; the port keeps to the standard
+library, with the same checks and messages.)
 
-Fields for features a later slice brings (weight quantization, LoRA,
-speculative decoding) are kept so a config that sets them fails loudly at
-engine construction instead of being ignored.
+Fields for features a later slice brings (weight quantization, speculative
+decoding) are kept so a config that sets them fails loudly at engine
+construction instead of being ignored.
 """
 
 from __future__ import annotations
@@ -65,6 +66,35 @@ class QoSSpec:
         self.classes = {k: (v if isinstance(v, QoSClassPolicy)
                             else QoSClassPolicy(**v))
                         for k, v in self.classes.items()}
+
+
+@dataclasses.dataclass
+class LoRASpec:
+    """Multi-tenant LoRA serving knobs (serve/lora.py): one engine serves up
+    to ``max_adapters`` rank-``rank`` adapters over shared base weights,
+    hot-loading and evicting through the adapter registry.
+
+    ``max_adapters`` sizes the packed device buffers (the slot count);
+    ``rank`` is the per-slot rank cap lower-rank adapters zero-pad to;
+    ``targets`` names the attention projections the low-rank update applies
+    to (wq/wk/wv/wo). ``max_adapters=0`` turns the subsystem off."""
+
+    max_adapters: int = 0
+    rank: int = 8
+    alpha: float = 16.0
+    targets: tuple = ("wq", "wv")
+
+    def __post_init__(self) -> None:
+        self.targets = tuple(self.targets)
+        if self.max_adapters < 0:
+            raise ValueError("max_adapters must be >= 0")
+        if self.max_adapters and not (1 <= self.rank <= 64):
+            raise ValueError("lora.rank must be in [1, 64]")
+        bad = set(self.targets) - {"wq", "wk", "wv", "wo"}
+        if self.max_adapters and (bad or not self.targets):
+            raise ValueError(
+                f"lora.targets must be a non-empty subset of "
+                f"wq/wk/wv/wo; got {self.targets}")
 
 
 @dataclasses.dataclass
@@ -141,8 +171,12 @@ class BatchingSpec:
     max_queue: int = 0
     queue_delay_budget: Optional[float] = None
     qos: QoSSpec = dataclasses.field(default_factory=QoSSpec)
-    # Later slices: set to anything but None and the engine refuses.
-    lora: Optional[dict] = None
+    # Multi-tenant LoRA adapters over shared base weights (serve/lora.py):
+    # requests carrying a registered model id decode through their
+    # adapter's packed low-rank slices in the same batched dispatch as base
+    # traffic. max_adapters=0 (the default) = off.
+    lora: LoRASpec = dataclasses.field(default_factory=LoRASpec)
+    # A later slice: set to anything but None and the engine refuses.
     speculative: Optional[dict] = None
 
     def __post_init__(self) -> None:
@@ -167,3 +201,18 @@ class BatchingSpec:
                 "one of auto|pallas|xla")
         if isinstance(self.qos, dict):
             self.qos = QoSSpec(**self.qos)
+        if self.lora is None:
+            self.lora = LoRASpec()
+        elif isinstance(self.lora, dict):
+            self.lora = LoRASpec(**self.lora)
+        if self.lora.max_adapters:
+            if self.role != "unified":
+                # Handoff payloads carry KV only: the adopting engine would
+                # need the same adapter hot to continue decoding.
+                raise ValueError(
+                    "lora.max_adapters requires role='unified' "
+                    "(adapter KV cannot ride a handoff)")
+            if (self.speculative or {}).get("mode", "off") != "off":
+                raise ValueError(
+                    "lora.max_adapters requires speculative.mode='off' "
+                    "(the verify dispatch has no adapter lane yet)")

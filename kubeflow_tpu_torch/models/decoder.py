@@ -80,11 +80,12 @@ def layer_view(layers: Any, i: int) -> Any:
 
 def _block_forward(bp: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: DecoderConfig, kv_cache: Optional[dict] = None,
-                   attn_impl: str = "xla", prefill: bool = False):
+                   attn_impl: str = "xla", prefill: bool = False,
+                   lora: Optional[dict] = None):
     h = L.rmsnorm(x, bp["ln1"], cfg)
     attn_out, new_cache = L.attention_block(
         bp["attn"], h, positions, cfg, kv_cache=kv_cache,
-        attn_impl=attn_impl, prefill=prefill)
+        attn_impl=attn_impl, prefill=prefill, lora=lora)
     # Residual add + second norm as ONE op (one kernel pass when on).
     x, h = L.add_rmsnorm(x, attn_out, bp["ln2"], cfg)
     x = x + L.mlp_block(bp["mlp"], h, cfg)
@@ -134,11 +135,13 @@ def decoder_forward(
     lets ``attn_impl="pallas"`` run the flash kernel. ``inputs_embeds``
     [B,S,D] replaces the embedding lookup (pre-scale): the differentiable
     input the attribution explainers need (``serve/explain.py``);
-    ``tokens`` still supplies shapes and positions."""
+    ``tokens`` still supplies shapes and positions. ``lora`` (multi-tenant
+    serving, serve/lora.py): ``{"targets": {t: (a [L,S,din,r], b
+    [L,S,r,dout])}, "aidx": [B], "scale": [S]}``; each row's adapter delta
+    applies inside every attention block (rows with aidx = -1 add exact
+    zero)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE decoders arrive with the MoE slice")
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters arrive with the LoRA slice")
     b, s = tokens.shape
     if positions is None:
         # Decode with a cache: absolute positions continue from its length.
@@ -166,9 +169,11 @@ def decoder_forward(
             cache = {"k": kv_caches["k"][i], "v": kv_caches["v"][i],
                      "len": kv_caches["len"]}
 
-        def block(x, bp=layer_view(params["layers"], i), cache=cache):
+        def block(x, bp=layer_view(params["layers"], i), cache=cache,
+                  lr=L.index_layer(lora, i)):
             return _block_forward(bp, x, positions, cfg, kv_cache=cache,
-                                  attn_impl=attn_impl, prefill=prefill)[0]
+                                  attn_impl=attn_impl, prefill=prefill,
+                                  lora=lr)[0]
 
         x = (_remat(block, cfg.remat_policy) if train else block)(x)
     if kv_caches is not None:

@@ -6,8 +6,9 @@ Params keep the JAX package's keys and layouts (``wq [D,H,Dh]``,
 ``wo [H,Dh,D]``, ``gate/up [D,M]``, ``down [M,D]``); projections are
 matmuls over reshaped views of them. Compute follows the same dtype
 policy: weights cast to the activation dtype at use, norms/softmax/RoPE in
-fp32. LoRA and sequence-parallel attention arrive in later slices (the
-latter raises here); MoE configs are refused by the decoder.
+fp32. Multi-tenant LoRA deltas (``lora_contrib``) add onto the attention
+projections; sequence-parallel attention arrives in a later slice (it
+raises here); MoE configs are refused by the decoder.
 """
 
 from __future__ import annotations
@@ -93,6 +94,74 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+# -- LoRA (multi-tenant adapters; serve/lora.py owns the registry) -------------
+
+def lora_contrib(h: torch.Tensor, a_l: torch.Tensor, b_l: torch.Tensor,
+                 aidx: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Batched per-row low-rank update: one gather + two batched products.
+
+    ``h`` [B, S, d_in] (the same hidden the base projection consumes);
+    ``a_l`` [S_adapters, d_in, r] / ``b_l`` [S_adapters, r, d_out]: one
+    layer's packed adapter slices; ``aidx`` [B] adapter slot per row;
+    ``scale`` [S_adapters] fp32. Both products return the activation dtype;
+    the fp32 per-row scale then promotes the result. Rows with
+    ``aidx < 0`` (base traffic) multiply by an exact 0.0, so their output
+    is bit-unchanged when the result adds onto the base projection."""
+    nslots = a_l.shape[0]
+    safe = aidx.long().clamp(0, nslots - 1)
+    a = a_l[safe]                                 # [B, d_in, r]
+    b = b_l[safe]                                 # [B, r, d_out]
+    s = scale[safe] * (aidx >= 0)
+    t = torch.bmm(h, a)                           # "bsd,bdr->bsr"
+    return torch.bmm(t, b) * s[:, None, None]     # "bsr,bro->bso"
+
+
+def apply_lora_layer(lora_layer: Optional[dict], target: str,
+                     h: torch.Tensor, base: torch.Tensor) -> torch.Tensor:
+    """``base + delta`` for one projection (identity when the layer dict is
+    None or the target isn't packed). ``lora_layer`` is ``{"targets": {t:
+    (a_l, b_l)}, "aidx": [B], "scale": [S]}`` with per-layer [S, ...]
+    slices; ``base`` is the projection output in its headed shape
+    [B, S, H, Dh] (or [B, S, D] for wo), and the delta reshapes to it."""
+    if lora_layer is None or target not in lora_layer["targets"]:
+        return base
+    a_l, b_l = lora_layer["targets"][target]
+    delta = lora_contrib(h, a_l, b_l, lora_layer["aidx"],
+                         lora_layer["scale"])
+    # The fp32 scale promoted the delta: cast back so the cache write and
+    # the residual keep the activation dtype.
+    return base + delta.reshape(base.shape).to(base.dtype)
+
+
+def slice_layers(lora: Optional[dict]) -> Optional[dict]:
+    """The per-layer stacks of a packed-buffer dict: target -> (a
+    [L,S,din,r], b [L,S,r,dout]), the L axis leading (what ``layer_view``
+    rebinds one layer of). None passes through."""
+    if lora is None:
+        return None
+    return {t: (lora["targets"][t][0], lora["targets"][t][1])
+            for t in lora["targets"]}
+
+
+def layer_view(lora: Optional[dict], layer_targets: Optional[dict],
+               ) -> Optional[dict]:
+    """Bind one layer's [S, ...] target slices to the batch-wide aidx and
+    scale operands."""
+    if lora is None:
+        return None
+    return {"targets": layer_targets, "aidx": lora["aidx"],
+            "scale": lora["scale"]}
+
+
+def index_layer(lora: Optional[dict], i: int) -> Optional[dict]:
+    """Layer ``i``'s view of a packed-buffer dict (the forward's layer
+    loop)."""
+    if lora is None:
+        return None
+    return layer_view(lora, {t: (a[i], b[i])
+                             for t, (a, b) in slice_layers(lora).items()})
+
+
 # -- Attention block -----------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: DecoderConfig, dtype=None) -> dict:
@@ -131,17 +200,20 @@ def attention_block(
     kv_cache: Optional[dict] = None,    # {"k","v": [B,Smax,K,Dh], "len": int}
     attn_impl: str = "xla",
     prefill: bool = False,              # cache start is known to be 0
-    lora: Optional[dict] = None,
+    lora: Optional[dict] = None,        # per-layer adapter view (index_layer)
 ):
     """Returns (out [B,S,D], new_kv_cache|None). The cache path writes the
     new K/V into ``kv_cache``'s tensors in place at ``len`` and returns them
-    with the advanced length."""
-    if lora is not None:
-        raise NotImplementedError("LoRA adapters arrive with the LoRA slice")
+    with the advanced length. ``lora``: each row's low-rank adapter delta
+    adds onto the shared projections (rows with aidx = -1 add exact 0)."""
     dt = cfg.activation_dtype
     q = project(x, p["wq"], dt)
     k = project(x, p["wk"], dt)
     v = project(x, p["wv"], dt)
+    if lora is not None:
+        q = apply_lora_layer(lora, "wq", x, q)
+        k = apply_lora_layer(lora, "wk", x, k)
+        v = apply_lora_layer(lora, "wv", x, v)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -173,7 +245,11 @@ def attention_block(
             "with the multi-GPU slice")
     else:
         out = multi_head_attention(q, k, v, causal=True, impl=attn_impl)
-    return out_project(out, p["wo"], dt), new_cache
+    proj = out_project(out, p["wo"], dt)
+    if lora is not None:
+        b, s = out.shape[0], out.shape[1]
+        proj = apply_lora_layer(lora, "wo", out.reshape(b, s, -1), proj)
+    return proj, new_cache
 
 
 # -- MLP -----------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Device-resident decode scheduler state (port of
-``kubeflow_tpu/serve/device_state.py``; the LoRA adapter column arrives
-with its slice).
+``kubeflow_tpu/serve/device_state.py``).
 
 The per-slot ``[B]`` state every decode dispatch reads lives on the device
 for the engine's lifetime, uploaded in full once. Host-side scheduler
@@ -28,18 +27,19 @@ import torch
 #: Per-slot scheduler state riding into every decode dispatch, in sync
 #: order. ``tokens`` = last sampled token (the next step's input);
 #: ``lengths`` = its KV write position; ``live`` masks dead rows; the rest
-#: are per-slot sampling params and the remaining token budget.
+#: are per-slot sampling params, the remaining token budget and the slot's
+#: packed LoRA adapter index (-1 = base weights, serve/lora.py).
 STATE_FIELDS = ("tokens", "lengths", "live", "temps", "top_k", "top_p",
-                "stops", "budgets")
+                "stops", "budgets", "adapter")
 
 _DTYPES = {"tokens": torch.int64, "lengths": torch.int64,
            "live": torch.bool, "temps": torch.float32, "top_k": torch.int64,
            "top_p": torch.float32, "stops": torch.int64,
-           "budgets": torch.int64}
+           "budgets": torch.int64, "adapter": torch.int64}
 
 #: Values a freed slot syncs back to (live=False is the one that matters —
 #: a dead row's other fields are never read by the dispatch).
-DEAD_SLOT = (0, 0, False, 0.0, 0, 1.0, -1, 0)
+DEAD_SLOT = (0, 0, False, 0.0, 0, 1.0, -1, 0, -1)
 
 
 class DecodeState:

@@ -64,9 +64,16 @@ Design (what carries over, and what eager PyTorch changes):
   conversation's next turn on another replica adopts its prefix;
   ``drain_kv_to_remote`` pushes every cached prefix out before a scale
   down.
+- **Multi-tenant LoRA** (``BatchingSpec.lora``, serve/lora.py): a request's
+  ``adapter`` (its model id) acquires a slot of the registry's packed
+  buffers at admission, hot-loading on a miss (the ``engine.adapter_load``
+  span) and requeueing when every slot is referenced; every dispatch passes
+  the packed buffers and a per-row adapter index (-1 = base weights, an
+  exact zero delta), and the prefix index keys each adapter's KV in its own
+  namespace.
 
-Weight quantization, LoRA, speculative decoding, MoE and multi-device
-meshes arrive in later slices and raise ``NotImplementedError``.
+Weight quantization, speculative decoding, MoE and multi-device meshes
+arrive in later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -99,6 +106,9 @@ from kubeflow_tpu_torch.serve.handoff import (
     host_array, payload_from_export, to_torch, torch_dtype_of,
 )
 from kubeflow_tpu_torch.serve.kvtier import RadixPrefixIndex
+from kubeflow_tpu_torch.serve.lora import (
+    AdapterRegistry, AdapterSlotsExhausted,
+)
 from kubeflow_tpu_torch.serve.paged import (
     PageAllocator, PagePoolExhausted, context_bucket, copy_pages,
     paged_chunk_prefill, paged_decode_multi, upload_pages,
@@ -203,14 +213,20 @@ def _decode_attention(q, ck, cv, lengths, cfg: DecoderConfig):
 
 
 def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
-                  cfg: DecoderConfig):
+                  cfg: DecoderConfig, lora=None):
     """One transformer block for a [B,1] decode step against slot caches
-    (written in place)."""
+    (written in place). ``lora``: one layer's adapter view — each row's
+    low-rank delta adds onto the shared projections (adapter index -1 rows
+    add an exact zero)."""
     dt = cfg.activation_dtype
     h = L.rmsnorm(x, bp["ln1"], cfg)
     q = L.project(h, bp["attn"]["wq"], dt)
     k = L.project(h, bp["attn"]["wk"], dt)
     v = L.project(h, bp["attn"]["wv"], dt)
+    if lora is not None:
+        q = L.apply_lora_layer(lora, "wq", h, q)
+        k = L.apply_lora_layer(lora, "wk", h, k)
+        v = L.apply_lora_layer(lora, "wv", h, v)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     bidx = torch.arange(x.shape[0], device=x.device)
@@ -221,17 +237,22 @@ def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
     cache_k[bidx, widx] = torch.where(keep, k[:, 0], cache_k[bidx, widx])
     cache_v[bidx, widx] = torch.where(keep, v[:, 0], cache_v[bidx, widx])
     attn = _decode_attention(q, cache_k, cache_v, lengths, cfg)
-    x = x + L.out_project(attn, bp["attn"]["wo"], dt)
+    proj = L.out_project(attn, bp["attn"]["wo"], dt)
+    if lora is not None:
+        proj = L.apply_lora_layer(
+            lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
+    x = x + proj
     h = L.rmsnorm(x, bp["ln2"], cfg)
     return x + L.mlp_block(bp["mlp"], h, cfg)
 
 
 def _decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                  lengths: torch.Tensor, live: torch.Tensor,
-                 cfg: DecoderConfig) -> torch.Tensor:
+                 cfg: DecoderConfig, lora=None) -> torch.Tensor:
     """tokens [B] (last sampled), lengths [B] (their positions), live [B]
     (rows whose KV write is real). Returns logits [B,V] fp32; the cache is
-    written in place."""
+    written in place. ``lora``: the packed adapter buffers with the per-row
+    ``aidx`` (serve/lora.py)."""
     dt = cfg.activation_dtype
     x = params["embed"][tokens[:, None]].to(dt)          # [B,1,D]
     if cfg.embed_scale:
@@ -239,7 +260,8 @@ def _decode_step(params: Params, cache: dict, tokens: torch.Tensor,
     positions = lengths[:, None]
     for i in range(cfg.n_layers):
         x = _decode_block(layer_view(params["layers"], i), x, positions,
-                          lengths, live, cache["k"][i], cache["v"][i], cfg)
+                          lengths, live, cache["k"][i], cache["v"][i], cfg,
+                          lora=L.index_layer(lora, i))
     x = L.rmsnorm(x, params["final_norm"], cfg)
     return lm_head(params, x, cfg)[:, 0]
 
@@ -247,7 +269,7 @@ def _decode_step(params: Params, cache: dict, tokens: torch.Tensor,
 def _decode_multi(params: Params, cache: dict, tokens, lengths, live, temps,
                   top_k, top_p, stop_tokens, budgets, gen: torch.Generator,
                   cfg: DecoderConfig, num_steps: int,
-                  sample_mode: str = "full"):
+                  sample_mode: str = "full", lora=None):
     """``num_steps`` decode+sample steps with no host synchronisation.
 
     Every step runs (see the module note); a finished row stays in the
@@ -262,7 +284,8 @@ def _decode_multi(params: Params, cache: dict, tokens, lengths, live, temps,
     out = torch.full((b, num_steps), -1, dtype=torch.int64,
                      device=tokens.device)
     for i in range(num_steps):
-        logits = _decode_step(params, cache, tokens, lengths, live, cfg)
+        logits = _decode_step(params, cache, tokens, lengths, live, cfg,
+                              lora=lora)
         sampled = _sample_batch(logits, gen, temps, top_k, top_p,
                                 mode=sample_mode)
         tokens = torch.where(live, sampled, tokens)
@@ -277,19 +300,21 @@ def _decode_multi(params: Params, cache: dict, tokens, lengths, live, temps,
 
 
 def _chunk_prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
-                        slot: int, start: int, cfg: DecoderConfig):
+                        slot: int, start: int, cfg: DecoderConfig,
+                        lora=None):
     """Prefill ONE chunk of a prompt into slot ``slot`` at position
     ``start`` (the slot's cache row accumulates KV across chunks; positions
     past the written region stay causally masked). Returns [C, V] logits."""
     caches = {"k": cache["k"][:, slot:slot + 1],
               "v": cache["v"][:, slot:slot + 1], "len": start}
-    logits, _ = decoder_forward(params, tokens, cfg, kv_caches=caches)
+    logits, _ = decoder_forward(params, tokens, cfg, kv_caches=caches,
+                                lora=lora)
     return logits[0]
 
 
 def _prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
                   slots: torch.Tensor, lengths: torch.Tensor,
-                  cfg: DecoderConfig, attn_impl: str = "xla"):
+                  cfg: DecoderConfig, attn_impl: str = "xla", lora=None):
     """Prefill N same-bucket prompts in one dispatch (tokens [N, bucket],
     slots/lengths [N]); returns [N, V] last-real-token logits. Runs the
     model forward with a scratch cache (start statically 0 — the marker that
@@ -305,7 +330,7 @@ def _prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
         "prefill": True,
     }
     logits, filled = decoder_forward(params, tokens, cfg, kv_caches=scratch,
-                                     attn_impl=attn_impl)
+                                     attn_impl=attn_impl, lora=lora)
     cache["k"][:, slots, :bucket] = filled["k"]
     cache["v"][:, slots, :bucket] = filled["v"]
     return logits[torch.arange(n, device=tokens.device), lengths - 1]
@@ -323,6 +348,11 @@ class Request:
     # cancelled requests wherever they live, freeing the slot.
     deadline: Optional[float] = None
     qos: str = QOS_DEFAULT
+    # Multi-tenant LoRA (serve/lora.py): the registered adapter this request
+    # decodes through (None = base weights). Rides the request's model id
+    # ("model" body field / X-Kftpu-Model header); admission acquires a
+    # packed-buffer slot and every release path returns the reference.
+    adapter: Optional[str] = None
     # Recompute-preemption bookkeeping: output tokens already folded back
     # into prompt_tokens when the slot was preempted.
     resumed_from: int = 0
@@ -686,7 +716,6 @@ class LLMEngine:
                 (mesh is not None, "multi-device meshes"),
                 (cfg.is_moe, "MoE models"),
                 (b.quantize is not None, "weight quantization"),
-                (bool(b.lora), "LoRA adapters"),
                 (bool(b.speculative), "speculative decoding")):
             if unsupported:
                 raise NotImplementedError(
@@ -834,6 +863,19 @@ class LLMEngine:
         # The side stream of the copies to host (exports, demotions): they
         # wait on their gather's event instead of holding up decode.
         self._copy_stream = None                # lockfree: scheduler-confined
+        # Multi-tenant LoRA (serve/lora.py): the registry owns the packed
+        # per-target A/B buffers and the LRU hot-load/evict slot lifecycle;
+        # the per-slot assignments map each running request to its packed
+        # slot for the batched dispatch.
+        self._lora: Optional[AdapterRegistry] = None  # lockfree: scheduler-confined (buffers)
+        self._slot_aidx = [-1] * self.num_slots    # lockfree: scheduler-confined
+        self._slot_aname: list[Optional[str]] = [  # lockfree: scheduler-confined
+            None] * self.num_slots
+        if b.lora.max_adapters:
+            self._lora = AdapterRegistry(
+                cfg, max_adapters=int(b.lora.max_adapters),
+                rank=int(b.lora.rank), targets=tuple(b.lora.targets),
+                device=self.device)
         self.slots: list[Optional[_Slot]] = [None] * self.num_slots  # lockfree: scheduler-confined
         self._dstate = DecodeState(self.num_slots, self.device,
                                    mpp=self._mpp if self.paged else None)
@@ -953,10 +995,15 @@ class LLMEngine:
         }
 
     def adapters_resident(self) -> list[str]:
-        return []
+        """Adapters hot in the packed buffers: the
+        ``kftpu_engine_adapters_resident`` gauge's label set (the router's
+        placement signal)."""
+        return [] if self._lora is None else self._lora.resident()
 
     def adapter_stats(self) -> dict:
-        return {}
+        """Registry lifecycle counters (empty on LoRA-free engines): the
+        /metrics adapter series' source."""
+        return {} if self._lora is None else self._lora.snapshot()
 
     def pending_prefill_tokens(self) -> int:
         """Prompt tokens waiting to be prefilled (queue + backlog + the
@@ -977,12 +1024,10 @@ class LLMEngine:
         """Queue one request. ``handoff`` (default: this engine is a
         prefill role) stops the request at its first token and exports its
         KV (finish_reason "handoff"); ``handoff=False`` decodes locally on
-        any role. ``adapter`` names a LoRA model id; the port serves no
-        adapters yet, so any id is unknown here (``KeyError``, the JAX
-        engine's answer to an unregistered id)."""
-        if adapter is not None:
-            raise KeyError(f"unknown adapter {adapter!r}: this engine serves "
-                           "no LoRA adapters")
+        any role. ``adapter`` names a registered LoRA model id: an unknown
+        one fails here (``KeyError``, the protocol layers' 404), so the
+        scheduler only ever sees registered adapters; the hot-load happens
+        at admission, on the scheduler thread."""
         if not prompt_tokens:
             raise ValueError("empty prompt")
         if len(prompt_tokens) >= self.max_len:
@@ -991,6 +1036,18 @@ class LLMEngine:
         if qos not in QOS_PRIORITY:
             raise ValueError(
                 f"unknown QoS class {qos!r}; known: {sorted(QOS_PRIORITY)}")
+        if adapter is not None:
+            if self._lora is None:
+                raise KeyError(
+                    f"unknown model {adapter!r}: this engine serves no "
+                    "adapters (lora.max_adapters=0)")
+            if not self._lora.known(adapter):
+                raise KeyError(
+                    f"unknown model {adapter!r}: adapter not registered")
+            if handoff:
+                raise ValueError(
+                    "adapter requests cannot hand off (adapter KV has "
+                    "no cross-engine placement contract)")
         bad = [t for t in prompt_tokens
                if not 0 <= int(t) < self.cfg.vocab_size]
         if bad:
@@ -1018,7 +1075,7 @@ class LLMEngine:
                       params=params or SamplingParams(),
                       id=request_id or f"req-{next(self._id_gen)}",
                       deadline=deadline, trace_parent=trace_parent, qos=qos,
-                      handoff_requested=wants_handoff)
+                      handoff_requested=wants_handoff, adapter=adapter)
         _span_open(req, "engine.queued", prompt_tokens=len(prompt_tokens),
                    qos=qos)
         self.waiting.put(req)
@@ -1174,6 +1231,7 @@ class LLMEngine:
                     self._chunkings.remove(ch)
                     self._kv_register(req.prompt_tokens, slot_idx, ch.pos)
                     self._release_slot_pages(slot_idx)
+                    self._release_slot_adapter(slot_idx)
                     self._preempted.append(req)
                     self.metrics.note_preempted(req.qos)
                 return 0    # otherwise retry next scheduler step
@@ -1186,11 +1244,13 @@ class LLMEngine:
             logits = paged_chunk_prefill(
                 self.params, self.cache, self._upload([chunk], torch.int64),
                 self._upload(self._table[slot_idx].tolist(), torch.int32),
-                ch.pos, real, self.cfg, context_pages=ctx)
+                ch.pos, real, self.cfg, context_pages=ctx,
+                lora=self._lora_rows([self._slot_aidx[slot_idx]]))
         else:
-            logits = _chunk_prefill_step(self.params, self.cache,
-                                         self._upload([chunk], torch.int64),
-                                         slot_idx, ch.pos, self.cfg)
+            logits = _chunk_prefill_step(
+                self.params, self.cache, self._upload([chunk], torch.int64),
+                slot_idx, ch.pos, self.cfg,
+                lora=self._lora_rows([self._slot_aidx[slot_idx]]))
         ch.pos += real
         if ch.pos >= plen:
             self._chunkings.remove(ch)
@@ -1252,6 +1312,7 @@ class LLMEngine:
                     # prefix content: index it before release.
                     self._kv_register(self._context_tokens(s), i, s.length)
                 self._release_slot_pages(i)
+                self._release_slot_adapter(i)
                 self.slots[i] = None
                 # The device still thinks the row is live: sync next
                 # dispatch; a round already in flight is masked at consume.
@@ -1263,6 +1324,7 @@ class LLMEngine:
             if reason:
                 self._chunkings.remove(ch)
                 self._release_slot_pages(ch.slot)
+                self._release_slot_adapter(ch.slot)
                 self._fail_request(ch.request, reason)
                 n += 1
         # Handoff holds whose request was cancelled or deadlined (the
@@ -1367,6 +1429,12 @@ class LLMEngine:
                 self._adopt_handoff(req, slot_idx)
                 n += 1
                 continue
+            adapter_hot = self._assign_adapter(req, slot_idx)
+            if adapter_hot is None:
+                # Adapter-slot backpressure: every packed slot is referenced
+                # by a live request — the request went back to the front of
+                # the backlog; stop admitting until one drains.
+                break
             if self.paged:
                 # Paged admission always chunks; the prefix index trims the
                 # work to the uncached tail (radix: live sharing and a COW
@@ -1374,6 +1442,12 @@ class LLMEngine:
                 pages, covered = self._kv_match(req)
                 if req.trace_parent is not None:
                     _span_close(req)       # queued →
+                    if adapter_hot:
+                        # The admission hot-loaded its adapter: the registry
+                        # pull and the slot copy as a phase of the trace.
+                        _span_open(req, "engine.adapter_load",
+                                   adapter=req.adapter)
+                        _span_close(req)
                     tier = self._kvtier
                     if tier is not None and tier.last_promoted:
                         # The promotion's upload was enqueued ahead of this
@@ -1399,6 +1473,10 @@ class LLMEngine:
                 continue
             if req.trace_parent is not None:
                 _span_close(req)
+                if adapter_hot:
+                    _span_open(req, "engine.adapter_load",
+                               adapter=req.adapter)
+                    _span_close(req)
                 _span_open(req, "engine.prefill")
             plen = len(req.prompt_tokens)
             C = self.chunk_size
@@ -1452,7 +1530,9 @@ class LLMEngine:
                         self._upload(toks, torch.int64),
                         self._upload([g[1] for g in group], torch.int64),
                         self._upload([g[2] for g in group], torch.int64),
-                        self.cfg, self.prefill_impl(bucket))
+                        self.cfg, self.prefill_impl(bucket),
+                        lora=self._lora_rows(
+                            [self._slot_aidx[g[1]] for g in group]))
                     self._sample_first_batch(
                         [(req, slot_idx, plen, None)
                          for req, slot_idx, plen, _ in group],
@@ -1460,8 +1540,12 @@ class LLMEngine:
                 except Exception:
                     for item in group:
                         remaining.pop(id(item), None)
-                    for req, _, _, _ in group:
+                    for req, slot_idx, _, _ in group:
+                        self._release_slot_adapter(slot_idx)
                         self._fail_request(req, "error")
+                    # Re-admission re-acquires their adapter references.
+                    for item in remaining.values():
+                        self._release_slot_adapter(item[1])
                     self._backlog[:0] = [it[0] for it in remaining.values()]
                     raise
                 for item in group:
@@ -1726,32 +1810,89 @@ class LLMEngine:
 
     def _kv_register(self, tokens, slot_idx: int, n_tokens: int) -> None:
         """Index ``tokens[:n_tokens]``'s written KV for cross-request reuse
-        (radix) or hash the full-page prefix (flat)."""
+        (radix) or hash the full-page prefix (flat), in the slot occupant's
+        adapter namespace: KV content is a function of (tokens, model
+        variant), so tenants never share pages."""
         if self._allocator is None or n_tokens <= 0:
             return
+        ns = self._slot_namespace(slot_idx)
         if self._kvtier is not None:
-            self._kvtier.insert(tokens, self._slot_pages[slot_idx], n_tokens)
+            self._kvtier.insert(tokens, self._slot_pages[slot_idx], n_tokens,
+                                namespace=ns)
         else:
             self._allocator.register_prefix(
                 list(tokens)[:n_tokens],
-                self._slot_pages[slot_idx][:n_tokens // self.page_size])
+                self._slot_pages[slot_idx][:n_tokens // self.page_size],
+                namespace=ns)
 
     def _kv_match(self, req: Request, *, allow_cow: bool = True
                   ) -> tuple[list[int], int]:
         """Longest reusable prefix of ``req``'s prompt: (pages now owned by
         the request, tokens covered). Radix: live sharing, host-tier
-        promotion and, with ``allow_cow``, a sub-page COW tail."""
+        promotion and, with ``allow_cow``, a sub-page COW tail. The match
+        stays inside the request's adapter namespace."""
+        ns = req.adapter or ""
         if self._kvtier is not None:
             return self._kvtier.match_and_acquire(req.prompt_tokens,
                                                   owner=req.id,
-                                                  allow_cow=allow_cow)
-        hit = self._allocator.match_prefix(req.prompt_tokens, owner=req.id)
+                                                  allow_cow=allow_cow,
+                                                  namespace=ns)
+        hit = self._allocator.match_prefix(req.prompt_tokens, owner=req.id,
+                                           namespace=ns)
         return list(hit), len(hit) * self.page_size
+
+    # -- multi-tenant LoRA bookkeeping (serve/lora.py) -------------------------
+
+    def _lora_rows(self, aidx) -> Optional[dict]:
+        """The packed adapter buffers with a per-row adapter index (a host
+        list, uploaded, or a device tensor) for one dispatch; None on a
+        LoRA-free engine."""
+        if self._lora is None:
+            return None
+        if not isinstance(aidx, torch.Tensor):
+            aidx = self._upload(list(aidx), torch.int64)
+        return {**self._lora.buffers, "aidx": aidx}
+
+    def _assign_adapter(self, req: Request,
+                        slot_idx: int) -> Optional[bool]:
+        """Bind ``req``'s adapter (if any) to the engine slot: acquire a
+        packed-buffer slot reference, hot-loading on a miss. Returns the
+        hot-load flag (False = already resident, or base traffic), or None
+        when every adapter slot is referenced: the request goes back to the
+        front of the backlog (admission backpressure)."""
+        if req.adapter is None or self._lora is None:
+            self._slot_aidx[slot_idx] = -1
+            self._slot_aname[slot_idx] = None
+            return False
+        try:
+            aidx, hot = self._lora.acquire(req.adapter, owner=req.id)
+        except AdapterSlotsExhausted:
+            self._backlog.insert(0, req)
+            return None
+        self._slot_aidx[slot_idx] = aidx
+        self._slot_aname[slot_idx] = req.adapter
+        return hot
+
+    def _release_slot_adapter(self, slot_idx: int) -> None:
+        """Return the engine slot's adapter reference (every slot-free path
+        calls this exactly once; the refcount sanitizer audits the balance
+        per owner)."""
+        name = self._slot_aname[slot_idx]
+        if name is None:
+            return
+        self._lora.release(name)
+        self._slot_aname[slot_idx] = None
+        self._slot_aidx[slot_idx] = -1
+
+    def _slot_namespace(self, slot_idx: int) -> str:
+        """KV-content namespace of the slot's occupant ("" = base)."""
+        return self._slot_aname[slot_idx] or ""
 
     def _kv_pressure(self) -> float:
         """Pool-pressure ratio (>= 1.0 = urgent): the pool-occupancy rule
-        folded with the queue-delay-vs-budget ratio, as the JAX engine
-        exports it."""
+        folded with the queue-delay-vs-budget ratio and adapter hot-load
+        backpressure (a new tenant waiting on an adapter slot), as the JAX
+        engine exports it."""
         alloc = self._allocator
         pool = (alloc.num_pages // 4) / max(alloc.available(), 1)
         qd = 0.0
@@ -1759,7 +1900,10 @@ class LLMEngine:
             snap = self.metrics.snapshot()
             qd = (snap.get("queue_delay_p95_ms", 0.0) / 1e3
                   / self.queue_delay_budget)
-        return max(pool, qd)
+        lora = getattr(self, "_lora", None)
+        adapter = 1.0 if (lora is not None and self._backlog
+                          and lora.pending_pressure()) else 0.0
+        return max(pool, qd, adapter)
 
     def _slot_owner(self, slot_idx: int) -> Optional[str]:
         """Request id owning ``slot_idx`` (occupant or in-flight chunked
@@ -1835,6 +1979,7 @@ class LLMEngine:
             self._kv_register(req.prompt_tokens, ch.slot, ch.pos)
         self._chunkings.remove(ch)
         self._release_slot_pages(ch.slot)
+        self._release_slot_adapter(ch.slot)
         self._preempted.append(req)
         self.metrics.note_preempted(req.qos)
         return True
@@ -1861,6 +2006,7 @@ class LLMEngine:
         # adopting the payload's stale KV again.
         req.adopt = None
         self._release_slot_pages(idx)
+        self._release_slot_adapter(idx)
         self.slots[idx] = None
         self._dstate.mark_slot(idx)
         self._preempted.append(req)
@@ -1917,6 +2063,7 @@ class LLMEngine:
                 # next turn matches through prompt and history.
                 self._kv_register(self._context_tokens(s), idx, s.length)
             self._release_slot_pages(idx)
+        self._release_slot_adapter(idx)
         self.slots[idx] = None
         return True
 
@@ -1941,7 +2088,7 @@ class LLMEngine:
         budget = max(p.max_new_tokens - s.generated, 0)
         return (s.last_token, s.length, budget > 0, p.temperature, p.top_k,
                 p.top_p, -1 if p.stop_token is None else p.stop_token,
-                budget)
+                budget, self._slot_aidx[idx])
 
     def _steps_left(self, i: int, s: _Slot) -> int:
         """Most decode steps slot ``i`` can still take after the rounds in
@@ -2010,13 +2157,14 @@ class LLMEngine:
                 st["tokens"], st["lengths"], st["live"], st["temps"],
                 st["top_k"], st["top_p"], st["stops"], st["budgets"],
                 self._gen, self.cfg, k_steps, sample_mode=mode,
-                attn_impl=self.paged_attn_impl)
+                attn_impl=self.paged_attn_impl,
+                lora=self._lora_rows(st["adapter"]))
         else:
             out, tokens, lengths, live, budgets = _decode_multi(
                 self.params, self.cache, st["tokens"], st["lengths"],
                 st["live"], st["temps"], st["top_k"], st["top_p"],
                 st["stops"], st["budgets"], self._gen, self.cfg, k_steps,
-                sample_mode=mode)
+                sample_mode=mode, lora=self._lora_rows(st["adapter"]))
         self._dstate.adopt({**st, "tokens": tokens, "lengths": lengths,
                             "live": live, "budgets": budgets})
         host, ready = _to_host_async(out)

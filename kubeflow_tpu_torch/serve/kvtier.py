@@ -197,7 +197,10 @@ class RadixPrefixIndex:
         self._upload_pages = upload_pages_fn
         self._fetch_pages = fetch_pages_fn
         self._pressure_fn = pressure_fn
-        self._root = _Node((), None, None)
+        # One radix root per KV namespace ("" = base weights; one per LoRA
+        # adapter, serve/lora.py): the same prompt under two adapters never
+        # shares pages.
+        self._roots: dict[str, _Node] = {"": _Node((), None, None)}
         self._by_page: dict[int, _Node] = {}  # lockfree: scheduler-confined
         # Tier transitions and host accounting cross the migration-thread
         # seam (reentrant: an alloc inside a match can fire on_evict back
@@ -264,9 +267,20 @@ class RadixPrefixIndex:
 
     # -- match (admission path) ----------------------------------------------
 
+    def root(self, namespace: str = "") -> _Node:
+        """The radix root of one KV namespace. KV content is a function of
+        (tokens, model variant), so multi-tenant LoRA serving gives each
+        adapter its own root: the isolation is structural, not checked."""
+        # requires_lock: _lock
+        node = self._roots.get(namespace)
+        if node is None:
+            node = self._roots[namespace] = _Node((), None, None)
+        return node
+
     def match_and_acquire(self, tokens: Sequence[int],
                           owner: Optional[str] = None, *,
-                          allow_cow: bool = True) -> tuple[list[int], int]:
+                          allow_cow: bool = True,
+                          namespace: str = "") -> tuple[list[int], int]:
         """Longest shared prefix of ``tokens``, capped one token short (the
         first sampled token needs real last-token logits). Returns
         ``(pages, covered_tokens)``: device pages the caller now owns one
@@ -278,7 +292,8 @@ class RadixPrefixIndex:
         the remote store's registry, and remote blocks promote in the same
         upload, all under one deadline per match. Pool exhaustion truncates
         the match rather than failing the admission; any failure misses
-        cleanly (the prefix is recomputed)."""
+        cleanly (the prefix is recomputed). The walk stays inside
+        ``namespace``'s tree."""
         pg = self.page_size
         cap = len(tokens) - 1
         pages: list[int] = []
@@ -287,7 +302,7 @@ class RadixPrefixIndex:
         self.last_cow_tokens = 0
         try:
             return self._match_locked(tokens, owner, allow_cow, pg, cap,
-                                      pages, promote)
+                                      pages, promote, namespace)
         except Exception as exc:
             # Balance the books and miss: every acquired page holds exactly
             # one of our references, and a promoted node whose upload may
@@ -303,7 +318,7 @@ class RadixPrefixIndex:
             return [], 0
 
     def _match_locked(self, tokens, owner, allow_cow, pg, cap,
-                      pages, promote) -> tuple[list[int], int]:
+                      pages, promote, namespace="") -> tuple[list[int], int]:
         from kubeflow_tpu_torch.serve.paged import PagePoolExhausted
 
         with self._lock:
@@ -313,7 +328,7 @@ class RadixPrefixIndex:
             self._allocator.stats["prefix_queries"] += 1
             now = time.monotonic()
             covered = 0
-            node = self._root
+            node = self.root(namespace)
             chain: tuple = ()
             # One deadline for ALL remote-store work of this match (probe
             # and fetch), armed at the first remote touch, so hits that
@@ -505,9 +520,14 @@ class RadixPrefixIndex:
         return tuple(reversed(chain))
 
     def _namespace_of(self, node: _Node) -> str:
-        """The node's KV namespace. The JAX index keeps one root per LoRA
-        adapter; the port serves no adapters, so every node is under the
-        one root and its namespace is ``""``."""
+        """The node's KV namespace: the key of the root it hangs under."""
+        # requires_lock: _lock
+        n = node
+        while n.parent is not None:
+            n = n.parent
+        for ns, r in self._roots.items():
+            if r is n:
+                return ns
         return ""
 
     def _remote_call(self, fn: Callable, timeout_s: float):
@@ -601,7 +621,8 @@ class RadixPrefixIndex:
     # -- registration --------------------------------------------------------
 
     def insert(self, tokens: Sequence[int], pages: Sequence[int],
-               n_tokens: Optional[int] = None) -> None:
+               n_tokens: Optional[int] = None,
+               namespace: str = "") -> None:
         """Index ``tokens[:n_tokens]``'s KV: full blocks become (or confirm)
         tree nodes pointing at the registering slot's pages, a sub-page
         remainder becomes (or extends) a partial leaf. Existing nodes keep
@@ -613,7 +634,7 @@ class RadixPrefixIndex:
                                                             len(tokens))
         with self._lock:
             now = time.monotonic()
-            node = self._root
+            node = self.root(namespace)
             nfull = n_tokens // pg
             for i in range(min(nfull, len(pages))):
                 blk = tuple(tokens[i * pg:(i + 1) * pg])
@@ -739,7 +760,8 @@ class RadixPrefixIndex:
 
     def _iter_nodes(self):
         # requires_lock: _lock
-        stack = list(self._root.children.values()) + self._root.partials
+        stack = [n for r in self._roots.values()
+                 for n in list(r.children.values()) + r.partials]
         while stack:
             n = stack.pop()
             yield n

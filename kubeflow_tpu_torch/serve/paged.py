@@ -229,9 +229,13 @@ class PageAllocator:
     # -- prefix caching ----------------------------------------------------
 
     @staticmethod
-    def chain_keys(tokens: Sequence[int], page_size: int) -> list[tuple]:
-        """Chained content keys for every FULL page of ``tokens``."""
-        keys, parent = [], ()
+    def chain_keys(tokens: Sequence[int], page_size: int,
+                   namespace: str = "") -> list[tuple]:
+        """Chained content keys for every FULL page of ``tokens``.
+        ``namespace`` salts the chain root: KV content depends on the model
+        variant that computed it, so multi-tenant LoRA serving keys each
+        adapter's pages apart."""
+        keys, parent = [], (namespace,) if namespace else ()
         for i in range(len(tokens) // page_size):
             parent = (hash((parent, tuple(
                 tokens[i * page_size:(i + 1) * page_size]))),)
@@ -239,7 +243,8 @@ class PageAllocator:
         return keys
 
     def match_prefix(self, tokens: Sequence[int],
-                     owner: Optional[str] = None) -> list[int]:
+                     owner: Optional[str] = None,
+                     namespace: str = "") -> list[int]:
         """Longest run of cached pages for ``tokens``' full-page prefix
         (capped so at least one prompt token remains to prefill — the first
         sampled token needs real last-token logits). Bumps refs on the hit
@@ -249,7 +254,8 @@ class PageAllocator:
         self.stats["prefix_queries"] += 1
         max_reuse = (len(tokens) - 1) // self.page_size
         hit: list[int] = []
-        for key in self.chain_keys(tokens, self.page_size)[:max_reuse]:
+        for key in self.chain_keys(tokens, self.page_size,
+                                   namespace)[:max_reuse]:
             page = self._by_key.get(key)
             if page is None:
                 break
@@ -260,13 +266,14 @@ class PageAllocator:
         return hit
 
     def register_prefix(self, tokens: Sequence[int],
-                        pages: Sequence[int]) -> None:
+                        pages: Sequence[int],
+                        namespace: str = "") -> None:
         """Hash ``pages`` as holding ``tokens``' full-page prefixes (called
         after the KV is actually written)."""
         if not self.prefix_caching:
             return
-        for key, page in zip(self.chain_keys(tokens, self.page_size),
-                             pages):
+        for key, page in zip(self.chain_keys(tokens, self.page_size,
+                                             namespace), pages):
             old = self._by_key.get(key)
             if old is not None and old != page:
                 continue     # first writer wins; duplicates just aren't hashed
@@ -302,7 +309,7 @@ def _write_index(table: torch.Tensor, lengths: torch.Tensor,
 
 def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
                         table, cfg: DecoderConfig, attn_impl: str = "gather",
-                        pool_ks=None, pool_vs=None):
+                        pool_ks=None, pool_vs=None, lora=None):
     """One transformer block for a [B,1] decode step against one layer's
     page pool (written in place). Mirrors the engine's ``_decode_block``;
     only the KV residency differs.
@@ -312,7 +319,10 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
     reads pages directly through ``paged_decode_attention`` (the kernel on
     CUDA tensors). ``pool_ks``/``pool_vs`` ([P+1,pg,KV] f32, present iff
     the pool stores int8): writes quantize; "gather" dequantizes into the
-    attention's operand, the kernel dequantizes in registers."""
+    attention's operand, the kernel dequantizes in registers. ``lora``: one
+    layer's adapter view (per-row low-rank deltas on the shared
+    projections, applied before the pool write; index -1 rows add an exact
+    zero)."""
     from kubeflow_tpu_torch.serve.engine import _decode_attention
 
     dt = cfg.activation_dtype
@@ -320,6 +330,10 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
     q = L.project(h, bp["attn"]["wq"], dt)
     k = L.project(h, bp["attn"]["wk"], dt)
     v = L.project(h, bp["attn"]["wv"], dt)
+    if lora is not None:
+        q = L.apply_lora_layer(lora, "wq", h, q)
+        k = L.apply_lora_layer(lora, "wk", h, k)
+        v = L.apply_lora_layer(lora, "wv", h, v)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     pidx, off = _write_index(table, lengths, live, pool_k.shape[1],
@@ -349,15 +363,19 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
             attn = _decode_attention(q, paged_gather(pool_k, table),
                                      paged_gather(pool_v, table), lengths,
                                      cfg)
-    x = x + L.out_project(attn, bp["attn"]["wo"], dt)
+    proj = L.out_project(attn, bp["attn"]["wo"], dt)
+    if lora is not None:
+        proj = L.apply_lora_layer(
+            lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
+    x = x + proj
     h = L.rmsnorm(x, bp["ln2"], cfg)
     return x + L.mlp_block(bp["mlp"], h, cfg)
 
 
 def _paged_decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                        lengths: torch.Tensor, live: torch.Tensor,
-                       cfg: DecoderConfig, attn_impl: str = "gather"
-                       ) -> torch.Tensor:
+                       cfg: DecoderConfig, attn_impl: str = "gather",
+                       lora=None) -> torch.Tensor:
     """One [B,1] decode step over the page pool (≈ the engine's
     ``_decode_step``). Returns logits [B,V] fp32; the pools are written in
     place."""
@@ -373,7 +391,8 @@ def _paged_decode_step(params: Params, cache: dict, tokens: torch.Tensor,
             layer_view(params["layers"], i), x, positions, lengths, live,
             cache["k"][i], cache["v"][i], table, cfg, attn_impl=attn_impl,
             pool_ks=cache["ks"][i] if quant else None,
-            pool_vs=cache["vs"][i] if quant else None)
+            pool_vs=cache["vs"][i] if quant else None,
+            lora=L.index_layer(lora, i))
     x = L.rmsnorm(x, params["final_norm"], cfg)
     return lm_head(params, x, cfg)[:, 0]
 
@@ -384,13 +403,15 @@ def paged_decode_multi(params: Params, cache: dict, tokens: torch.Tensor,
                        top_p: torch.Tensor, stop_tokens: torch.Tensor,
                        budgets: torch.Tensor, gen: torch.Generator,
                        cfg: DecoderConfig, num_steps: int,
-                       sample_mode: str = "full", attn_impl: str = "gather"):
+                       sample_mode: str = "full", attn_impl: str = "gather",
+                       lora=None):
     """``num_steps`` decode+sample steps over the page pool with no host
     synchronisation (≈ the engine's ``_decode_multi``: every step runs,
     finished rows are masked — their writes land on the sink page). The
     host pre-allocates pages covering ``lengths + num_steps`` plus the
     rounds in flight, so mid-dispatch page crossings land on mapped pages.
-    Returns (out, tokens, lengths, live, budgets)."""
+    ``lora``: the packed adapter buffers with the per-row ``aidx``
+    (serve/lora.py). Returns (out, tokens, lengths, live, budgets)."""
     from kubeflow_tpu_torch.serve.engine import _sample_batch
 
     b = tokens.shape[0]
@@ -399,7 +420,7 @@ def paged_decode_multi(params: Params, cache: dict, tokens: torch.Tensor,
                      device=tokens.device)
     for i in range(num_steps):
         logits = _paged_decode_step(params, cache, tokens, lengths, live, cfg,
-                                    attn_impl=attn_impl)
+                                    attn_impl=attn_impl, lora=lora)
         sampled = _sample_batch(logits, gen, temps, top_k, top_p,
                                 mode=sample_mode)
         tokens = torch.where(live, sampled, tokens)
@@ -455,7 +476,7 @@ def context_bucket(pos: int, chunk: int, page_size: int, mpp: int) -> int:
 def paged_chunk_prefill(params: Params, cache: dict, tokens: torch.Tensor,
                         table_row: torch.Tensor, start: int, valid_len: int,
                         cfg: DecoderConfig, attn_impl: str = "xla",
-                        context_pages: Optional[int] = None):
+                        context_pages: Optional[int] = None, lora=None):
     """Prefill ONE chunk (``tokens`` [1,C], positions [start, start+C)) of a
     slot whose pages are ``table_row`` [mpp]. The chunk attends to the
     slot's earlier KV by gathering the (bucketed) table row into the
@@ -463,8 +484,9 @@ def paged_chunk_prefill(params: Params, cache: dict, tokens: torch.Tensor,
     one chunk of scratch so the C-wide write window never clamps; then only
     the chunk's first ``valid_len`` tokens scatter back per (page, offset),
     so ``start`` needs no page alignment (the radix COW tail resumes
-    mid-page). Padding and unmapped pages aim at the sink page. Returns
-    [C, V] logits; the pools are written in place."""
+    mid-page). Padding and unmapped pages aim at the sink page. ``lora``:
+    the packed adapter buffers with ``aidx`` [1], so the chunk's KV is the
+    adapter's. Returns [C, V] logits; the pools are written in place."""
     pg = cache["k"].shape[2]
     c = tokens.shape[1]
     sink = cache["k"].shape[1] - 1
@@ -485,7 +507,7 @@ def paged_chunk_prefill(params: Params, cache: dict, tokens: torch.Tensor,
     row_v = torch.cat([row_v.reshape(nl, 1, ctx * pg, kh, d), pad], dim=2)
     caches = {"k": row_k, "v": row_v, "len": start}
     logits, _ = decoder_forward(params, tokens, cfg, kv_caches=caches,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, lora=lora)
     written_k = row_k[:, 0, start:start + c]                 # [L,C,K,D]
     written_v = row_v[:, 0, start:start + c]
     i = torch.arange(c, device=tokens.device)

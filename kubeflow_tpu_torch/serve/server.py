@@ -1,6 +1,5 @@
-"""Model server: the HTTP protocol surface over one port LLM engine (port of
-``kubeflow_tpu/serve/server.py``, single-engine routes and the KV handoff
-relay).
+"""Model server: the HTTP protocol surface over one port LLM engine or a
+model repository (port of ``kubeflow_tpu/serve/server.py``).
 
 Routes:
 
@@ -18,7 +17,20 @@ Routes:
 - ``POST /v2/models/{name}/infer`` (v2 open-inference protocol);
 - ``POST /v1/handoff`` (the decode side of disaggregated serving: adopt a
   ``serve/handoff.py`` payload and stream the second token on as SSE, each
-  chunk with its token id).
+  chunk with its token id);
+- ``GET /v2/repository/index``, ``POST /v2/repository/models/{m}/load`` and
+  ``.../unload`` (the model repository, serve/repository.py; a
+  single-model server lists its one model and answers the actions 400).
+
+Model ids: ``ModelServer(name, engine)`` serves one engine, and on an
+engine with LoRA adapters (``BatchingSpec.lora``) every registered adapter
+name is a model id too — the ``X-Kftpu-Model`` header or the body's
+``"model"`` field routes a request through that adapter, and an unknown id
+is a 404, never a silent fall-through to the base weights.
+``ModelServer(name, repository=...)`` serves many models, loading each on
+its first request under the repository's LRU budget; every request leases
+its model's engine for its duration. ``grpc_port=`` adds the open inference
+protocol over gRPC (serve/grpc_server.py) on the same models.
 
 Disaggregated serving: on a ``prefill``-role engine, a request carrying
 ``X-Kftpu-Decode-Backend`` (the router stamps it) stops at its first
@@ -36,14 +48,14 @@ replica that takes a conversation's next turn adopts its prefix from the
 store.
 
 A transformer hop ``transformer(text, phase)`` rewrites the prompt
-(``"pre"``) and the non-streamed output (``"post"``). The model
-repository and gRPC arrive with later slices (404 here). Threaded stdlib
+(``"pre"``) and the non-streamed output (``"post"``). Threaded stdlib
 server: handlers block on the engine's request stream; the engine thread
 batches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -186,16 +198,24 @@ _V1_PREDICT = re.compile(r"^/v1/models/([^/:]+):predict$")
 _V1_EXPLAIN = re.compile(r"^/v1/models/([^/:]+):explain$")
 _V2_MODEL = re.compile(r"^/v2/models/([^/]+)$")
 _V2_INFER = re.compile(r"^/v2/models/([^/]+)/infer$")
+_REPO_ACTION = re.compile(r"^/v2/repository/models/([^/]+)/(load|unload)$")
 
 
 class ModelServer:
-    def __init__(self, name: str, engine: LLMEngine, *,
+    def __init__(self, name: str, engine: Optional[LLMEngine] = None, *,
+                 repository=None,
                  tokenizer: Optional[Tokenizer] = None,
                  transformer=None,
                  explainer=None,
-                 host: str = "127.0.0.1", port: int = 0):
-        self.name = name
-        self.engine = engine
+                 host: str = "127.0.0.1", port: int = 0,
+                 grpc_port: Optional[int] = None):
+        if (engine is None) == (repository is None):
+            raise ValueError("pass exactly one of engine= or repository=")
+        self.name = name                  # default model name
+        self.engine = engine              # single-model mode only
+        # Multi-model mode (serve/repository.py): engines load on demand
+        # under an LRU budget, each request leasing its entry.
+        self.repository = repository
         self.tokenizer = tokenizer or get_tokenizer("byte")
         # Pre/post-processing hop (≈ kserve transformer):
         # transformer(text, phase) with phase in {"pre", "post"}.
@@ -210,14 +230,27 @@ class ModelServer:
         quiet_handle_error(self.httpd)
         self.port = self.httpd.server_address[1]
         self._thread: Optional[threading.Thread] = None
+        # The v2 protocol over gRPC beside REST (grpc_port=0: ephemeral).
+        # grpcio is imported only here, so a server without it still runs.
+        self.grpc_server = None
+        if grpc_port is not None:
+            from kubeflow_tpu_torch.serve.grpc_server import (
+                GRPCInferenceServer,
+            )
+
+            self.grpc_server = GRPCInferenceServer(self, host=host,
+                                                   port=grpc_port)
 
     # -- lifecycle -------------------------------------------------------------
 
     def start(self) -> None:
-        self.engine.start()
+        if self.engine is not None:
+            self.engine.start()
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True, name="model-server")
         self._thread.start()
+        if self.grpc_server is not None:
+            self.grpc_server.start()
 
     def stop(self) -> None:
         self.httpd.shutdown()
@@ -225,7 +258,12 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join(timeout=5.0)
             self._thread = None
-        self.engine.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
+        if self.engine is not None:
+            self.engine.stop()
+        if self.repository is not None:
+            self.repository.shutdown()
 
     @property
     def url(self) -> str:
@@ -234,14 +272,73 @@ class ModelServer:
     # -- model resolution ------------------------------------------------------
 
     def model_names(self) -> list[str]:
-        return [self.name]
+        if self.repository is None:
+            lora = self.engine._lora
+            if lora is not None:
+                # Multi-tenant LoRA: every registered adapter is a servable
+                # model id on this engine.
+                return [self.name] + lora.names()
+            return [self.name]
+        return self.repository.names()
 
-    def check_model(self, name: Optional[str], *, strict: bool) -> None:
-        """``strict`` (path-addressed endpoints): a foreign name is a 404.
-        Non-strict (the OpenAI body "model" field) ignores it — OpenAI SDK
-        clients always send one."""
-        if strict and name not in (None, self.name):
-            raise KeyError(f"unknown model {name!r} (serving {self.name})")
+    def resolve_adapter(self, name: Optional[str]) -> Optional[str]:
+        """Map a request's model id onto this server's LoRA surface:
+        None or the base name = base weights; a registered adapter name
+        decodes through its packed slot; anything else on a LoRA engine is
+        a 404 (``KeyError``): a tenant never falls through to the base
+        model. Repository and LoRA-free servers return None."""
+        if self.repository is not None or name in (None, self.name):
+            return None
+        lora = self.engine._lora
+        if lora is None:
+            return None
+        if not lora.known(name):
+            raise KeyError(
+                f"unknown model {name!r}: not a registered adapter "
+                f"(serving {self.name})")
+        return name
+
+    def lease(self, name: Optional[str], *, strict: bool = False):
+        """Context manager: ``(engine, tokenizer, resolved_name)`` pinned for
+        the request's duration (repository mode leases the entry against
+        LRU eviction and loads it on demand).
+
+        ``strict`` (path-addressed endpoints): a single-model server 404s a
+        foreign name. Non-strict (the OpenAI body "model" field) ignores it:
+        OpenAI SDK clients always send one."""
+        if self.repository is None:
+            if strict and name not in (None, self.name):
+                raise KeyError(f"unknown model {name!r} (serving {self.name})")
+
+            @contextlib.contextmanager
+            def single():
+                yield self.engine, self.tokenizer, self.name
+
+            return single()
+
+        @contextlib.contextmanager
+        def leased():
+            entry = self.repository.acquire(name or self.name)
+            try:
+                yield entry.engine, entry.tokenizer, entry.name
+            finally:
+                self.repository.release(entry)
+
+        return leased()
+
+    def model_config(self, name: str):
+        """Model metadata without forcing a load (``KeyError``: unknown)."""
+        if self.repository is None:
+            if name != self.name:
+                lora = self.engine._lora
+                if lora is not None and lora.known(name):
+                    return self.engine.cfg  # an adapter: the base architecture
+                raise KeyError(name)
+            return self.engine.cfg
+        entry = self.repository.peek(name)
+        if entry is None:
+            raise KeyError(name)
+        return entry.cfg
 
     def request_timeout(self, body: dict,
                         deadline_s: Optional[float] = None) -> float:
@@ -259,23 +356,23 @@ class ModelServer:
             raise ValueError("no explainer configured on this service")
         if self.transformer is not None:
             prompt = self.transformer(prompt, "pre")
-        self.check_model(model, strict=True)
-        engine, tokenizer = self.engine, self.tokenizer
-        toks = tokenizer.encode(prompt)
-        # Attribution is O(S) forwards (leave_one_out batches an [S, S]
-        # block): an uncapped prompt would exhaust the serving card.
-        limit = min(engine.max_len, engine.cfg.max_seq_len)
-        if len(toks) > limit:
-            raise ValueError(
-                f"explain prompt is {len(toks)} tokens; limit {limit}")
-        out = self.explainer(toks, params=engine.params, cfg=engine.cfg)
-        out["tokens"] = [tokenizer.decode([t]) for t in toks]
-        out["predicted_text"] = tokenizer.decode([out["target_token"]])
+        with self.lease(model, strict=True) as (engine, tokenizer, _):
+            toks = tokenizer.encode(prompt)
+            # Attribution is O(S) forwards (leave_one_out batches an
+            # [S, S] block): an uncapped prompt would exhaust the card.
+            limit = min(engine.max_len, engine.cfg.max_seq_len)
+            if len(toks) > limit:
+                raise ValueError(
+                    f"explain prompt is {len(toks)} tokens; limit {limit}")
+            out = self.explainer(toks, params=engine.params, cfg=engine.cfg)
+            out["tokens"] = [tokenizer.decode([t]) for t in toks]
+            out["predicted_text"] = tokenizer.decode([out["target_token"]])
         return out
 
-    def submit_text(self, prompt: str, body: dict, *,
-                    deadline_s: Optional[float], qos: str,
-                    decode_url: Optional[str] = None) -> tuple:
+    def submit_text(self, engine: LLMEngine, tokenizer: Tokenizer,
+                    prompt: str, body: dict, *, deadline_s: Optional[float],
+                    qos: str, decode_url: Optional[str] = None,
+                    adapter: Optional[str] = None) -> tuple:
         """Tokenize and submit; returns (request, timeout, tokens). The
         engine-side deadline equals the client budget, so the scheduler
         reaps the request the moment the client can no longer use the
@@ -283,13 +380,12 @@ class ModelServer:
         request stop at its first token for a handoff; without one it
         decodes locally."""
         timeout = self.request_timeout(body, deadline_s)
-        toks = self.tokenizer.encode(prompt)
-        handoff = (bool(decode_url) if self.engine.role == "prefill"
-                   else None)
-        req = self.engine.submit(toks, self.sampling_from(body, self.tokenizer),
-                                 deadline=time.monotonic() + timeout,
-                                 trace_parent=get_tracer().current(), qos=qos,
-                                 handoff=handoff)
+        toks = tokenizer.encode(prompt)
+        handoff = (bool(decode_url) if engine.role == "prefill" else None)
+        req = engine.submit(toks, self.sampling_from(body, tokenizer),
+                            deadline=time.monotonic() + timeout,
+                            trace_parent=get_tracer().current(), qos=qos,
+                            handoff=handoff, adapter=adapter)
         return req, timeout, toks
 
     def generate_text(self, prompt: str, body: dict, model: Optional[str],
@@ -299,32 +395,37 @@ class ModelServer:
                       decode_url: Optional[str] = None,
                       decode_alts: tuple = ()) -> tuple[str, Request]:
         """Pre-hop → tokenize → engine (→ handoff relay) → detokenize →
-        post-hop: the generation path every non-streaming route shares."""
+        post-hop: the one generation path every non-streaming surface (REST
+        v1/v2, OpenAI, gRPC ``ModelInfer``) shares. An adapter id leases
+        the base engine and decodes through the adapter's packed slot."""
         if self.transformer is not None:
             prompt = self.transformer(prompt, "pre")
-        self.check_model(model, strict=strict)
-        req, timeout, toks = self.submit_text(
-            prompt, body, deadline_s=deadline_s, qos=qos,
-            decode_url=decode_url)
-        try:
-            out = req.result(timeout=timeout + 1.0)
-        except TimeoutError:
-            req.cancel()
-            raise
-        if req.finish_reason == "handoff":
-            text = self._relay_handoff_text(req, toks, body, decode_url,
-                                            qos=qos, timeout=timeout,
-                                            decode_alts=decode_alts)
-        else:
-            _raise_for_reaped(req)
-            with get_tracer().span("server.detokenize", tokens=len(out)):
-                text = self.tokenizer.decode(
-                    [t for t in out if t != self.tokenizer.eos_id])
+        adapter = self.resolve_adapter(model)
+        with self.lease(None if adapter else model,
+                        strict=strict) as (engine, tokenizer, _):
+            req, timeout, toks = self.submit_text(
+                engine, tokenizer, prompt, body, deadline_s=deadline_s,
+                qos=qos, decode_url=decode_url, adapter=adapter)
+            try:
+                out = req.result(timeout=timeout + 1.0)
+            except TimeoutError:
+                req.cancel()
+                raise
+            if req.finish_reason == "handoff":
+                text = self._relay_handoff_text(
+                    engine, tokenizer, req, toks, body, decode_url, qos=qos,
+                    timeout=timeout, decode_alts=decode_alts)
+            else:
+                _raise_for_reaped(req)
+                with get_tracer().span("server.detokenize", tokens=len(out)):
+                    text = tokenizer.decode(
+                        [t for t in out if t != tokenizer.eos_id])
         if self.transformer is not None:
             text = self.transformer(text, "post")
         return text, req
 
-    def _relay_handoff_text(self, req: Request, toks: list[int], body: dict,
+    def _relay_handoff_text(self, engine: LLMEngine, tokenizer: Tokenizer,
+                            req: Request, toks: list[int], body: dict,
                             decode_url: str, *, qos: str, timeout: float,
                             decode_alts: tuple = ()) -> str:
         """Non-streaming half of the handoff relay: POST the payload, then
@@ -332,7 +433,6 @@ class ModelServer:
         token. A failure before the ack tries the next decode replica;
         when none acks, the request is recomputed locally (a failed
         handoff costs a prefill, never the request)."""
-        engine, tokenizer = self.engine, self.tokenizer
         tracer = get_tracer()
         deadline = time.monotonic() + timeout
         candidates = [decode_url] + [u for u in decode_alts
@@ -351,8 +451,8 @@ class ModelServer:
                 sp.set_attrs(error=str(exc), fallback="recompute")
                 engine.metrics.note_handoff("fallback")
                 engine.fail_handoff(req.id)
-                return self._recompute_locally(req, toks, body, qos=qos,
-                                               timeout=timeout)
+                return self._recompute_locally(engine, tokenizer, req, toks,
+                                               body, qos=qos, timeout=timeout)
             engine.complete_handoff(req.id)
             # Collect the raw token ids (the handoff SSE carries them) and
             # decode the WHOLE sequence once: piecewise decoding would
@@ -380,25 +480,26 @@ class ModelServer:
             sp.set_attrs(tokens=len(tokens))
         return tokenizer.decode([t for t in tokens if t != tokenizer.eos_id])
 
-    def _recompute_locally(self, req: Request, toks: list[int], body: dict,
-                           *, qos: str, timeout: float) -> str:
+    def _recompute_locally(self, engine: LLMEngine, tokenizer: Tokenizer,
+                           req: Request, toks: list[int], body: dict, *,
+                           qos: str, timeout: float) -> str:
         """Handoff failure = recompute: run the request again as a local
         decode (the prefix index usually makes the second prefill short)."""
-        req2 = self.recompute_request(req, toks, body, qos=qos,
-                                      timeout=timeout)
+        req2 = self.recompute_request(engine, tokenizer, req, toks, body,
+                                      qos=qos, timeout=timeout)
         try:
             out = req2.result(timeout=timeout + 1.0)
         except TimeoutError:
             req2.cancel()
             raise
         _raise_for_reaped(req2)
-        return self.tokenizer.decode(
-            [t for t in out if t != self.tokenizer.eos_id])
+        return tokenizer.decode([t for t in out if t != tokenizer.eos_id])
 
-    def recompute_request(self, req: Request, toks: list[int], body: dict,
-                          *, qos: str, timeout: float) -> Request:
-        return self.engine.submit(
-            toks, self.sampling_from(body, self.tokenizer),
+    def recompute_request(self, engine: LLMEngine, tokenizer: Tokenizer,
+                          req: Request, toks: list[int], body: dict, *,
+                          qos: str, timeout: float) -> Request:
+        return engine.submit(
+            toks, self.sampling_from(body, tokenizer),
             deadline=time.monotonic() + timeout,
             trace_parent=get_tracer().current(), qos=qos, handoff=False,
             request_id=f"{req.id}-recompute")
@@ -425,9 +526,22 @@ class ModelServer:
             stop_token=tokenizer.eos_id,
         )
 
+    def metrics_registry(self) -> MetricsRegistry:
+        """Scrape-time registry over the live engine counters: the single
+        engine, or every loaded repository entry (``peek`` only: a scrape
+        neither loads a model nor touches LRU recency)."""
+        engines: list[tuple[str, LLMEngine]] = []
+        if self.engine is not None:
+            engines.append((self.name, self.engine))
+        else:
+            for item in self.repository.index():
+                entry = self.repository.peek(item["name"])
+                if entry is not None and entry.engine is not None:
+                    engines.append((entry.name, entry.engine))
+        return serving_metrics_registry(engines, in_flight=self.in_flight)
+
     def metrics_text(self) -> str:
-        return serving_metrics_registry(
-            [(self.name, self.engine)], in_flight=self.in_flight).render()
+        return self.metrics_registry().render()
 
 
 def serving_metrics_registry(engines: list, *,
@@ -628,9 +742,17 @@ def _make_handler(server: ModelServer):
                     process=f"server:{server.name}"))
             if self.path == "/v1/models":
                 return self._json(200, {"models": server.model_names()})
+            if self.path == "/v2/repository/index":
+                if server.repository is None:
+                    return self._json(200, {"models": [
+                        {"name": server.name, "state": "READY"}]})
+                return self._json(200, {"models": server.repository.index()})
             m = _V2_MODEL.match(self.path)
-            if m and m.group(1) == server.name:
-                cfg = server.engine.cfg
+            if m:
+                try:
+                    cfg = server.model_config(m.group(1))
+                except KeyError:
+                    return self._json(404, {"error": f"no model {m.group(1)}"})
                 return self._json(200, {
                     "name": m.group(1),
                     "platform": "kubeflow-tpu-torch-llm",
@@ -641,8 +763,6 @@ def _make_handler(server: ModelServer):
                     "config": {"vocab_size": cfg.vocab_size,
                                "max_seq_len": cfg.max_seq_len},
                 })
-            if m:
-                return self._json(404, {"error": f"no model {m.group(1)}"})
             self._json(404, {"error": f"not found: {self.path}"})
 
         # -- POST --------------------------------------------------------------
@@ -660,6 +780,10 @@ def _make_handler(server: ModelServer):
                         return self._handoff()
                     # Drain the body first: keep-alive breaks on unread bytes.
                     body = self._body()
+                    repo = _REPO_ACTION.match(self.path)
+                    if repo:
+                        return self._repository_action(repo.group(1),
+                                                       repo.group(2))
                     m = _V1_PREDICT.match(self.path)
                     if m:
                         return self._v1_predict(body, m.group(1))
@@ -687,6 +811,23 @@ def _make_handler(server: ModelServer):
                 self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
             finally:
                 server.track(-1)
+
+        def _repository_action(self, name: str, action: str) -> None:
+            if server.repository is None:
+                return self._json(400, {"error": "single-model server"})
+            if action == "load":
+                server.repository.load(name)
+            else:
+                server.repository.unload(name)
+            self._json(200, {"name": name, "state": "READY"
+                             if action == "load" else "UNLOADED"})
+
+        def _model_id(self, body: dict) -> Optional[str]:
+            """Requested model id: the ``X-Kftpu-Model`` header (the router's
+            routing key) wins; the OpenAI ``"model"`` body field is the
+            headerless fallback."""
+            hdr = self.headers.get(MODEL_HEADER)
+            return hdr.strip() if hdr else body.get("model")
 
         def _decode_backend(self) -> Optional[str]:
             """The decode replica the router picked for this request's KV
@@ -742,7 +883,7 @@ def _make_handler(server: ModelServer):
             })
 
         def _completions(self, body: dict, *, chat: bool) -> None:
-            model = self.headers.get(MODEL_HEADER) or body.get("model")
+            model = self._model_id(body)
             if chat:
                 msgs = body.get("messages", [])
                 prompt = "\n".join(
@@ -787,15 +928,14 @@ def _make_handler(server: ModelServer):
                              + payload + b"\r\n")
             self.wfile.flush()
 
-        def _stream_tokens(self, req: Request, *, chat: bool,
-                           model: Optional[str], timeout: float,
+        def _stream_tokens(self, req: Request, tokenizer: Tokenizer, *,
+                           chat: bool, model: Optional[str], timeout: float,
                            with_token_ids: bool = False) -> None:
             """Send SSE headers and stream one engine request's tokens (the
             local-decode half of every streaming path: unified, the decode
             side of a handoff, and the recompute fallback).
             ``with_token_ids`` adds each raw token id to its chunk: the
             handoff relay re-decodes the WHOLE sequence from them."""
-            tokenizer = server.tokenizer
             self._send_sse_headers()
             try:
                 while True:
@@ -840,26 +980,32 @@ def _make_handler(server: ModelServer):
             # kserve's non-streaming transformer scope.
             if server.transformer is not None:
                 prompt = server.transformer(prompt, "pre")
-            decode_url = self._decode_backend()
-            req, timeout, toks = server.submit_text(
-                prompt, body, deadline_s=self._deadline_s(),
-                qos=self._qos(body), decode_url=decode_url)
-            if server.engine.role == "prefill" and decode_url:
-                return self._stream_disaggregated(
-                    req, toks, body, decode_url, chat=chat, model=model,
-                    timeout=timeout, decode_alts=self._decode_alts())
-            self._stream_tokens(req, chat=chat, model=model, timeout=timeout)
+            adapter = server.resolve_adapter(model)
+            with server.lease(None if adapter else model) \
+                    as (engine, tokenizer, _):
+                decode_url = self._decode_backend()
+                req, timeout, toks = server.submit_text(
+                    engine, tokenizer, prompt, body,
+                    deadline_s=self._deadline_s(), qos=self._qos(body),
+                    decode_url=decode_url, adapter=adapter)
+                if engine.role == "prefill" and decode_url:
+                    return self._stream_disaggregated(
+                        engine, tokenizer, req, toks, body, decode_url,
+                        chat=chat, model=model, timeout=timeout,
+                        decode_alts=self._decode_alts())
+                self._stream_tokens(req, tokenizer, chat=chat, model=model,
+                                    timeout=timeout)
 
-        def _stream_disaggregated(self, req: Request, toks: list[int],
-                                  body: dict, decode_url: str, *,
-                                  chat: bool, model: Optional[str],
-                                  timeout: float,
+        def _stream_disaggregated(self, engine: LLMEngine,
+                                  tokenizer: Tokenizer, req: Request,
+                                  toks: list[int], body: dict,
+                                  decode_url: str, *, chat: bool,
+                                  model: Optional[str], timeout: float,
                                   decode_alts: tuple = ()) -> None:
             """Streaming handoff relay. The client's SSE response opens only
             AFTER the decode side acks (or the fallback engages), so a
             prefill replica that dies mid-handoff has written no response
             byte, and the client may retry elsewhere."""
-            engine, tokenizer = server.engine, server.tokenizer
             tracer = get_tracer()
             if not req.done.wait(timeout + 1.0):
                 req.cancel()
@@ -869,8 +1015,8 @@ def _make_handler(server: ModelServer):
                 # Finished at the first token (stop/length): nothing to hand
                 # off; stream the one-token answer.
                 if req.finish_reason in ("stop", "length"):
-                    return self._stream_tokens(req, chat=chat, model=model,
-                                               timeout=timeout)
+                    return self._stream_tokens(req, tokenizer, chat=chat,
+                                               model=model, timeout=timeout)
                 _raise_for_reaped(req)
                 raise RuntimeError(
                     f"request {req.id} ended {req.finish_reason!r}")
@@ -894,10 +1040,10 @@ def _make_handler(server: ModelServer):
                     engine.metrics.note_handoff("fallback")
                     engine.fail_handoff(req.id)
                     req2 = server.recompute_request(
-                        req, toks, body, qos=self._qos(body),
-                        timeout=timeout)
-                    return self._stream_tokens(req2, chat=chat, model=model,
-                                               timeout=timeout)
+                        engine, tokenizer, req, toks, body,
+                        qos=self._qos(body), timeout=timeout)
+                    return self._stream_tokens(req2, tokenizer, chat=chat,
+                                               model=model, timeout=timeout)
                 engine.complete_handoff(req.id)
             self._send_sse_headers()
             try:
@@ -934,6 +1080,9 @@ def _make_handler(server: ModelServer):
             memory, so the prefill side's page hold may release. A wire
             version or cache dtype this pool cannot take is a 409 before
             any page byte is read."""
+            if server.engine is None:
+                return self._json(
+                    400, {"error": "handoff needs a single-engine server"})
             wire_v = (self.headers.get(HANDOFF_WIRE_HEADER) or "").strip()
             if wire_v and wire_v not in SUPPORTED_HANDOFF_WIRE:
                 return self._json(409, {
@@ -959,7 +1108,7 @@ def _make_handler(server: ModelServer):
                 # submit_handoff's own checks (shape, dtype, length) back
                 # up the headers: the same clean reject.
                 return self._json(409, {"error": str(exc)})
-            self._stream_tokens(req, chat=chat, model=None, timeout=timeout,
-                                with_token_ids=True)
+            self._stream_tokens(req, server.tokenizer, chat=chat, model=None,
+                                timeout=timeout, with_token_ids=True)
 
     return Handler

@@ -178,5 +178,18 @@ def test_moe_lora_and_sequence_parallel_raise():
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError):
         tdec.decoder_forward(params, toks, tcfg, attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tdec.decoder_forward(params, toks, tcfg, lora={"targets": {}})
+    # LoRA is served now (tests/test_torch_lora.py): a batch whose rows all
+    # carry adapter index -1 gives the LoRA-free logits bit for bit.
+    toks = torch.arange(1, 9, dtype=torch.long).reshape(2, 4)
+    lora = {"targets": {"wq": (torch.ones(tcfg.n_layers, 2, tcfg.hidden, 4),
+                               torch.ones(tcfg.n_layers, 2, 4,
+                                          tcfg.n_heads * tcfg.head_dim))},
+            "aidx": torch.tensor([-1, -1]), "scale": torch.ones(2)}
+    with torch.no_grad():
+        want, _ = tdec.decoder_forward(params, toks, tcfg)
+        got, _ = tdec.decoder_forward(params, toks, tcfg, lora=lora)
+        moved, _ = tdec.decoder_forward(
+            params, toks, tcfg, lora={**lora, "aidx": torch.tensor([0, -1])})
+    assert torch.equal(got, want)
+    assert not torch.equal(moved[0], want[0]) and torch.equal(moved[1],
+                                                              want[1])

@@ -257,8 +257,9 @@ def test_decode_state_syncs_only_dirty_slots():
     assert [ds.arrays[n][1].item() for n in STATE_FIELDS] == \
         [pytest.approx(v) for v in DEAD_SLOT]
     ds.mark_slot(1)
-    ds.sync_slots(lambda i: (7, 12, True, 0.5, 4, 0.9, 2, 30))
+    ds.sync_slots(lambda i: (7, 12, True, 0.5, 4, 0.9, 2, 30, 1))
     assert ds.arrays["tokens"].tolist() == [0, 7, 0]
+    assert ds.arrays["adapter"].tolist() == [-1, 1, -1]
     assert ds.arrays["live"].tolist() == [False, True, False]
     assert ds.arrays["top_p"][1].item() == pytest.approx(0.9)
     assert ds.stats == {"full_state_uploads": 1, "slot_syncs": 1}
@@ -328,20 +329,23 @@ def test_background_loop_streams(params, cfg):
 
 # -- refusals ---------------------------------------------------------------------
 
-# Paged KV, int8 pages, the engine roles and the host and remote KV tiers
-# are served now (tests/test_torch_paged.py, test_torch_handoff.py,
-# test_torch_kvtier_host.py, test_torch_kvtier_remote.py); the features
-# below are still a later slice — also beside a served one (the remote
-# tier with LoRA, and with speculative decoding over int8 pages).
+# Paged KV, int8 pages, the engine roles, the host and remote KV tiers and
+# LoRA adapters are served now (tests/test_torch_paged.py,
+# test_torch_handoff.py, test_torch_kvtier_host.py,
+# test_torch_kvtier_remote.py, test_torch_lora.py); the features below are
+# still a later slice — also beside served ones (weight quantization with
+# the remote tier and LoRA, or with LoRA alone; speculative decoding over
+# int8 pages).
 @pytest.mark.parametrize("overrides", [
     {"paged": True, "page_size": 16, "host_kv_pages": 8,
-     "remote_kv_root": "kv-remote", "lora": {"max_adapters": 2}},
+     "remote_kv_root": "kv-remote", "lora": {"max_adapters": 2},
+     "quantize": "int8"},
     {"quantize": "int8"},
     {"paged": True, "page_size": 16, "kv_cache_dtype": "int8",
      "host_kv_pages": 8, "remote_kv_root": "kv-remote",
      "speculative": {"mode": "ngram"}},
     {"role": "decode", "speculative": {"mode": "ngram"}},
-    {"lora": {"max_adapters": 2}},
+    {"lora": {"max_adapters": 2}, "quantize": "int8"},
     {"speculative": {"mode": "ngram"}}])
 def test_later_slice_features_raise(overrides, cfg, tmp_path):
     if "remote_kv_root" in overrides:

@@ -1,14 +1,18 @@
 """The port stands alone: ``kubeflow_tpu_torch`` (and ``chip_smoke.py``)
 import neither ``jax`` nor anything of the JAX package ``kubeflow_tpu`` —
 not even its jax-free modules — and import ``triton`` only inside the
-function that launches a Triton kernel.
+function that launches a Triton kernel. The optional gRPC front end's
+``grpc`` and ``google.protobuf`` appear only in ``serve/grpc_server.py``
+and ``serve/protos/``.
 
-Two checks: every module of the package imports in a fresh interpreter with
-``jax`` and ``kubeflow_tpu`` blocked in ``sys.modules`` (this test process
-has jax loaded already, hence the subprocess), and a static scan of every
-import statement in the package's source."""
+Three checks: every module of the package imports in a fresh interpreter
+with ``jax`` and ``kubeflow_tpu`` blocked in ``sys.modules`` (this test
+process has jax loaded already, hence the subprocess); every module but
+the gRPC ones imports with ``grpc`` and ``google.protobuf`` blocked too;
+and a static scan of every import statement in the package's source."""
 
 import ast
+import importlib.util
 import json
 import os
 import shutil
@@ -41,35 +45,72 @@ SLICE_MODULES = (
     # the fleet's failure path: the remote KV tier's store, the router,
     # the chaos harness and the span export (copies of jax-free modules)
     "pipelines.artifacts", "serve.router", "serve.faults", "obs.fleet",
+    # many models and many adapters on one card: multi-tenant LoRA, the
+    # model repository, and the gRPC front end with its messages
+    "serve.lora", "serve.repository", "serve.grpc_server",
+    "serve.protos.oip_pb2",
 )
+#: The optional gRPC dependency, and the only modules that may import it.
+GRPC_ROOTS = ("grpc", "google")
+GRPC_MODULES = ("serve.grpc_server", "serve.protos")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
-for name in %r:
+blocked, skip = %r, %r
+for name in blocked:
     sys.modules[name] = None
 import kubeflow_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(kubeflow_tpu_torch.__path__,
                                                 "kubeflow_tpu_torch.")]
+mods = [m for m in mods if not m.startswith(skip)]
 for m in mods:
     importlib.import_module(m)
-leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in %r and sys.modules[k] is not None)
+leaked = sorted(k for k in sys.modules if sys.modules[k] is not None
+                and any(k == b or k.startswith(b + ".")
+                        for b in blocked + ("triton",)))
 assert not leaked, leaked
 print(json.dumps(mods))
-""" % (FORBIDDEN, FORBIDDEN + ("triton",))
+"""
+
+
+def _import_all(blocked: tuple, skip: tuple = ()) -> set:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL % (blocked, skip)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return set(json.loads(out.stdout))
+
+
+def _grpc_modules() -> tuple:
+    return tuple(f"kubeflow_tpu_torch.{m}" for m in GRPC_MODULES)
 
 
 def test_package_imports_with_jax_and_the_jax_package_blocked():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(REPO)
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    mods = set(json.loads(out.stdout))
+    # The gRPC modules need grpcio; where it is absent they are left to the
+    # next test's check that nothing else needs it.
+    has_grpc = importlib.util.find_spec("grpc") is not None
+    skip = () if has_grpc else _grpc_modules()
+    mods = _import_all(FORBIDDEN, skip)
     assert len(mods) >= 20
     missing = [m for m in SLICE_MODULES
-               if f"kubeflow_tpu_torch.{m}" not in mods]
+               if f"kubeflow_tpu_torch.{m}" not in mods
+               and not (skip and f"kubeflow_tpu_torch.{m}".startswith(skip))]
     assert not missing, missing
+
+
+def test_package_imports_without_grpc_and_protobuf():
+    """A machine without grpcio still imports every other module (the
+    server imports the gRPC front end only when given a ``grpc_port``)."""
+    skip = _grpc_modules()
+    mods = _import_all(FORBIDDEN + ("grpc", "google.protobuf"), skip)
+    assert len(mods) >= 20
+    missing = [m for m in SLICE_MODULES
+               if f"kubeflow_tpu_torch.{m}" not in mods
+               and not f"kubeflow_tpu_torch.{m}".startswith(skip)]
+    assert not missing, missing
+    assert "kubeflow_tpu_torch.serve.server" in mods
 
 
 def _imports(tree):
@@ -93,6 +134,11 @@ def test_no_source_file_imports_jax_or_the_jax_package():
         for name, module_level in _imports(tree):
             root = name.split(".")[0]
             assert root not in FORBIDDEN, f"{path}: imports {name}"
+            if root in GRPC_ROOTS:
+                assert path.is_relative_to(PKG), f"{path}: imports {name}"
+                rel = path.relative_to(PKG).with_suffix("")
+                assert str(rel).replace("/", ".").startswith(
+                    GRPC_MODULES), f"{path}: imports {name}"
             if root == "triton":
                 assert not module_level, \
                     f"{path}: triton imported at module level"

@@ -372,12 +372,14 @@ def test_host_tier_needs_the_radix_pool():
     with pytest.raises(ValueError, match="paged"):
         LLMEngine(CFG, BatchingSpec(max_seq_len=128, host_kv_pages=4),
                   device="cpu")
-    # The remote tier behind it is served; beside LoRA it is still refused.
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    # The remote tier behind it is served, LoRA beside it too; beside
+    # weight quantization it is still refused.
+    with pytest.raises(NotImplementedError, match="quantization"):
         LLMEngine(CFG, BatchingSpec(max_seq_len=128, paged=True,
                                     page_size=16, host_kv_pages=4,
                                     remote_kv_root="/nowhere",
-                                    lora={"max_adapters": 2}),
+                                    lora={"max_adapters": 2},
+                                    quantize="int8"),
                   device="cpu")
     with pytest.raises(ValueError, match="host_kv_pages"):
         BatchingSpec(paged=True, remote_kv_root="/nowhere")

@@ -123,11 +123,27 @@ def test_errors_map_to_http_status(server):
                  {"instances": ["x"]})[0] == 404
     assert _post(server, "/v1/models/tiny:predict", {"bad": 1})[0] == 400
     # /v1/handoff without a payload (an empty or a JSON body) is a clean
-    # client error, never a 500; the model repository's routes belong to a
-    # later slice (404); :explain without an explainer hop is a 400.
+    # client error, never a 500; a single-model server answers the model
+    # repository's routes as the JAX server does (its one model in the
+    # index, 400 for a load or an unload); :explain without an explainer
+    # hop is a 400.
     assert 400 <= _post_raw(server, "/v1/handoff", b"")[0] < 500
     assert 400 <= _post(server, "/v1/handoff", {})[0] < 500
-    assert _post(server, "/v2/repository/models/tiny/load", {})[0] == 404
+    jsrv = jserver.ModelServer("tiny", jengine.LLMEngine(
+        jconfig.preset("tiny", vocab_size=512), JBatchingSpec(**SPEC)))
+    jsrv.start()
+    try:
+        for path in ("/v2/repository/models/tiny/load",
+                     "/v2/repository/models/tiny/unload",
+                     "/v2/repository/models/nope/load"):
+            got, want = _post(server, path, {}), _post(jsrv, path, {})
+            assert got[0] == want[0] == 400, (path, got, want)
+            assert json.loads(got[1]) == json.loads(want[1])
+        assert json.loads(_get(server, "/v2/repository/index")[1]) == \
+            json.loads(_get(jsrv, "/v2/repository/index")[1]) == \
+            {"models": [{"name": "tiny", "state": "READY"}]}
+    finally:
+        jsrv.stop()
     assert _post(server, "/v1/models/tiny:explain",
                  {"instances": ["x"]})[0] == 400
     assert _post(server, "/v1/completions", {"prompt": "x"},
