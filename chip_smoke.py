@@ -12,8 +12,8 @@ with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
 edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
 edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
-then (e), (f) and (g), without the kernel rows. Every phase prints its
-seconds.
+then (e), (f), (g) and (h), without the kernel rows; ``--spec-only`` runs
+phases 1, 2 and (h). Every phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -203,7 +203,29 @@ Phases, each a hard failure:
    200 with ``[DONE]``. (g)3, where grpcio and protobuf are installed:
    ``ModelInfer`` on the same server's gRPC port gives the REST text and
    ``ModelReady`` of an unknown name is false; elsewhere it prints that
-   (g)3 did not run.
+   (g)3 did not run;
+12. (h) speculative decoding (k = 4) on a fresh 32-layer engine's weights
+   (the serving seed), 8 slots × 2048. (h)1: one paged verify step, 8
+   slots × 5 positions (rows at 1024..1030 over a prefilled 1024-token
+   prompt, one at 2045 whose last positions pass max_len), through the
+   paged-decode kernel over 40 virtual rows against the gather route:
+   fp32 logits within rel L2 5e-2, argmax equal except at near ties,
+   exactly L paged-decode, 2L + 1 RMSNorm and L SwiGLU launches, bf16 and
+   int8 pages; the step's enqueue, wall and device ms beside a decode
+   step's. (h)2: four random 200-token prompts P, G their 32 greedy
+   tokens, then P + G + P through a spec-off engine, an ngram engine and
+   a self-draft engine (the target's own tensors as the draft) on paged
+   bf16, paged int8 and contiguous engines: every emitted token the
+   argmax of a plain full forward over its context or a near tie
+   (|Δlogit| <= 1e-2 + 2^-7·|top|), spec rounds that drafted, rows 1 and
+   4 (and 12 on the page pool) launched, no page referenced after; spec
+   counters, acceptance, tokens per step and TPOT p50 beside the spec-off
+   engine's printed. (h)3: a random 2-layer draft of Llama-3-8B widths
+   (rejects almost every draft): the same token check, no leaked page
+   and 0 resident after. (h)4: a worker with ``batching.speculative``
+   ngram on the page pool under ``uniform`` through ``ServerTarget``:
+   every request ok, ``kftpu_serving_spec_tokens_per_step`` read off
+   ``/metrics``, TPOT p50 beside (c)'s spec-off worker's; SIGTERM -> 143.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -2031,9 +2053,10 @@ PAGED_SPEC = dict(paged=True, page_size=128, max_pages=64, max_batch_size=8,
                   paged_attn_impl="pallas", weights_dtype="bfloat16")
 
 
-def paged_engine(engine, params=None, **overrides):
+def paged_engine(engine, params=None, draft_params=None, **overrides):
     """A paged LLMEngine (``PAGED_SPEC``) over the contiguous engine's
-    weights (shared, not copied), or over ``params``."""
+    weights (shared, not copied), or over ``params``; ``draft_params`` goes
+    to a ``draft_model`` spec engine."""
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.serve.engine import LLMEngine
 
@@ -2041,7 +2064,7 @@ def paged_engine(engine, params=None, **overrides):
     spec.update(overrides)
     return LLMEngine(engine.cfg, BatchingSpec(**spec),
                      params=engine.params if params is None else params,
-                     seed=SEED, device="cuda")
+                     seed=SEED, device="cuda", draft_params=draft_params)
 
 
 def phase_paged_serve(engine, rows: list[dict]) -> None:
@@ -2604,8 +2627,8 @@ def phase_worker(want: list[list[int]], card: str) -> dict:
     ``/metrics`` showing resident pages under load and none after it, and
     prefix hits in ``shared_prefix``. SIGTERM must end it with 143 and
     close its port. Before the SIGTERM, ``mixed_interference`` (``MIXED``)
-    runs against it, the unified side of (e)'s comparison; its report is
-    returned."""
+    runs against it, the unified side of (e)'s comparison. Returns its
+    report and ``uniform``'s client TPOT p50 (ms, (h)4's spec-off side)."""
     from kubeflow_tpu_torch import loadgen
 
     t0 = time.perf_counter()
@@ -2687,6 +2710,8 @@ def phase_worker(want: list[list[int]], card: str) -> dict:
             report_line(f"{name} (ServerTarget, worker, page pool)", rep,
                         card)
             check_statuses(name, rep)
+            if name == "uniform":
+                uniform_tpot = rep["tpot_ms"].get("p50")
             hits[name] = rep["engine"].get("kv_tier", {}).get(
                 "prefix_hits", 0)
             # No leak: once the last stream ended, the scheduler releases
@@ -2712,7 +2737,7 @@ def phase_worker(want: list[list[int]], card: str) -> dict:
         ok = True
     finally:
         reap_worker(proc, log, "worker", ok)
-    return mixed
+    return mixed, uniform_tpot
 
 
 # -- (e) disaggregated prefill/decode and the host KV tier -------------------
@@ -4065,6 +4090,357 @@ def phase_many_models(card: str) -> None:
     timed_phase("repository", phase_repository, card)
 
 
+# -- (h) speculative decoding: ngram and draft model, dense and paged verify --
+
+#: Drafts per spec round in every (h) engine.
+SPEC_K = 4
+#: (h)2 and (h)3's replay prompts: four random prompts P of 200 tokens, each
+#: run as P + G + P with G its 32 greedy tokens, so the n-gram drafter
+#: proposes G from the first round.
+SPEC_PROMPTS, SPEC_PROMPT_LEN, SPEC_NEW = 4, 200, 32
+#: An emitted token may differ from the full-forward reference's argmax only
+#: where the reference's logit for it is within this of the top one: bf16
+#: sums in another order (a verify over T rows, the split count of B·T
+#: virtual rows) may break such a near tie either way.
+NEAR_TIE_ATOL, NEAR_TIE_RTOL = 1e-2, 2.0 ** -7
+
+
+def _spec_wrappers(paged: bool) -> dict:
+    from kubeflow_tpu_torch.ops import fused_norm
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    out = {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
+           "swiglu_fwd": fused_norm.swiglu_fused}
+    if paged:
+        out["paged_decode"] = paged_decode_attention
+    return out
+
+
+def _launches_zero(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _timed_step(fn) -> tuple[float, float, float]:
+    """(host enqueue ms, wall ms to a synchronize, device ms from the
+    profiler) of one call of ``fn`` after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enq = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, _ = _kernel_times(prof)
+    return enq * 1e3, wall * 1e3, total
+
+
+def spec_verify_check(uni, card: str) -> None:
+    """(h)1: one paged verify step (8 slots × k + 1 = 5 positions) through
+    the paged-decode kernel over 40 virtual rows against the gather route,
+    on the same pool: a 1024-token prompt prefilled into 8 shared pages,
+    rows at positions 1024..1030 and one at 2045 whose last two positions
+    pass max_len (the sink takes their writes, the kernel's rows clamp).
+    fp32 logits within rel L2 5e-2 and the same argmax except at near
+    ties; exactly L paged-decode, 2L + 1 RMSNorm and L SwiGLU launches in
+    the kernel route's step. bf16 pages, then int8. The step's enqueue,
+    wall and device ms beside one decode step's."""
+    from kubeflow_tpu_torch.serve.paged import (
+        _paged_decode_step, context_bucket, paged_chunk_prefill,
+    )
+    from kubeflow_tpu_torch.serve.spec_decode import _paged_verify_logits
+
+    cfg, pg, mpp, t_len, b = uni.cfg, 128, 16, SPEC_K + 1, 8
+    gen = torch.Generator().manual_seed(SEED + 30)
+    prompt = torch.randint(3, 259, (1024,), generator=gen).to("cuda")
+    tokens = torch.randint(3, 128256, (b, t_len), generator=gen).to("cuda")
+    lengths = torch.tensor([1024 + i for i in range(b - 1)] + [2045],
+                           device="cuda")
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+    npages = 8 + (b - 1) + 8
+    table = torch.full((b, mpp), -1, dtype=torch.int32, device="cuda")
+    table[:, :8] = torch.arange(8, dtype=torch.int32)
+    for i in range(b - 1):
+        table[i, 8] = 8 + i
+    table[b - 1, 8:] = torch.arange(15, 23, dtype=torch.int32)
+    wrappers = _spec_wrappers(True)
+    for quant in (False, True):
+        kind = "int8" if quant else "bf16"
+        shape = (cfg.n_layers, npages + 1, pg, cfg.n_kv_heads, cfg.head_dim)
+        if quant:
+            cache = {n: torch.randint(-127, 128, shape, generator=gen,
+                                      dtype=torch.int8).to("cuda")
+                     for n in ("k", "v")}
+            for n in ("ks", "vs"):
+                cache[n] = torch.full(shape[:-1], 2.0 / 127, device="cuda")
+        else:
+            cache = {n: torch.randn(shape, generator=gen).to(
+                device="cuda", dtype=torch.bfloat16) for n in ("k", "v")}
+        with torch.no_grad():
+            for start in range(0, 1024, 512):
+                paged_chunk_prefill(
+                    uni.params, cache, prompt[start:start + 512][None],
+                    table[0], start, 512, cfg,
+                    context_pages=context_bucket(start, 512, pg, mpp))
+            logits = {}
+            for impl in ("pallas", "gather"):
+                pool = {n: c.clone() for n, c in cache.items()}
+                pool["table"] = table
+                _launches_zero(wrappers)
+                logits[impl] = _paged_verify_logits(
+                    uni.params, pool, tokens, lengths, live, cfg,
+                    attn_impl=impl)
+                torch.cuda.synchronize()
+                if impl == "pallas":
+                    got = {n: w.launches for n, w in wrappers.items()}
+            pool = {**cache, "table": table}
+            verify = _timed_step(lambda: _paged_verify_logits(
+                uni.params, pool, tokens, lengths, live, cfg,
+                attn_impl="pallas"))
+            decode = _timed_step(lambda: _paged_decode_step(
+                uni.params, pool, tokens[:, 0], lengths, live, cfg,
+                attn_impl="pallas"))
+        want = {"rmsnorm_fwd": 2 * cfg.n_layers + 1,
+                "swiglu_fwd": cfg.n_layers, "paged_decode": cfg.n_layers}
+        a, r = logits["pallas"], logits["gather"]
+        rel = float((a - r).norm() / r.norm())
+        rel_edge = float((a[-1] - r[-1]).norm() / r[-1].norm())
+        ties = argmax_near_ties(a.argmax(-1).flatten(),
+                                r.reshape(-1, r.shape[-1]),
+                                f"(h)1 verify ({kind} pages)")
+        print(f"(h)1 paged verify ({kind} pages, 8 slots x {t_len} "
+              f"positions, 40 virtual rows, {cfg.n_layers} layers): logits "
+              f"kernel vs gather rel L2 {rel:.3e} (row at 2045: "
+              f"{rel_edge:.3e}; tolerance {PREFILL_REL_L2:g}), argmax "
+              f"departures {ties} (near ties), launches {json.dumps(got)}",
+              flush=True)
+        print(f"(h)1 step ms ({kind} pages): verify enqueue {verify[0]:.2f} "
+              f"wall {verify[1]:.2f} device {verify[2]:.2f}; decode step "
+              f"enqueue {decode[0]:.2f} wall {decode[1]:.2f} device "
+              f"{decode[2]:.2f}; {card}", flush=True)
+        if not rel <= PREFILL_REL_L2 or not rel_edge <= PREFILL_REL_L2:
+            fail(f"(h)1: the kernel route's verify disagrees with the "
+                 f"gather route ({kind} pages)")
+        if got != want:
+            fail(f"(h)1: verify launches {got}, want {want}")
+        del cache, pool
+    tickets_zero("(h)1")
+
+
+def argmax_near_ties(got: torch.Tensor, logits: torch.Tensor,
+                     name: str) -> int:
+    """Rows of ``logits`` [N, V] (fp32, the reference's) whose argmax is not
+    ``got`` [N]: each must be a near tie (the reference's logit for ``got``
+    within NEAR_TIE_ATOL + NEAR_TIE_RTOL·|top| of its top one). Returns
+    their number."""
+    want = logits.argmax(-1)
+    diff = (got != want).nonzero().flatten()
+    if diff.numel():
+        top = logits[diff, want[diff]]
+        mine = logits[diff, got[diff]]
+        gap = top - mine
+        if torch.any(gap > NEAR_TIE_ATOL + NEAR_TIE_RTOL * top.abs()):
+            fail(f"{name}: a token is not the reference's argmax and no near "
+                 f"tie: gaps {gap.tolist()[:8]}")
+    return int(diff.numel())
+
+
+def spec_reference(eng, prompts, outs, name: str) -> int:
+    """Every emitted token against a plain full forward (no cache, plain
+    kernels off) over prompt + the tokens emitted before it: the argmax,
+    or a near tie. Returns the near-tie departures."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models.decoder import decoder_forward, lm_head
+
+    cfg = dataclasses.replace(eng.cfg, fused_kernels="off")
+    departs = 0
+    with torch.no_grad():
+        for p, out in zip(prompts, outs):
+            ctx = torch.tensor([list(p) + list(out[:-1])], device="cuda")
+            hid, _ = decoder_forward(eng.params, ctx, cfg, skip_head=True)
+            logits = lm_head(eng.params, hid[0, len(p) - 1:], cfg)
+            departs += argmax_near_ties(torch.tensor(out, device="cuda"),
+                                        logits, name)
+    return departs
+
+
+def _tpot_p50(reqs) -> float:
+    from kubeflow_tpu_torch.obs.stats import quantile
+
+    return quantile(sorted(
+        (r.finish_time - r.first_token_time) / (len(r.output_tokens) - 1)
+        for r in reqs if len(r.output_tokens) > 1), 0.5) * 1e3
+
+
+def _spec_run(eng, prompts, wrappers: dict):
+    """The main path: greedy requests through ``eng``'s scheduler, every
+    launch count 0 just before and read just after. Returns (requests,
+    launches)."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+    _launches_zero(wrappers)
+    reqs = [eng.submit(list(p), SamplingParams(max_new_tokens=SPEC_NEW))
+            for p in prompts]
+    _drive_all(eng, reqs)
+    torch.cuda.synchronize()
+    return reqs, {n: w.launches for n, w in wrappers.items()}
+
+
+SPEC_LAYOUTS = {"paged bf16": {}, "paged int8": {"kv_cache_dtype": "int8"},
+                "contiguous": {"paged": False, "max_pages": None}}
+
+
+def spec_replay(uni, rows: list[dict], card: str) -> None:
+    """(h)2 and (h)3 on the serving weights. Per layout (paged bf16, paged
+    int8, contiguous): G from a spec-off engine, then P + G + P through the
+    spec-off engine, an ngram engine and a self-draft engine (the target's
+    own tensors as the draft: no second copy). Every emitted token is the
+    reference's argmax or a near tie; each spec engine ran rounds, drafted,
+    launched rows 1 and 4 (and 12 on the page pool) and left no page
+    referenced. (h)3: a 2-layer random draft of Llama-3-8B widths on the
+    page pool: acceptance near 0, tokens as above, no leak, 0 resident."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+    gen = torch.Generator().manual_seed(SEED + 40)
+    prompts = torch.randint(3, 128256, (SPEC_PROMPTS, SPEC_PROMPT_LEN),
+                            generator=gen).tolist()
+    ngram = {"mode": "ngram", "k": SPEC_K}
+    self_draft = {"mode": "draft_model", "k": SPEC_K,
+                  "draft": {"preset": "llama3-8b"}}
+    bad_draft = {"mode": "draft_model", "k": SPEC_K,
+                 "draft": {"preset": "llama3-8b",
+                           "overrides": {"n_layers": 2}}}
+    cases = [(layout, name, spec) for layout in SPEC_LAYOUTS
+             for name, spec in (("ngram", ngram), ("self-draft", self_draft))]
+    cases.append(("paged bf16", "2-layer draft", bad_draft))
+    replays = {}
+    for layout, name, spec in cases:
+        over = SPEC_LAYOUTS[layout]
+        paged = over.get("paged", True)
+        if layout not in replays:
+            plain = paged_engine(uni, **over)
+            gs = _drive_all(plain, [plain.submit(p, SamplingParams(
+                max_new_tokens=SPEC_NEW)) for p in prompts])
+            replay = [p + g + p for p, g in zip(prompts, gs)]
+            preqs, _ = _spec_run(plain, replay, {})
+            replays[layout] = (replay, _tpot_p50(preqs))
+            del plain
+        replay, plain_tpot = replays[layout]
+        eng = paged_engine(uni, speculative=spec,
+                           draft_params=uni.params if name == "self-draft"
+                           else None, **over)
+        wrappers = _spec_wrappers(paged)
+        reqs, launches = _spec_run(eng, replay, wrappers)
+        outs = [r.output_tokens for r in reqs]
+        snap = eng.metrics.snapshot()
+        departs = spec_reference(eng, replay, outs, f"(h) {layout} {name}")
+        resident = eng.kv_pages_in_use()
+        leaks = {} if eng._allocator is None \
+            else eng._allocator.leak_report()
+        label = "(h)3" if name == "2-layer draft" else "(h)2"
+        print(f"{label} {layout} {name}: spec_rounds "
+              f"{snap.get('spec_rounds')}"
+              f", drafted {eng.metrics.spec_drafted}, accepted "
+              f"{eng.metrics.spec_accepted}, acceptance "
+              f"{snap.get('spec_acceptance_rate', 0):.4f}, tokens per step "
+              f"{snap.get('spec_tokens_per_step', 0):.3f}, draft overhead "
+              f"{snap.get('spec_draft_overhead', 0):.3f}; TPOT p50 "
+              f"{_tpot_p50(reqs):.2f} ms against the spec-off engine's "
+              f"{plain_tpot:.2f} ms on the same prompts; "
+              f"{sum(map(len, outs))} tokens, {departs} near-tie departures "
+              f"from the reference; launches {json.dumps(launches)}; "
+              f"resident pages {resident}, leaks {leaks}; {card}", flush=True)
+        if not snap.get("spec_rounds") or not eng.metrics.spec_drafted:
+            fail(f"{label} {layout} {name}: no spec round drafted")
+        if any(len(o) != SPEC_NEW for o in outs):
+            fail(f"{label} {layout} {name}: lengths {list(map(len, outs))}")
+        for n, count in launches.items():
+            if count <= 0:
+                fail(f"{label} {layout} {name}: {n} never launched")
+        if resident or leaks:
+            fail(f"{label} {layout} {name}: pages still referenced: {leaks}")
+        if eng._allocator is not None:
+            eng._allocator.assert_quiescent()
+        for r in rows:
+            if r["name"] == "paged_decode" and layout == "paged bf16" \
+                    or r["name"] == "paged_decode_int8" \
+                    and layout == "paged int8":
+                r["launches"] = r.get("launches", 0) \
+                    + launches["paged_decode"]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def spec_worker(card: str, plain_tpot=None) -> None:
+    """(h)4: ``runtime.worker_main`` with ``batching.speculative`` ngram on
+    the page pool (``PAGED_SPEC``), ``uniform`` through ``ServerTarget``:
+    every request ok, ``kftpu_serving_spec_tokens_per_step`` and the
+    acceptance rate read off ``/metrics``, TPOT p50 beside ``plain_tpot``
+    ((c)'s spec-off worker's in this run, when (c) ran); SIGTERM gives
+    143."""
+    from kubeflow_tpu_torch import loadgen
+
+    t0 = time.perf_counter()
+    batching = dict(PAGED_SPEC, speculative={"mode": "ngram", "k": SPEC_K})
+    proc, url, log = spawn_worker(batching, "spec_worker")
+    ok = False
+    try:
+        t_ready = wait_ready(proc, url, "spec worker", t0)
+        sc = next(x for x in loadgen.standard_matrix(**LOADGEN)
+                  if x.name == "uniform")
+        run = loadgen.run_scenario(loadgen.ServerTarget(url, model="llama"),
+                                   sc, vocab_size=128256, max_prompt_len=1024)
+        rep = loadgen.build_report(run, metrics_text=_get(url + "/metrics")[1])
+        report_line("uniform (ServerTarget, spec worker, ngram k=4, page "
+                    "pool)", rep, card)
+        tps = _series(url, "kftpu_serving_spec_tokens_per_step")
+        acc = _series(url, "kftpu_serving_spec_acceptance_rate")
+        over = _series(url, "kftpu_serving_spec_draft_overhead")
+        without = ("not measured" if plain_tpot is None
+                   else f"{plain_tpot} ms")
+        print(f"(h)4 spec worker: ready in {t_ready:.1f} s; /metrics spec "
+              f"tokens per step {tps}, acceptance {acc}, draft overhead "
+              f"{over}; TPOT p50 {rep['tpot_ms'].get('p50')} ms with spec, "
+              f"{without} without ((c)'s worker in this run); {card}",
+              flush=True)
+        if rep["by_status"] != {"ok": rep["requests"]}:
+            fail(f"(h)4 uniform: statuses {rep['by_status']}")
+        if tps < 1.0:
+            fail("(h)4: /metrics shows no spec round")
+        sigterm_worker(proc, url, "spec worker")
+        ok = True
+    finally:
+        reap_worker(proc, log, "spec worker", ok)
+
+
+def phase_spec(rows: list[dict], card: str, plain_tpot=None) -> None:
+    """(h): speculative decoding on one 32-layer engine's weights (the
+    serving seed), then the spec worker (``plain_tpot``: (c)'s
+    ``uniform`` TPOT p50)."""
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    uni = LLMEngine(preset("llama3-8b"), BatchingSpec(**PAGED_SPEC),
+                    seed=SEED, device="cuda")
+    timed_phase("spec verify", spec_verify_check, uni, card)
+    timed_phase("spec replay", spec_replay, uni, rows, card)
+    del uni
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("spec worker", spec_worker, card, plain_tpot)
+
+
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
 TRAIN_DATA = dict(seq_len=2048, global_batch=2)
 
@@ -4471,8 +4847,9 @@ def timed_phase(name: str, fn, *args):
 def serve_phases(rows: list[dict], card: str, *, full: bool) -> tuple:
     """Phases 4 on: serve, (a) explain, (b) loadgen in process, then (with
     ``full``) the paged serve, paged check and profile; then the engine is
-    freed and (c) the worker runs. Returns the worker's greedy tokens and
-    its ``mixed_interference`` report, for (e)."""
+    freed and (c) the worker runs. Returns the worker's greedy tokens, its
+    ``mixed_interference`` report (for (e)) and its ``uniform`` TPOT p50
+    (for (h))."""
     engine = timed_phase("serve", phase_serve, rows)
     timed_phase("explain", phase_explain, engine)
     timed_phase("loadgen in process", phase_loadgen_engine, engine, card)
@@ -4486,8 +4863,8 @@ def serve_phases(rows: list[dict], card: str, *, full: bool) -> tuple:
     torch.cuda.empty_cache()
     print(f"serving engines freed: {torch.cuda.memory_allocated() / 2**30:.2f}"
           " GiB still allocated", flush=True)
-    mixed = timed_phase("worker", phase_worker, want, card)
-    return want, mixed
+    mixed, uniform_tpot = timed_phase("worker", phase_worker, want, card)
+    return want, mixed, uniform_tpot
 
 
 def main() -> int:
@@ -4505,11 +4882,17 @@ def main() -> int:
     card = phase_card()
     timed_phase("build", phase_build)
     if sys.argv[1:] == ["--serve-only"]:
-        want, mixed = serve_phases([], card, full=False)
+        want, mixed, uniform_tpot = serve_phases([], card, full=False)
         timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
         timed_phase("fleet", phase_fleet, card)
         timed_phase("many models", phase_many_models, card)
+        timed_phase("spec", phase_spec, [], card, uniform_tpot)
         print(f"chip_smoke: serve-only phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--spec-only"]:
+        timed_phase("spec", phase_spec, [], card)
+        print(f"chip_smoke: spec phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
     if sys.argv[1:] in (["--flash-only"], ["--paged-only"],
@@ -4544,7 +4927,7 @@ def main() -> int:
     rows = timed_phase("kernels", phase_kernels)
     timed_phase("edges", phase_edges)
     timed_phase("memory probe", phase_memory_probe)
-    want, mixed = serve_phases(rows, card, full=True)
+    want, mixed, uniform_tpot = serve_phases(rows, card, full=True)
     timed_phase("train check", phase_train_check)
     timed_phase("train", phase_train, rows)
     timed_phase("train profile auto", phase_train_profile, "auto")
@@ -4552,6 +4935,7 @@ def main() -> int:
     timed_phase("disaggregated", phase_disaggregated, want, mixed, card)
     timed_phase("fleet", phase_fleet, card)
     timed_phase("many models", phase_many_models, card)
+    timed_phase("spec", phase_spec, rows, card, uniform_tpot)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

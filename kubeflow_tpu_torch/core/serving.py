@@ -1,12 +1,12 @@
 """Engine knobs for the port's serving path — a dataclass copy of the
 ``kubeflow_tpu/core/serving.py`` ``BatchingSpec`` fields this slice reads,
-plus the QoS class table and the multi-tenant ``LoRASpec``. (The JAX
-package's specs are pydantic models; the port keeps to the standard
-library, with the same checks and messages.)
+plus the QoS class table, the multi-tenant ``LoRASpec`` and the
+``SpeculativeSpec``. (The JAX package's specs are pydantic models; the port
+keeps to the standard library, with the same checks and messages.)
 
-Fields for features a later slice brings (weight quantization, speculative
-decoding) are kept so a config that sets them fails loudly at engine
-construction instead of being ignored.
+The field for a feature a later slice brings (weight quantization) is kept
+so a config that sets it fails loudly at engine construction instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -66,6 +66,35 @@ class QoSSpec:
         self.classes = {k: (v if isinstance(v, QoSClassPolicy)
                             else QoSClassPolicy(**v))
                         for k, v in self.classes.items()}
+
+
+@dataclasses.dataclass
+class SpeculativeSpec:
+    """Speculative decoding knobs (serve/spec_decode.py). Greedy requests
+    draft up to ``k`` tokens per round and verify them all in one batched
+    dispatch, at output identical to plain greedy decode. ``mode``:
+    ``ngram`` looks the context's last n-gram (``ngram_max`` down to
+    ``ngram_min`` tokens) up in the request's own earlier tokens;
+    ``draft_model`` runs a small decoder (``draft`` = {"preset",
+    "overrides"}, the target's vocabulary) ahead autoregressively; ``off``
+    turns the path off. Sampled requests take the plain decode path."""
+
+    mode: str = "off"
+    k: int = 4
+    ngram_max: int = 3
+    ngram_min: int = 1
+    draft: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.mode not in ("off", "ngram", "draft_model"):
+            raise ValueError(
+                f"unknown speculative mode {self.mode!r}; "
+                "one of off|ngram|draft_model")
+        if self.mode != "off" and not (1 <= self.k <= 64):
+            raise ValueError("speculative.k must be in [1, 64]")
+        if self.mode == "ngram" and not (
+                1 <= self.ngram_min <= self.ngram_max):
+            raise ValueError("need 1 <= ngram_min <= ngram_max")
 
 
 @dataclasses.dataclass
@@ -176,8 +205,10 @@ class BatchingSpec:
     # adapter's packed low-rank slices in the same batched dispatch as base
     # traffic. max_adapters=0 (the default) = off.
     lora: LoRASpec = dataclasses.field(default_factory=LoRASpec)
-    # A later slice: set to anything but None and the engine refuses.
-    speculative: Optional[dict] = None
+    # Speculative decoding (draft + batched verify, serve/spec_decode.py):
+    # greedy requests emit several verified tokens per dispatch.
+    speculative: SpeculativeSpec = dataclasses.field(
+        default_factory=SpeculativeSpec)
 
     def __post_init__(self) -> None:
         if self.role not in ENGINE_ROLES:
@@ -201,6 +232,10 @@ class BatchingSpec:
                 "one of auto|pallas|xla")
         if isinstance(self.qos, dict):
             self.qos = QoSSpec(**self.qos)
+        if self.speculative is None:
+            self.speculative = SpeculativeSpec()
+        elif isinstance(self.speculative, dict):
+            self.speculative = SpeculativeSpec(**self.speculative)
         if self.lora is None:
             self.lora = LoRASpec()
         elif isinstance(self.lora, dict):
@@ -212,7 +247,7 @@ class BatchingSpec:
                 raise ValueError(
                     "lora.max_adapters requires role='unified' "
                     "(adapter KV cannot ride a handoff)")
-            if (self.speculative or {}).get("mode", "off") != "off":
+            if self.speculative.mode != "off":
                 raise ValueError(
                     "lora.max_adapters requires speculative.mode='off' "
                     "(the verify dispatch has no adapter lane yet)")

@@ -31,7 +31,8 @@ zeros; the output has ``q``'s dtype. It takes the plain version
 the kernel (adding one to ``paged_decode_attention.launches``, once per
 call) or raises. ``paged_decode_split_ref`` and
 ``paged_decode_combine_ref`` are the plain versions of the splits and of
-their merge.
+their merge. ``paged_verify_attention`` runs the same kernel for the
+speculative verify's T queries per slot, as B·T one-query rows.
 """
 
 from __future__ import annotations
@@ -343,3 +344,32 @@ def paged_decode_attention(
 
 
 paged_decode_attention.launches = 0
+
+
+def paged_verify_attention(
+    q: torch.Tensor,                  # [B, T, H, D] — T verify queries per slot
+    pool_k: torch.Tensor,             # [P, page, K, D]
+    pool_v: torch.Tensor,
+    table: torch.Tensor,              # [B, mpp] int32 page ids (-1 = unmapped)
+    lengths: torch.Tensor,            # [B] position of each slot's first query
+    *,
+    pool_ks: Optional[torch.Tensor] = None,
+    pool_vs: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """T-query verify attention (serve/spec_decode.py) through
+    ``paged_decode_attention``: query t of slot b is a virtual row of its
+    own that attends to positions ``<= lengths[b] + t`` over slot b's
+    table row, so one call over B·T rows computes the verify exactly (one
+    launch, counted under ``paged_decode_attention.launches``). A virtual
+    row's position is clamped to the table's reach, where attending to
+    every position is what the unclamped mask does too. Returns [B, T, H,
+    D]."""
+    b, t, h, d = q.shape
+    reach = table.shape[1] * pool_k.shape[1] - 1
+    pos = lengths.long()[:, None] + torch.arange(t, device=lengths.device)
+    out = paged_decode_attention(
+        q.reshape(b * t, 1, h, d), pool_k, pool_v,
+        table.repeat_interleave(t, dim=0), pos.clamp(max=reach).reshape(-1),
+        pool_ks=pool_ks, pool_vs=pool_vs, sm_scale=sm_scale)
+    return out.reshape(b, t, h, d)

@@ -71,9 +71,18 @@ Design (what carries over, and what eager PyTorch changes):
   the packed buffers and a per-row adapter index (-1 = base weights, an
   exact zero delta), and the prefix index keys each adapter's KV in its own
   namespace.
+- **Speculative decoding** (``BatchingSpec.speculative``,
+  serve/spec_decode.py): when every running request is greedy, the
+  scheduler drains the pipeline, drafts up to k tokens per slot (n-gram
+  lookup, or a small draft model over its own dense slot cache), verifies
+  all k + 1 positions of every slot in one dispatch (on the page pool
+  through the paged-decode kernel over B·T rows), emits the accepted run
+  plus the correction token, and rolls the rejected tail's pages back. A
+  round with no draft, and any batch with a sampled request, takes the
+  plain path.
 
-Weight quantization, speculative decoding, MoE and multi-device meshes
-arrive in later slices and raise ``NotImplementedError``.
+Weight quantization, MoE and multi-device meshes arrive in later slices
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -95,7 +104,9 @@ from kubeflow_tpu_torch.core.serving import (
 )
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models import layers as L
-from kubeflow_tpu_torch.models.config import DecoderConfig, torch_dtype
+from kubeflow_tpu_torch.models.config import (
+    DecoderConfig, preset, torch_dtype,
+)
 from kubeflow_tpu_torch.models.decoder import (
     Params, decoder_forward, init_decoder_params, layer_view, lm_head,
 )
@@ -112,6 +123,9 @@ from kubeflow_tpu_torch.serve.lora import (
 from kubeflow_tpu_torch.serve.paged import (
     PageAllocator, PagePoolExhausted, context_bucket, copy_pages,
     paged_chunk_prefill, paged_decode_multi, upload_pages,
+)
+from kubeflow_tpu_torch.serve.spec_decode import (
+    draft_propose, ngram_propose, paged_verify_step, verify_step,
 )
 from kubeflow_tpu_torch.serve.storage import kv_fabric_store
 
@@ -468,8 +482,9 @@ HOST_GAP_BUCKETS = (0.0002, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
 
 class EngineMetrics:
     """Serving metrics: req/s, TTFT and TPOT quantiles, tokens/s, queue
-    delay, shedding/reaping counters, per-QoS-class health, and the decode
-    hot loop's host gap and dispatch depth."""
+    delay, shedding/reaping counters, per-QoS-class health, the decode hot
+    loop's host gap and dispatch depth, and speculative-decoding health
+    (acceptance rate, verified tokens per step, draft overhead share)."""
 
     def __init__(self, window: int = 2048):
         self._lock = threading.Lock()
@@ -479,6 +494,14 @@ class EngineMetrics:
         self._ttft: list[float] = []    # guarded_by: _lock
         self._tpot: list[float] = []    # guarded_by: _lock
         self._window = window
+        # Speculative decoding counters (one round = one slot's part of a
+        # verify dispatch).
+        self.spec_rounds = 0            # guarded_by: _lock
+        self.spec_drafted = 0           # guarded_by: _lock
+        self.spec_accepted = 0          # guarded_by: _lock
+        self.spec_emitted = 0           # guarded_by: _lock
+        self.spec_draft_time = 0.0      # guarded_by: _lock
+        self.spec_verify_time = 0.0     # guarded_by: _lock
         self.requests_shed = 0          # guarded_by: _lock
         self.requests_cancelled = 0     # guarded_by: _lock
         self.requests_expired = 0       # guarded_by: _lock
@@ -617,6 +640,16 @@ class EngineMetrics:
             return (list(HOST_GAP_BUCKETS), list(self._hg_counts),
                     self._hg_sum, self._hg_n)
 
+    def observe_spec_round(self, drafted: int, accepted: int, emitted: int,
+                           draft_s: float, verify_s: float) -> None:
+        with self._lock:
+            self.spec_rounds += 1
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
+            self.spec_emitted += emitted
+            self.spec_draft_time += draft_s
+            self.spec_verify_time += verify_s
+
     def snapshot(self) -> dict[str, Any]:
         with self._lock:
             elapsed = max(time.monotonic() - self.started, 1e-9)
@@ -665,6 +698,15 @@ class EngineMetrics:
                     out[f"{name}_p50_ms"] = _quantile(srt, 0.5) * 1e3
                     out[f"{name}_p95_ms"] = _quantile(srt, 0.95) * 1e3
                     out[f"{name}_p99_ms"] = _quantile(srt, 0.99) * 1e3
+            if self.spec_rounds:
+                out["spec_rounds"] = self.spec_rounds
+                out["spec_acceptance_rate"] = (
+                    self.spec_accepted / max(self.spec_drafted, 1))
+                out["spec_tokens_per_step"] = (
+                    self.spec_emitted / self.spec_rounds)
+                total = self.spec_draft_time + self.spec_verify_time
+                out["spec_draft_overhead"] = (
+                    self.spec_draft_time / max(total, 1e-9))
             return out
 
 
@@ -678,6 +720,15 @@ def _to_host_async(t: torch.Tensor):
     ev = torch.cuda.Event()
     ev.record()
     return host, ev
+
+
+def _host_list(t: torch.Tensor) -> list:
+    """``t`` as nested Python lists, through one asynchronous copy to pinned
+    host memory and a wait for just that copy."""
+    host, ready = _to_host_async(t)
+    if ready is not None:
+        ready.synchronize()
+    return host.tolist()
 
 
 def _fill(dst: torch.Tensor, src: np.ndarray) -> None:
@@ -707,7 +758,8 @@ class LLMEngine:
     def __init__(self, cfg: DecoderConfig,
                  batching: Optional[BatchingSpec] = None, *,
                  params: Optional[Params] = None, seed: int = 0,
-                 device: str | torch.device = "cuda", mesh=None):
+                 device: str | torch.device = "cuda", mesh=None,
+                 draft_params: Optional[Params] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batching = batching or BatchingSpec()
@@ -715,8 +767,7 @@ class LLMEngine:
         for unsupported, what in (
                 (mesh is not None, "multi-device meshes"),
                 (cfg.is_moe, "MoE models"),
-                (b.quantize is not None, "weight quantization"),
-                (bool(b.speculative), "speculative decoding")):
+                (b.quantize is not None, "weight quantization")):
             if unsupported:
                 raise NotImplementedError(
                     f"{what}: not in the port's serving slices yet (see "
@@ -831,6 +882,59 @@ class LLMEngine:
                                  device=self.device),
             }
         self._gen = torch.Generator(self.device).manual_seed(seed + 1)  # lockfree: scheduler-confined
+
+        # Speculative decoding (serve/spec_decode.py): greedy rounds draft k
+        # tokens per slot and verify all k + 1 positions in one dispatch.
+        spec = b.speculative
+        self.spec_mode = spec.mode
+        self.spec_k = int(spec.k)
+        self._spec_ngram_max = int(spec.ngram_max)
+        self._spec_ngram_min = int(spec.ngram_min)
+        self._draft_cfg: Optional[DecoderConfig] = None
+        self._draft_params: Optional[Params] = None
+        if self.spec_mode == "draft_model":
+            dconf = dict(spec.draft or {})
+            dcfg = preset(dconf.get("preset", "tiny"),
+                          **dconf.get("overrides", {}))
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft model vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size} (drafts are token ids — the two "
+                    "must share the tokenizer)")
+            if dcfg.is_moe:
+                raise NotImplementedError(
+                    "MoE draft models: not in the port's serving slices yet")
+            if dcfg.max_seq_len < self.max_len:
+                dcfg = dataclasses.replace(dcfg, max_seq_len=self.max_len)
+            self._draft_cfg = dcfg
+            if draft_params is None:
+                dgen = torch.Generator(self.device).manual_seed(seed + 2)
+                self._draft_params = init_decoder_params(dgen, dcfg,
+                                                         dtype=wdt)
+            else:
+                # The target's own tensors (a self-draft) are shared, not
+                # copied, when device and dtype already agree.
+                self._draft_params = _cast_params(draft_params, self.device,
+                                                  wdt)
+            # The draft's own dense slot cache (the draft is small, so
+            # slots x max_len of its kv heads is cheap beside a page pool).
+            dshape = (dcfg.n_layers, self.num_slots, self.max_len,
+                      dcfg.n_kv_heads, dcfg.head_dim)
+            self._draft_cache = {  # lockfree: scheduler-confined (written in place)
+                "k": torch.zeros(dshape, dtype=dcfg.activation_dtype,
+                                 device=self.device),
+                "v": torch.zeros(dshape, dtype=dcfg.activation_dtype,
+                                 device=self.device),
+            }
+            # Consumed-context pointer per slot: positions [0, pos) of the
+            # true sequence have valid draft KV; reset at (re-)admission.
+            self._draft_pos = [0] * self.num_slots  # lockfree: scheduler-confined
+            # Catch-up chunk: the largest power of two <= 128 dividing
+            # max_len (the JAX engine's C-aligned windows).
+            c = min(128, self.max_len)
+            while c > 1 and self.max_len % c:
+                c //= 2
+            self._draft_chunk = max(c, 1)
 
         self.prefill_batch_max = max(1, int(b.prefill_batch_max))
         self.prefill_batch_token_budget = max(
@@ -1203,6 +1307,10 @@ class LLMEngine:
         # sync as deltas at the next dispatch.
         self._dstate.mark_slot(slot_idx)
         self._dstate.mark_row(slot_idx)
+        if self._draft_cfg is not None:
+            # Fresh occupant: the draft has consumed none of it yet (its
+            # first spec round runs a catch-up prefill).
+            self._draft_pos[slot_idx] = 0
         if not self._finish_if_done(slot_idx) and req.handoff_requested:
             # Prefill role: the first token is out and decode remains —
             # export the slot's KV instead of decoding here. The slot
@@ -1729,6 +1837,8 @@ class LLMEngine:
                                      admit_seq=next(self._admit_seq))
         self._dstate.mark_slot(slot_idx)
         self._dstate.mark_row(slot_idx)
+        if self._draft_cfg is not None:
+            self._draft_pos[slot_idx] = 0
         self.metrics.note_handoff("adopted", wire_bytes=p.wire_bytes)
         self._finish_if_done(slot_idx)
 
@@ -2068,10 +2178,23 @@ class LLMEngine:
         return True
 
     def _decode_once(self) -> int:  # hot-loop
-        """One decode scheduler pass: dispatch round N+1 first, then consume
-        round N (pipelined), so the host's emit/stream/admit work overlaps
-        device compute. Returns work done (tokens emitted + dispatches)."""
+        """One decode scheduler pass. Greedy-only batches take the
+        speculative path when it is on; otherwise dispatch round N+1 first,
+        then consume round N (pipelined), so the host's emit/stream/admit
+        work overlaps device compute. Returns work done (tokens emitted +
+        dispatches)."""
         active = [(i, s) for i, s in enumerate(self.slots) if s is not None]
+        if (self.spec_mode != "off" and active
+                and all(s.request.params.temperature <= 0.0
+                        for _, s in active)):
+            # Spec rounds verify on the host between dispatches: drain the
+            # plain pipeline first so the host's slot state is current.
+            emitted = self._consume_rounds()
+            active = [(i, s) for i, s in enumerate(self.slots)
+                      if s is not None]
+            if not active:
+                return emitted
+            return emitted + self._spec_decode_once(active)
         dispatched = self._dispatch_round(active) if active else False
         keep = 1 if (self.pipelined and dispatched) else 0
         emitted = 1 if dispatched else 0
@@ -2100,6 +2223,13 @@ class LLMEngine:
         inflight = sum(r.k_steps for r in self._rounds
                        if any(j == i and occ is s for j, occ in r.active))
         return left - inflight
+
+    def _sync_decode_state(self) -> None:  # hot-loop
+        """Write the dirty slots' state and page-table rows to the device."""
+        if self._dstate.dirty_slots:
+            self._dstate.sync_slots(self._slot_state_values)
+        if self._dstate.dirty_rows:
+            self._dstate.sync_rows(lambda i: self._table[i])
 
     def _dispatch_round(self, active) -> bool:  # hot-loop
         """Enqueue one multi-step decode dispatch over the device-resident
@@ -2140,10 +2270,7 @@ class LLMEngine:
             if k_steps <= 0:
                 return False
         mode = _mode_for([s.request.params for _, s in active])
-        if self._dstate.dirty_slots:
-            self._dstate.sync_slots(self._slot_state_values)
-        if self._dstate.dirty_rows:
-            self._dstate.sync_rows(lambda i: self._table[i])
+        self._sync_decode_state()
         now = time.monotonic()
         gap = None
         if self._last_ready_t is not None:
@@ -2211,6 +2338,200 @@ class LLMEngine:
                                              host_gap_ms=round(rnd.gap_ms, 3))
             self._finish_if_done(i)
         return emitted
+
+    def _consume_rounds(self) -> int:
+        """Drain every in-flight round (the barrier before a spec round)."""
+        emitted = 0
+        while self._rounds:
+            emitted += self._consume_round()
+        return emitted
+
+    def _plain_decode_once(self, active) -> int:  # hot-loop
+        """Dispatch and consume one plain round synchronously: the spec
+        path's fallback lane (spec rounds verify on the host, so there is
+        no pipeline to overlap with here)."""
+        self._dispatch_round(active)
+        return self._consume_rounds()
+
+    # -- speculative decoding (serve/spec_decode.py) ---------------------------
+
+    def _spec_decode_once(self, active) -> int:  # hot-loop
+        """One draft + batched-verify round. Each live slot proposes up to
+        ``spec_k`` drafts; ONE dispatch scores all k + 1 positions per slot;
+        each slot emits its longest matching draft prefix plus the target's
+        token at the first mismatch (identical to plain greedy decode). A
+        round in which no slot drafted takes the plain path."""
+        t0 = time.monotonic()
+        k = self.spec_k
+        if self.spec_mode == "ngram":
+            drafts = {i: ngram_propose(self._context_tokens(s), k,
+                                       self._spec_ngram_max,
+                                       self._spec_ngram_min)
+                      for i, s in active}
+        else:
+            drafts = self._draft_model_propose(active)
+        if not any(drafts.values()):
+            return self._plain_decode_once(active)
+        draft_s = time.monotonic() - t0
+        t1 = time.monotonic()
+        T = k + 1
+        if self.paged:
+            # Pages must cover ALL T verify write positions (a write on the
+            # sink would lose an accepted token's KV). Under pool pressure
+            # preempt youngest-first; if even that cannot cover a slot, take
+            # the plain path (its one-step shrink handles a sole survivor).
+            for i, s in list(active):
+                if self.slots[i] is not s:
+                    continue    # preempted by an earlier slot's allocation
+                upto = min(s.length + T, self.max_len)
+                while not self._ensure_pages(i, upto):
+                    if not self._preempt_youngest(keep=i):
+                        active = [(j, sl) for j, sl in enumerate(self.slots)
+                                  if sl is not None]
+                        return (self._plain_decode_once(active)
+                                if active else 0)
+            active = [(i, s) for i, s in enumerate(self.slots)
+                      if s is not None]
+            if not active:
+                return 0
+        nb = self.num_slots
+        tokens = np.zeros((nb, T), np.int64)
+        lengths = np.zeros((nb,), np.int64)
+        live = np.zeros((nb,), bool)
+        for i, s in active:
+            d = drafts.get(i, [])
+            tokens[i, 0] = s.last_token
+            tokens[i, 1:1 + len(d)] = d
+            lengths[i] = s.length
+            live[i] = True
+        args = (self._upload(tokens, torch.int64),
+                self._upload(lengths, torch.int64),
+                self._upload(live, torch.bool))
+        if self.paged:
+            # The verify reads the device-resident page table the plain
+            # path owns; dirty rows sync as deltas first.
+            self._sync_decode_state()
+            greedy = paged_verify_step(
+                self.params, {**self.cache, "table": self._dstate.table},
+                *args, self.cfg, attn_impl=self.paged_attn_impl)
+        else:
+            greedy = verify_step(self.params, self.cache, *args, self.cfg)
+        greedy = _host_list(greedy)     # verification happens on the host
+        verify_s = time.monotonic() - t1
+        emitted = 0
+        for i, s in active:
+            d = drafts.get(i, [])
+            a = 0
+            while a < len(d) and d[a] == greedy[i][a]:
+                a += 1
+            # Accepted drafts + the correction/bonus token from the first
+            # position whose match broke. Truncation by budget, stop token
+            # or max_len always finishes the slot.
+            emit = d[:a] + [greedy[i][a]]
+            p = s.request.params
+            emit = emit[:max(p.max_new_tokens - s.generated, 0)]
+            emit = emit[:self.max_len - 1 - s.length]
+            if p.stop_token is not None and p.stop_token in emit:
+                emit = emit[:emit.index(p.stop_token) + 1]
+            for tok in emit:
+                s.request.output_tokens.append(tok)
+                s.request.stream.put(tok)
+            if emit and s.request.first_token_time is None:
+                s.request.first_token_time = time.monotonic()
+            if s.request.span is not None and emit:
+                s.request.span.add_event("decode_round", spec=True,
+                                         drafted=len(d), tokens=len(emit))
+            s.last_token = emit[-1]
+            s.length += len(emit)
+            s.generated += len(emit)
+            emitted += len(emit)
+            # The slot advanced on the host only: the next plain dispatch
+            # resyncs its tokens, lengths and budget.
+            self._dstate.mark_slot(i)
+            self.metrics.observe_spec_round(
+                drafted=len(d), accepted=min(a, len(emit)),
+                emitted=len(emit), draft_s=draft_s / len(active),
+                verify_s=verify_s / len(active))
+            if self.paged:
+                # Roll back the rejected positions before the finish can
+                # index the context: live KV is exactly [0, s.length).
+                self._truncate_slot_pages(i, s.length)
+            if self._draft_cfg is not None:
+                # Draft KV is valid for all but the last emitted token,
+                # which the draft never consumed.
+                self._draft_pos[i] = s.length
+            self._finish_if_done(i)
+        return emitted
+
+    def _draft_model_propose(self, active) -> dict[int, list[int]]:  # hot-loop
+        """The draft model's k tokens for every live slot: a catch-up
+        through the chunked prefill for slots whose context the draft has
+        not consumed (fresh admissions, plain-path rounds), then one
+        ``draft_propose`` and one copy of its ids to the host."""
+        k = self.spec_k
+        dmax = k + 1
+        ctxs: dict[int, list[int]] = {}
+        for i, s in active:
+            ctx = self._context_tokens(s)
+            ctxs[i] = ctx
+            if len(ctx) - self._draft_pos[i] > dmax:
+                # All but the last context token, in windows that end on
+                # multiples of the catch-up chunk; only real tokens are fed.
+                C = self._draft_chunk
+                target = len(ctx) - 1
+                pos = self._draft_pos[i]
+                while pos < target:
+                    real = min(C - pos % C, target - pos)
+                    _chunk_prefill_step(
+                        self._draft_params, self._draft_cache,
+                        self._upload([ctx[pos:pos + real]], torch.int64),
+                        i, pos, self._draft_cfg)
+                    pos += real
+                self._draft_pos[i] = target
+        nb = self.num_slots
+        deltas = np.zeros((nb, dmax), np.int64)
+        dlens = np.zeros((nb,), np.int64)
+        dpos = np.zeros((nb,), np.int64)
+        live = np.zeros((nb,), bool)
+        for i, s in active:
+            delta = ctxs[i][self._draft_pos[i]:]
+            deltas[i, :len(delta)] = delta
+            dlens[i] = len(delta)
+            dpos[i] = self._draft_pos[i]
+            live[i] = True
+        # The JAX engine runs dmax + k - 1 steps (one traced shape); the
+        # columns read below end at max(dlens) + k - 2, so the steps past
+        # that only wrote draft KV the next round overwrites.
+        steps = int(dlens.max()) + k - 1
+        out = draft_propose(
+            self._draft_params, self._draft_cache,
+            self._upload(deltas, torch.int64), self._upload(dlens, torch.int64),
+            self._upload(dpos, torch.int64), self._upload(live, torch.bool),
+            self._draft_cfg, steps)
+        out = _host_list(out)           # drafts are proposed on the host
+        drafts: dict[int, list[int]] = {}
+        for i, s in active:
+            first = int(dlens[i]) - 1    # the step that predicts past ctx
+            drafts[i] = out[i][first:first + k]
+            # Only the true context counts as consumed; the accepted run
+            # advances the pointer after verification.
+            self._draft_pos[i] = len(ctxs[i])
+        return drafts
+
+    def _truncate_slot_pages(self, idx: int, keep_tokens: int) -> None:
+        """Free the pages past those covering [0, keep_tokens): the paged
+        rollback after a rejection. Decode-grown pages past the slot's
+        length are never indexed, and keep_tokens never rewinds into the
+        prompt, so no prefix page is dropped here."""
+        keep = -(-keep_tokens // self.page_size)
+        pages = self._slot_pages[idx]
+        if len(pages) <= keep:
+            return
+        drop = pages[keep:]
+        self._slot_pages[idx] = pages[:keep]
+        self._table[idx, keep:len(pages)] = -1
+        self._dstate.mark_row(idx)
+        self._allocator.free(drop)
 
     @torch.no_grad()
     def step(self) -> int:

@@ -329,13 +329,14 @@ def test_background_loop_streams(params, cfg):
 
 # -- refusals ---------------------------------------------------------------------
 
-# Paged KV, int8 pages, the engine roles, the host and remote KV tiers and
-# LoRA adapters are served now (tests/test_torch_paged.py,
-# test_torch_handoff.py, test_torch_kvtier_host.py,
-# test_torch_kvtier_remote.py, test_torch_lora.py); the features below are
-# still a later slice — also beside served ones (weight quantization with
-# the remote tier and LoRA, or with LoRA alone; speculative decoding over
-# int8 pages).
+# Paged KV, int8 pages, the engine roles, the host and remote KV tiers,
+# LoRA adapters and speculative decoding are served now
+# (tests/test_torch_paged.py, test_torch_handoff.py,
+# test_torch_kvtier_host.py, test_torch_kvtier_remote.py,
+# test_torch_lora.py, test_torch_spec.py); weight quantization is still a
+# later slice — also beside served ones (the remote tier and LoRA, LoRA
+# alone, speculative decoding over int8 pages with the remote tier, on a
+# decode role, or alone).
 @pytest.mark.parametrize("overrides", [
     {"paged": True, "page_size": 16, "host_kv_pages": 8,
      "remote_kv_root": "kv-remote", "lora": {"max_adapters": 2},
@@ -343,10 +344,10 @@ def test_background_loop_streams(params, cfg):
     {"quantize": "int8"},
     {"paged": True, "page_size": 16, "kv_cache_dtype": "int8",
      "host_kv_pages": 8, "remote_kv_root": "kv-remote",
-     "speculative": {"mode": "ngram"}},
-    {"role": "decode", "speculative": {"mode": "ngram"}},
+     "speculative": {"mode": "ngram"}, "quantize": "int8"},
+    {"role": "decode", "speculative": {"mode": "ngram"}, "quantize": "int8"},
     {"lora": {"max_adapters": 2}, "quantize": "int8"},
-    {"speculative": {"mode": "ngram"}}])
+    {"speculative": {"mode": "ngram"}, "quantize": "int8"}])
 def test_later_slice_features_raise(overrides, cfg, tmp_path):
     if "remote_kv_root" in overrides:
         overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))

@@ -639,15 +639,16 @@ def test_paged_engine_resolution_and_density(cfg, params, jcfg, jparams):
         _port(cfg, params, max_pages=2)
 
 
-# The host and remote tiers (and LoRA beside them) are served now
-# (tests/test_torch_kvtier_host.py, test_torch_kvtier_remote.py,
-# test_torch_lora.py); beside weight quantization or speculative decoding,
-# over an int8 or a float pool, they are still refused.
+# The host and remote tiers (and LoRA or speculative decoding beside them)
+# are served now (tests/test_torch_kvtier_host.py,
+# test_torch_kvtier_remote.py, test_torch_lora.py, test_torch_spec.py);
+# beside weight quantization, over an int8 or a float pool, they are still
+# refused.
 @pytest.mark.parametrize("overrides", [
     {"host_kv_pages": 8, "remote_kv_root": "kv", "kv_cache_dtype": "int8",
      "lora": {"max_adapters": 2}, "quantize": "int8"},
     {"host_kv_pages": 8, "remote_kv_root": "kv",
-     "speculative": {"mode": "ngram"}}])
+     "speculative": {"mode": "ngram"}, "quantize": "int8"}])
 def test_host_and_remote_tiers_raise(overrides, cfg, tmp_path):
     overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
     with pytest.raises(NotImplementedError):
