@@ -12,8 +12,9 @@ with the cuBLAS yardstick, a repeat call's bits, sink inputs, and their
 edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
 edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
-then (e), (f), (g) and (h), without the kernel rows; ``--spec-only`` runs
-phases 1, 2 and (h). Every phase prints its seconds.
+then (e), (f), (g), (h) and (i), without the kernel rows; ``--spec-only``
+runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i). Every phase
+prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -225,7 +226,39 @@ Phases, each a hard failure:
    and 0 resident after. (h)4: a worker with ``batching.speculative``
    ngram on the page pool under ``uniform`` through ``ServerTarget``:
    every request ok, ``kftpu_serving_spec_tokens_per_step`` read off
-   ``/metrics``, TPOT p50 beside (c)'s spec-off worker's; SIGTERM -> 143.
+   ``/metrics``, TPOT p50 beside (c)'s spec-off worker's; SIGTERM -> 143;
+13. (i) MoE serving and int8 weights. (i)1: one MoE block at Mixtral
+   width (bf16, seeded) at T = 2048 with 1500 real rows: the dispatch
+   path at capacity factor E against the dense oracle (rel L2 <= 1e-2 on
+   the real rows, pad rows exactly 0); at the model's 1.25 the dropped
+   pairs and no slot held by a pad row; dispatch, zero-drop dispatch and
+   dense timed at T = 2048 and 8 rows. (i)2: Mixtral-8x7B at full width
+   and 8 layers (random bf16, the serving seed) packed to int8:
+   ``packed_param_bytes`` equal to the config's estimate,
+   ``quantization_quality`` on 4 prompts x 16 tokens; int8-weight engines
+   (paged on a bf16 pool, on an int8 pool, contiguous with its 2048
+   bucket): every token held to two plain forwards over the same int8
+   weights, bf16 and fp32, teacher-forced phase for phase (the prompt in
+   the engine's windows with its pads masked, decode on the dense path;
+   an int8 pool's K/V quantized as the pool holds them): the argmax or a
+   near tie of either, or beyond both bands by at most ``MOE_TIE_GAP``
+   (0.25) for at most ``MOE_BEYOND_MAX`` (3) tokens of an engine; the
+   same check fails against forwards with a planted fault (one expert's
+   down scale doubled, a layer's second choice dropped, pad rows claiming
+   capacity); rows 1, 2 and 12 (6 on the contiguous engine) launched,
+   row 4 not. (i)3: Mixtral-8x7B at
+   all 32 layers with int8 weights through ``runtime.worker_main`` →
+   ``model_server`` (``random://`` packed per layer, never bf16 whole;
+   bf16 page pool, 8 slots x 2048; its batching a ``BatchingSpec`` dump
+   with ``moe_*_impl``): three completions and ``uniform`` (12 requests
+   at 4 req/s, prompts of 512, 64 new) through ``ServerTarget``, every
+   request ok; SIGTERM -> 143; then the same seed's int8 weights in
+   process, each completion token held as in (i)2; the worker's logged
+   peak memory beside ``estimate_model_bytes``; one dense decode step
+   timed. (i)4: Llama-3-8B int8, paged: every token the argmax or a near
+   tie of a plain full forward in bf16 or in fp32; packed bytes against
+   bf16; one decode step's enqueue and device ms with int8 weights beside
+   bf16's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -2502,21 +2535,23 @@ WORKER_MODEL = {"preset": "llama3-8b", "overrides": {"param_dtype": "bfloat16"}}
 WORKER_PLATFORM = "gpu"
 
 
-def spawn_worker(batching: dict, label: str):
+def spawn_worker(batching: dict, label: str, model: dict = WORKER_MODEL,
+                 service: str = "llama"):
     """Start ``python -m kubeflow_tpu_torch.runtime.worker_main`` serving
-    Llama-3-8B from ``random://`` (bf16, the serving seed) with
-    ``batching``, the ``strip`` transformer, the ``grad_x_input`` explainer
-    and the ``chip_smoke:TokenIdText`` tokenizer, on a free port of this
-    host. Returns (process, url, log file)."""
+    ``model`` (default Llama-3-8B) from ``random://`` (bf16, the serving
+    seed) with ``batching``, the ``strip`` transformer, the
+    ``grad_x_input`` explainer and the ``chip_smoke:TokenIdText``
+    tokenizer, on a free port of this host. Returns (process, url, log
+    file)."""
     import tempfile
 
     from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
 
     repo = Path(__file__).resolve().parent
     port = free_port()
-    conf = {"model": WORKER_MODEL,
+    conf = {"model": model,
             "storage_uri": "random://",
-            "batching": batching, "port": port, "service": "llama",
+            "batching": batching, "port": port, "service": service,
             "explainer": {"handler": "grad_x_input"},
             "transformer": {"handler": "strip"},
             "tokenizer": "chip_smoke:TokenIdText"}
@@ -4251,24 +4286,58 @@ def argmax_near_ties(got: torch.Tensor, logits: torch.Tensor,
     return int(diff.numel())
 
 
-def spec_reference(eng, prompts, outs, name: str) -> int:
-    """Every emitted token against a plain full forward (no cache, plain
-    kernels off) over prompt + the tokens emitted before it: the argmax,
-    or a near tie. Returns the near-tie departures."""
+def plain_logits(params, cfg, prompt, out, dtype: str = "bfloat16"):
+    """The plain full forward (no cache, kernels off) in ``dtype`` over
+    prompt + ``out[:-1]``: the fp32 logits [len(out), V] that chose each
+    token of ``out``."""
     import dataclasses
 
     from kubeflow_tpu_torch.models.decoder import decoder_forward, lm_head
 
-    cfg = dataclasses.replace(eng.cfg, fused_kernels="off")
-    departs = 0
+    cfg = dataclasses.replace(cfg, dtype=dtype, fused_kernels="off")
     with torch.no_grad():
-        for p, out in zip(prompts, outs):
-            ctx = torch.tensor([list(p) + list(out[:-1])], device="cuda")
-            hid, _ = decoder_forward(eng.params, ctx, cfg, skip_head=True)
-            logits = lm_head(eng.params, hid[0, len(p) - 1:], cfg)
-            departs += argmax_near_ties(torch.tensor(out, device="cuda"),
-                                        logits, name)
+        ctx = torch.tensor([list(prompt) + list(out[:-1])], device="cuda")
+        hid, _ = decoder_forward(params, ctx, cfg, skip_head=True)
+        return lm_head(params, hid[0, len(prompt) - 1:], cfg)
+
+
+def spec_reference(eng, prompts, outs, name: str) -> int:
+    """Every emitted token against a plain full forward (no cache, plain
+    kernels off) over prompt + the tokens emitted before it: the argmax,
+    or a near tie. Returns the near-tie departures."""
+    departs = 0
+    for p, out in zip(prompts, outs):
+        departs += argmax_near_ties(
+            torch.tensor(out, device="cuda"),
+            plain_logits(eng.params, eng.cfg, p, out), name)
     return departs
+
+
+def int8_reference(eng, prompts, outs, name: str) -> tuple[int, int]:
+    """Every emitted token against two plain full forwards over the
+    engine's weights, one in bf16 (its dtype) and one in fp32: the argmax
+    or a near tie of either. The kernels under test run in neither.
+    Returns (departures from the bf16 forward's argmax, those of them that
+    are a near tie of the fp32 forward only)."""
+    departs = fp32_only = 0
+    for p, out in zip(prompts, outs):
+        got = torch.tensor(out, device="cuda")
+        ties = {}
+        for dtype in ("bfloat16", "float32"):
+            logits = plain_logits(eng.params, eng.cfg, p, out, dtype)
+            top = logits.max(-1).values
+            gap = top - logits.gather(1, got[:, None])[:, 0]
+            ties[dtype] = (gap, gap <= NEAR_TIE_ATOL
+                           + NEAR_TIE_RTOL * top.abs())
+        (g16, t16), (g32, t32) = ties["bfloat16"], ties["float32"]
+        if not torch.all(t16 | t32):
+            bad = (~t16 & ~t32).nonzero().flatten()
+            fail(f"{name}: a token is no near tie of either plain forward: "
+                 f"gaps bf16 {g16[bad].tolist()[:8]} fp32 "
+                 f"{g32[bad].tolist()[:8]}")
+        departs += int((g16 > 0).sum())
+        fp32_only += int((~t16).sum())
+    return departs, fp32_only
 
 
 def _tpot_p50(reqs) -> float:
@@ -4439,6 +4508,614 @@ def phase_spec(rows: list[dict], card: str, plain_tpot=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     timed_phase("spec worker", spec_worker, card, plain_tpot)
+
+
+#: (i): Mixtral-8x7B (32 layers, hidden 4096, 32/8 heads of 128, 8 experts
+#: of MLP 14336, top 2, vocab 32000), random bf16 weights from a seed.
+MOE_MODEL = {"preset": "mixtral-8x7b", "overrides": {"param_dtype": "bfloat16"}}
+#: The int8 engines: ``PAGED_SPEC`` with int8 weights, prefix caching off
+#: (every prompt prefills from position 0 in 512-token chunks, the windows
+#: the plain reference replays: capacity, so drops, depends on them).
+MOE_SPEC = dict(PAGED_SPEC, quantize="int8", enable_prefix_caching=False)
+#: (i)1: the bucket and the real rows of the one-block check.
+MOE_BLOCK_T, MOE_BLOCK_VALID = 2048, 1500
+MOE_REL_L2 = 1e-2
+#: A Mixtral token is held to two plain forwards over the same int8 weights
+#: (``moe_witness``): one in bf16, the engine's dtype, and one in fp32. It
+#: passes as the argmax or a near tie (as (h)) of either. Beyond that, two
+#: bf16 paths that route a near-tied token to different experts, at its own
+#: position or at an earlier one whose K/V it reads, move the later logits:
+#: such a departure must lie within MOE_TIE_GAP of the top in both
+#: forwards, and at most MOE_BEYOND_MAX of an engine's tokens may depart
+#: so. On the H100 the four engines' tokens read 2, 2, 1 and 1 beyond both
+#: bands, gaps at most 0.19 (bf16) and 0.18 (fp32); the planted faults of
+#: ``moe_fault_controls`` read 5 (a gap of 0.40), 26 and 4, and each must
+#: fail this check.
+MOE_TIE_GAP, MOE_BEYOND_MAX = 0.25, 3
+#: (i)2: prompt lengths (one in the contiguous 2048 bucket, the flash
+#: kernel's) and the quality gate's prompts.
+MOE_PROMPT_LENS = (40, 300, 700, 1000)
+MOE_NEW = 16
+#: (i)3: the worker's completions and traffic.
+MOE_WORKER_PROMPTS = ((60, 61), (300, 62), (500, 63))
+MOE_LOADGEN = dict(num_requests=12, rate_rps=4.0, prompt_len=512, max_new=64,
+                   seed=0)
+
+
+def _moe_wrappers() -> dict:
+    from kubeflow_tpu_torch.ops import fused_norm
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    return {"rmsnorm_fwd": fused_norm.rmsnorm_fused,
+            "add_rmsnorm_fwd": fused_norm.add_rmsnorm_fused,
+            "swiglu_fwd": fused_norm.swiglu_fused,
+            "flash_fwd": flash_attention,
+            "paged_decode": paged_decode_attention}
+
+
+def moe_block_check(card: str) -> None:
+    """(i)1: one MoE block at Mixtral width (bf16, seeded): at T = 2048 with
+    1500 real rows, the dispatch path at capacity factor E (nothing drops)
+    against the dense oracle on the real rows, pad rows exactly zero; at
+    the model's 1.25 the dropped pairs counted and no slot held by a pad
+    row; dispatch and dense timed at T = 2048 and at 8 decode rows."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset
+
+    cfg = preset("mixtral-8x7b")
+    e, k, t, vl = (cfg.num_experts, cfg.experts_per_token, MOE_BLOCK_T,
+                   MOE_BLOCK_VALID)
+    gen = torch.Generator("cuda").manual_seed(SEED + 50)
+    p = L.init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn((1, t, cfg.hidden), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ample = dataclasses.replace(cfg, capacity_factor=float(e))
+    dense = dataclasses.replace(cfg, moe_impl="dense")
+    with torch.no_grad():
+        got, _ = L.moe_block(p, x, ample, valid_len=vl)
+        want, _ = L.moe_block(p, x, dense)
+        trained, _ = L.moe_block(p, x, cfg, valid_len=vl)
+        logits = (x.reshape(t, -1) @ p["router"]).float()
+        plan = L.dispatch_plan(logits, cfg, 1, t, vl)
+    rel = rel_l2(got[0, :vl], want[0, :vl])
+    pads = float(got[0, vl:].abs().max())
+    c = plan["capacity"]
+    kept = int((plan["rows"] < e * c).sum())
+    held = plan["row_of_slot"][plan["row_of_slot"] < t]
+    pad_slots = int((held >= vl).sum())
+    per_expert = torch.bincount(plan["rows"][plan["rows"] < e * c] // c,
+                                minlength=e).tolist()
+    print(f"(i)1 MoE block (Mixtral width, bf16, T={t}, valid_len {vl}): "
+          f"dispatch at capacity factor {e} vs dense rel L2 {rel:.3e} "
+          f"(tolerance {MOE_REL_L2:g}), pad rows max |out| {pads}; at "
+          f"capacity factor {cfg.capacity_factor}: C = {c}, "
+          f"{k * vl - kept} of {k * vl} real pairs dropped, slots used per "
+          f"expert {per_expert}, {pad_slots} slots held by pad rows, output "
+          f"rel L2 {rel_l2(trained[0, :vl], want[0, :vl]):.3e} from dense",
+          flush=True)
+    if not rel <= MOE_REL_L2 or pads != 0.0:
+        fail("(i)1: the dispatch path disagrees with the dense oracle")
+    if pad_slots:
+        fail(f"(i)1: {pad_slots} expert slots were claimed by pad rows")
+    for rows in (t, 8):
+        xs = x[:, :rows].contiguous()
+        with torch.no_grad():
+            t_disp = event_ms(lambda: L.moe_block(p, xs, cfg))
+            t_zero = event_ms(lambda: L.moe_block(p, xs, ample))
+            t_dense = event_ms(lambda: L.moe_block(p, xs, dense))
+        print(f"(i)1 MoE block T={rows}: dispatch (factor "
+              f"{cfg.capacity_factor}) {t_disp:.3f} ms, zero-drop dispatch "
+              f"(factor {e}) {t_zero:.3f} ms, dense {t_dense:.3f} ms "
+              f"(CUDA events); {card}", flush=True)
+    del p, x, got, want, trained
+
+
+class _MoeHooks:
+    """While active, wraps ``layers.moe_block`` (each forward calls it once
+    per layer, in order) and records each call's routing margin per
+    position: the gap between the k-th and (k+1)-th router logits (fp32 of
+    the product in the block's dtype) in units of the near-tie band. With
+    ``drop_layer`` (a planted fault) that layer routes each token to its
+    first choice alone. ``take()`` returns the [layers, S] margins of the
+    forward since the last take."""
+
+    def __init__(self, drop_layer: int | None = None):
+        from kubeflow_tpu_torch.models import layers as L
+
+        self.L, self.drop, self.calls = L, drop_layer, []
+
+    def __enter__(self):
+        import dataclasses
+
+        L, orig = self.L, self.L.moe_block
+        self.orig = orig
+
+        def hooked(p, x, cfg, **kw):
+            k = cfg.experts_per_token
+            logits = (x @ L.weight(p["router"], cfg.activation_dtype)).float()
+            top = torch.sort(logits, dim=-1, descending=True).values
+            gap = top[..., k - 1] - top[..., k]
+            band = NEAR_TIE_ATOL + NEAR_TIE_RTOL * top[..., k - 1].abs()
+            if len(self.calls) == self.drop:
+                cfg = dataclasses.replace(cfg, experts_per_token=1)
+            self.calls.append((gap / band)[0])
+            return orig(p, x, cfg, **kw)
+
+        L.moe_block = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_block = self.orig
+
+    def take(self) -> torch.Tensor:
+        out, self.calls = torch.stack(self.calls), []
+        return out
+
+
+def moe_witness(params, cfg, prompt: list[int], out: list[int], chunk: int,
+                dtype: str, *, kv_quant: bool = False,
+                pads_claim: bool = False, drop_layer: int | None = None):
+    """The plain forward (plain ops, the plain attention) in ``dtype`` over
+    ``params``, teacher-forced and phase for phase as the engine runs them:
+    the prompt in ``chunk``-token windows from position 0, each padded to
+    ``chunk`` with its real rows as ``valid_len`` (the model's dispatch
+    path: the same capacity and drops), then ``out[:-1]`` on the dense path
+    (the engine's decode) over that cache. ``kv_quant`` (an int8 pool):
+    every forward reads the K/V of earlier positions quantized per token
+    and head and dequantized, as the pool holds them, so the decode tokens
+    go one forward each. ``pads_claim`` (pad rows claim capacity) and
+    ``drop_layer`` plant the controls' faults. Returns the [len(out), V]
+    fp32 logits and, per token, the smallest routing margin over the
+    layers at its position (``_MoeHooks``)."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models.decoder import decoder_forward
+    from kubeflow_tpu_torch.ops.quantization import (
+        dequantize_kv, quantize_kv,
+    )
+
+    pre = dataclasses.replace(cfg, dtype=dtype, fused_kernels="off")
+    dec = dataclasses.replace(pre, moe_impl="dense")
+    dt = pre.activation_dtype
+    n = len(prompt)
+    span = -(-n // chunk) * chunk + len(out)
+    shape = (cfg.n_layers, 1, span, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dt, device="cuda"),
+             "v": torch.zeros(shape, dtype=dt, device="cuda")}
+
+    def forward(toks: list[int], c, start: int, **kw):
+        view = cache
+        if kv_quant:
+            view = {m: t.clone() for m, t in cache.items()}
+            for m in view:
+                view[m][:, :, :start] = dequantize_kv(
+                    *quantize_kv(cache[m][:, :, :start]), dt)
+        logits, _ = decoder_forward(
+            params, torch.tensor([toks], device="cuda"), c,
+            kv_caches={**view, "len": start}, **kw)
+        if kv_quant:
+            for m in view:
+                cache[m][:, :, start:start + len(toks)] = \
+                    view[m][:, :, start:start + len(toks)]
+        return logits[0]
+
+    rows, margins = [], []
+    with torch.no_grad(), _MoeHooks(drop_layer) as rec:
+        for c0 in range(0, n, chunk):
+            real = min(chunk, n - c0)
+            logits = forward(prompt[c0:c0 + real] + [0] * (chunk - real),
+                             pre, c0, valid_len=None if pads_claim else real)
+            m = rec.take()
+        rows.append(logits[real - 1])
+        margins.append(m[:, real - 1].min())
+        steps = [out[:-1]] if not kv_quant else [[t] for t in out[:-1]]
+        pos = n
+        for toks in steps if len(out) > 1 else []:
+            rows.extend(forward(toks, dec, pos))
+            margins.extend(rec.take().min(dim=0).values)
+            pos += len(toks)
+    return torch.stack(rows), torch.stack(margins)
+
+
+def moe_witnesses(params, cfg, prompts, outs, chunks, **kw) -> dict:
+    """``moe_witness`` in bf16 and in fp32 for each request, concatenated
+    over the requests: {dtype: (logits [N, V], margins [N])}."""
+    got = {}
+    for dtype in ("bfloat16", "float32"):
+        runs = [moe_witness(params, cfg, p, o, c, dtype, **kw)
+                for p, o, c in zip(prompts, outs, chunks)]
+        got[dtype] = tuple(torch.cat(x) for x in zip(*runs))
+    return got
+
+
+def moe_judge(outs, witnesses: dict) -> dict:
+    """An engine's tokens (``outs``, one list per request) against the two
+    witnesses (``moe_witnesses``): the tokens that depart from the bf16
+    witness's argmax, those of them that are a near tie of either witness,
+    and those beyond (with their gaps below each witness's top, their ranks
+    and routing margins). ``ok``: every token beyond lies within
+    MOE_TIE_GAP of both tops, and at most MOE_BEYOND_MAX lie beyond."""
+    got = torch.tensor([t for o in outs for t in o], device="cuda")
+    st = {}
+    for dtype, (logits, margins) in witnesses.items():
+        top = logits.max(-1).values
+        mine = logits.gather(1, got[:, None])[:, 0]
+        st[dtype] = {"gap": top - mine, "rank": (logits > mine[:, None]).sum(-1),
+                     "tie": top - mine <= NEAR_TIE_ATOL
+                     + NEAR_TIE_RTOL * top.abs(), "margin": margins,
+                     "std": float(logits.std(-1).mean())}
+    b16, b32 = st["bfloat16"], st["float32"]
+    depart = b16["rank"] > 0
+    beyond = depart & ~b16["tie"] & ~b32["tie"]
+    near = (b16["gap"] <= MOE_TIE_GAP) & (b32["gap"] <= MOE_TIE_GAP)
+    idx = beyond.nonzero().flatten()
+
+    def vals(t):
+        return [round(float(x), 4) for x in t[idx]]
+
+    return {"tokens": int(got.numel()), "departs": int(depart.sum()),
+            "tie_bf16": int((depart & b16["tie"]).sum()),
+            "tie_fp32_only": int((depart & ~b16["tie"] & b32["tie"]).sum()),
+            "beyond": int(idx.numel()), "gap_bf16": vals(b16["gap"]),
+            "gap_fp32": vals(b32["gap"]),
+            "rank_bf16": [int(x) for x in b16["rank"][idx]],
+            "rank_fp32": [int(x) for x in b32["rank"][idx]],
+            "margin": vals(b16["margin"]), "std": round(b16["std"], 3),
+            "fp32_agrees": int((b32["rank"] == 0).sum()),
+            "ok": bool(torch.all(near[idx]))
+            and idx.numel() <= MOE_BEYOND_MAX}
+
+
+def moe_judge_line(j: dict) -> str:
+    return (f"{j['tokens']} tokens, {j['departs']} depart from the bf16 "
+            f"witness's argmax: {j['tie_bf16']} near ties of it, "
+            f"{j['tie_fp32_only']} of the fp32 witness only, {j['beyond']} "
+            f"beyond both (limit {MOE_BEYOND_MAX}, each within "
+            f"{MOE_TIE_GAP} of both tops): gaps bf16 {j['gap_bf16']} fp32 "
+            f"{j['gap_fp32']}, ranks bf16 {j['rank_bf16']} fp32 "
+            f"{j['rank_fp32']}, routing margins {j['margin']} (logits' std "
+            f"{j['std']}); the fp32 witness's argmax is the token at "
+            f"{j['fp32_agrees']} of {j['tokens']}")
+
+
+def moe_token_check(params, cfg, prompts, outs, chunks, name: str,
+                    **kw) -> dict:
+    """``moe_judge`` of ``outs`` against the two witnesses; fails unless
+    ``ok``. Returns the judgement."""
+    j = moe_judge(outs, moe_witnesses(params, cfg, prompts, outs, chunks,
+                                      **kw))
+    print(f"{name}: {moe_judge_line(j)}", flush=True)
+    if not j["ok"]:
+        fail(f"{name}: tokens depart from both plain forwards beyond their "
+             f"near ties and the MoE gap")
+    return j
+
+
+#: The controls' faults: one expert's down-projection scale doubled in one
+#: layer, one layer's second choice dropped, and pad rows that claim
+#: expert capacity in the prefill windows.
+MOE_FAULT_LAYER, MOE_FAULT_EXPERT = 3, 5
+
+
+def moe_fault_controls(qp, cfg, prompts, outs, chunks, kv_quant: bool,
+                       card: str) -> None:
+    """The Mixtral token check must reject an engine's tokens against
+    witnesses that carry a planted fault: each fault goes into both
+    witnesses (so it stands for an engine that computes the fault-free
+    model while the model is the faulty one) and ``moe_judge`` must say
+    not ``ok``."""
+    scale = qp["layers"]["mlp"]["down"].scale
+    faults = (("down scale x2", {}), ("second choice dropped",
+                                      {"drop_layer": MOE_FAULT_LAYER}),
+              ("pads claim capacity", {"pads_claim": True}))
+    for name, kw in faults:
+        if name == "down scale x2":
+            scale[MOE_FAULT_LAYER, MOE_FAULT_EXPERT] *= 2
+        try:
+            j = moe_judge(outs, moe_witnesses(qp, cfg, prompts, outs, chunks,
+                                              kv_quant=kv_quant, **kw))
+        finally:
+            if name == "down scale x2":
+                scale[MOE_FAULT_LAYER, MOE_FAULT_EXPERT] /= 2
+        print(f"(i)2 control, planted fault '{name}' (layer "
+              f"{MOE_FAULT_LAYER}): {moe_judge_line(j)}; check "
+              f"{'passes' if j['ok'] else 'fails'}; {card}", flush=True)
+        if j["ok"]:
+            fail(f"(i)2 control: the token check passes with the planted "
+                 f"fault '{name}'")
+
+
+def _moe_run(eng, prompts, wrappers: dict):
+    """The main path: greedy requests through ``eng``'s scheduler, every
+    launch count 0 just before and read just after."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+    _launches_zero(wrappers)
+    reqs = [eng.submit(list(p), SamplingParams(max_new_tokens=MOE_NEW))
+            for p in prompts]
+    outs = _drive_all(eng, reqs)
+    torch.cuda.synchronize()
+    return outs, {n: w.launches for n, w in wrappers.items()}
+
+
+def _add_launches(rows: list[dict], name: str, n: int) -> None:
+    for r in rows:
+        if r["name"] == name:
+            r["launches"] = r.get("launches", 0) + n
+
+
+def moe_eight_layers(rows: list[dict], card: str) -> None:
+    """(i)2: Mixtral-8x7B at full width and 8 layers, random bf16 weights
+    from the serving seed, packed to int8: packed bytes against the
+    config's estimate (exact); ``quantization_quality`` on 4 prompts × 16
+    tokens; then int8-weight engines (paged on a bf16 pool, on an int8
+    pool, contiguous): every greedy token held to the plain forwards in
+    bf16 and fp32 (``moe_token_check``), the check shown to reject planted
+    faults (``moe_fault_controls``), rows 1, 2 (and 12 on the pool, 6 on
+    the contiguous 2048 bucket) launched, no page left referenced."""
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import init_decoder_params
+    from kubeflow_tpu_torch.ops.quantization import (
+        packed_param_bytes, packed_param_bytes_estimate, quantization_quality,
+        quantize_params_int8,
+    )
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    cfg = preset("mixtral-8x7b", n_layers=8, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_decoder_params(torch.Generator("cuda").manual_seed(SEED),
+                                 cfg)
+    qp = quantize_params_int8(params, cfg)
+    torch.cuda.synchronize()
+    full, packed = packed_param_bytes(params), packed_param_bytes(qp)
+    est = packed_param_bytes_estimate(cfg)
+    print(f"(i)2 mixtral-8x7b, {cfg.n_layers} layers: bf16 {full / 1e9:.3f} "
+          f"GB, int8 packed {packed / 1e9:.3f} GB (estimate {est / 1e9:.3f} "
+          f"GB), drawn and packed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if packed != est:
+        fail(f"(i)2: packed_param_bytes {packed} != estimate {est}")
+    gen = torch.Generator().manual_seed(SEED + 51)
+    qprompts = torch.randint(3, cfg.vocab_size, (4, 64),
+                             generator=gen).tolist()
+    t1 = time.perf_counter()
+    q = quantization_quality(cfg, params, qp, qprompts, max_new=16)
+    print(f"(i)2 quantization_quality (4 prompts x 16 tokens, teacher-"
+          f"forced): greedy match rate {q['greedy_match_rate']:.4f}, mean "
+          f"|dlogprob| {q['mean_abs_logprob_delta']:.5f} over "
+          f"{q['tokens_compared']} tokens in {time.perf_counter() - t1:.1f} "
+          f"s; {card}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in MOE_PROMPT_LENS]
+    wrappers = _moe_wrappers()
+    for layout, over in (("paged bf16 pool", {}),
+                         ("paged int8 pool", {"kv_cache_dtype": "int8"}),
+                         ("contiguous", {"paged": False, "max_pages": None,
+                                         "chunked_prefill_tokens": 2048})):
+        eng = LLMEngine(cfg, BatchingSpec(**dict(MOE_SPEC, **over)),
+                        params=qp, device="cuda")
+        outs, launches = _moe_run(eng, prompts, wrappers)
+        chunks = [eng.chunk_size if eng.paged else
+                  next(b for b in eng.buckets if b >= len(p))
+                  for p in prompts]
+        moe_token_check(qp, cfg, prompts, outs, chunks, f"(i)2 {layout}",
+                        kv_quant=eng.kv_quant)
+        if layout == "paged bf16 pool":
+            moe_fault_controls(qp, cfg, prompts, outs, chunks, False, card)
+        leaks = {} if eng._allocator is None \
+            else eng._allocator.leak_report()
+        print(f"(i)2 {layout}: launches {json.dumps(launches)}; leaks "
+              f"{leaks}; {card}", flush=True)
+        need = ["rmsnorm_fwd", "add_rmsnorm_fwd"] + (
+            ["paged_decode"] if eng.paged else ["flash_fwd"])
+        for n in need:
+            if launches[n] <= 0:
+                fail(f"(i)2 {layout}: {n} never launched")
+        if launches["swiglu_fwd"]:
+            fail(f"(i)2 {layout}: the experts ran the fused SwiGLU")
+        if any(len(o) != MOE_NEW for o in outs) or leaks:
+            fail(f"(i)2 {layout}: lengths {list(map(len, outs))}, "
+                 f"leaks {leaks}")
+        _add_launches(rows, "rmsnorm_fwd", launches["rmsnorm_fwd"])
+        _add_launches(rows, "add_rmsnorm_fwd", launches["add_rmsnorm_fwd"])
+        _add_launches(rows, "flash_fwd", launches["flash_fwd"])
+        _add_launches(rows, "paged_decode_int8" if over.get("kv_cache_dtype")
+                      else "paged_decode", launches["paged_decode"])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del qp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_worker(card: str) -> None:
+    """(i)3: Mixtral-8x7B at all 32 layers with int8 weights through
+    ``runtime.worker_main`` → ``model_server`` (``random://``: each layer
+    packed as it is drawn, so the bf16 model never exists; page pool of
+    bf16 KV, 8 slots × 2048), its batching a dump of the port's
+    ``BatchingSpec`` (the JAX spec's fields, ``moe_*_impl`` included).
+    Three completions, then ``uniform`` (``MOE_LOADGEN``) through
+    ``ServerTarget``: every status ok. SIGTERM gives 143. Then the same
+    seed's int8 weights in process (packed per layer): the completion
+    tokens held to the plain forwards in bf16 and fp32, teacher-forced
+    (``moe_token_check``). The worker's peak memory from its log, beside
+    ``estimate_model_bytes``."""
+    import dataclasses
+
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import init_decoder_params
+    from kubeflow_tpu_torch.ops.quantization import packed_param_bytes
+    from kubeflow_tpu_torch.serve.repository import estimate_model_bytes
+
+    cfg = preset(MOE_MODEL["preset"], **MOE_MODEL["overrides"])
+    spec = BatchingSpec(**MOE_SPEC)
+    batching = dataclasses.asdict(spec)
+    if not {"moe_prefill_impl", "moe_decode_impl"} <= set(batching):
+        fail("(i)3: the batching dump has no moe_*_impl fields")
+    tok = TokenIdText()
+    t0 = time.perf_counter()
+    proc, url, log = spawn_worker(batching, "moe_worker", model=MOE_MODEL,
+                                  service="mixtral")
+    ok = False
+    try:
+        t_ready = wait_ready(proc, url, "moe worker", t0)
+        outs = []
+        for n, salt in MOE_WORKER_PROMPTS:
+            t1 = time.perf_counter()
+            raw = _post(url + "/v1/completions",
+                        {"prompt": text(n, salt), "max_tokens": MOE_NEW})[1]
+            got = [int(x) for x in
+                   json.loads(raw)["choices"][0]["text"].split()]
+            outs.append(got)
+            print(f"(i)3 worker completion, {n}-token prompt: {len(got)} "
+                  f"tokens in {time.perf_counter() - t1:.2f} s", flush=True)
+        sc = next(x for x in loadgen.standard_matrix(**MOE_LOADGEN)
+                  if x.name == "uniform")
+        run = loadgen.run_scenario(loadgen.ServerTarget(url, model="mixtral"),
+                                   sc, vocab_size=cfg.vocab_size,
+                                   max_prompt_len=1024)
+        rep = loadgen.build_report(run, metrics_text=_get(url + "/metrics")[1])
+        report_line("uniform (ServerTarget, Mixtral-8x7B int8 worker, page "
+                    "pool)", rep, card)
+        if rep["by_status"] != {"ok": rep["requests"]}:
+            fail(f"(i)3 uniform: statuses {rep['by_status']}")
+        sigterm_worker(proc, url, "moe worker")
+        logged = Path(log.name).read_text()
+        ok = True
+    finally:
+        reap_worker(proc, log, "moe worker", ok)
+    mem = re.findall(r"device memory ([0-9.]+) GiB allocated, peak "
+                     r"([0-9.]+) GiB", logged)
+    if len(mem) != 2:
+        fail("(i)3: the worker logged no device memory at ready and stop")
+    est = estimate_model_bytes(cfg, spec)
+    print(f"(i)3 mixtral-8x7b worker, {cfg.n_layers} layers int8: ready in "
+          f"{t_ready:.1f} s; device memory at ready {mem[0][0]} GiB "
+          f"(peak {mem[0][1]}), at stop {mem[1][0]} GiB (peak {mem[1][1]} "
+          f"GiB); estimate_model_bytes {est / 2**30:.2f} GiB; {card}",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    qp = init_decoder_params(torch.Generator("cuda").manual_seed(SEED), cfg,
+                             quantize="int8")
+    torch.cuda.synchronize()
+    # A completion ends early only at the tokenizer's end token.
+    if any(not out or len(out) > MOE_NEW for out in outs):
+        fail(f"(i)3: completions gave {list(map(len, outs))} tokens")
+    moe_token_check(qp, cfg, [tok.encode(text(n, salt))
+                              for n, salt in MOE_WORKER_PROMPTS], outs,
+                    [spec.chunked_prefill_tokens] * len(outs), "(i)3 worker")
+    print(f"(i)3 in process: the same seed's int8 weights "
+          f"({packed_param_bytes(qp) / 1e9:.3f} GB, packed per layer in "
+          f"{time.perf_counter() - t1:.1f} s), {sum(map(len, outs))} worker "
+          f"tokens held to both plain forwards; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    step = _decode_step_ms(qp, cfg, torch.Generator().manual_seed(SEED + 53))
+    print(f"(i)3 one dense decode step of the 32-layer int8 model (8 slots "
+          f"at 1024, paged): enqueue {step[0]:.2f} wall {step[1]:.2f} device "
+          f"{step[2]:.2f} ms; {card}", flush=True)
+    del qp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _decode_step_ms(params, cfg, gen) -> tuple[float, float, float]:
+    """(enqueue, wall, device) ms of one paged decode step over ``params``
+    (8 slots at position 1024 of a random bf16 pool, the paged-decode
+    kernel; an MoE model on its serving decode path, dense)."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.serve.paged import _paged_decode_step
+
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, moe_impl="dense")
+    b, pg, mpp = 8, 128, 16
+    shape = (cfg.n_layers, b * mpp + 1, pg, cfg.n_kv_heads, cfg.head_dim)
+    pool = {n: torch.randn(shape, generator=gen).to(
+        device="cuda", dtype=torch.bfloat16) for n in ("k", "v")}
+    pool["table"] = torch.arange(b * mpp, dtype=torch.int32,
+                                 device="cuda").reshape(b, mpp)
+    tokens = torch.randint(3, cfg.vocab_size, (b,), generator=gen).to("cuda")
+    lengths = torch.full((b,), 1024, device="cuda")
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+    with torch.no_grad():
+        return _timed_step(lambda: _paged_decode_step(
+            params, pool, tokens, lengths, live, cfg, attn_impl="pallas"))
+
+
+def moe_llama_int8(rows: list[dict], card: str) -> None:
+    """(i)4: Llama-3-8B, 32 layers, int8 weights on the page pool: greedy
+    tokens the plain int8 forward's argmax or a near tie; packed bytes
+    against bf16; one paged decode step's device and enqueue ms with int8
+    weights beside bf16's, in this run."""
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import init_decoder_params
+    from kubeflow_tpu_torch.ops.quantization import (
+        packed_param_bytes, packed_param_bytes_estimate, quantize_params_int8,
+    )
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    cfg = preset("llama3-8b", param_dtype="bfloat16")
+    params = init_decoder_params(torch.Generator("cuda").manual_seed(SEED),
+                                 cfg)
+    qp = quantize_params_int8(params, cfg)
+    full, packed = packed_param_bytes(params), packed_param_bytes(qp)
+    if packed != packed_param_bytes_estimate(cfg):
+        fail("(i)4: packed bytes differ from the estimate")
+    gen = torch.Generator().manual_seed(SEED + 52)
+    prompts = [torch.randint(3, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (200, 200, 200, 200)]
+    wrappers = _moe_wrappers()
+    eng = LLMEngine(cfg, BatchingSpec(**MOE_SPEC), params=qp, device="cuda")
+    outs, launches = _moe_run(eng, prompts, wrappers)
+    departs, fp32_only = int8_reference(eng, prompts, outs,
+                                        "(i)4 llama int8")
+    for n in ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd", "paged_decode"):
+        if launches[n] <= 0:
+            fail(f"(i)4: {n} never launched")
+    for n in ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd"):
+        _add_launches(rows, n, launches[n])
+    _add_launches(rows, "paged_decode", launches["paged_decode"])
+    eng._allocator.assert_quiescent()
+    del eng
+    steps = {name: _decode_step_ms(p, cfg, gen)
+             for name, p in (("bf16", params), ("int8", qp))}
+    print(f"(i)4 llama3-8b int8 weights, paged: {sum(map(len, outs))} tokens, "
+          f"{departs} depart from the plain bf16 forward's argmax, each a "
+          f"near tie of it or ({fp32_only} of them) of the plain fp32 "
+          f"forward's; "
+          f"launches {json.dumps(launches)}; packed {packed / 1e9:.3f} GB "
+          f"against bf16 {full / 1e9:.3f} GB; one decode step (8 slots at "
+          f"1024): int8 enqueue {steps['int8'][0]:.2f} wall "
+          f"{steps['int8'][1]:.2f} device {steps['int8'][2]:.2f} ms, bf16 "
+          f"enqueue {steps['bf16'][0]:.2f} wall {steps['bf16'][1]:.2f} device "
+          f"{steps['bf16'][2]:.2f} ms; {card}", flush=True)
+    del params, qp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(rows: list[dict], card: str) -> None:
+    """(i): MoE serving and int8 weights — the block, Mixtral at 8 layers,
+    the 32-layer int8 Mixtral worker, and int8 Llama-3-8B."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("moe block", moe_block_check, card)
+    timed_phase("moe 8 layers", moe_eight_layers, rows, card)
+    timed_phase("moe worker", moe_worker, card)
+    timed_phase("moe llama int8", moe_llama_int8, rows, card)
 
 
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
@@ -4887,12 +5564,18 @@ def main() -> int:
         timed_phase("fleet", phase_fleet, card)
         timed_phase("many models", phase_many_models, card)
         timed_phase("spec", phase_spec, [], card, uniform_tpot)
+        timed_phase("moe", phase_moe, [], card)
         print(f"chip_smoke: serve-only phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
     if sys.argv[1:] == ["--spec-only"]:
         timed_phase("spec", phase_spec, [], card)
         print(f"chip_smoke: spec phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--moe-only"]:
+        timed_phase("moe", phase_moe, [], card)
+        print(f"chip_smoke: moe phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
     if sys.argv[1:] in (["--flash-only"], ["--paged-only"],
@@ -4936,6 +5619,7 @@ def main() -> int:
     timed_phase("fleet", phase_fleet, card)
     timed_phase("many models", phase_many_models, card)
     timed_phase("spec", phase_spec, rows, card, uniform_tpot)
+    timed_phase("moe", phase_moe, rows, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

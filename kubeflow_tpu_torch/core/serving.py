@@ -2,11 +2,10 @@
 ``kubeflow_tpu/core/serving.py`` ``BatchingSpec`` fields this slice reads,
 plus the QoS class table, the multi-tenant ``LoRASpec`` and the
 ``SpeculativeSpec``. (The JAX package's specs are pydantic models; the port
-keeps to the standard library, with the same checks and messages.)
-
-The field for a feature a later slice brings (weight quantization) is kept
-so a config that sets it fails loudly at engine construction instead of
-being ignored.
+keeps to the standard library, with the same checks and messages.) Every
+field of the JAX ``BatchingSpec`` is here, so a dump of the JAX spec
+configures the port's engine; the engine validates ``quantize`` and the
+``moe_*_impl`` fields where the JAX engine does.
 """
 
 from __future__ import annotations
@@ -187,6 +186,9 @@ class BatchingSpec:
     pipelined_decode: bool = True
     # Cast model weights once at engine load (e.g. "bfloat16").
     weights_dtype: Optional[str] = None
+    # Weight-only quantization at engine load: "int8" packs the big matmuls
+    # per output channel (ops/quantization.py) and dequantizes them in the
+    # product's operand. None = off.
     quantize: Optional[str] = None
     # KV storage dtype of the PAGED pool: "int8" stores K/V as int8 with
     # per-token-per-head scales (ops/quantization.py). None = the model's
@@ -195,6 +197,14 @@ class BatchingSpec:
     # "auto": the flash kernel on CUDA for buckets >= 2048 that are a
     # multiple of 128, plain attention elsewhere; or force "pallas"/"xla".
     prefill_attn_impl: str = "auto"
+    # MoE expert path per phase. Prefill runs one request per dispatch, so
+    # capacity drops never depend on co-batched neighbours: "auto" takes
+    # the model's moe_impl (dispatch), "dense" forces the every-expert
+    # oracle. Decode co-batches slots, so its only batch-independent
+    # dispatch is "zero_drop" (capacity k x batch: nothing can drop);
+    # "auto" is dense.
+    moe_prefill_impl: str = "auto"   # auto|dispatch|dense
+    moe_decode_impl: str = "auto"    # auto|zero_drop|dense
     # Bounded admission: submit() rejects once this many requests wait
     # (0 = unbounded); requests waiting longer than the budget are shed.
     max_queue: int = 0

@@ -5,9 +5,13 @@ init_decoder_params`` returns, already converted to numpy (``np.asarray``
 per leaf — this module imports no JAX), and keeps every key and layout:
 ``embed [V,D]``, ``layers.attn.wq [L,D,H,Dh]``, ``wk/wv [L,D,K,Dh]``,
 ``wo [L,H,Dh,D]``, ``layers.mlp.gate/up [L,D,M]``, ``down [L,M,D]``,
-``layers.ln1/ln2 [L,D]``, ``final_norm [D]`` and ``lm_head [D,V]``. A
-list-of-blocks ``layers`` (the JAX ``scan_layers=False`` layout) is stacked
-into the ``[L, ...]`` layout the port's forward walks.
+``layers.ln1/ln2 [L,D]``, ``final_norm [D]`` and ``lm_head [D,V]``; an
+MoE tree's ``layers.mlp.router [L,D,E]``, ``gate/up [L,E,D,M]`` and
+``down [L,E,M,D]``. A JAX ``QuantizedTensor`` leaf (any node with ``q``
+and ``scale`` fields: int8 payload and fp32 scales) becomes the port's
+``ops.quantization.QuantizedTensor``. A list-of-blocks ``layers`` (the
+JAX ``scan_layers=False`` layout) is stacked into the ``[L, ...]`` layout
+the port's forward walks.
 
 ``opt_state_from_jax`` does the same for an optimizer state: the optax
 chain state of ``kubeflow_tpu.train.optim.make_optimizer`` (its
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.ops.quantization import QuantizedTensor
 
 
 def _leaf(a: Any, device: torch.device) -> torch.Tensor:
@@ -37,15 +42,25 @@ def _leaf(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _quantized(a: Any) -> bool:
+    return hasattr(a, "q") and hasattr(a, "scale")
+
+
 def _stack(blocks: list) -> Any:
     if isinstance(blocks[0], dict):
         return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    if _quantized(blocks[0]):
+        return QuantizedTensor(_stack([b.q for b in blocks]),
+                               _stack([b.scale for b in blocks]))
     return np.stack([np.asarray(b) for b in blocks])
 
 
 def _convert(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
+    if _quantized(tree):
+        return QuantizedTensor(_leaf(tree.q, device),
+                               _leaf(tree.scale, device))
     return _leaf(tree, device)
 
 

@@ -1,9 +1,13 @@
 """The decoder LLM: forward and training loss (port of
-``kubeflow_tpu/models/decoder.py``, dense).
+``kubeflow_tpu/models/decoder.py``).
 
-Covers Llama-3 (RoPE+GQA+RMSNorm+SwiGLU) and Gemma ((1+w) norms, embed
-scale, GeGLU, tied embeddings, logit softcap) through ``DecoderConfig``
-flags. Layers are stacked on a leading ``[L, ...]`` axis exactly as the JAX
+Covers Llama-3 (RoPE+GQA+RMSNorm+SwiGLU), Gemma ((1+w) norms, embed
+scale, GeGLU, tied embeddings, logit softcap) and Mixtral (top-k MoE
+blocks) through ``DecoderConfig`` flags. ``init_decoder_params(...,
+quantize="int8")`` packs each layer's matmul weights into int8 as it draws
+them (``ops/quantization.py``), so a model whose full-dtype weights would
+not fit the card never holds them there. MoE training (the balance loss in
+``decoder_loss``) arrives with the next slice. Layers are stacked on a leading ``[L, ...]`` axis exactly as the JAX
 package's scanned layout, and traversed with a Python loop over per-layer
 views. While autograd records (training, no cache), each layer is
 rematerialized per ``cfg.remat_policy`` through
@@ -23,51 +27,98 @@ from torch.utils.checkpoint import checkpoint
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.ops import fused_xent
+from kubeflow_tpu_torch.ops.quantization import (
+    QuantizedTensor, check_quantize, contraction_dims, quantize_weight,
+)
 
 Params = dict[str, Any]
 
 
-def _stacked(gen: torch.Generator, n: int, make) -> Any:
+def _empty_like_stacked(n: int, t) -> Any:
+    """An uninitialised ``[n, ...]`` leaf shaped like one layer's ``t``."""
+    if isinstance(t, QuantizedTensor):
+        return QuantizedTensor(_empty_like_stacked(n, t.q),
+                               _empty_like_stacked(n, t.scale))
+    return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+
+def _copy_layer(dst, i: int, t) -> None:
+    if isinstance(dst, QuantizedTensor):
+        dst.q[i].copy_(t.q)
+        dst.scale[i].copy_(t.scale)
+    else:
+        dst[i].copy_(t)
+
+
+def _stacked(gen: torch.Generator, n: int, make, quant=None) -> Any:
     """Stack ``n`` per-layer trees drawn one layer at a time from ``make``
     into ``[L, ...]`` leaves: only one layer's draw is alive at once, so a
-    full-width model never holds its fp32 draws all together."""
-    first = make()
+    full-width model never holds its fp32 draws all together. ``quant``
+    (leaf name → stacked contraction dims, or None) quantizes each named
+    leaf as its layer is drawn: per-output-channel scales never reduce
+    over the layer axis, so the result is bit for bit the quantization of
+    the stacked draw."""
+    def draw():
+        tree = make()
+        if quant is None:
+            return tree
+        return {k: t if quant.get(k) is None else
+                quantize_weight(t, tuple(d - 1 for d in quant[k]))
+                for k, t in tree.items()}
+
+    first = draw()
     if isinstance(first, dict):
-        out = {k: torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
-               for k, t in first.items()}
+        out = {k: _empty_like_stacked(n, t) for k, t in first.items()}
         for i in range(n):
-            tree = first if i == 0 else make()
+            tree = first if i == 0 else draw()
             for k, t in tree.items():
-                out[k][i].copy_(t)
+                _copy_layer(out[k], i, t)
+            del tree
         return out
-    out = torch.empty((n, *first.shape), dtype=first.dtype,
-                      device=first.device)
+    out = _empty_like_stacked(n, first)
     for i in range(n):
-        out[i].copy_(first if i == 0 else make())
+        _copy_layer(out, i, first if i == 0 else make())
     return out
 
 
 def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
-                        dtype: Optional[torch.dtype] = None) -> Params:
+                        dtype: Optional[torch.dtype] = None,
+                        quantize: Optional[str] = None) -> Params:
     """Random weights from ``gen`` on ``gen``'s device: truncated normal with
     the JAX package's fan-in scales, stored in ``dtype`` (default
     ``cfg.param_dtype``). The values differ from ``jax.random``'s — tests
-    carry JAX-initialised weights across with ``convert.params_from_jax``."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decoders arrive with the MoE slice")
+    carry JAX-initialised weights across with ``convert.params_from_jax``.
+
+    ``quantize="int8"``: each layer's matmul weights (and an untied
+    lm_head) are packed into int8 ``QuantizedTensor``s as they are drawn,
+    equal bit for bit to ``quantize_params_int8`` of the full-dtype draw;
+    the full-dtype tree never exists."""
+    check_quantize(quantize)
     dt = dtype or cfg.weight_dtype
     dev = gen.device
     params: Params = {"embed": L.init_embedding(gen, cfg, dt)}
     n = cfg.n_layers
+
+    def quant(block: str, names) -> Optional[dict]:
+        if quantize is None:
+            return None
+        return {k: contraction_dims(("layers", block, k), cfg) for k in names}
+
+    init_mlp = L.init_moe if cfg.is_moe else L.init_mlp
+    mlp_names = ("router", "gate", "up", "down")
     params["layers"] = {
-        "attn": _stacked(gen, n, lambda: L.init_attention(gen, cfg, dt)),
-        "mlp": _stacked(gen, n, lambda: L.init_mlp(gen, cfg, dt)),
+        "attn": _stacked(gen, n, lambda: L.init_attention(gen, cfg, dt),
+                         quant("attn", ("wq", "wk", "wv", "wo"))),
+        "mlp": _stacked(gen, n, lambda: init_mlp(gen, cfg, dt),
+                        quant("mlp", mlp_names)),
         "ln1": _stacked(gen, n, lambda: L.init_rmsnorm(cfg, dev, dt)),
         "ln2": _stacked(gen, n, lambda: L.init_rmsnorm(cfg, dev, dt)),
     }
     params["final_norm"] = L.init_rmsnorm(cfg, dev, dt)
     if not cfg.tie_embeddings:
-        params["lm_head"] = L._init(gen, (cfg.hidden, cfg.vocab_size), dt)
+        head = L._init(gen, (cfg.hidden, cfg.vocab_size), dt)
+        params["lm_head"] = (head if quantize is None
+                             else quantize_weight(head, (0,)))
     return params
 
 
@@ -78,17 +129,27 @@ def layer_view(layers: Any, i: int) -> Any:
     return layers[i]
 
 
+def ffn(bp: dict, h: torch.Tensor, cfg: DecoderConfig,
+        valid_len=None) -> torch.Tensor:
+    """The block's feed-forward half on the normed stream: the MoE block
+    for an MoE config (its balance loss is dropped: serving), else the
+    dense MLP."""
+    if cfg.is_moe:
+        return L.moe_block(bp["mlp"], h, cfg, valid_len=valid_len)[0]
+    return L.mlp_block(bp["mlp"], h, cfg)
+
+
 def _block_forward(bp: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: DecoderConfig, kv_cache: Optional[dict] = None,
                    attn_impl: str = "xla", prefill: bool = False,
-                   lora: Optional[dict] = None):
+                   lora: Optional[dict] = None, valid_len=None):
     h = L.rmsnorm(x, bp["ln1"], cfg)
     attn_out, new_cache = L.attention_block(
         bp["attn"], h, positions, cfg, kv_cache=kv_cache,
         attn_impl=attn_impl, prefill=prefill, lora=lora)
     # Residual add + second norm as ONE op (one kernel pass when on).
     x, h = L.add_rmsnorm(x, attn_out, bp["ln2"], cfg)
-    x = x + L.mlp_block(bp["mlp"], h, cfg)
+    x = x + ffn(bp, h, cfg, valid_len)
     return x, new_cache
 
 
@@ -126,6 +187,7 @@ def decoder_forward(
     skip_head: bool = False,
     inputs_embeds: Optional[torch.Tensor] = None,
     lora: Optional[dict] = None,
+    valid_len=None,
 ):
     """Returns (logits [B,S,V] float32, new_kv_caches|None). With
     ``skip_head``, returns the final-norm hidden states [B,S,D] instead of
@@ -139,9 +201,9 @@ def decoder_forward(
     serving, serve/lora.py): ``{"targets": {t: (a [L,S,din,r], b
     [L,S,r,dout])}, "aidx": [B], "scale": [S]}``; each row's adapter delta
     applies inside every attention block (rows with aidx = -1 add exact
-    zero)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE decoders arrive with the MoE slice")
+    zero). ``valid_len`` (an int or [B]): positions at or past it are
+    padding, which the MoE dispatch path keeps from claiming expert
+    capacity (the serving prefill's buckets)."""
     b, s = tokens.shape
     if positions is None:
         # Decode with a cache: absolute positions continue from its length.
@@ -173,7 +235,7 @@ def decoder_forward(
                   lr=L.index_layer(lora, i)):
             return _block_forward(bp, x, positions, cfg, kv_cache=cache,
                                   attn_impl=attn_impl, prefill=prefill,
-                                  lora=lr)[0]
+                                  lora=lr, valid_len=valid_len)[0]
 
         x = (_remat(block, cfg.remat_policy) if train else block)(x)
     if kv_caches is not None:
@@ -192,7 +254,7 @@ def lm_head(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor
     accumulation inside the matmul) and is widened to fp32 after it."""
     dt = cfg.activation_dtype
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head.to(dt)).float()
+    logits = (x @ L.weight(head, dt)).float()
     if cfg.logits_softcap is not None:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits
@@ -259,7 +321,9 @@ def decoder_loss(
     otherwise ``cfg.loss_chunk_size`` streams the head in sequence chunks,
     and the dense branch materializes the full logits."""
     if cfg.is_moe:
-        raise NotImplementedError("MoE decoders arrive with the MoE slice")
+        raise NotImplementedError(
+            "MoE training (the balance loss in decoder_loss) arrives with "
+            "the MoE training slice (ROADMAP.md)")
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     fused = L.fused_kernels_on(cfg, inputs)

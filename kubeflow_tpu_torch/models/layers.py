@@ -1,14 +1,17 @@
 """Decoder building blocks — RMSNorm, RoPE, GQA attention, (Swi/Ge)GLU MLP,
-embedding — as plain functions over param dicts (port of
-``kubeflow_tpu/models/layers.py``, dense path).
+top-k MoE, embedding — as plain functions over param dicts (port of
+``kubeflow_tpu/models/layers.py``).
 
 Params keep the JAX package's keys and layouts (``wq [D,H,Dh]``,
-``wo [H,Dh,D]``, ``gate/up [D,M]``, ``down [M,D]``); projections are
-matmuls over reshaped views of them. Compute follows the same dtype
-policy: weights cast to the activation dtype at use, norms/softmax/RoPE in
-fp32. Multi-tenant LoRA deltas (``lora_contrib``) add onto the attention
-projections; sequence-parallel attention arrives in a later slice (it
-raises here); MoE configs are refused by the decoder.
+``wo [H,Dh,D]``, ``gate/up [D,M]``, ``down [M,D]``; MoE ``router [D,E]``,
+``gate/up [E,D,M]``, ``down [E,M,D]``); projections are matmuls over
+reshaped views of them. Compute follows the same dtype policy: every
+weight read goes through ``weight``, which casts a tensor (or dequantizes
+an int8 ``QuantizedTensor``) to the activation dtype at use;
+norms/softmax/RoPE run in fp32. Multi-tenant LoRA deltas
+(``lora_contrib``) add onto the attention projections. Sequence-parallel
+attention and the expert/sequence/tensor-parallel MoE axes arrive with
+the multi-GPU slice (they raise here).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.ops import fused_norm
 from kubeflow_tpu_torch.ops.attention import multi_head_attention
+from kubeflow_tpu_torch.ops.quantization import QuantizedTensor
 
 
 def _init(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -31,6 +35,14 @@ def _init(gen: torch.Generator, shape, dtype: torch.dtype,
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * scale).to(dtype)
+
+
+def weight(w, dt: torch.dtype) -> torch.Tensor:
+    """A weight as the operand of a product in ``dt``: an int8
+    ``QuantizedTensor`` dequantizes, a tensor casts."""
+    if isinstance(w, QuantizedTensor):
+        return w.dequant(dt)
+    return w.to(dt)
 
 
 # -- Fused-kernel resolution ---------------------------------------------------
@@ -176,19 +188,18 @@ def init_attention(gen: torch.Generator, cfg: DecoderConfig, dtype=None) -> dict
     }
 
 
-def project(x: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+def project(x: torch.Tensor, w, dt: torch.dtype) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` (or ``"bsd,dm->bsm"``) as one matmul over
     the weight's [D, rest] view."""
     b, s, d = x.shape
-    out = x @ w.to(dt).reshape(d, -1)
+    out = x @ weight(w, dt).reshape(d, -1)
     return out.reshape(b, s, *w.shape[1:])
 
 
-def out_project(attn: torch.Tensor, wo: torch.Tensor,
-                dt: torch.dtype) -> torch.Tensor:
+def out_project(attn: torch.Tensor, wo, dt: torch.dtype) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")``."""
     b, s = attn.shape[:2]
-    return attn.reshape(b, s, -1) @ wo.to(dt).reshape(-1, wo.shape[-1])
+    return attn.reshape(b, s, -1) @ weight(wo, dt).reshape(-1, wo.shape[-1])
 
 
 def attention_block(
@@ -273,6 +284,204 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     else:
         h = fused_norm.act_ref(gate_pre, cfg.hidden_act) * up
     return project(h, p["down"], dt)
+
+
+# -- MoE -----------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: DecoderConfig, dtype=None) -> dict:
+    dt = dtype or cfg.weight_dtype
+    d, m, e = cfg.hidden, cfg.mlp_dim, cfg.num_experts
+    return {
+        "router": _init(gen, (d, e), dt),
+        "gate": _init(gen, (e, d, m), dt, scale=d ** -0.5),
+        "up": _init(gen, (e, d, m), dt, scale=d ** -0.5),
+        "down": _init(gen, (e, m, d), dt, scale=m ** -0.5),
+    }
+
+
+def _no_parallel_axes(**axes) -> None:
+    named = [k for k, v in axes.items() if v is not None]
+    if named:
+        raise NotImplementedError(
+            f"MoE {', '.join(named)}: expert, sequence and tensor "
+            "parallelism arrive with the multi-GPU slice (ROADMAP.md)")
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg: DecoderConfig,
+              expert_axis: Optional[str] = None,
+              seq_axis: Optional[str] = None,
+              valid_len=None, tp_axis: Optional[str] = None):
+    """Top-k MoE (Mixtral semantics: softmax over the selected k logits),
+    dispatching on ``cfg.moe_impl``: "dispatch" routes tokens into
+    per-expert capacity buffers so only selected experts compute; "dense"
+    is the drop-free every-expert oracle. Returns (out, aux_loss).
+
+    ``valid_len`` (an int, or [B]): positions >= it are padding whose
+    router choices claim no expert capacity (a prefill bucket's pads would
+    otherwise displace real tokens' choices under choice-major priority).
+    Dense ignores it."""
+    _no_parallel_axes(expert_axis=expert_axis, seq_axis=seq_axis,
+                      tp_axis=tp_axis)
+    if cfg.moe_impl == "dispatch":
+        return _moe_dispatch(p, x, cfg, valid_len=valid_len)
+    if cfg.moe_impl != "dense":
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
+    return _moe_dense(p, x, cfg)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, descending,
+    ties to the lower index first (a stable descending sort;
+    ``torch.topk`` promises no order among equal values)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_aux_loss(router_logits: torch.Tensor, onehot_sum: torch.Tensor,
+                  cfg: DecoderConfig, valid=None) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum(frac_tokens * frac_probs).
+    ``onehot_sum`` [B,S,E]: how many of the k choices hit each expert.
+    ``valid`` [B,S] masks pad rows out of both fractions, which then divide
+    by the valid-token count."""
+    probs = torch.softmax(router_logits, dim=-1)                     # [B,S,E]
+    if valid is not None:
+        m = valid[..., None].to(probs.dtype)
+        denom = torch.clamp(m.sum(), min=1.0)
+        frac_tokens = (onehot_sum * m).sum(dim=(0, 1)) / denom
+        frac_probs = (probs * m).sum(dim=(0, 1)) / denom
+    else:
+        frac_tokens = onehot_sum.mean(dim=(0, 1))
+        frac_probs = probs.mean(dim=(0, 1))
+    return cfg.num_experts * torch.sum(frac_tokens * frac_probs)
+
+
+def moe_capacity(cfg: DecoderConfig, tokens: int) -> int:
+    """Per-expert buffer size for a ``tokens``-token dispatch:
+    ceil(capacity_factor * k * T / E), rounded up to a multiple of 8,
+    capped at k*T (beyond that nothing can drop). It decides which
+    (token, choice) pairs drop, so it is the JAX formula exactly."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    c = -(-int(cfg.capacity_factor * k * tokens) // e)
+    c = -(-max(c, 1) // 8) * 8
+    return min(c, k * tokens)
+
+
+def _valid_rows(valid_len, b: int, s: int, device) -> torch.Tensor:
+    """[B,S] bool: position < valid_len (an int, or a tensor of one or B
+    lengths). An int compares as a scalar: no host→device copy."""
+    pos = torch.arange(s, device=device)[None, :]
+    if isinstance(valid_len, int):
+        return (pos < valid_len).expand(b, s)
+    vl = valid_len.reshape(-1)
+    return pos < vl.expand(b)[:, None]
+
+
+def _expert_ffn(buf: torch.Tensor, p: dict, cfg: DecoderConfig,
+                dt: torch.dtype) -> torch.Tensor:
+    """``act(buf @ gate) * up`` then ``@ down``, per expert: buf [E,N,D] →
+    [E,N,D] (``"ecd,edm->ecm"`` and ``"ecm,emd->ecd"``)."""
+    gate = fused_norm.act_ref(torch.matmul(buf, weight(p["gate"], dt)),
+                              cfg.hidden_act)
+    up = torch.matmul(buf, weight(p["up"], dt))
+    return torch.matmul(gate * up, weight(p["down"], dt))
+
+
+def dispatch_plan(router_logits: torch.Tensor, cfg: DecoderConfig, b: int,
+                  s: int, valid_len=None) -> dict:
+    """The dispatch path's routing for ``router_logits`` [T = B*S, E] fp32:
+
+    - ``topk_w`` [T,k]: the softmax over each token's k best logits;
+    - ``rows`` [kT]: each (choice-major) pair's slot in the [E*C] buffers,
+      ``E*C`` for a dropped pair;
+    - ``row_of_slot`` [E*C]: each slot's token, ``T`` for an empty slot;
+    - ``claims`` [kT,E] int: the one-hot choices that claimed capacity;
+    - ``valid`` [B,S] bool or None; ``capacity`` C.
+
+    Priority is choice-major: every token's first choice claims capacity
+    before any token's second choice. Pairs past capacity, and every pair
+    of a row at or past ``valid_len``, are dropped."""
+    t = b * s
+    e, k = cfg.num_experts, cfg.experts_per_token
+    dev = router_logits.device
+    topk_logits, topk_idx = _top_k(router_logits, k)                 # [T,k]
+    c = moe_capacity(cfg, t)
+    # Choice-major flattening: row r = (choice r // T) of token (r % T).
+    flat_e = topk_idx.T.reshape(-1)                                  # [kT]
+    oh = torch.nn.functional.one_hot(flat_e, e)                      # [kT,E]
+    valid_flat, valid_bs = None, None
+    if valid_len is not None:
+        # Padding rows claim no capacity (zeroed before the cumsum) and
+        # are dropped outright.
+        valid_bs = _valid_rows(valid_len, b, s, dev)                 # [B,S]
+        valid_flat = valid_bs.reshape(t).repeat(k)
+        oh = oh * valid_flat[:, None]
+    pos = torch.cumsum(oh, dim=0) - 1
+    pos_in_e = torch.gather(pos, 1, flat_e[:, None])[:, 0]           # [kT]
+    keep = pos_in_e < c
+    if valid_flat is not None:
+        keep = keep & valid_flat
+    rows = torch.where(keep, flat_e * c + pos_in_e,
+                       torch.full_like(flat_e, e * c))
+    tok_of = torch.arange(t, device=dev).repeat(k)                   # [kT]
+    row_of_slot = torch.full((e * c + 1,), t, dtype=torch.int64, device=dev)
+    row_of_slot.index_put_((rows,), tok_of)     # kept slots are unique
+    return {"topk_w": torch.softmax(topk_logits, dim=-1), "rows": rows,
+            "row_of_slot": row_of_slot[:e * c], "claims": oh,
+            "valid": valid_bs, "capacity": c}
+
+
+def _moe_dispatch(p: dict, x: torch.Tensor, cfg: DecoderConfig,
+                  valid_len=None):
+    """Capacity-factor top-k dispatch into static [E, C] buffers
+    (``dispatch_plan``). A dropped pair contributes nothing, and the
+    remaining choices are not renormalized. Capacity is per dispatch
+    batch, so co-batched rows compete for it (the serving engine prefills
+    MoE one request at a time).
+
+    The buffers fill with one row gather over the plan's slot → token map
+    (an empty slot reads the zero row past the tokens), and the combine
+    gathers each pair's expert row (a dropped pair reads zero)."""
+    dt = cfg.activation_dtype
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    t = b * s
+    xf = x.reshape(t, d)
+    router_logits = (xf @ weight(p["router"], dt)).float()           # [T,E]
+    plan = dispatch_plan(router_logits, cfg, b, s, valid_len)
+    c = plan["capacity"]
+    zero = torch.zeros((1, d), dtype=x.dtype, device=x.device)
+    buf = torch.cat([xf, zero]).index_select(
+        0, plan["row_of_slot"]).reshape(e, c, d)
+    y = _expert_ffn(buf, p, cfg, dt).reshape(e * c, d)
+    back = torch.cat([y, zero.to(y.dtype)]).index_select(
+        0, plan["rows"])                                             # [kT,D]
+    w_flat = plan["topk_w"].T.reshape(-1, 1).to(dt)
+    out = (back * w_flat).reshape(k, t, d).sum(0).reshape(b, s, d)
+    aux = _moe_aux_loss(
+        router_logits.reshape(b, s, e),
+        plan["claims"].float().reshape(k, t, e).sum(0).reshape(b, s, e),
+        cfg, valid=plan["valid"])
+    return out, aux
+
+
+def _moe_dense(p: dict, x: torch.Tensor, cfg: DecoderConfig):
+    """Every expert computes every token and a one-hot combine weights the
+    results: drop-free, E/k of the dispatch path's expert FLOPs — the
+    dispatch path's correctness oracle, and the serving decode's path."""
+    dt = cfg.activation_dtype
+    b, s, d = x.shape
+    e = cfg.num_experts
+    router_logits = (x @ weight(p["router"], dt)).float()            # [B,S,E]
+    topk_logits, topk_idx = _top_k(router_logits,
+                                   cfg.experts_per_token)            # [B,S,k]
+    topk_w = torch.softmax(topk_logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(topk_idx, e).float()        # [B,S,k,E]
+    combine = torch.einsum("bske,bsk->bse", onehot, topk_w)          # [B,S,E]
+    expert_out = _expert_ffn(x.reshape(1, b * s, d), p, cfg, dt)     # [E,T,D]
+    out = torch.einsum("etd,te->td", expert_out,
+                       combine.reshape(b * s, e).to(dt)).reshape(b, s, d)
+    aux = _moe_aux_loss(router_logits, onehot.sum(dim=2), cfg)
+    return out, aux
 
 
 # -- Embedding -----------------------------------------------------------------

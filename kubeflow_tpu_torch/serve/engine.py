@@ -81,8 +81,17 @@ Design (what carries over, and what eager PyTorch changes):
   round with no draft, and any batch with a sampled request, takes the
   plain path.
 
-Weight quantization, MoE and multi-device meshes arrive in later slices
-and raise ``NotImplementedError``.
+- **MoE and int8 weights**: an MoE model's prefill and decode each take
+  their own expert path (``_cfg_prefill`` / ``_cfg_decode``, from
+  ``moe_prefill_impl`` / ``moe_decode_impl``): prefill dispatches one
+  request at a time with its bucket's pads masked out of the expert
+  capacity, decode runs the drop-free dense path (or the zero-drop
+  dispatch), so a request's tokens never depend on its neighbours.
+  ``quantize="int8"`` packs the matmul weights (after the
+  ``weights_dtype`` cast; a fresh engine packs each layer as it draws it).
+
+Multi-device meshes arrive in a later slice and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -108,9 +117,12 @@ from kubeflow_tpu_torch.models.config import (
     DecoderConfig, preset, torch_dtype,
 )
 from kubeflow_tpu_torch.models.decoder import (
-    Params, decoder_forward, init_decoder_params, layer_view, lm_head,
+    Params, decoder_forward, ffn, init_decoder_params, layer_view, lm_head,
 )
 from kubeflow_tpu_torch.obs.stats import quantile as _quantile
+from kubeflow_tpu_torch.ops.quantization import (
+    QuantizedTensor, check_quantize, quantize_params_int8,
+)
 from kubeflow_tpu_torch.obs.trace import get_tracer
 from kubeflow_tpu_torch.serve.device_state import DEAD_SLOT, DecodeState
 from kubeflow_tpu_torch.serve.handoff import (
@@ -257,7 +269,7 @@ def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
             lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
     x = x + proj
     h = L.rmsnorm(x, bp["ln2"], cfg)
-    return x + L.mlp_block(bp["mlp"], h, cfg)
+    return x + ffn(bp, h, cfg)
 
 
 def _decode_step(params: Params, cache: dict, tokens: torch.Tensor,
@@ -315,14 +327,16 @@ def _decode_multi(params: Params, cache: dict, tokens, lengths, live, temps,
 
 def _chunk_prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
                         slot: int, start: int, cfg: DecoderConfig,
-                        lora=None):
+                        valid_len=None, lora=None):
     """Prefill ONE chunk of a prompt into slot ``slot`` at position
     ``start`` (the slot's cache row accumulates KV across chunks; positions
-    past the written region stay causally masked). Returns [C, V] logits."""
+    past the written region stay causally masked). ``valid_len``: the
+    chunk's real tokens (its pads claim no MoE expert capacity). Returns
+    [C, V] logits."""
     caches = {"k": cache["k"][:, slot:slot + 1],
               "v": cache["v"][:, slot:slot + 1], "len": start}
     logits, _ = decoder_forward(params, tokens, cfg, kv_caches=caches,
-                                lora=lora)
+                                lora=lora, valid_len=valid_len)
     return logits[0]
 
 
@@ -332,7 +346,8 @@ def _prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
     """Prefill N same-bucket prompts in one dispatch (tokens [N, bucket],
     slots/lengths [N]); returns [N, V] last-real-token logits. Runs the
     model forward with a scratch cache (start statically 0 — the marker that
-    lets the flash kernel apply), copies the K/V into the slot rows."""
+    lets the flash kernel apply), copies the K/V into the slot rows. Each
+    row's pads past its length claim no MoE expert capacity."""
     n, bucket = tokens.shape
     shape = (cfg.n_layers, n, bucket, cfg.n_kv_heads, cfg.head_dim)
     scratch = {
@@ -344,7 +359,8 @@ def _prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
         "prefill": True,
     }
     logits, filled = decoder_forward(params, tokens, cfg, kv_caches=scratch,
-                                     attn_impl=attn_impl, lora=lora)
+                                     attn_impl=attn_impl, lora=lora,
+                                     valid_len=lengths)
     cache["k"][:, slots, :bucket] = filled["k"]
     cache["v"][:, slots, :bucket] = filled["v"]
     return logits[torch.arange(n, device=tokens.device), lengths - 1]
@@ -745,9 +761,37 @@ def _cast_params(tree: Any, device: torch.device,
                  dtype: Optional[torch.dtype]) -> Any:
     if isinstance(tree, dict):
         return {k: _cast_params(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        # Already packed (a quantized load): int8 payload and fp32 scales
+        # stay as they are.
+        return tree.to(device)
     if dtype is not None and tree.is_floating_point():
         return tree.to(device=device, dtype=dtype)
     return tree.to(device=device)
+
+
+def _phase_cfgs(cfg: DecoderConfig, b: BatchingSpec):
+    """(prefill cfg, decode cfg): an MoE model's expert path per phase.
+    Prefill runs one request per dispatch, so the model's own path applies
+    ("auto"); decode co-batches slots and stays batch-independent on the
+    dense path ("auto") or the zero-drop dispatch (capacity factor E caps
+    capacity at k x T: nothing can drop)."""
+    if not cfg.is_moe:
+        return cfg, cfg
+    pre = b.moe_prefill_impl
+    if pre == "auto":
+        pre = cfg.moe_impl
+    if pre not in ("dispatch", "dense"):
+        raise ValueError(f"unknown moe_prefill_impl {b.moe_prefill_impl!r}")
+    dec = b.moe_decode_impl
+    if dec in ("auto", "dense"):
+        cfg_decode = dataclasses.replace(cfg, moe_impl="dense")
+    elif dec == "zero_drop":
+        cfg_decode = dataclasses.replace(
+            cfg, moe_impl="dispatch", capacity_factor=float(cfg.num_experts))
+    else:
+        raise ValueError(f"unknown moe_decode_impl {b.moe_decode_impl!r}")
+    return dataclasses.replace(cfg, moe_impl=pre), cfg_decode
 
 
 # -- the engine ----------------------------------------------------------------
@@ -764,14 +808,12 @@ class LLMEngine:
         self.cfg = cfg
         self.batching = batching or BatchingSpec()
         b = self.batching
-        for unsupported, what in (
-                (mesh is not None, "multi-device meshes"),
-                (cfg.is_moe, "MoE models"),
-                (b.quantize is not None, "weight quantization")):
-            if unsupported:
-                raise NotImplementedError(
-                    f"{what}: not in the port's serving slices yet (see "
-                    "ROADMAP.md for the slice that brings it)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device meshes: not in the port's serving slices yet "
+                "(see ROADMAP.md for the slice that brings it)")
+        self._cfg_prefill, self._cfg_decode = _phase_cfgs(cfg, b)
+        check_quantize(b.quantize)
         if b.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unknown kv_cache_dtype {b.kv_cache_dtype!r}; "
                              "supported: int8")
@@ -795,9 +837,14 @@ class LLMEngine:
         wdt = torch_dtype(b.weights_dtype) if b.weights_dtype else None
         if params is None:
             gen = torch.Generator(self.device).manual_seed(seed)
-            self.params = init_decoder_params(gen, cfg, dtype=wdt)
+            self.params = init_decoder_params(gen, cfg, dtype=wdt,
+                                              quantize=b.quantize)
         else:
             self.params = _cast_params(params, self.device, wdt)
+            if b.quantize is not None:
+                # After the dtype cast, so the scales quantize the served
+                # values (leaves already packed stay as they are).
+                self.params = quantize_params_int8(self.params, cfg)
         self.paged = bool(b.paged)
         self.page_size = int(b.page_size)
         self._allocator: Optional[PageAllocator] = None
@@ -901,9 +948,6 @@ class LLMEngine:
                     f"draft model vocab {dcfg.vocab_size} != target vocab "
                     f"{cfg.vocab_size} (drafts are token ids — the two "
                     "must share the tokenizer)")
-            if dcfg.is_moe:
-                raise NotImplementedError(
-                    "MoE draft models: not in the port's serving slices yet")
             if dcfg.max_seq_len < self.max_len:
                 dcfg = dataclasses.replace(dcfg, max_seq_len=self.max_len)
             self._draft_cfg = dcfg
@@ -939,6 +983,9 @@ class LLMEngine:
         self.prefill_batch_max = max(1, int(b.prefill_batch_max))
         self.prefill_batch_token_budget = max(
             0, int(b.prefill_batch_token_budget))
+        if cfg.is_moe and self._cfg_prefill.moe_impl == "dispatch":
+            # Co-batched prompts would share the expert capacity buffers.
+            self.prefill_batch_max = 1
         # In paged mode EVERY admission chunks (chunks write exactly the
         # pages they fill), so chunking cannot be off: 0 means one page.
         self.chunk_size = max(0, int(b.chunked_prefill_tokens))
@@ -1352,12 +1399,12 @@ class LLMEngine:
             logits = paged_chunk_prefill(
                 self.params, self.cache, self._upload([chunk], torch.int64),
                 self._upload(self._table[slot_idx].tolist(), torch.int32),
-                ch.pos, real, self.cfg, context_pages=ctx,
+                ch.pos, real, self._cfg_prefill, context_pages=ctx,
                 lora=self._lora_rows([self._slot_aidx[slot_idx]]))
         else:
             logits = _chunk_prefill_step(
                 self.params, self.cache, self._upload([chunk], torch.int64),
-                slot_idx, ch.pos, self.cfg,
+                slot_idx, ch.pos, self._cfg_prefill, valid_len=real,
                 lora=self._lora_rows([self._slot_aidx[slot_idx]]))
         ch.pos += real
         if ch.pos >= plen:
@@ -1638,7 +1685,7 @@ class LLMEngine:
                         self._upload(toks, torch.int64),
                         self._upload([g[1] for g in group], torch.int64),
                         self._upload([g[2] for g in group], torch.int64),
-                        self.cfg, self.prefill_impl(bucket),
+                        self._cfg_prefill, self.prefill_impl(bucket),
                         lora=self._lora_rows(
                             [self._slot_aidx[g[1]] for g in group]))
                     self._sample_first_batch(
@@ -2283,14 +2330,15 @@ class LLMEngine:
                 self.params, {**self.cache, "table": self._dstate.table},
                 st["tokens"], st["lengths"], st["live"], st["temps"],
                 st["top_k"], st["top_p"], st["stops"], st["budgets"],
-                self._gen, self.cfg, k_steps, sample_mode=mode,
+                self._gen, self._cfg_decode, k_steps, sample_mode=mode,
                 attn_impl=self.paged_attn_impl,
                 lora=self._lora_rows(st["adapter"]))
         else:
             out, tokens, lengths, live, budgets = _decode_multi(
                 self.params, self.cache, st["tokens"], st["lengths"],
                 st["live"], st["temps"], st["top_k"], st["top_p"],
-                st["stops"], st["budgets"], self._gen, self.cfg, k_steps,
+                st["stops"], st["budgets"], self._gen, self._cfg_decode,
+                k_steps,
                 sample_mode=mode, lora=self._lora_rows(st["adapter"]))
         self._dstate.adopt({**st, "tokens": tokens, "lengths": lengths,
                             "live": live, "budgets": budgets})
@@ -2413,9 +2461,10 @@ class LLMEngine:
             self._sync_decode_state()
             greedy = paged_verify_step(
                 self.params, {**self.cache, "table": self._dstate.table},
-                *args, self.cfg, attn_impl=self.paged_attn_impl)
+                *args, self._cfg_decode, attn_impl=self.paged_attn_impl)
         else:
-            greedy = verify_step(self.params, self.cache, *args, self.cfg)
+            greedy = verify_step(self.params, self.cache, *args,
+                                 self._cfg_decode)
         greedy = _host_list(greedy)     # verification happens on the host
         verify_s = time.monotonic() - t1
         emitted = 0

@@ -14,7 +14,8 @@ Config (``KFTPU_CONFIG_JSON``):
                                                       "module:factory"
                                                       (default "byte")
 
-It runs ``preset`` → ``load_params`` → ``LLMEngine`` → ``ModelServer`` on
+It runs ``preset`` → ``load_params`` (packing int8 weights as they load
+when ``batching.quantize`` asks) → ``LLMEngine`` → ``ModelServer`` on
 the worker's device (``WorkerContext.device``: the card unless
 ``KFTPU_PLATFORM=cpu``) and serves until SIGTERM (exit 143 through
 ``runtime/worker_main.py``).
@@ -88,9 +89,16 @@ def model_server(ctx: WorkerContext) -> int:
         logger.info("CUDA kernels ready in %.2f s (compiled here: %s)",
                     time.perf_counter() - t0,
                     ", ".join(sorted(_build.PTXAS)) or "none")
-    params = load_params(conf.get("storage_uri"), cfg, device=device)
-    engine = LLMEngine(cfg, BatchingSpec(**batching_conf), params=params,
-                       device=device)
+    batching = BatchingSpec(**batching_conf)
+    load_cfg = cfg
+    if batching.quantize and batching.weights_dtype:
+        # The engine quantizes after its weights_dtype cast; a quantized
+        # load packs as it loads, so it casts first.
+        load_cfg = dataclasses.replace(cfg,
+                                       param_dtype=batching.weights_dtype)
+    params = load_params(conf.get("storage_uri"), load_cfg, device=device,
+                         quantize=batching.quantize)
+    engine = LLMEngine(cfg, batching, params=params, device=device)
     del params
     transformer = None
     t_conf = conf.get("transformer")
@@ -106,11 +114,24 @@ def model_server(ctx: WorkerContext) -> int:
                          explainer=build_explainer(conf.get("explainer")),
                          port=int(conf["port"]))
     server.start()
-    logger.info("serving %s (%s, %s) on port %d", server.name,
-                model_conf.get("preset", "tiny"), device, server.port)
+    logger.info("serving %s (%s, %s) on port %d%s", server.name,
+                model_conf.get("preset", "tiny"), device, server.port,
+                _memory_note(device))
     try:
         while True:          # serve until SIGTERM (exit 143 via worker_main)
             time.sleep(0.5)
     finally:
         server.stop()
+        logger.info("model server stopped%s", _memory_note(device))
     return 0
+
+
+def _memory_note(device: str) -> str:
+    """The card's allocated and peak allocated bytes, for the log."""
+    if not device.startswith("cuda"):
+        return ""
+    import torch
+
+    return (f"; device memory {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB allocated, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")

@@ -48,7 +48,7 @@ import torch
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.models.decoder import (
-    Params, decoder_forward, layer_view, lm_head,
+    Params, decoder_forward, ffn, layer_view, lm_head,
 )
 from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
 from kubeflow_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
@@ -369,7 +369,7 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
             lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
     x = x + proj
     h = L.rmsnorm(x, bp["ln2"], cfg)
-    return x + L.mlp_block(bp["mlp"], h, cfg)
+    return x + ffn(bp, h, cfg)
 
 
 def _paged_decode_step(params: Params, cache: dict, tokens: torch.Tensor,
@@ -482,7 +482,8 @@ def paged_chunk_prefill(params: Params, cache: dict, tokens: torch.Tensor,
     slot's earlier KV by gathering the (bucketed) table row into the
     contiguous layout ``decoder_forward``'s cache path expects, padded by
     one chunk of scratch so the C-wide write window never clamps; then only
-    the chunk's first ``valid_len`` tokens scatter back per (page, offset),
+    the chunk's first ``valid_len`` tokens scatter back per (page, offset)
+    (and only they claim MoE expert capacity),
     so ``start`` needs no page alignment (the radix COW tail resumes
     mid-page). Padding and unmapped pages aim at the sink page. ``lora``:
     the packed adapter buffers with ``aidx`` [1], so the chunk's KV is the
@@ -507,7 +508,8 @@ def paged_chunk_prefill(params: Params, cache: dict, tokens: torch.Tensor,
     row_v = torch.cat([row_v.reshape(nl, 1, ctx * pg, kh, d), pad], dim=2)
     caches = {"k": row_k, "v": row_v, "len": start}
     logits, _ = decoder_forward(params, tokens, cfg, kv_caches=caches,
-                                attn_impl=attn_impl, lora=lora)
+                                attn_impl=attn_impl, lora=lora,
+                                valid_len=valid_len)
     written_k = row_k[:, 0, start:start + c]                 # [L,C,K,D]
     written_v = row_v[:, 0, start:start + c]
     i = torch.arange(c, device=tokens.device)

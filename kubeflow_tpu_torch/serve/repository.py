@@ -25,6 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from kubeflow_tpu_torch.models.config import DecoderConfig
+from kubeflow_tpu_torch.ops.quantization import packed_param_bytes_estimate
 from kubeflow_tpu_torch.serve.engine import LLMEngine
 from kubeflow_tpu_torch.serve.lora import target_dims
 from kubeflow_tpu_torch.serve.tokenizer import Tokenizer, get_tokenizer
@@ -33,18 +34,17 @@ logger = logging.getLogger("kubeflow_tpu_torch.serve")
 
 
 def estimate_model_bytes(cfg: DecoderConfig, batching=None) -> int:
-    """Weights (weight dtype, with 10% headroom) + the engine's KV cache at
+    """Weights (weight dtype, or int8-packed when the batching spec
+    quantizes, with 10% headroom) + the engine's KV cache at
     ``max_batch_size x max_seq_len`` (int8 pools price 1 byte per element
     plus a 4-byte scale per token and kv head) + the packed LoRA buffers
     when the engine serves adapters (``max_adapters`` slots of rank-r A/B
     factors per target). The JAX package's formula: the same inputs give
-    the same integer. Weight quantization is refused here as by the
-    engine."""
+    the same integer."""
     if batching is not None and getattr(batching, "quantize", None):
-        raise NotImplementedError(
-            "weight quantization: not in the port's serving slices yet (see "
-            "ROADMAP.md for the slice that brings it)")
-    param_bytes = cfg.num_params() * cfg.weight_dtype.itemsize
+        param_bytes = packed_param_bytes_estimate(cfg)
+    else:
+        param_bytes = cfg.num_params() * cfg.weight_dtype.itemsize
     kv_bytes = 0
     lora_bytes = 0
     if batching is not None:

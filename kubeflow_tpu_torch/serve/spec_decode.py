@@ -44,7 +44,7 @@ import torch
 
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import DecoderConfig
-from kubeflow_tpu_torch.models.decoder import Params, layer_view, lm_head
+from kubeflow_tpu_torch.models.decoder import Params, ffn, layer_view, lm_head
 from kubeflow_tpu_torch.ops.paged_attention import paged_verify_attention
 from kubeflow_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from kubeflow_tpu_torch.serve.paged import paged_gather
@@ -147,7 +147,7 @@ def _qkv(bp, x, positions, cfg: DecoderConfig):
 def _finish_block(bp, x, attn, cfg: DecoderConfig):
     x = x + L.out_project(attn, bp["attn"]["wo"], cfg.activation_dtype)
     h = L.rmsnorm(x, bp["ln2"], cfg)
-    return x + L.mlp_block(bp["mlp"], h, cfg)
+    return x + ffn(bp, h, cfg)
 
 
 def _spec_block(bp, x, positions, lengths, live, cache_k, cache_v,

@@ -18,7 +18,9 @@ Schemes:
   load tests and smoke runs.
 
 A missing or unreadable checkpoint raises; random weights never stand in
-for it.
+for it. ``quantize="int8"`` packs the matmul weights as they arrive (each
+layer as it is drawn, each restored leaf as it lands on the device), so
+the full-dtype tree is never on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.models.decoder import Params, init_decoder_params
+from kubeflow_tpu_torch.ops.quantization import check_quantize, quantize_leaf
 from kubeflow_tpu_torch.pipelines.artifacts import (
     ArtifactStore, artifact_store_from_env,
 )
@@ -44,7 +47,8 @@ FILE_FORMAT = ("a kubeflow_tpu_torch checkpoint directory (train/"
 def load_params(storage_uri: Optional[str], cfg: DecoderConfig, *,
                 seed: int = 0,
                 artifact_root: Optional[str] = None,
-                device: str | torch.device = "cuda") -> Params:
+                device: str | torch.device = "cuda",
+                quantize: Optional[str] = None) -> Params:
     """Resolve ``storage_uri`` into a decoder param tree on ``device``.
 
     file:///path — the latest step's ``params`` subtree of a port
@@ -56,26 +60,29 @@ def load_params(storage_uri: Optional[str], cfg: DecoderConfig, *,
     and restarts share one layout; then read as ``file://`` reads it.
     random:// or None — ``init_decoder_params`` from a generator on
     ``device`` seeded with ``seed``: the same weights as an engine built
-    with that seed and ``weights_dtype`` equal to ``cfg.param_dtype``."""
+    with that seed and ``weights_dtype`` equal to ``cfg.param_dtype``.
+
+    ``quantize="int8"``: the tree ``quantize_params_int8`` would make of the
+    full-dtype one, bit for bit, built leaf by leaf."""
+    check_quantize(quantize)
     dev = resolve_device(device)
     if storage_uri is None or storage_uri.startswith("random://"):
         return init_decoder_params(torch.Generator(dev).manual_seed(seed),
-                                   cfg)
+                                   cfg, quantize=quantize)
     parsed = urlparse(storage_uri)
     if parsed.scheme == "file":
-        return _load_checkpoint(parsed.path, cfg, dev)
+        return _load_checkpoint(parsed.path, cfg, dev, quantize)
     if parsed.scheme == "artifact":
         store = artifact_store_from_env(artifact_root)
         ckpt_dir = store.materialize_tree(store.resolve(storage_uri))
-        return _load_checkpoint(ckpt_dir, cfg, dev)
+        return _load_checkpoint(ckpt_dir, cfg, dev, quantize)
     raise ValueError(
         f"unsupported storageUri scheme {parsed.scheme!r} "
         "(hermetic build: file://, artifact:// and random:// only)")
 
 
-def _load_checkpoint(path: str, cfg: DecoderConfig,
-                     device: torch.device) -> Params:
-    from kubeflow_tpu_torch.train import tree as T
+def _load_checkpoint(path: str, cfg: DecoderConfig, device: torch.device,
+                     quantize: Optional[str] = None) -> Params:
     from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
 
     # CheckpointManager creates its directory: a missing one must not be
@@ -94,10 +101,19 @@ def _load_checkpoint(path: str, cfg: DecoderConfig,
             "checkpoint (an orbax checkpoint, as the JAX trainer writes "
             "it, comes across through models.convert.params_from_jax and "
             f"a port save); expected {FILE_FORMAT}")
-    params = mgr.restore(step, device=device, subtree="params")
     dt = cfg.weight_dtype
-    return T.map_tree(lambda t: t.to(dt) if t.is_floating_point() else t,
-                      params)
+
+    def leaf(path: str, t: torch.Tensor):
+        # Read to host, then onto the device one leaf at a time, cast, and
+        # packed there when quantizing.
+        t = t.to(device)
+        if t.is_floating_point():
+            t = t.to(dt)
+        if quantize is None:
+            return t
+        return quantize_leaf(tuple(path.split("/")), t, cfg)
+
+    return mgr.restore(step, device="cpu", subtree="params", leaf_fn=leaf)
 
 
 def kv_fabric_store(root: Optional[str] = None) -> Optional[ArtifactStore]:

@@ -124,12 +124,16 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None, *, device="cpu",
                 verify: bool = True,
-                subtree: Optional[str] = None) -> Optional[Any]:
+                subtree: Optional[str] = None,
+                leaf_fn=None) -> Optional[Any]:
         """The state saved as ``step`` (default: the newest), tensors on
         ``device``; None when nothing is saved. The manifest is verified
         first, before any tensor is loaded. ``subtree`` (e.g. ``"params"``)
         loads only that key's leaves and returns that subtree; the manifest
-        check then covers the files it reads (and ``meta.json``)."""
+        check then covers the files it reads (and ``meta.json``).
+        ``leaf_fn(path, tensor)`` replaces each tensor as it is loaded
+        (path relative to ``subtree``), so only one loaded leaf is alive
+        beside the transformed ones."""
         target = step if step is not None else self.latest_step()
         if target is None:
             return None
@@ -149,8 +153,9 @@ class CheckpointManager:
                 meta["tensors"]).values()})
         flat = wanted(meta["values"])
         for path, rel in wanted(meta["tensors"]).items():
-            flat[path] = torch.load(os.path.join(root, rel),
-                                    map_location=device, weights_only=True)
+            t = torch.load(os.path.join(root, rel), map_location=device,
+                           weights_only=True)
+            flat[path] = t if leaf_fn is None else leaf_fn(path, t)
         if subtree and not flat:
             raise KeyError(f"step {target} holds no {subtree!r} subtree")
         return T.unflatten(flat)

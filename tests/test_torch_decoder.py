@@ -170,9 +170,12 @@ def test_params_from_jax_stacks_lists_and_reads_bfloat16():
 
 
 def test_moe_lora_and_sequence_parallel_raise():
+    # MoE decoders are served now (tests/test_torch_moe.py); their training
+    # loss is the next slice's.
     moe = tconfig.preset("tiny-moe", dtype="float32")
-    with pytest.raises(NotImplementedError):
-        tdec.init_decoder_params(torch.Generator(), moe)
+    mp = tdec.init_decoder_params(torch.Generator(), moe)
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        tdec.decoder_loss(mp, torch.zeros((1, 5), dtype=torch.long), moe)
     _, tcfg = _configs("tiny")
     params = tdec.init_decoder_params(torch.Generator().manual_seed(0), tcfg)
     toks = torch.zeros((1, 4), dtype=torch.long)

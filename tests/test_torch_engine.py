@@ -26,6 +26,7 @@ from kubeflow_tpu_torch.core.serving import BatchingSpec  # noqa: E402
 from kubeflow_tpu_torch.models import config as tconfig  # noqa: E402
 from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.models.decoder import decoder_forward  # noqa: E402
+from kubeflow_tpu_torch.ops.quantization import QuantizedTensor  # noqa: E402
 from kubeflow_tpu_torch.serve import engine as E  # noqa: E402
 from kubeflow_tpu_torch.serve.device_state import (  # noqa: E402
     DEAD_SLOT, STATE_FIELDS, DecodeState,
@@ -330,13 +331,13 @@ def test_background_loop_streams(params, cfg):
 # -- refusals ---------------------------------------------------------------------
 
 # Paged KV, int8 pages, the engine roles, the host and remote KV tiers,
-# LoRA adapters and speculative decoding are served now
+# LoRA adapters, speculative decoding and int8 weights are served now
 # (tests/test_torch_paged.py, test_torch_handoff.py,
 # test_torch_kvtier_host.py, test_torch_kvtier_remote.py,
-# test_torch_lora.py, test_torch_spec.py); weight quantization is still a
-# later slice — also beside served ones (the remote tier and LoRA, LoRA
-# alone, speculative decoding over int8 pages with the remote tier, on a
-# decode role, or alone).
+# test_torch_lora.py, test_torch_spec.py, test_torch_quantization.py):
+# int8 weights beside the others (the remote tier and LoRA, LoRA alone,
+# speculative decoding over int8 pages with the remote tier, on a decode
+# role, or alone) build as the JAX engine's do, with packed weights.
 @pytest.mark.parametrize("overrides", [
     {"paged": True, "page_size": 16, "host_kv_pages": 8,
      "remote_kv_root": "kv-remote", "lora": {"max_adapters": 2},
@@ -351,9 +352,12 @@ def test_background_loop_streams(params, cfg):
 def test_later_slice_features_raise(overrides, cfg, tmp_path):
     if "remote_kv_root" in overrides:
         overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
-    with pytest.raises(NotImplementedError):
-        E.LLMEngine(cfg, _spec(**overrides), device="cpu")
-    assert not (tmp_path / "kv").exists()    # refused before the store
+    eng = E.LLMEngine(cfg, _spec(**overrides), device="cpu")
+    try:
+        assert isinstance(eng.params["layers"]["attn"]["wq"], QuantizedTensor)
+        assert isinstance(eng.params["lm_head"], QuantizedTensor)
+    finally:
+        assert eng.stop()
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["float", "int8"])
@@ -402,8 +406,10 @@ def test_int8_kv_needs_the_page_pool(cfg):
 
 
 def test_moe_and_mesh_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        E.LLMEngine(tconfig.preset("tiny-moe"), _spec(), device="cpu")
+    # MoE models are served now (tests/test_torch_moe.py); a mesh is the
+    # multi-GPU slice's.
+    moe = E.LLMEngine(tconfig.preset("tiny-moe"), _spec(), device="cpu")
+    assert moe._cfg_decode.moe_impl == "dense"
     with pytest.raises(NotImplementedError):
         E.LLMEngine(cfg, _spec(), device="cpu", mesh=object())
 

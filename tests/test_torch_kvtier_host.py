@@ -366,20 +366,20 @@ def test_tier_gauges_split_resident_vs_cached_vs_host():
         eng.stop()
 
 
-def test_host_tier_needs_the_radix_pool():
+def test_host_tier_needs_the_radix_pool(tmp_path):
     with pytest.raises(ValueError, match="radix"):
         BatchingSpec(paged=True, host_kv_pages=4, prefix_index="flat")
     with pytest.raises(ValueError, match="paged"):
         LLMEngine(CFG, BatchingSpec(max_seq_len=128, host_kv_pages=4),
                   device="cpu")
-    # The remote tier behind it is served, LoRA beside it too; beside
-    # weight quantization it is still refused.
-    with pytest.raises(NotImplementedError, match="quantization"):
-        LLMEngine(CFG, BatchingSpec(max_seq_len=128, paged=True,
-                                    page_size=16, host_kv_pages=4,
-                                    remote_kv_root="/nowhere",
-                                    lora={"max_adapters": 2},
-                                    quantize="int8"),
-                  device="cpu")
+    # The remote tier behind it is served, LoRA beside it too, and int8
+    # weights beside both (the tier reads no weight).
+    eng = LLMEngine(CFG, BatchingSpec(max_seq_len=128, paged=True,
+                                      page_size=16, host_kv_pages=4,
+                                      remote_kv_root=str(tmp_path / "kv"),
+                                      lora={"max_adapters": 2},
+                                      quantize="int8"),
+                    device="cpu")
+    assert eng.stop()
     with pytest.raises(ValueError, match="host_kv_pages"):
         BatchingSpec(paged=True, remote_kv_root="/nowhere")

@@ -642,8 +642,8 @@ def test_paged_engine_resolution_and_density(cfg, params, jcfg, jparams):
 # The host and remote tiers (and LoRA or speculative decoding beside them)
 # are served now (tests/test_torch_kvtier_host.py,
 # test_torch_kvtier_remote.py, test_torch_lora.py, test_torch_spec.py);
-# beside weight quantization, over an int8 or a float pool, they are still
-# refused.
+# beside int8 weights (tests/test_torch_quantization.py), over an int8 or
+# a float pool, they build as the JAX engine's do, with packed weights.
 @pytest.mark.parametrize("overrides", [
     {"host_kv_pages": 8, "remote_kv_root": "kv", "kv_cache_dtype": "int8",
      "lora": {"max_adapters": 2}, "quantize": "int8"},
@@ -651,9 +651,13 @@ def test_paged_engine_resolution_and_density(cfg, params, jcfg, jparams):
      "speculative": {"mode": "ngram"}, "quantize": "int8"}])
 def test_host_and_remote_tiers_raise(overrides, cfg, tmp_path):
     overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
-    with pytest.raises(NotImplementedError):
-        E.LLMEngine(cfg, BatchingSpec(**_spec(**overrides)), device="cpu")
-    assert not (tmp_path / "kv").exists()
+    eng = E.LLMEngine(cfg, BatchingSpec(**_spec(**overrides)), device="cpu")
+    try:
+        assert isinstance(eng.params["layers"]["mlp"]["down"],
+                          tquant.QuantizedTensor)
+        assert eng._kvtier is not None
+    finally:
+        assert eng.stop()
 
 
 def test_paged_engine_without_device_raises_here(cfg):

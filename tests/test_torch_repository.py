@@ -125,9 +125,14 @@ def test_estimate_model_bytes_matches_jax(case):
 
 
 def test_estimate_refuses_weight_quantization():
-    with pytest.raises(NotImplementedError, match="quantization"):
-        estimate_model_bytes(tconfig.preset("tiny"),
-                             BatchingSpec(quantize="int8"))
+    # int8 weights are served now: the estimate prices them packed, as the
+    # JAX package's does (tests/test_torch_quantization.py covers more).
+    spec = dict(max_batch_size=2, max_seq_len=64, quantize="int8")
+    for name in ("tiny", "tiny-moe"):
+        assert estimate_model_bytes(
+            tconfig.preset(name), BatchingSpec(**spec)) == \
+            jrepo.estimate_model_bytes(jconfig.preset(name),
+                                       JBatchingSpec(**spec))
 
 
 def test_index_and_lazy_load(repo_server):
