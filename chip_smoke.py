@@ -13,8 +13,9 @@ edge cases), and ``--norm-only`` for the norm and SwiGLU kernels (forward
 and backward rows, the RMSNorm backward's kernels timed apart, and their
 edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
 then (e), (f), (g), (h) and (i), without the kernel rows; ``--spec-only``
-runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i). Every phase
-prints its seconds.
+runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
+``--train-moe-only`` phases 1, 2, the fused CE's edge cases and (j). Every
+phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -115,14 +116,15 @@ Phases, each a hard failure:
 8. train: the same model through ``Trainer.run()`` (fp32 params, AdamW,
    the preset's ``fused_kernels="auto"``, which runs every kernel,
    ``nothing_saveable`` remat, synthetic 2 x 2048 batches): 6 steps
-   uninterrupted, then 3 steps that checkpoint at step 3 and crash, then a
-   second ``Trainer`` that resumes from step 3 and finishes; loss and grad
+   uninterrupted; at 2 layers 6 steps uninterrupted, then 3 steps that
+   checkpoint at step 3 and crash, then a second ``Trainer`` that resumes
+   from step 3 and finishes; loss and grad
    norm finite every step, the resumed step-6 loss within 1e-5 relative
    of the uninterrupted one, the same optimizer count and the same layer-0
    ``wq`` Adam moments at step 6, and every kernel of the path launched at
    its per-step count derived from the code;
    (d) ``load_params("file://...")`` of the resumed step-6 checkpoint into
-   the 4-layer preset with bf16 params: the same bits as the trainer's
+   the 2-layer preset with bf16 params: the same bits as the trainer's
    params cast in memory, the same greedy tokens from an engine on each,
    and ``FileNotFoundError`` for an empty directory; the checkpoint is
    then deleted; then 2 steps with ``fused_kernels="off"`` (flash kernels,
@@ -241,11 +243,13 @@ Phases, each a hard failure:
    weights, bf16 and fp32, teacher-forced phase for phase (the prompt in
    the engine's windows with its pads masked, decode on the dense path;
    an int8 pool's K/V quantized as the pool holds them): the argmax or a
-   near tie of either, or beyond both bands by at most ``MOE_TIE_GAP``
-   (0.25) for at most ``MOE_BEYOND_MAX`` (3) tokens of an engine; the
-   same check fails against forwards with a planted fault (one expert's
-   down scale doubled, a layer's second choice dropped, pad rows claiming
-   capacity); rows 1, 2 and 12 (6 on the contiguous engine) launched,
+   near tie of either, with at most ``MOE_BEYOND_FRAC`` (1/16) of an
+   engine's 4 x 64 tokens beyond both bands; the same check fails
+   against forwards with a planted
+   fault (one expert's down scale doubled, a layer's second choice
+   dropped); no pad row of the engines' prefill windows holds an expert
+   slot, and that check fails on a window whose pads claim capacity;
+   rows 1, 2 and 12 (6 on the contiguous engine) launched,
    row 4 not. (i)3: Mixtral-8x7B at
    all 32 layers with int8 weights through ``runtime.worker_main`` →
    ``model_server`` (``random://`` packed per layer, never bf16 whole;
@@ -258,7 +262,30 @@ Phases, each a hard failure:
    timed. (i)4: Llama-3-8B int8, paged: every token the argmax or a near
    tie of a plain full forward in bf16 or in fp32; packed bytes against
    bf16; one decode step's enqueue and device ms with int8 weights beside
-   bf16's.
+   bf16's. The (i)3 worker's peak allocation (its log, in bytes) must not
+   exceed ``estimate_model_bytes``;
+14. (j) MoE training and the training entry points, at Mixtral width.
+   (j)1: one MoE block, fp32 weights from a seed, bf16 activations,
+   T = 2048, loss ``sum(out²) + 0.01·aux``: the zero-drop dispatch's
+   gradients (router, gate, up, down, x) against the dense path's, rel L2
+   <= 1e-2 per leaf; forward and backward ms of the dispatch (factor 1.25)
+   and the dense path. (j)2: ``Trainer.run()``, 2 layers (3.17 B params,
+   fp32 with AdamW), 2 x 2048 tokens, ``fused_kernels="auto"``, flash
+   attention, ``nothing_saveable``: 6 steps with finite loss, grad norm and
+   ``aux_loss``, each layer's balance loss within 0.9–1.5 k, rows 1–3 and
+   6–11 launched at their per-step counts; 2 steps with
+   ``fused_kernels="off"`` within 1e-2 of the first two losses; step ms,
+   tokens/s, MFU and peak memory printed. (j)3: ``llm_pretrain`` through
+   ``runtime.worker_main`` at 1 layer, 3 steps and a step-3 checkpoint (~20
+   GB, under a git-ignored ``.chip_smoke_train_*/`` in the checkout,
+   removed after): exit 0 and 3 metrics lines with ``aux_loss``; then a
+   ``model_server`` worker on that checkpoint through ``file://`` (bf16):
+   its greedy tokens for two prompts equal an in-process engine's on the
+   same checkpoint; SIGTERM -> 143. (j)4: ``vision_train`` workers, ViT-L/16
+   and CLIP-L/14, batch 8, 4 steps: exit 0, every metric finite, the first
+   bf16 loss within 1e-2 of an fp32 evaluation in process of the same
+   seeded init and batch, step ms printed. The fused CE's edge cases
+   include Mixtral's vocabulary, V = 32000 (phase 3).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -1218,7 +1245,9 @@ def xent_rows() -> list[dict]:
 
 def phase_xent_edges(gen=None) -> None:
     """The fused CE away from the training shape, against its plain
-    version: T in {1, 300, 4096}, V in {1000, 128256, 256000, 20000}
+    version: T in {1, 300, 3000, 4096}, V in {1000, 128256, 256000, 20000,
+    32000} (32000: Mixtral's vocabulary, at its training shape T = 4096,
+    D = 4096 and at a T ragged in the row tiles)
     (ragged last tile, one tile, many ranges, the backward's last chunk of
     13568 columns at 128256, and at 20000 a last chunk of 3616, ragged in
     its tiles and in the d_hidden product's K, after one whole chunk),
@@ -1232,7 +1261,8 @@ def phase_xent_edges(gen=None) -> None:
                          (4096, 2048, 1000, None), (1, 4096, 128256, 30.0),
                          (300, 2048, 128256, None), (300, 4096, 256000, 30.0),
                          (4096, 2048, 256000, None), (300, 2048, 20000, None),
-                         (300, 1160, 20000, None)):
+                         (300, 1160, 20000, None), (4096, 4096, 32000, None),
+                         (3000, 4096, 32000, None)):
         check_xent(gen, T, D, V, softcap=cap,
                    name=f"edge fused_xent T={T} D={D} V={V} softcap={cap}")
         torch.cuda.empty_cache()
@@ -2536,10 +2566,11 @@ WORKER_PLATFORM = "gpu"
 
 
 def spawn_worker(batching: dict, label: str, model: dict = WORKER_MODEL,
-                 service: str = "llama"):
+                 service: str = "llama", storage_uri: str = "random://"):
     """Start ``python -m kubeflow_tpu_torch.runtime.worker_main`` serving
-    ``model`` (default Llama-3-8B) from ``random://`` (bf16, the serving
-    seed) with ``batching``, the ``strip`` transformer, the
+    ``model`` (default Llama-3-8B) from ``storage_uri`` (default
+    ``random://``: bf16, the serving seed) with ``batching``, the ``strip``
+    transformer, the
     ``grad_x_input`` explainer and the ``chip_smoke:TokenIdText``
     tokenizer, on a free port of this host. Returns (process, url, log
     file)."""
@@ -2550,7 +2581,7 @@ def spawn_worker(batching: dict, label: str, model: dict = WORKER_MODEL,
     repo = Path(__file__).resolve().parent
     port = free_port()
     conf = {"model": model,
-            "storage_uri": "random://",
+            "storage_uri": storage_uri,
             "batching": batching, "port": port, "service": service,
             "explainer": {"handler": "grad_x_input"},
             "transformer": {"handler": "strip"},
@@ -4521,21 +4552,24 @@ MOE_SPEC = dict(PAGED_SPEC, quantize="int8", enable_prefix_caching=False)
 MOE_BLOCK_T, MOE_BLOCK_VALID = 2048, 1500
 MOE_REL_L2 = 1e-2
 #: A Mixtral token is held to two plain forwards over the same int8 weights
-#: (``moe_witness``): one in bf16, the engine's dtype, and one in fp32. It
-#: passes as the argmax or a near tie (as (h)) of either. Beyond that, two
-#: bf16 paths that route a near-tied token to different experts, at its own
-#: position or at an earlier one whose K/V it reads, move the later logits:
-#: such a departure must lie within MOE_TIE_GAP of the top in both
-#: forwards, and at most MOE_BEYOND_MAX of an engine's tokens may depart
-#: so. On the H100 the four engines' tokens read 2, 2, 1 and 1 beyond both
-#: bands, gaps at most 0.19 (bf16) and 0.18 (fp32); the planted faults of
-#: ``moe_fault_controls`` read 5 (a gap of 0.40), 26 and 4, and each must
-#: fail this check.
-MOE_TIE_GAP, MOE_BEYOND_MAX = 0.25, 3
+#: (``moe_witness``): one in bf16, the engine's dtype, and one in fp32. The
+#: argmax or a near tie (as (h)) of either passes. Beyond that, two bf16
+#: paths that differ only in rounding still route a near-tied token to
+#: other experts, or drop another token's pair from a shifted capacity
+#: queue, and so move that position's logits (and later ones through its
+#: K/V) as far as a fault does (one correct token read 0.97 below the
+#: fp32 top, more than any one token of a fault). So the check counts: at
+#: most MOE_BEYOND_FRAC of an engine's tokens may lie beyond both bands,
+#: and each engine decodes MOE_NEW tokens a request so that the count can
+#: separate. On the H100 the three 8-layer engines read 6, 6 and 5 of 256
+#: (2.3%), the 32-layer worker 7 of 192 (3.6%); the planted faults of
+#: ``moe_fault_controls`` read 31 (12.1%) and 97 of 256. The limit lies
+#: 1.7x above the worst correct rate and 1.9x below the smaller fault.
+MOE_BEYOND_FRAC = 1 / 16
 #: (i)2: prompt lengths (one in the contiguous 2048 bucket, the flash
 #: kernel's) and the quality gate's prompts.
 MOE_PROMPT_LENS = (40, 300, 700, 1000)
-MOE_NEW = 16
+MOE_NEW = 64
 #: (i)3: the worker's completions and traffic.
 MOE_WORKER_PROMPTS = ((60, 61), (300, 62), (500, 63))
 MOE_LOADGEN = dict(num_requests=12, rate_rps=4.0, prompt_len=512, max_new=64,
@@ -4610,7 +4644,7 @@ def moe_block_check(card: str) -> None:
               f"{cfg.capacity_factor}) {t_disp:.3f} ms, zero-drop dispatch "
               f"(factor {e}) {t_zero:.3f} ms, dense {t_dense:.3f} ms "
               f"(CUDA events); {card}", flush=True)
-    del p, x, got, want, trained
+    del got, want, trained, p, x
 
 
 class _MoeHooks:
@@ -4657,7 +4691,7 @@ class _MoeHooks:
 
 def moe_witness(params, cfg, prompt: list[int], out: list[int], chunk: int,
                 dtype: str, *, kv_quant: bool = False,
-                pads_claim: bool = False, drop_layer: int | None = None):
+                drop_layer: int | None = None):
     """The plain forward (plain ops, the plain attention) in ``dtype`` over
     ``params``, teacher-forced and phase for phase as the engine runs them:
     the prompt in ``chunk``-token windows from position 0, each padded to
@@ -4666,8 +4700,8 @@ def moe_witness(params, cfg, prompt: list[int], out: list[int], chunk: int,
     (the engine's decode) over that cache. ``kv_quant`` (an int8 pool):
     every forward reads the K/V of earlier positions quantized per token
     and head and dequantized, as the pool holds them, so the decode tokens
-    go one forward each. ``pads_claim`` (pad rows claim capacity) and
-    ``drop_layer`` plant the controls' faults. Returns the [len(out), V]
+    go one forward each. ``drop_layer`` plants a control's fault.
+    Returns the [len(out), V]
     fp32 logits and, per token, the smallest routing margin over the
     layers at its position (``_MoeHooks``)."""
     import dataclasses
@@ -4707,7 +4741,7 @@ def moe_witness(params, cfg, prompt: list[int], out: list[int], chunk: int,
         for c0 in range(0, n, chunk):
             real = min(chunk, n - c0)
             logits = forward(prompt[c0:c0 + real] + [0] * (chunk - real),
-                             pre, c0, valid_len=None if pads_claim else real)
+                             pre, c0, valid_len=real)
             m = rec.take()
         rows.append(logits[real - 1])
         margins.append(m[:, real - 1].min())
@@ -4736,8 +4770,8 @@ def moe_judge(outs, witnesses: dict) -> dict:
     witnesses (``moe_witnesses``): the tokens that depart from the bf16
     witness's argmax, those of them that are a near tie of either witness,
     and those beyond (with their gaps below each witness's top, their ranks
-    and routing margins). ``ok``: every token beyond lies within
-    MOE_TIE_GAP of both tops, and at most MOE_BEYOND_MAX lie beyond."""
+    and routing margins). ``ok``: at most MOE_BEYOND_FRAC of the tokens
+    (``limit``) lie beyond."""
     got = torch.tensor([t for o in outs for t in o], device="cuda")
     st = {}
     for dtype, (logits, margins) in witnesses.items():
@@ -4750,8 +4784,8 @@ def moe_judge(outs, witnesses: dict) -> dict:
     b16, b32 = st["bfloat16"], st["float32"]
     depart = b16["rank"] > 0
     beyond = depart & ~b16["tie"] & ~b32["tie"]
-    near = (b16["gap"] <= MOE_TIE_GAP) & (b32["gap"] <= MOE_TIE_GAP)
     idx = beyond.nonzero().flatten()
+    limit = int(MOE_BEYOND_FRAC * got.numel())
 
     def vals(t):
         return [round(float(x), 4) for x in t[idx]]
@@ -4765,16 +4799,15 @@ def moe_judge(outs, witnesses: dict) -> dict:
             "rank_fp32": [int(x) for x in b32["rank"][idx]],
             "margin": vals(b16["margin"]), "std": round(b16["std"], 3),
             "fp32_agrees": int((b32["rank"] == 0).sum()),
-            "ok": bool(torch.all(near[idx]))
-            and idx.numel() <= MOE_BEYOND_MAX}
+            "limit": limit, "ok": idx.numel() <= limit}
 
 
 def moe_judge_line(j: dict) -> str:
     return (f"{j['tokens']} tokens, {j['departs']} depart from the bf16 "
             f"witness's argmax: {j['tie_bf16']} near ties of it, "
             f"{j['tie_fp32_only']} of the fp32 witness only, {j['beyond']} "
-            f"beyond both (limit {MOE_BEYOND_MAX}, each within "
-            f"{MOE_TIE_GAP} of both tops): gaps bf16 {j['gap_bf16']} fp32 "
+            f"beyond both (limit {j['limit']}, {MOE_BEYOND_FRAC:.2%} of "
+            f"the tokens): gaps bf16 {j['gap_bf16']} fp32 "
             f"{j['gap_fp32']}, ranks bf16 {j['rank_bf16']} fp32 "
             f"{j['rank_fp32']}, routing margins {j['margin']} (logits' std "
             f"{j['std']}); the fp32 witness's argmax is the token at "
@@ -4789,14 +4822,14 @@ def moe_token_check(params, cfg, prompts, outs, chunks, name: str,
                                       **kw))
     print(f"{name}: {moe_judge_line(j)}", flush=True)
     if not j["ok"]:
-        fail(f"{name}: tokens depart from both plain forwards beyond their "
-             f"near ties and the MoE gap")
+        fail(f"{name}: more than {j['limit']} tokens lie beyond both plain "
+             f"forwards' near ties")
     return j
 
 
-#: The controls' faults: one expert's down-projection scale doubled in one
-#: layer, one layer's second choice dropped, and pad rows that claim
-#: expert capacity in the prefill windows.
+#: The token check's controls: one expert's down-projection scale doubled
+#: in one layer, and one layer's second choice dropped. Pad rows that claim
+#: expert capacity are held by ``_PadSlots`` and its own control.
 MOE_FAULT_LAYER, MOE_FAULT_EXPERT = 3, 5
 
 
@@ -4809,8 +4842,7 @@ def moe_fault_controls(qp, cfg, prompts, outs, chunks, kv_quant: bool,
     not ``ok``."""
     scale = qp["layers"]["mlp"]["down"].scale
     faults = (("down scale x2", {}), ("second choice dropped",
-                                      {"drop_layer": MOE_FAULT_LAYER}),
-              ("pads claim capacity", {"pads_claim": True}))
+                                      {"drop_layer": MOE_FAULT_LAYER}))
     for name, kw in faults:
         if name == "down scale x2":
             scale[MOE_FAULT_LAYER, MOE_FAULT_EXPERT] *= 2
@@ -4826,6 +4858,55 @@ def moe_fault_controls(qp, cfg, prompts, outs, chunks, kv_quant: bool,
         if j["ok"]:
             fail(f"(i)2 control: the token check passes with the planted "
                  f"fault '{name}'")
+
+
+def _held_by_pads(row_of_slot: torch.Tensor, valid: torch.Tensor) -> int:
+    """How many of a dispatch plan's expert slots hold a pad row."""
+    flat = valid.reshape(-1)
+    held = row_of_slot[row_of_slot < flat.numel()]
+    return int((~flat[held]).sum())
+
+
+class _PadSlots:
+    """While active, records every dispatch plan that an engine's prefill
+    makes with pad rows (``valid_len``): ``check(name)`` fails unless some
+    window had pads and no pad row held an expert slot in any of them,
+    and unless the same count, on the padded windows' plans remade with
+    their pads claiming capacity (the planted fault), finds held slots."""
+
+    def __enter__(self):
+        from kubeflow_tpu_torch.models import layers as L
+
+        self.L, self.orig, self.plans = L, L.dispatch_plan, []
+
+        def recorded(router_logits, cfg, b, s, valid_len=None):
+            plan = self.orig(router_logits, cfg, b, s, valid_len)
+            if plan["valid"] is not None:
+                self.plans.append((plan, (router_logits, cfg, b, s)))
+            return plan
+
+        L.dispatch_plan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.L.dispatch_plan = self.orig
+
+    def check(self, name: str) -> None:
+        padded = [(plan, args) for plan, args in self.plans
+                  if not bool(plan["valid"].all())]
+        held = sum(_held_by_pads(plan["row_of_slot"], plan["valid"])
+                   for plan, _ in self.plans)
+        planted = sum(_held_by_pads(self.orig(*args)["row_of_slot"],
+                                    plan["valid"]) for plan, args in padded)
+        print(f"{name}: {len(self.plans)} dispatch plans with valid_len, "
+              f"{len(padded)} with pad rows, {held} expert slots held by "
+              f"pad rows; control, the padded windows with pads claiming "
+              f"capacity: {planted} held", flush=True)
+        if not padded or held:
+            fail(f"{name}: pad rows held expert slots, or no window had pads")
+        if not planted:
+            fail(f"{name}: the pad-slot check finds no slot held by pads "
+                 f"that claim capacity")
 
 
 def _moe_run(eng, prompts, wrappers: dict):
@@ -4854,8 +4935,10 @@ def moe_eight_layers(rows: list[dict], card: str) -> None:
     tokens; then int8-weight engines (paged on a bf16 pool, on an int8
     pool, contiguous): every greedy token held to the plain forwards in
     bf16 and fp32 (``moe_token_check``), the check shown to reject planted
-    faults (``moe_fault_controls``), rows 1, 2 (and 12 on the pool, 6 on
-    the contiguous 2048 bucket) launched, no page left referenced."""
+    faults (``moe_fault_controls``), no pad row holding an expert slot in
+    the engines' prefill windows (``_PadSlots``), rows 1, 2 (and 12 on the
+    pool, 6 on the contiguous 2048 bucket) launched, no page left
+    referenced."""
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.models.config import preset
     from kubeflow_tpu_torch.models.decoder import init_decoder_params
@@ -4901,7 +4984,9 @@ def moe_eight_layers(rows: list[dict], card: str) -> None:
                                          "chunked_prefill_tokens": 2048})):
         eng = LLMEngine(cfg, BatchingSpec(**dict(MOE_SPEC, **over)),
                         params=qp, device="cuda")
-        outs, launches = _moe_run(eng, prompts, wrappers)
+        with _PadSlots() as pads:
+            outs, launches = _moe_run(eng, prompts, wrappers)
+        pads.check(f"(i)2 {layout} pads")
         chunks = [eng.chunk_size if eng.paged else
                   next(b for b in eng.buckets if b >= len(p))
                   for p in prompts]
@@ -4969,16 +5054,31 @@ def moe_worker(card: str) -> None:
     ok = False
     try:
         t_ready = wait_ready(proc, url, "moe worker", t0)
-        outs = []
-        for n, salt in MOE_WORKER_PROMPTS:
+
+        def complete(n: int, salt: int) -> tuple[list[int], float]:
             t1 = time.perf_counter()
             raw = _post(url + "/v1/completions",
                         {"prompt": text(n, salt), "max_tokens": MOE_NEW})[1]
-            got = [int(x) for x in
-                   json.loads(raw)["choices"][0]["text"].split()]
-            outs.append(got)
+            return ([int(x) for x in
+                     json.loads(raw)["choices"][0]["text"].split()],
+                    time.perf_counter() - t1)
+
+        # The three at once: the worker batches their decode.
+        done: dict = {}
+        threads = [threading.Thread(
+            target=lambda ns=ns: done.__setitem__(ns, complete(*ns)))
+            for ns in MOE_WORKER_PROMPTS]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if len(done) != len(MOE_WORKER_PROMPTS):
+            fail("(i)3: a worker completion raised")
+        outs = [done[ns][0] for ns in MOE_WORKER_PROMPTS]
+        for (n, salt), got in zip(MOE_WORKER_PROMPTS, outs):
             print(f"(i)3 worker completion, {n}-token prompt: {len(got)} "
-                  f"tokens in {time.perf_counter() - t1:.2f} s", flush=True)
+                  f"tokens in {done[(n, salt)][1]:.2f} s (the three at "
+                  f"once)", flush=True)
         sc = next(x for x in loadgen.standard_matrix(**MOE_LOADGEN)
                   if x.name == "uniform")
         run = loadgen.run_scenario(loadgen.ServerTarget(url, model="mixtral"),
@@ -4995,15 +5095,21 @@ def moe_worker(card: str) -> None:
     finally:
         reap_worker(proc, log, "moe worker", ok)
     mem = re.findall(r"device memory ([0-9.]+) GiB allocated, peak "
-                     r"([0-9.]+) GiB", logged)
+                     r"([0-9.]+) GiB \((\d+) bytes\)", logged)
     if len(mem) != 2:
         fail("(i)3: the worker logged no device memory at ready and stop")
     est = estimate_model_bytes(cfg, spec)
+    peak = max(int(m[2]) for m in mem)
     print(f"(i)3 mixtral-8x7b worker, {cfg.n_layers} layers int8: ready in "
           f"{t_ready:.1f} s; device memory at ready {mem[0][0]} GiB "
           f"(peak {mem[0][1]}), at stop {mem[1][0]} GiB (peak {mem[1][1]} "
-          f"GiB); estimate_model_bytes {est / 2**30:.2f} GiB; {card}",
-          flush=True)
+          f"GiB, {peak} bytes) against estimate_model_bytes {est} bytes "
+          f"({est / 2**30:.2f} GiB; with each layer's whole draw alive at "
+          f"once the worker peaked at 52.50 GiB); "
+          f"{card}", flush=True)
+    if peak > est:
+        fail(f"(i)3: the worker's peak allocation {peak} bytes exceeds "
+             f"estimate_model_bytes {est}")
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -5024,7 +5130,9 @@ def moe_worker(card: str) -> None:
     step = _decode_step_ms(qp, cfg, torch.Generator().manual_seed(SEED + 53))
     print(f"(i)3 one dense decode step of the 32-layer int8 model (8 slots "
           f"at 1024, paged): enqueue {step[0]:.2f} wall {step[1]:.2f} device "
-          f"{step[2]:.2f} ms; {card}", flush=True)
+          f"{step[2]:.2f} ms (whole dequantized expert stacks, before the "
+          f"one-at-a-time dequant: enqueue 164.69, device 233.84 ms); "
+          f"{card}", flush=True)
     del qp
     gc.collect()
     torch.cuda.empty_cache()
@@ -5119,6 +5227,10 @@ def phase_moe(rows: list[dict], card: str) -> None:
 
 
 TRAIN_MODEL = dict(n_layers=4, remat_policy="nothing_saveable")
+#: The crash-and-resume pair and the ``file://`` serve of its checkpoint run
+#: at 2 layers: a step's checkpoint (params and Adam state) is 17.84 GB
+#: there against 23.08 GB at 4 (the embedding and head hold 12.6 GB).
+TRAIN_RESUME_MODEL = dict(TRAIN_MODEL, n_layers=2)
 TRAIN_DATA = dict(seq_len=2048, global_batch=2)
 
 
@@ -5142,20 +5254,24 @@ def _train_wrappers() -> dict:
             "fused_xent_bwd_dw": fx.dw_kernel}
 
 
-def _want_per_step(fused: bool, n_layers: int) -> dict:
+def _want_per_step(fused: bool, n_layers: int, moe: bool = False) -> dict:
     """Launches per training step, derived from the code: each layer runs
     under ``nothing_saveable`` remat, so its forward launches twice (the
     forward and the backward's replay, which must reach the down
-    projection: it saves the SwiGLU output); the final norm and the CE run
-    once, outside the layers. Backward: one RMSNorm backward per norm (ln1,
-    the residual ln2, the final norm), one SwiGLU, dK/dV and dQ per layer,
-    one CE backward (its d_hidden and d_head kernels) per step."""
+    projection: it saves the SwiGLU output; an MoE block's replay must
+    reach its balance loss, the block's last product); the final norm and
+    the CE run once, outside the layers. Backward: one RMSNorm backward per
+    norm (ln1, the residual ln2, the final norm), one SwiGLU, dK/dV and dQ
+    per layer, one CE backward (its d_hidden and d_head kernels) per step.
+    MoE experts run the plain activation, as the JAX experts do: no SwiGLU
+    kernel."""
     L = n_layers
     want = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L}
     fused_counts = {"rmsnorm_fwd": 2 * L + 1, "add_rmsnorm_fwd": 2 * L,
-                    "swiglu_fwd": 2 * L, "rmsnorm_bwd": 2 * L + 1,
-                    "swiglu_bwd": L, "fused_xent_fwd": 1,
-                    "fused_xent_bwd_dh": 1, "fused_xent_bwd_dw": 1}
+                    "swiglu_fwd": 0 if moe else 2 * L,
+                    "rmsnorm_bwd": 2 * L + 1, "swiglu_bwd": 0 if moe else L,
+                    "fused_xent_fwd": 1, "fused_xent_bwd_dh": 1,
+                    "fused_xent_bwd_dw": 1}
     for k, v in fused_counts.items():
         want[k] = v if fused else 0
     return want
@@ -5242,11 +5358,12 @@ class _Crash(Exception):
     """Ends a training run right after its step-3 checkpoint."""
 
 
-def _trainer_cfg(ckpt_dir=None, steps: int = 6, **model):
+def _trainer_cfg(ckpt_dir=None, steps: int = 6, name: str = "llama3-8b",
+                 base: dict = TRAIN_MODEL, **model):
     from kubeflow_tpu_torch.train.trainer import TrainerConfig
 
     return TrainerConfig(
-        model="llama3-8b", model_overrides={**TRAIN_MODEL, **model},
+        model=name, model_overrides={**base, **model},
         data=dict(TRAIN_DATA), steps=steps, log_every=1, seed=SEED,
         attn_impl="pallas",
         optimizer={"learning_rate": 3e-4, "warmup_steps": 2,
@@ -5310,7 +5427,8 @@ def _counted_run(cfg, workdir: str, label: str) -> dict:
     launches = {n: w.launches for n, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
     for step, m in sorted(seen.items()):
-        print(f"{label} step {step}: loss {m['loss']:.6f} grad_norm "
+        print(f"{label} step {step}: loss {m['loss']:.6f} aux_loss "
+              f"{m['aux_loss']:.6f} grad_norm "
               f"{m['grad_norm']:.4f} step_time_ms "
               f"{m.get('step_time_ms', float('nan')):.1f} tokens/s "
               f"{m.get('tokens_per_sec', float('nan')):.0f} mfu "
@@ -5321,63 +5439,71 @@ def _counted_run(cfg, workdir: str, label: str) -> dict:
     if sorted(seen) != list(range(1, cfg.steps + 1)):
         fail(f"{label}: steps {sorted(seen)} reported, not 1..{cfg.steps}")
     for step, m in seen.items():
-        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
-            fail(f"{label} step {step}: non-finite loss or grad norm {m}")
+        if not all(math.isfinite(m[k])
+                   for k in ("loss", "grad_norm", "aux_loss")):
+            fail(f"{label} step {step}: non-finite loss, grad norm or aux "
+                 f"loss {m}")
     mcfg = preset(cfg.model, **cfg.model_overrides)
     fused = mcfg.fused_kernels in ("on", "auto")      # auto: on, on a card
-    want = {n: c * cfg.steps
-            for n, c in _want_per_step(fused, mcfg.n_layers).items()}
+    want = {n: c * cfg.steps for n, c in _want_per_step(
+        fused, mcfg.n_layers, mcfg.is_moe).items()}
     if launches != want:
         fail(f"{label}: kernel launches {launches}, expected {want}")
-    return {"steps": seen, "launches": launches}
+    return {"steps": seen, "launches": launches, "peak": peak}
 
 
 def phase_train(rows: list[dict]) -> None:
     """The training slice through its entry point, ``Trainer.run()``: the
     preset configuration (``fused_kernels="auto"``, every kernel) for 6
-    steps, then a crash after a step-3 checkpoint and a resume; then 2
+    steps; at ``TRAIN_RESUME_MODEL``'s depth 6 uninterrupted steps, then a
+    crash after a step-3 checkpoint and a resume, held to them; then 2
     steps with ``fused_kernels="off"`` (the flash kernels, chunked CE)."""
     import tempfile
 
     # Under the checkout (git-ignored), not $TMPDIR: a step-3 checkpoint of
-    # this model is 23 GB, more than a small temporary filesystem holds.
+    # the resumed model is 17.84 GB, more than a small temporary filesystem
+    # holds.
     work = tempfile.mkdtemp(prefix=".chip_smoke_train_",
                             dir=Path(__file__).resolve().parent)
     try:
-        for sub in ("whole", "resume", "off"):
+        for sub in ("whole", "whole2", "resume", "off"):
             os.makedirs(os.path.join(work, sub))
         run = _counted_run(_trainer_cfg(), os.path.join(work, "whole"),
                            "train")
-        whole, launches = run["steps"], run["launches"]
+        launches = run["launches"]
         for r in rows:
             if r["name"] in ("flash_bwd_dkdv", "flash_bwd_dq", "rmsnorm_bwd",
                              "swiglu_bwd", "fused_xent_fwd",
                              "fused_xent_bwd_dh", "fused_xent_bwd_dw"):
                 r["launches"] = launches[r["name"]]
 
+        short = _train_run(_trainer_cfg(base=TRAIN_RESUME_MODEL),
+                           os.path.join(work, "whole2"))[0]
         ckpt = os.path.join(work, "ckpt")
         resume_dir = os.path.join(work, "resume")
-        first, secs_a = _train_run(_trainer_cfg(ckpt), resume_dir, crash_at=3)
+        first, secs_a = _train_run(_trainer_cfg(ckpt, base=TRAIN_RESUME_MODEL),
+                                   resume_dir, crash_at=3)
         saved = sorted(os.listdir(ckpt))
         size = sum(os.path.getsize(os.path.join(ckpt, "3", f))
                    for f in os.listdir(os.path.join(ckpt, "3")))
-        print(f"train resume: first run stopped after step 3 in "
-              f"{secs_a:.1f} s; checkpoint dir {saved}, step 3 holds "
-              f"{size / 1e9:.2f} GB", flush=True)
-        resumed, secs_b = _train_run(_trainer_cfg(ckpt), resume_dir,
-                                     keep_params=True)
+        print(f"train resume ({TRAIN_RESUME_MODEL['n_layers']} layers): "
+              f"first run stopped after step 3 in {secs_a:.1f} s; checkpoint "
+              f"dir {saved}, step 3 holds {size / 1e9:.2f} GB", flush=True)
+        resumed, secs_b = _train_run(
+            _trainer_cfg(ckpt, base=TRAIN_RESUME_MODEL), resume_dir,
+            keep_params=True)
         print(f"train resume: second run resumed and took steps "
               f"{sorted(resumed)} in {secs_b:.1f} s", flush=True)
         if sorted(resumed) != [4, 5, 6]:
             fail(f"train resume: the second run took steps {sorted(resumed)}")
-        a, b = whole[6]["loss"], resumed[6]["loss"]
+        a, b = short[6]["loss"], resumed[6]["loss"]
         rel = abs(a - b) / abs(a)
         print(f"train resume: step-6 loss uninterrupted {a:.6f}, resumed "
               f"{b:.6f}, rel {rel:.3e} (tolerance {RESUME_LOSS_REL:g})",
               flush=True)
         if not rel <= RESUME_LOSS_REL:
             fail("train resume: the resumed run diverged")
-        sa, sb = whole[6].pop("opt_state"), resumed[6].pop("opt_state")
+        sa, sb = short[6].pop("opt_state"), resumed[6].pop("opt_state")
         moments = {k: rel_l2(sb[k], sa[k]) for k in ("mu", "nu")}
         print(f"train resume: step-6 optimizer count uninterrupted "
               f"{sa['count']}, resumed {sb['count']}; layer-0 wq moments rel "
@@ -5402,7 +5528,7 @@ def phase_train(rows: list[dict]) -> None:
 
 def phase_file_params(ckpt: str, params16: dict) -> None:
     """(d) ``load_params("file://...")`` of the resumed run's step-6
-    checkpoint into the 4-layer preset with bf16 params: the same bits as
+    checkpoint into the 2-layer preset with bf16 params: the same bits as
     the trainer's params cast to bf16 in memory, and the same greedy tokens
     from an engine on each (three prompts: a 128-bucket, a 512-bucket and a
     chunked one). An empty directory must raise ``FileNotFoundError``."""
@@ -5414,7 +5540,7 @@ def phase_file_params(ckpt: str, params16: dict) -> None:
     from kubeflow_tpu_torch.serve.storage import load_params
     from kubeflow_tpu_torch.train import tree as T
 
-    cfg = preset("llama3-8b", n_layers=TRAIN_MODEL["n_layers"],
+    cfg = preset("llama3-8b", n_layers=TRAIN_RESUME_MODEL["n_layers"],
                  param_dtype="bfloat16")
     t0 = time.perf_counter()
     loaded = load_params(f"file://{ckpt}", cfg, device="cuda")
@@ -5513,6 +5639,333 @@ def phase_train_profile(fused: str) -> None:
     torch.cuda.empty_cache()
 
 
+#: (j): MoE training at Mixtral width (hidden 4096, 32/8 heads, 8 experts
+#: of MLP 14336, top 2, vocab 32000), fp32 params and Adam, bf16
+#: activations. The depth is cut to what one card holds with Adam: 2 layers
+#: are 3.17 B parameters, 50.7 GB at 16 B each (3 layers need 73.9 GB).
+TRAIN_MOE_MODEL = dict(n_layers=2, remat_policy="nothing_saveable")
+#: (j)1: dispatch vs dense gradients of one block, rel L2 per leaf (bf16
+#: activations, fp32 weights).
+MOE_GRAD_REL_L2 = 1e-2
+#: (j)2: each layer's balance loss at a near-uniform router lies near k.
+MOE_AUX_PER_LAYER = (0.9, 1.5)       # times k
+#: (j)4: a vision worker's first bf16 loss against the fp32 evaluation of
+#: the same init and batch, relative.
+VISION_LOSS_REL = 1e-2
+VISION_JOBS = (("vit", "vit-l16"), ("clip", "clip-l14"))
+VISION_STEPS, VISION_BATCH = 4, 8
+
+
+def moe_train_block(card: str) -> None:
+    """(j)1: one MoE block at Mixtral width, fp32 weights from a seed, bf16
+    activations, B = 1, T = 2048, loss ``sum(out²) + 0.01·aux`` (the JAX
+    package's own dispatch-vs-dense gradient check): the zero-drop dispatch
+    (capacity factor E) against the dense path, rel L2 per gradient leaf
+    (router, gate, up, down, x); forward and backward ms of the dispatch at
+    the model's factor 1.25 and of the dense path."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset
+
+    cfg = preset("mixtral-8x7b")
+    e = cfg.num_experts
+    gen = torch.Generator("cuda").manual_seed(SEED + 60)
+    p = L.init_moe(gen, cfg)
+    x = torch.randn((1, MOE_BLOCK_T, cfg.hidden), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    names = ("router", "gate", "up", "down")
+
+    def loss_of(c):
+        leaves = {n: p[n].detach().requires_grad_(True) for n in names}
+        xx = x.detach().requires_grad_(True)
+        out, aux = L.moe_block(leaves, xx, c)
+        return (out.float() ** 2).sum() + 0.01 * aux, \
+            [leaves[n] for n in names] + [xx]
+
+    grads = {}
+    for label, c in (("zero-drop", dataclasses.replace(
+            cfg, capacity_factor=float(e))),
+            ("dense", dataclasses.replace(cfg, moe_impl="dense"))):
+        loss, leaves = loss_of(c)
+        grads[label] = dict(zip(names + ("x",),
+                                torch.autograd.grad(loss, leaves)))
+        del loss, leaves
+    rels = {n: rel_l2(grads["zero-drop"][n], grads["dense"][n])
+            for n in names + ("x",)}
+    print(f"(j)1 MoE block backward (Mixtral width, fp32 weights, bf16 "
+          f"activations, T={MOE_BLOCK_T}): zero-drop dispatch vs dense "
+          f"gradient rel L2 " + ", ".join(f"{n} {r:.3e}"
+                                          for n, r in rels.items())
+          + f" (tolerance {MOE_GRAD_REL_L2:g})", flush=True)
+    bad = [n for n, r in rels.items() if not r <= MOE_GRAD_REL_L2]
+    if bad:
+        fail(f"(j)1: dispatch gradients disagree with dense: {bad}")
+    del grads
+    times = {}
+    for label, c in (("dispatch", cfg),
+                     ("dense", dataclasses.replace(cfg, moe_impl="dense"))):
+        fwd = event_ms(lambda c=c: loss_of(c))
+        loss, leaves = loss_of(c)
+        bwd = event_ms(lambda: torch.autograd.grad(loss, leaves,
+                                                   retain_graph=True))
+        times[label] = (fwd, bwd)
+        del loss, leaves
+    print("(j)1 MoE block T=2048 forward / backward (CUDA events): "
+          + "; ".join(f"{k} {f:.3f} / {b:.3f} ms" for k, (f, b)
+                      in times.items())
+          + f" (dispatch at capacity factor {cfg.capacity_factor}); {card}",
+          flush=True)
+    del p, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_train_steps(rows: list[dict], card: str) -> None:
+    """(j)2: ``Trainer.run()`` at Mixtral width, 2 layers (fp32 params,
+    AdamW, ``fused_kernels="auto"``, ``attn_impl="pallas"``,
+    ``nothing_saveable`` remat, synthetic 2 x 2048 batches), 6 steps: loss,
+    grad norm and ``aux_loss`` finite every step, each layer's balance loss
+    near k, rows 1–3 and 6–11 launched at their per-step counts; then 2
+    steps with ``fused_kernels="off"`` (flash kernels, the plain CE) whose
+    losses track the first two within TRAIN_LOSS_REL."""
+    import tempfile
+
+    from kubeflow_tpu_torch.models.config import preset
+
+    mcfg = preset("mixtral-8x7b", **TRAIN_MOE_MODEL)
+    k = mcfg.experts_per_token
+    work = tempfile.mkdtemp(prefix=".chip_smoke_train_",
+                            dir=Path(__file__).resolve().parent)
+    try:
+        runs = {}
+        for fused, steps in (("auto", 6), ("off", 2)):
+            label = f"(j)2 mixtral train fused_kernels={fused!r}"
+            os.makedirs(os.path.join(work, fused))
+            runs[fused] = _counted_run(
+                _trainer_cfg(steps=steps, name="mixtral-8x7b",
+                             base=TRAIN_MOE_MODEL, fused_kernels=fused),
+                os.path.join(work, fused), label)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    on, off = runs["auto"], runs["off"]
+    for step, m in on["steps"].items():
+        per_layer = m["aux_loss"] / mcfg.n_layers / k
+        if not MOE_AUX_PER_LAYER[0] <= per_layer <= MOE_AUX_PER_LAYER[1]:
+            fail(f"(j)2 step {step}: aux_loss {m['aux_loss']:.4f} is "
+                 f"{per_layer:.3f} k per layer, outside {MOE_AUX_PER_LAYER}")
+    rels = [abs(off["steps"][s]["loss"] - on["steps"][s]["loss"])
+            / abs(on["steps"][s]["loss"]) for s in (1, 2)]
+    last = on["steps"][6]
+    billions = mcfg.num_params() / 1e9
+    print(f"(j)2 mixtral-8x7b train, {mcfg.n_layers} layers ({billions:.3f} "
+          f"B params), 2 x 2048 tokens a step: step "
+          f"{last.get('step_time_ms', float('nan')):.1f} ms, "
+          f"{last.get('tokens_per_sec', float('nan')):.0f} tokens/s, MFU "
+          f"{last.get('mfu', float('nan')):.4f}, peak "
+          f"{on['peak'] / 2**30:.2f} GiB allocated; aux_loss "
+          f"{[round(m['aux_loss'], 4) for _, m in sorted(on['steps'].items())]}"
+          f"; fused off vs on, loss rel at steps 1, 2: "
+          f"{rels[0]:.3e}, {rels[1]:.3e} (tolerance {TRAIN_LOSS_REL:g}); "
+          f"{card}", flush=True)
+    if not all(r <= TRAIN_LOSS_REL for r in rels):
+        fail("(j)2: the fused-off steps do not track the fused-on steps")
+    for name, n in on["launches"].items():
+        _add_launches(rows, name, n)
+
+
+def run_train_worker(entrypoint: str, config: dict, workdir: str,
+                     label: str, timeout: float = 600.0) -> tuple:
+    """``python -m kubeflow_tpu_torch.runtime.worker_main`` with
+    ``entrypoint`` and ``config`` on the card, to its exit; returns (rows
+    of its ``metrics.jsonl``, seconds). Fails unless it exits 0."""
+    import tempfile
+
+    from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv
+
+    repo = Path(__file__).resolve().parent
+    wenv = WorkerEnv(coordinator_address="127.0.0.1:0", num_processes=1,
+                     process_id=0, job=f"default/{label}", replica_index=0,
+                     entrypoint=entrypoint, config=config, parallelism={},
+                     platform=WORKER_PLATFORM, workdir=workdir)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KFTPU_")}
+    env.update(wenv.to_env())
+    env["PYTHONPATH"] = str(repo)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile() as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.runtime.worker_main"],
+            cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+            rc = None
+        if rc != 0:
+            log.seek(0)
+            print(f"{label} log (tail):\n"
+                  + log.read().decode(errors="replace")[-4000:],
+                  file=sys.stderr, flush=True)
+            fail(f"{label}: exit code {rc}")
+    path = Path(workdir) / "metrics.jsonl"
+    rows = [json.loads(x) for x in path.read_text().splitlines()]
+    return rows, time.perf_counter() - t0
+
+
+def moe_train_worker(card: str) -> None:
+    """(j)3: ``llm_pretrain`` through ``runtime.worker_main`` at Mixtral
+    width and 1 layer (its step-3 checkpoint, params and Adam state, is
+    20.56 GB, a 4-layer Llama-3-8B's size): 3 steps, a checkpoint at step 3, exit 0,
+    ``metrics.jsonl`` with 3 lines of finite ``loss`` and ``aux_loss``.
+    Then a ``model_server`` worker loads the checkpoint's params through
+    ``file://`` as bf16 and serves two prompts; its greedy tokens must
+    equal an in-process engine's on the same checkpoint."""
+    import tempfile
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.serve.storage import load_params
+
+    work = tempfile.mkdtemp(prefix=".chip_smoke_train_",
+                            dir=Path(__file__).resolve().parent)
+    ckpt = os.path.join(work, "ckpt")
+    overrides = {"n_layers": 1}
+    conf = {"model": "mixtral-8x7b",
+            "model_overrides": {**TRAIN_MOE_MODEL, **overrides},
+            "data": dict(TRAIN_DATA), "steps": 3, "log_every": 1,
+            "seed": SEED, "attn_impl": "pallas",
+            "optimizer": {"learning_rate": 3e-4, "warmup_steps": 1},
+            "checkpoint_dir": ckpt, "checkpoint_every": 3,
+            "max_checkpoints": 1, "emergency_checkpointing": False}
+    model = {"preset": "mixtral-8x7b",
+             "overrides": {**overrides, "param_dtype": "bfloat16"}}
+    batching = dict(max_batch_size=2, max_seq_len=1024,
+                    prefill_attn_impl="pallas", weights_dtype="bfloat16")
+    tok = TokenIdText()
+    texts = [text(90, 95), text(400, 96)]
+    try:
+        os.makedirs(os.path.join(work, "train"))
+        rows, secs = run_train_worker("llm_pretrain", conf,
+                                      os.path.join(work, "train"),
+                                      "moe pretrain worker", timeout=900)
+        size = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
+                   if f.is_file())
+        print(f"(j)3 llm_pretrain worker (mixtral-8x7b width, 1 layer): exit "
+              f"0 in {secs:.1f} s; checkpoint steps {sorted(os.listdir(ckpt))}"
+              f" ({size / 1e9:.2f} GB); metrics "
+              + "; ".join(f"step {r['step']} loss {r['loss']:.5f} aux_loss "
+                          f"{r['aux_loss']:.5f}" for r in rows), flush=True)
+        if [r["step"] for r in rows] != [1, 2, 3] or not all(
+                math.isfinite(r["loss"]) and math.isfinite(r["aux_loss"])
+                for r in rows):
+            fail(f"(j)3: metrics.jsonl has {rows}")
+        t0 = time.perf_counter()
+        proc, url, log = spawn_worker(batching, "moe_file_worker",
+                                      model=model, service="mixtral",
+                                      storage_uri=f"file://{ckpt}")
+        ok = False
+        try:
+            # The in-process reference loads the same checkpoint while the
+            # worker starts.
+            cfg = preset(model["preset"], **model["overrides"])
+            params = load_params(f"file://{ckpt}", cfg, device="cuda")
+            eng = LLMEngine(cfg, BatchingSpec(**batching), params=params,
+                            device="cuda")
+            want = [eng.generate(tok.encode(b),
+                                 SamplingParams(max_new_tokens=16))
+                    for b in texts]
+            del eng, params
+            t_ready = wait_ready(proc, url, "moe file:// worker", t0)
+            served = []
+            for body in texts:
+                raw = _post(url + "/v1/completions",
+                            {"prompt": body, "max_tokens": 16})[1]
+                served.append([int(x) for x in json.loads(raw)[
+                    "choices"][0]["text"].split()])
+            sigterm_worker(proc, url, "moe file:// worker")
+            ok = True
+        finally:
+            reap_worker(proc, log, "moe file:// worker", ok)
+        print(f"(j)3 model_server worker on the file:// checkpoint (bf16): "
+              f"ready in {t_ready:.1f} s; greedy tokens "
+              f"{'identical to' if served == want else 'DIFFER from'} the "
+              f"in-process engine's: {served}", flush=True)
+        if served != want:
+            fail(f"(j)3: worker tokens {served} != in-process {want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def vision_workers(card: str) -> None:
+    """(j)4: ``vision_train`` through ``runtime.worker_main``: ViT-L/16 and
+    CLIP-L/14, batch 8, 4 steps each, exit 0 and every ``metrics.jsonl``
+    value finite; the first step's bf16 loss within VISION_LOSS_REL of an
+    fp32 evaluation in process of the same seeded init and batch; step ms
+    of each."""
+    import dataclasses
+    import tempfile
+
+    from kubeflow_tpu_torch.models import vision as V
+    from kubeflow_tpu_torch.train import vision_task as VT
+
+    for family, name in VISION_JOBS:
+        with tempfile.TemporaryDirectory() as wd:
+            rows, secs = run_train_worker(
+                "vision_train", {"family": family, "model": name,
+                                 "steps": VISION_STEPS,
+                                 "batch": VISION_BATCH}, wd,
+                f"vision {name} worker")
+        if len(rows) != VISION_STEPS or not all(
+                math.isfinite(v) for r in rows for v in r.values()):
+            fail(f"(j)4 {name}: metrics {rows}")
+        if family == "vit":
+            cfg = V.vit_preset(name)
+            f32 = dataclasses.replace(cfg, dtype="float32")
+            init, loss_fn, batch = (V.init_vit_params, V.vit_loss,
+                                    VT.vit_batch(cfg, VISION_BATCH, 0))
+        else:
+            cfg = V.clip_preset(name)
+            f32 = dataclasses.replace(cfg, dtype="float32", image=(
+                dataclasses.replace(cfg.image, dtype="float32")))
+            init, loss_fn, batch = (V.init_clip_params, V.clip_loss,
+                                    VT.clip_batch(cfg, VISION_BATCH, 0))
+        params = init(torch.Generator("cuda").manual_seed(0), cfg)
+        with torch.no_grad():
+            ref, _ = loss_fn(params, {k: torch.from_numpy(v).cuda()
+                                      for k, v in batch.items()}, f32)
+        ref = float(ref)
+        rel = abs(rows[0]["loss"] - ref) / abs(ref)
+        del params
+        torch.cuda.empty_cache()
+        print(f"(j)4 vision_train {name} worker: exit 0 in {secs:.1f} s; "
+              f"losses {[round(r['loss'], 5) for r in rows]}; step ms "
+              f"{[round(r['step_time_ms'], 1) for r in rows]}; first loss "
+              f"{rows[0]['loss']:.6f} vs fp32 in process {ref:.6f} (rel "
+              f"{rel:.3e}, tolerance {VISION_LOSS_REL:g}); {card}",
+              flush=True)
+        if not rel <= VISION_LOSS_REL:
+            fail(f"(j)4 {name}: the worker's first loss is off the fp32 one")
+
+
+def phase_train_moe(rows: list[dict], card: str) -> None:
+    """(j): MoE training and the training entry points — the block's
+    gradients, Mixtral-width training through ``Trainer.run()``,
+    ``llm_pretrain`` and a ``file://`` serve of its checkpoint, and
+    ``vision_train``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("train moe block", moe_train_block, card)
+    timed_phase("train moe steps", moe_train_steps, rows, card)
+    timed_phase("train moe worker", moe_train_worker, card)
+    timed_phase("vision workers", vision_workers, card)
+
+
 def timed_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -5578,6 +6031,12 @@ def main() -> int:
         print(f"chip_smoke: moe phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] == ["--train-moe-only"]:
+        timed_phase("xent edges", phase_xent_edges)
+        timed_phase("train moe", phase_train_moe, [], card)
+        print(f"chip_smoke: train-moe phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] in (["--flash-only"], ["--paged-only"],
                         ["--xent-only"], ["--norm-only"]):
         # One family of kernels alone: its rows, then its edge cases.
@@ -5620,6 +6079,7 @@ def main() -> int:
     timed_phase("many models", phase_many_models, card)
     timed_phase("spec", phase_spec, rows, card, uniform_tpot)
     timed_phase("moe", phase_moe, rows, card)
+    timed_phase("train moe", phase_train_moe, rows, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

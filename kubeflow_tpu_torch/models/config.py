@@ -40,7 +40,7 @@ class DecoderConfig:
     norm_plus_one: bool = False    # gemma-style (1 + w) RMSNorm weight
     embed_scale: bool = False      # gemma-style sqrt(hidden) embedding scale
     logits_softcap: Optional[float] = None   # gemma-2 style tanh softcap
-    # MoE (0 => dense). The port's MoE block arrives with a later slice.
+    # MoE (0 => dense): models/layers.py's MoE block, served and trained.
     num_experts: int = 0
     experts_per_token: int = 2
     moe_impl: str = "dispatch"

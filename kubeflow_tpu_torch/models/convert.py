@@ -11,7 +11,9 @@ MoE tree's ``layers.mlp.router [L,D,E]``, ``gate/up [L,E,D,M]`` and
 and ``scale`` fields: int8 payload and fp32 scales) becomes the port's
 ``ops.quantization.QuantizedTensor``. A list-of-blocks ``layers`` (the
 JAX ``scan_layers=False`` layout) is stacked into the ``[L, ...]`` layout
-the port's forward walks.
+the port's forward walks. A vision tree (``kubeflow_tpu.models.vision``:
+ViT, or CLIP's ``image``/``text`` towers) comes across the same way, every
+key kept; ``models/vision.py`` walks its stacked or listed blocks.
 
 ``opt_state_from_jax`` does the same for an optimizer state: the optax
 chain state of ``kubeflow_tpu.train.optim.make_optimizer`` (its

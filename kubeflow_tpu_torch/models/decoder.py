@@ -6,15 +6,17 @@ scale, GeGLU, tied embeddings, logit softcap) and Mixtral (top-k MoE
 blocks) through ``DecoderConfig`` flags. ``init_decoder_params(...,
 quantize="int8")`` packs each layer's matmul weights into int8 as it draws
 them (``ops/quantization.py``), so a model whose full-dtype weights would
-not fit the card never holds them there. MoE training (the balance loss in
-``decoder_loss``) arrives with the next slice. Layers are stacked on a leading ``[L, ...]`` axis exactly as the JAX
-package's scanned layout, and traversed with a Python loop over per-layer
-views. While autograd records (training, no cache), each layer is
-rematerialized per ``cfg.remat_policy`` through
-``torch.utils.checkpoint`` (``_remat``). ``decoder_loss`` is the
-next-token cross-entropy with the fused (``ops/fused_xent.py``, kernels
-9–11, with fused kernels on), chunked (``_chunked_ce``) and dense
-branches.
+not fit the card never holds them there. Layers are stacked on a leading
+``[L, ...]`` axis exactly as the JAX package's scanned layout, and
+traversed with a Python loop over per-layer views. While autograd records
+(training, no cache), each layer is rematerialized per
+``cfg.remat_policy`` through ``torch.utils.checkpoint`` (``_remat``).
+``decoder_loss`` is the next-token cross-entropy with the fused
+(``ops/fused_xent.py``, kernels 9–11, with fused kernels on), chunked
+(``_chunked_ce``) and dense branches; an MoE config adds
+``aux_loss_weight`` times the MoE blocks' balance loss summed over the
+layers (``_forward`` carries it out; ``decoder_forward`` keeps its
+two-tuple for the serving callers).
 """
 
 from __future__ import annotations
@@ -55,29 +57,33 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None) -> Any:
     into ``[L, ...]`` leaves: only one layer's draw is alive at once, so a
     full-width model never holds its fp32 draws all together. ``quant``
     (leaf name → stacked contraction dims, or None) quantizes each named
-    leaf as its layer is drawn: per-output-channel scales never reduce
-    over the layer axis, so the result is bit for bit the quantization of
-    the stacked draw."""
-    def draw():
-        tree = make()
-        if quant is None:
-            return tree
-        return {k: t if quant.get(k) is None else
-                quantize_weight(t, tuple(d - 1 for d in quant[k]))
-                for k, t in tree.items()}
+    leaf as soon as it is drawn (``make(post)`` maps each leaf through
+    ``post`` before drawing the next): only one leaf's full-dtype draw is
+    alive at once. Per-output-channel scales never reduce over the layer
+    axis, so the result is bit for bit the quantization of the stacked
+    draw."""
+    def post(name: str, t):
+        if quant is None or quant.get(name) is None:
+            return t
+        return quantize_weight(t, tuple(d - 1 for d in quant[name]))
 
-    first = draw()
-    if isinstance(first, dict):
-        out = {k: _empty_like_stacked(n, t) for k, t in first.items()}
-        for i in range(n):
-            tree = first if i == 0 else draw()
+    def draw():
+        return make(post)
+
+    # Layer 0's draw shapes the stacks, is copied in, then dropped: no
+    # layer's draw outlives its copy.
+    tree = draw()
+    out = ({k: _empty_like_stacked(n, t) for k, t in tree.items()}
+           if isinstance(tree, dict) else _empty_like_stacked(n, tree))
+    for i in range(n):
+        if i:
+            tree = draw()
+        if isinstance(tree, dict):
             for k, t in tree.items():
                 _copy_layer(out[k], i, t)
-            del tree
-        return out
-    out = _empty_like_stacked(n, first)
-    for i in range(n):
-        _copy_layer(out, i, first if i == 0 else make())
+        else:
+            _copy_layer(out, i, tree)
+        del tree
     return out
 
 
@@ -107,12 +113,13 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
     init_mlp = L.init_moe if cfg.is_moe else L.init_mlp
     mlp_names = ("router", "gate", "up", "down")
     params["layers"] = {
-        "attn": _stacked(gen, n, lambda: L.init_attention(gen, cfg, dt),
+        "attn": _stacked(gen, n,
+                         lambda post: L.init_attention(gen, cfg, dt, post),
                          quant("attn", ("wq", "wk", "wv", "wo"))),
-        "mlp": _stacked(gen, n, lambda: init_mlp(gen, cfg, dt),
+        "mlp": _stacked(gen, n, lambda post: init_mlp(gen, cfg, dt, post),
                         quant("mlp", mlp_names)),
-        "ln1": _stacked(gen, n, lambda: L.init_rmsnorm(cfg, dev, dt)),
-        "ln2": _stacked(gen, n, lambda: L.init_rmsnorm(cfg, dev, dt)),
+        "ln1": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt)),
+        "ln2": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt)),
     }
     params["final_norm"] = L.init_rmsnorm(cfg, dev, dt)
     if not cfg.tie_embeddings:
@@ -129,28 +136,37 @@ def layer_view(layers: Any, i: int) -> Any:
     return layers[i]
 
 
+def _ffn_aux(bp: dict, h: torch.Tensor, cfg: DecoderConfig,
+             valid_len=None):
+    """The block's feed-forward half on the normed stream and its balance
+    loss: ``(moe_block out, aux)`` for an MoE config, ``(mlp out, None)``
+    for a dense one."""
+    if cfg.is_moe:
+        return L.moe_block(bp["mlp"], h, cfg, valid_len=valid_len)
+    return L.mlp_block(bp["mlp"], h, cfg), None
+
+
 def ffn(bp: dict, h: torch.Tensor, cfg: DecoderConfig,
         valid_len=None) -> torch.Tensor:
-    """The block's feed-forward half on the normed stream: the MoE block
-    for an MoE config (its balance loss is dropped: serving), else the
-    dense MLP."""
-    if cfg.is_moe:
-        return L.moe_block(bp["mlp"], h, cfg, valid_len=valid_len)[0]
-    return L.mlp_block(bp["mlp"], h, cfg)
+    """``_ffn_aux``'s output alone: the serving steps, which need no
+    balance loss."""
+    return _ffn_aux(bp, h, cfg, valid_len)[0]
 
 
 def _block_forward(bp: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: DecoderConfig, kv_cache: Optional[dict] = None,
                    attn_impl: str = "xla", prefill: bool = False,
                    lora: Optional[dict] = None, valid_len=None):
+    """One decoder block: ``(x, new_cache, aux)``, aux the MoE block's
+    balance loss (None for a dense config)."""
     h = L.rmsnorm(x, bp["ln1"], cfg)
     attn_out, new_cache = L.attention_block(
         bp["attn"], h, positions, cfg, kv_cache=kv_cache,
         attn_impl=attn_impl, prefill=prefill, lora=lora)
     # Residual add + second norm as ONE op (one kernel pass when on).
     x, h = L.add_rmsnorm(x, attn_out, bp["ln2"], cfg)
-    x = x + ffn(bp, h, cfg, valid_len)
-    return x, new_cache
+    out, aux = _ffn_aux(bp, h, cfg, valid_len)
+    return x + out, new_cache, aux
 
 
 #: Remat policies ``_remat`` runs; the JAX package's others are queued.
@@ -189,7 +205,30 @@ def decoder_forward(
     lora: Optional[dict] = None,
     valid_len=None,
 ):
-    """Returns (logits [B,S,V] float32, new_kv_caches|None). With
+    """``_forward`` without the balance loss: (logits or hidden states,
+    new caches), what the serving callers unpack."""
+    return _forward(params, tokens, cfg, positions=positions,
+                    kv_caches=kv_caches, attn_impl=attn_impl,
+                    skip_head=skip_head, inputs_embeds=inputs_embeds,
+                    lora=lora, valid_len=valid_len)[:2]
+
+
+def _forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: DecoderConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    kv_caches: Optional[dict] = None,
+    attn_impl: str = "xla",
+    skip_head: bool = False,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    lora: Optional[dict] = None,
+    valid_len=None,
+):
+    """Returns (logits [B,S,V] float32, new_kv_caches|None, aux): aux is
+    the MoE blocks' balance loss summed over the layers (fp32, 0-dim), None
+    for a dense config. With
     ``skip_head``, returns the final-norm hidden states [B,S,D] instead of
     logits. A cache is written in place: the returned caches hold the same
     tensors with ``len`` advanced. ``kv_caches["prefill"] = True`` marks a
@@ -225,6 +264,7 @@ def decoder_forward(
     # rematerialized per ``cfg.remat_policy``; its params reach autograd
     # through the closure. A cache is written in place.
     train = kv_caches is None and torch.is_grad_enabled()
+    per_layer_aux = []
     for i in range(cfg.n_layers):
         cache = None
         if kv_caches is not None:
@@ -233,19 +273,28 @@ def decoder_forward(
 
         def block(x, bp=layer_view(params["layers"], i), cache=cache,
                   lr=L.index_layer(lora, i)):
-            return _block_forward(bp, x, positions, cfg, kv_cache=cache,
-                                  attn_impl=attn_impl, prefill=prefill,
-                                  lora=lr, valid_len=valid_len)[0]
+            # An MoE block's balance loss leaves the (rematerialized)
+            # block beside its output.
+            x, _, aux = _block_forward(bp, x, positions, cfg,
+                                       kv_cache=cache, attn_impl=attn_impl,
+                                       prefill=prefill, lora=lr,
+                                       valid_len=valid_len)
+            return x if aux is None else (x, aux)
 
         x = (_remat(block, cfg.remat_policy) if train else block)(x)
+        if cfg.is_moe:
+            x, aux = x
+            per_layer_aux.append(aux)
     if kv_caches is not None:
         new_caches = {"k": kv_caches["k"], "v": kv_caches["v"],
                       "len": int(kv_caches["len"]) + s}
+    # The JAX sum: the per-layer losses stacked, then reduced.
+    aux_total = torch.stack(per_layer_aux).sum() if per_layer_aux else None
 
     x = L.rmsnorm(x, params["final_norm"], cfg)
     if skip_head:
-        return x, new_caches
-    return lm_head(params, x, cfg), new_caches
+        return x, new_caches, aux_total
+    return lm_head(params, x, cfg), new_caches, aux_total
 
 
 def lm_head(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
@@ -311,25 +360,24 @@ def decoder_loss(
     *,
     loss_mask: Optional[torch.Tensor] = None,   # [B, S] 1.0 = count it
     attn_impl: str = "xla",
+    aux_loss_weight: float = 0.01,
 ):
-    """Next-token cross-entropy in fp32. Returns ``(loss, metrics)`` with
-    ``ce_loss``, ``aux_loss``, ``tokens`` and ``accuracy`` (detached).
+    """Next-token cross-entropy in fp32, plus ``aux_loss_weight`` times the
+    MoE blocks' balance loss (summed over layers) for an MoE config.
+    Returns ``(loss, metrics)`` with ``ce_loss``, ``aux_loss`` (0 for a
+    dense config), ``tokens`` and ``accuracy`` (detached).
 
     Loss-path selection as in the JAX package: with fused kernels on
     (``layers.fused_kernels_on``) the fused CE (``fused_xent``, kernels
     9–11), which never materializes the [B, S, V] logits on the card;
     otherwise ``cfg.loss_chunk_size`` streams the head in sequence chunks,
     and the dense branch materializes the full logits."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE training (the balance loss in decoder_loss) arrives with "
-            "the MoE training slice (ROADMAP.md)")
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     fused = L.fused_kernels_on(cfg, inputs)
     if fused or cfg.loss_chunk_size:
-        hidden, _ = decoder_forward(params, inputs, cfg, attn_impl=attn_impl,
-                                    skip_head=True)
+        hidden, _, aux = _forward(params, inputs, cfg, attn_impl=attn_impl,
+                                  skip_head=True)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         head = head.to(hidden.dtype)
         if fused:
@@ -338,7 +386,7 @@ def decoder_loss(
         else:
             nll, correct = _chunked_ce(hidden, head, targets, cfg)
     else:
-        logits, _ = decoder_forward(params, inputs, cfg, attn_impl=attn_impl)
+        logits, _, aux = _forward(params, inputs, cfg, attn_impl=attn_impl)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         correct = (logits.argmax(-1) == targets).float()
@@ -347,11 +395,15 @@ def decoder_loss(
     loss_mask = loss_mask.to(nll.dtype)
     denom = torch.clamp(loss_mask.sum(), min=1.0)
     ce = (nll * loss_mask).sum() / denom
-    aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
+        loss = ce
+    else:
+        loss = ce + aux_loss_weight * aux
     metrics = {
         "ce_loss": ce.detach(),
-        "aux_loss": aux,
+        "aux_loss": aux.detach(),
         "tokens": denom.detach(),
         "accuracy": ((correct * loss_mask).sum() / denom).detach(),
     }
-    return ce, metrics
+    return loss, metrics

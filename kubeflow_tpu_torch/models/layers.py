@@ -34,7 +34,11 @@ def _init(gen: torch.Generator, shape, dtype: torch.dtype,
     scale = scale if scale is not None else fan_in ** -0.5
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * scale).to(dtype)
+    return t.mul_(scale).to(dtype)
+
+
+def _keep(name: str, t):
+    return t
 
 
 def weight(w, dt: torch.dtype) -> torch.Tensor:
@@ -176,15 +180,19 @@ def index_layer(lora: Optional[dict], i: int) -> Optional[dict]:
 
 # -- Attention block -----------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: DecoderConfig, dtype=None) -> dict:
+def init_attention(gen: torch.Generator, cfg: DecoderConfig, dtype=None,
+                   post=_keep) -> dict:
+    """``post(name, leaf)`` maps each leaf as soon as it is drawn (the
+    quantized draw packs it there), before the next draw; likewise for
+    ``init_mlp`` and ``init_moe``."""
     dt = dtype or cfg.weight_dtype
     d = cfg.hidden
     return {
-        "wq": _init(gen, (d, cfg.n_heads, cfg.head_dim), dt),
-        "wk": _init(gen, (d, cfg.n_kv_heads, cfg.head_dim), dt),
-        "wv": _init(gen, (d, cfg.n_kv_heads, cfg.head_dim), dt),
-        "wo": _init(gen, (cfg.n_heads, cfg.head_dim, d), dt,
-                    scale=(cfg.n_heads * cfg.head_dim) ** -0.5),
+        "wq": post("wq", _init(gen, (d, cfg.n_heads, cfg.head_dim), dt)),
+        "wk": post("wk", _init(gen, (d, cfg.n_kv_heads, cfg.head_dim), dt)),
+        "wv": post("wv", _init(gen, (d, cfg.n_kv_heads, cfg.head_dim), dt)),
+        "wo": post("wo", _init(gen, (cfg.n_heads, cfg.head_dim, d), dt,
+                               scale=(cfg.n_heads * cfg.head_dim) ** -0.5)),
     }
 
 
@@ -265,13 +273,14 @@ def attention_block(
 
 # -- MLP -----------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: DecoderConfig, dtype=None) -> dict:
+def init_mlp(gen: torch.Generator, cfg: DecoderConfig, dtype=None,
+             post=_keep) -> dict:
     dt = dtype or cfg.weight_dtype
     d, m = cfg.hidden, cfg.mlp_dim
     return {
-        "gate": _init(gen, (d, m), dt),
-        "up": _init(gen, (d, m), dt),
-        "down": _init(gen, (m, d), dt, scale=m ** -0.5),
+        "gate": post("gate", _init(gen, (d, m), dt)),
+        "up": post("up", _init(gen, (d, m), dt)),
+        "down": post("down", _init(gen, (m, d), dt, scale=m ** -0.5)),
     }
 
 
@@ -288,14 +297,15 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
 
 # -- MoE -----------------------------------------------------------------------
 
-def init_moe(gen: torch.Generator, cfg: DecoderConfig, dtype=None) -> dict:
+def init_moe(gen: torch.Generator, cfg: DecoderConfig, dtype=None,
+             post=_keep) -> dict:
     dt = dtype or cfg.weight_dtype
     d, m, e = cfg.hidden, cfg.mlp_dim, cfg.num_experts
     return {
-        "router": _init(gen, (d, e), dt),
-        "gate": _init(gen, (e, d, m), dt, scale=d ** -0.5),
-        "up": _init(gen, (e, d, m), dt, scale=d ** -0.5),
-        "down": _init(gen, (e, m, d), dt, scale=m ** -0.5),
+        "router": post("router", _init(gen, (d, e), dt)),
+        "gate": post("gate", _init(gen, (e, d, m), dt, scale=d ** -0.5)),
+        "up": post("up", _init(gen, (e, d, m), dt, scale=d ** -0.5)),
+        "down": post("down", _init(gen, (e, m, d), dt, scale=m ** -0.5)),
     }
 
 
@@ -378,8 +388,22 @@ def _valid_rows(valid_len, b: int, s: int, device) -> torch.Tensor:
 
 def _expert_ffn(buf: torch.Tensor, p: dict, cfg: DecoderConfig,
                 dt: torch.dtype) -> torch.Tensor:
-    """``act(buf @ gate) * up`` then ``@ down``, per expert: buf [E,N,D] →
-    [E,N,D] (``"ecd,edm->ecm"`` and ``"ecm,emd->ecd"``)."""
+    """``act(buf @ gate) * up`` then ``@ down``, per expert: buf [E,N,D]
+    (or [1,N,D], every expert on the same rows) → [E,N,D]
+    (``"ecd,edm->ecm"`` and ``"ecm,emd->ecd"``). Tensor weights run three
+    batched products. int8 experts (``QuantizedTensor``) dequantize one
+    expert's matrix at a time, each freed once its product returns, so a
+    forward never holds a dequantized ``[E, D, M]`` stack."""
+    if isinstance(p["gate"], QuantizedTensor):
+        out = torch.empty((p["gate"].shape[0],) + buf.shape[1:], dtype=dt,
+                          device=buf.device)
+        for i in range(out.shape[0]):
+            xe = buf[0 if buf.shape[0] == 1 else i]
+            gate = fused_norm.act_ref(xe @ p["gate"][i].dequant(dt),
+                                      cfg.hidden_act)
+            h = gate * (xe @ p["up"][i].dequant(dt))
+            out[i] = h @ p["down"][i].dequant(dt)
+        return out
     gate = fused_norm.act_ref(torch.matmul(buf, weight(p["gate"], dt)),
                               cfg.hidden_act)
     up = torch.matmul(buf, weight(p["up"], dt))

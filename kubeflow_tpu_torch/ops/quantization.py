@@ -68,11 +68,33 @@ class QuantizedTensor:
                 + self.scale.numel() * self.scale.element_size())
 
 
+#: Elements of ``w`` that ``quantize_weight`` widens to fp32 at a time.
+QUANT_CHUNK = 1 << 26
+
+
 def quantize_weight(w: torch.Tensor,
                     contraction_dims: tuple[int, ...]) -> QuantizedTensor:
     """Per-output-channel symmetric int8 over ``w``'s non-contraction dims.
     Exact for zero weights; max relative error about 1/254 of the
-    channel's amax."""
+    channel's amax. Channels are independent, so a weight larger than
+    ``QUANT_CHUNK`` elements is packed in slices along its first channel
+    dim, bit for bit the whole-tensor result: its fp32 working copy never
+    exceeds one slice (an expert's matrix of a stacked MoE leaf)."""
+    dims = tuple(contraction_dims)
+    free = [d for d in range(w.dim()) if d not in dims and w.shape[d] > 1]
+    if w.numel() > QUANT_CHUNK and free:
+        d = free[0]
+        step = max(1, QUANT_CHUNK // (w.numel() // w.shape[d]))
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty([1 if i in dims else n
+                             for i, n in enumerate(w.shape)],
+                            dtype=torch.float32, device=w.device)
+        for s0 in range(0, w.shape[d], step):
+            n = min(step, w.shape[d] - s0)
+            part = quantize_weight(w.narrow(d, s0, n), dims)
+            q.narrow(d, s0, n).copy_(part.q)
+            scale.narrow(d, s0, n).copy_(part.scale)
+        return QuantizedTensor(q, scale)
     wf = w.to(torch.float32, copy=True)
     amax = wf.abs().amax(dim=contraction_dims, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / 127.0

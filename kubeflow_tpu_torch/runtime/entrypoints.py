@@ -80,9 +80,11 @@ def resolve_entrypoint(name: str) -> EntrypointFn:
 
 
 def _ensure_builtin() -> None:
-    # The serving entrypoint self-registers on import (the train
-    # entrypoints arrive with a later slice).
+    # The trainer (llm_pretrain, vision_train), adapter (torch_train) and
+    # serving (model_server) entrypoints self-register on import.
     import kubeflow_tpu_torch.serve.model_server  # noqa: F401
+    import kubeflow_tpu_torch.train.adapters  # noqa: F401
+    import kubeflow_tpu_torch.train.entrypoints  # noqa: F401
 
 
 # -- trivial built-ins used by tests and smoke runs ----------------------------

@@ -132,6 +132,6 @@ def _memory_note(device: str) -> str:
         return ""
     import torch
 
+    peak = torch.cuda.max_memory_allocated()
     return (f"; device memory {torch.cuda.memory_allocated() / 2**30:.2f} "
-            f"GiB allocated, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-            " GiB")
+            f"GiB allocated, peak {peak / 2**30:.2f} GiB ({peak} bytes)")

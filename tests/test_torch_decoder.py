@@ -169,13 +169,14 @@ def test_params_from_jax_stacks_lists_and_reads_bfloat16():
     assert np.array_equal(wq.float().numpy(), want)
 
 
-def test_moe_lora_and_sequence_parallel_raise():
-    # MoE decoders are served now (tests/test_torch_moe.py); their training
-    # loss is the next slice's.
+def test_moe_trains_lora_serves_and_sequence_parallel_raises():
+    # MoE decoders are served and trained now (tests/test_torch_moe.py,
+    # tests/test_torch_moe_train.py): the loss carries the balance loss.
     moe = tconfig.preset("tiny-moe", dtype="float32")
     mp = tdec.init_decoder_params(torch.Generator(), moe)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        tdec.decoder_loss(mp, torch.zeros((1, 5), dtype=torch.long), moe)
+    loss, m = tdec.decoder_loss(mp, torch.zeros((1, 5), dtype=torch.long),
+                                moe)
+    assert torch.isfinite(loss) and float(m["aux_loss"]) > 0
     _, tcfg = _configs("tiny")
     params = tdec.init_decoder_params(torch.Generator().manual_seed(0), tcfg)
     toks = torch.zeros((1, 4), dtype=torch.long)

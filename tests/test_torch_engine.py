@@ -349,7 +349,7 @@ def test_background_loop_streams(params, cfg):
     {"role": "decode", "speculative": {"mode": "ngram"}, "quantize": "int8"},
     {"lora": {"max_adapters": 2}, "quantize": "int8"},
     {"speculative": {"mode": "ngram"}, "quantize": "int8"}])
-def test_later_slice_features_raise(overrides, cfg, tmp_path):
+def test_later_slice_features_build_with_int8_weights(overrides, cfg, tmp_path):
     if "remote_kv_root" in overrides:
         overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
     eng = E.LLMEngine(cfg, _spec(**overrides), device="cpu")
@@ -405,7 +405,7 @@ def test_int8_kv_needs_the_page_pool(cfg):
                                         kv_cache_dtype="int8"))
 
 
-def test_moe_and_mesh_raise(cfg):
+def test_moe_serves_and_mesh_raises(cfg):
     # MoE models are served now (tests/test_torch_moe.py); a mesh is the
     # multi-GPU slice's.
     moe = E.LLMEngine(tconfig.preset("tiny-moe"), _spec(), device="cpu")

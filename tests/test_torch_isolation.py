@@ -49,6 +49,10 @@ SLICE_MODULES = (
     # model repository, and the gRPC front end with its messages
     "serve.lora", "serve.repository", "serve.grpc_server",
     "serve.protos.oip_pb2",
+    # MoE training and the training entry points: the vision models and
+    # task, and the copy of the jax-free torch_train adapter
+    "models.vision", "train.vision_task", "train.entrypoints",
+    "train.adapters",
 )
 #: The optional gRPC dependency, and the only modules that may import it.
 GRPC_ROOTS = ("grpc", "google")

@@ -17,7 +17,10 @@ weights carried across by ``convert.params_from_jax``, fp32, ``tiny-moe``:
   spec engine on prompts sure to draft gives them too;
 - the dispatch prefill is batch independent, its pads claim no capacity,
   unknown impls raise with JAX's messages, and a worker serves from a
-  JAX ``BatchingSpec`` dump."""
+  JAX ``BatchingSpec`` dump;
+- ``decoder_loss`` on ``tiny-moe`` gives a finite loss, the CE plus 0.01
+  times a nonzero balance loss (``tests/test_torch_moe_train.py`` holds
+  its value and gradients to JAX's)."""
 
 import dataclasses
 import json
@@ -223,7 +226,7 @@ def test_decoder_forward_equals_jax(cfgs, jparams, params, impl):
         close(tl, jl)
 
 
-def test_init_and_training_refusal(cfgs):
+def test_init_and_training_loss(cfgs):
     _, tc = cfgs
     p = tdecoder.init_decoder_params(torch.Generator().manual_seed(0), tc)
     mlp = p["layers"]["mlp"]
@@ -235,9 +238,13 @@ def test_init_and_training_refusal(cfgs):
     # The JAX init's fan-in scales: every expert product is 1/sqrt(fan_in).
     assert abs(float(mlp["gate"].std()) * tc.hidden ** 0.5 - 0.88) < 0.05
     assert abs(float(mlp["down"].std()) * tc.mlp_dim ** 0.5 - 0.88) < 0.05
-    toks = torch.zeros((1, 9), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        tdecoder.decoder_loss(p, toks, tc)
+    toks = torch.randint(0, tc.vocab_size, (1, 9),
+                         generator=torch.Generator().manual_seed(1))
+    loss, m = tdecoder.decoder_loss(p, toks, tc)
+    # An MoE loss is the CE plus 0.01 x the balance loss, which is nonzero.
+    assert torch.isfinite(loss) and float(m["aux_loss"]) > 0
+    assert abs(float(loss) - float(m["ce_loss"])
+               - 0.01 * float(m["aux_loss"])) <= 1e-6
 
 
 # -- engines ------------------------------------------------------------------------

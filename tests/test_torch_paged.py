@@ -649,7 +649,7 @@ def test_paged_engine_resolution_and_density(cfg, params, jcfg, jparams):
      "lora": {"max_adapters": 2}, "quantize": "int8"},
     {"host_kv_pages": 8, "remote_kv_root": "kv",
      "speculative": {"mode": "ngram"}, "quantize": "int8"}])
-def test_host_and_remote_tiers_raise(overrides, cfg, tmp_path):
+def test_host_and_remote_tiers_build_with_int8_weights(overrides, cfg, tmp_path):
     overrides = dict(overrides, remote_kv_root=str(tmp_path / "kv"))
     eng = E.LLMEngine(cfg, BatchingSpec(**_spec(**overrides)), device="cpu")
     try:

@@ -124,7 +124,7 @@ def test_estimate_model_bytes_matches_jax(case):
             jcfg, JBatchingSpec(**batch)) == 109_051_904
 
 
-def test_estimate_refuses_weight_quantization():
+def test_estimate_prices_weight_quantization():
     # int8 weights are served now: the estimate prices them packed, as the
     # JAX package's does (tests/test_torch_quantization.py covers more).
     spec = dict(max_batch_size=2, max_seq_len=64, quantize="int8")
