@@ -14,8 +14,8 @@ and backward rows, the RMSNorm backward's kernels timed apart, and their
 edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
 then (e), (f), (g), (h) and (i), without the kernel rows; ``--spec-only``
 runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
-``--train-moe-only`` phases 1, 2, the fused CE's edge cases and (j). Every
-phase prints its seconds.
+``--train-moe-only`` phases 1, 2, the fused CE's edge cases and (j),
+``--remat-only`` phases 1, 2 and (k). Every phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -116,9 +116,12 @@ Phases, each a hard failure:
 8. train: the same model through ``Trainer.run()`` (fp32 params, AdamW,
    the preset's ``fused_kernels="auto"``, which runs every kernel,
    ``nothing_saveable`` remat, synthetic 2 x 2048 batches): 6 steps
-   uninterrupted; at 2 layers 6 steps uninterrupted, then 3 steps that
-   checkpoint at step 3 and crash, then a second ``Trainer`` that resumes
-   from step 3 and finishes; loss and grad
+   uninterrupted; at 2 layers 6 steps uninterrupted, then 5 steps that
+   checkpoint at step 3 (asynchronously: steps 4 and 5 run while it is
+   written; the seconds of the save that overlapped training printed) and
+   crash after step 5, waiting for the step-3 commit, then a second
+   ``Trainer`` that resumes from step 3 and finishes with an asynchronous
+   step-6 save; loss and grad
    norm finite every step, the resumed step-6 loss within 1e-5 relative
    of the uninterrupted one, the same optimizer count and the same layer-0
    ``wq`` Adam moments at step 6, and every kernel of the path launched at
@@ -285,7 +288,18 @@ Phases, each a hard failure:
    and CLIP-L/14, batch 8, 4 steps: exit 0, every metric finite, the first
    bf16 loss within 1e-2 of an fp32 evaluation in process of the same
    seeded init and batch, step ms printed. The fused CE's edge cases
-   include Mixtral's vocabulary, V = 32000 (phase 3).
+   include Mixtral's vocabulary, V = 32000 (phase 3);
+15. (k) the seven remat policies at the train phase's width and depth
+   (Llama-3-8B, 4 layers, fp32 params and AdamW, ``fused_kernels="auto"``,
+   flash attention, 2 x 2048 tokens a step from a ``kind: "grain"`` source
+   over a token ``.npy`` drawn from the seed): ``Trainer.run()`` for 3
+   steps under each; the step-1 and step-3 losses within 1e-5 and the
+   step-1 grad norm within 1e-4 (relative) of ``"none"``'s; every
+   training kernel launched at its per-step count under that policy
+   (the flash forward L times a step under ``"none"`` and
+   ``"dots_flash"``, 2L under the others); the activation bytes one
+   forward keeps, the peak less the params' and Adam state's bytes, step
+   ms, tokens/s and MFU printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -600,13 +614,13 @@ def phase_kernels() -> list[dict]:
 def flash_fwd_rows() -> list[dict]:
     """Site 6: the flash forward at the prefill shape (B=1, H=32, KH=8,
     S=2048, D=128, causal; softcap too) against its plain version, timed
-    on the kernel layout (``FlashAttentionFn.apply``, like the SDPA
+    on the kernel layout (``flash_fwd_op``, like the SDPA
     yardstick beside it); the three [B, S, H, D] -> [B, H, S, D] copies
     that ``flash_attention`` adds are timed on a line of their own."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops.flash_attention import (
-        FlashAttentionFn, flash_attention, flash_ref,
+        flash_attention, flash_fwd_op, flash_ref,
     )
 
     gen = torch.Generator("cuda").manual_seed(SEED + 12)
@@ -643,8 +657,7 @@ def flash_fwd_rows() -> list[dict]:
         source="kubeflow_tpu_torch/csrc/flash_fwd.cu",
         replaces="kubeflow_tpu/ops/flash_attention.py:156",
         max_abs_err=e_fl,
-        ms=device_ms(lambda: FlashAttentionFn.apply(qt, kt, vt, True, scale,
-                                                    None, 0)),
+        ms=device_ms(lambda: flash_fwd_op(qt, kt, vt, True, scale, None, 0)),
         plain_ms=device_ms(lambda: flash_ref(qt, kt, vt, causal=True,
                                              sm_scale=scale, softcap=None,
                                              q_offset=0),
@@ -5254,21 +5267,27 @@ def _train_wrappers() -> dict:
             "fused_xent_bwd_dw": fx.dw_kernel}
 
 
-def _want_per_step(fused: bool, n_layers: int, moe: bool = False) -> dict:
-    """Launches per training step, derived from the code: each layer runs
-    under ``nothing_saveable`` remat, so its forward launches twice (the
+def _want_per_step(fused: bool, n_layers: int, moe: bool = False,
+                   policy: str = "nothing_saveable") -> dict:
+    """Launches per training step, derived from the code: under every remat
+    policy but ``"none"`` a layer's forward kernels launch twice (the
     forward and the backward's replay, which must reach the down
     projection: it saves the SwiGLU output; an MoE block's replay must
-    reach its balance loss, the block's last product); the final norm and
-    the CE run once, outside the layers. Backward: one RMSNorm backward per
-    norm (ln1, the residual ln2, the final norm), one SwiGLU, dK/dV and dQ
-    per layer, one CE backward (its d_hidden and d_head kernels) per step.
-    MoE experts run the plain activation, as the JAX experts do: no SwiGLU
-    kernel."""
+    reach its balance loss, the block's last product; ``block_outs``
+    replays each of its three stages, and each holds one of the kernels);
+    a selective policy keeps the products' outputs but replays the
+    kernels, and ``dots_flash`` also keeps the flash forward's ``(o,
+    lse)``, so that kernel launches once. The final norm and the CE run
+    once, outside the layers. Backward: one RMSNorm backward per norm (ln1,
+    the residual ln2, the final norm), one SwiGLU, dK/dV and dQ per layer,
+    one CE backward (its d_hidden and d_head kernels) per step. MoE experts
+    run the plain activation, as the JAX experts do: no SwiGLU kernel."""
     L = n_layers
-    want = {"flash_fwd": 2 * L, "flash_bwd_dkdv": L, "flash_bwd_dq": L}
-    fused_counts = {"rmsnorm_fwd": 2 * L + 1, "add_rmsnorm_fwd": 2 * L,
-                    "swiglu_fwd": 0 if moe else 2 * L,
+    fwd = L if policy == "none" else 2 * L
+    want = {"flash_fwd": L if policy in ("none", "dots_flash") else 2 * L,
+            "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+    fused_counts = {"rmsnorm_fwd": fwd + 1, "add_rmsnorm_fwd": fwd,
+                    "swiglu_fwd": 0 if moe else fwd,
                     "rmsnorm_bwd": 2 * L + 1, "swiglu_bwd": 0 if moe else L,
                     "fused_xent_fwd": 1, "fused_xent_bwd_dh": 1,
                     "fused_xent_bwd_dw": 1}
@@ -5359,12 +5378,12 @@ class _Crash(Exception):
 
 
 def _trainer_cfg(ckpt_dir=None, steps: int = 6, name: str = "llama3-8b",
-                 base: dict = TRAIN_MODEL, **model):
+                 base: dict = TRAIN_MODEL, data: dict = TRAIN_DATA, **model):
     from kubeflow_tpu_torch.train.trainer import TrainerConfig
 
     return TrainerConfig(
         model=name, model_overrides={**base, **model},
-        data=dict(TRAIN_DATA), steps=steps, log_every=1, seed=SEED,
+        data=dict(data), steps=steps, log_every=1, seed=SEED,
         attn_impl="pallas",
         optimizer={"learning_rate": 3e-4, "warmup_steps": 2,
                    "clip_norm": 1.0},
@@ -5375,10 +5394,13 @@ def _trainer_cfg(ckpt_dir=None, steps: int = 6, name: str = "llama3-8b",
 def _train_run(cfg, workdir: str, crash_at=None,
                keep_params: bool = False) -> tuple[dict, float]:
     """One ``Trainer.run()``; returns ({step: metrics}, seconds). A
-    ``crash_at`` step raises after that step's checkpoint. The last step's
-    entry also holds ``opt_state``: the optimizer count and the layer-0 wq
-    Adam moments, on the host; with ``keep_params``, ``params16``: the
-    params cast to bf16 in memory, on the card."""
+    ``crash_at`` step raises after that step (and its checkpoint, if it
+    takes one). The last step's entry also holds ``opt_state``: the
+    optimizer count and the layer-0 wq Adam moments, on the host; with
+    ``keep_params``, ``params16``: the params cast to bf16 in memory, on
+    the card. ``seen["save"]`` holds the interval tier's last save's times
+    (``CheckpointManager.last_save``), where it saved, and
+    ``seen["crash"]`` the crash's time."""
     from kubeflow_tpu_torch.train import tree as T
     from kubeflow_tpu_torch.train.trainer import Trainer
 
@@ -5397,6 +5419,7 @@ def _train_run(cfg, workdir: str, crash_at=None,
                     lambda t: t.detach().to(torch.bfloat16),
                     trainer.task.state["params"])
         if step == crash_at:
+            seen["crash"] = time.perf_counter()
             raise _Crash()
 
     t0 = time.perf_counter()
@@ -5406,6 +5429,8 @@ def _train_run(cfg, workdir: str, crash_at=None,
     except _Crash:
         pass
     finally:
+        if trainer.ckpt is not None and trainer.ckpt.last_save:
+            seen["save"] = dict(trainer.ckpt.last_save)
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -5452,11 +5477,26 @@ def _counted_run(cfg, workdir: str, label: str) -> dict:
     return {"steps": seen, "launches": launches, "peak": peak}
 
 
+def save_line(times: dict) -> str:
+    """A ``CheckpointManager.last_save`` as seconds: to the snapshot (what
+    training waited), to the commit, and the part of the write that
+    overlapped training (until the commit, or until training stopped to
+    wait for it)."""
+    if "committed" not in times:
+        return f"step {times.get('step')}'s save did not commit"
+    t0 = times["called"]
+    end = min(times["committed"], times.get("waited", times["committed"]))
+    return (f"step {times['step']}'s save: snapshot {times['returned'] - t0:.2f}"
+            f" s, committed after {times['committed'] - t0:.2f} s, "
+            f"{end - times['returned']:.2f} s of it overlapped training")
+
+
 def phase_train(rows: list[dict]) -> None:
     """The training slice through its entry point, ``Trainer.run()``: the
     preset configuration (``fused_kernels="auto"``, every kernel) for 6
-    steps; at ``TRAIN_RESUME_MODEL``'s depth 6 uninterrupted steps, then a
-    crash after a step-3 checkpoint and a resume, held to them; then 2
+    steps; at ``TRAIN_RESUME_MODEL``'s depth 6 uninterrupted steps, then
+    steps 1–5 with the step-3 checkpoint written while steps 4 and 5 run,
+    a crash, and a resume from step 3, held to them; then 2
     steps with ``fused_kernels="off"`` (the flash kernels, chunked CE)."""
     import tempfile
 
@@ -5482,18 +5522,28 @@ def phase_train(rows: list[dict]) -> None:
         ckpt = os.path.join(work, "ckpt")
         resume_dir = os.path.join(work, "resume")
         first, secs_a = _train_run(_trainer_cfg(ckpt, base=TRAIN_RESUME_MODEL),
-                                   resume_dir, crash_at=3)
+                                   resume_dir, crash_at=5)
+        save_a, crash = first.pop("save", {}), first.pop("crash")
         saved = sorted(os.listdir(ckpt))
         size = sum(os.path.getsize(os.path.join(ckpt, "3", f))
                    for f in os.listdir(os.path.join(ckpt, "3")))
         print(f"train resume ({TRAIN_RESUME_MODEL['n_layers']} layers): "
-              f"first run stopped after step 3 in {secs_a:.1f} s; checkpoint "
-              f"dir {saved}, step 3 holds {size / 1e9:.2f} GB", flush=True)
+              f"first run took steps {sorted(first)} and stopped after step "
+              f"5 in {secs_a:.1f} s; checkpoint dir {saved}, step 3 holds "
+              f"{size / 1e9:.2f} GB; " + save_line(save_a), flush=True)
+        if sorted(first) != [1, 2, 3, 4, 5] or save_a.get("step") != 3:
+            fail(f"train resume: the first run took steps {sorted(first)} "
+                 f"and saved {save_a}")
+        if not save_a.get("committed", 0) > crash:
+            fail("train resume: the step-3 save was not in flight while "
+                 "steps 4 and 5 ran")
         resumed, secs_b = _train_run(
             _trainer_cfg(ckpt, base=TRAIN_RESUME_MODEL), resume_dir,
             keep_params=True)
+        save_b = resumed.pop("save", {})
         print(f"train resume: second run resumed and took steps "
-              f"{sorted(resumed)} in {secs_b:.1f} s", flush=True)
+              f"{sorted(resumed)} in {secs_b:.1f} s; " + save_line(save_b),
+              flush=True)
         if sorted(resumed) != [4, 5, 6]:
             fail(f"train resume: the second run took steps {sorted(resumed)}")
         a, b = short[6]["loss"], resumed[6]["loss"]
@@ -5637,6 +5687,144 @@ def phase_train_profile(fused: str) -> None:
     del task, batches
     gc.collect()
     torch.cuda.empty_cache()
+
+
+#: (k): 3 steps under each remat policy; the step-1 and step-3 losses and
+#: the step-1 grad norm against ``"none"``'s, relative. The policies change
+#: what is kept, not what is computed: the same kernels on the same inputs.
+REMAT_STEPS = 3
+REMAT_LOSS_REL = 1e-5
+REMAT_GRAD_NORM_REL = 1e-4
+
+
+def remat_run(policy: str, tokens: str, workdir: str) -> dict:
+    """(k): ``Trainer.run()`` for ``REMAT_STEPS`` steps under ``policy`` on
+    the grain source over ``tokens``: its metrics by step, the training
+    kernels' launches, the peak allocation, the state's bytes (params and
+    Adam moments), the bytes one more forward keeps for its backward, one
+    more step's host enqueue and wall ms, and the device ms of one more,
+    profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models.decoder import decoder_loss
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    cfg = _trainer_cfg(steps=REMAT_STEPS, remat_policy=policy,
+                       data=dict(TRAIN_DATA, kind="grain", path=tokens))
+    wrappers = _train_wrappers()
+    out: dict = {"steps": {}}
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+
+    def on_step(step, metrics):
+        out["steps"][step] = dict(metrics)
+        if step < REMAT_STEPS:
+            return
+        out["launches"] = {n: w.launches for n, w in wrappers.items()}
+        out["peak"] = torch.cuda.max_memory_allocated()
+        out["state"] = sum(t.numel() * t.element_size()
+                           for t in T.leaves(trainer.task.state)
+                           if isinstance(t, torch.Tensor))
+        batch = torch.from_numpy(trainer.data.batch_at(0)).to("cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        loss, _ = decoder_loss(trainer.task.params, batch, trainer.model_cfg,
+                               attn_impl="pallas")
+        out["kept"] = torch.cuda.memory_allocated() - base
+        del loss
+        # One more step, timed to its return (the host's enqueue) and to
+        # a synchronisation.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.task.step_fn(trainer.task.state, batch)
+        out["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.task.step_fn(trainer.task.state, batch)
+            torch.cuda.synchronize()
+        out["device_ms"] = _kernel_times(prof)[0]
+
+    trainer = Trainer(cfg, device="cuda", workdir=workdir)
+    try:
+        trainer.run(on_step=on_step)
+    finally:
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(rows: list[dict], card: str) -> None:
+    """(k): the seven remat policies through ``Trainer.run()`` at the train
+    phase's configuration, each against ``"none"``: losses and grad norm,
+    launches per step derived by ``_want_per_step``, memory and speed."""
+    import tempfile
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import REMAT_POLICIES
+
+    work = tempfile.mkdtemp(prefix=".chip_smoke_train_",
+                            dir=Path(__file__).resolve().parent)
+    try:
+        tokens = os.path.join(work, "tokens.npy")
+        mcfg = preset("llama3-8b", **TRAIN_MODEL)
+        n = 4 * REMAT_STEPS * TRAIN_DATA["global_batch"] * (
+            TRAIN_DATA["seq_len"] + 1)
+        np.save(tokens, np.random.default_rng(SEED).integers(
+            0, mcfg.vocab_size, n).astype(np.int32))
+        runs = {}
+        for policy in REMAT_POLICIES:
+            os.makedirs(os.path.join(work, policy))
+            runs[policy] = remat_run(policy, tokens,
+                                     os.path.join(work, policy))
+        ref = runs["none"]["steps"]
+        base_kept = runs["nothing_saveable"]["kept"]
+        for policy, r in runs.items():
+            st = r["steps"]
+            if sorted(st) != list(range(1, REMAT_STEPS + 1)):
+                fail(f"(k) {policy}: steps {sorted(st)}")
+            rel = {f"loss{s}": abs(st[s]["loss"] - ref[s]["loss"])
+                   / abs(ref[s]["loss"]) for s in (1, REMAT_STEPS)}
+            rel["grad_norm1"] = (abs(st[1]["grad_norm"] - ref[1]["grad_norm"])
+                                 / abs(ref[1]["grad_norm"]))
+            want = {k: v * REMAT_STEPS for k, v in _want_per_step(
+                True, mcfg.n_layers, False, policy).items()}
+            last = st[REMAT_STEPS]
+            print(f"(k) remat {policy}: loss step 1 {st[1]['loss']:.6f}, "
+                  f"step {REMAT_STEPS} {last['loss']:.6f}, grad norm step 1 "
+                  f"{st[1]['grad_norm']:.6f}; against none: "
+                  + ", ".join(f"{k} rel {v:.3e}" for k, v in rel.items())
+                  + f" (tolerance {REMAT_LOSS_REL:g} / "
+                  f"{REMAT_GRAD_NORM_REL:g}); flash_fwd "
+                  f"{r['launches']['flash_fwd'] // REMAT_STEPS} a step; "
+                  f"one forward keeps {r['kept'] / 2**30:.3f} GiB "
+                  f"({(r['kept'] - base_kept) / 2**20:+.1f} MiB against "
+                  f"nothing_saveable); peak {r['peak'] / 2**30:.2f} GiB, "
+                  f"{(r['peak'] - r['state']) / 2**30:.2f} GiB past the "
+                  f"params and Adam state ({r['state'] / 2**30:.2f} GiB); "
+                  f"step {last['step_time_ms']:.1f} ms (one more: enqueue "
+                  f"{r['enqueue_ms']:.1f}, wall {r['wall_ms']:.1f} ms; one "
+                  f"profiled: device {r['device_ms']:.1f} ms), "
+                  f"{last['tokens_per_sec']:.0f} tokens/s, MFU "
+                  f"{last.get('mfu', float('nan')):.4f}; {card}", flush=True)
+            if not (rel["loss1"] <= REMAT_LOSS_REL
+                    and rel[f"loss{REMAT_STEPS}"] <= REMAT_LOSS_REL
+                    and rel["grad_norm1"] <= REMAT_GRAD_NORM_REL):
+                fail(f"(k) {policy}: losses or grad norm differ from none's: "
+                     f"{rel}")
+            if r["launches"] != want:
+                fail(f"(k) {policy}: kernel launches {r['launches']}, "
+                     f"expected {want}")
+            for name, count in r["launches"].items():
+                _add_launches(rows, name, count)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 #: (j): MoE training at Mixtral width (hidden 4096, 32/8 heads, 8 experts
@@ -6031,6 +6219,11 @@ def main() -> int:
         print(f"chip_smoke: moe phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] == ["--remat-only"]:
+        timed_phase("remat", phase_remat, [], card)
+        print(f"chip_smoke: remat phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] == ["--train-moe-only"]:
         timed_phase("xent edges", phase_xent_edges)
         timed_phase("train moe", phase_train_moe, [], card)
@@ -6080,6 +6273,7 @@ def main() -> int:
     timed_phase("spec", phase_spec, rows, card, uniform_tpot)
     timed_phase("moe", phase_moe, rows, card)
     timed_phase("train moe", phase_train_moe, rows, card)
+    timed_phase("remat", phase_remat, rows, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

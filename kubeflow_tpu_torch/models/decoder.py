@@ -10,7 +10,8 @@ not fit the card never holds them there. Layers are stacked on a leading
 ``[L, ...]`` axis exactly as the JAX package's scanned layout, and
 traversed with a Python loop over per-layer views. While autograd records
 (training, no cache), each layer is rematerialized per
-``cfg.remat_policy`` through ``torch.utils.checkpoint`` (``_remat``).
+``cfg.remat_policy`` through ``torch.utils.checkpoint``, selectively
+for the policies that keep products or the flash outputs (``_remat``).
 ``decoder_loss`` is the next-token cross-entropy with the fused
 (``ops/fused_xent.py``, kernels 9–11, with fused kernels on), chunked
 (``_chunked_ce``) and dense branches; an MoE config adds
@@ -24,11 +25,15 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.ops import fused_xent
+from kubeflow_tpu_torch.ops.flash_attention import flash_fwd_op
 from kubeflow_tpu_torch.ops.quantization import (
     QuantizedTensor, check_quantize, contraction_dims, quantize_weight,
 )
@@ -153,43 +158,127 @@ def ffn(bp: dict, h: torch.Tensor, cfg: DecoderConfig,
     return _ffn_aux(bp, h, cfg, valid_len)[0]
 
 
+def _mlp_half(bp: dict, x: torch.Tensor, attn_out: torch.Tensor,
+              cfg: DecoderConfig, valid_len=None):
+    """The block's second half: ``(x + attn_out + ffn(norm(x + attn_out)),
+    aux)``, aux the MoE block's balance loss (None for a dense config)."""
+    # Residual add + second norm as ONE op (one kernel pass when on).
+    x, h = L.add_rmsnorm(x, attn_out, bp["ln2"], cfg)
+    out, aux = _ffn_aux(bp, h, cfg, valid_len)
+    return x + out, aux
+
+
 def _block_forward(bp: dict, x: torch.Tensor, positions: torch.Tensor,
                    cfg: DecoderConfig, kv_cache: Optional[dict] = None,
                    attn_impl: str = "xla", prefill: bool = False,
                    lora: Optional[dict] = None, valid_len=None):
     """One decoder block: ``(x, new_cache, aux)``, aux the MoE block's
-    balance loss (None for a dense config)."""
+    balance loss (None for a dense config). Without a cache it is the
+    chain of ``_block_stages``."""
+    if kv_cache is None:
+        x, aux = _chain(_block_stages(bp, positions, cfg, attn_impl, lora,
+                                      valid_len))(x)
+        return x, None, aux
     h = L.rmsnorm(x, bp["ln1"], cfg)
     attn_out, new_cache = L.attention_block(
         bp["attn"], h, positions, cfg, kv_cache=kv_cache,
         attn_impl=attn_impl, prefill=prefill, lora=lora)
-    # Residual add + second norm as ONE op (one kernel pass when on).
-    x, h = L.add_rmsnorm(x, attn_out, bp["ln2"], cfg)
-    out, aux = _ffn_aux(bp, h, cfg, valid_len)
-    return x + out, new_cache, aux
+    x, aux = _mlp_half(bp, x, attn_out, cfg, valid_len)
+    return x, new_cache, aux
 
 
-#: Remat policies ``_remat`` runs; the JAX package's others are queued.
-REMAT_POLICIES = ("none", "full", "nothing_saveable")
-_REMAT_LATER = ("dots_saveable", "block_outs", "dots_no_batch", "dots_flash")
+def _block_stages(bp: dict, positions: torch.Tensor, cfg: DecoderConfig,
+                  attn_impl: str, lora: Optional[dict], valid_len):
+    """A cacheless block as three functions whose boundaries are
+    ``block_outs``' kept tensors: ``qkv(x) -> (q_rope, k_rope, v_proj)``,
+    ``attend(q, k, v) -> attn_out``, ``mlp(x, attn_out) -> (x, aux)``."""
+    def qkv(x):
+        return L.attention_qkv(bp["attn"], L.rmsnorm(x, bp["ln1"], cfg),
+                               positions, cfg, lora)
+
+    def attend(q, k, v):
+        return L.attention_out(bp["attn"], q, k, v, cfg,
+                               attn_impl=attn_impl, lora=lora)
+
+    def mlp(x, attn_out):
+        return _mlp_half(bp, x, attn_out, cfg, valid_len)
+
+    return qkv, attend, mlp
 
 
-def _remat(fn: Callable, policy: str) -> Callable:
-    """``fn`` rematerialized per ``policy`` (port of ``decoder._remat``).
-    ``"none"`` saves every activation; ``"full"`` and ``"nothing_saveable"``
-    save only the layer's inputs and replay the whole layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant; JAX's two policies save the
-    same nothing). The name-based and dot-based policies need a
-    saved-tensor selection the port does not have yet."""
+def _chain(stages) -> Callable:
+    """The block of ``_block_stages``: ``x -> (x, aux)``."""
+    qkv, attend, mlp = stages
+    return lambda x: mlp(x, attend(*qkv(x)))
+
+
+#: The JAX package's remat policies, all of which ``_remat`` runs.
+REMAT_POLICIES = ("none", "full", "nothing_saveable", "dots_saveable",
+                  "dots_no_batch", "dots_flash", "block_outs")
+
+_aten = torch.ops.aten
+#: Products without batch dimensions as the dispatcher sees them:
+#: ``torch.matmul`` folds a [B, S, D] @ [D, M] product (and a broadcast
+#: [1, T, D] @ [E, D, M]) into one ``mm``; JAX's ``dot_general`` with no
+#: batch dims.
+_DOTS_NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
+#: Every product: those and the batched ones (``bmm``: the plain
+#: attention's einsums, the dispatch path's expert products).
+_DOTS = _DOTS_NO_BATCH | {_aten.bmm.default, _aten.baddbmm.default}
+#: The ops whose outputs each selective policy keeps: JAX's
+#: ``dots_saveable``, ``dots_with_no_batch_dims_saveable``, and that plus
+#: the flash kernel's ``(o, lse)`` (JAX's ``flash_out`` and ``flash_lse``).
+KEPT_OPS = {"dots_saveable": _DOTS, "dots_no_batch": _DOTS_NO_BATCH,
+            "dots_flash": _DOTS_NO_BATCH | {flash_fwd_op}}
+
+
+def _checkpointed(fn: Callable, context_fn=noop_context_fn) -> Callable:
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    context_fn=context_fn)
+
+
+def _keep_outputs_of(ops: frozenset) -> Callable:
+    """A selective-checkpoint context: the outputs of ``ops`` are kept
+    from the forward, every other op is replayed in the backward."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def _remat(stages, policy: str) -> Callable:
+    """A cacheless block, given as its ``_block_stages``, rematerialized
+    per ``policy`` (port of ``decoder._remat``): ``x -> (x, aux)``. Every
+    policy keeps the layer's input, as JAX's scan carry does:
+
+    - ``"none"`` keeps every activation;
+    - ``"full"`` and ``"nothing_saveable"`` keep nothing else and replay
+      the whole layer in the backward (``torch.utils.checkpoint``,
+      non-reentrant);
+    - ``"dots_saveable"``, ``"dots_no_batch"`` and ``"dots_flash"`` keep
+      the outputs of ``KEPT_OPS[policy]`` through PyTorch's selective
+      checkpointing and replay the rest;
+    - ``"block_outs"`` checkpoints the stages one by one, so the tensors
+      between them (``q_rope``, ``k_rope``, ``v_proj``, ``attn_out``) are
+      what the layer keeps. A stage's backward replays that stage, its
+      products included (JAX's dead-code elimination skips the products
+      whose outputs are kept). Names have no dispatcher op: a copying tag
+      op would keep the same tensors at the price of a pass over each,
+      and replay the layer whole.
+
+    An unknown name raises ``ValueError``, as JAX's does."""
     if policy == "none":
-        return fn
+        return _chain(stages)
     if policy in ("full", "nothing_saveable"):
-        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if policy in _REMAT_LATER:
-        raise NotImplementedError(
-            f"remat policy {policy!r} is not ported yet; use one of "
-            f"{REMAT_POLICIES}")
-    raise ValueError(f"unknown remat policy {policy!r}")
+        return _checkpointed(_chain(stages))
+    if policy == "block_outs":
+        return _chain([_checkpointed(f) for f in stages])
+    if policy in KEPT_OPS:
+        return _checkpointed(_chain(stages),
+                             _keep_outputs_of(KEPT_OPS[policy]))
+    raise ValueError(f"unknown remat policy {policy!r}; known: "
+                     f"{REMAT_POLICIES}")
 
 
 def decoder_forward(
@@ -264,26 +353,25 @@ def _forward(
     # rematerialized per ``cfg.remat_policy``; its params reach autograd
     # through the closure. A cache is written in place.
     train = kv_caches is None and torch.is_grad_enabled()
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}; "
+                         f"known: {REMAT_POLICIES}")
     per_layer_aux = []
     for i in range(cfg.n_layers):
-        cache = None
-        if kv_caches is not None:
+        bp, lr = layer_view(params["layers"], i), L.index_layer(lora, i)
+        if kv_caches is None:
+            stages = _block_stages(bp, positions, cfg, attn_impl, lr,
+                                   valid_len)
+            x, aux = (_remat(stages, cfg.remat_policy) if train
+                      else _chain(stages))(x)
+        else:
             cache = {"k": kv_caches["k"][i], "v": kv_caches["v"][i],
                      "len": kv_caches["len"]}
-
-        def block(x, bp=layer_view(params["layers"], i), cache=cache,
-                  lr=L.index_layer(lora, i)):
-            # An MoE block's balance loss leaves the (rematerialized)
-            # block beside its output.
             x, _, aux = _block_forward(bp, x, positions, cfg,
                                        kv_cache=cache, attn_impl=attn_impl,
                                        prefill=prefill, lora=lr,
                                        valid_len=valid_len)
-            return x if aux is None else (x, aux)
-
-        x = (_remat(block, cfg.remat_policy) if train else block)(x)
         if cfg.is_moe:
-            x, aux = x
             per_layer_aux.append(aux)
     if kv_caches is not None:
         new_caches = {"k": kv_caches["k"], "v": kv_caches["v"],

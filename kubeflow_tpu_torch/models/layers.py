@@ -210,6 +210,49 @@ def out_project(attn: torch.Tensor, wo, dt: torch.dtype) -> torch.Tensor:
     return attn.reshape(b, s, -1) @ weight(wo, dt).reshape(-1, wo.shape[-1])
 
 
+def attention_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: DecoderConfig, lora: Optional[dict] = None):
+    """The normed stream ``x`` [B,S,D] → ``(q, k, v)``: q and k after RoPE
+    (JAX's ``q_rope`` and ``k_rope``), v as projected (``v_proj``), each
+    with its adapter delta when ``lora`` is given."""
+    dt = cfg.activation_dtype
+    q = project(x, p["wq"], dt)
+    k = project(x, p["wk"], dt)
+    v = project(x, p["wv"], dt)
+    if lora is not None:
+        q = apply_lora_layer(lora, "wq", x, q)
+        k = apply_lora_layer(lora, "wk", x, k)
+        v = apply_lora_layer(lora, "wv", x, v)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def attention_proj(p: dict, out: torch.Tensor, cfg: DecoderConfig,
+                   lora: Optional[dict] = None) -> torch.Tensor:
+    """The attention output [B,S,H,Dh] through ``wo`` (JAX's
+    ``attn_out``)."""
+    proj = out_project(out, p["wo"], cfg.activation_dtype)
+    if lora is not None:
+        b, s = out.shape[0], out.shape[1]
+        proj = apply_lora_layer(lora, "wo", out.reshape(b, s, -1), proj)
+    return proj
+
+
+def attention_out(p: dict, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, cfg: DecoderConfig, *,
+                  attn_impl: str = "xla",
+                  lora: Optional[dict] = None) -> torch.Tensor:
+    """Causal attention over the block's own q, k and v (no cache), then
+    the output projection: ``attn_out`` [B,S,D]."""
+    if attn_impl in ("ring", "ring_flash", "ulysses", "ring_local",
+                     "ring_flash_local", "ulysses_local"):
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r}: sequence-parallel attention arrives "
+            "with the multi-GPU slice")
+    out = multi_head_attention(q, k, v, causal=True, impl=attn_impl)
+    return attention_proj(p, out, cfg, lora)
+
+
 def attention_block(
     p: dict,
     x: torch.Tensor,                    # [B,S,D]
@@ -224,51 +267,33 @@ def attention_block(
     """Returns (out [B,S,D], new_kv_cache|None). The cache path writes the
     new K/V into ``kv_cache``'s tensors in place at ``len`` and returns them
     with the advanced length. ``lora``: each row's low-rank adapter delta
-    adds onto the shared projections (rows with aidx = -1 add exact 0)."""
-    dt = cfg.activation_dtype
-    q = project(x, p["wq"], dt)
-    k = project(x, p["wk"], dt)
-    v = project(x, p["wv"], dt)
-    if lora is not None:
-        q = apply_lora_layer(lora, "wq", x, q)
-        k = apply_lora_layer(lora, "wk", x, k)
-        v = apply_lora_layer(lora, "wv", x, v)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-
-    new_cache = None
-    if kv_cache is not None:
-        start = int(kv_cache["len"])
-        ck, cv = kv_cache["k"], kv_cache["v"]
-        s = x.shape[1]
-        if start + s > ck.shape[1]:
-            raise ValueError(f"cache write [{start}, {start + s}) past the "
-                             f"cache length {ck.shape[1]}")
-        ck[:, start:start + s] = k
-        cv[:, start:start + s] = v
-        new_cache = {"k": ck, "v": cv, "len": start + s}
-        if attn_impl == "pallas" and prefill:
-            # Prefill from an empty scratch cache: start is 0 and the cache
-            # length equals the block, so the flash kernel applies directly.
-            out = multi_head_attention(q, ck, cv, causal=True, q_offset=0,
-                                       impl="pallas")
-        else:
-            # A cache offset that is not statically 0: the masked plain path.
-            impl = "xla" if attn_impl == "pallas" else attn_impl
-            out = multi_head_attention(q, ck, cv, causal=True,
-                                       q_offset=start, impl=impl)
-    elif attn_impl in ("ring", "ring_flash", "ulysses", "ring_local",
-                       "ring_flash_local", "ulysses_local"):
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r}: sequence-parallel attention arrives "
-            "with the multi-GPU slice")
+    adds onto the shared projections (rows with aidx = -1 add exact 0).
+    Without a cache this is ``attention_out`` after ``attention_qkv``, the
+    two halves ``block_outs`` remat checkpoints apart."""
+    q, k, v = attention_qkv(p, x, positions, cfg, lora)
+    if kv_cache is None:
+        return attention_out(p, q, k, v, cfg, attn_impl=attn_impl,
+                             lora=lora), None
+    start = int(kv_cache["len"])
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    s = x.shape[1]
+    if start + s > ck.shape[1]:
+        raise ValueError(f"cache write [{start}, {start + s}) past the "
+                         f"cache length {ck.shape[1]}")
+    ck[:, start:start + s] = k
+    cv[:, start:start + s] = v
+    new_cache = {"k": ck, "v": cv, "len": start + s}
+    if attn_impl == "pallas" and prefill:
+        # Prefill from an empty scratch cache: start is 0 and the cache
+        # length equals the block, so the flash kernel applies directly.
+        out = multi_head_attention(q, ck, cv, causal=True, q_offset=0,
+                                   impl="pallas")
     else:
-        out = multi_head_attention(q, k, v, causal=True, impl=attn_impl)
-    proj = out_project(out, p["wo"], dt)
-    if lora is not None:
-        b, s = out.shape[0], out.shape[1]
-        proj = apply_lora_layer(lora, "wo", out.reshape(b, s, -1), proj)
-    return proj, new_cache
+        # A cache offset that is not statically 0: the masked plain path.
+        impl = "xla" if attn_impl == "pallas" else attn_impl
+        out = multi_head_attention(q, ck, cv, causal=True, q_offset=start,
+                                   impl=impl)
+    return attention_proj(p, out, cfg, lora), new_cache
 
 
 # -- MLP -----------------------------------------------------------------------

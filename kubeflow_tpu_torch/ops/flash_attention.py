@@ -8,12 +8,16 @@ The kernels are CUDA C++ bound through ``ctypes``: ``csrc/flash_fwd.cu``
 over each GQA group, and dQ); their notes there give the bounds and the
 designs. All three kernels load their tiles with TMA, so the tensors in
 ``TMA_INPUTS`` must start on a 16-byte boundary.
-``FlashAttentionFn`` is the ``torch.autograd.Function`` that ties them
-together as the JAX package's custom VJP does: the forward saves ``(q, k,
-v, o, lse)``, the backward forms ``delta = rowsum(dO·O)`` in fp32
-(outside the kernels, as the JAX package does) and runs the two backward
-kernels. This module
-keeps the JAX function's public layout — ``[B, S, H, D]`` in and out,
+The forward is a dispatcher op of the port's own namespace,
+``kftpu_torch::flash_fwd`` (``flash_fwd_op``), with its gradient
+registered beside it as the JAX package's custom VJP is: the forward saves
+``(q, k, v, o, lse)``, the backward (``kftpu_torch::flash_bwd``) forms
+``delta = rowsum(dO·O)`` in fp32 (outside the kernels, as the JAX package
+does) and runs the two backward kernels. Being an op, the forward is
+visible to a selective-checkpoint policy, which can keep ``(o, lse)`` as
+JAX's ``dots_flash`` keeps ``flash_out`` and ``flash_lse``; an
+``autograd.Function`` launching through ``ctypes`` would be replayed.
+Serving, under ``no_grad``, calls the same op. This module keeps the JAX function's public layout — ``[B, S, H, D]`` in and out,
 swapped to ``[B, H, S, D]`` for the kernels — and ``flash_attention``
 also returns ``lse [B, H, Sq]``.
 
@@ -272,7 +276,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
               softcap: Optional[float], q_offset: int):
-    """The backward of ``FlashAttentionFn`` on the kernel layout: delta in
+    """The backward of ``flash_fwd_op`` on the kernel layout: delta in
     plain torch, then both kernels (the plain core on the CPU, once)."""
     kw = dict(causal=causal, sm_scale=sm_scale, softcap=softcap,
               q_offset=q_offset)
@@ -285,30 +289,101 @@ def flash_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     return dq, dk, dv
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Flash attention on the kernel layout with its gradient — the
-    ``_flash`` custom VJP. ``apply(q, k, v, causal, sm_scale, softcap,
-    q_offset)`` returns ``(o, lse)``; lse carries no gradient."""
+#: The namespace of the port's own dispatcher ops.
+OP_NAMESPACE = "kftpu_torch"
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, softcap, q_offset):
-        kw = dict(causal=causal, sm_scale=sm_scale, softcap=softcap,
-                  q_offset=q_offset)
-        if q.device.type == "cpu":
-            o, lse = flash_ref(q, k, v, **kw)
-        else:
-            o, lse = _launch(q, k, v, **kw)
-            flash_attention.launches += 1
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw = kw
-        ctx.mark_non_differentiable(lse)
-        return o, lse
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+def _flash_fwd_impl(q, k, v, causal: bool, sm_scale: float,
+                    softcap: Optional[float], q_offset: int):
+    """The forward on the kernel layout: the plain version on the CPU, the
+    kernel (one launch, counted) on a card."""
+    kw = dict(causal=causal, sm_scale=sm_scale, softcap=softcap,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_ref(q, k, v, **kw)
+    o, lse = _launch(q, k, v, **kw)
+    flash_attention.launches += 1
+    return o, lse
+
+
+def _flash_bwd_impl(q, k, v, o, lse, do, causal: bool, sm_scale: float,
+                    softcap: Optional[float], q_offset: int):
+    return flash_bwd(q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
+                     softcap=softcap, q_offset=q_offset)
+
+
+def _on_cpu_or_card(*ts) -> None:
+    """The fake implementations serve tracing (fake tensors report the
+    device they stand for); a tensor really on another device (``meta``)
+    raises, as the wrappers do, instead of getting empty outputs."""
+    for t in ts:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"flash_attention: a tensor on {t.device}; "
+                             "the op runs on the CPU or a CUDA card")
+
+
+def _fwd_fake(q, k, v, causal, sm_scale, softcap, q_offset):
+    _on_cpu_or_card(q, k, v)
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:3], dtype=torch.float32))
+
+
+def _bwd_fake(q, k, v, o, lse, do, causal, sm_scale, softcap, q_offset):
+    _on_cpu_or_card(q, k, v, o, lse, do)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, sm_scale, softcap, q_offset = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.kw = (causal, sm_scale, softcap, q_offset)
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _ops()[1](q, k, v, o, lse, do, *ctx.kw)
+    return dq, dk, dv, None, None, None, None
+
+
+def _define_ops():
+    """Register ``kftpu_torch::flash_fwd`` and ``kftpu_torch::flash_bwd``
+    with the dispatcher, once a process: a second import of this module
+    (a reload) finds them defined and defines nothing. Their
+    implementations read this module's globals at each call, so the
+    launch counts stay the module's."""
+    ns = getattr(torch.ops, OP_NAMESPACE)
+    if hasattr(ns, "flash_fwd"):
+        return
+    fwd = torch.library.custom_op(
+        f"{OP_NAMESPACE}::flash_fwd", mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, bool causal, float sm_scale, "
+               "float? softcap, int q_offset) -> (Tensor, Tensor)")(
+        lambda *a: _flash_fwd_impl(*a))
+    fwd.register_fake(_fwd_fake)
+    fwd.register_autograd(_backward, setup_context=_setup_context)
+    bwd = torch.library.custom_op(
+        f"{OP_NAMESPACE}::flash_bwd", mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, "
+               "Tensor do, bool causal, float sm_scale, float? softcap, "
+               "int q_offset) -> (Tensor, Tensor, Tensor)")(
+        lambda *a: _flash_bwd_impl(*a))
+    bwd.register_fake(_bwd_fake)
+
+
+def _ops():
+    ns = getattr(torch.ops, OP_NAMESPACE)
+    return ns.flash_fwd.default, ns.flash_bwd.default
+
+
+_define_ops()
+#: The forward as a dispatcher op, on the kernel layout: ``(q, k, v,
+#: causal, sm_scale, softcap, q_offset) -> (o, lse)``, differentiable in
+#: q, k and v (lse carries no gradient). A remat policy sees it, and can
+#: keep its outputs (``models/decoder.py``'s ``dots_flash``); a kept call
+#: is not replayed, so it launches nothing.
+flash_fwd_op = _ops()[0]
 
 
 def flash_attention(
@@ -322,11 +397,12 @@ def flash_attention(
     sm_scale: Optional[float] = None,
 ):
     """Flash attention with GQA; returns ``(o [B, Sq, H, D], lse [B, H,
-    Sq])``, differentiable in q, k and v through ``FlashAttentionFn``.
+    Sq])``, differentiable in q, k and v through ``flash_fwd_op``.
     ``q_offset`` is the static absolute position of query 0 (the prefill
     path); a decode with a per-row cache offset goes through the plain
     attention instead. ``flash_attention.launches`` counts forward kernel
-    launches (a remat replay launches again)."""
+    launches (a remat replay launches again; a replay whose outputs the
+    remat policy kept does not)."""
     if isinstance(q_offset, torch.Tensor):
         raise TypeError("flash_attention needs a static int q_offset")
     d = q.shape[-1]
@@ -334,8 +410,8 @@ def flash_attention(
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    o, lse = FlashAttentionFn.apply(qt, kt, vt, causal, float(scale),
-                                    logits_softcap, int(q_offset))
+    o, lse = flash_fwd_op(qt, kt, vt, causal, float(scale), logits_softcap,
+                          int(q_offset))
     return o.transpose(1, 2), lse
 
 

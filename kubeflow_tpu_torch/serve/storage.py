@@ -5,7 +5,7 @@ analog), and the remote KV tier's store (``kv_fabric_store``).
 Schemes:
 
 - ``file:///dir`` — a checkpoint directory in the port's own format
-  (``train/checkpoint.py``: one ``.pt`` per tensor, a manifest per step),
+  (``train/checkpoint.py``: one ``.bin`` per tensor, a manifest per step),
   as a port ``Trainer`` writes it. The JAX package reads orbax
   checkpoints here; the port reads no orbax (a JAX-trained tree comes
   across through ``models.convert.params_from_jax`` and a port save).
@@ -41,7 +41,8 @@ from kubeflow_tpu_torch.pipelines.artifacts import (
 
 #: What ``file://`` expects to find, named in its errors.
 FILE_FORMAT = ("a kubeflow_tpu_torch checkpoint directory (train/"
-               "checkpoint.py: <dir>/<step>/meta.json and one .pt per tensor)")
+               "checkpoint.py: <dir>/<step>/meta.json and one .bin per "
+               "tensor)")
 
 
 def load_params(storage_uri: Optional[str], cfg: DecoderConfig, *,

@@ -1,38 +1,57 @@
-"""Checkpoints: a torch format with per-step integrity manifests, verified
-restore, quarantine and tiered resume (port of
-``kubeflow_tpu/train/checkpoint.py``, which saves through orbax).
+"""Checkpoints: the port's own format with per-step integrity manifests,
+asynchronous saves, verified restore, quarantine and tiered resume (port
+of ``kubeflow_tpu/train/checkpoint.py``, which saves through orbax with
+asynchronous checkpointing on).
 
 Layout of a checkpoint directory::
 
-    <dir>/<step>/meta.json            tree paths of the tensors, and every
-                                      non-tensor leaf (counts, the step)
-    <dir>/<step>/<path>.pt            one tensor per file (torch.save)
+    <dir>/<step>/meta.json            every tensor's file, dtype and shape
+                                      by tree path, and every non-tensor
+                                      leaf (counts, the step)
+    <dir>/<step>/<path>.bin           one tensor per file: its raw bytes,
+                                      C order, native byte order
     <dir>/manifests/<step>.json       {"step", "files": {rel: {size, sha256}}}
     <dir>/quarantine/<step>[.n]       steps that failed verification
 
-The guarantees are the reference's. A step is written under a temporary
-name and renamed into place only when every file is written, so a crash
-mid-save leaves no step directory, only a temporary one that the next
-manager removes. The manifest is written after the rename, from the bytes
-on disk. Files are not fsynced: bytes a power loss tore after the rename
-fail the manifest check. ``restore`` checks the manifest before any tensor is
-loaded and raises ``CheckpointCorruptionError`` on a missing or extra file
-or a checksum mismatch. ``resume_from_tiers`` walks the steps of every
-tier newest first (the emergency tier before the interval tier on equal
-steps), quarantines each step that fails and counts the fallbacks.
+A save is asynchronous, with orbax's semantics. ``save()`` first waits
+for the save in flight, then copies every tensor leaf into host buffers
+(page-locked for a card's tensors, kept from save to save, one
+synchronisation for all) and returns: the caller may then change the
+state in place, as the optimizer does. One writer thread writes the files
+under a temporary name, renames the directory into place, writes the
+manifest from the bytes on disk and drops steps past ``max_to_keep``;
+files are written and hashed on up to 8 threads. ``latest_step()``
+includes the step in flight, ``latest_committed_step()`` only steps that
+were renamed and have a manifest. ``wait()`` joins the save in flight and
+raises its error, once; ``save()`` raises it too, before it starts a new
+save, and ``close()`` waits. ``restore()`` waits for the save in flight
+before it picks a step. Host memory holds one snapshot of the state,
+also where two managers save it: a trainer's interval and emergency
+tiers share one ``HostBuffers``.
 
-One tensor per file keeps the host memory a save needs to its largest
-tensor. Saving is synchronous in this version, so ``wait()`` has nothing
-to wait for. Orbax checkpoints of the JAX package are not read.
+The guarantees are the reference's. A crash mid-save leaves no step
+directory, only a temporary one that the next manager removes. The
+manifest is written after the rename, from the bytes on disk. Files are
+not fsynced: bytes a power loss tore after the rename fail the manifest
+check. ``restore`` checks the manifest before any tensor is loaded and
+raises ``CheckpointCorruptionError`` on a missing or extra file, a
+checksum mismatch, or a tensor file whose size is not its meta's.
+``resume_from_tiers`` walks the steps of every tier newest first (the
+emergency tier before the interval tier on equal steps), quarantines each
+step that fails and counts the fallbacks. Orbax checkpoints of the JAX
+package are not read.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import logging
 import os
 import shutil
+import threading
+import time
 from typing import Any, Optional
 
 import torch
@@ -45,6 +64,9 @@ _MANIFEST_DIR = "manifests"
 _QUARANTINE_DIR = "quarantine"
 _META = "meta.json"
 _TMP = ".tmp-"
+#: Threads that write and hash a step's files (file I/O and SHA-256
+#: release the interpreter lock).
+_THREADS = min(8, os.cpu_count() or 1)
 
 
 class CheckpointCorruptionError(RuntimeError):
@@ -54,24 +76,69 @@ class CheckpointCorruptionError(RuntimeError):
 
 def _sha256(path: str, chunk: int = 1 << 24) -> str:
     h = hashlib.sha256()
+    buf = memoryview(bytearray(chunk))
     with open(path, "rb") as f:
-        while True:
-            b = f.read(chunk)
-            if not b:
-                return h.hexdigest()
-            h.update(b)
+        while n := f.readinto(buf):
+            h.update(buf[:n])
+    return h.hexdigest()
 
 
-def _write(path: str, write) -> None:
-    with open(path, "wb") as f:
-        write(f)
+def _file_entry(path: str) -> dict:
+    """A manifest entry: the file's size and the SHA-256 of its bytes as
+    read back from the filesystem."""
+    return {"size": os.path.getsize(path), "sha256": _sha256(path)}
+
+
+def _bytes_of(t: torch.Tensor) -> memoryview:
+    """A contiguous CPU tensor's bytes, without a copy."""
+    return memoryview(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def _dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name.removeprefix("torch."), None)
+    if not isinstance(dt, torch.dtype):
+        raise CheckpointCorruptionError(f"unknown dtype {name!r} in meta")
+    return dt
+
+
+def _map(fn, items) -> list:
+    """``fn`` over ``items`` on ``_THREADS`` threads, in order."""
+    items = list(items)
+    if _THREADS <= 1 or len(items) <= 1:
+        return [fn(it) for it in items]
+    with concurrent.futures.ThreadPoolExecutor(_THREADS) as pool:
+        return list(pool.map(fn, items))
+
+
+class HostBuffers:
+    """The host buffers of one snapshot, by tree path, for the managers
+    that save one state: reused while a leaf keeps its shape, dtype and
+    pinning. ``owner`` is the manager whose last save filled them; its
+    writer reads them until that save is committed, so another manager's
+    snapshot waits for it first."""
+
+    def __init__(self):
+        self.buffers: dict[str, torch.Tensor] = {}
+        self.owner: Optional["CheckpointManager"] = None
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 host: Optional[HostBuffers] = None):
+        """``host``: the snapshot buffers to share with other managers of
+        the same state (default: this manager's own)."""
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self._max_to_keep = max_to_keep
+        self._host = host if host is not None else HostBuffers()
+        self._writer: Optional[threading.Thread] = None
+        self._in_flight: Optional[int] = None
+        self._error: Optional[BaseException] = None
+        #: The last save's times (``time.perf_counter`` seconds):
+        #: ``called``, ``returned`` (snapshot taken), ``written`` (every
+        #: file written and hashed), ``waited`` (a caller began to wait
+        #: for it in flight) and ``committed``.
+        self.last_save: dict = {}
         # Temporary directories of saves a crash interrupted.
         for d in os.listdir(self.directory):
             if _TMP in d:
@@ -82,39 +149,119 @@ class CheckpointManager:
         return os.path.join(self.directory, str(step))
 
     def save(self, step: int, state: Any, *, force: bool = False) -> bool:
-        """Write ``state`` (nested dicts of tensors and plain values) as
-        ``step``. Returns False, saving nothing, when the step exists and
-        ``force`` is not set; raises on a storage failure."""
+        """Start saving ``state`` (nested dicts of tensors and plain values)
+        as ``step``; returns once the state may change. Returns False,
+        saving nothing, when the step exists and ``force`` is not set.
+        Waits for the save in flight first and raises its error, if it
+        failed, without starting this one."""
+        called = time.perf_counter()
+        self.wait()
         final = self._step_dir(step)
         if os.path.exists(final) and not force:
             return False
+        flat = T.flatten(state)
+        tensors = {p: t for p, t in flat.items()
+                   if isinstance(t, torch.Tensor)}
+        values = json.loads(json.dumps(
+            {p: v for p, v in flat.items() if p not in tensors}))
+        host = self._snapshot(tensors)
+        self._in_flight = step
+        self.last_save = {"step": step, "called": called,
+                          "returned": time.perf_counter()}
+        self._writer = threading.Thread(
+            target=self._write, args=(step, host, values),
+            name=f"ckpt-writer-{step}", daemon=True)
+        self._writer.start()
+        return True
+
+    def _snapshot(self, tensors: dict) -> dict:
+        """Every tensor leaf copied to host memory: a card's leaves into
+        page-locked buffers, asynchronously, then one synchronisation per
+        device; the buffers are kept for the next save, this manager's or
+        another's that shares them (whose save in flight lands first)."""
+        pool = self._host
+        if pool.owner is not None and pool.owner is not self:
+            pool.owner._join()      # its writer reads these buffers
+        keep = {}
+        devices = set()
+        for path, t in tensors.items():
+            buf = pool.buffers.get(path)
+            pinned = t.device.type == "cuda"
+            if (buf is None or buf.shape != t.shape or buf.dtype != t.dtype
+                    or buf.is_pinned() != pinned):
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned)
+            buf.copy_(t.detach(), non_blocking=pinned)
+            if pinned:
+                devices.add(t.device)
+            keep[path] = buf
+        for dev in devices:
+            torch.cuda.current_stream(dev).synchronize()
+        pool.buffers, pool.owner = keep, self
+        return keep
+
+    def _write(self, step: int, host: dict, values: dict) -> None:
         tmp = os.path.join(self.directory, f"{step}{_TMP}{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        final = self._step_dir(step)
         try:
-            tensors, values = {}, {}
-            for path, leaf in T.flatten(state).items():
-                if isinstance(leaf, torch.Tensor):
-                    rel = path.replace("/", ".") + ".pt"
-                    host = leaf.detach().to("cpu")
-                    _write(os.path.join(tmp, rel),
-                           lambda f: torch.save(host, f))
-                    tensors[path] = rel
-                else:
-                    values[path] = leaf
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            tensors = {p: {"file": p.replace("/", ".") + ".bin",
+                           "dtype": str(t.dtype).removeprefix("torch."),
+                           "shape": list(t.shape)}
+                       for p, t in host.items()}
+
+            def write(rel: str, data) -> tuple:
+                # Each file is read back and hashed as soon as it is
+                # written: the threads overlap writing and hashing.
+                with open(os.path.join(tmp, rel), "wb") as f:
+                    f.write(data)
+                return rel, _file_entry(os.path.join(tmp, rel))
+
             meta = json.dumps({"step": step, "tensors": tensors,
                                "values": values}).encode()
-            _write(os.path.join(tmp, _META), lambda f: f.write(meta))
+            files = dict(_map(lambda item: write(*item), [
+                (tensors[p]["file"], _bytes_of(t)) for p, t in host.items()
+            ] + [(_META, meta)]))
+            self.last_save["written"] = time.perf_counter()
+            self._drop_manifest(step)   # a forced save's old one
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.replace(tmp, final)
-        except BaseException:
+            self._write_manifest(step, files)
+            self._gc()
+            self.last_save["committed"] = time.perf_counter()
+        except BaseException as exc:
+            # Kept for wait() and the next save(), which raise it.
             shutil.rmtree(tmp, ignore_errors=True)
-            raise
-        self._drop_manifest(step)
-        self.flush_manifests()
-        self._gc()
-        return True
+            self._error = exc
+            if not isinstance(exc, Exception):
+                raise
+
+    def _join(self) -> None:
+        """Wait for the save in flight, keeping its error for ``wait``."""
+        if self._writer is not None:
+            if self._writer.is_alive():
+                self.last_save.setdefault("waited", time.perf_counter())
+            self._writer.join()
+            self._writer = None
+        self._in_flight = None
+
+    def wait(self) -> None:
+        """Join the save in flight; raise its error if it failed (once)."""
+        self._join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+
+    def close(self) -> None:
+        """Wait for the save in flight, write any missing manifest and
+        free the host buffers if this manager's save filled them last."""
+        try:
+            self.wait()
+        finally:
+            if self._host.owner is self:
+                self._host.buffers, self._host.owner = {}, None
+            self.flush_manifests()
 
     def _gc(self) -> None:
         steps = self.steps_on_disk()
@@ -134,6 +281,7 @@ class CheckpointManager:
         ``leaf_fn(path, tensor)`` replaces each tensor as it is loaded
         (path relative to ``subtree``), so only one loaded leaf is alive
         beside the transformed ones."""
+        self._join()
         target = step if step is not None else self.latest_step()
         if target is None:
             return None
@@ -149,25 +297,31 @@ class CheckpointManager:
         with open(os.path.join(root, _META)) as f:
             meta = json.load(f)
         if verify and subtree:
-            self.verify_step(target, only={_META, *wanted(
-                meta["tensors"]).values()})
+            self.verify_step(target, only={_META, *(
+                e["file"] for e in wanted(meta["tensors"]).values())})
         flat = wanted(meta["values"])
-        for path, rel in wanted(meta["tensors"]).items():
-            t = torch.load(os.path.join(root, rel), map_location=device,
-                           weights_only=True)
+        for path, entry in wanted(meta["tensors"]).items():
+            t = _read_tensor(os.path.join(root, entry["file"]), entry)
+            t = t.to(device)
             flat[path] = t if leaf_fn is None else leaf_fn(path, t)
         if subtree and not flat:
             raise KeyError(f"step {target} holds no {subtree!r} subtree")
         return T.unflatten(flat)
 
     def latest_step(self) -> Optional[int]:
+        """Newest step the manager knows of: the save in flight counts,
+        before its bytes are on disk."""
         steps = self.steps_on_disk()
-        return steps[-1] if steps else None
+        if self._in_flight is not None:
+            steps.append(self._in_flight)
+        return max(steps) if steps else None
 
     def latest_committed_step(self) -> Optional[int]:
-        """Newest step on disk. Saves are synchronous and renamed into
-        place whole, so every step directory is committed."""
-        return self.latest_step()
+        """Newest step renamed into place with its manifest written: what a
+        restart could restore."""
+        steps = [s for s in self.steps_on_disk()
+                 if os.path.exists(self._manifest_path(s))]
+        return steps[-1] if steps else None
 
     def steps_on_disk(self) -> list[int]:
         """Step directories present, oldest first (a quarantined step is
@@ -191,29 +345,33 @@ class CheckpointManager:
 
     def _step_files(self, step: int,
                     only: Optional[set] = None) -> dict[str, dict]:
+        """Size and SHA-256 of the step's files, hashed on ``_THREADS``
+        threads."""
         root = self._step_dir(step)
-        out: dict[str, dict] = {}
+        rels = []
         for base, _, files in os.walk(root):
             for fn in files:
-                p = os.path.join(base, fn)
-                rel = os.path.relpath(p, root)
+                rel = os.path.relpath(os.path.join(base, fn), root)
                 if only is None or rel in only:
-                    out[rel] = {"size": os.path.getsize(p),
-                                "sha256": _sha256(p)}
-        return out
+                    rels.append(rel)
+
+        return dict(zip(rels, _map(lambda rel: _file_entry(
+            os.path.join(root, rel)), rels)))
+
+    def _write_manifest(self, step: int, files: dict) -> None:
+        mpath = self._manifest_path(step)
+        os.makedirs(os.path.dirname(mpath), exist_ok=True)
+        tmp = f"{mpath}.tmp"
+        with open(tmp, "w") as f:
+            json.dump({"step": step, "files": files}, f)
+        os.replace(tmp, mpath)
 
     def flush_manifests(self) -> None:
-        """Write a manifest for every step on disk that lacks one."""
+        """Write a manifest for every step on disk that lacks one (a step
+        a crash left between its rename and its manifest)."""
         for step in self.steps_on_disk():
-            mpath = self._manifest_path(step)
-            if os.path.exists(mpath):
-                continue
-            files = self._step_files(step)
-            os.makedirs(os.path.dirname(mpath), exist_ok=True)
-            tmp = f"{mpath}.tmp"
-            with open(tmp, "w") as f:
-                json.dump({"step": step, "files": files}, f)
-            os.replace(tmp, mpath)
+            if not os.path.exists(self._manifest_path(step)):
+                self._write_manifest(step, self._step_files(step))
 
     def verify_step(self, step: int, only: Optional[set] = None) -> bool:
         """Check the step's bytes against its manifest. True = verified,
@@ -270,11 +428,19 @@ class CheckpointManager:
                        step, dst)
         return dst
 
-    def wait(self) -> None:
-        """Saves are synchronous: nothing is in flight."""
 
-    def close(self) -> None:
-        self.flush_manifests()
+def _read_tensor(path: str, entry: dict) -> torch.Tensor:
+    """A tensor file of the layout above, on the host."""
+    t = torch.empty(entry["shape"], dtype=_dtype(entry["dtype"]))
+    view = _bytes_of(t)
+    with open(path, "rb") as f:
+        got = f.readinto(view)
+        extra = f.read(1)
+    if got != len(view) or extra:
+        raise CheckpointCorruptionError(
+            f"{path}: {got}{'+' if extra else ''} bytes, meta says "
+            f"{len(view)}")
+    return t
 
 
 def resume_from_tiers(managers: list[tuple[str, CheckpointManager]], *,
@@ -285,10 +451,12 @@ def resume_from_tiers(managers: list[tuple[str, CheckpointManager]], *,
     equal steps (the trainer passes the emergency tier first). Candidates
     are walked newest first; a step that fails verification or whose
     restore raises is quarantined and the walk falls back to the next
-    older one. Returns ``(state, step, tier_name, fallbacks)`` or None when
-    no tier holds a restorable step."""
+    older one; each tier's save in flight is waited for first. Returns
+    ``(state, step, tier_name, fallbacks)`` or None when no tier holds a
+    restorable step."""
     candidates = []
     for order, (tier, mgr) in enumerate(managers):
+        mgr._join()     # a save in flight lands (or fails) before the walk
         for step in mgr.steps_on_disk():
             candidates.append((step, -order, tier, mgr))
     candidates.sort(key=lambda c: (c[0], c[1]), reverse=True)

@@ -1,5 +1,6 @@
-"""Training data: deterministic synthetic token streams and packed text
-(port of ``kubeflow_tpu/train/data.py``).
+"""Training data: deterministic synthetic token streams, packed text and
+windows of an on-disk token array (the ``grain`` kind, without grain) (port
+of ``kubeflow_tpu/train/data.py``).
 
 Batches are numpy arrays, built exactly as the JAX package builds them, so
 the same ``(seed, step)`` gives the same tokens in both packages; the train
@@ -20,12 +21,12 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    kind: str = "synthetic"        # synthetic | text (grain: not ported)
+    kind: str = "synthetic"        # synthetic | text | grain
     vocab_size: int = 256
     seq_len: int = 128
     global_batch: int = 8
     seed: int = 0
-    path: Optional[str] = None     # text: raw text file
+    path: Optional[str] = None     # text: raw text file; grain: a .npy
     # text kind: tokenizer name from the registry ("byte") or a BPE json
     # path (serve/tokenizer.py BPETokenizer artifact).
     tokenizer: str = "byte"
@@ -161,13 +162,41 @@ class TextLM:
             step += 1
 
 
+class GrainLM:
+    """The ``grain`` kind: windows of an on-disk token array (``np.save``
+    of a 1-D integer array at ``cfg.path``), picked per ``(seed, step,
+    shard)`` — the JAX package's ``_grain_source`` exactly. That source
+    imports google/grain only to check that it is installed; its batches
+    are plain numpy, so this one imports no grain."""
+
+    def __init__(self, cfg: DataConfig, shard: int = 0, num_shards: int = 1):
+        self.cfg = cfg
+        self.shard = shard
+        self.tokens = np.load(cfg.path, mmap_mode="r")
+        self.local_batch = cfg.global_batch // num_shards
+        self.per_epoch = max(1, (len(self.tokens) - 1) // (cfg.seq_len + 1))
+
+    def batch_at(self, step: int) -> np.ndarray:
+        """[local_batch, seq_len+1] int32 windows for this shard at
+        ``step``."""
+        rng = np.random.default_rng((self.cfg.seed, step, self.shard))
+        idx = rng.integers(0, self.per_epoch, self.local_batch)
+        s = self.cfg.seq_len + 1
+        return np.stack([self.tokens[i * s:(i + 1) * s]
+                         for i in idx]).astype(np.int32)
+
+    def iterate(self, start_step: int = 0) -> Iterator[np.ndarray]:
+        step = start_step
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
 def make_data_source(cfg: DataConfig, shard: int = 0, num_shards: int = 1):
     if cfg.kind == "synthetic":
         return SyntheticLM(cfg, shard, num_shards)
     if cfg.kind == "text":
         return TextLM(cfg, shard, num_shards)
     if cfg.kind == "grain":
-        raise NotImplementedError(
-            "the grain data kind is not ported (grain is a JAX-side "
-            "package); use kind='text' or 'synthetic'")
+        return GrainLM(cfg, shard, num_shards)
     raise ValueError(f"unknown data kind {cfg.kind!r}")

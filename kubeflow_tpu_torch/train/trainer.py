@@ -3,7 +3,8 @@
 
 Ties together: the train state on the device, the data source, the step
 loop with double-buffered input staging, checkpoint/resume with data
-fast-forward over two tiers (interval and emergency), SIGTERM as a
+fast-forward over two tiers (interval and emergency; a save snapshots the
+state and writes it while the loop runs on), SIGTERM as a
 preemption notice (emergency save at the next step boundary, then
 ``SystemExit(EXIT_PREEMPTED)``), the step watchdog, the goodput ledger,
 one ``train.window`` span per logged window, metric emission, and an
@@ -28,7 +29,7 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.config import DecoderConfig, preset
 from kubeflow_tpu_torch.obs.trace import get_tracer
 from kubeflow_tpu_torch.train.checkpoint import (
-    CheckpointManager, resume_from_tiers,
+    CheckpointManager, HostBuffers, resume_from_tiers,
 )
 from kubeflow_tpu_torch.train.data import DataConfig, make_data_source
 from kubeflow_tpu_torch.train.metrics import MetricsEmitter, Throughput
@@ -137,13 +138,16 @@ class Trainer:
         self.ckpt: Optional[CheckpointManager] = None
         self.ckpt_emergency: Optional[CheckpointManager] = None
         if cfg.checkpoint_dir:
+            # Both tiers snapshot into one set of host buffers: a
+            # preemption after an interval save pins no second copy.
+            host = HostBuffers()
             self.ckpt = CheckpointManager(cfg.checkpoint_dir,
-                                          cfg.max_checkpoints)
+                                          cfg.max_checkpoints, host=host)
             if cfg.emergency_checkpointing:
                 self.ckpt_emergency = CheckpointManager(
                     cfg.emergency_checkpoint_dir
                     or f"{cfg.checkpoint_dir.rstrip(os.sep)}-emergency",
-                    max_to_keep=1)
+                    max_to_keep=1, host=host)
 
         # Goodput ledger: in the workdir so it survives restarts.
         ledger_dir = workdir or (os.path.dirname(metrics_path)
@@ -192,17 +196,40 @@ class Trainer:
 
     def save(self, step: int, *, force: bool = False,
              manager: Optional[CheckpointManager] = None) -> bool:
-        """Save through ``manager`` (default: the interval tier). A rejected
-        or failed save is an alarm — logged and counted into
-        ``checkpoint_save_failures`` — never a crash."""
+        """Save through ``manager`` (default: the interval tier): a
+        snapshot of the state, written to disk in the background. A
+        rejected or failed save is an alarm — logged and counted into
+        ``checkpoint_save_failures`` — never a crash; a background write
+        that failed is counted here, at the next save, or at ``_commit``."""
         mgr = manager if manager is not None else self.ckpt
         if mgr is None:
             return False
-        # Saves are synchronous: the watchdog must not read one as a wedge.
-        quiet = (self._watchdog.suspended() if self._watchdog is not None
-                 else contextlib.nullcontext())
-        with quiet:
+        with self._quiet():
+            self._commit(mgr)
             return self._save(mgr, step, force)
+
+    def _commit(self, mgr: CheckpointManager) -> bool:
+        """Wait for ``mgr``'s save in flight; a failed one is logged and
+        counted. Returns False when it failed."""
+        with self._quiet():
+            try:
+                mgr.wait()
+                return True
+            except Exception:
+                logger.exception("a checkpoint save failed in the "
+                                 "background")
+                self._count_save_failure()
+                return False
+
+    def _quiet(self):
+        """The watchdog must not read a wait for a save as a wedge."""
+        return (self._watchdog.suspended() if self._watchdog is not None
+                else contextlib.nullcontext())
+
+    def _count_save_failure(self) -> None:
+        self.save_failures += 1
+        if self.ledger is not None:
+            self.ledger.record_save_failure()
 
     def _save(self, mgr: CheckpointManager, step: int, force: bool) -> bool:
         try:
@@ -218,9 +245,7 @@ class Trainer:
             logger.exception("checkpoint save at step %d failed", step)
             accepted = False
         if not accepted:
-            self.save_failures += 1
-            if self.ledger is not None:
-                self.ledger.record_save_failure()
+            self._count_save_failure()
         return accepted
 
     # -- the loop --------------------------------------------------------------
@@ -332,8 +357,8 @@ class Trainer:
             for mgr in (self.ckpt, self.ckpt_emergency):
                 if mgr is None:
                     continue
+                self._commit(mgr)
                 try:
-                    mgr.wait()
                     mgr.close()
                 except Exception:
                     logger.exception("checkpoint manager close failed")
@@ -363,7 +388,8 @@ class Trainer:
         mgr = self.ckpt_emergency or self.ckpt
         saved = False
         if mgr is not None:
-            saved = self.save(step, force=True, manager=mgr)
+            saved = (self.save(step, force=True, manager=mgr)
+                     and self._commit(mgr))
         if self.ledger is not None:
             self.ledger.record_progress(step)
             if saved:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Host enqueue and wall time of the PyTorch port's decode dispatch on one
-CUDA card, for comparing two trees of the port on one machine.
+"""Host enqueue and wall time of the PyTorch port's decode dispatch and
+bucketed prefill on one CUDA card, for comparing two trees of the port on
+one machine.
 
     python3 scripts/torch_decode_enqueue.py [--tree DIR] [--layers N]
                                             [--reps N] [--label NAME]
@@ -9,12 +10,14 @@ Imports ``kubeflow_tpu_torch`` from ``--tree`` (default: this checkout).
 Builds Llama-3-8B at full width with ``--layers`` layers of random bf16
 weights (seed 0) on an 8-slot contiguous cache, then times ``--reps``
 8-step greedy decode dispatches at 8 live slots, cache position 1024, on
-the contiguous cache and on a page pool of 128-token pages, as the profile
+the contiguous cache and on a page pool of 128-token pages, and one
+2048-token prefill of one slot through the flash kernel, as the profile
 phase of ``chip_smoke.py`` does: host enqueue (until the call returns) and
 wall (until a synchronize), per step, under ``no_grad``. Then the host
 time of one call of each fused wrapper the decode step calls
 (``rmsnorm_fused``, ``add_rmsnorm_fused``, ``swiglu_fused``) at the decode
-shapes, [8, 4096] and [8, 14336] bf16: ``--reps`` batches of 200 calls,
+shapes, [8, 4096] and [8, 14336] bf16, and of ``flash_attention`` at the
+prefill's [1, 2048, 32, 128] bf16: ``--reps`` batches of 200 calls,
 each batch timed to its return, under ``no_grad`` as serving calls them
 and, where the tree's wrappers have a backward, once more with the
 weight requiring a gradient (the autograd Function path that training
@@ -73,6 +76,7 @@ def main() -> int:
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.models.config import preset
     from kubeflow_tpu_torch.ops import _build, fused_norm
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
     from kubeflow_tpu_torch.serve import engine as E
     from kubeflow_tpu_torch.serve.engine import LLMEngine
     from kubeflow_tpu_torch.serve.paged import paged_decode_multi
@@ -100,18 +104,24 @@ def main() -> int:
             "table": torch.full((b, mpp), -1, dtype=torch.int32, device=dev)}
     pool["table"][:, :per_slot] = torch.arange(
         b * per_slot, dtype=torch.int32, device=dev).reshape(b, per_slot)
+    toks = torch.randint(3, 259, (1, 2048), device=dev)
+    slot, plen = (torch.zeros((1,), dtype=torch.long, device=dev),
+                  torch.full((1,), 2048, device=dev))
     calls = {
-        "decode": lambda: E._decode_multi(
+        "decode": (lambda: E._decode_multi(
             engine.params, engine.cache, *st, engine._gen, cfg, steps,
-            sample_mode="greedy"),
-        "paged_decode": lambda: paged_decode_multi(
+            sample_mode="greedy"), steps),
+        "paged_decode": (lambda: paged_decode_multi(
             engine.params, pool, *st, engine._gen, cfg, steps,
-            sample_mode="greedy", attn_impl="pallas"),
+            sample_mode="greedy", attn_impl="pallas"), steps),
+        "prefill": (lambda: E._prefill_step(
+            engine.params, engine.cache, toks, slot, plen, cfg, "pallas"),
+            1),
     }
     out = {"label": args.label, "tree": args.tree, "layers": args.layers,
            "reps": args.reps, "card": torch.cuda.get_device_name(0)}
     with torch.no_grad():
-        for name, fn in calls.items():
+        for name, (fn, per) in calls.items():
             for _ in range(2):
                 fn()
             torch.cuda.synchronize()
@@ -119,22 +129,28 @@ def main() -> int:
             for _ in range(args.reps):
                 t0 = time.perf_counter()
                 fn()
-                enq.append((time.perf_counter() - t0) * 1e3 / steps)
+                enq.append((time.perf_counter() - t0) * 1e3 / per)
                 torch.cuda.synchronize()
-                wall.append((time.perf_counter() - t0) * 1e3 / steps)
+                wall.append((time.perf_counter() - t0) * 1e3 / per)
             for key, xs in (("enqueue_ms", enq), ("wall_ms", wall)):
                 out[f"{name}_{key}"] = summary(xs)
     x = torch.randn((b, cfg.hidden), device=dev).to(torch.bfloat16)
     g = torch.randn((b, cfg.mlp_dim), device=dev).to(torch.bfloat16)
+    q = torch.randn((1, 2048, cfg.n_heads, cfg.head_dim), device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((1, 2048, cfg.n_kv_heads, cfg.head_dim), device=dev).to(
+        torch.bfloat16)
     for mode in ("no_grad", "graph"):
         w = torch.ones((cfg.hidden,), dtype=torch.bfloat16, device=dev,
                        requires_grad=mode == "graph")
         u = g.clone().requires_grad_(mode == "graph")
+        qg = q.clone().requires_grad_(mode == "graph")
         wrappers = {
             "rmsnorm_fused": lambda: fused_norm.rmsnorm_fused(x, w, eps=1e-5),
             "add_rmsnorm_fused": lambda: fused_norm.add_rmsnorm_fused(
                 x, x, w, eps=1e-5),
             "swiglu_fused": lambda: fused_norm.swiglu_fused(g, u),
+            "flash_attention": lambda: flash_attention(qg, k, k),
         }
         with torch.set_grad_enabled(mode == "graph"):
             for name, fn in wrappers.items():

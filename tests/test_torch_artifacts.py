@@ -149,11 +149,15 @@ def test_artifact_load_equals_file_load(tmp_path, monkeypatch):
     gen = torch.Generator("cpu")
     v1 = init_decoder_params(gen.manual_seed(1), cfg)
     v2 = init_decoder_params(gen.manual_seed(2), cfg)
-    CheckpointManager(str(ckpt)).save(1, {"params": v1, "step": 1})
+    mgr = CheckpointManager(str(ckpt))
+    mgr.save(1, {"params": v1, "step": 1})
+    mgr.close()       # the save is asynchronous
     root = str(tmp_path / "store")
     jstore = jart.ArtifactStore(root)
     t1 = jstore.put_tree(str(ckpt))
-    CheckpointManager(str(ckpt)).save(2, {"params": v2, "step": 2})
+    mgr = CheckpointManager(str(ckpt))
+    mgr.save(2, {"params": v2, "step": 2})
+    mgr.close()       # the save is asynchronous
     t2 = jstore.put_tree(str(ckpt))
     jstore.register("llm", "1", t1)
     jstore.register("llm", "2", t2)

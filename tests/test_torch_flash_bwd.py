@@ -4,7 +4,7 @@ custom VJP, on the same numpy inputs at fp32.
 The JAX side runs with ``bwd_impl="xla"`` (the einsum oracle) and with
 ``bwd_impl="pallas"`` (the dK/dV and dQ kernels in interpret mode, as the
 JAX package's own tests run them on the CPU). The port's side is the
-plain backward ``flash_bwd_ref`` and the CPU path of ``FlashAttentionFn``
+plain backward ``flash_bwd_ref`` and the CPU path of ``flash_fwd_op``
 through ``torch.autograd`` — the same autograd wiring the kernels use on a
 card. Shapes: B=1, H=4 over KH=2 and H=KH=4, (S, D) in {(64, 32), (128,
 16)}, causal, softcap off and on. Tolerance: atol 1e-5 (fp32 products
@@ -74,7 +74,7 @@ def test_flash_bwd_ref_matches_the_jax_vjp(kh, s, d, cap, impl):
 @pytest.mark.parametrize("kh,s,d,cap,impl", CASES)
 def test_flash_attention_autograd_matches_the_jax_vjp(kh, s, d, cap, impl):
     """``flash_attention`` ([B,S,H,D] layout) forward and backward through
-    ``FlashAttentionFn`` on the CPU."""
+    ``flash_fwd_op`` and its registered gradient on the CPU."""
     (q, k, v, do), o, lse, want = _jax_case(kh, s, d, cap, impl)
     tq, tk, tv = (torch.from_numpy(x).transpose(1, 2).requires_grad_(True)
                   for x in (q, k, v))

@@ -167,3 +167,33 @@ def test_chip_smoke_refuses_without_a_card_or_the_package(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", alone)
     out = _run_smoke(alone, tmp_path)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+_RELOAD = """
+import importlib, torch
+from kubeflow_tpu_torch.ops import flash_attention as F
+op = torch.ops.kftpu_torch.flash_fwd.default
+F = importlib.reload(F)                 # a second import of the module
+assert F.flash_fwd_op is op is torch.ops.kftpu_torch.flash_fwd.default
+calls = []
+real = F._flash_fwd_impl
+F._flash_fwd_impl = lambda *a: calls.append(1) or real(*a)
+q = torch.randn(1, 8, 4, 64, requires_grad=True)
+k, v = torch.randn(1, 8, 2, 64), torch.randn(1, 8, 2, 64)
+o, lse = F.flash_attention(q, k, v)
+o.sum().backward()
+assert calls == [1] and q.grad is not None
+print("ok")
+"""
+
+
+def test_the_flash_op_registers_once_across_reimports():
+    """``ops/flash_attention.py`` registers ``kftpu_torch::flash_fwd`` and
+    ``::flash_bwd`` with the dispatcher on import; a reload finds them and
+    registers nothing, and the op then runs the reloaded module's code."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", _RELOAD], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -104,7 +104,9 @@ def worker(tmp_path_factory, jax_params):
     _, jparams = jax_params
     ckpt = tmp_path_factory.mktemp("ckpt")
     tree = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
-    CheckpointManager(str(ckpt)).save(3, {"params": tree, "step": 3})
+    mgr = CheckpointManager(str(ckpt))
+    mgr.save(3, {"params": tree, "step": 3})
+    mgr.close()       # the save is asynchronous
     port = free_port()
     proc = _spawn(_env("model_server", {
         "model": MODEL, "storage_uri": f"file://{ckpt}",

@@ -194,7 +194,9 @@ def test_quantized_loads_equal_draw_then_quantize(tmp_path):
     assert_same_tree(load_params("random://", tc, seed=4, device="cpu",
                                  quantize="int8"), want)
     ckpt = tmp_path / "ckpt"
-    assert CheckpointManager(str(ckpt)).save(2, {"params": full, "step": 2})
+    mgr = CheckpointManager(str(ckpt))
+    assert mgr.save(2, {"params": full, "step": 2})
+    mgr.close()       # the save is asynchronous
     got = load_params(f"file://{ckpt}", tc, device="cpu", quantize="int8")
     assert_same_tree(got, want)
     with pytest.raises(ValueError, match="quantize"):

@@ -91,14 +91,16 @@ def test_missing_checkpoints_and_other_schemes_raise(tmp_path, monkeypatch):
     tree = {"params": init_decoder_params(
         torch.Generator("cpu").manual_seed(0), cfg),
         "opt_state": {"mu": torch.zeros(3)}, "step": 1}
-    CheckpointManager(str(good)).save(1, tree)
-    with open(good / "1" / "opt_state.mu.pt", "ab") as f:
+    mgr = CheckpointManager(str(good))
+    mgr.save(1, tree)
+    mgr.close()       # the save is asynchronous
+    with open(good / "1" / "opt_state.mu.bin", "ab") as f:
         f.write(b"x")
     _assert_trees_equal(load_params(f"file://{good}", cfg, device="cpu"),
                         tree["params"])
-    with open(good / "1" / "params.embed.pt", "ab") as f:
+    with open(good / "1" / "params.embed.bin", "ab") as f:
         f.write(b"x")
-    with pytest.raises(CheckpointCorruptionError, match="params.embed.pt"):
+    with pytest.raises(CheckpointCorruptionError, match="params.embed.bin"):
         load_params(f"file://{good}", cfg, device="cpu")
     with pytest.raises(ValueError, match="unsupported storageUri scheme"):
         load_params("s3://bucket/model", cfg, device="cpu")
@@ -134,7 +136,9 @@ def test_jax_checkpoint_and_port_checkpoint_serve_the_same_tokens(tmp_path):
 
     pckpt = tmp_path / "port_ckpt"
     tree = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
-    assert CheckpointManager(str(pckpt)).save(3, {"params": tree, "step": 3})
+    mgr = CheckpointManager(str(pckpt))
+    assert mgr.save(3, {"params": tree, "step": 3})
+    mgr.close()       # the save is asynchronous
     cfg = preset("tiny", dtype="float32")
     params = load_params(f"file://{pckpt}", cfg, device="cpu")
     eng = E.LLMEngine(cfg, BatchingSpec(**SPEC), params=params, device="cpu")

@@ -21,8 +21,8 @@
   saves and exits with ``EXIT_PREEMPTED``; five steps with
   ``fused_kernels="on"`` — the fused norm, SwiGLU and CE through their
   autograd Functions' plain CPU paths — track five with ``"off"`` within
-  1e-5), and the refusals: unported remat policies, and entry points
-  without ``device=`` when there is no card.
+  1e-5), an unknown remat policy's ``ValueError``, and the refusal of
+  entry points without ``device=`` when there is no card.
 """
 
 import dataclasses
@@ -131,15 +131,21 @@ def test_chunked_ce_argmax_ties_go_to_the_lowest_index():
 
 
 def test_unported_remat_policies_raise():
-    cfg = tconfig.preset("tiny", dtype="float32")
+    """Every remat policy of the JAX package runs in the port; a name
+    neither package defines raises ``ValueError`` in training and in
+    serving, as JAX's ``decoder_forward`` does (``tests/test_torch_remat.py``
+    holds each policy's values and kept tensors)."""
+    cfg = tconfig.preset("tiny", dtype="float32", fused_kernels="off")
     params = tdec.init_decoder_params(torch.Generator().manual_seed(0), cfg)
     toks = torch.randint(0, cfg.vocab_size, (1, 9))
-    with pytest.raises(NotImplementedError, match="dots_flash"):
-        tdec.decoder_loss(params, toks, dataclasses.replace(
-            cfg, fused_kernels="off", remat_policy="dots_flash"))
-    with torch.no_grad():      # serving with such a config still runs
-        tdec.decoder_forward(params, toks, dataclasses.replace(
-            cfg, fused_kernels="off", remat_policy="dots_flash"))
+    assert set(tdec.REMAT_POLICIES) == {
+        "none", "full", "nothing_saveable", "dots_saveable", "block_outs",
+        "dots_no_batch", "dots_flash"}
+    bad = dataclasses.replace(cfg, remat_policy="dots_everything")
+    with pytest.raises(ValueError, match="dots_everything"):
+        tdec.decoder_loss(params, toks, bad)
+    with torch.no_grad(), pytest.raises(ValueError, match="dots_everything"):
+        tdec.decoder_forward(params, toks, bad)
 
 
 # -- optimizer ----------------------------------------------------------------
@@ -316,6 +322,7 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
     mgr = tckpt.CheckpointManager(str(tmp_path / "ck"), max_to_keep=2)
     for step in (1, 2, 3):
         assert mgr.save(step, _state(step))
+    mgr.wait()                                       # saves are asynchronous
     assert mgr.steps_on_disk() == [2, 3]             # max_to_keep
     assert not mgr.save(3, _state(0))                # exists: rejected
     assert mgr.verify_step(3)
@@ -328,7 +335,8 @@ def test_corrupt_step_is_quarantined_and_resume_falls_back(tmp_path):
     mgr = tckpt.CheckpointManager(str(tmp_path / "ck"))
     mgr.save(1, _state(1))
     mgr.save(2, _state(2))
-    path = tmp_path / "ck" / "2" / "params.w.pt"
+    mgr.wait()
+    path = tmp_path / "ck" / "2" / "params.w.bin"
     data = bytearray(path.read_bytes())
     data[-1] ^= 0xFF
     path.write_bytes(bytes(data))
@@ -347,6 +355,7 @@ def test_resume_prefers_the_emergency_tier_and_ignores_torn_saves(tmp_path):
     emergency = tckpt.CheckpointManager(str(tmp_path / "e"), max_to_keep=1)
     interval.save(4, _state(1))
     emergency.save(4, _state(2))
+    emergency.wait()
     tiers = [("emergency", emergency), ("interval", interval)]
     state, step, tier, _ = tckpt.resume_from_tiers(tiers)
     assert (step, tier) == (4, "emergency")
