@@ -15,7 +15,9 @@ edge cases); ``--serve-only`` runs phases 1 and 2, serve and (a)–(c),
 then (e), (f), (g), (h) and (i), without the kernel rows; ``--spec-only``
 runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
 ``--train-moe-only`` phases 1, 2, the fused CE's edge cases and (j),
-``--remat-only`` phases 1, 2 and (k). Every phase prints its seconds.
+``--remat-only`` phases 1, 2 and (k), ``--multi-only`` phases 1, 2 and
+(l), ``--multi-cards-only`` phases 1, 2, (l)1 and (l)4 (for a machine
+with several cards). Every phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -77,8 +79,8 @@ Phases, each a hard failure:
    37-token prompt through the kernels against the plain path (same target
    token, scores rel L2 <= 5e-2), with exactly 2L + 1 RMSNorm backward and
    L SwiGLU backward launches; ``leave_one_out`` finite, same target;
-   (b) loadgen in process: ``bursty_qos`` of ``standard_matrix`` (24
-   requests at 4 req/s, prompts up to 512 tokens, 64 new) through
+   (b) loadgen in process: ``bursty_qos`` of ``standard_matrix`` (16
+   requests at 4 req/s, prompts up to 512 tokens, 32 new) through
    ``EngineTarget`` on the contiguous engine; every request ok or shed;
    TTFT, TPOT, req/s, tokens/s and the generator's lag beside the card;
 5. paged serve: the same weights on the page pool (bf16 pages, then int8
@@ -141,7 +143,7 @@ Phases, each a hard failure:
    promotes it on the next turn: the pages' bytes equal before demotion
    and after promotion (bf16, int8 with scales), turn 2's tokens equal an
    engine's without the tier, the paged-decode kernel runs on adopted and
-   on promoted pages; ``multi_turn`` (10 s of think time) through
+   on promoted pages; ``multi_turn`` (4 s of think time) through
    ``EngineTarget`` on it, no request failing, pages demoted and
    promoted, none left referenced. Then a prefill and a decode worker
    process share the card: the three prompts through the prefill worker
@@ -190,7 +192,7 @@ Phases, each a hard failure:
    least 5x that away from the base weights'; one prompt under two
    adapters shares no KV (no prefix hit across adapters, a hit on the
    first adapter's second turn); ``packed_bytes()`` 109,051,904;
-   ``multi_adapter`` (24 requests at 4 req/s, 512-token prompts, 64 new,
+   ``multi_adapter`` (16 requests at 4 req/s, 512-token prompts, 32 new,
    zipf over the 8 tenants) through ``EngineTarget`` on the page pool,
    every request ok or shed, at least 5 hot-loads and an eviction, no
    leaked page or adapter reference, the norms, SwiGLU and paged decode
@@ -229,9 +231,10 @@ Phases, each a hard failure:
    engine's printed. (h)3: a random 2-layer draft of Llama-3-8B widths
    (rejects almost every draft): the same token check, no leaked page
    and 0 resident after. (h)4: a worker with ``batching.speculative``
-   ngram on the page pool under ``uniform`` through ``ServerTarget``:
-   every request ok, ``kftpu_serving_spec_tokens_per_step`` read off
-   ``/metrics``, TPOT p50 beside (c)'s spec-off worker's; SIGTERM -> 143;
+   ngram on the page pool under ``uniform`` (64 new tokens) through
+   ``ServerTarget``: every request ok,
+   ``kftpu_serving_spec_tokens_per_step`` read off ``/metrics``, TPOT p50
+   beside (c)'s spec-off worker's; SIGTERM -> 143;
 13. (i) MoE serving and int8 weights. (i)1: one MoE block at Mixtral
    width (bf16, seeded) at T = 2048 with 1500 real rows: the dispatch
    path at capacity factor E against the dense oracle (rel L2 <= 1e-2 on
@@ -257,7 +260,7 @@ Phases, each a hard failure:
    all 32 layers with int8 weights through ``runtime.worker_main`` →
    ``model_server`` (``random://`` packed per layer, never bf16 whole;
    bf16 page pool, 8 slots x 2048; its batching a ``BatchingSpec`` dump
-   with ``moe_*_impl``): three completions and ``uniform`` (12 requests
+   with ``moe_*_impl``): three completions and ``uniform`` (6 requests
    at 4 req/s, prompts of 512, 64 new) through ``ServerTarget``, every
    request ok; SIGTERM -> 143; then the same seed's int8 weights in
    process, each completion token held as in (i)2; the worker's logged
@@ -300,6 +303,26 @@ Phases, each a hard failure:
    ``"dots_flash"``, 2L under the others); the activation bytes one
    forward keeps, the peak less the params' and Adam state's bytes, step
    ms, tokens/s and MFU printed.
+16. (l) multi-process training: (l)1 ``llm_pretrain`` through
+   ``runtime.worker_main`` with ``KFTPU_PARALLELISM_JSON={"fsdp": 1}`` (an
+   NCCL world of one on the card, the mesh path with every training
+   kernel): Llama-3-8B width at 4 layers, 2 x 2048 tokens, 3 steps, fused
+   kernels on; each step's loss within rel 1e-6 of the in-process
+   unmeshed ``Trainer``'s (bit-equality printed), the worker's launches
+   per step of rows 1-11 the train phase's, step ms, tokens/s and peak
+   memory; (l)2 the flash ring's step functions, 4 ranks in lockstep in
+   one process, at 32/8 heads x 128, B = 1, S = 8192: o within 1e-2 +
+   2^-7 |ref| and lse within 1e-3 of one flash forward over the whole
+   sequence, dq/dk/dv within rel L2 1e-2 of the one-card flash backward,
+   exactly 10 launches of each flash kernel (a future part launches
+   nothing), the ring's kernel ms beside the single flash's; (l)3 a
+   ``torch_train`` gang of 2 workers on the one card over gloo: both exit
+   0, the loss falls, both ranks' final weights bit-equal; (l)4 with two
+   or more cards, ``llm_pretrain`` at world min(cards, 4) over NCCL on
+   ``{seq: world}`` with the flash ring and on ``{fsdp: world}``, losses
+   within 1e-2 of an in-process run (fused off, as the mesh turns them
+   off) on the same global batches (on one card it prints why it did not
+   run).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -2419,8 +2442,10 @@ def phase_profile(engine) -> None:
 # grad_x_input's per-token scores, kernel path vs plain path over 32 bf16
 # layers: relative L2, the prefill's band.
 EXPLAIN_REL_L2 = PREFILL_REL_L2
-#: The offered traffic of every loadgen phase (``standard_matrix``).
-LOADGEN = dict(num_requests=24, rate_rps=4.0, prompt_len=512, max_new=64,
+#: The offered traffic of every loadgen phase (``standard_matrix``): 16
+#: requests of up to 32 new tokens a mix keep the whole script well inside
+#: its time limit.
+LOADGEN = dict(num_requests=16, rate_rps=4.0, prompt_len=512, max_new=32,
                seed=SEED)
 #: The worker's greedy prompts: a 128-bucket prompt, a 512-bucket one and a
 #: chunked one.
@@ -2827,7 +2852,7 @@ HOST_TIER = dict(host_kv_pages=64, kv_demote_after_s=0.5)
 #: The host tier's conversation: turn 1's prompt, and the new text of turn
 #: 2 ((tokens, salt) of ``text``).
 HOST_TURNS = ((700, 71), (61, 72))
-MULTI_TURN_THINK_S = 10.0
+MULTI_TURN_THINK_S = 4.0
 
 
 def _drive(eng, req, timeout: float = 600.0):
@@ -4173,6 +4198,9 @@ def phase_many_models(card: str) -> None:
 
 #: Drafts per spec round in every (h) engine.
 SPEC_K = 4
+#: (h)4's traffic: ``LOADGEN`` with 64 new tokens, where random weights'
+#: greedy text starts to repeat and the n-gram drafter first proposes.
+SPEC_LOADGEN = dict(LOADGEN, max_new=64)
 #: (h)2 and (h)3's replay prompts: four random prompts P of 200 tokens, each
 #: run as P + G + P with G its 32 greedy tokens, so the n-gram drafter
 #: proposes G from the first round.
@@ -4507,7 +4535,7 @@ def spec_worker(card: str, plain_tpot=None) -> None:
     ok = False
     try:
         t_ready = wait_ready(proc, url, "spec worker", t0)
-        sc = next(x for x in loadgen.standard_matrix(**LOADGEN)
+        sc = next(x for x in loadgen.standard_matrix(**SPEC_LOADGEN)
                   if x.name == "uniform")
         run = loadgen.run_scenario(loadgen.ServerTarget(url, model="llama"),
                                    sc, vocab_size=128256, max_prompt_len=1024)
@@ -4585,7 +4613,7 @@ MOE_PROMPT_LENS = (40, 300, 700, 1000)
 MOE_NEW = 64
 #: (i)3: the worker's completions and traffic.
 MOE_WORKER_PROMPTS = ((60, 61), (300, 62), (500, 63))
-MOE_LOADGEN = dict(num_requests=12, rate_rps=4.0, prompt_len=512, max_new=64,
+MOE_LOADGEN = dict(num_requests=6, rate_rps=4.0, prompt_len=512, max_new=64,
                    seed=0)
 
 
@@ -6154,6 +6182,410 @@ def phase_train_moe(rows: list[dict], card: str) -> None:
     timed_phase("vision workers", vision_workers, card)
 
 
+# -- (l) multi-process training ------------------------------------------------
+
+MULTI_STEPS = 3
+#: (l)1: the NCCL world-1 worker's losses against the in-process unmeshed
+#: Trainer's, relative: the same program on the same card and seed.
+MULTI_LOSS_REL = 1e-6
+#: (l)2: the flash ring driven in lockstep on one card, at Llama-3-8B's
+#: attention width over one 8192-token sequence cut into 4 parts.
+RING_N, RING_B, RING_S, RING_H, RING_KH, RING_D = 4, 1, 8192, 32, 8, 128
+#: (l)3: the ``torch_train`` gang's steps.
+GANG_STEPS = 20
+#: (l)4: a multi-card world's losses, and its step-1 grad norm, against an
+#: in-process run on the same global batches, relative (bf16 activations).
+#: Sound runs read ~1e-5 on the losses; a gradient summed over too few or
+#: too many ranks moves the grad norm by tens of percent.
+MULTI_CARD_LOSS_REL = 1e-4
+MULTI_CARD_GRAD_NORM_REL = 1e-3
+
+
+def counted_llm_pretrain(ctx) -> int:
+    """(l)'s worker entrypoint (``chip_smoke:counted_llm_pretrain``):
+    ``llm_pretrain`` with every training kernel's count set to 0 before
+    and written after, with the peak allocation and the world it joined,
+    to ``counts.json`` in the worker's workdir."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.train.entrypoints import llm_pretrain
+
+    wrappers = _train_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rc = llm_pretrain(ctx)
+    out = {"launches": {n: w.launches for n, w in wrappers.items()},
+           "peak": torch.cuda.max_memory_allocated(),
+           "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "device": str(torch.cuda.current_device())}
+    Path(ctx.env.workdir, "counts.json").write_text(json.dumps(out))
+    return rc
+
+
+def start_workers(entrypoint: str, config: dict, workdirs: list,
+                  parallelism: dict, label: str) -> dict:
+    """One ``runtime.worker_main`` process per workdir, as one world on the
+    card(s) (``KFTPU_PLATFORM=gpu``), started; ``wait_workers`` ends them."""
+    import tempfile
+
+    from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
+
+    repo = Path(__file__).resolve().parent
+    n = len(workdirs)
+    addr = f"127.0.0.1:{free_port()}"
+    procs = []
+    for r, wd in enumerate(workdirs):
+        wenv = WorkerEnv(coordinator_address=addr, num_processes=n,
+                         process_id=r, job=f"default/{label}",
+                         replica_index=r, entrypoint=entrypoint,
+                         config=config, parallelism=parallelism,
+                         platform=WORKER_PLATFORM, workdir=str(wd),
+                         rendezvous_timeout_seconds=300.0)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("KFTPU_")}
+        env.update(wenv.to_env())
+        env["PYTHONPATH"] = str(repo)
+        log = tempfile.TemporaryFile()
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.runtime.worker_main"],
+            cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return {"procs": procs, "label": label, "t0": time.perf_counter()}
+
+
+def wait_workers(gang: dict, timeout: float = 600.0) -> float:
+    """Wait for a ``start_workers`` world; returns its seconds from start
+    to the last exit. Fails unless every process exits 0."""
+    procs, label = gang["procs"], gang["label"]
+    deadline = time.monotonic() + timeout
+    rcs = []
+    for proc, log in procs:
+        try:
+            rcs.append(proc.wait(timeout=max(1.0, deadline
+                                             - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    for r, ((proc, log), rc) in enumerate(zip(procs, rcs)):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        if rc != 0:
+            log.seek(0)
+            print(f"{label} rank {r} log (tail):\n"
+                  + log.read().decode(errors="replace")[-4000:],
+                  file=sys.stderr, flush=True)
+        log.close()
+    if any(rc != 0 for rc in rcs):
+        fail(f"{label}: exit codes {rcs}")
+    return time.perf_counter() - gang["t0"]
+
+
+def spawn_workers(entrypoint: str, config: dict, workdirs: list,
+                  parallelism: dict, label: str) -> float:
+    """``start_workers`` then ``wait_workers``."""
+    return wait_workers(start_workers(entrypoint, config, workdirs,
+                                      parallelism, label))
+
+
+def multi_worker_world1(card: str) -> list[float]:
+    """(l)1: ``llm_pretrain`` through ``runtime.worker_main`` with
+    ``KFTPU_PARALLELISM_JSON={"fsdp": 1}``: an NCCL world of one on the
+    card, Llama-3-8B width at 4 layers, 2 x 2048 tokens, 3 steps, fused
+    kernels on. Each step's loss against the in-process unmeshed
+    ``Trainer``'s on the same seed; the worker's launches per step of
+    rows 1-11 exactly the train phase's. Returns the worker's losses."""
+    import dataclasses
+    import tempfile
+
+    cfg = _trainer_cfg(steps=MULTI_STEPS)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_train_") as wd:
+        torch.cuda.empty_cache()
+        secs = spawn_workers("chip_smoke:counted_llm_pretrain",
+                             dataclasses.asdict(cfg), [wd], {"fsdp": 1},
+                             "(l)1 llm_pretrain")
+        rows = [json.loads(x) for x in
+                Path(wd, "metrics.jsonl").read_text().splitlines()]
+        counts = json.loads(Path(wd, "counts.json").read_text())
+    if counts["world"] != 1 or counts["backend"] != "nccl":
+        fail(f"(l)1: the worker joined {counts['world']} ranks over "
+             f"{counts['backend']}, not an NCCL world of one")
+    from kubeflow_tpu_torch.models.config import preset
+
+    mcfg = preset(cfg.model, **cfg.model_overrides)
+    want = {n: c * MULTI_STEPS for n, c in _want_per_step(
+        True, mcfg.n_layers).items()}
+    if counts["launches"] != want:
+        fail(f"(l)1: the worker's launches {counts['launches']}, expected "
+             f"{want}")
+    with tempfile.TemporaryDirectory() as wd:
+        ref = _counted_run(cfg, wd, "(l)1 in-process reference")["steps"]
+    losses = [r["loss"] for r in rows]
+    refs = [ref[s]["loss"] for s in range(1, MULTI_STEPS + 1)]
+    nan = float("nan")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, refs))
+    print(f"(l)1 llm_pretrain worker, NCCL world 1, {{fsdp: 1}}: exit 0 in "
+          f"{secs:.1f} s; losses {losses} vs in-process {refs} (max rel "
+          f"{rel:.3e}, tolerance {MULTI_LOSS_REL:g}; bit-equal "
+          f"{losses == refs}); launches per step "
+          + json.dumps({n: c // MULTI_STEPS
+                        for n, c in counts["launches"].items()})
+          + f"; step ms {[round(r.get('step_time_ms', nan), 1) for r in rows]}"
+          f"; tokens/s {[round(r.get('tokens_per_sec', nan), 1) for r in rows]}"
+          f"; peak "
+          f"{counts['peak'] / 2**30:.2f} GiB allocated; {card}", flush=True)
+    if not rel <= MULTI_LOSS_REL:
+        fail("(l)1: the worker's losses are off the in-process run's")
+    return losses
+
+
+def ring_one_card(card: str) -> None:
+    """(l)2: the flash ring's step functions, 4 ranks driven in lockstep in
+    one process (``ring_flash_lockstep``), at Llama-3-8B attention width
+    (32/8 heads x 128), B = 1, S = 8192: o and lse against one flash
+    forward over the whole sequence, dq/dk/dv against the one-card flash
+    backward, exactly 10 launches of each flash kernel (no future part
+    launches), and the ring's kernel ms beside the single flash's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.ops import flash_attention as FA
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        ring_flash_lockstep,
+    )
+
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    B, S, H, KH, D = RING_B, RING_S, RING_H, RING_KH, RING_D
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(B, S, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D), \
+        rnd(B, S, H, D)
+    scale = D ** -0.5
+    kw = dict(causal=True, sm_scale=scale, softcap=None, q_offset=0)
+
+    def t(x):
+        return x.transpose(1, 2).contiguous()
+
+    def single():
+        o, lse = FA.flash_attention(q, k, v, causal=True)
+        return (o, lse) + FA.flash_bwd(t(q), t(k), t(v), t(o), lse, t(do),
+                                       **kw)
+
+    o_ref, lse_ref, dq_ref, dk_ref, dv_ref = single()
+    wrappers = {"flash_fwd": FA.flash_attention,
+                "flash_bwd_dkdv": FA.flash_bwd_dkdv,
+                "flash_bwd_dq": FA.flash_bwd_dq}
+    for w in wrappers.values():
+        w.launches = 0
+    o, lse, (dq, dk, dv) = ring_flash_lockstep(q, k, v, RING_N, do=do)
+    torch.cuda.synchronize()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    want = RING_N * (RING_N + 1) // 2
+    if launches != {n: want for n in wrappers}:
+        fail(f"(l)2: ring launches {launches}, expected {want} of each "
+             "(a future part must launch nothing)")
+    err_o = within(o, o_ref, "(l)2 ring o")
+    err_lse = within(lse, lse_ref, "(l)2 ring lse", atol=LSE_ATOL, rtol=0.0)
+    rels = {n: rel_l2(got, t(want_)) for n, got, want_ in (
+        ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+    if not all(r <= BWD_REL_L2 for r in rels.values()):
+        fail(f"(l)2: ring gradients rel L2 {rels} > {BWD_REL_L2}")
+
+    def flash_share(fn) -> str:
+        """The flash kernels' device ms of one ``fn()`` from a profile."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms = sum(m for key, m, _ in _kernel_times(prof)[1] if "flash" in key)
+        return f"{ms:.3f}" if ms > 0 else "not measured (empty profile)"
+
+    def ring():
+        return ring_flash_lockstep(q, k, v, RING_N, do=do)
+
+    ring_ms, one_ms = event_ms(ring), event_ms(single)
+    print(f"(l)2 flash ring on one card, {RING_N} ranks in lockstep, B={B} "
+          f"S={S} H={H}/{KH} D={D}: launches {json.dumps(launches)}; o max "
+          f"abs err {err_o:.3e}, lse {err_lse:.3e}; grads rel L2 "
+          + ", ".join(f"{n} {r:.3e}" for n, r in rels.items())
+          + f"; forward+backward ms (CUDA events): ring {ring_ms:.3f} vs "
+          f"one flash {one_ms:.3f}; the ring's flash kernels "
+          f"{flash_share(ring)} ms, one flash's {flash_share(single)} ms "
+          f"(profiler); {card}", flush=True)
+
+
+def start_torch_train_gang(base: str) -> dict:
+    """(l)3's gang, started: ``torch_train``, 2 workers on the one card
+    (gloo, the JAX adapter's design), in sibling workdirs under ``base``."""
+    dirs = [Path(base, "job", f"worker-{r}") for r in range(2)]
+    gang = start_workers("torch_train", {"steps": GANG_STEPS, "batch": 64},
+                         dirs, {}, "(l)3 torch_train")
+    gang["dirs"] = dirs
+    return gang
+
+
+def check_torch_train_gang(gang: dict, card: str) -> None:
+    """(l)3: both workers exit 0, the loss falls, both ranks' final
+    weights are bit-equal."""
+    secs = wait_workers(gang)
+    dirs = gang["dirs"]
+    rows = [json.loads(x) for x in
+            (dirs[0] / "metrics.jsonl").read_text().splitlines()]
+    w0 = torch.load(dirs[0] / "checkpoint.pt")
+    w1 = torch.load(dirs[1] / "checkpoint.rank1.pt")
+    losses = [r["loss"] for r in rows]
+    equal = all(torch.equal(w0[k], w1[k]) for k in w0)
+    print(f"(l)3 torch_train gang, 2 workers on one card over gloo: exit 0 "
+          f"in {secs:.1f} s (beside (l)1); loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} over {len(losses)} steps; final weights "
+          f"bit-equal {equal}; {card}", flush=True)
+    if len(losses) != GANG_STEPS or not losses[-1] < losses[0]:
+        fail(f"(l)3: losses {losses}")
+    if not equal:
+        fail("(l)3: the two ranks' final weights differ")
+
+
+class _GlobalBatches:
+    """The global batch of each step: the data shards ``0..n-1`` of
+    ``data_cfg``, concatenated (what ``n`` ranks over the batch axes read
+    between them)."""
+
+    def __init__(self, data_cfg, n: int):
+        from kubeflow_tpu_torch.train.data import make_data_source
+
+        self.srcs = [make_data_source(data_cfg, shard=i, num_shards=n)
+                     for i in range(n)]
+
+    def batch_at(self, step: int):
+        import numpy as np
+
+        return np.concatenate([s.batch_at(step) for s in self.srcs])
+
+
+def _global_batch_run(cfg, n: int) -> tuple[list[float], list[float]]:
+    """The losses and grad norms of an in-process unmeshed ``Trainer`` of
+    ``cfg`` whose batches are the global batches of ``n`` batch shards."""
+    import tempfile
+
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    losses: list[float] = []
+    norms: list[float] = []
+
+    def on_step(step, m):
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+
+    with tempfile.TemporaryDirectory() as wd:
+        tr = Trainer(cfg, device="cuda", workdir=wd)
+        tr.data = _GlobalBatches(tr.data_cfg, n)
+        try:
+            tr.run(on_step=on_step)
+        finally:
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    return losses, norms
+
+
+def multi_card_world(card: str, world1_losses: list[float]) -> None:
+    """(l)4: with two or more cards, ``llm_pretrain`` at world =
+    min(cards, 4) over NCCL, 3 steps each, on ``{seq: world}`` with the
+    flash ring (the K/V parts rotating between cards) and on ``{fsdp:
+    world}`` (the params sharded, gathered per layer), fused kernels on
+    each rank's local blocks. The trainer rounds the global batch up to a
+    multiple of the processes (JAX's rule), so each run is held to an
+    in-process unmeshed run, fused on, on the same global batches: losses
+    within ``MULTI_CARD_LOSS_REL``, the step-1 grad norm within
+    ``MULTI_CARD_GRAD_NORM_REL``. (l)1's losses are printed beside
+    them."""
+    import dataclasses
+    import tempfile
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"(l)4 multi-card NCCL world: not run — this machine has "
+              f"{count} card (NCCL takes one rank per card); {card}",
+              flush=True)
+        return
+    world = min(count, 4)
+    nan = float("nan")
+    for axes, attn in (({"seq": world}, "ring_flash"),
+                       ({"fsdp": world}, "pallas")):
+        cfg = dataclasses.replace(_trainer_cfg(steps=MULTI_STEPS),
+                                  attn_impl=attn)
+        with tempfile.TemporaryDirectory(
+                dir=Path(__file__).resolve().parent,
+                prefix=".chip_smoke_train_") as base:
+            dirs = [Path(base, f"w{r}") for r in range(world)]
+            secs = spawn_workers("chip_smoke:counted_llm_pretrain",
+                                 dataclasses.asdict(cfg), dirs, axes,
+                                 f"(l)4 llm_pretrain {axes}")
+            rows = [json.loads(x) for x in
+                    (dirs[0] / "metrics.jsonl").read_text().splitlines()]
+            counts = [json.loads((d / "counts.json").read_text())
+                      for d in dirs]
+        # The trainer rounds the global batch up to lcm(processes, batch
+        # shards), as JAX's does: the reference reads the same rows.
+        ref_cfg = dataclasses.replace(
+            cfg, data=dict(cfg.data, global_batch=math.lcm(
+                cfg.data["global_batch"], world)))
+        refs, ref_norms = _global_batch_run(ref_cfg, axes.get("fsdp", 1))
+        ref_name = "in-process, fused on, same global batches"
+        losses = [r["loss"] for r in rows]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, refs))
+        norm1 = rows[0]["grad_norm"]
+        rel_norm = abs(norm1 - ref_norms[0]) / abs(ref_norms[0])
+        print(f"(l)4 llm_pretrain over NCCL, {world} cards, {axes}, "
+              f"attn {attn}: exit 0 in {secs:.1f} s; devices "
+              f"{[c['device'] for c in counts]}, backends "
+              f"{sorted({c['backend'] for c in counts})}; losses {losses} "
+              f"vs {ref_name} {refs} (max rel {rel:.3e}, tolerance "
+              f"{MULTI_CARD_LOSS_REL:g}; (l)1 {world1_losses}); step-1 "
+              f"grad norm {norm1} vs {ref_norms[0]} (rel {rel_norm:.3e}, "
+              f"tolerance {MULTI_CARD_GRAD_NORM_REL:g}); step ms "
+              f"{[round(r.get('step_time_ms', nan), 1) for r in rows]}; "
+              f"tokens/s "
+              f"{[round(r.get('tokens_per_sec', nan), 1) for r in rows]}; "
+              f"peak per rank "
+              f"{[round(c['peak'] / 2**30, 2) for c in counts]} GiB; "
+              f"flash launches per rank "
+              f"{[c['launches']['flash_fwd'] for c in counts]}; {card}",
+              flush=True)
+        if len({c["device"] for c in counts}) != world or any(
+                c["world"] != world or c["backend"] != "nccl"
+                for c in counts):
+            fail(f"(l)4 {axes}: ranks {counts} are not one NCCL world "
+                 "over distinct cards")
+        if not rel <= MULTI_CARD_LOSS_REL:
+            fail(f"(l)4 {axes}: the multi-card losses are off {ref_name}'s")
+        if not rel_norm <= MULTI_CARD_GRAD_NORM_REL:
+            fail(f"(l)4 {axes}: the step-1 grad norm is off {ref_name}'s")
+
+
+def phase_multi(card: str) -> None:
+    """(l): multi-process training — the NCCL worker path at world 1, the
+    flash ring's step maths at full width on one card, a two-process gloo
+    gang on one card, and a multi-card world where there is one."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as base:
+        # The small gang runs beside (l)1 (both start processes); it ends
+        # before (l)2's timings.
+        gang = start_torch_train_gang(base)
+        losses = timed_phase("multi world 1", multi_worker_world1, card)
+        timed_phase("multi torch_train gang", check_torch_train_gang, gang,
+                    card)
+    timed_phase("multi ring", ring_one_card, card)
+    timed_phase("multi cards", multi_card_world, card, losses)
+
+
 def timed_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -6224,6 +6656,18 @@ def main() -> int:
         print(f"chip_smoke: remat phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] == ["--multi-cards-only"]:
+        # Only what needs several cards, and what it is held to.
+        losses = timed_phase("multi world 1", multi_worker_world1, card)
+        timed_phase("multi cards", multi_card_world, card, losses)
+        print(f"chip_smoke: multi-card phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--multi-only"]:
+        timed_phase("multi", phase_multi, card)
+        print(f"chip_smoke: multi phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] == ["--train-moe-only"]:
         timed_phase("xent edges", phase_xent_edges)
         timed_phase("train moe", phase_train_moe, [], card)
@@ -6274,6 +6718,7 @@ def main() -> int:
     timed_phase("moe", phase_moe, rows, card)
     timed_phase("train moe", phase_train_moe, rows, card)
     timed_phase("remat", phase_remat, rows, card)
+    timed_phase("multi", phase_multi, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -18,6 +18,14 @@ for the policies that keep products or the flash outputs (``_remat``).
 ``aux_loss_weight`` times the MoE blocks' balance loss summed over the
 layers (``_forward`` carries it out; ``decoder_forward`` keeps its
 two-tuple for the serving callers).
+
+Under a mesh (``runtime/mesh.py``, training) ``decoder_loss`` takes this
+rank's batch rows, cuts its part of the sequence after the input/target
+shift, carries the part's offset into the positions, reads the params
+through ``parallel.collectives.GatheredParams`` (a sharded leaf is
+all-gathered where it is used, per layer) and returns this rank's part of
+the global masked mean. ``decoder_param_specs`` gives every leaf's
+logical axes (JAX's spec tree).
 """
 
 from __future__ import annotations
@@ -57,7 +65,8 @@ def _copy_layer(dst, i: int, t) -> None:
         dst[i].copy_(t)
 
 
-def _stacked(gen: torch.Generator, n: int, make, quant=None) -> Any:
+def _stacked(gen: torch.Generator, n: int, make, quant=None,
+             shard=None, path: str = "") -> Any:
     """Stack ``n`` per-layer trees drawn one layer at a time from ``make``
     into ``[L, ...]`` leaves: only one layer's draw is alive at once, so a
     full-width model never holds its fp32 draws all together. ``quant``
@@ -66,14 +75,20 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None) -> Any:
     ``post`` before drawing the next): only one leaf's full-dtype draw is
     alive at once. Per-output-channel scales never reduce over the layer
     axis, so the result is bit for bit the quantization of the stacked
-    draw."""
+    draw. ``shard(path, t)`` (a sharded train state) keeps each layer's
+    block of each leaf as it is drawn, ``path`` the stacked leaf's."""
     def post(name: str, t):
+        if shard is not None:
+            return shard(f"{path}/{name}", t)
         if quant is None or quant.get(name) is None:
             return t
         return quantize_weight(t, tuple(d - 1 for d in quant[name]))
 
     def draw():
-        return make(post)
+        tree = make(post)
+        if shard is not None and not isinstance(tree, dict):
+            tree = shard(path, tree)
+        return tree
 
     # Layer 0's draw shapes the stacks, is copied in, then dropped: no
     # layer's draw outlives its copy.
@@ -94,7 +109,8 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None) -> Any:
 
 def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
                         dtype: Optional[torch.dtype] = None,
-                        quantize: Optional[str] = None) -> Params:
+                        quantize: Optional[str] = None,
+                        shard=None) -> Params:
     """Random weights from ``gen`` on ``gen``'s device: truncated normal with
     the JAX package's fan-in scales, stored in ``dtype`` (default
     ``cfg.param_dtype``). The values differ from ``jax.random``'s — tests
@@ -103,11 +119,19 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
     ``quantize="int8"``: each layer's matmul weights (and an untied
     lm_head) are packed into int8 ``QuantizedTensor``s as they are drawn,
     equal bit for bit to ``quantize_params_int8`` of the full-dtype draw;
-    the full-dtype tree never exists."""
+    the full-dtype tree never exists.
+
+    ``shard(path, t)`` returns the block of a leaf (or of one layer of a
+    stacked leaf) that this process keeps: each is cut as soon as it is
+    drawn, so the values are the whole draw's bit for bit while at most one
+    whole leaf is alive (``train/step.py``'s sharded init)."""
     check_quantize(quantize)
+    if shard is not None and quantize is not None:
+        raise ValueError("a sharded init draws full-dtype weights")
+    keep = shard if shard is not None else (lambda path, t: t)
     dt = dtype or cfg.weight_dtype
     dev = gen.device
-    params: Params = {"embed": L.init_embedding(gen, cfg, dt)}
+    params: Params = {"embed": keep("embed", L.init_embedding(gen, cfg, dt))}
     n = cfg.n_layers
 
     def quant(block: str, names) -> Optional[dict]:
@@ -120,24 +144,94 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
     params["layers"] = {
         "attn": _stacked(gen, n,
                          lambda post: L.init_attention(gen, cfg, dt, post),
-                         quant("attn", ("wq", "wk", "wv", "wo"))),
+                         quant("attn", ("wq", "wk", "wv", "wo")),
+                         shard, "layers/attn"),
         "mlp": _stacked(gen, n, lambda post: init_mlp(gen, cfg, dt, post),
-                        quant("mlp", mlp_names)),
-        "ln1": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt)),
-        "ln2": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt)),
+                        quant("mlp", mlp_names), shard, "layers/mlp"),
+        "ln1": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt),
+                        shard=shard, path="layers/ln1"),
+        "ln2": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt),
+                        shard=shard, path="layers/ln2"),
     }
-    params["final_norm"] = L.init_rmsnorm(cfg, dev, dt)
+    params["final_norm"] = keep("final_norm", L.init_rmsnorm(cfg, dev, dt))
     if not cfg.tie_embeddings:
-        head = L._init(gen, (cfg.hidden, cfg.vocab_size), dt)
+        head = keep("lm_head", L._init(gen, (cfg.hidden, cfg.vocab_size), dt))
         params["lm_head"] = (head if quantize is None
                              else quantize_weight(head, (0,)))
     return params
 
 
+def abstract_decoder_params(cfg: DecoderConfig) -> Params:
+    """``init_decoder_params``' tree as tensors on the ``meta`` device: every
+    leaf's shape and dtype, with no storage and no draw (what JAX's
+    ``eval_shape`` of the init gives). A sharded train state lays itself
+    out from it before anything is drawn."""
+    d, hd, n, m = cfg.hidden, cfg.head_dim, cfg.n_layers, cfg.mlp_dim
+    attn = {"wq": (d, cfg.n_heads, hd), "wk": (d, cfg.n_kv_heads, hd),
+            "wv": (d, cfg.n_kv_heads, hd), "wo": (cfg.n_heads, hd, d)}
+    if cfg.is_moe:
+        e = cfg.num_experts
+        mlp = {"router": (d, e), "gate": (e, d, m), "up": (e, d, m),
+               "down": (e, m, d)}
+    else:
+        mlp = {"gate": (d, m), "up": (d, m), "down": (m, d)}
+    shapes = {"embed": (cfg.vocab_size, d),
+              "layers": {"attn": {k: (n,) + v for k, v in attn.items()},
+                         "mlp": {k: (n,) + v for k, v in mlp.items()},
+                         "ln1": (n, d), "ln2": (n, d)},
+              "final_norm": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+
+    def meta(t):
+        if isinstance(t, dict):
+            return {k: meta(v) for k, v in t.items()}
+        return torch.empty(t, dtype=cfg.weight_dtype, device="meta")
+
+    return meta(shapes)
+
+
+def _block_specs(cfg: DecoderConfig) -> dict:
+    """Logical-axis spec tree for one decoder block (JAX's
+    ``_block_specs``)."""
+    attn = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+    if cfg.is_moe:
+        mlp = {"router": ("embed", None),
+               "gate": ("expert", "embed", "expert_mlp"),
+               "up": ("expert", "embed", "expert_mlp"),
+               "down": ("expert", "expert_mlp", "embed")}
+    else:
+        mlp = {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+               "down": ("mlp", "embed")}
+    return {"attn": attn, "mlp": mlp, "ln1": ("norm",), "ln2": ("norm",)}
+
+
+def decoder_param_specs(cfg: DecoderConfig) -> dict:
+    """Logical-axis spec tree mirroring ``init_decoder_params``' structure:
+    the stacked layer axis prepends ``"layers"`` to every per-layer leaf."""
+    def stack(t):
+        if isinstance(t, dict):
+            return {k: stack(v) for k, v in t.items()}
+        return ("layers",) + t
+
+    specs = {"embed": ("vocab", "embed_table"),
+             "layers": stack(_block_specs(cfg)),
+             "final_norm": ("norm",)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("embed", "vocab")
+    return specs
+
+
 def layer_view(layers: Any, i: int) -> Any:
-    """Layer ``i``'s params: a view ``[i]`` of every stacked leaf."""
+    """Layer ``i``'s params: a view ``[i]`` of every stacked leaf (of a
+    ``GatheredParams`` tree, its layer ``i``, gathered where used)."""
     if isinstance(layers, dict):
         return {k: layer_view(v, i) for k, v in layers.items()}
+    if hasattr(layers, "layer"):
+        return layers.layer(i)
     return layers[i]
 
 
@@ -188,7 +282,8 @@ def _block_forward(bp: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _block_stages(bp: dict, positions: torch.Tensor, cfg: DecoderConfig,
-                  attn_impl: str, lora: Optional[dict], valid_len):
+                  attn_impl: str, lora: Optional[dict], valid_len,
+                  mesh=None):
     """A cacheless block as three functions whose boundaries are
     ``block_outs``' kept tensors: ``qkv(x) -> (q_rope, k_rope, v_proj)``,
     ``attend(q, k, v) -> attn_out``, ``mlp(x, attn_out) -> (x, aux)``."""
@@ -198,7 +293,7 @@ def _block_stages(bp: dict, positions: torch.Tensor, cfg: DecoderConfig,
 
     def attend(q, k, v):
         return L.attention_out(bp["attn"], q, k, v, cfg,
-                               attn_impl=attn_impl, lora=lora)
+                               attn_impl=attn_impl, lora=lora, mesh=mesh)
 
     def mlp(x, attn_out):
         return _mlp_half(bp, x, attn_out, cfg, valid_len)
@@ -314,6 +409,7 @@ def _forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     lora: Optional[dict] = None,
     valid_len=None,
+    mesh=None,
 ):
     """Returns (logits [B,S,V] float32, new_kv_caches|None, aux): aux is
     the MoE blocks' balance loss summed over the layers (fp32, 0-dim), None
@@ -361,7 +457,7 @@ def _forward(
         bp, lr = layer_view(params["layers"], i), L.index_layer(lora, i)
         if kv_caches is None:
             stages = _block_stages(bp, positions, cfg, attn_impl, lr,
-                                   valid_len)
+                                   valid_len, mesh)
             x, aux = (_remat(stages, cfg.remat_policy) if train
                       else _chain(stages))(x)
         else:
@@ -449,6 +545,8 @@ def decoder_loss(
     loss_mask: Optional[torch.Tensor] = None,   # [B, S] 1.0 = count it
     attn_impl: str = "xla",
     aux_loss_weight: float = 0.01,
+    mesh=None,
+    placements: Optional[dict] = None,
 ):
     """Next-token cross-entropy in fp32, plus ``aux_loss_weight`` times the
     MoE blocks' balance loss (summed over layers) for an MoE config.
@@ -459,13 +557,53 @@ def decoder_loss(
     (``layers.fused_kernels_on``) the fused CE (``fused_xent``, kernels
     9–11), which never materializes the [B, S, V] logits on the card;
     otherwise ``cfg.loss_chunk_size`` streams the head in sequence chunks,
-    and the dense branch materializes the full logits."""
+    and the dense branch materializes the full logits.
+
+    Under ``mesh``, ``tokens`` (and ``loss_mask``, [B, S]) are this rank's
+    batch rows; the rank keeps its ``seq`` part of the shifted inputs and
+    targets, at positions offset by the part's start. ``placements``
+    (each param leaf's sharded dim, or None; ``train/step.py``) says which
+    leaves are local shards, gathered at use over the ``fsdp`` group. The
+    sum of the nll and the token count are all-reduced over the batch and
+    ``seq`` axes: the metrics are the global masked mean, and ``loss`` is
+    this rank's part of it (the parts over the ranks sum to it), so the
+    gradients summed over the ranks are the global mean's."""
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    positions = None
+    loss_group = None
+    if mesh is not None:
+        from kubeflow_tpu_torch.parallel.collectives import (
+            GatheredParams, axis_group, seq_info,
+        )
+        from kubeflow_tpu_torch.parallel.fsdp import TOKEN_AXES
+
+        if cfg.is_moe and mesh.size() > 1:
+            raise NotImplementedError(
+                "MoE training on a mesh of more than one device: the "
+                "expert axis and MoE under data, fsdp and seq split "
+                "arrive with a later multi-GPU slice (ROADMAP.md Queue 1 "
+                "item 9)")
+        _, idx, n = seq_info(mesh)
+        s = inputs.shape[1]
+        if s % n:
+            raise ValueError(f"sequence length {s} does not divide over "
+                             f"the seq axis ({n})")
+        part = s // n
+        cut = slice(idx * part, (idx + 1) * part)
+        inputs, targets = inputs[:, cut], targets[:, cut]
+        if loss_mask is not None:
+            loss_mask = loss_mask[:, cut]
+        positions = (torch.arange(part, device=inputs.device)
+                     + idx * part)[None, :].expand(inputs.shape[0], part)
+        if placements is not None:
+            params = GatheredParams(params, placements,
+                                    axis_group(mesh, ("fsdp",)))
+        loss_group = axis_group(mesh, TOKEN_AXES)
     fused = L.fused_kernels_on(cfg, inputs)
+    fwd = dict(positions=positions, attn_impl=attn_impl, mesh=mesh)
     if fused or cfg.loss_chunk_size:
-        hidden, _, aux = _forward(params, inputs, cfg, attn_impl=attn_impl,
-                                  skip_head=True)
+        hidden, _, aux = _forward(params, inputs, cfg, skip_head=True, **fwd)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         head = head.to(hidden.dtype)
         if fused:
@@ -474,24 +612,34 @@ def decoder_loss(
         else:
             nll, correct = _chunked_ce(hidden, head, targets, cfg)
     else:
-        logits, _, aux = _forward(params, inputs, cfg, attn_impl=attn_impl)
+        logits, _, aux = _forward(params, inputs, cfg, **fwd)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
         correct = (logits.argmax(-1) == targets).float()
     if loss_mask is None:
         loss_mask = torch.ones_like(nll)
     loss_mask = loss_mask.to(nll.dtype)
-    denom = torch.clamp(loss_mask.sum(), min=1.0)
-    ce = (nll * loss_mask).sum() / denom
+    nll_sum = (nll * loss_mask).sum()
+    hits = (correct * loss_mask).sum()
+    count = loss_mask.sum()
+    if loss_group is not None:
+        sums = torch.stack([nll_sum.detach(), count, hits])
+        torch.distributed.all_reduce(sums, group=loss_group)
+        nll_total, count, hits = sums.unbind(0)
+    else:
+        nll_total = nll_sum
+    denom = torch.clamp(count, min=1.0)
+    ce = nll_sum / denom
+    ce_total = nll_total / denom
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=nll.device)
         loss = ce
     else:
         loss = ce + aux_loss_weight * aux
     metrics = {
-        "ce_loss": ce.detach(),
+        "ce_loss": ce_total.detach(),
         "aux_loss": aux.detach(),
         "tokens": denom.detach(),
-        "accuracy": ((correct * loss_mask).sum() / denom).detach(),
+        "accuracy": (hits / denom).detach(),
     }
     return loss, metrics

@@ -9,9 +9,13 @@ reshaped views of them. Compute follows the same dtype policy: every
 weight read goes through ``weight``, which casts a tensor (or dequantizes
 an int8 ``QuantizedTensor``) to the activation dtype at use;
 norms/softmax/RoPE run in fp32. Multi-tenant LoRA deltas
-(``lora_contrib``) add onto the attention projections. Sequence-parallel
-attention and the expert/sequence/tensor-parallel MoE axes arrive with
-the multi-GPU slice (they raise here).
+(``lora_contrib``) add onto the attention projections. Under a mesh
+(``runtime/mesh.py``) every tensor is this process's local block:
+attention dispatches to ring or Ulysses attention over the ``seq`` axis
+(``parallel/ring_attention.py``) as JAX's does; the fused norm, SwiGLU
+and CE kernels run on the local blocks as they do on one device. The
+expert/sequence/tensor-parallel MoE axes are not ported yet (they raise
+here).
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ def fused_kernels_on(cfg: DecoderConfig, x: torch.Tensor) -> bool:
     """Resolve ``cfg.fused_kernels`` ("auto"|"on"|"off") for tensor ``x``:
     "auto" routes CUDA tensors through the hand-written kernels and keeps
     CPU tensors on the plain ops. The kernels carry their own backward
-    (``autograd.Function``s), so serving and training take the same path."""
+    (``autograd.Function``s), so serving and training take the same path.
+    Under a mesh every tensor is the rank's local block, so the kernels
+    run there too (JAX turns its kernels off on a mesh because GSPMD
+    cannot partition them; the port has nothing to partition)."""
     fk = cfg.fused_kernels
     if fk == "on":
         return True
@@ -241,16 +248,55 @@ def attention_proj(p: dict, out: torch.Tensor, cfg: DecoderConfig,
 def attention_out(p: dict, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, cfg: DecoderConfig, *,
                   attn_impl: str = "xla",
-                  lora: Optional[dict] = None) -> torch.Tensor:
+                  lora: Optional[dict] = None, mesh=None) -> torch.Tensor:
     """Causal attention over the block's own q, k and v (no cache), then
-    the output projection: ``attn_out`` [B,S,D]."""
-    if attn_impl in ("ring", "ring_flash", "ulysses", "ring_local",
-                     "ring_flash_local", "ulysses_local"):
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r}: sequence-parallel attention arrives "
-            "with the multi-GPU slice")
-    out = multi_head_attention(q, k, v, causal=True, impl=attn_impl)
+    the output projection: ``attn_out`` [B,S,D]. Under ``mesh`` q, k and v
+    are this rank's batch rows and sequence part (``attend``)."""
+    out = attend(q, k, v, attn_impl=attn_impl, mesh=mesh)
     return attention_proj(p, out, cfg, lora)
+
+
+SEQ_PARALLEL_IMPLS = ("ring", "ring_flash", "ulysses")
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           attn_impl: str = "xla", mesh=None) -> torch.Tensor:
+    """Causal attention for a cacheless block, JAX's dispatch:
+
+    - ``"ring"``, ``"ring_flash"`` and ``"ulysses"`` run sequence-parallel
+      attention over the mesh's ``seq`` axis; without a mesh or with
+      ``seq == 1``, one attention over the local sequence: the flash kernel
+      on a CUDA tensor, plain attention on the CPU (JAX's plain path). The
+      ring's block is the flash kernel on a CUDA tensor and the plain
+      online-softmax step on the CPU;
+      ``"ring_flash"`` takes the flash step on the CPU too (its kernels'
+      plain versions), as JAX's forces the Pallas kernels;
+    - their ``_local`` forms call the collective form directly;
+    - any other impl runs per rank on the local batch and heads (the flash
+      kernel per shard, as ``flash_attention_sharded``); on a sequence
+      split, this rank's queries attend the K/V parts of the whole ``seq``
+      group, all-gathered (reduce-scattered in the backward), from the
+      part's absolute offset."""
+    from kubeflow_tpu_torch.parallel.collectives import gather_dim, seq_info
+    from kubeflow_tpu_torch.parallel import ring_attention as R
+
+    group, idx, n = seq_info(mesh)
+    impl = attn_impl.removesuffix("_local")
+    if impl in SEQ_PARALLEL_IMPLS:
+        if n == 1 and not attn_impl.endswith("_local"):
+            return multi_head_attention(
+                q, k, v, causal=True, impl="pallas" if q.is_cuda else "xla")
+        if impl == "ulysses":
+            return R.ulysses_attention(q, k, v, group, causal=True)
+        return R.ring_attention(
+            q, k, v, group, causal=True,
+            impl="pallas" if impl == "ring_flash" else "auto")
+    if n > 1:
+        kf, vf = gather_dim(k, 1, group), gather_dim(v, 1, group)
+        return multi_head_attention(q, kf, vf, causal=True,
+                                    q_offset=idx * q.shape[1],
+                                    impl=attn_impl)
+    return multi_head_attention(q, k, v, causal=True, impl=attn_impl)
 
 
 def attention_block(
@@ -339,7 +385,8 @@ def _no_parallel_axes(**axes) -> None:
     if named:
         raise NotImplementedError(
             f"MoE {', '.join(named)}: expert, sequence and tensor "
-            "parallelism arrive with the multi-GPU slice (ROADMAP.md)")
+            "parallelism of MoE blocks arrive with a later multi-GPU slice "
+            "(ROADMAP.md Queue 1 item 9)")
 
 
 def moe_block(p: dict, x: torch.Tensor, cfg: DecoderConfig,

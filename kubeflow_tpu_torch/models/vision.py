@@ -20,8 +20,12 @@ reshape and one matmul; attention is the plain path
 (``ops/attention.py``, the JAX default ``"xla"``): JAX computes the whole
 vision model outside any Pallas kernel, so no hand-written kernel runs
 here. While autograd records, each encoder block is rematerialized per
-``remat_policy`` through ``torch.utils.checkpoint``. The sharding rules
-(``*_param_specs``) wait for the multi-GPU slice.
+``remat_policy`` through ``torch.utils.checkpoint``. ``vit_param_specs``
+and ``clip_param_specs`` give every leaf's logical axes (JAX's spec
+trees). Under a mesh the losses take this rank's batch rows and
+``batch_group`` (the ranks over the batch axes): ViT's mean is the global
+one, and CLIP's contrastive logits span the global batch (the features
+all-gathered over the group).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from kubeflow_tpu_torch.models.config import torch_dtype
 from kubeflow_tpu_torch.models.decoder import layer_view
 from kubeflow_tpu_torch.models.layers import _init
 from kubeflow_tpu_torch.ops.attention import multi_head_attention
+from kubeflow_tpu_torch.parallel.collectives import gather_dim, group_size
 
 Params = dict[str, Any]
 
@@ -138,6 +143,40 @@ def _init_layers(gen: torch.Generator, cfg: ViTConfig) -> dict:
                    for _ in range(cfg.n_layers)])
 
 
+def _encoder_block_specs() -> dict:
+    """Logical-axis spec tree of one encoder block."""
+    norm = {"scale": ("norm",), "bias": ("norm",)}
+    return {"ln1": dict(norm), "ln2": dict(norm),
+            "wqkv": ("embed", None, "heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "w1": ("embed", "mlp"), "b1": ("mlp",),
+            "w2": ("mlp", "embed"), "b2": ("norm",)}
+
+
+def _stacked_specs() -> dict:
+    def stack(t):
+        if isinstance(t, dict):
+            return {k: stack(v) for k, v in t.items()}
+        return ("layers",) + t
+
+    return stack(_encoder_block_specs())
+
+
+def vit_param_specs(cfg: ViTConfig) -> Params:
+    """Logical-axis spec tree mirroring ``init_vit_params``."""
+    specs: Params = {
+        "patch_embed": (None, "embed"),
+        "pos_embed": (None, None),
+        "layers": _stacked_specs(),
+        "final_ln": {"scale": ("norm",), "bias": ("norm",)},
+    }
+    if cfg.pool == "cls":
+        specs["cls_token"] = ("norm",)
+    if cfg.num_classes:
+        specs["head"] = ("embed", "vocab")
+    return specs
+
+
 def _encoder_block(p: dict, x: torch.Tensor, cfg: ViTConfig, *,
                    causal: bool = False) -> torch.Tensor:
     dt = cfg.activation_dtype
@@ -222,18 +261,25 @@ def vit_forward(params: Params, images: torch.Tensor,
     return feats
 
 
-def vit_loss(params: Params, batch: dict, cfg: ViTConfig):
-    """Cross-entropy classification. batch: {"images", "labels"}."""
+def vit_loss(params: Params, batch: dict, cfg: ViTConfig,
+             batch_group=None):
+    """Cross-entropy classification. batch: {"images", "labels"}. With
+    ``batch_group`` the batch is this rank's rows: ``loss`` is its part of
+    the global mean (the parts sum to it), the metrics the global
+    values."""
     logits = vit_forward(params, batch["images"], cfg).float()
     logp = torch.log_softmax(logits, dim=-1)
     labels = batch["labels"].long()
     nll = -torch.gather(logp, -1, labels[:, None])[:, 0]
-    loss = nll.mean()
-    metrics = {
-        "loss": loss.detach(),
-        "accuracy": (logits.argmax(-1) == labels).float().mean(),
-    }
-    return loss, metrics
+    hits = (logits.argmax(-1) == labels).float()
+    if batch_group is None:
+        loss = nll.mean()
+        return loss, {"loss": loss.detach(), "accuracy": hits.mean()}
+    sums = torch.stack([nll.sum().detach(), hits.sum(),
+                        torch.tensor(float(nll.numel()), device=nll.device)])
+    torch.distributed.all_reduce(sums, group=batch_group)
+    loss = nll.sum() / sums[2]
+    return loss, {"loss": sums[0] / sums[2], "accuracy": sums[1] / sums[2]}
 
 
 # -- CLIP ------------------------------------------------------------------------
@@ -303,6 +349,22 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig) -> Params:
     }
 
 
+def clip_param_specs(cfg: CLIPConfig) -> Params:
+    """Logical-axis spec tree mirroring ``init_clip_params``."""
+    return {
+        "image": vit_param_specs(cfg.image),
+        "text": {
+            "embed": ("vocab", "embed_table"),
+            "pos_embed": (None, None),
+            "layers": _stacked_specs(),
+            "final_ln": {"scale": ("norm",), "bias": ("norm",)},
+        },
+        "img_proj": ("embed", None),
+        "txt_proj": ("embed", None),
+        "logit_scale": (),
+    }
+
+
 def clip_encode_image(params: Params, images: torch.Tensor,
                       cfg: CLIPConfig) -> torch.Tensor:
     feats = vit_forward(params["image"], images, cfg.image)
@@ -324,10 +386,17 @@ def clip_encode_text(params: Params, tokens: torch.Tensor,
     return feats @ params["txt_proj"].to(feats.dtype)
 
 
-def clip_loss(params: Params, batch: dict, cfg: CLIPConfig):
-    """Symmetric InfoNCE over the batch. batch: {"images", "tokens"}."""
+def clip_loss(params: Params, batch: dict, cfg: CLIPConfig,
+              batch_group=None):
+    """Symmetric InfoNCE over the global batch. batch: {"images",
+    "tokens"}. With ``batch_group`` the batch is this rank's rows: the
+    features are all-gathered over the group (the negatives of every
+    rank), every rank computes the same global loss, and ``loss`` is its
+    1/n part (the gather's backward sums the n ranks' gradients)."""
     img = clip_encode_image(params, batch["images"], cfg).float()
     txt = clip_encode_text(params, batch["tokens"], cfg).float()
+    img = gather_dim(img, 0, batch_group)
+    txt = gather_dim(txt, 0, batch_group)
     img = img / (torch.linalg.norm(img, dim=-1, keepdim=True) + 1e-8)
     txt = txt / (torch.linalg.norm(txt, dim=-1, keepdim=True) + 1e-8)
     scale = torch.exp(torch.clamp(params["logit_scale"], -5.0,
@@ -342,4 +411,4 @@ def clip_loss(params: Params, batch: dict, cfg: CLIPConfig):
         "img_to_txt_acc": (logits.argmax(1) == labels).float().mean(),
         "temperature": (1.0 / scale).detach(),
     }
-    return loss, metrics
+    return loss / group_size(batch_group), metrics

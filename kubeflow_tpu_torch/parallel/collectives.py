@@ -1,0 +1,213 @@
+"""The collectives of sharded training, over a ``DeviceMesh``'s process
+groups: groups over combinations of mesh axes, and autograd-aware
+all-gather (reduce-scatter backward), ring rotation and all-to-all.
+
+Each process holds local tensors; these functions are where shards meet.
+Every rank must make the same calls in the same order, as with any
+collective. Only calls present in torch 2.11 and later are used.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from collections.abc import Mapping
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from kubeflow_tpu_torch.parallel.sharding import all_coords, mesh_shape
+
+# torch 2.13 renames the tensor forms of all-gather and reduce-scatter
+# (*_single) and warns on the old names, which torch 2.11 has alone.
+warnings.filterwarnings(
+    "ignore", message=r".*is deprecated\. Please use `torch\.distributed\.",
+    category=FutureWarning)
+
+
+def axis_group(mesh, axes: Sequence[str]):
+    """The process group of the ranks that share this rank's coordinates on
+    every axis but ``axes``; None when ``axes`` hold one rank. A single
+    axis is the mesh's own group; a combination is made on first use by
+    every rank (``dist.new_group`` over each combination, in one order)
+    and kept on the mesh. The combination spanning every axis of degree
+    above 1 is the world."""
+    if mesh is None:
+        return None
+    sizes = mesh_shape(mesh)
+    live = tuple(a for a in mesh.mesh_dim_names
+                 if a in axes and sizes[a] > 1)
+    if not live:
+        return None
+    if len(live) == 1:
+        return mesh.get_group(live[0])
+    if math.prod(sizes[a] for a in live) == mesh.size():
+        return dist.group.WORLD
+    cache = mesh.__dict__.setdefault("_kftpu_groups", {})
+    if live not in cache:
+        others = [a for a in mesh.mesh_dim_names if a not in live]
+        me = dist.get_rank()
+        mine = None
+        for oc in all_coords(sizes, others):
+            ranks = []
+            for lc in all_coords(sizes, live):
+                c = {**oc, **lc}
+                ranks.append(int(mesh.mesh[tuple(
+                    c[a] for a in mesh.mesh_dim_names)]))
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine = g
+        cache[live] = mine
+    return cache[live]
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (nothing without a group)."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group``; the backward
+    reduce-scatters (sums) the gradient back to each rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        n = dist.get_world_size(group)
+        xt = x.movedim(dim, 0).contiguous()
+        out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
+        dist.all_gather_into_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        gt = g.movedim(ctx.dim, 0).contiguous()
+        n = dist.get_world_size(ctx.group)
+        out = gt.new_empty((gt.shape[0] // n, *gt.shape[1:]))
+        dist.reduce_scatter_tensor(out, gt, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``x``'s parts over ``group`` concatenated along ``dim``, in group
+    rank order; differentiable (reduce-scatter backward). ``x`` itself
+    without a group."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _AllGather.apply(x, dim, group)
+
+
+def ring_shift(tensors: Sequence[torch.Tensor], group,
+               shift: int = 1) -> list[torch.Tensor]:
+    """Each tensor sent to the rank ``shift`` places on around ``group``
+    and replaced by the one from ``shift`` places back, in one batch of
+    point-to-point operations (peers are global ranks)."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    outs = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for i, (t, o) in enumerate(zip(tensors, outs)):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, group, tag=i))
+        ops.append(dist.P2POp(dist.irecv, o, src, group, tag=i))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs
+
+
+class _Rotate(torch.autograd.Function):
+    """``ring_shift`` by one as an autograd op: the backward sends the
+    gradients the other way round."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(ring_shift(xs, group, 1))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, *ring_shift(gs, ctx.group, -1))
+
+
+def rotate(group, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    return _Rotate.apply(group, *xs)
+
+
+def _a2a(x: torch.Tensor, group, split_dim: int,
+         concat_dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Split ``split_dim`` into group-size parts, send part j to rank j,
+    and concatenate the parts received along ``concat_dim`` in rank order;
+    the backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim: int, concat_dim: int):
+        ctx.args = (group, split_dim, concat_dim)
+        return _a2a(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return _a2a(g, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def seq_info(mesh) -> tuple[Optional[object], int, int]:
+    """(group, index, size) of this rank on the mesh's ``seq`` axis; (None,
+    0, 1) without a mesh or sequence parallelism."""
+    if mesh is None or mesh_shape(mesh).get("seq", 1) == 1:
+        return None, 0, 1
+    return (mesh.get_group("seq"), mesh.get_local_rank("seq"),
+            mesh_shape(mesh)["seq"])
+
+
+class GatheredParams(Mapping):
+    """A params tree of local shards read as whole tensors: indexing a
+    leaf all-gathers it along its sharded dim over ``group`` (at each
+    access, so a remat replay gathers again and no gathered copy outlives
+    its use); ``layer(i)`` views layer ``i`` of the stacked ``[L, ...]``
+    leaves, so a layer is gathered only where it runs. ``dims`` mirrors
+    the tree: each leaf's sharded dim, or None for a replicated leaf
+    (returned as it is)."""
+
+    def __init__(self, tree: dict, dims: dict, group,
+                 layer: Optional[int] = None):
+        self._tree, self._dims, self._group, self._layer = (
+            tree, dims, group, layer)
+
+    def __getitem__(self, key):
+        v, d = self._tree[key], self._dims[key]
+        if isinstance(v, dict):
+            return GatheredParams(v, d, self._group, self._layer)
+        if self._layer is not None:
+            v = v[self._layer]
+            d = None if d is None else d - 1
+        return v if d is None else gather_dim(v, d, self._group)
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+    def layer(self, i: int) -> "GatheredParams":
+        return GatheredParams(self._tree, self._dims, self._group, i)

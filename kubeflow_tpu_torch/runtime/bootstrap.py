@@ -16,11 +16,17 @@ process, the exit codes it answers with, and the heartbeat file.
     KFTPU_HEARTBEAT_FILE       file this worker touches every few seconds
     KFTPU_WORKDIR              working/checkpoint directory
 
-The port runs one process on one card: ``bootstrap_worker`` refuses a
-multi-process or sharded world (the multi-GPU slice brings it), and
 ``apply_platform`` resolves the device: ``"cpu"`` only when the platform
-says so, otherwise CUDA, which raises without a card. Nothing here
-imports JAX or sets ``XLA_FLAGS``.
+says so, otherwise CUDA, which raises without a card. ``bootstrap_worker``
+joins the world of a worker with more than one process or a
+``parallelism``: a ``torch.distributed`` process group over
+``tcp://{coordinator_address}`` (``nccl`` on the card, ``gloo`` for
+``KFTPU_PLATFORM=cpu``; the backend follows the platform, never what is
+found), one device per process (rank r on ``cuda:{r % device_count}``),
+and the 7-axis mesh (``runtime/mesh.py``) over it; a rendezvous that fails
+or times out exits ``EXIT_RETRYABLE``. A single-process worker without a
+parallelism is control-plane only and never imports torch here. Nothing
+here imports JAX or sets ``XLA_FLAGS``.
 """
 
 from __future__ import annotations
@@ -34,8 +40,10 @@ from typing import Any, Optional
 
 # Exit-code contract (RestartPolicy=ExitCode semantics: retryable >= 128,
 # permanent < 128).
+EXIT_OK = 0
 EXIT_PERMANENT = 1
 EXIT_CONFIG_ERROR = 2
+EXIT_RETRYABLE = 128
 EXIT_PREEMPTED = 143  # SIGTERM
 
 
@@ -150,18 +158,68 @@ def apply_platform(wenv: Optional[WorkerEnv]) -> str:
     return str(resolve_device("cuda"))
 
 
-def bootstrap_worker(wenv: Optional[WorkerEnv] = None) -> WorkerEnv:
-    """Check the world this worker joins and return its env. The device is
-    resolved when an entrypoint first asks for it (``WorkerContext.device``
-    → ``apply_platform``), so a control-plane worker (noop, sleep, fail…)
-    never touches a card."""
+#: The mesh this process joined (one world per process).
+_MESH = None
+
+
+def bootstrap_worker(wenv: Optional[WorkerEnv] = None):
+    """Join the world and build the mesh; returns ``(env, mesh)``.
+
+    A worker with one process and no ``parallelism`` is control-plane only:
+    ``(env, None)``, and torch is not imported. Otherwise the worker
+    resolves its device (``apply_platform``: a ``gpu`` worker without a
+    card raises), joins the process group (a world of one too, so one card
+    runs the code many do) and returns the mesh of its ``parallelism``
+    (all processes on ``fsdp`` when the job pins no axes,
+    ``runtime.mesh.infer_parallelism``). Idempotent: a second call returns
+    the mesh the first built."""
     wenv = wenv or WorkerEnv.from_env()
-    if wenv.num_processes > 1 or wenv.parallelism:
-        raise NotImplementedError(
-            f"num_processes={wenv.num_processes}, parallelism="
-            f"{wenv.parallelism}: the port runs one process on one card; "
-            "multi-GPU workers arrive with ROADMAP.md Queue 1 item 9")
-    return wenv
+    if wenv.num_processes == 1 and not wenv.parallelism:
+        return wenv, None
+    global _MESH
+    if _MESH is not None:
+        return wenv, _MESH
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.core.jobs import ParallelismSpec
+    from kubeflow_tpu_torch.runtime.mesh import (
+        build_mesh, infer_parallelism,
+    )
+
+    spec = (ParallelismSpec.from_dict(wenv.parallelism) if wenv.parallelism
+            else infer_parallelism(wenv.num_processes))
+    on_card = wenv.platform != "cpu"
+    apply_platform(wenv)
+    if on_card:
+        torch.cuda.set_device(wenv.process_id % torch.cuda.device_count())
+    try:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            init_method=f"tcp://{wenv.coordinator_address}",
+            world_size=wenv.num_processes, rank=wenv.process_id,
+            timeout=datetime.timedelta(
+                seconds=wenv.rendezvous_timeout_seconds))
+    except Exception as exc:
+        # A partial gang (a missing peer, a dead coordinator) is transient
+        # at the job level: exit retryable so the controller re-gangs.
+        print(f"rendezvous failed: {type(exc).__name__}: {exc}", flush=True)
+        raise SystemExit(EXIT_RETRYABLE)
+    _MESH = build_mesh(spec.axis_sizes(), "cuda" if on_card else "cpu")
+    return wenv, _MESH
+
+
+def shutdown_worker() -> None:
+    """Leave the process group, if this worker joined one."""
+    global _MESH
+    import sys
+
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _MESH = None
 
 
 def free_port() -> int:

@@ -21,6 +21,8 @@ class WorkerContext:
     env: WorkerEnv
     heartbeat: Any = None        # Heartbeat | None
     _device: Optional[str] = None
+    _mesh: Any = None
+    _joined: bool = False
 
     @property
     def config(self) -> dict[str, Any]:
@@ -29,6 +31,20 @@ class WorkerContext:
     @property
     def is_coordinator(self) -> bool:
         return self.env.process_id == 0
+
+    @property
+    def mesh(self):
+        """The mesh of a multi-process or sharded worker, None for a
+        single process without a ``parallelism``: the world is joined on
+        first use (``bootstrap_worker``), so an entrypoint that never asks
+        (``torch_train``, which makes its own gloo group; a control-plane
+        entrypoint) joins nothing."""
+        if not self._joined:
+            from kubeflow_tpu_torch.runtime.bootstrap import bootstrap_worker
+
+            _, self._mesh = bootstrap_worker(self.env)
+            self._joined = True
+        return self._mesh
 
     @property
     def device(self) -> str:

@@ -1,10 +1,13 @@
 """Worker process entry: ``python -m kubeflow_tpu_torch.runtime.worker_main``
 (port of ``kubeflow_tpu/runtime/worker_main.py``).
 
-Reads the ``KFTPU_*`` env, starts the heartbeat, checks the world
-(``bootstrap_worker``), resolves and runs the entrypoint, and exits with
-the contract code: 0 ok, 1 permanent, 2 a config error or an unknown
-entrypoint, 143 on SIGTERM (a preemption, retryable).
+Reads the ``KFTPU_*`` env, starts the heartbeat, resolves and runs the
+entrypoint, and exits with the contract code: 0 ok, 1 permanent, 2 a
+config error or an unknown entrypoint, 128 a lost peer or a failed
+rendezvous (retryable), 143 on SIGTERM (a preemption, retryable). An
+entrypoint joins the world when it first asks for the mesh
+(``WorkerContext.mesh`` → ``bootstrap_worker``); the worker leaves it on
+exit.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ def main() -> int:
     )
     from kubeflow_tpu_torch.runtime.bootstrap import (
         EXIT_CONFIG_ERROR, EXIT_PREEMPTED, Heartbeat, WorkerEnv,
-        bootstrap_worker,
+        shutdown_worker,
     )
     from kubeflow_tpu_torch.runtime.entrypoints import (
         WorkerContext, resolve_entrypoint,
@@ -50,8 +53,11 @@ def main() -> int:
         return EXIT_CONFIG_ERROR
 
     try:
-        ctx = WorkerContext(env=bootstrap_worker(wenv), heartbeat=hb)
+        ctx = WorkerContext(env=wenv, heartbeat=hb)
         rc = fn(ctx)
+        # Leave the world on the way out of a run that ended well (a lost
+        # peer could hang the teardown of a failed one; exit ends it).
+        shutdown_worker()
         return 0 if rc is None else int(rc)
     except SystemExit as e:
         return int(e.code or 0)
@@ -63,16 +69,26 @@ def main() -> int:
             hb.stop()
 
 
-def _classify_exit(exc: Exception) -> int:
-    """Exit code for an entrypoint's exception. A one-card worker's
-    failures are deterministic — ``torch.cuda.OutOfMemoryError``, a shape
-    error (``RuntimeError``/``ValueError``), a missing card, a bad
-    checkpoint, a program bug — and a restart would fail the same way, so
-    each is permanent. The retryable class (a lost peer, an aborted
-    collective) arrives with multi-GPU workers."""
-    from kubeflow_tpu_torch.runtime.bootstrap import EXIT_PERMANENT
+def _classify_exit(exc: BaseException) -> int:
+    """Exit code for an entrypoint's exception. A lost peer, an aborted
+    collective or a store that went away (``torch.distributed``'s
+    ``DistBackendError`` — the NCCL watchdog's timeout among them —
+    ``DistNetworkError`` and ``DistStoreError``) is infrastructure: exit
+    retryable so the controller re-gangs. Everything else is
+    deterministic — ``torch.OutOfMemoryError``, a shape or value error, a
+    missing card, a bad checkpoint, a program bug — and a restart would
+    fail the same way: permanent (JAX's RESOURCE_EXHAUSTED /
+    INVALID_ARGUMENT split). Matched by exact type, never by message."""
+    from kubeflow_tpu_torch.runtime.bootstrap import (
+        EXIT_PERMANENT, EXIT_RETRYABLE,
+    )
 
-    return EXIT_PERMANENT
+    dist = sys.modules.get("torch.distributed")
+    if dist is None:
+        return EXIT_PERMANENT
+    infra = {getattr(dist, n, None) for n in (
+        "DistBackendError", "DistNetworkError", "DistStoreError")}
+    return EXIT_RETRYABLE if type(exc) in infra - {None} else EXIT_PERMANENT
 
 
 if __name__ == "__main__":

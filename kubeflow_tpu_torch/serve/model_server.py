@@ -68,6 +68,12 @@ def model_server(ctx: WorkerContext) -> int:
     from kubeflow_tpu_torch.serve.storage import load_params
     from kubeflow_tpu_torch.serve.tokenizer import tokenizer_registry
 
+    if ctx.env.num_processes > 1 or ctx.env.parallelism:
+        raise NotImplementedError(
+            f"num_processes={ctx.env.num_processes}, parallelism="
+            f"{ctx.env.parallelism}: the port serves one process on one "
+            "card; the tensor-parallel serving engine arrives with "
+            "ROADMAP.md Queue 1 item 9")
     conf = ctx.config
     model_conf = conf.get("model", {})
     cfg = preset(model_conf.get("preset", "tiny"),

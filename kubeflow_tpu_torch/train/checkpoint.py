@@ -40,11 +40,27 @@ checksum mismatch, or a tensor file whose size is not its meta's.
 emergency tier before the interval tier on equal steps), quarantines each
 step that fails and counts the fallbacks. Orbax checkpoints of the JAX
 package are not read.
+
+Sharded saves (a ``ShardLayout`` of a world above one process): each
+rank snapshots the blocks it writes (one writer per block: the rank whose
+coordinates are 0 on every axis the leaf is not split over) and writes
+them on its own writer thread into the step's shared temporary directory
+as ``<path>.r<rank>.bin`` (a replicated leaf whole, as ``<path>.bin``),
+then its ``meta.r<rank>.json``: each block's global slice and its files'
+sizes and hashes. The coordinator's writer waits for every rank's
+``meta.r*.json`` (the barrier; ``_COMMIT_TIMEOUT_S`` at most), merges
+them into ``meta.json``, renames the directory into place and writes the
+manifest; the other ranks' writers wait for that manifest. Only the
+coordinator removes temporary directories, drops old steps, writes
+manifests and quarantines. ``restore(layout=...)`` reads the slices a
+rank needs from whatever blocks cover them, so a step saved at one world
+size restores bit for bit at any other, including one process.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import hashlib
 import json
 import logging
@@ -56,6 +72,7 @@ from typing import Any, Optional
 
 import torch
 
+from kubeflow_tpu_torch.parallel.sharding import local_slices
 from kubeflow_tpu_torch.train import tree as T
 
 logger = logging.getLogger("kubeflow_tpu_torch.train.checkpoint")
@@ -67,6 +84,9 @@ _TMP = ".tmp-"
 #: Threads that write and hash a step's files (file I/O and SHA-256
 #: release the interpreter lock).
 _THREADS = min(8, os.cpu_count() or 1)
+#: Seconds a sharded save's writer waits for the other ranks' blocks (the
+#: coordinator) or for the coordinator's commit (every other rank).
+_COMMIT_TIMEOUT_S = 600.0
 
 
 class CheckpointCorruptionError(RuntimeError):
@@ -122,15 +142,65 @@ class HostBuffers:
         self.owner: Optional["CheckpointManager"] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Which block of each tensor leaf a process holds: the mesh degrees
+    (``sizes``), its coordinates, each split leaf's spec by flattened
+    state path (a path not listed is whole on every rank), and its rank
+    among ``world`` processes."""
+
+    sizes: dict
+    coords: dict
+    specs: dict
+    rank: int = 0
+    world: int = 1
+
+    def _spec(self, path: str) -> tuple:
+        return tuple(self.specs.get(path, ()))
+
+    def _axes(self, path: str) -> set:
+        out = set()
+        for e in self._spec(path):
+            out.update((e,) if isinstance(e, str) else (e or ()))
+        return out
+
+    def writes(self, path: str) -> bool:
+        """Whether this rank writes its block of ``path``: its coordinate
+        is 0 on every axis the leaf is not split over."""
+        used = self._axes(path)
+        return all(c == 0 for a, c in self.coords.items() if a not in used)
+
+    def block(self, path: str, shape) -> tuple[slice, ...]:
+        """This rank's block of a leaf of global ``shape``."""
+        return local_slices(tuple(shape), self._spec(path), self.sizes,
+                            self.coords)
+
+    def global_shape(self, path: str, local_shape) -> list[int]:
+        spec = self._spec(path) + (None,) * len(local_shape)
+        out = []
+        for n, e in zip(local_shape, spec):
+            axes = (e,) if isinstance(e, str) else tuple(e or ())
+            deg = 1
+            for a in axes:
+                deg *= int(self.sizes.get(a, 1))
+            out.append(int(n) * deg)
+        return out
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 host: Optional[HostBuffers] = None):
+                 host: Optional[HostBuffers] = None,
+                 layout: Optional[ShardLayout] = None):
         """``host``: the snapshot buffers to share with other managers of
-        the same state (default: this manager's own)."""
+        the same state (default: this manager's own). ``layout``: this
+        process's blocks of a sharded state (a world above one process
+        saves sharded)."""
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self._max_to_keep = max_to_keep
         self._host = host if host is not None else HostBuffers()
+        self._layout = (layout if layout is not None and layout.world > 1
+                        else None)
         self._writer: Optional[threading.Thread] = None
         self._in_flight: Optional[int] = None
         self._error: Optional[BaseException] = None
@@ -140,10 +210,15 @@ class CheckpointManager:
         #: for it in flight) and ``committed``.
         self.last_save: dict = {}
         # Temporary directories of saves a crash interrupted.
-        for d in os.listdir(self.directory):
-            if _TMP in d:
-                shutil.rmtree(os.path.join(self.directory, d),
-                              ignore_errors=True)
+        if self.is_coordinator:
+            for d in os.listdir(self.directory):
+                if _TMP in d:
+                    shutil.rmtree(os.path.join(self.directory, d),
+                                  ignore_errors=True)
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self._layout is None or self._layout.rank == 0
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -164,12 +239,16 @@ class CheckpointManager:
                    if isinstance(t, torch.Tensor)}
         values = json.loads(json.dumps(
             {p: v for p, v in flat.items() if p not in tensors}))
+        if self._layout is not None:
+            tensors = {p: t for p, t in tensors.items()
+                       if self._layout.writes(p)}
         host = self._snapshot(tensors)
         self._in_flight = step
         self.last_save = {"step": step, "called": called,
                           "returned": time.perf_counter()}
         self._writer = threading.Thread(
-            target=self._write, args=(step, host, values),
+            target=self._write if self._layout is None
+            else self._write_sharded, args=(step, host, values),
             name=f"ckpt-writer-{step}", daemon=True)
         self._writer.start()
         return True
@@ -237,6 +316,90 @@ class CheckpointManager:
             if not isinstance(exc, Exception):
                 raise
 
+    def _write_sharded(self, step: int, host: dict, values: dict) -> None:
+        lay = self._layout
+        tmp = os.path.join(self.directory, f"{step}{_TMP}shared")
+        final = self._step_dir(step)
+        marker = f"meta.r{lay.rank}.json"
+        try:
+            os.makedirs(tmp, exist_ok=True)
+            entries, data = {}, []
+            for p, t in host.items():
+                shape = lay.global_shape(p, t.shape)
+                block = lay.block(p, shape)
+                whole = list(t.shape) == shape
+                name = p.replace("/", ".") + (
+                    ".bin" if whole else f".r{lay.rank}.bin")
+                entries[p] = {
+                    "dtype": str(t.dtype).removeprefix("torch."),
+                    "shape": shape,
+                    "parts": [{"file": name, "block": [
+                        [b.start, b.stop] for b in block]}]}
+                data.append((name, _bytes_of(t)))
+
+            def write(rel: str, payload) -> tuple:
+                with open(os.path.join(tmp, rel), "wb") as f:
+                    f.write(payload)
+                return rel, _file_entry(os.path.join(tmp, rel))
+
+            files = dict(_map(lambda item: write(*item), data))
+            part = os.path.join(tmp, f"{marker}.part")
+            with open(part, "w") as f:
+                json.dump({"rank": lay.rank, "tensors": entries,
+                           "files": files}, f)
+            os.replace(part, os.path.join(tmp, marker))
+            self.last_save["written"] = time.perf_counter()
+            if lay.rank == 0:
+                self._commit_sharded(step, tmp, final, values)
+            else:
+                self._await(lambda: os.path.exists(
+                    self._manifest_path(step)), f"step {step}'s commit")
+            self.last_save["committed"] = time.perf_counter()
+        except BaseException as exc:
+            self._error = exc
+            if not isinstance(exc, Exception):
+                raise
+
+    def _await(self, ready, what: str) -> None:
+        deadline = time.monotonic() + _COMMIT_TIMEOUT_S
+        while not ready():
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{what}: not there after "
+                                   f"{_COMMIT_TIMEOUT_S:g} s")
+            time.sleep(0.02)
+
+    def _commit_sharded(self, step: int, tmp: str, final: str,
+                        values: dict) -> None:
+        """The coordinator's half of a sharded save: wait for every rank's
+        blocks, merge their metas, rename, write the manifest."""
+        world = self._layout.world
+        markers = [f"meta.r{r}.json" for r in range(world)]
+        self._await(lambda: all(os.path.exists(os.path.join(tmp, m))
+                                for m in markers),
+                    f"step {step}'s blocks from {world} ranks")
+        tensors: dict = {}
+        files: dict = {}
+        for m in markers:
+            with open(os.path.join(tmp, m)) as f:
+                got = json.load(f)
+            for p, e in got["tensors"].items():
+                if p in tensors:
+                    tensors[p]["parts"].extend(e["parts"])
+                else:
+                    tensors[p] = e
+            files.update(got["files"])
+            files[m] = _file_entry(os.path.join(tmp, m))
+        with open(os.path.join(tmp, _META), "w") as f:
+            json.dump({"step": step, "tensors": tensors, "values": values,
+                       "world": world}, f)
+        files[_META] = _file_entry(os.path.join(tmp, _META))
+        self._drop_manifest(step)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._write_manifest(step, files)
+        self._gc()
+
     def _join(self) -> None:
         """Wait for the save in flight, keeping its error for ``wait``."""
         if self._writer is not None:
@@ -261,9 +424,12 @@ class CheckpointManager:
         finally:
             if self._host.owner is self:
                 self._host.buffers, self._host.owner = {}, None
-            self.flush_manifests()
+            if self.is_coordinator:
+                self.flush_manifests()
 
     def _gc(self) -> None:
+        if not self.is_coordinator:
+            return
         steps = self.steps_on_disk()
         for step in steps[:max(len(steps) - self._max_to_keep, 0)]:
             shutil.rmtree(self._step_dir(step), ignore_errors=True)
@@ -272,7 +438,8 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None, *, device="cpu",
                 verify: bool = True,
                 subtree: Optional[str] = None,
-                leaf_fn=None) -> Optional[Any]:
+                leaf_fn=None,
+                layout: Optional[ShardLayout] = None) -> Optional[Any]:
         """The state saved as ``step`` (default: the newest), tensors on
         ``device``; None when nothing is saved. The manifest is verified
         first, before any tensor is loaded. ``subtree`` (e.g. ``"params"``)
@@ -280,7 +447,9 @@ class CheckpointManager:
         check then covers the files it reads (and ``meta.json``).
         ``leaf_fn(path, tensor)`` replaces each tensor as it is loaded
         (path relative to ``subtree``), so only one loaded leaf is alive
-        beside the transformed ones."""
+        beside the transformed ones. ``layout``: load this process's block
+        of each leaf (default: whole leaves), from a step saved at any
+        world size."""
         self._join()
         target = step if step is not None else self.latest_step()
         if target is None:
@@ -298,10 +467,13 @@ class CheckpointManager:
             meta = json.load(f)
         if verify and subtree:
             self.verify_step(target, only={_META, *(
-                e["file"] for e in wanted(meta["tensors"]).values())})
+                f for e in wanted(meta["tensors"]).values()
+                for f in _files_of(e))})
         flat = wanted(meta["values"])
         for path, entry in wanted(meta["tensors"]).items():
-            t = _read_tensor(os.path.join(root, entry["file"]), entry)
+            block = (layout.block(head + path, entry["shape"])
+                     if layout is not None else None)
+            t = _read_block(root, entry, block)
             t = t.to(device)
             flat[path] = t if leaf_fn is None else leaf_fn(path, t)
         if subtree and not flat:
@@ -443,15 +615,61 @@ def _read_tensor(path: str, entry: dict) -> torch.Tensor:
     return t
 
 
+def _files_of(entry: dict) -> list[str]:
+    if "parts" in entry:
+        return [p["file"] for p in entry["parts"]]
+    return [entry["file"]]
+
+
+def _read_block(root: str, entry: dict,
+                block: Optional[tuple]) -> torch.Tensor:
+    """The slices ``block`` (default: all) of a tensor saved whole or in
+    blocks: each saved block that overlaps is read and its overlap
+    copied in."""
+    shape = entry["shape"]
+    if "parts" not in entry:
+        t = _read_tensor(os.path.join(root, entry["file"]), entry)
+        return t if block is None else t[block].contiguous()
+    want = block or tuple(slice(0, n) for n in shape)
+    out = torch.empty([w.stop - w.start for w in want],
+                      dtype=_dtype(entry["dtype"]))
+    covered = 0
+    for part in entry["parts"]:
+        have = [slice(a, b) for a, b in part["block"]]
+        lo = [max(w.start, h.start) for w, h in zip(want, have)]
+        hi = [min(w.stop, h.stop) for w, h in zip(want, have)]
+        if any(a >= b for a, b in zip(lo, hi)):
+            continue
+        t = _read_tensor(os.path.join(root, part["file"]), {
+            "dtype": entry["dtype"],
+            "shape": [h.stop - h.start for h in have]})
+        src = tuple(slice(a - h.start, b - h.start)
+                    for a, b, h in zip(lo, hi, have))
+        dst = tuple(slice(a - w.start, b - w.start)
+                    for a, b, w in zip(lo, hi, want))
+        out[dst] = t[src]
+        n = 1
+        for a, b in zip(lo, hi):
+            n *= b - a
+        covered += n
+    if covered != out.numel():
+        raise CheckpointCorruptionError(
+            f"{root}: the saved blocks cover {covered} of the "
+            f"{out.numel()} elements asked for")
+    return out
+
+
 def resume_from_tiers(managers: list[tuple[str, CheckpointManager]], *,
-                      device="cpu"):
+                      device="cpu", layout: Optional[ShardLayout] = None,
+                      quarantine: bool = True):
     """Restore the newest valid step across checkpoint tiers.
 
     ``managers`` is ``[(tier_name, manager), ...]`` in preference order for
     equal steps (the trainer passes the emergency tier first). Candidates
     are walked newest first; a step that fails verification or whose
-    restore raises is quarantined and the walk falls back to the next
-    older one; each tier's save in flight is waited for first. Returns
+    restore raises is quarantined (by the coordinator: ``quarantine``)
+    and the walk falls back to the next older one; each tier's save in
+    flight is waited for first. ``layout``: this rank's blocks. Returns
     ``(state, step, tier_name, fallbacks)`` or None when no tier holds a
     restorable step."""
     candidates = []
@@ -463,12 +681,13 @@ def resume_from_tiers(managers: list[tuple[str, CheckpointManager]], *,
     fallbacks = 0
     for step, _, tier, mgr in candidates:
         try:
-            state = mgr.restore(step, device=device)
+            state = mgr.restore(step, device=device, layout=layout)
         except Exception as exc:    # corruption, or a torn or unreadable save
             fallbacks += 1
             logger.error("restore fallback: step %d (%s tier) invalid: %s",
                          step, tier, exc)
-            mgr.quarantine_step(step)
+            if quarantine:
+                mgr.quarantine_step(step)
             continue
         if state is None:
             continue

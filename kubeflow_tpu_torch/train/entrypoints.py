@@ -4,11 +4,11 @@
 ``llm_pretrain`` runs the ``Trainer`` over ``TrainerConfig`` fields taken
 from the worker config verbatim; ``vision_train`` runs the ViT or CLIP
 task (its metrics add each logging window's wall ms per step). Both run
-on the worker's device (``WorkerContext.device``: the card,
-or the CPU when ``KFTPU_PLATFORM=cpu``) in one process: a multi-process
-world is refused, as ``runtime.bootstrap.bootstrap_worker`` refuses it.
-Their imports happen inside the functions, so resolving a trivial
-entrypoint imports no torch.
+on the worker's device (``WorkerContext.device``: the card, or the CPU
+when ``KFTPU_PLATFORM=cpu``), over the mesh of a multi-process or
+sharded worker (``WorkerContext.mesh``, from ``bootstrap_worker``). Their
+imports happen inside the functions, so resolving a trivial entrypoint
+imports no torch.
 """
 
 from __future__ import annotations
@@ -33,14 +33,13 @@ def vision_train(ctx: WorkerContext) -> int:
     {"family": "vit"|"clip", "model": preset, "steps", "batch",
     "optimizer": {...}, "model_overrides": {...}, "log_every"}."""
     from kubeflow_tpu_torch.models.vision import clip_preset, vit_preset
-    from kubeflow_tpu_torch.runtime.bootstrap import bootstrap_worker
     from kubeflow_tpu_torch.train.metrics import MetricsEmitter
     from kubeflow_tpu_torch.train.optim import OptimizerConfig
     from kubeflow_tpu_torch.train.vision_task import (
         clip_batch, setup_clip_train, setup_vit_train, vit_batch,
     )
 
-    bootstrap_worker(ctx.env)
+    mesh = ctx.mesh
     cfg = ctx.config
     family = cfg.get("family", "vit")
     steps = int(cfg.get("steps", 20))
@@ -50,11 +49,11 @@ def vision_train(ctx: WorkerContext) -> int:
     overrides = dict(cfg.get("model_overrides", {}))
     if family == "vit":
         mcfg = vit_preset(cfg.get("model", "tiny-vit"), **overrides)
-        task = setup_vit_train(mcfg, opt, device=ctx.device)
+        task = setup_vit_train(mcfg, opt, device=ctx.device, mesh=mesh)
         batch_fn = lambda step: vit_batch(mcfg, batch, step)  # noqa: E731
     elif family == "clip":
         mcfg = clip_preset(cfg.get("model", "tiny-clip"), **overrides)
-        task = setup_clip_train(mcfg, opt, device=ctx.device)
+        task = setup_clip_train(mcfg, opt, device=ctx.device, mesh=mesh)
         batch_fn = lambda step: clip_batch(mcfg, batch, step)  # noqa: E731
     else:
         raise ValueError(f"unknown vision family {family!r}")
@@ -83,12 +82,13 @@ def vision_train(ctx: WorkerContext) -> int:
 def llm_pretrain(ctx: WorkerContext) -> int:
     """Decoder pretraining through ``Trainer.run()``: checkpoints,
     resume, preemption and ``metrics.jsonl`` in the worker's workdir."""
-    from kubeflow_tpu_torch.runtime.bootstrap import bootstrap_worker
     from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-    bootstrap_worker(ctx.env)
+    mesh = ctx.mesh
     cfg = TrainerConfig.from_dict(ctx.config)
-    trainer = Trainer(cfg, device=ctx.device, metrics_path=_metrics_path(ctx),
+    trainer = Trainer(cfg, mesh, process_id=ctx.env.process_id,
+                      num_processes=ctx.env.num_processes, device=ctx.device,
+                      metrics_path=_metrics_path(ctx),
                       workdir=ctx.env.workdir)
     trainer.run()
     return 0

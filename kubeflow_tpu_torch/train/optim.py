@@ -91,13 +91,31 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(grads: Any) -> torch.Tensor:
+def global_norm(grads: Any, dims: Any = None, group=None) -> torch.Tensor:
     """sqrt of the sum over leaves (sorted-key order) of each leaf's sum of
-    squares, in fp32, on the leaves' device."""
-    total = None
-    for g in T.leaves(grads):
-        s = torch.sum(g.float() * g.float())
-        total = s if total is None else total + s
+    squares, in fp32, on the leaves' device.
+
+    Sharded gradients (``dims``, a tree mirroring ``grads``: each leaf's
+    sharded dim or None; ``group``, the ranks a sharded leaf is split
+    over): the squares of the local shards are summed and all-reduced over
+    ``group``, and a replicated leaf is counted once, not once a rank."""
+    if dims is None or group is None:
+        total = None
+        for g in T.leaves(grads):
+            s = torch.sum(g.float() * g.float())
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    import torch.distributed as dist
+
+    whole, split = [], []
+    for g, d in zip(T.leaves(grads), T.leaves(dims)):
+        (whole if d is None else split).append(torch.sum(g.float()
+                                                         * g.float()))
+    total = torch.stack(whole).sum() if whole else None
+    if split:
+        part = torch.stack(split).sum()
+        dist.all_reduce(part, group=group)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -130,10 +148,11 @@ class ChainOptimizer:
         }
 
     @torch.no_grad()
-    def apply(self, grads: Any, opt_state: dict, params: Any):
+    def apply(self, grads: Any, opt_state: dict, params: Any,
+              gnorm: Optional[torch.Tensor] = None):
         c = self.cfg
         count = int(opt_state["count"])
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if gnorm is None else gnorm
         trigger = gnorm < c.clip_norm if c.clip_norm is not None else None
         lr = self.schedule(count)
         ps, gs = T.leaves(params), T.leaves(grads)
@@ -192,11 +211,12 @@ class FusedAdamW:
         }
 
     @torch.no_grad()
-    def apply(self, grads: Any, opt_state: dict, params: Any):
+    def apply(self, grads: Any, opt_state: dict, params: Any,
+              gnorm: Optional[torch.Tensor] = None):
         c = self.cfg
         count = int(opt_state["count"])
         lr = _f32(self.schedule(count), T.leaves(params)[0])
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if gnorm is None else gnorm
         scale = torch.ones_like(gnorm)
         if c.clip_norm is not None:
             scale = torch.minimum(scale, c.clip_norm
@@ -226,8 +246,10 @@ def make_optimizer(cfg: OptimizerConfig):
     return ChainOptimizer(cfg, sched)
 
 
-def apply_optimizer(optimizer, grads: Any, opt_state: dict, params: Any):
+def apply_optimizer(optimizer, grads: Any, opt_state: dict, params: Any,
+                    gnorm: Optional[torch.Tensor] = None):
     """One update for either optimizer kind: ``(params, opt_state,
-    grad_norm)``, the norm of the unclipped gradients. Parameters and
+    grad_norm)``, the norm of the unclipped gradients (``gnorm`` when the
+    caller computed it: a sharded state's global norm). Parameters and
     moments are updated in place."""
-    return optimizer.apply(grads, opt_state, params)
+    return optimizer.apply(grads, opt_state, params, gnorm)

@@ -1,5 +1,5 @@
 """The trainer loop a worker runs, plus its config (port of
-``kubeflow_tpu/train/trainer.py``, one device).
+``kubeflow_tpu/train/trainer.py``).
 
 Ties together: the train state on the device, the data source, the step
 loop with double-buffered input staging, checkpoint/resume with data
@@ -10,6 +10,13 @@ preemption notice (emergency save at the next step boundary, then
 one ``train.window`` span per logged window, metric emission, and an
 optional ``torch.profiler`` window. The JAX package's recompile sanitizer
 has no counterpart: eager PyTorch does not compile per signature.
+
+Spread over processes (a mesh from ``runtime.bootstrap``, one process per
+device), each rank holds its shards of the state (``train/step.py``),
+reads the data shard of its index over the batch axes (ranks that differ
+only in ``seq`` read the same rows and cut their part of the sequence),
+saves its blocks of each checkpoint (``train/checkpoint.py``), and only
+the coordinator writes manifests, the goodput ledger and metrics.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import math
 import os
 import signal
 import threading
@@ -28,8 +36,9 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.config import DecoderConfig, preset
 from kubeflow_tpu_torch.obs.trace import get_tracer
+from kubeflow_tpu_torch.parallel.fsdp import batch_index
 from kubeflow_tpu_torch.train.checkpoint import (
-    CheckpointManager, HostBuffers, resume_from_tiers,
+    CheckpointManager, HostBuffers, ShardLayout, resume_from_tiers,
 )
 from kubeflow_tpu_torch.train.data import DataConfig, make_data_source
 from kubeflow_tpu_torch.train.metrics import MetricsEmitter, Throughput
@@ -94,18 +103,22 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Trains on one process and one device. There is no gradient exchange
-    yet, so the JAX trainer's ``process_id``/``num_processes`` have no
-    counterpart here: the data source is shard 0 of 1 and this process
-    writes every manifest, ledger line and metric."""
+    """Trains on the device of this process: alone (no ``mesh``), or as
+    rank ``process_id`` of ``num_processes`` over ``mesh``, the
+    ``DeviceMesh`` the worker's bootstrap built."""
 
-    def __init__(self, cfg: TrainerConfig, *,
+    def __init__(self, cfg: TrainerConfig, mesh=None, *,
+                 process_id: int = 0, num_processes: int = 1,
                  device: str | torch.device = "cuda",
                  metrics_path: Optional[str] = None,
                  workdir: Optional[str] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        self.process_id = process_id
+        self.num_processes = num_processes
         self.device = resolve_device(device)
         self.workdir = workdir
+        coordinator = process_id == 0
 
         self.model_cfg: DecoderConfig = preset(cfg.model,
                                                **cfg.model_overrides)
@@ -129,11 +142,30 @@ class Trainer:
         })
         if data_cfg.vocab_size > self.model_cfg.vocab_size:
             raise ValueError("data vocab exceeds model vocab")
+        # The global batch must divide over the processes and the mesh's
+        # batch axes: round it up to lcm(processes, batch shards), as JAX.
+        shard, dp = batch_index(mesh)
+        gran = math.lcm(max(num_processes, 1), max(dp, 1))
+        if data_cfg.global_batch % gran:
+            new_gb = -(-data_cfg.global_batch // gran) * gran
+            logger.info(
+                "global_batch %d not divisible by lcm(processes=%d, "
+                "batch-shards=%d)=%d; adjusted to %d for this world shape",
+                data_cfg.global_batch, num_processes, dp, gran, new_gb)
+            data_cfg = dataclasses.replace(data_cfg, global_batch=new_gb)
         self.data_cfg = data_cfg
-        self.data = make_data_source(data_cfg)
+        self.data = make_data_source(data_cfg, shard=shard, num_shards=dp)
 
         self.task = setup_train(self.model_cfg, opt_cfg, device=self.device,
-                                seed=cfg.seed, attn_impl=cfg.attn_impl)
+                                seed=cfg.seed, attn_impl=cfg.attn_impl,
+                                mesh=mesh)
+        self.shard_layout: Optional[ShardLayout] = None
+        if self.task.layout is not None:
+            lay = self.task.layout
+            self.shard_layout = ShardLayout(
+                sizes=lay.sizes, coords=lay.coords,
+                specs=lay.state_specs(self.task.state),
+                rank=process_id, world=num_processes)
 
         self.ckpt: Optional[CheckpointManager] = None
         self.ckpt_emergency: Optional[CheckpointManager] = None
@@ -142,29 +174,33 @@ class Trainer:
             # preemption after an interval save pins no second copy.
             host = HostBuffers()
             self.ckpt = CheckpointManager(cfg.checkpoint_dir,
-                                          cfg.max_checkpoints, host=host)
+                                          cfg.max_checkpoints, host=host,
+                                          layout=self.shard_layout)
             if cfg.emergency_checkpointing:
                 self.ckpt_emergency = CheckpointManager(
                     cfg.emergency_checkpoint_dir
                     or f"{cfg.checkpoint_dir.rstrip(os.sep)}-emergency",
-                    max_to_keep=1, host=host)
+                    max_to_keep=1, host=host, layout=self.shard_layout)
 
-        # Goodput ledger: in the workdir so it survives restarts.
+        # Goodput ledger: coordinator-owned, in the workdir so it survives
+        # restarts.
         ledger_dir = workdir or (os.path.dirname(metrics_path)
                                  if metrics_path else None)
         self.ledger: Optional[GoodputLedger] = (
-            GoodputLedger(ledger_dir) if ledger_dir else None)
+            GoodputLedger(ledger_dir) if ledger_dir and coordinator
+            else None)
         self.save_failures = 0
         self._preempted = threading.Event()
         self._watchdog: Optional[StepWatchdog] = None
 
-        self.emitter = MetricsEmitter(jsonl_path=metrics_path)
+        self.emitter = MetricsEmitter(
+            jsonl_path=metrics_path if coordinator else None)
         card = cfg.generation
         if card is None and self.device.type == "cuda":
             card = torch.cuda.get_device_name(self.device)
         self.throughput = Throughput(
             tokens_per_step=data_cfg.global_batch * data_cfg.seq_len,
-            num_chips=1,
+            num_chips=mesh.size() if mesh is not None else 1,
             flops_per_token=self.model_cfg.flops_per_token(),
             generation=card if self.device.type == "cuda" else None,
         )
@@ -182,7 +218,9 @@ class Trainer:
         if self.ckpt_emergency is not None:
             tiers.append(("emergency", self.ckpt_emergency))
         tiers.append(("interval", self.ckpt))
-        resumed = resume_from_tiers(tiers, device=self.device)
+        resumed = resume_from_tiers(tiers, device=self.device,
+                                    layout=self.shard_layout,
+                                    quarantine=self.process_id == 0)
         if resumed is None:
             return 0
         state, _, tier, fallbacks = resumed
@@ -274,7 +312,9 @@ class Trainer:
         self._watchdog = watchdog
         prev_sigterm = self._install_preemption_handler()
         # Batch N+1 is built and copied on a background thread (and a side
-        # stream on a card) while step N runs.
+        # stream on a card) while step N runs. ``self.data`` reads this
+        # rank's batch shard, which is its whole block of the global batch
+        # (the decoder cuts its ``seq`` part after the input/target shift).
         side = (torch.cuda.Stream(self.device)
                 if self.device.type == "cuda" else None)
         stager = DeviceBatchStager(

@@ -1,5 +1,5 @@
 """Train setup for the vision families, ViT classification and CLIP
-contrastive, on one device (port of ``kubeflow_tpu/train/vision_task.py``).
+contrastive (port of ``kubeflow_tpu/train/vision_task.py``).
 
 The vision counterpart of ``train/step.py``'s decoder task, over the same
 optimizer factory and train-state shape ``{"params", "opt_state",
@@ -7,6 +7,12 @@ optimizer factory and train-state shape ``{"params", "opt_state",
 state's tensors in place. The synthetic data sources are the JAX
 package's, bit for bit: numpy, seeded by step, with learnable structure
 so that "loss decreases" is a real signal.
+
+Under a mesh (the ``dcn``, ``data`` and ``fsdp`` axes; vision has no
+sequence split) the state is sharded as the decoder's
+(``parallel/fsdp.py``): each rank draws the whole init, keeps its shards,
+takes its rows of each global batch, and sums its gradients with the
+other ranks'.
 """
 
 from __future__ import annotations
@@ -19,9 +25,12 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.vision import (
-    CLIPConfig, ViTConfig, clip_loss, init_clip_params, init_vit_params,
-    vit_loss,
+    CLIPConfig, ViTConfig, clip_loss, clip_param_specs, init_clip_params,
+    init_vit_params, vit_loss, vit_param_specs,
 )
+from kubeflow_tpu_torch.parallel.collectives import GatheredParams
+from kubeflow_tpu_torch.parallel.fsdp import StateLayout, batch_index
+from kubeflow_tpu_torch.parallel.sharding import mesh_shape
 from kubeflow_tpu_torch.train import tree as T
 from kubeflow_tpu_torch.train.optim import (
     OptimizerConfig, apply_optimizer, make_optimizer,
@@ -36,24 +45,52 @@ class VisionTask:
     optimizer: Any
     state: Any                      # {"params", "opt_state", "step"}
     step_fn: Callable[[Any, dict], tuple[Any, dict]]
+    mesh: Any = None
+    layout: Any = None
 
 
-def _setup(cfg, init_fn, loss_fn, opt_cfg: OptimizerConfig, device,
-           seed: int) -> VisionTask:
+def _setup(cfg, init_fn, specs_fn, loss_fn, opt_cfg: OptimizerConfig,
+           device, seed: int, mesh=None) -> VisionTask:
     dev = resolve_device(device)
     optimizer = make_optimizer(opt_cfg)
     params = init_fn(torch.Generator(dev).manual_seed(seed), cfg)
+    layout = batch_group = None
+    if mesh is not None:
+        if mesh_shape(mesh).get("seq", 1) > 1:
+            raise NotImplementedError(
+                "vision training splits the batch, not the sequence: a seq "
+                "axis above 1 is not supported (ROADMAP.md Queue 1 item 9)")
+        layout = StateLayout(mesh, specs_fn(cfg), params)
+        params = layout.cut(params)
+        batch_group = layout.token_group
+    shard, dp = batch_index(mesh)
     state = trainable({"params": params, "opt_state": optimizer.init(params),
                        "step": 0})
 
     def step_fn(state: dict, batch: dict):
         params = state["params"]
-        on_dev = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        loss, metrics = loss_fn(params, on_dev, cfg)
+        on_dev = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if dp > 1:
+                if t.shape[0] % dp:
+                    raise ValueError(f"batch of {t.shape[0]} does not "
+                                     f"divide over {dp} batch shards")
+                rows = t.shape[0] // dp
+                t = t[shard * rows:(shard + 1) * rows]
+            on_dev[k] = t.to(dev)
+        view = params if layout is None else GatheredParams(
+            params, layout.dims, layout.fsdp_group)
+        loss, metrics = loss_fn(view, on_dev, cfg, batch_group)
         grads = torch.autograd.grad(loss, T.leaves(params))
+        gnorm = None
+        if layout is not None:
+            layout.sync_grads(grads)
         grad_tree = T.unflatten(dict(zip(T.flatten(params), grads)))
+        if layout is not None:
+            gnorm = layout.global_norm(grad_tree)
         _, opt_state, grad_norm = apply_optimizer(
-            optimizer, grad_tree, state["opt_state"], params)
+            optimizer, grad_tree, state["opt_state"], params, gnorm)
         metrics = dict(metrics)
         metrics["grad_norm"] = grad_norm
         state["opt_state"] = opt_state
@@ -61,22 +98,24 @@ def _setup(cfg, init_fn, loss_fn, opt_cfg: OptimizerConfig, device,
         return state, metrics
 
     return VisionTask(cfg=cfg, device=dev, optimizer=optimizer, state=state,
-                      step_fn=step_fn)
+                      step_fn=step_fn, mesh=mesh, layout=layout)
 
 
 def setup_vit_train(cfg: ViTConfig, opt_cfg: OptimizerConfig, *,
                     device: str | torch.device = "cuda",
-                    seed: int = 0) -> VisionTask:
+                    seed: int = 0, mesh=None) -> VisionTask:
     """The ViT task on ``device`` (default the card; raises without one
-    unless ``device="cpu"``)."""
-    return _setup(cfg, init_vit_params, vit_loss, opt_cfg, device, seed)
+    unless ``device="cpu"``), sharded over ``mesh`` when one is given."""
+    return _setup(cfg, init_vit_params, vit_param_specs, vit_loss, opt_cfg,
+                  device, seed, mesh)
 
 
 def setup_clip_train(cfg: CLIPConfig, opt_cfg: OptimizerConfig, *,
                      device: str | torch.device = "cuda",
-                     seed: int = 0) -> VisionTask:
+                     seed: int = 0, mesh=None) -> VisionTask:
     """The CLIP task on ``device`` (default the card)."""
-    return _setup(cfg, init_clip_params, clip_loss, opt_cfg, device, seed)
+    return _setup(cfg, init_clip_params, clip_param_specs, clip_loss,
+                  opt_cfg, device, seed, mesh)
 
 
 # -- synthetic data --------------------------------------------------------------

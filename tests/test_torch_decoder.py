@@ -180,8 +180,12 @@ def test_moe_trains_lora_serves_and_sequence_parallel_raises():
     _, tcfg = _configs("tiny")
     params = tdec.init_decoder_params(torch.Generator().manual_seed(0), tcfg)
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tdec.decoder_forward(params, toks, tcfg, attn_impl="ring")
+    # Sequence-parallel attention without a mesh is plain attention (JAX's
+    # rule): the ring impls give the plain forward's logits.
+    plain, _ = tdec.decoder_forward(params, toks, tcfg, attn_impl="xla")
+    for impl in ("ring", "ring_flash", "ulysses"):
+        got, _ = tdec.decoder_forward(params, toks, tcfg, attn_impl=impl)
+        assert torch.equal(got, plain), impl
     # LoRA is served now (tests/test_torch_lora.py): a batch whose rows all
     # carry adapter index -1 gives the LoRA-free logits bit for bit.
     toks = torch.arange(1, 9, dtype=torch.long).reshape(2, 4)

@@ -7,9 +7,16 @@ CPU (``KFTPU_PLATFORM=cpu``):
   run from the same config, within 1e-5) and serve;
 - ``vision_train`` (ViT on ``tiny-vit``, CLIP on ``tiny-clip``) and
   ``torch_train``: exit 0, every ``metrics.jsonl`` value finite;
-- the registry holds all three beside ``model_server``; a two-process
-  world is refused with the multi-GPU pointer, and without a card and
-  without ``cpu`` each entry point raises.
+- the registry holds all three beside ``model_server``; without a card
+  and without ``cpu`` each entry point raises;
+- each runs as a two-process gloo gang through ``worker_main``
+  (``tests/dist_support.py``; the four-process gangs run inside
+  ``test_torch_distributed_train.py``'s): exit 0, metrics from the
+  coordinator alone, a vision gang's first loss that of the one-process
+  step on the same global batch, a ``torch_train`` gang's ranks ending on
+  equal weights; a gang whose second rank never starts exits retryable
+  within its rendezvous timeout, and ``_classify_exit`` maps each torch
+  error type.
 """
 
 import json
@@ -17,10 +24,13 @@ import math
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
 import torch
+
+from dist_support import check_gang, finish, spawn_gang
 
 from kubeflow_tpu_torch.core.serving import BatchingSpec
 from kubeflow_tpu_torch.models.config import preset
@@ -130,11 +140,80 @@ def test_registered_beside_the_serving_entrypoint():
         assert callable(resolve_entrypoint(name))
 
 
+def _gang_config(name: str, tmp_path) -> dict:
+    """The config of a two-process gang of ``name``."""
+    if name == "llm_pretrain":
+        return dict(_llm_config(str(tmp_path / "ck")), model="tiny", steps=2,
+                    model_overrides={"dtype": "float32", "n_layers": 1})
+    if name == "vision_train":
+        return {"family": "vit", "model": "tiny-vit", "steps": 2,
+                "batch": 4, "model_overrides": {"dtype": "float32"}}
+    return {"steps": 4, "batch": 8}
+
+
+def _gangs(n: int, base) -> dict:
+    """All three entry points as ``n``-process gangs at once; each
+    gang's (config, workdirs) after every rank exited 0."""
+    procs, out = {}, {}
+    for name in ENTRYPOINTS:
+        conf = _gang_config(name, base / name)
+        dirs = [base / name / "job" / f"worker-{r}" for r in range(n)]
+        procs[name] = spawn_gang(name, conf, n, dirs)
+        out[name] = (conf, dirs)
+    for name, ps in procs.items():
+        for r, (rc, _, err) in enumerate(finish(ps)):
+            assert rc == 0, f"{name} rank {r} exit {rc}:\n{err[-4000:]}"
+    return out
+
+
+@pytest.fixture(scope="module")
+def gangs2(tmp_path_factory):
+    return _gangs(2, tmp_path_factory.mktemp("gangs2"))
+
+
 @pytest.mark.parametrize("name", ENTRYPOINTS)
-def test_multi_process_world_is_refused(name, tmp_path):
-    ctx = WorkerContext(env=_wenv(name, {}, tmp_path, num_processes=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        resolve_entrypoint(name)(ctx)
+def test_multi_process_world_is_refused(name, gangs2):
+    """No longer refused: a two-process world of each entry point runs as
+    a gloo gang through ``worker_main`` (``llm_pretrain`` on the
+    default all-``fsdp`` mesh, ``vision_train`` ViT with two rows a rank,
+    ``torch_train``'s own file-store rendezvous)."""
+    conf, dirs = gangs2[name]
+    check_gang(name, 2, conf, dirs)
+
+
+def test_gang_missing_a_rank_exits_retryable_within_its_timeout(tmp_path):
+    from kubeflow_tpu_torch.runtime.bootstrap import EXIT_RETRYABLE
+
+    conf = _gang_config("llm_pretrain", tmp_path)
+    t0 = time.monotonic()
+    (rc, out, _), = finish(spawn_gang(
+        "llm_pretrain", conf, 2, [tmp_path / "w0", tmp_path / "w1"],
+        timeout_s=3.0, ranks=[0]), timeout=60)
+    assert rc == EXIT_RETRYABLE, out
+    assert "rendezvous failed" in out
+    assert time.monotonic() - t0 < 30
+
+
+def test_classify_exit_maps_torch_error_types():
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.runtime.bootstrap import (
+        EXIT_PERMANENT, EXIT_RETRYABLE,
+    )
+    from kubeflow_tpu_torch.runtime.worker_main import _classify_exit
+
+    for exc in (dist.DistBackendError("nccl watchdog timeout"),
+                dist.DistNetworkError("peer closed"),
+                dist.DistStoreError("store timed out")):
+        assert _classify_exit(exc) == EXIT_RETRYABLE, type(exc)
+
+    class Mine(dist.DistBackendError):
+        pass
+
+    for exc in (torch.OutOfMemoryError("out of memory"),
+                ValueError("shapes"), RuntimeError("DistBackendError"),
+                Mine("a subclass is not the type"), KeyError("x")):
+        assert _classify_exit(exc) == EXIT_PERMANENT, type(exc)
 
 
 @pytest.mark.parametrize("name", ENTRYPOINTS)
