@@ -17,7 +17,9 @@ runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
 ``--train-moe-only`` phases 1, 2, the fused CE's edge cases and (j),
 ``--remat-only`` phases 1, 2 and (k), ``--multi-only`` phases 1, 2 and
 (l), ``--multi-cards-only`` phases 1, 2, (l)1 and (l)4 (for a machine
-with several cards). Every phase prints its seconds.
+with several cards), ``--tp-only`` phases 1, 2 and (m) (its 4-card parts
+where the machine has 4 cards), ``--tp-cards-only`` phases 1, 2 and
+(m)3-(m)5 (for a machine with 4 cards). Every phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -323,6 +325,24 @@ Phases, each a hard failure:
    within 1e-2 of an in-process run (fused off, as the mesh turns them
    off) on the same global batches (on one card it prints why it did not
    run).
+17. (m) tensor parallelism over the ``model`` axis: (m)1 one Llama-3-8B
+   block at B = 1, T = 2048 split 4 ways in lockstep on the card (each
+   rank's 8 q / 2 kv heads through the flash kernels, its 3584 mlp
+   columns through the SwiGLU kernels, the partial outputs summed):
+   output and every gradient within rel L2 1e-2 of the unsplit block
+   through the same kernels, rows 4-8 launched exactly 4 times the
+   unsplit block's; (m)2 the vocab-parallel fused CE at T = 4096, D =
+   4096, V = 128256 over 4 shards of 32064 columns (a ragged last tile):
+   nll, lse (1e-3), correct (near ties), d_hidden and d_head against the
+   whole-vocab kernels, each shard's ms beside the whole call's; with 4
+   cards, (m)3 ``llm_pretrain`` on ``{model: 4}`` and ``{fsdp: 2, model:
+   2}`` held as (l)4 holds its runs, (m)4 a ``{model: 4}`` ``model_server``
+   gang of Llama-3-8B (bf16 and int8 pages: greedy tokens the plain
+   one-card forward's argmax or a near tie, ``uniform`` TTFT and TPOT, the
+   followers' op counts the leader's, SIGTERM ends every rank) and (m)5
+   Llama-3-70B at 80 layers on ``{model: 4}`` (peak per card, 8 greedy
+   requests held to a plain TP forward on the same cards, TPOT); on one
+   card (m)3-(m)5 print why they did not run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -1287,6 +1307,9 @@ def phase_xent_edges(gen=None) -> None:
     (ragged last tile, one tile, many ranges, the backward's last chunk of
     13568 columns at 128256, and at 20000 a last chunk of 3616, ragged in
     its tiles and in the d_hidden product's K, after one whole chunk),
+    32064: a vocab shard of Llama-3's 128256 over 4 ranks, a multiple of 8
+    and not of 256, whose last forward tile is a quarter full and whose
+    backward's last chunk of 15680 columns is ragged in its tiles),
     D in {1160, 2048, 4096} (1160, a multiple of 8 and not of 64: ragged K
     in the forward and dl, ragged N in d_hidden, and in d_head ragged A
     boxes, one wholly past D, and ragged output rows), softcap 30, with
@@ -1298,7 +1321,8 @@ def phase_xent_edges(gen=None) -> None:
                          (300, 2048, 128256, None), (300, 4096, 256000, 30.0),
                          (4096, 2048, 256000, None), (300, 2048, 20000, None),
                          (300, 1160, 20000, None), (4096, 4096, 32000, None),
-                         (3000, 4096, 32000, None)):
+                         (3000, 4096, 32000, None), (4096, 4096, 32064, None),
+                         (300, 2048, 32064, 30.0)):
         check_xent(gen, T, D, V, softcap=cap,
                    name=f"edge fused_xent T={T} D={D} V={V} softcap={cap}")
         torch.cuda.empty_cache()
@@ -6497,15 +6521,8 @@ def multi_card_world(card: str, world1_losses: list[float]) -> None:
     min(cards, 4) over NCCL, 3 steps each, on ``{seq: world}`` with the
     flash ring (the K/V parts rotating between cards) and on ``{fsdp:
     world}`` (the params sharded, gathered per layer), fused kernels on
-    each rank's local blocks. The trainer rounds the global batch up to a
-    multiple of the processes (JAX's rule), so each run is held to an
-    in-process unmeshed run, fused on, on the same global batches: losses
-    within ``MULTI_CARD_LOSS_REL``, the step-1 grad norm within
-    ``MULTI_CARD_GRAD_NORM_REL``. (l)1's losses are printed beside
-    them."""
-    import dataclasses
-    import tempfile
-
+    each rank's local blocks (``card_world_runs``). (l)1's losses are
+    printed beside them."""
     count = torch.cuda.device_count()
     if count < 2:
         print(f"(l)4 multi-card NCCL world: not run — this machine has "
@@ -6513,9 +6530,29 @@ def multi_card_world(card: str, world1_losses: list[float]) -> None:
               flush=True)
         return
     world = min(count, 4)
+    card_world_runs("(l)4", card, (({"seq": world}, "ring_flash"),
+                                   ({"fsdp": world}, "pallas")),
+                    world1_losses)
+
+
+def card_world_runs(label: str, card: str, cases, world1_losses=None,
+                    every_kernel: bool = False) -> None:
+    """``llm_pretrain`` over NCCL on each ``(axes, attn_impl)`` of
+    ``cases`` (one process per card), Llama-3-8B width at 4 layers, 3
+    steps, fused kernels on each rank's local blocks. The trainer rounds
+    the global batch up to a multiple of the processes (JAX's rule), so
+    each run is held to an in-process unmeshed run, fused on, on the same
+    global batches: losses within ``MULTI_CARD_LOSS_REL``, the step-1 grad
+    norm within ``MULTI_CARD_GRAD_NORM_REL``. Prints step ms, tokens/s,
+    peak per rank and the kernels' launches per rank; with
+    ``every_kernel`` each training kernel must have launched on every
+    rank."""
+    import dataclasses
+    import tempfile
+
     nan = float("nan")
-    for axes, attn in (({"seq": world}, "ring_flash"),
-                       ({"fsdp": world}, "pallas")):
+    for axes, attn in cases:
+        world = math.prod(axes.values())
         cfg = dataclasses.replace(_trainer_cfg(steps=MULTI_STEPS),
                                   attn_impl=attn)
         with tempfile.TemporaryDirectory(
@@ -6524,7 +6561,7 @@ def multi_card_world(card: str, world1_losses: list[float]) -> None:
             dirs = [Path(base, f"w{r}") for r in range(world)]
             secs = spawn_workers("chip_smoke:counted_llm_pretrain",
                                  dataclasses.asdict(cfg), dirs, axes,
-                                 f"(l)4 llm_pretrain {axes}")
+                                 f"{label} llm_pretrain {axes}")
             rows = [json.loads(x) for x in
                     (dirs[0] / "metrics.jsonl").read_text().splitlines()]
             counts = [json.loads((d / "counts.json").read_text())
@@ -6540,12 +6577,13 @@ def multi_card_world(card: str, world1_losses: list[float]) -> None:
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, refs))
         norm1 = rows[0]["grad_norm"]
         rel_norm = abs(norm1 - ref_norms[0]) / abs(ref_norms[0])
-        print(f"(l)4 llm_pretrain over NCCL, {world} cards, {axes}, "
+        extra = "" if world1_losses is None else f"; (l)1 {world1_losses}"
+        print(f"{label} llm_pretrain over NCCL, {world} cards, {axes}, "
               f"attn {attn}: exit 0 in {secs:.1f} s; devices "
               f"{[c['device'] for c in counts]}, backends "
               f"{sorted({c['backend'] for c in counts})}; losses {losses} "
               f"vs {ref_name} {refs} (max rel {rel:.3e}, tolerance "
-              f"{MULTI_CARD_LOSS_REL:g}; (l)1 {world1_losses}); step-1 "
+              f"{MULTI_CARD_LOSS_REL:g}{extra}); step-1 "
               f"grad norm {norm1} vs {ref_norms[0]} (rel {rel_norm:.3e}, "
               f"tolerance {MULTI_CARD_GRAD_NORM_REL:g}); step ms "
               f"{[round(r.get('step_time_ms', nan), 1) for r in rows]}; "
@@ -6553,18 +6591,23 @@ def multi_card_world(card: str, world1_losses: list[float]) -> None:
               f"{[round(r.get('tokens_per_sec', nan), 1) for r in rows]}; "
               f"peak per rank "
               f"{[round(c['peak'] / 2**30, 2) for c in counts]} GiB; "
-              f"flash launches per rank "
-              f"{[c['launches']['flash_fwd'] for c in counts]}; {card}",
+              f"launches per rank "
+              f"{[c['launches'] for c in counts]}; {card}",
               flush=True)
         if len({c["device"] for c in counts}) != world or any(
                 c["world"] != world or c["backend"] != "nccl"
                 for c in counts):
-            fail(f"(l)4 {axes}: ranks {counts} are not one NCCL world "
+            fail(f"{label} {axes}: ranks {counts} are not one NCCL world "
                  "over distinct cards")
+        if every_kernel and any(n == 0 for c in counts
+                                for n in c["launches"].values()):
+            fail(f"{label} {axes}: a kernel of the path launched no time "
+                 "on a rank")
         if not rel <= MULTI_CARD_LOSS_REL:
-            fail(f"(l)4 {axes}: the multi-card losses are off {ref_name}'s")
+            fail(f"{label} {axes}: the multi-card losses are off "
+                 f"{ref_name}'s")
         if not rel_norm <= MULTI_CARD_GRAD_NORM_REL:
-            fail(f"(l)4 {axes}: the step-1 grad norm is off {ref_name}'s")
+            fail(f"{label} {axes}: the step-1 grad norm is off {ref_name}'s")
 
 
 def phase_multi(card: str) -> None:
@@ -6586,10 +6629,771 @@ def phase_multi(card: str) -> None:
     timed_phase("multi cards", multi_card_world, card, losses)
 
 
-def timed_phase(name: str, fn, *args):
+# -- (m) tensor parallelism over the model axis -------------------------------
+
+#: (m)1 and (m)2: the model axis's degree, run in lockstep on one card.
+TP_WAYS = 4
+#: (m)1: split block vs the unsplit one, output and every gradient.
+TP_REL_L2 = 1e-2
+TP_T = 2048
+#: (m)3-(m)5's worlds: one process per card; (m)4 and (m)5 serve on
+#: ``PAGED_SPEC``'s page pool.
+TP_CARDS = 4
+#: (m)5: Llama-3-70B at every layer and full width, bf16 weights.
+TP_MODEL_70B = {"preset": "llama3-70b",
+                "overrides": {"param_dtype": "bfloat16"}}
+#: (m)5's greedy requests: (tokens, salt) of ``text``.
+TP_70B_PROMPTS = tuple((n, 120 + i) for i, n in enumerate(
+    (40, 90, 150, 200, 260, 300, 350, 400)))
+TP_NEW = 16
+
+
+def _tp_cut(tree: dict, specs: dict, r: int) -> dict:
+    """Rank ``r``'s shards of a block's leaves on ``{model: TP_WAYS}``
+    (``parallel.sharding.cut_local``; differentiable in the whole leaf)."""
+    from kubeflow_tpu_torch.parallel.sharding import cut_local
+
+    return {k: cut_local(v, specs[k], {"model": TP_WAYS}, {"model": r})
+            for k, v in tree.items()}
+
+
+def tp_block_lockstep(rows: list[dict], card: str) -> None:
+    """(m)1: one Llama-3-8B block (bf16) at B = 1, T = 2048, split
+    ``TP_WAYS`` ways as the model axis splits it, the ranks run one after
+    another on this card: each rank's 8 q and 2 kv heads through the flash
+    forward and backward (rows 6-8) and its 3584 mlp columns through the
+    SwiGLU kernels (rows 4-5), on its cut of ``wq/wk/wv/wo`` and
+    ``gate/up/down`` (``parallel.sharding.cut_local``, the training
+    rules' specs); the ranks' partial outputs of ``wo`` and ``down`` are
+    summed (the all-reduce of ``reduce_from_model``), the norms (rows 1-3)
+    run once. The forward output and every gradient (input, norms and each
+    whole weight, the ranks' cuts assembled by autograd) against the
+    unsplit block through the same kernels: rel L2 <= ``TP_REL_L2``; the
+    launches of rows 4-8 exactly ``TP_WAYS`` times the unsplit block's,
+    rows 1-3 the same."""
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset
+
+    cfg = preset("llama3-8b", n_layers=1, param_dtype="bfloat16")
+    gen = torch.Generator("cuda").manual_seed(SEED + 90)
+    attn = L.init_attention(gen, cfg)
+    mlp = L.init_mlp(gen, cfg)
+    norms = [(1.0 + 0.1 * torch.randn((cfg.hidden,), generator=gen,
+                                      device="cuda")).to(torch.bfloat16)
+             for _ in range(2)]
+    leaves = [*attn.values(), *mlp.values(), *norms]
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.randn((1, TP_T, cfg.hidden), generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    dy = torch.randn((1, TP_T, cfg.hidden), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    pos = torch.arange(TP_T, device="cuda")[None]
+    specs = {"wq": (None, "model", None), "wk": (None, "model", None),
+             "wv": (None, "model", None), "wo": ("model", None, None),
+             "gate": (None, "model"), "up": (None, "model"),
+             "down": ("model", None)}
+
+    def block(split: bool, parts=None):
+        if parts is None:
+            parts = ([(_tp_cut(attn, specs, r), _tp_cut(mlp, specs, r))
+                      for r in range(TP_WAYS)] if split else [(attn, mlp)])
+        h = L.rmsnorm(x, norms[0], cfg)
+        out = 0
+        for a, _ in parts:
+            q, k, v = L.attention_qkv(a, h, pos, cfg)
+            out = out + L.attention_out(a, q, k, v, cfg, attn_impl="pallas")
+        y, h2 = L.add_rmsnorm(x, out, norms[1], cfg)
+        mlp_out = 0
+        for _, m in parts:
+            mlp_out = mlp_out + L.mlp_block(m, h2, cfg)
+        return y + mlp_out
+
+    def run(split: bool):
+        for w in wrappers.values():
+            w.launches = 0
+        out = block(split)
+        grads = torch.autograd.grad(out, [x, *leaves], dy)
+        return out.detach(), grads, {n: w.launches
+                                     for n, w in wrappers.items()}
+
+    wrappers = {k: v for k, v in _train_wrappers().items()
+                if not k.startswith("fused_xent")}
+    out1, g1, n1 = run(False)
+    out4, g4, n4 = run(True)
+    names = ["x", *(f"attn.{k}" for k in attn), *(f"mlp.{k}" for k in mlp),
+             "ln1", "ln2"]
+    rels = {"out": rel_l2(out4, out1)}
+    rels.update({n: rel_l2(a, b) for n, a, b in zip(names, g4, g1)})
+    # Timed on the ranks' cuts made once, as each rank holds them.
+    cuts = [tuple({k: v.detach().requires_grad_(True) for k, v in
+                   _tp_cut(tree, specs, r).items()} for tree in (attn, mlp))
+            for r in range(TP_WAYS)]
+    cut_leaves = [v for a, m in cuts for v in (*a.values(), *m.values())]
+    ms1 = event_ms(lambda: torch.autograd.grad(block(False), [x, *leaves],
+                                               dy))
+    ms4 = event_ms(lambda: torch.autograd.grad(
+        block(True, cuts), [x, *norms, *cut_leaves], dy))
+    print(f"(m)1 Llama-3-8B block, B=1 T={TP_T}, {TP_WAYS} ranks in "
+          f"lockstep ({cfg.n_heads // TP_WAYS} q / "
+          f"{cfg.n_kv_heads // TP_WAYS} kv heads, "
+          f"{cfg.mlp_dim // TP_WAYS} mlp columns each) vs unsplit: rel L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tolerance {TP_REL_L2:g}); launches split {n4} vs unsplit "
+          f"{n1}; fwd+bwd ms split {ms4:.3f} vs unsplit {ms1:.3f}; {card}",
+          flush=True)
+    bad = {k: v for k, v in rels.items() if not v <= TP_REL_L2}
+    if bad:
+        fail(f"(m)1: the split block is off the unsplit one: {bad}")
+    per_rank = ("swiglu_fwd", "swiglu_bwd", "flash_fwd", "flash_bwd_dkdv",
+                "flash_bwd_dq")
+    for n, c in n4.items():
+        want = TP_WAYS * n1[n] if n in per_rank else n1[n]
+        if c != want or c == 0:
+            fail(f"(m)1: {n} launched {c} times, expected {want} (unsplit "
+                 f"{n1[n]})")
+        _add_launches(rows, n, c)
+
+
+def tp_xent_lockstep(rows: list[dict], card: str) -> None:
+    """(m)2: the vocab-parallel fused CE at T = 4096, D = 4096, V = 128256
+    over ``TP_WAYS`` shards of 32064 columns (125 1/4 vocab tiles: the
+    ragged last tile), run one after another on this card
+    (``vocab_parallel.vocab_parallel_lockstep``: row 9 on each shard with
+    its shifted targets, the shards' statistics combined, rows 10 and 11
+    on each shard with the global lse). nll, lse, correct, d_hidden and d_head
+    against the whole-vocab kernels on the same inputs: lse |diff| <=
+    LSE_ATOL, the rest within the kernel phase's bounds, correct equal but
+    at near ties (argmax ties to the lowest index, also across a shard
+    boundary). Each shard's ms beside the whole call's."""
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+    from kubeflow_tpu_torch.parallel import vocab_parallel as vp
+
+    T, D, V = 4096, 4096, 128256
+    name = f"(m)2 vocab-parallel fused_xent T={T} D={D} V={V} / {TP_WAYS}"
+    gen = torch.Generator("cuda").manual_seed(SEED + 91)
+    h, w, t, g, expect = xent_case(gen, T, D, V)
+    shard = V // TP_WAYS
+    for row, (a, b) in ((10, (shard - 2, shard + 2)),):
+        # A tie across the first shard boundary: the lower column wins.
+        w[:, b] = w[:, a]
+        h[row] = h[row + 1] = (8.0 * w[:, a].float()).to(torch.bfloat16)
+        t[row], t[row + 1] = a, b
+        expect[row], expect[row + 1] = 1.0, 0.0
+    nll, lse, cor = fx.xent_fwd(h, w, t)
+    dh, dw = fx.xent_bwd(h, w, t, lse, g)
+    wrappers = {k: v for k, v in _train_wrappers().items()
+                if k.startswith("fused_xent")}
+    for v in wrappers.values():
+        v.launches = 0
+    tn, tl, tc, tdh, tdw = vp.vocab_parallel_lockstep(h, w, t, TP_WAYS, g=g)
+    launches = {k: v.launches for k, v in wrappers.items()}
+    if any(n != TP_WAYS for n in launches.values()):
+        fail(f"{name}: launches {launches}, expected {TP_WAYS} each")
+    for k, n in launches.items():
+        _add_launches(rows, k, n)
+    lse_err = float((tl - lse).abs().max())
+    if not lse_err <= LSE_ATOL:
+        fail(f"{name}: lse off the whole-vocab kernel's by {lse_err:.3e}")
+    errs = {"nll": within(tn, nll, f"{name} nll")}
+    rels = {}
+    for part, got, want in (("dh", tdh, dh), ("dw", tdw, dw)):
+        scale = float(want.float().abs().max())
+        errs[part] = within(got, want, f"{name} {part}", atol=ATOL * scale)
+        rels[part] = rel_l2(got, want)
+        if not rels[part] <= BWD_REL_L2:
+            fail(f"{name} {part}: rel L2 {rels[part]:.3e} > {BWD_REL_L2:g}")
+    logits = fx._logits_ref(h, w, None)
+    n_diff = argmax_agrees(tc, cor, logits, name)
+    del logits
+    for row, want in expect.items():
+        if float(tc[row]) != want:
+            fail(f"{name}: row {row} correct {float(tc[row])}, expected "
+                 f"{want} (argmax ties go to the lowest index)")
+    parts = [w[:, r * shard:(r + 1) * shard].contiguous()
+             for r in range(TP_WAYS)]
+    local = [(t - r * shard).contiguous() for r in range(TP_WAYS)]
+
+    def one(r: int):
+        _, l_r, _ = fx.xent_fwd(h, parts[r], local[r])
+        fx.xent_bwd(h, parts[r], local[r], l_r, g)
+
+    def whole():
+        _, l_w, _ = fx.xent_fwd(h, w, t)
+        fx.xent_bwd(h, w, t, l_w, g)
+
+    shard_ms = [event_ms(lambda r=r: one(r), iters=2) for r in range(TP_WAYS)]
+    whole_ms = event_ms(whole, iters=2)
+    print(f"{name}: lse max |diff| {lse_err:.3e} (tolerance {LSE_ATOL:g}), "
+          f"max_abs_err nll {errs['nll']:.3e}, dh {errs['dh']:.3e}, dw "
+          f"{errs['dw']:.3e}; rel L2 dh {rels['dh']:.3e}, dw "
+          f"{rels['dw']:.3e} (tolerance {BWD_REL_L2:g}); correct differs "
+          f"on {n_diff} near-tie rows, ties within and across shards hold; "
+          f"fwd+bwd ms per shard {[round(x, 3) for x in shard_ms]} vs the "
+          f"whole vocabulary {whole_ms:.3f}; {card}", flush=True)
+
+
+def counted_model_server(ctx) -> int:
+    """(m)4's and (m)5's worker entrypoint (``chip_smoke:
+    counted_model_server``): ``model_server`` with the serving kernels'
+    counts set to 0 before and written after, with the rank's peak
+    allocation, to ``counts.json`` in its workdir — also when SIGTERM ends
+    it."""
+    from kubeflow_tpu_torch.serve.model_server import model_server
+
+    wrappers = _moe_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    ctx.mesh                  # join first: it picks this rank's card
+    card = ctx.device.startswith("cuda")
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        return model_server(ctx)
+    finally:
+        Path(ctx.env.workdir, "counts.json").write_text(json.dumps({
+            "launches": {n: w.launches for n, w in wrappers.items()},
+            "peak": torch.cuda.max_memory_allocated() if card else 0,
+            "device": str(torch.cuda.current_device()) if card else "cpu"}))
+
+
+#: (m)5's depths at which the layer-by-layer drift is printed.
+TP_DRIFT_LAYERS = (1, 10, 20, 40, 60, 80)
+
+
+def _tp_layer_trace(params, cfg, ids: torch.Tensor, n_out: int,
+                    cached: bool):
+    """Teacher-forced forward of ``ids`` [1, S] layer by layer: the
+    residual stream after the embedding and after each block, fp32
+    [n_out, D] at the last ``n_out`` positions, and the whole
+    vocabulary's fp32 logits there. ``cached``: as the engine serves, the
+    first S - n_out + 1 tokens at once into a contiguous KV cache, then
+    one token at a time (the decode's one-row products); else the whole
+    sequence at once, no cache."""
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.decoder import (
+        _block_forward, init_kv_caches, layer_view, lm_head,
+    )
+
+    s, dev = ids.shape[1], ids.device
+    first = s - n_out
+    segs = ([(0, first + 1)] + [(t, t + 1) for t in range(first + 1, s)]
+            if cached else [(0, s)])
+    caches = init_kv_caches(cfg, 1, s, dev) if cached else None
+    states = [[] for _ in range(cfg.n_layers + 1)]
+    finals = []
+    for a, b in segs:
+        keep = max(a, first) - a
+        x = L.embed(params["embed"], ids[:, a:b], cfg)
+        if cfg.embed_scale:
+            x = x * L.embed_scale_value(cfg)
+        pos = torch.arange(a, b, device=dev)[None]
+        states[0].append(x[0, keep:].float())
+        for i in range(cfg.n_layers):
+            cache = None if caches is None else {
+                "k": caches["k"][i], "v": caches["v"][i], "len": a}
+            x, _, _ = _block_forward(layer_view(params["layers"], i), x,
+                                     pos, cfg, kv_cache=cache)
+            states[i + 1].append(x[0, keep:].float())
+        finals.append(L.rmsnorm(x, params["final_norm"], cfg)[0, keep:])
+    logits = lm_head(params, torch.cat(finals), cfg)
+    return [torch.cat(st) for st in states], logits
+
+
+def tp_teacher_forced(ctx) -> int:
+    """(m)5's checking entrypoint (``chip_smoke:tp_teacher_forced``): the
+    same random weights on the same cards (``load_params(random://, mesh=
+    )``) and three teacher-forced tensor-parallel forwards over each
+    prompt + its served tokens, layer by layer (``_tp_layer_trace``):
+    ``plain`` (bf16, kernels off, the whole sequence at once), ``fp32``
+    (the same in fp32 activations over the bf16 weights: the reference)
+    and ``served`` (bf16, the fused kernels, the prompt then one token at
+    a time through a KV cache: the engine's arithmetic but for its paged
+    decode kernel). Rank 0 writes to ``teacher.json``: each bf16
+    forward's relative L2 from ``fp32`` after every block; each row's
+    largest |logit − fp32 logit| of the two bf16 forwards (its bf16
+    noise); the argmax departures of the served tokens and of each bf16
+    forward from each other forward; and the served tokens whose fp32
+    gap to the top logit is past the near-tie band plus twice the row's
+    bf16 noise."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models.config import preset, with_model_axis
+    from kubeflow_tpu_torch.parallel.collectives import model_axis
+    from kubeflow_tpu_torch.serve.storage import load_params
+
+    conf = ctx.config
+    mesh, dev = ctx.mesh, ctx.device
+    cfg = preset(conf["model"]["preset"], **conf["model"]["overrides"])
+    tp = model_axis(mesh)
+    params = load_params("random://", cfg, device=dev, mesh=mesh)
+    cfgs = {"plain": dataclasses.replace(cfg, fused_kernels="off"),
+            "fp32": dataclasses.replace(cfg, dtype="float32",
+                                        fused_kernels="off"),
+            "served": dataclasses.replace(cfg, fused_kernels="on")}
+    names = list(cfgs)
+    sq = {f"{a}-{b}": [0.0] * (cfg.n_layers + 1)
+          for a, b in (("plain", "fp32"), ("served", "fp32"),
+                       ("plain", "served"))}
+    norm = [0.0] * (cfg.n_layers + 1)
+    departs = {k: 0 for k in ["tokens-" + n for n in names]
+               + ["plain-fp32", "served-fp32", "plain-served"]}
+    noise, gaps, bad, tokens = [], [], [], 0
+    for p, out in zip(conf["prompts"], conf["outputs"]):
+        got = torch.tensor(out, device=dev)
+        ids = torch.tensor([list(p) + list(out[:-1])], device=dev)
+        states, logits = {}, {}
+        with torch.no_grad():
+            for n, c in cfgs.items():
+                states[n], logits[n] = _tp_layer_trace(
+                    params, with_model_axis(c, tp), ids, len(out),
+                    cached=n == "served")
+        for pair in sq:
+            a, b = pair.split("-")
+            for i, (x, y) in enumerate(zip(states[a], states[b])):
+                sq[pair][i] += float((x - y).square().sum())
+        for i, y in enumerate(states["fp32"]):
+            norm[i] += float(y.square().sum())
+        top = {n: lg.argmax(-1) for n, lg in logits.items()}
+        for n in names:
+            departs["tokens-" + n] += int((got != top[n]).sum())
+        for pair in ("plain-fp32", "served-fp32", "plain-served"):
+            a, b = pair.split("-")
+            departs[pair] += int((top[a] != top[b]).sum())
+        ref = logits["fp32"]
+        row_noise = torch.maximum(
+            (logits["plain"] - ref).abs().amax(-1),
+            (logits["served"] - ref).abs().amax(-1))
+        hi = ref.max(-1).values
+        gap = hi - ref.gather(1, got[:, None])[:, 0]
+        band = NEAR_TIE_ATOL + NEAR_TIE_RTOL * hi.abs() + 2 * row_noise
+        noise += row_noise.tolist()
+        gaps += gap[gap > 0].tolist()
+        bad += [(float(g), float(b)) for g, b in zip(gap[gap > band],
+                                                      band[gap > band])]
+        tokens += len(out)
+    if ctx.env.process_id == 0:
+        Path(ctx.env.workdir, "teacher.json").write_text(json.dumps({
+            "rel_l2": {k: [math.sqrt(v[i] / norm[i]) for i in range(
+                len(norm))] for k, v in sq.items()},
+            "noise": noise, "gaps": gaps, "departs": departs,
+            "bad": bad, "tokens": tokens}))
+    return 0
+
+
+def tp_step_probe(ctx) -> int:
+    """(m)4's profiling entrypoint (``chip_smoke:tp_step_probe``): every
+    rank of a ``{model: 4}`` world runs, in lockstep with the others and
+    outside any engine, one 8-step paged decode dispatch of Llama-3-8B on
+    its shards at 8 live slots (cache position 1024, as ``phase_profile``
+    on one card), and 64 bare all-reduces of one decode step's [8, 1,
+    4096] bf16 partial sums; each timed on the host (enqueue, and wall to
+    a synchronize) and under torch.profiler (device time by kernel). Rank
+    0 writes them to ``probe.json``."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset, with_model_axis
+    from kubeflow_tpu_torch.parallel.collectives import model_axis
+    from kubeflow_tpu_torch.serve.paged import paged_decode_multi
+    from kubeflow_tpu_torch.serve.storage import load_params
+
+    mesh, dev = ctx.mesh, ctx.device
+    cfg = preset(WORKER_MODEL["preset"], **WORKER_MODEL["overrides"])
+    tcfg = with_model_axis(cfg, model_axis(mesh))
+    params = load_params("random://", cfg, device=dev, mesh=mesh)
+    b, steps, pg, mpp, per_slot = 8, 8, 128, 16, 9
+    st = [torch.full((b,), 5, device=dev),
+          torch.full((b,), 1024, device=dev),
+          torch.ones((b,), dtype=torch.bool, device=dev),
+          torch.zeros((b,), device=dev),
+          torch.zeros((b,), dtype=torch.long, device=dev),
+          torch.ones((b,), device=dev),
+          torch.full((b,), -1, device=dev),
+          torch.full((b,), 1 << 20, device=dev)]
+    shape = (cfg.n_layers, b * per_slot + 1, pg, L.local_kv_heads(tcfg)[1],
+             cfg.head_dim)
+    pool = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+            "table": torch.full((b, mpp), -1, dtype=torch.int32,
+                                device=dev)}
+    pool["table"][:, :per_slot] = torch.arange(
+        b * per_slot, dtype=torch.int32, device=dev).reshape(b, per_slot)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    x = torch.zeros((b, 1, cfg.hidden), dtype=torch.bfloat16, device=dev)
+
+    def decode():
+        paged_decode_multi(params, pool, *st, gen, tcfg, steps,
+                           sample_mode="greedy", attn_impl="pallas")
+
+    def reduces():
+        for _ in range(64):
+            dist.all_reduce(x, group=tcfg.tp.group)
+
+    out = {}
+    with torch.no_grad():
+        for name, fn, per in (("paged decode step", decode, steps),
+                              ("all-reduce", reduces, 64)):
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn()
+            t_enq = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t0
+            dist.barrier()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            total, kernels = _kernel_times(prof)
+            out[name] = {"enqueue_ms": t_enq * 1e3 / per,
+                         "wall_ms": t_wall * 1e3 / per,
+                         "device_ms": total / per,
+                         "kernels": [(k[:70], ms / per, n / per)
+                                     for k, ms, n in kernels[:6]]}
+    if ctx.env.process_id == 0:
+        Path(ctx.env.workdir, "probe.json").write_text(json.dumps(out))
+    return 0
+
+
+def tp_profile(card: str) -> None:
+    """(m)4's profile: ``tp_step_probe`` on a ``{model: 4}`` world of 4
+    cards, printed as ``phase_profile`` prints one card's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_tp_") as base:
+        dirs = [Path(base, f"w{r}") for r in range(TP_CARDS)]
+        spawn_workers("chip_smoke:tp_step_probe", {}, dirs,
+                      {"model": TP_CARDS}, "(m)4 TP step probe")
+        res = json.loads((dirs[0] / "probe.json").read_text())
+    for name, r in res.items():
+        print(f"(m)4 profile {name}, Llama-3-8B on {{model: {TP_CARDS}}}, "
+              f"rank 0 (per step or call): host enqueue "
+              f"{r['enqueue_ms']:.3f} ms, wall {r['wall_ms']:.3f} ms, device "
+              f"{r['device_ms']:.3f} ms; {card}", flush=True)
+        for key, ms, n in r["kernels"]:
+            print(f"  {ms:8.3f} ms  {n:6.1f}x  {key}", flush=True)
+
+
+def _tp_gang(model: dict, batching: dict, label: str, base: str) -> dict:
+    """A ``{model: TP_CARDS}`` ``counted_model_server`` gang serving
+    ``model`` from ``random://`` with ``batching``, the ids-as-text
+    tokenizer; returns it with its url once rank 0 answers its readiness
+    probe."""
+    from kubeflow_tpu_torch.runtime.bootstrap import free_port
+
+    port = free_port()
+    conf = {"model": model, "storage_uri": "random://", "batching": batching,
+            "port": port, "service": "llama",
+            "tokenizer": "chip_smoke:TokenIdText"}
+    dirs = [Path(base, label.replace(" ", "_"), f"w{r}")
+            for r in range(TP_CARDS)]
+    gang = start_workers("chip_smoke:counted_model_server", conf, dirs,
+                         {"model": TP_CARDS}, label)
+    gang["url"], gang["dirs"] = f"http://127.0.0.1:{port}", dirs
+    t0 = time.perf_counter()
+    while True:
+        dead = [r for r, (p, _) in enumerate(gang["procs"])
+                if p.poll() is not None]
+        if dead:
+            _tp_gang_logs(gang)
+            fail(f"{label}: ranks {dead} exited before rank 0 was ready")
+        try:
+            if _get(gang["url"] + "/v2/health/ready", timeout=2.0)[0] == 200:
+                break
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > 600:
+            _tp_gang_logs(gang)
+            fail(f"{label}: not ready after 600 s")
+        time.sleep(0.5)
+    gang["ready_s"] = time.perf_counter() - t0
+    return gang
+
+
+def _tp_gang_logs(gang: dict) -> list[str]:
+    """Every rank's log so far (and its tail printed to stderr)."""
+    out = []
+    for r, (_, log) in enumerate(gang["procs"]):
+        log.seek(0)
+        out.append(log.read().decode(errors="replace"))
+        print(f"{gang['label']} rank {r} log (tail):\n{out[-1][-3000:]}",
+              file=sys.stderr, flush=True)
+    return out
+
+
+def _tp_stop(gang: dict, card: str) -> dict:
+    """SIGTERM to rank 0: it must exit 143 and every follower 0, within
+    60 s; the followers' op counts (their logs) must equal the leader's.
+    Returns {"ops": [...], "counts": [counts.json of each rank]}."""
+    import signal
+
+    procs = [p for p, _ in gang["procs"]]
+    procs[0].send_signal(signal.SIGTERM)
+    t0 = time.perf_counter()
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=max(1.0, 60 - (time.perf_counter()
+                                                      - t0))))
+        except subprocess.TimeoutExpired:
+            rcs.append(None)
+    secs = time.perf_counter() - t0
+    logs = [None] * len(procs)
+    for r, (p, log) in enumerate(gang["procs"]):
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+        log.seek(0)
+        logs[r] = log.read().decode(errors="replace")
+        log.close()
+    if rcs != [143] + [0] * (len(procs) - 1):
+        for r, text_ in enumerate(logs):
+            print(f"{gang['label']} rank {r} log (tail):\n{text_[-3000:]}",
+                  file=sys.stderr, flush=True)
+        fail(f"{gang['label']}: SIGTERM to rank 0 gave exit codes {rcs}")
+    m = re.search(r"(\d+) ops dispatched to the model axis \(([0-9.]+) ms "
+                  r"sending\)", logs[0])
+    ops = [int(m.group(1)) if m else -1]
+    send_ms = float(m.group(2)) if m else float("nan")
+    for r in range(1, len(procs)):
+        m = re.search(rf"follower rank {r} ran (\d+) ops", logs[r])
+        ops.append(int(m.group(1)) if m else -1)
+    counts = [json.loads((d / "counts.json").read_text())
+              for d in gang["dirs"]]
+    print(f"{gang['label']}: SIGTERM -> exit codes {rcs} in {secs:.1f} s; "
+          f"ops dispatched / run per rank {ops}; the leader's host ms "
+          f"sending them {send_ms:.3f} ({send_ms / max(ops[0], 1):.3f} an "
+          f"op); {card}", flush=True)
+    if ops[0] <= 0 or len(set(ops)) != 1:
+        fail(f"{gang['label']}: the followers' op counts {ops[1:]} are not "
+             f"the leader's {ops[0]}")
+    return {"ops": ops, "counts": counts}
+
+
+def _tp_greedy(url: str, prompts, new: int = TP_NEW) -> list[list[int]]:
+    """Greedy completions of ``prompts`` ((tokens, salt) of ``text``),
+    sent at once (the engine batches them), as token ids."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def ask(ps):
+        raw = _post(url + "/v1/completions",
+                    {"prompt": text(*ps), "max_tokens": new})[1]
+        return [int(x) for x in json.loads(raw)["choices"][0]["text"].split()]
+
+    with ThreadPoolExecutor(len(prompts)) as pool:
+        return list(pool.map(ask, prompts))
+
+
+def tp_serve_8b(card: str) -> None:
+    """(m)4: a ``{model: 4}`` ``model_server`` gang of Llama-3-8B (32
+    layers, bf16, ``random://``) on the page pool, bf16 pages then int8:
+    greedy tokens of ``WORKER_PROMPTS`` each the argmax or a near tie of a
+    plain one-card forward (kernels off) over the same weights, and
+    compared with the one-card paged engine's; ``uniform`` (16 requests)
+    through ``ServerTarget`` on the bf16 gang (TTFT, TPOT); the followers'
+    op counts equal the leader's; SIGTERM ends rank 0 with 143 and every
+    follower with 0; each rank's kernel launches and peak."""
+    import tempfile
+
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.serve.storage import load_params
+
+    outs = {}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_tp_") as base:
+        for pool, over in (("bf16", {}), ("int8", {"kv_cache_dtype": "int8"})):
+            label = f"(m)4 8B TP gang {pool} pages"
+            gang = _tp_gang(WORKER_MODEL, dict(PAGED_SPEC, **over), label,
+                            base)
+            ok = False
+            try:
+                t0 = time.perf_counter()
+                outs[pool] = _tp_greedy(gang["url"], WORKER_PROMPTS)
+                print(f"{label}: ready in {gang['ready_s']:.1f} s; greedy "
+                      f"{outs[pool]} in {time.perf_counter() - t0:.1f} s; "
+                      f"{card}", flush=True)
+                if pool == "bf16":
+                    sc = next(x for x in loadgen.standard_matrix(**LOADGEN)
+                              if x.name == "uniform")
+                    run = loadgen.run_scenario(
+                        loadgen.ServerTarget(gang["url"], model="llama"), sc,
+                        vocab_size=128256, max_prompt_len=1024)
+                    rep = loadgen.build_report(
+                        run, metrics_text=_get(gang["url"] + "/metrics")[1])
+                    report_line(f"uniform ({label}, ServerTarget)", rep, card)
+                    check_statuses(f"uniform ({label})", rep)
+                ok = True
+            finally:
+                if not ok:
+                    _tp_gang_logs(gang)
+                    for p, _ in gang["procs"]:
+                        p.kill()
+            got = _tp_stop(gang, card)
+            print(f"{label}: launches per rank "
+                  f"{[c['launches'] for c in got['counts']]}; peak per rank "
+                  f"{[round(c['peak'] / 2**30, 2) for c in got['counts']]} "
+                  f"GiB; {card}", flush=True)
+            for c in got["counts"]:
+                if not all(c["launches"][k] for k in (
+                        "rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd",
+                        "paged_decode")):
+                    fail(f"{label}: a serving kernel launched no time on a "
+                         f"rank: {c['launches']}")
+    cfg = preset(WORKER_MODEL["preset"], **WORKER_MODEL["overrides"])
+    params = load_params("random://", cfg, device="cuda")
+    tok = TokenIdText()
+    for pool, over in (("bf16", {}), ("int8", {"kv_cache_dtype": "int8"})):
+        eng = LLMEngine(cfg, BatchingSpec(**dict(PAGED_SPEC, **over)),
+                        params=params, seed=SEED, device="cuda")
+        one = [eng.generate(tok.encode(text(*p)), SamplingParams(
+            max_new_tokens=TP_NEW, temperature=0.0)) for p in WORKER_PROMPTS]
+        del eng
+        departs = 0
+        for p, out in zip(WORKER_PROMPTS, outs[pool]):
+            departs += argmax_near_ties(
+                torch.tensor(out, device="cuda"),
+                plain_logits(params, cfg, tok.encode(text(*p)), out),
+                f"(m)4 {pool} pages")
+        same = sum(a == b for a, b in zip(one, outs[pool]))
+        print(f"(m)4 {pool} pages: the gang's greedy tokens are each the "
+              f"plain one-card forward's argmax or a near tie ({departs} "
+              f"near-tie departures); {same} of {len(one)} completions "
+              f"identical to the one-card paged engine's", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_serve_70b(card: str) -> None:
+    """(m)5: Llama-3-70B at all 80 layers and full width (bf16, 141 GB:
+    more than one card holds) as a ``{model: 4}`` ``model_server`` gang:
+    each rank's peak beside ``estimate_model_bytes / 4`` (weights and the
+    pool's KV); ``TP_70B_PROMPTS`` greedy, sent at once, and held to a
+    teacher-forced fp32 tensor-parallel forward over the same weights on
+    the same cards (a second gang, ``tp_teacher_forced``): each token's
+    gap to the top logit within the near-tie band plus twice its row's
+    bf16 noise (the largest logit error of a bf16 forward, measured
+    there), and the tokens' departures from its argmax at most twice a
+    bf16 forward's, plus 2; the layer-by-layer drift of the bf16 forwards
+    printed; ``uniform`` with 8 requests for TTFT and TPOT."""
+    import tempfile
+
+    from kubeflow_tpu_torch import loadgen
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.repository import estimate_model_bytes
+
+    cfg = preset(TP_MODEL_70B["preset"], **TP_MODEL_70B["overrides"])
+    est = estimate_model_bytes(cfg, BatchingSpec(**PAGED_SPEC))
+    label = "(m)5 70B TP gang"
+    tok = TokenIdText()
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_tp_") as base:
+        gang = _tp_gang(TP_MODEL_70B, PAGED_SPEC, label, base)
+        ok = False
+        try:
+            t0 = time.perf_counter()
+            outs = _tp_greedy(gang["url"], TP_70B_PROMPTS)
+            print(f"{label}: ready in {gang['ready_s']:.1f} s; "
+                  f"{len(outs)} greedy requests in "
+                  f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+            sc = next(x for x in loadgen.standard_matrix(
+                **dict(LOADGEN, num_requests=8)) if x.name == "uniform")
+            run = loadgen.run_scenario(
+                loadgen.ServerTarget(gang["url"], model="llama"), sc,
+                vocab_size=cfg.vocab_size, max_prompt_len=1024)
+            rep = loadgen.build_report(
+                run, metrics_text=_get(gang["url"] + "/metrics")[1])
+            report_line(f"uniform ({label}, ServerTarget)", rep, card)
+            check_statuses(f"uniform ({label})", rep)
+            ok = True
+        finally:
+            if not ok:
+                _tp_gang_logs(gang)
+                for p, _ in gang["procs"]:
+                    p.kill()
+        got = _tp_stop(gang, card)
+        peaks = [c["peak"] for c in got["counts"]]
+        print(f"{label}: peak per rank {[round(p / 2**30, 2) for p in peaks]}"
+              f" GiB vs estimate_model_bytes / {TP_CARDS} "
+              f"{est / TP_CARDS / 2**30:.2f} GiB (weights + KV at "
+              f"{PAGED_SPEC['max_batch_size']} x "
+              f"{PAGED_SPEC['max_seq_len']}); launches per rank "
+              f"{[c['launches'] for c in got['counts']]}; {card}", flush=True)
+        if max(peaks) > 80 * 2**30:
+            fail(f"{label}: a rank's peak is past one card")
+        dirs = [Path(base, "teacher", f"w{r}") for r in range(TP_CARDS)]
+        secs = spawn_workers(
+            "chip_smoke:tp_teacher_forced",
+            {"model": TP_MODEL_70B, "outputs": outs,
+             "prompts": [tok.encode(text(*p)) for p in TP_70B_PROMPTS]},
+            dirs, {"model": TP_CARDS}, "(m)5 teacher-forced TP forwards")
+        res = json.loads((dirs[0] / "teacher.json").read_text())
+    rel = {k: [f"{v[i]:.3e}" for i in TP_DRIFT_LAYERS]
+           for k, v in res["rel_l2"].items()}
+    d = res["departs"]
+    noise = sorted(res["noise"])
+    print(f"(m)5 drift, rel L2 of the residual stream after blocks "
+          f"{TP_DRIFT_LAYERS} (plain-fp32, served-fp32: each bf16 forward "
+          f"from the fp32 one; plain-served: the two bf16 forwards): "
+          f"{rel}; a row's largest bf16 logit error median "
+          f"{noise[len(noise) // 2]:.4f}, max {noise[-1]:.4f}; fp32 gaps "
+          f"of the served tokens that are not its argmax "
+          f"{sorted(round(g, 4) for g in res['gaps'])}; {card}", flush=True)
+    print(f"(m)5: argmax departures of {res['tokens']} tokens: served "
+          f"tokens from the plain {d['tokens-plain']}, fp32 "
+          f"{d['tokens-fp32']} and served-arithmetic {d['tokens-served']} "
+          f"forwards; plain bf16 from fp32 {d['plain-fp32']}, served "
+          f"arithmetic from fp32 {d['served-fp32']}, plain from served "
+          f"arithmetic {d['plain-served']}; tokens past the fp32 near-tie "
+          f"band plus twice their row's bf16 noise {res['bad'][:8]}; check "
+          f"gang {secs:.1f} s; {card}", flush=True)
+    if res["bad"]:
+        fail("(m)5: a served token's fp32 gap to the top logit is past the "
+             "near-tie band plus twice its row's bf16 noise")
+    limit = 2 * max(d["plain-fp32"], d["served-fp32"]) + 2
+    if d["tokens-fp32"] > limit:
+        fail(f"(m)5: the served tokens depart from the fp32 forward's "
+             f"argmax {d['tokens-fp32']} times, past {limit} (twice a bf16 "
+             f"forward's departures, plus 2)")
+
+
+def phase_tp(rows: list[dict], card: str, *, cards_only: bool = False
+             ) -> None:
+    """(m): tensor parallelism over the model axis — (m)1 and (m)2 in
+    lockstep on one card (not with ``cards_only``), then on a machine of
+    ``TP_CARDS`` cards or more: (m)4 and (m)5 the TP serving gangs, then
+    (m)3 ``llm_pretrain`` on ``{model: 4}`` and ``{fsdp: 2, model: 2}``."""
+    if not cards_only:
+        timed_phase("tp block", tp_block_lockstep, rows, card)
+        timed_phase("tp xent", tp_xent_lockstep, rows, card)
+    count = torch.cuda.device_count()
+    if count < TP_CARDS:
+        print(f"(m)3-(m)5 tensor parallelism over {TP_CARDS} cards: not run "
+              f"— this machine has {count} card; {card}", flush=True)
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("tp serve 8b", tp_serve_8b, card)
+    timed_phase("tp profile", tp_profile, card)
+    timed_phase("tp serve 70b", tp_serve_70b, card)
+    timed_phase("tp train", card_world_runs, "(m)3", card,
+                (({"model": TP_CARDS}, "pallas"),
+                 ({"fsdp": 2, "model": 2}, "pallas")), None, True)
+
+
+def timed_phase(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
-    out = fn(*args)
+    out = fn(*args, **kwargs)
     print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
@@ -6663,6 +7467,12 @@ def main() -> int:
         print(f"chip_smoke: multi-card phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] in (["--tp-only"], ["--tp-cards-only"]):
+        timed_phase("tp", phase_tp, [], card,
+                    cards_only=sys.argv[1] == "--tp-cards-only")
+        print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] == ["--multi-only"]:
         timed_phase("multi", phase_multi, card)
         print(f"chip_smoke: multi phases passed in "
@@ -6719,6 +7529,7 @@ def main() -> int:
     timed_phase("train moe", phase_train_moe, rows, card)
     timed_phase("remat", phase_remat, rows, card)
     timed_phase("multi", phase_multi, card)
+    timed_phase("tp", phase_tp, rows, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -5,7 +5,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -153,3 +153,29 @@ def preset(name: str, **overrides) -> DecoderConfig:
         raise KeyError(f"unknown model preset {name!r}; known: {sorted(PRESETS)}")
     cfg = PRESETS[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class TPDecoderConfig(DecoderConfig):
+    """A ``DecoderConfig`` whose layers run on this process's shards of the
+    ``model`` mesh axis (Megatron tensor parallelism): ``tp`` is its
+    ``parallel.collectives.ModelAxis`` (group, rank, size). The
+    architecture fields stay the whole model's; the layers take the local
+    head, column and vocab counts from the shards they are given. ``tp``
+    takes no part in equality or hashing."""
+
+    tp: Any = dataclasses.field(default=None, compare=False, repr=False)
+
+
+def with_model_axis(cfg: DecoderConfig, tp) -> DecoderConfig:
+    """``cfg`` running on ``tp``'s shards; ``cfg`` itself for no axis."""
+    if tp is None:
+        return cfg
+    return TPDecoderConfig(**{f.name: getattr(cfg, f.name)
+                              for f in dataclasses.fields(DecoderConfig)},
+                           tp=tp)
+
+
+def model_axis_of(cfg: DecoderConfig):
+    """The ``ModelAxis`` a config runs on, None for the whole model."""
+    return getattr(cfg, "tp", None)

@@ -24,8 +24,15 @@ rank's batch rows, cuts its part of the sequence after the input/target
 shift, carries the part's offset into the positions, reads the params
 through ``parallel.collectives.GatheredParams`` (a sharded leaf is
 all-gathered where it is used, per layer) and returns this rank's part of
-the global masked mean. ``decoder_param_specs`` gives every leaf's
-logical axes (JAX's spec tree).
+the global masked mean. A ``model`` axis runs the layers on the rank's
+heads, mlp columns and vocab rows (``layers.py``), and the loss on its
+vocab columns: each branch's vocab-parallel CE
+(``parallel/vocab_parallel.py``: ``vocab_parallel_ce`` on the logits,
+``fused_ce`` over the kernels) combines the ranks' per-row statistics.
+``decoder_forward`` (the serving callers) all-gathers the logits over the
+axis.
+``decoder_param_specs`` gives every leaf's logical axes (JAX's spec
+tree).
 """
 
 from __future__ import annotations
@@ -39,12 +46,16 @@ from torch.utils.checkpoint import (
 )
 
 from kubeflow_tpu_torch.models import layers as L
-from kubeflow_tpu_torch.models.config import DecoderConfig
+from kubeflow_tpu_torch.models.config import (
+    DecoderConfig, model_axis_of, with_model_axis,
+)
 from kubeflow_tpu_torch.ops import fused_xent
 from kubeflow_tpu_torch.ops.flash_attention import flash_fwd_op
 from kubeflow_tpu_torch.ops.quantization import (
     QuantizedTensor, check_quantize, contraction_dims, quantize_weight,
 )
+from kubeflow_tpu_torch.parallel import collectives as C
+from kubeflow_tpu_torch.parallel import vocab_parallel as VP
 
 Params = dict[str, Any]
 
@@ -78,11 +89,11 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None,
     draw. ``shard(path, t)`` (a sharded train state) keeps each layer's
     block of each leaf as it is drawn, ``path`` the stacked leaf's."""
     def post(name: str, t):
+        if quant is not None and quant.get(name) is not None:
+            t = quantize_weight(t, tuple(d - 1 for d in quant[name]))
         if shard is not None:
             return shard(f"{path}/{name}", t)
-        if quant is None or quant.get(name) is None:
-            return t
-        return quantize_weight(t, tuple(d - 1 for d in quant[name]))
+        return t
 
     def draw():
         tree = make(post)
@@ -123,11 +134,11 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
 
     ``shard(path, t)`` returns the block of a leaf (or of one layer of a
     stacked leaf) that this process keeps: each is cut as soon as it is
-    drawn, so the values are the whole draw's bit for bit while at most one
-    whole leaf is alive (``train/step.py``'s sharded init)."""
+    drawn (and packed, when quantizing: a ``QuantizedTensor`` is cut per
+    field, keeping the whole leaf's scales), so the values are the whole
+    draw's bit for bit while at most one whole leaf is alive
+    (``train/step.py``'s sharded init, a tensor-parallel engine's)."""
     check_quantize(quantize)
-    if shard is not None and quantize is not None:
-        raise ValueError("a sharded init draws full-dtype weights")
     keep = shard if shard is not None else (lambda path, t: t)
     dt = dtype or cfg.weight_dtype
     dev = gen.device
@@ -155,10 +166,23 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
     }
     params["final_norm"] = keep("final_norm", L.init_rmsnorm(cfg, dev, dt))
     if not cfg.tie_embeddings:
-        head = keep("lm_head", L._init(gen, (cfg.hidden, cfg.vocab_size), dt))
-        params["lm_head"] = (head if quantize is None
-                             else quantize_weight(head, (0,)))
+        head = L._init(gen, (cfg.hidden, cfg.vocab_size), dt)
+        if quantize is not None:
+            head = quantize_weight(head, (0,))
+        params["lm_head"] = keep("lm_head", head)
     return params
+
+
+def decoder_layout(cfg: DecoderConfig, mesh):
+    """The params' ``sharding.ParamLayout`` on ``mesh`` by the training
+    rules (``decoder_param_specs``; dims that do not divide replicated),
+    from their shapes alone: its ``cut_leaf`` is ``init_decoder_params``'
+    ``shard`` for this rank, its ``cut`` this rank's shards of a whole
+    tree (what a tensor-parallel engine holds)."""
+    from kubeflow_tpu_torch.parallel.sharding import ParamLayout
+
+    return ParamLayout(mesh, decoder_param_specs(cfg),
+                       abstract_decoder_params(cfg))
 
 
 def abstract_decoder_params(cfg: DecoderConfig) -> Params:
@@ -390,11 +414,16 @@ def decoder_forward(
     valid_len=None,
 ):
     """``_forward`` without the balance loss: (logits or hidden states,
-    new caches), what the serving callers unpack."""
-    return _forward(params, tokens, cfg, positions=positions,
-                    kv_caches=kv_caches, attn_impl=attn_impl,
-                    skip_head=skip_head, inputs_embeds=inputs_embeds,
-                    lora=lora, valid_len=valid_len)[:2]
+    new caches), what the serving callers unpack. Under a model axis the
+    logits are the whole vocabulary's (gathered over the axis)."""
+    out, caches, _ = _forward(params, tokens, cfg, positions=positions,
+                              kv_caches=kv_caches, attn_impl=attn_impl,
+                              skip_head=skip_head,
+                              inputs_embeds=inputs_embeds, lora=lora,
+                              valid_len=valid_len)
+    if not skip_head:
+        out = C.gather_from_model(out, model_axis_of(cfg))
+    return out, caches
 
 
 def _forward(
@@ -413,7 +442,8 @@ def _forward(
 ):
     """Returns (logits [B,S,V] float32, new_kv_caches|None, aux): aux is
     the MoE blocks' balance loss summed over the layers (fp32, 0-dim), None
-    for a dense config. With
+    for a dense config; under a model axis the logits are the rank's vocab
+    columns. With
     ``skip_head``, returns the final-norm hidden states [B,S,D] instead of
     logits. A cache is written in place: the returned caches hold the same
     tensors with ``len`` advanced. ``kv_caches["prefill"] = True`` marks a
@@ -439,7 +469,7 @@ def _forward(
     if inputs_embeds is not None:
         x = inputs_embeds.to(dt)
     else:
-        x = params["embed"][tokens].to(dt)
+        x = L.embed(params["embed"], tokens, cfg)
     if cfg.embed_scale:
         x = x * L.embed_scale_value(cfg)
 
@@ -478,25 +508,38 @@ def _forward(
     x = L.rmsnorm(x, params["final_norm"], cfg)
     if skip_head:
         return x, new_caches, aux_total
-    return lm_head(params, x, cfg), new_caches, aux_total
+    return head_logits(params, x, cfg), new_caches, aux_total
 
 
-def lm_head(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+def head_logits(params: Params, x: torch.Tensor,
+                cfg: DecoderConfig) -> torch.Tensor:
     """Final-norm hidden [..., D] → fp32 logits [..., V] (softcapped when
     the config says so). The product runs in the activation dtype (fp32
-    accumulation inside the matmul) and is widened to fp32 after it."""
+    accumulation inside the matmul) and is widened to fp32 after it.
+    Under a model axis: the rank's vocab columns, its input through
+    ``copy_to_model``."""
     dt = cfg.activation_dtype
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ L.weight(head, dt)).float()
+    logits = (C.copy_to_model(x, model_axis_of(cfg))
+              @ L.weight(head, dt)).float()
     if cfg.logits_softcap is not None:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits
 
 
+def lm_head(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """``head_logits`` over the whole vocabulary: under a model axis the
+    ranks' columns all-gathered (what sampling reads)."""
+    return C.gather_from_model(head_logits(params, x, cfg),
+                               model_axis_of(cfg))
+
+
 def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int,
                    device) -> dict:
-    """Contiguous decode cache, stacked over layers."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Contiguous decode cache, stacked over layers (on the kv heads this
+    rank reads, under a model axis)."""
+    shape = (cfg.n_layers, batch, max_len, L.local_kv_heads(cfg)[1],
+             cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
@@ -512,7 +555,9 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
     ``head`` [D, V] is already in the activation dtype. The product runs
     in that dtype and is widened to fp32 after it, as ``lm_head`` does.
     Returns (nll [B,S] f32, correct [B,S] f32); argmax ties go to the
-    lowest index, as ``jnp.argmax``'s do."""
+    lowest index, as ``jnp.argmax``'s do. Under a model axis ``head`` is
+    the rank's vocab columns and each chunk's CE is vocab-parallel."""
+    tp = model_axis_of(cfg)
     b, s, _ = hidden.shape
     chunk = min(cfg.loss_chunk_size, s)
     if s % chunk:
@@ -520,9 +565,11 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
     cap = cfg.logits_softcap
 
     def body(hc: torch.Tensor, tc: torch.Tensor):
-        logits = (hc @ head).float()
+        logits = (C.copy_to_model(hc, tp) @ head).float()
         if cap is not None:
             logits = torch.tanh(logits / cap) * cap
+        if tp is not None:
+            return VP.vocab_parallel_ce(logits, tc, tp)
         logz = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1, tc[..., None])[..., 0]
         correct = (logits.argmax(-1) == tc).float()
@@ -562,8 +609,10 @@ def decoder_loss(
     Under ``mesh``, ``tokens`` (and ``loss_mask``, [B, S]) are this rank's
     batch rows; the rank keeps its ``seq`` part of the shifted inputs and
     targets, at positions offset by the part's start. ``placements``
-    (each param leaf's sharded dim, or None; ``train/step.py``) says which
-    leaves are local shards, gathered at use over the ``fsdp`` group. The
+    (each param leaf's gather dim, or None; ``train/step.py``) says which
+    leaves are local shards, gathered at use over the ``fsdp`` group; a
+    leaf's dim over ``model`` stays local, and the ranks of one ``model``
+    group read the same rows and compute the same loss. The
     sum of the nll and the token count are all-reduced over the batch and
     ``seq`` axes: the metrics are the global masked mean, and ``loss`` is
     this rank's part of it (the parts over the ranks sum to it), so the
@@ -600,17 +649,25 @@ def decoder_loss(
             params = GatheredParams(params, placements,
                                     axis_group(mesh, ("fsdp",)))
         loss_group = axis_group(mesh, TOKEN_AXES)
+        cfg = with_model_axis(cfg, C.model_axis(mesh))
+    tp = model_axis_of(cfg)
     fused = L.fused_kernels_on(cfg, inputs)
     fwd = dict(positions=positions, attn_impl=attn_impl, mesh=mesh)
     if fused or cfg.loss_chunk_size:
         hidden, _, aux = _forward(params, inputs, cfg, skip_head=True, **fwd)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         head = head.to(hidden.dtype)
-        if fused:
+        if fused and tp is not None:
+            nll, correct = VP.fused_ce(hidden, head, targets, tp,
+                                       logits_softcap=cfg.logits_softcap)
+        elif fused:
             nll, correct = fused_xent.fused_cross_entropy(
                 hidden, head, targets, logits_softcap=cfg.logits_softcap)
         else:
             nll, correct = _chunked_ce(hidden, head, targets, cfg)
+    elif tp is not None:
+        logits, _, aux = _forward(params, inputs, cfg, **fwd)
+        nll, correct = VP.vocab_parallel_ce(logits, targets, tp)
     else:
         logits, _, aux = _forward(params, inputs, cfg, **fwd)
         logp = torch.log_softmax(logits.float(), dim=-1)

@@ -13,9 +13,17 @@ norms/softmax/RoPE run in fp32. Multi-tenant LoRA deltas
 (``runtime/mesh.py``) every tensor is this process's local block:
 attention dispatches to ring or Ulysses attention over the ``seq`` axis
 (``parallel/ring_attention.py``) as JAX's does; the fused norm, SwiGLU
-and CE kernels run on the local blocks as they do on one device. The
-expert/sequence/tensor-parallel MoE axes are not ported yet (they raise
-here).
+and CE kernels run on the local blocks as they do on one device. Under a
+``model`` axis (a config from ``config.with_model_axis``; JAX's manual
+``tp_axis`` form) attention and the MLP are Megatron's: ``wq``/``wk``/
+``wv`` and ``gate``/``up`` are column-parallel over the rank's heads and
+mlp columns, their input passing ``copy_to_model``; ``wo`` and ``down``
+are row-parallel, their partial outputs summed by ``reduce_from_model``;
+norms stay whole on every rank; the embedding is vocab-parallel
+(``embed``). GQA kv heads that do not divide over the axis are whole on
+every rank, and each rank reads the kv heads its own q heads read
+(``rank_kv``). The expert/sequence/tensor-parallel MoE axes are not
+ported yet (they raise here).
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ from typing import Optional
 
 import torch
 
-from kubeflow_tpu_torch.models.config import DecoderConfig
+from kubeflow_tpu_torch.models.config import DecoderConfig, model_axis_of
 from kubeflow_tpu_torch.ops import fused_norm
+from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.ops.attention import multi_head_attention
 from kubeflow_tpu_torch.ops.quantization import QuantizedTensor
 
@@ -185,6 +194,63 @@ def index_layer(lora: Optional[dict], i: int) -> Optional[dict]:
                              for t, (a, b) in slice_layers(lora).items()})
 
 
+# -- Tensor parallelism over the model axis ------------------------------------
+
+def _split(whole: int, tp, what: str) -> int:
+    """``whole`` columns of ``what`` over the axis: the rank's count."""
+    if whole % tp.size:
+        raise NotImplementedError(
+            f"{what} {whole} does not divide over model = {tp.size}; the "
+            "port splits heads, mlp columns and the vocabulary evenly "
+            "(ROADMAP.md Queue 1)")
+    return whole // tp.size
+
+
+def local_heads(cfg: DecoderConfig) -> int:
+    """The q heads this rank computes."""
+    tp = model_axis_of(cfg)
+    return cfg.n_heads if tp is None else _split(cfg.n_heads, tp, "heads")
+
+
+def local_kv_heads(cfg: DecoderConfig) -> tuple[int, int]:
+    """(first, count) of the kv heads this rank's q heads read: its split
+    of them when they divide over the axis, else the one kv head its
+    group of q heads shares (JAX replicates kv heads that do not divide;
+    the rank's q heads must then lie in one GQA group)."""
+    tp = model_axis_of(cfg)
+    if tp is None:
+        return 0, cfg.n_kv_heads
+    if cfg.n_kv_heads % tp.size == 0:
+        n = cfg.n_kv_heads // tp.size
+        return tp.rank * n, n
+    hl, group = local_heads(cfg), cfg.n_heads // cfg.n_kv_heads
+    if group % hl:
+        raise NotImplementedError(
+            f"{cfg.n_kv_heads} kv heads over model = {tp.size}: rank's "
+            f"{hl} q heads span several GQA groups of {group} "
+            "(ROADMAP.md Queue 1)")
+    return tp.rank * hl // group, 1
+
+
+def rank_kv(w, cfg: DecoderConfig):
+    """The kv heads this rank reads of a ``[D, K, Dh]`` leaf: the leaf as
+    it is when it is the rank's split, its slice when it is whole."""
+    first, n = local_kv_heads(cfg)
+    if w.shape[1] == n:
+        return w
+    return w[:, first:first + n]
+
+
+def _check_cut(local: int, whole: int, cfg: DecoderConfig, what: str) -> None:
+    """A column-parallel leaf must be the rank's cut of the columns (a
+    leaf left whole because its dim did not divide would be summed
+    ``model`` times)."""
+    tp = model_axis_of(cfg)
+    if tp is not None and local != _split(whole, tp, what):
+        raise ValueError(f"{what}: a leaf of {local} columns on a rank of "
+                         f"model = {tp.size} (whole {whole})")
+
+
 # -- Attention block -----------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: DecoderConfig, dtype=None,
@@ -223,9 +289,13 @@ def attention_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     (JAX's ``q_rope`` and ``k_rope``), v as projected (``v_proj``), each
     with its adapter delta when ``lora`` is given."""
     dt = cfg.activation_dtype
+    tp = model_axis_of(cfg)
+    if tp is not None:
+        _check_cut(p["wq"].shape[1], cfg.n_heads, cfg, "heads")
+        x = C.copy_to_model(x, tp)
     q = project(x, p["wq"], dt)
-    k = project(x, p["wk"], dt)
-    v = project(x, p["wv"], dt)
+    k = project(x, rank_kv(p["wk"], cfg), dt)
+    v = project(x, rank_kv(p["wv"], cfg), dt)
     if lora is not None:
         q = apply_lora_layer(lora, "wq", x, q)
         k = apply_lora_layer(lora, "wk", x, k)
@@ -237,12 +307,13 @@ def attention_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
 def attention_proj(p: dict, out: torch.Tensor, cfg: DecoderConfig,
                    lora: Optional[dict] = None) -> torch.Tensor:
     """The attention output [B,S,H,Dh] through ``wo`` (JAX's
-    ``attn_out``)."""
+    ``attn_out``); under a model axis the rank's heads give a partial sum,
+    summed over the axis."""
     proj = out_project(out, p["wo"], cfg.activation_dtype)
     if lora is not None:
         b, s = out.shape[0], out.shape[1]
         proj = apply_lora_layer(lora, "wo", out.reshape(b, s, -1), proj)
-    return proj
+    return C.reduce_from_model(proj, model_axis_of(cfg))
 
 
 def attention_out(p: dict, q: torch.Tensor, k: torch.Tensor,
@@ -356,14 +427,21 @@ def init_mlp(gen: torch.Generator, cfg: DecoderConfig, dtype=None,
 
 
 def mlp_block(p: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """``down(act(gate x) * up x)``; under a model axis ``gate``/``up``
+    hold the rank's mlp columns and ``down``'s partial products are summed
+    over the axis (JAX's ``tp_axis`` form)."""
     dt = cfg.activation_dtype
+    tp = model_axis_of(cfg)
+    if tp is not None:
+        _check_cut(p["gate"].shape[-1], cfg.mlp_dim, cfg, "mlp")
+        x = C.copy_to_model(x, tp)
     gate_pre = project(x, p["gate"], dt)
     up = project(x, p["up"], dt)
     if fused_kernels_on(cfg, x) and cfg.hidden_act in ("silu", "gelu"):
         h = fused_norm.swiglu_fused(gate_pre, up, act=cfg.hidden_act)
     else:
         h = fused_norm.act_ref(gate_pre, cfg.hidden_act) * up
-    return project(h, p["down"], dt)
+    return C.reduce_from_model(project(h, p["down"], dt), tp)
 
 
 # -- MoE -----------------------------------------------------------------------
@@ -587,6 +665,24 @@ def embed_scale_value(cfg: DecoderConfig) -> float:
     dtype first (as the JAX package does), as a host float: multiplying by
     it launches no host→device copy."""
     return float(torch.tensor(cfg.hidden ** 0.5, dtype=cfg.activation_dtype))
+
+
+def embed(table, tokens: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
+    """The rows of ``tokens`` in the embedding ``table``, in the activation
+    dtype. Under a model axis ``table`` holds the rank's vocab rows: a
+    token outside them reads zero and the ranks' rows are summed over the
+    axis (exactly one rank adds a nonzero row, so the sum is the lookup's
+    bits)."""
+    dt = cfg.activation_dtype
+    tp = model_axis_of(cfg)
+    if tp is None:
+        return table[tokens].to(dt)
+    rows = table.shape[0]
+    _check_cut(rows, cfg.vocab_size, cfg, "vocab")
+    local = tokens - tp.rank * rows
+    hit = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].to(dt) * hit[..., None].to(dt)
+    return C.reduce_from_model(x, tp)
 
 
 def init_embedding(gen: torch.Generator, cfg: DecoderConfig,

@@ -18,6 +18,13 @@ JAX layout of ``lm_head``), with D and V multiples of 8; a tied head
 head. Targets are int32 (the port's int64 tokens are converted); one
 outside ``[0, V)`` picks nothing, so its nll is the lse, as on the TPU.
 
+``shard_stats`` gives one vocab shard's per-row statistics (lse, picked
+logit, row max, correct) for a vocab-parallel CE over a ``model`` axis
+(``parallel/vocab_parallel.py``), the row max from the forward's
+per-range maxima, which it already writes; a ragged last vocab tile is
+masked by the kernels (−∞ in the forward, TMA's zero fill in the
+backward).
+
 Each wrapper takes its plain version (``xent_fwd_ref``, ``xent_bwd_ref``)
 only for CPU tensors; on CUDA tensors it launches its kernels or raises.
 ``xent_fwd.launches`` counts forward launches; ``xent_bwd`` launches the
@@ -67,14 +74,17 @@ def _onehot(t: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def xent_fwd_ref(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
-                 softcap: Optional[float] = None):
+                 softcap: Optional[float] = None, row_max: bool = False):
     """Plain forward on the kernel layout, materializing the logits: h2
-    [T, D], w [D, V], t [T] integer → (nll, lse, correct), each fp32 [T].
-    Argmax ties go to the lowest index."""
+    [T, D], w [D, V], t [T] integer → (nll, lse, correct), each fp32 [T],
+    and with ``row_max`` each row's largest logit after them. Argmax ties
+    go to the lowest index."""
     s = _logits_ref(h2, w, softcap)
     lse = torch.logsumexp(s, dim=-1)
     picked = (s * _onehot(t, w.shape[1])).sum(dim=-1)
     correct = (s.argmax(dim=-1) == t).float()
+    if row_max:
+        return lse - picked, lse, correct, s.amax(dim=-1)
     return lse - picked, lse, correct
 
 
@@ -214,10 +224,12 @@ def _tiles_per_range(rows: int, vocab: int, slots: int) -> int:
 
 
 def xent_fwd(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
-             softcap: Optional[float] = None):
-    """Kernel 9 on the kernel layout: (nll, lse, correct), each fp32 [T]."""
+             softcap: Optional[float] = None, row_max: bool = False):
+    """Kernel 9 on the kernel layout: (nll, lse, correct), each fp32 [T];
+    with ``row_max`` also each row's largest logit, the maximum of the
+    per-range maxima the kernel writes."""
     if h2.device.type == "cpu":
-        return xent_fwd_ref(h2, w, t, softcap)
+        return xent_fwd_ref(h2, w, t, softcap, row_max)
     _check("xent_fwd", h2, w, t)
     _check_tma("xent_fwd", {"h": h2, "w": w})
     rows, d = h2.shape
@@ -238,6 +250,8 @@ def xent_fwd(h2: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
             torch.cuda.current_stream(h2.device).cuda_stream)
         _build.check(err, f"fused_xent_fwd_bf16(T={rows}, D={d}, V={vocab})")
         xent_fwd.launches += 1
+    if row_max:
+        return nll, lse, correct, part[0].amax(dim=0)
     return nll, lse, correct
 
 
@@ -317,6 +331,15 @@ def fused_cross_entropy(
         h2, head.contiguous(), t2,
         None if logits_softcap is None else float(logits_softcap))
     return nll.reshape(targets.shape), correct.reshape(targets.shape)
+
+
+def shard_stats(h2: torch.Tensor, w: torch.Tensor, t_local: torch.Tensor,
+                softcap: Optional[float] = None) -> torch.Tensor:
+    """Kernel 9 on one vocab shard (``t_local`` the targets less the
+    shard's first column): fp32 [4, T] rows of (lse, picked logit, row
+    max, correct) over the shard's columns."""
+    nll, lse, correct, mx = xent_fwd(h2, w, t_local, softcap, row_max=True)
+    return torch.stack([lse, lse - nll, mx, correct])
 
 
 xent_fwd.launches = 0

@@ -1,6 +1,8 @@
 """The collectives of sharded training, over a ``DeviceMesh``'s process
-groups: groups over combinations of mesh axes, and autograd-aware
-all-gather (reduce-scatter backward), ring rotation and all-to-all.
+groups: groups over combinations of mesh axes, autograd-aware
+all-gather (reduce-scatter backward), ring rotation and all-to-all, and
+Megatron's conjugate operators over the ``model`` axis (``copy_to_model``,
+``reduce_from_model``, ``gather_from_model``).
 
 Each process holds local tensors; these functions are where shards meet.
 Every rank must make the same calls in the same order, as with any
@@ -9,6 +11,7 @@ collective. Only calls present in torch 2.11 and later are used.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import warnings
 from collections.abc import Mapping
@@ -211,3 +214,104 @@ class GatheredParams(Mapping):
 
     def layer(self, i: int) -> "GatheredParams":
         return GatheredParams(self._tree, self._dims, self._group, i)
+
+
+# -- the model axis (tensor parallelism) ---------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This process's place on the ``model`` mesh axis: the group of the
+    ranks that hold the other shards of the same layers, its index there
+    and their number."""
+
+    group: object
+    rank: int
+    size: int
+
+
+def model_axis(mesh) -> Optional[ModelAxis]:
+    """The ``model`` axis of ``mesh``; None without a mesh or with
+    ``model == 1``."""
+    if mesh is None or mesh_shape(mesh).get("model", 1) == 1:
+        return None
+    return ModelAxis(mesh.get_group("model"), mesh.get_local_rank("model"),
+                     mesh_shape(mesh)["model"])
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the axis forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along the last dim forward; the backward keeps this
+    rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank: int):
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        n = dist.get_world_size(group)
+        xt = x.movedim(-1, 0).contiguous()
+        out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
+        dist.all_gather_into_tensor(out, xt, group=group)
+        return out.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.width
+        return g[..., ctx.rank * w:(ctx.rank + 1) * w], None, None
+
+
+def copy_to_model(x: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The input of a column-parallel product: ``x`` as it is, whose
+    gradient the backward sums over the ranks' partial ones."""
+    if tp is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor,
+                      tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The output of a row-parallel product: the ranks' partial sums added
+    up (every rank gets the total). Without a gradient to record it is
+    summed in place: the callers pass a fresh product."""
+    if tp is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, tp.group)
+    x = x.contiguous()
+    dist.all_reduce(x, group=tp.group)
+    return x
+
+
+def gather_from_model(x: torch.Tensor,
+                      tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The ranks' column blocks of the last dim, concatenated in rank order
+    (the serving logits over the whole vocabulary)."""
+    if tp is None:
+        return x
+    return _GatherFromModel.apply(x, tp.group, tp.rank)

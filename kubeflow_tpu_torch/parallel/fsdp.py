@@ -4,18 +4,25 @@ collectives).
 
 ``StateLayout`` holds, for one model's params, each leaf's placement
 (``sharding.shard_params``: ``embed`` over ``fsdp``, which for most
-leaves is not dim 0) and the process groups the step needs:
+leaves is not dim 0; heads, mlp columns and vocab over ``model``) and the
+process groups the step needs:
 
-- ``fsdp``: a sharded leaf is all-gathered over it where it is used
+- ``fsdp``: a leaf's gather dim is all-gathered over it where it is used
   (``collectives.GatheredParams``) and its gradient reduce-scattered back;
-- the replica axes: a sharded leaf's gradient is then summed over
+- ``model``: a leaf's TP dim stays local; the layers' conjugate operators
+  (``copy_to_model``, ``reduce_from_model``) make each rank's gradient of
+  its block whole, so nothing is summed over ``model`` — except a leaf
+  that is whole on every model rank because its dim did not divide
+  (GQA's kv heads, ``Placement.partial``), of which each rank reads its
+  own part: its gradient is summed over ``model`` too;
+- the replica axes: a gathered leaf's gradient is then summed over
   ``dcn``, ``data`` and ``seq`` (the ranks that hold the same shard), a
-  replicated leaf's over every batch and ``seq`` axis.
+  leaf with no gather dim over every batch and ``seq`` axis.
 
 The optimizer's moments mirror the params' placements, so Adam runs on
-local shards; the global gradient norm sums each shard once
-(``global_norm``). A ``model``, ``pipeline`` or ``expert`` degree above 1
-raises: those axes are not ported yet.
+local shards; the global gradient norm sums each block once
+(``global_norm``). A ``pipeline`` or ``expert`` degree above 1 raises:
+those axes are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,13 +34,13 @@ import torch
 from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.runtime.mesh import batch_sharding_axes
 from kubeflow_tpu_torch.parallel.sharding import (
-    DEFAULT_RULES, LogicalRules, cut_local, mesh_coords, mesh_shape,
-    shard_params, sharded_dim,
+    DEFAULT_RULES, TP_AXIS, LogicalRules, ParamLayout, mesh_coords,
+    mesh_shape,
 )
 from kubeflow_tpu_torch.train import tree as T
 
 #: Mesh axes the training step does not split yet.
-UNPORTED_AXES = ("model", "pipeline", "expert")
+UNPORTED_AXES = ("pipeline", "expert")
 #: The axes a batch is split over, and with ``seq`` every axis a step's
 #: loss and replicated gradients are summed over.
 BATCH_AXES = batch_sharding_axes()
@@ -41,15 +48,15 @@ TOKEN_AXES = BATCH_AXES + ("seq",)
 
 
 def check_mesh(mesh) -> None:
-    """Raise ``NotImplementedError`` for a ``model``, ``pipeline`` or
-    ``expert`` degree above 1."""
+    """Raise ``NotImplementedError`` for a ``pipeline`` or ``expert``
+    degree above 1."""
     sizes = mesh_shape(mesh)
     big = {a: sizes[a] for a in UNPORTED_AXES if sizes.get(a, 1) > 1}
     if big:
         raise NotImplementedError(
-            f"mesh axes {big}: the port trains over the dcn, data, fsdp and "
-            "seq axes; tensor, pipeline and expert parallelism arrive with "
-            "ROADMAP.md Queue 1 item 9")
+            f"mesh axes {big}: the port trains over the dcn, data, fsdp, "
+            "seq and model axes; pipeline and expert parallelism arrive "
+            "with ROADMAP.md Queue 1 item 9")
 
 
 def batch_index(mesh) -> tuple[int, int]:
@@ -66,7 +73,7 @@ def batch_index(mesh) -> tuple[int, int]:
     return idx, deg
 
 
-class StateLayout:
+class StateLayout(ParamLayout):
     """Placements and groups of one model's train state on ``mesh``,
     from its logical spec tree and the full (global) params, or tensors
     of their shapes (``meta`` tensors: nothing drawn)."""
@@ -74,32 +81,26 @@ class StateLayout:
     def __init__(self, mesh, logical_specs: Any, params: Any,
                  rules: LogicalRules = DEFAULT_RULES):
         check_mesh(mesh)
-        self.mesh = mesh
-        self.sizes = mesh_shape(mesh)
-        self.coords = mesh_coords(mesh)
-        self.specs = shard_params(params, logical_specs, mesh, rules)
-        self._flat_specs = T.flatten(self.specs)
-        self.dims = T.map_tree(lambda s: sharded_dim(s, self.sizes),
-                               self.specs)
+        super().__init__(mesh, logical_specs, params, rules)
+        #: Each leaf's gather dim (over ``fsdp``), or None.
+        self.dims = T.map_tree(lambda p: p.gather, self.placements)
         # Every rank makes the groups here, in one order.
         self.fsdp_group = C.axis_group(mesh, ("fsdp",))
         self.shard_replicas = C.axis_group(mesh, ("dcn", "data", "seq"))
         self.token_group = C.axis_group(mesh, TOKEN_AXES)
+        self._partial_groups = (
+            C.axis_group(mesh, ("dcn", "data", "seq", TP_AXIS)),
+            C.axis_group(mesh, TOKEN_AXES + (TP_AXIS,)))
+        self._split_groups = {}
+        for p in T.leaves(self.placements):
+            axes = self._split_axes(p)
+            if axes and axes not in self._split_groups:
+                self._split_groups[axes] = C.axis_group(mesh, axes)
 
-    def cut(self, params: Any) -> Any:
-        """This rank's local shards of a full params tree (a tree that
-        mirrors it, e.g. Adam moments, too)."""
-        return T.unflatten({p: self.cut_leaf(p, t)
-                            for p, t in T.flatten(params).items()})
-
-    def cut_leaf(self, path: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of leaf ``path`` given whole, or of one layer
-        of a stacked leaf (``t`` one dim short of the leaf: its leading
-        ``layers`` dim, which no rule splits, is dropped from the spec)."""
-        spec = self._flat_specs[path]
-        if t.dim() == len(spec) - 1:
-            spec = spec[1:]
-        return cut_local(t, spec, self.sizes, self.coords)
+    @staticmethod
+    def _split_axes(p) -> tuple:
+        return tuple(a for a, d in (("fsdp", p.gather), (TP_AXIS, p.tp))
+                     if d is not None)
 
     def state_specs(self, state: dict) -> dict[str, tuple]:
         """Flattened state path → spec: the params' and every optimizer
@@ -116,13 +117,22 @@ class StateLayout:
     def sync_grads(self, grads: list) -> None:
         """Sum each local gradient over the ranks that hold the same block
         (in place): the gathers' backward already reduce-scattered a
-        sharded leaf over ``fsdp``."""
-        for g, d in zip(grads, T.leaves(self.dims)):
-            C.all_reduce_(g, self.shard_replicas if d is not None
-                          else self.token_group)
+        gathered leaf over ``fsdp``; a ``partial`` leaf's parts are summed
+        over ``model`` as well."""
+        for g, p in zip(grads, T.leaves(self.placements)):
+            if p.partial:
+                group = self._partial_groups[p.gather is None]
+            else:
+                group = (self.shard_replicas if p.gather is not None
+                         else self.token_group)
+            C.all_reduce_(g, group)
 
     def global_norm(self, grads: Any) -> torch.Tensor:
+        """The whole gradient's norm: each leaf's squares summed over the
+        axes its blocks are split over, a whole leaf's counted once."""
         from kubeflow_tpu_torch.train.optim import global_norm
 
-        return global_norm(grads, dims=self.dims, group=self.fsdp_group)
-
+        groups = T.map_tree(
+            lambda p: self._split_groups.get(self._split_axes(p)),
+            self.placements)
+        return global_norm(grads, groups=groups)

@@ -20,6 +20,7 @@ Default rule intent:
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 from typing import Any, Optional, Sequence, Union
@@ -190,10 +191,20 @@ def local_slices(shape: Sequence[int], spec: Spec, sizes: dict[str, int],
     return tuple(out)
 
 
-def cut_local(full: torch.Tensor, spec: Spec, sizes: dict[str, int],
-              coords: dict[str, int]) -> torch.Tensor:
+def cut_local(full, spec: Spec, sizes: dict[str, int],
+              coords: dict[str, int]):
     """The process's local shard of ``full`` (a contiguous copy where it
-    is a strict part; ``full`` itself where the leaf is replicated)."""
+    is a strict part; ``full`` itself where the leaf is replicated). An
+    int8 ``QuantizedTensor`` is cut per field, as JAX's ``shard_params``
+    does: the payload by ``spec``, the scale likewise except on its
+    collapsed contraction dims (size 1), which are never split, so each
+    shard keeps the whole weight's per-channel scales."""
+    if hasattr(full, "scale"):
+        sspec = tuple(None if n == 1 and q > 1 else e for e, n, q in zip(
+            tuple(spec) + (None,) * len(full.shape), full.scale.shape,
+            full.shape))
+        return type(full)(cut_local(full.q, spec, sizes, coords),
+                          cut_local(full.scale, sspec, sizes, coords))
     sl = local_slices(full.shape, spec, sizes, coords)
     if all(s.start == 0 and s.stop == d for s, d in zip(sl, full.shape)):
         return full
@@ -220,16 +231,96 @@ def assemble(shape: Sequence[int], spec: Spec, sizes: dict[str, int],
     return out
 
 
-def sharded_dim(spec: Spec, sizes: dict[str, int]) -> Optional[int]:
-    """The one dim a leaf is split on (its axes' degree above 1), or None
-    for a replicated leaf. Two split dims raise: training gathers one dim
-    per leaf, over one axis group."""
-    dims = [i for i, e in enumerate(spec) if _degree(e, sizes) > 1]
-    if len(dims) > 1:
+#: The mesh axis whose shards stay local: a leaf's dim split over it is
+#: never gathered (Megatron tensor parallelism, ``models/layers.py``).
+TP_AXIS = "model"
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a leaf is split: ``gather``, its dim over the other axes
+    (``fsdp``), all-gathered where the leaf is used; ``tp``, its dim over
+    ``model``, which stays local. ``partial``: the logical spec splits a
+    dim over ``model`` but it did not divide, so the leaf is whole on every
+    model rank and each reads its own part of it (the kv heads of GQA);
+    its gradient is then summed over ``model``. None for a dim not split."""
+
+    gather: Optional[int] = None
+    tp: Optional[int] = None
+    partial: bool = False
+
+
+def placement(spec: Spec, sizes: dict[str, int],
+              wanted: Optional[Spec] = None) -> Placement:
+    """The ``Placement`` of a leaf of ``spec`` on a mesh of ``sizes``;
+    ``wanted`` is its spec before ``_drop_nondivisible`` (``partial`` when
+    it names ``model`` and ``spec`` does not). A dim split over ``model``
+    and another axis at once, or two dims over the other axes, raise: a
+    leaf gathers one dim, over one group."""
+    gather, tp = [], []
+    for i, e in enumerate(spec):
+        axes = [a for a in _axes(e) if int(sizes.get(a, 1)) > 1]
+        if TP_AXIS in axes and len(axes) > 1:
+            raise NotImplementedError(
+                f"spec {spec}: dim {i} splits over {axes}; a dim is split "
+                f"over {TP_AXIS!r} alone (ROADMAP.md Queue 1)")
+        if axes:
+            (tp if TP_AXIS in axes else gather).append(i)
+    if len(gather) > 1:
         raise NotImplementedError(
-            f"spec {spec} splits dims {dims}; the port gathers one dim per "
-            "leaf (ROADMAP.md Queue 1 item 9)")
-    return dims[0] if dims else None
+            f"spec {spec} splits dims {gather} outside {TP_AXIS!r}; a leaf "
+            "gathers one dim (ROADMAP.md Queue 1)")
+
+    def on_model(s) -> bool:
+        return any(TP_AXIS in _axes(e) for e in s or ())
+
+    partial = (int(sizes.get(TP_AXIS, 1)) > 1 and on_model(wanted)
+               and not on_model(spec))
+    return Placement(gather[0] if gather else None, tp[0] if tp else None,
+                     partial)
+
+
+class ParamLayout:
+    """One model's params laid out on ``mesh``: each leaf's spec
+    (``shard_params`` of the logical ``specs`` tree over ``params``, the
+    full tree or tensors of its shapes), its ``Placement``, and this
+    process's cut of a leaf. It makes no process group: a train state's
+    ``fsdp.StateLayout`` adds the groups its step needs, while a sharded
+    init, a tensor-parallel engine and a checkpoint read need only the
+    cut."""
+
+    def __init__(self, mesh, logical_specs: Any, params: Any,
+                 rules: LogicalRules = DEFAULT_RULES):
+        from kubeflow_tpu_torch.train import tree as T
+
+        self.mesh = mesh
+        self.sizes = mesh_shape(mesh)
+        self.coords = mesh_coords(mesh)
+        self.specs = shard_params(params, logical_specs, mesh, rules)
+        #: Flattened leaf path → spec.
+        self.flat_specs = T.flatten(self.specs)
+        wanted = T.flatten(shard_params(None, logical_specs, mesh, rules))
+        self.placements = T.unflatten({
+            p: placement(s, self.sizes, wanted[p])
+            for p, s in self.flat_specs.items()})
+
+    def cut_leaf(self, path: str, t):
+        """This process's shard of leaf ``path`` given whole, or of one
+        layer of a stacked leaf (``t`` one dim short of the leaf: its
+        leading ``layers`` dim, which no rule splits, is dropped from the
+        spec)."""
+        spec = self.flat_specs[path]
+        if len(t.shape) == len(spec) - 1:
+            spec = spec[1:]
+        return cut_local(t, spec, self.sizes, self.coords)
+
+    def cut(self, params: Any) -> Any:
+        """This process's shards of a full params tree (or of a tree that
+        mirrors it, e.g. Adam moments)."""
+        from kubeflow_tpu_torch.train import tree as T
+
+        return T.unflatten({p: self.cut_leaf(p, t)
+                            for p, t in T.flatten(params).items()})
 
 
 def with_logical_constraint(

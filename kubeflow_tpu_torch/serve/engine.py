@@ -90,8 +90,21 @@ Design (what carries over, and what eager PyTorch changes):
   ``quantize="int8"`` packs the matmul weights (after the
   ``weights_dtype`` cast; a fresh engine packs each layer as it draws it).
 
-Multi-device meshes arrive in a later slice and raise
-``NotImplementedError``.
+- **Tensor parallelism** (``mesh`` with a ``model`` axis, one process
+  per card): every rank builds the engine on its shards — weights cut by
+  the training rules (``decoder_param_specs``; heads, mlp columns and
+  vocab over ``model``, kv heads that do not divide whole on every rank),
+  KV caches and page pools (bf16 or int8 with their scales) on the kv
+  heads its q heads read — and the layers run Megatron's split
+  (``models/layers.py``): the flash prefill and the paged-decode kernel
+  on the local heads, one all-reduce after ``wo`` and one after ``down``,
+  the logits all-gathered before sampling. Rank 0 runs the scheduler;
+  every device call that reads weights or writes KV goes through one
+  dispatcher (``serve/tp_dispatch.py``), which sends it to the other
+  ranks, idle in ``follow``. Sampling runs on every rank from the same
+  seeded generator. Speculative decoding, LoRA, engine roles and the
+  handoff, the host and remote KV tiers and MoE raise under a mesh
+  (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -114,16 +127,18 @@ from kubeflow_tpu_torch.core.serving import (
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models import layers as L
 from kubeflow_tpu_torch.models.config import (
-    DecoderConfig, preset, torch_dtype,
+    DecoderConfig, model_axis_of, preset, torch_dtype, with_model_axis,
 )
 from kubeflow_tpu_torch.models.decoder import (
-    Params, decoder_forward, ffn, init_decoder_params, layer_view, lm_head,
+    Params, decoder_forward, decoder_layout, ffn, init_decoder_params,
+    layer_view, lm_head,
 )
 from kubeflow_tpu_torch.obs.stats import quantile as _quantile
 from kubeflow_tpu_torch.ops.quantization import (
-    QuantizedTensor, check_quantize, quantize_params_int8,
+    QuantizedTensor, check_quantize, contraction_dims, quantize_params_int8,
 )
 from kubeflow_tpu_torch.obs.trace import get_tracer
+from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.serve.device_state import DEAD_SLOT, DecodeState
 from kubeflow_tpu_torch.serve.handoff import (
     host_array, payload_from_export, to_torch, torch_dtype_of,
@@ -140,6 +155,7 @@ from kubeflow_tpu_torch.serve.spec_decode import (
     draft_propose, ngram_propose, paged_verify_step, verify_step,
 )
 from kubeflow_tpu_torch.serve.storage import kv_fabric_store
+from kubeflow_tpu_torch.serve.tp_dispatch import Dispatcher
 
 logger = logging.getLogger("kubeflow_tpu_torch.serve.engine")
 
@@ -224,10 +240,11 @@ def _sample_batch(logits: torch.Tensor, gen: torch.Generator,
 def _decode_attention(q, ck, cv, lengths, cfg: DecoderConfig):
     """One-token attention over slot caches. q [B,1,H,Dh]; ck/cv
     [B,Smax,KV,Dh]; lengths [B] = position of the token being decoded (its
-    K/V were just written there, so attend to kpos <= lengths[b])."""
+    K/V were just written there, so attend to kpos <= lengths[b]). The
+    head counts are the tensors' (a rank's, under a model axis)."""
     b, smax = ck.shape[0], ck.shape[1]
-    groups = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, groups, cfg.head_dim)
+    heads, kvh = q.shape[2], ck.shape[2]
+    qg = q.reshape(b, kvh, heads // kvh, cfg.head_dim)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), ck.float())
     scores = scores * cfg.head_dim ** -0.5
     kpos = torch.arange(smax, device=ck.device)
@@ -235,7 +252,7 @@ def _decode_attention(q, ck, cv, lengths, cfg: DecoderConfig):
     scores = scores.masked_fill(~mask[:, None, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(ck.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", probs, cv)
-    return out.reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    return out.reshape(b, 1, heads, cfg.head_dim)
 
 
 def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
@@ -247,8 +264,8 @@ def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
     dt = cfg.activation_dtype
     h = L.rmsnorm(x, bp["ln1"], cfg)
     q = L.project(h, bp["attn"]["wq"], dt)
-    k = L.project(h, bp["attn"]["wk"], dt)
-    v = L.project(h, bp["attn"]["wv"], dt)
+    k = L.project(h, L.rank_kv(bp["attn"]["wk"], cfg), dt)
+    v = L.project(h, L.rank_kv(bp["attn"]["wv"], cfg), dt)
     if lora is not None:
         q = L.apply_lora_layer(lora, "wq", h, q)
         k = L.apply_lora_layer(lora, "wk", h, k)
@@ -267,7 +284,7 @@ def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
     if lora is not None:
         proj = L.apply_lora_layer(
             lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
-    x = x + proj
+    x = x + C.reduce_from_model(proj, model_axis_of(cfg))
     h = L.rmsnorm(x, bp["ln2"], cfg)
     return x + ffn(bp, h, cfg)
 
@@ -279,8 +296,7 @@ def _decode_step(params: Params, cache: dict, tokens: torch.Tensor,
     (rows whose KV write is real). Returns logits [B,V] fp32; the cache is
     written in place. ``lora``: the packed adapter buffers with the per-row
     ``aidx`` (serve/lora.py)."""
-    dt = cfg.activation_dtype
-    x = params["embed"][tokens[:, None]].to(dt)          # [B,1,D]
+    x = L.embed(params["embed"], tokens[:, None], cfg)   # [B,1,D]
     if cfg.embed_scale:
         x = x * L.embed_scale_value(cfg)
     positions = lengths[:, None]
@@ -349,7 +365,7 @@ def _prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
     lets the flash kernel apply), copies the K/V into the slot rows. Each
     row's pads past its length claim no MoE expert capacity."""
     n, bucket = tokens.shape
-    shape = (cfg.n_layers, n, bucket, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n, bucket, L.local_kv_heads(cfg)[1], cfg.head_dim)
     scratch = {
         "k": torch.zeros(shape, dtype=cfg.activation_dtype,
                          device=tokens.device),
@@ -770,6 +786,22 @@ def _cast_params(tree: Any, device: torch.device,
     return tree.to(device=device)
 
 
+def _check_packed(params: Params, cfg: DecoderConfig, path=()) -> None:
+    """Raise unless every leaf ``quantize_params_int8`` packs is packed:
+    a tensor-parallel engine's shards cannot be packed here, since a
+    row-parallel weight's scales span every rank's rows."""
+    if isinstance(params, dict):
+        for k, v in params.items():
+            _check_packed(v, cfg, path + (k,))
+    elif (contraction_dims(path, cfg) is not None
+          and not isinstance(params, QuantizedTensor)):
+        raise ValueError(
+            f"quantize='int8' under a mesh: {'/'.join(path)} is not packed; "
+            "pass shards packed whole (serve.storage.load_params(quantize="
+            "'int8', mesh=), or quantize_params_int8 before "
+            "decoder_layout(cfg, mesh).cut)")
+
+
 def _phase_cfgs(cfg: DecoderConfig, b: BatchingSpec):
     """(prefill cfg, decode cfg): an MoE model's expert path per phase.
     Prefill runs one request per dispatch, so the model's own path applies
@@ -796,6 +828,38 @@ def _phase_cfgs(cfg: DecoderConfig, b: BatchingSpec):
 
 # -- the engine ----------------------------------------------------------------
 
+#: The device calls a tensor-parallel engine's leader sends its followers.
+_TP_OPS = {f.__name__: f for f in (
+    _prefill_step, _chunk_prefill_step, _decode_multi, _sample_batch,
+    paged_chunk_prefill, paged_decode_multi, copy_pages, upload_pages)}
+
+
+def _check_tp(cfg: DecoderConfig, b: BatchingSpec, mesh,
+              draft_params) -> None:
+    """What a tensor-parallel engine does not run raises here, with the
+    ROADMAP item that brings it."""
+    from kubeflow_tpu_torch.parallel.sharding import mesh_shape
+
+    other = {a: n for a, n in mesh_shape(mesh).items()
+             if a != "model" and n > 1}
+    refused = {
+        f"mesh axes {other}": bool(other),
+        "speculative decoding": b.speculative.mode != "off"
+        or draft_params is not None,
+        "LoRA adapters": b.lora.max_adapters > 0,
+        f"engine role {b.role!r}": b.role != "unified",
+        "the host KV tier": b.host_kv_pages > 0,
+        "the remote KV tier": kv_fabric_store(b.remote_kv_root) is not None,
+        "MoE": cfg.is_moe,
+    }
+    named = [k for k, v in refused.items() if v]
+    if named:
+        raise NotImplementedError(
+            f"{', '.join(named)} under a tensor-parallel mesh: the port's "
+            "TP engine serves dense models over the model axis alone "
+            "(ROADMAP.md Queue 1 item 9e)")
+
+
 class LLMEngine:
     """Slot-based continuous-batching engine over a decoder LLM."""
 
@@ -804,15 +868,26 @@ class LLMEngine:
                  params: Optional[Params] = None, seed: int = 0,
                  device: str | torch.device = "cuda", mesh=None,
                  draft_params: Optional[Params] = None):
+        """``mesh`` (one process per card, a ``model`` axis): this rank's
+        engine of a tensor-parallel one. ``params`` are then this rank's
+        shards (``serve.storage.load_params(..., mesh=)``, or
+        ``decoder_layout(cfg, mesh).cut`` of a whole tree), under
+        ``quantize`` already packed, since a shard's per-channel scales
+        are the whole weight's; without ``params`` each leaf is cut as it
+        is drawn."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.batching = batching or BatchingSpec()
         b = self.batching
+        tp = None
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes: not in the port's serving slices yet "
-                "(see ROADMAP.md for the slice that brings it)")
-        self._cfg_prefill, self._cfg_decode = _phase_cfgs(cfg, b)
+            _check_tp(cfg, b, mesh, draft_params)
+            tp = C.model_axis(mesh)
+        #: This rank's place on the model axis (None: the whole model).
+        self.tp = tp
+        self._cfg_prefill, self._cfg_decode = _phase_cfgs(
+            with_model_axis(cfg, tp), b)
+        self._kv_heads = L.local_kv_heads(self._cfg_decode)[1]
         check_quantize(b.quantize)
         if b.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unknown kv_cache_dtype {b.kv_cache_dtype!r}; "
@@ -836,12 +911,17 @@ class LLMEngine:
 
         wdt = torch_dtype(b.weights_dtype) if b.weights_dtype else None
         if params is None:
+            # Under a mesh each leaf is cut to this rank's shards as drawn.
             gen = torch.Generator(self.device).manual_seed(seed)
-            self.params = init_decoder_params(gen, cfg, dtype=wdt,
-                                              quantize=b.quantize)
+            self.params = init_decoder_params(
+                gen, cfg, dtype=wdt, quantize=b.quantize,
+                shard=None if mesh is None
+                else decoder_layout(cfg, mesh).cut_leaf)
         else:
             self.params = _cast_params(params, self.device, wdt)
-            if b.quantize is not None:
+            if b.quantize is not None and mesh is not None:
+                _check_packed(self.params, cfg)
+            elif b.quantize is not None:
                 # After the dtype cast, so the scales quantize the served
                 # values (leaves already packed stay as they are).
                 self.params = quantize_params_int8(self.params, cfg)
@@ -880,7 +960,7 @@ class LLMEngine:
                 [] for _ in range(self.num_slots)]
             # One page past the pool: the sink (serve/paged.py) that takes
             # every write the JAX engine drops out of bounds.
-            shape = (cfg.n_layers, self._num_pages + 1, pg, cfg.n_kv_heads,
+            shape = (cfg.n_layers, self._num_pages + 1, pg, self._kv_heads,
                      cfg.head_dim)
             kv_dt = torch.int8 if self.kv_quant else cfg.activation_dtype
             self.cache = {  # lockfree: scheduler-confined (written in place)
@@ -921,7 +1001,7 @@ class LLMEngine:
                     fabric_sig=fabric_sig)
         else:
             shape = (cfg.n_layers, self.num_slots, self.max_len,
-                     cfg.n_kv_heads, cfg.head_dim)
+                     self._kv_heads, cfg.head_dim)
             self.cache = {  # lockfree: scheduler-confined (written in place)
                 "k": torch.zeros(shape, dtype=cfg.activation_dtype,
                                  device=self.device),
@@ -929,6 +1009,14 @@ class LLMEngine:
                                  device=self.device),
             }
         self._gen = torch.Generator(self.device).manual_seed(seed + 1)  # lockfree: scheduler-confined
+        # Tensor parallelism: the op stream to (or from) the other ranks.
+        self._dispatch: Optional[Dispatcher] = None
+        if tp is not None:
+            self._dispatch = Dispatcher(tp, self.device, _TP_OPS, {
+                "params": self.params, "cache": self.cache, "gen": self._gen,
+                "cfg_prefill": self._cfg_prefill,
+                "cfg_decode": self._cfg_decode,
+                **{f"cache/{k}": v for k, v in self.cache.items()}})
 
         # Speculative decoding (serve/spec_decode.py): greedy rounds draft k
         # tokens per slot and verify all k + 1 positions in one dispatch.
@@ -1051,6 +1139,29 @@ class LLMEngine:
         # None until stop() runs; False = the scheduler thread outlived its
         # join timeout and is leaked.
         self.stopped_clean: Optional[bool] = None
+        #: What ended the background scheduler, if anything did.
+        self.error: Optional[BaseException] = None
+
+    def _run(self, fn, *args, **kwargs):
+        """A device call that reads weights or writes KV: through the
+        dispatcher under a model axis (the other ranks run it on their
+        shards), directly otherwise."""
+        if self._dispatch is None:
+            return fn(*args, **kwargs)
+        return self._dispatch.call(fn, *args, **kwargs)
+
+    @property
+    def dispatches(self) -> int:
+        """Ops sent to the other ranks (the leader) or run for the leader
+        (a follower); 0 without a model axis."""
+        return 0 if self._dispatch is None else self._dispatch.count
+
+    def follow(self) -> int:
+        """A follower rank's loop: run the leader's ops on this rank's
+        shards until the leader stops; returns the ops run."""
+        if self._dispatch is None or self._dispatch.leader:
+            raise RuntimeError("follow() runs on a model-axis rank above 0")
+        return self._dispatch.follow()
 
     def _upload(self, values, dtype: torch.dtype) -> torch.Tensor:
         """Host values → a tensor on the engine's device, through pinned
@@ -1320,8 +1431,8 @@ class LLMEngine:
         if stacked is None:
             stacked = torch.stack([it[3] for it in items])
         params_list = [it[0].params for it in items]
-        firsts = _sample_batch(
-            stacked, self._gen,
+        firsts = self._run(
+            _sample_batch, stacked, self._gen,
             self._upload([p.temperature for p in params_list], torch.float32),
             self._upload([p.top_k for p in params_list], torch.int64),
             self._upload([p.top_p for p in params_list], torch.float32),
@@ -1396,13 +1507,15 @@ class LLMEngine:
             # token off the table row, so ch.pos may sit mid-page (the
             # radix COW tail resume).
             ctx = context_bucket(ch.pos, C, self.page_size, self._mpp)
-            logits = paged_chunk_prefill(
+            logits = self._run(
+                paged_chunk_prefill,
                 self.params, self.cache, self._upload([chunk], torch.int64),
                 self._upload(self._table[slot_idx].tolist(), torch.int32),
                 ch.pos, real, self._cfg_prefill, context_pages=ctx,
                 lora=self._lora_rows([self._slot_aidx[slot_idx]]))
         else:
-            logits = _chunk_prefill_step(
+            logits = self._run(
+                _chunk_prefill_step,
                 self.params, self.cache, self._upload([chunk], torch.int64),
                 slot_idx, ch.pos, self._cfg_prefill, valid_len=real,
                 lora=self._lora_rows([self._slot_aidx[slot_idx]]))
@@ -1680,8 +1793,8 @@ class LLMEngine:
                 toks = [req.prompt_tokens + [0] * (bucket - plen)
                         for req, _, plen, _ in group]
                 try:
-                    last_logits = _prefill_step(
-                        self.params, self.cache,
+                    last_logits = self._run(
+                        _prefill_step, self.params, self.cache,
                         self._upload(toks, torch.int64),
                         self._upload([g[1] for g in group], torch.int64),
                         self._upload([g[2] for g in group], torch.int64),
@@ -1855,7 +1968,7 @@ class LLMEngine:
                     # Power-of-two padding: the pad ids aim at the sink.
                     pidx = [self._num_pages] * n2
                     pidx[:len(fresh)] = fresh
-                    upload_pages(self.cache, blocks,
+                    self._run(upload_pages, self.cache, blocks,
                                  self._upload(pidx, torch.int64))
             except Exception:
                 # A failed upload must not strand the refs just taken.
@@ -1919,8 +2032,9 @@ class LLMEngine:
     def _kv_copy_pages(self, src, dst) -> None:
         """COW tail copy: pool pages ``dst[i] <- src[i]``, enqueued on the
         stream before the chunk prefill that reads them."""
-        copy_pages(self.cache, self._upload(list(src), torch.int64),
-                   self._upload(list(dst), torch.int64))
+        self._run(copy_pages, self.cache,
+                  self._upload(list(src), torch.int64),
+                  self._upload(list(dst), torch.int64))
 
     def _kv_upload_pages(self, page_ids, k_blocks, v_blocks,
                          sk_blocks=None, sv_blocks=None) -> None:
@@ -1952,7 +2066,8 @@ class LLMEngine:
             blocks[name] = self._to_device(buf)
         pidx = [self._num_pages] * n2
         pidx[:n] = page_ids
-        upload_pages(self.cache, blocks, self._upload(pidx, torch.int64))
+        self._run(upload_pages, self.cache, blocks,
+                  self._upload(pidx, torch.int64))
 
     def _kv_fetch_pages(self, page_ids):
         """Demotion batch: the device-side gather of the pages' planes into
@@ -2326,16 +2441,18 @@ class LLMEngine:
         self.metrics.note_dispatch_depth(len(self._rounds))
         st = self._dstate.arrays
         if self.paged:
-            out, tokens, lengths, live, budgets = paged_decode_multi(
-                self.params, {**self.cache, "table": self._dstate.table},
+            out, tokens, lengths, live, budgets = self._run(
+                paged_decode_multi, self.params,
+                {**self.cache, "table": self._dstate.table},
                 st["tokens"], st["lengths"], st["live"], st["temps"],
                 st["top_k"], st["top_p"], st["stops"], st["budgets"],
                 self._gen, self._cfg_decode, k_steps, sample_mode=mode,
                 attn_impl=self.paged_attn_impl,
                 lora=self._lora_rows(st["adapter"]))
         else:
-            out, tokens, lengths, live, budgets = _decode_multi(
-                self.params, self.cache, st["tokens"], st["lengths"],
+            out, tokens, lengths, live, budgets = self._run(
+                _decode_multi, self.params, self.cache, st["tokens"],
+                st["lengths"],
                 st["live"], st["temps"], st["top_k"], st["top_p"],
                 st["stops"], st["budgets"], self._gen, self._cfg_decode,
                 k_steps,
@@ -2610,10 +2727,19 @@ class LLMEngine:
         self._thread.start()
 
     def _loop(self) -> None:
-        while not self._stop.is_set():
-            if self.step() == 0:
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
+        try:
+            while not self._stop.is_set():
+                if self.step() == 0:
+                    if self._dispatch is not None:
+                        self._dispatch.ping()
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+        except BaseException as exc:
+            # A lost rank of a tensor-parallel engine, or a program error:
+            # the server's owner reads it off ``error`` and fails.
+            self.error = exc
+            logger.exception("engine scheduler stopped")
+            raise
 
     def stop(self, timeout: float = 10.0) -> bool:
         """Stop the background scheduler. Returns (and records in
@@ -2633,6 +2759,11 @@ class LLMEngine:
                     timeout)
             else:
                 self._thread = None
+        if (self._dispatch is not None and self._dispatch.leader
+                and self._thread is None and self.error is None):
+            # Release the followers (the scheduler, their only sender,
+            # has ended).
+            self._dispatch.close()
         return self.stopped_clean
 
     # -- convenience -----------------------------------------------------------

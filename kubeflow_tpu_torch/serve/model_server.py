@@ -19,6 +19,16 @@ when ``batching.quantize`` asks) → ``LLMEngine`` → ``ModelServer`` on
 the worker's device (``WorkerContext.device``: the card unless
 ``KFTPU_PLATFORM=cpu``) and serves until SIGTERM (exit 143 through
 ``runtime/worker_main.py``).
+
+A gang of N processes with ``parallelism {model: N}`` is one
+tensor-parallel engine, one process per card: each rank loads only its
+shards (``load_params(..., mesh=)``); rank 0 serves REST and gRPC and
+runs the scheduler, the other ranks run the ops it dispatches
+(``LLMEngine.follow``) until it stops. SIGTERM to rank 0 stops the
+engine, which releases the followers (they exit 0); a follower's death
+fails rank 0's next dispatch or idle ping, and the worker exits
+nonzero. Other parallelisms, explainers and the model repository raise
+under a mesh.
 """
 
 from __future__ import annotations
@@ -68,13 +78,23 @@ def model_server(ctx: WorkerContext) -> int:
     from kubeflow_tpu_torch.serve.storage import load_params
     from kubeflow_tpu_torch.serve.tokenizer import tokenizer_registry
 
-    if ctx.env.num_processes > 1 or ctx.env.parallelism:
-        raise NotImplementedError(
-            f"num_processes={ctx.env.num_processes}, parallelism="
-            f"{ctx.env.parallelism}: the port serves one process on one "
-            "card; the tensor-parallel serving engine arrives with "
-            "ROADMAP.md Queue 1 item 9")
     conf = ctx.config
+    mesh = None
+    if ctx.env.num_processes > 1 or ctx.env.parallelism:
+        par = {a: int(n) for a, n in (ctx.env.parallelism or {}).items()
+               if int(n) > 1}
+        if par != {"model": ctx.env.num_processes}:
+            raise NotImplementedError(
+                f"num_processes={ctx.env.num_processes}, parallelism="
+                f"{ctx.env.parallelism}: a model_server gang is one "
+                "tensor-parallel engine, parallelism {model: "
+                "num_processes}; other serving meshes arrive with "
+                "ROADMAP.md Queue 1 item 9e")
+        if conf.get("explainer"):
+            raise NotImplementedError(
+                "explainers under a tensor-parallel mesh (ROADMAP.md "
+                "Queue 1 item 9e)")
+        mesh = ctx.mesh
     model_conf = conf.get("model", {})
     cfg = preset(model_conf.get("preset", "tiny"),
                  **model_conf.get("overrides", {}))
@@ -103,9 +123,15 @@ def model_server(ctx: WorkerContext) -> int:
         load_cfg = dataclasses.replace(cfg,
                                        param_dtype=batching.weights_dtype)
     params = load_params(conf.get("storage_uri"), load_cfg, device=device,
-                         quantize=batching.quantize)
-    engine = LLMEngine(cfg, batching, params=params, device=device)
+                         quantize=batching.quantize, mesh=mesh)
+    engine = LLMEngine(cfg, batching, params=params, device=device,
+                       mesh=mesh)
     del params
+    if engine.tp is not None and engine.tp.rank > 0:
+        n = engine.follow()
+        logger.info("follower rank %d ran %d ops%s", engine.tp.rank, n,
+                    _memory_note(device))
+        return 0
     transformer = None
     t_conf = conf.get("transformer")
     if t_conf:
@@ -126,9 +152,15 @@ def model_server(ctx: WorkerContext) -> int:
     try:
         while True:          # serve until SIGTERM (exit 143 via worker_main)
             time.sleep(0.5)
+            if engine.error is not None:
+                raise RuntimeError("the engine's scheduler stopped") \
+                    from engine.error
     finally:
         server.stop()
-        logger.info("model server stopped%s", _memory_note(device))
+        ops = ("" if engine.tp is None else
+               f"; {engine.dispatches} ops dispatched to the model axis "
+               f"({engine._dispatch.send_s * 1e3:.3f} ms sending)")
+        logger.info("model server stopped%s%s", ops, _memory_note(device))
     return 0
 
 

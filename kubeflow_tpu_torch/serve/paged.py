@@ -46,12 +46,13 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models import layers as L
-from kubeflow_tpu_torch.models.config import DecoderConfig
+from kubeflow_tpu_torch.models.config import DecoderConfig, model_axis_of
 from kubeflow_tpu_torch.models.decoder import (
     Params, decoder_forward, ffn, layer_view, lm_head,
 )
 from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
 from kubeflow_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
+from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.runtime.sanitize import call_site, enabled
 
 
@@ -328,8 +329,8 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
     dt = cfg.activation_dtype
     h = L.rmsnorm(x, bp["ln1"], cfg)
     q = L.project(h, bp["attn"]["wq"], dt)
-    k = L.project(h, bp["attn"]["wk"], dt)
-    v = L.project(h, bp["attn"]["wv"], dt)
+    k = L.project(h, L.rank_kv(bp["attn"]["wk"], cfg), dt)
+    v = L.project(h, L.rank_kv(bp["attn"]["wv"], cfg), dt)
     if lora is not None:
         q = L.apply_lora_layer(lora, "wq", h, q)
         k = L.apply_lora_layer(lora, "wk", h, k)
@@ -367,7 +368,7 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
     if lora is not None:
         proj = L.apply_lora_layer(
             lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
-    x = x + proj
+    x = x + C.reduce_from_model(proj, model_axis_of(cfg))
     h = L.rmsnorm(x, bp["ln2"], cfg)
     return x + ffn(bp, h, cfg)
 
@@ -379,9 +380,8 @@ def _paged_decode_step(params: Params, cache: dict, tokens: torch.Tensor,
     """One [B,1] decode step over the page pool (≈ the engine's
     ``_decode_step``). Returns logits [B,V] fp32; the pools are written in
     place."""
-    dt = cfg.activation_dtype
     quant = "ks" in cache
-    x = params["embed"][tokens[:, None]].to(dt)
+    x = L.embed(params["embed"], tokens[:, None], cfg)
     if cfg.embed_scale:
         x = x * L.embed_scale_value(cfg)
     positions = lengths[:, None]

@@ -33,7 +33,9 @@ import torch
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.config import DecoderConfig
-from kubeflow_tpu_torch.models.decoder import Params, init_decoder_params
+from kubeflow_tpu_torch.models.decoder import (
+    Params, decoder_layout, init_decoder_params,
+)
 from kubeflow_tpu_torch.ops.quantization import check_quantize, quantize_leaf
 from kubeflow_tpu_torch.pipelines.artifacts import (
     ArtifactStore, artifact_store_from_env,
@@ -49,7 +51,8 @@ def load_params(storage_uri: Optional[str], cfg: DecoderConfig, *,
                 seed: int = 0,
                 artifact_root: Optional[str] = None,
                 device: str | torch.device = "cuda",
-                quantize: Optional[str] = None) -> Params:
+                quantize: Optional[str] = None,
+                mesh=None) -> Params:
     """Resolve ``storage_uri`` into a decoder param tree on ``device``.
 
     file:///path — the latest step's ``params`` subtree of a port
@@ -64,27 +67,38 @@ def load_params(storage_uri: Optional[str], cfg: DecoderConfig, *,
     with that seed and ``weights_dtype`` equal to ``cfg.param_dtype``.
 
     ``quantize="int8"``: the tree ``quantize_params_int8`` would make of the
-    full-dtype one, bit for bit, built leaf by leaf."""
+    full-dtype one, bit for bit, built leaf by leaf.
+
+    ``mesh`` (a tensor-parallel engine's): this rank's shards of that
+    tree, by the training rules (``decoder_param_specs``). A random draw
+    keeps each leaf's block as it is drawn; a checkpoint is read in the
+    rank's slices of each leaf file — except under ``quantize``, which
+    reads a leaf whole (one at a time) for its per-channel scales and
+    then cuts it. The whole model is never held at once."""
     check_quantize(quantize)
     dev = resolve_device(device)
     if storage_uri is None or storage_uri.startswith("random://"):
-        return init_decoder_params(torch.Generator(dev).manual_seed(seed),
-                                   cfg, quantize=quantize)
+        cut = None if mesh is None else decoder_layout(cfg, mesh).cut_leaf
+        return init_decoder_params(
+            torch.Generator(dev).manual_seed(seed), cfg, quantize=quantize,
+            shard=cut)
     parsed = urlparse(storage_uri)
     if parsed.scheme == "file":
-        return _load_checkpoint(parsed.path, cfg, dev, quantize)
+        return _load_checkpoint(parsed.path, cfg, dev, quantize, mesh)
     if parsed.scheme == "artifact":
         store = artifact_store_from_env(artifact_root)
         ckpt_dir = store.materialize_tree(store.resolve(storage_uri))
-        return _load_checkpoint(ckpt_dir, cfg, dev, quantize)
+        return _load_checkpoint(ckpt_dir, cfg, dev, quantize, mesh)
     raise ValueError(
         f"unsupported storageUri scheme {parsed.scheme!r} "
         "(hermetic build: file://, artifact:// and random:// only)")
 
 
 def _load_checkpoint(path: str, cfg: DecoderConfig, device: torch.device,
-                     quantize: Optional[str] = None) -> Params:
-    from kubeflow_tpu_torch.train.checkpoint import CheckpointManager
+                     quantize: Optional[str] = None, mesh=None) -> Params:
+    from kubeflow_tpu_torch.train.checkpoint import (
+        CheckpointManager, ShardLayout,
+    )
 
     # CheckpointManager creates its directory: a missing one must not be
     # made (and then read as empty) by a server.
@@ -103,6 +117,11 @@ def _load_checkpoint(path: str, cfg: DecoderConfig, device: torch.device,
             "it, comes across through models.convert.params_from_jax and "
             f"a port save); expected {FILE_FORMAT}")
     dt = cfg.weight_dtype
+    params_layout = None if mesh is None else decoder_layout(cfg, mesh)
+    layout = None
+    if mesh is not None and quantize is None:
+        layout = ShardLayout(params_layout.sizes, params_layout.coords, {
+            f"params/{p}": s for p, s in params_layout.flat_specs.items()})
 
     def leaf(path: str, t: torch.Tensor):
         # Read to host, then onto the device one leaf at a time, cast, and
@@ -110,11 +129,14 @@ def _load_checkpoint(path: str, cfg: DecoderConfig, device: torch.device,
         t = t.to(device)
         if t.is_floating_point():
             t = t.to(dt)
-        if quantize is None:
-            return t
-        return quantize_leaf(tuple(path.split("/")), t, cfg)
+        if quantize is not None:
+            t = quantize_leaf(tuple(path.split("/")), t, cfg)
+            if params_layout is not None:
+                t = params_layout.cut_leaf(path, t)
+        return t
 
-    return mgr.restore(step, device="cpu", subtree="params", leaf_fn=leaf)
+    return mgr.restore(step, device="cpu", subtree="params", leaf_fn=leaf,
+                       layout=layout)
 
 
 def kv_fabric_store(root: Optional[str] = None) -> Optional[ArtifactStore]:

@@ -615,6 +615,25 @@ def _read_tensor(path: str, entry: dict) -> torch.Tensor:
     return t
 
 
+def _read_slices(path: str, entry: dict, block: tuple) -> torch.Tensor:
+    """The slices ``block`` of a tensor file, reading only their bytes
+    (through a memory map of the file, viewed as same-width integers)."""
+    import numpy as np
+
+    dt = _dtype(entry["dtype"])
+    width = torch.empty((), dtype=dt).element_size()
+    size = os.path.getsize(path)
+    n = 1
+    for d in entry["shape"]:
+        n *= d
+    if size != n * width:
+        raise CheckpointCorruptionError(
+            f"{path}: {size} bytes, meta says {n * width}")
+    raw = np.memmap(path, dtype=f"<i{width}" if width > 1 else np.uint8,
+                    mode="r", shape=tuple(entry["shape"]))
+    return torch.from_numpy(np.ascontiguousarray(raw[block])).view(dt)
+
+
 def _files_of(entry: dict) -> list[str]:
     if "parts" in entry:
         return [p["file"] for p in entry["parts"]]
@@ -628,8 +647,9 @@ def _read_block(root: str, entry: dict,
     copied in."""
     shape = entry["shape"]
     if "parts" not in entry:
-        t = _read_tensor(os.path.join(root, entry["file"]), entry)
-        return t if block is None else t[block].contiguous()
+        if block is None:
+            return _read_tensor(os.path.join(root, entry["file"]), entry)
+        return _read_slices(os.path.join(root, entry["file"]), entry, block)
     want = block or tuple(slice(0, n) for n in shape)
     out = torch.empty([w.stop - w.start for w in want],
                       dtype=_dtype(entry["dtype"]))

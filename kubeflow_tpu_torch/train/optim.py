@@ -91,15 +91,16 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(grads: Any, dims: Any = None, group=None) -> torch.Tensor:
+def global_norm(grads: Any, groups: Any = None) -> torch.Tensor:
     """sqrt of the sum over leaves (sorted-key order) of each leaf's sum of
     squares, in fp32, on the leaves' device.
 
-    Sharded gradients (``dims``, a tree mirroring ``grads``: each leaf's
-    sharded dim or None; ``group``, the ranks a sharded leaf is split
-    over): the squares of the local shards are summed and all-reduced over
-    ``group``, and a replicated leaf is counted once, not once a rank."""
-    if dims is None or group is None:
+    Sharded gradients (``groups``, a tree mirroring ``grads``: the group
+    of the ranks a leaf's blocks are split over, or None for a whole
+    leaf): the squares of the local blocks are summed and all-reduced over
+    their group, once per group, and a whole leaf is counted once, not
+    once a rank."""
+    if groups is None:
         total = None
         for g in T.leaves(grads):
             s = torch.sum(g.float() * g.float())
@@ -107,14 +108,14 @@ def global_norm(grads: Any, dims: Any = None, group=None) -> torch.Tensor:
         return torch.sqrt(total)
     import torch.distributed as dist
 
-    whole, split = [], []
-    for g, d in zip(T.leaves(grads), T.leaves(dims)):
-        (whole if d is None else split).append(torch.sum(g.float()
-                                                         * g.float()))
-    total = torch.stack(whole).sum() if whole else None
-    if split:
-        part = torch.stack(split).sum()
-        dist.all_reduce(part, group=group)
+    parts: dict = {}
+    for g, grp in zip(T.leaves(grads), T.leaves(groups)):
+        parts.setdefault(grp, []).append(torch.sum(g.float() * g.float()))
+    total = None
+    for grp, sq in parts.items():
+        part = torch.stack(sq).sum()
+        if grp is not None:
+            dist.all_reduce(part, group=grp)
         total = part if total is None else total + part
     return torch.sqrt(total)
 

@@ -60,6 +60,11 @@ def _setup(cfg, init_fn, specs_fn, loss_fn, opt_cfg: OptimizerConfig,
             raise NotImplementedError(
                 "vision training splits the batch, not the sequence: a seq "
                 "axis above 1 is not supported (ROADMAP.md Queue 1 item 9)")
+        if mesh_shape(mesh).get("model", 1) > 1:
+            raise NotImplementedError(
+                "vision training under a model axis above 1: tensor "
+                "parallelism of the ViT and CLIP blocks is not ported "
+                "(ROADMAP.md Queue 1 item 9f)")
         layout = StateLayout(mesh, specs_fn(cfg), params)
         params = layout.cut(params)
         batch_group = layout.token_group

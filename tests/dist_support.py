@@ -218,11 +218,14 @@ def entry_dirs(base, name: str, n: int) -> list[Path]:
             for r in range(n)]
 
 
-def train_config(attn: str, ckpt=None, fused: str = "off") -> dict:
+def train_config(attn: str, ckpt=None, fused: str = "off",
+                 chunk: int = 0) -> dict:
     """The TrainerConfig fields of every run the distributed tests compare
-    (tiny, fp32, 5 steps, 4 x 32 tokens a step)."""
+    (tiny, fp32, 5 steps, 4 x 32 tokens a step; ``chunk`` the CE's
+    ``loss_chunk_size``)."""
     return {"model": "tiny",
-            "model_overrides": {"dtype": "float32", "fused_kernels": fused},
+            "model_overrides": {"dtype": "float32", "fused_kernels": fused,
+                                "loss_chunk_size": chunk},
             "data": {"seq_len": 32, "global_batch": 4}, "steps": STEPS,
             "log_every": 1, "attn_impl": attn,
             "optimizer": {"learning_rate": 3e-3, "warmup_steps": 1},
@@ -338,3 +341,227 @@ def run_entrypoints(ctx, base) -> None:
         env = dataclasses.replace(ctx.env, entrypoint=name,
                                   config=ENTRY_CONFIGS[name], workdir=str(wd))
         assert resolve_entrypoint(name)(WorkerContext(env=env)) == 0
+
+
+# -- tensor parallelism over the model axis ------------------------------------
+
+#: name → (mesh axes, port attn_impl, fused_kernels, loss_chunk_size) of the
+#: TP suite, by world size: the fused CE ("on": its plain kernels on the
+#: CPU), the chunked CE (chunk 8) and the dense CE each run vocab-parallel;
+#: ``model4`` has tiny's 2 kv heads whole on every rank.
+TP_CASES = {
+    2: {"model2": ({"model": 2}, "xla", "off", 0)},
+    4: {"model4": ({"model": 4}, "xla", "on", 0),
+        "fsdp2_model2": ({"fsdp": 2, "model": 2}, "xla", "off", 8),
+        "data2_model2": ({"data": 2, "model": 2}, "xla", "on", 0),
+        "seq2_model2": ({"seq": 2, "model": 2}, "ring_flash", "off", 0)},
+}
+#: The TP case whose run checkpoints (steps 2, 4 and 5).
+TP_CKPT_CASE = "fsdp2_model2"
+
+
+def tp_tokens(seed: int = 11) -> np.ndarray:
+    """The global batch of the TP suite's loss-and-gradient check: [4, 33]
+    token ids of tiny's vocabulary."""
+    return np.random.default_rng(seed).integers(0, 256, (4, 33))
+
+
+def tp_suite(ctx) -> int:
+    """Each ``TP_CASES`` mesh of the gang's world size: this rank's loss,
+    metrics and synced gradients of ``decoder_loss`` on the init and
+    ``tp_tokens`` (its batch rows), then a ``Trainer`` run of 5 steps
+    (losses, grad norms, its state after step 1, and in the checkpointing
+    case the checkpoint), with the leaves' specs and this rank's
+    coordinates."""
+    import torch
+
+    from kubeflow_tpu_torch.models.decoder import decoder_loss
+    from kubeflow_tpu_torch.parallel.fsdp import batch_index
+    from kubeflow_tpu_torch.runtime.mesh import build_mesh
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.set_num_threads(1)
+    ctx.mesh                                   # join the world
+    rank, world = ctx.env.process_id, ctx.env.num_processes
+    base = Path(ctx.config["out"])
+    out = {}
+    for name, (axes, attn, fused, chunk) in TP_CASES[world].items():
+        mesh = build_mesh(axes, "cpu")
+        wd = base / name / f"rank{rank}"
+        wd.mkdir(parents=True, exist_ok=True)
+        ckpt = str(base / "ckpt") if name == TP_CKPT_CASE else None
+        tr = Trainer(TrainerConfig.from_dict(
+            train_config(attn, ckpt, fused, chunk)), mesh, process_id=rank,
+            num_processes=world, device="cpu", workdir=str(wd))
+        task = tr.task
+        params = task.state["params"]
+        rec = {"init": T.map_tree(lambda t: t.detach().clone(), params),
+               "specs": T.flatten(task.layout.specs),
+               "coords": task.layout.coords, "losses": [], "grad_norms": []}
+        idx, dp = batch_index(mesh)
+        toks = torch.from_numpy(tp_tokens())
+        rows = toks.shape[0] // dp
+        loss, m = decoder_loss(params, toks[idx * rows:(idx + 1) * rows],
+                               task.cfg, attn_impl=attn, mesh=mesh,
+                               placements=task.layout.dims)
+        grads = list(torch.autograd.grad(loss, T.leaves(params)))
+        task.layout.sync_grads(grads)
+        rec["ce_loss"], rec["accuracy"] = float(m["ce_loss"]), float(
+            m["accuracy"])
+        rec["grads"] = T.unflatten(dict(zip(T.flatten(params), grads)))
+
+        def on_step(step, m, tr=tr, rec=rec, name=name):
+            rec["losses"].append(m["loss"])
+            rec["grad_norms"].append(m["grad_norm"])
+            if step == 1:
+                rec["params1"] = T.map_tree(lambda t: t.detach().clone(),
+                                            tr.task.state["params"])
+            if name == TP_CKPT_CASE and step == 2:
+                rec["state2"] = T.map_tree(
+                    lambda t: t.detach().clone()
+                    if isinstance(t, torch.Tensor) else t, tr.task.state)
+
+        tr.run(on_step=on_step)
+        out[name] = rec
+    torch.save(out, base / f"rank{rank}.pt")
+    return 0
+
+
+def whole_tree(recs: list, get) -> dict:
+    """Flattened whole tree of ``get(record)`` assembled from the ranks'
+    records (their local blocks, ``specs`` and ``coords``)."""
+    from kubeflow_tpu_torch.parallel.sharding import assemble
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train.checkpoint import ShardLayout
+
+    sizes = {a: 1 for a in recs[0]["coords"]}
+    for rec in recs:
+        for a, c in rec["coords"].items():
+            sizes[a] = max(sizes[a], c + 1)
+    specs = recs[0]["specs"]
+    blocks = ShardLayout(sizes, {}, specs)
+    local = [T.flatten(get(rec)) for rec in recs]
+    out = {}
+    for p, spec in specs.items():
+        def shard_of(c, p=p):
+            for rec, loc in zip(recs, local):
+                if all(rec["coords"][a] == v for a, v in c.items()):
+                    return loc[p]
+            raise KeyError(c)
+
+        out[p] = assemble(blocks.global_shape(p, local[0][p].shape), spec,
+                          sizes, shard_of)
+    return out
+
+
+#: name → BatchingSpec fields of the TP engine suite's engines (tiny's
+#: 4 heads / 2 kv heads): the contiguous cache, the page pool with prefix
+#: reuse and a copy-on-write tail (8-token pages; the prompts share a
+#: 9-token prefix), int8 pages, and int8 weights.
+TP_ENGINE_CASES = {
+    "contiguous": dict(max_batch_size=2, max_seq_len=64,
+                       prefill_buckets=[16, 32], decode_steps=4),
+    "paged": dict(max_batch_size=2, max_seq_len=64, paged=True,
+                  page_size=8, chunked_prefill_tokens=16, decode_steps=4),
+    "paged_int8": dict(max_batch_size=2, max_seq_len=64, paged=True,
+                       page_size=8, chunked_prefill_tokens=16,
+                       decode_steps=4, kv_cache_dtype="int8"),
+    "int8_weights": dict(max_batch_size=2, max_seq_len=64,
+                         prefill_buckets=[16, 32], decode_steps=4,
+                         weights_dtype="bfloat16", quantize="int8"),
+}
+#: The suite's prompts, in turn; their greedy and sampled completions.
+TP_PROMPTS = ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5],
+              [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3, 2, 3, 8],
+              [3, 1, 4, 1, 5, 9, 2, 6, 7])
+TP_TEMPS = (0.0, 0.8)
+
+
+def tp_generate(eng) -> dict:
+    """``TP_PROMPTS`` through ``eng`` at each of ``TP_TEMPS`` (top-k 20
+    when sampling), one after another: temperature → completions."""
+    from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+    return {t: [eng.generate(p, SamplingParams(
+        max_new_tokens=10, temperature=t, top_k=20 if t else 0))
+        for p in TP_PROMPTS] for t in TP_TEMPS}
+
+
+def tp_shards(params: dict, cfg, spec: dict, mesh) -> dict:
+    """This rank's shards of the whole ``params`` for an engine of
+    ``spec`` on ``mesh``: cast to its ``weights_dtype`` and packed whole
+    under its ``quantize``, then cut (``decoder_layout``), as
+    ``serve.storage.load_params(mesh=)`` hands them to ``model_server``."""
+    import torch
+
+    from kubeflow_tpu_torch.models.decoder import decoder_layout
+    from kubeflow_tpu_torch.ops.quantization import quantize_params_int8
+    from kubeflow_tpu_torch.train import tree as T
+
+    if spec.get("weights_dtype"):
+        dt = getattr(torch, spec["weights_dtype"])
+        params = T.map_tree(lambda t: t.to(dt), params)
+    if spec.get("quantize"):
+        params = quantize_params_int8(params, cfg)
+    return decoder_layout(cfg, mesh).cut(params)
+
+
+def tp_engine_suite(ctx) -> int:
+    """Each ``TP_ENGINE_CASES`` engine on ``{model: world}`` over this
+    rank's shards (``tp_shards``) of the whole params in
+    ``config["params"]`` (a torch save), seed 3: rank 0 runs
+    ``tp_generate`` and stops the engine, the others ``follow``; each rank
+    writes its ops (in all and by name), its generator's state after, and
+    (rank 0) the completions and the engine's radix counters; and, under
+    ``unpacked``, the error of an int8 engine given unpacked shards."""
+    import torch
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import decoder_layout
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    torch.set_num_threads(1)
+    mesh = ctx.mesh
+    rank = ctx.env.process_id
+    params = torch.load(ctx.config["params"])
+    cfg = preset("tiny", dtype="float32")
+    out = {}
+    try:
+        LLMEngine(cfg, BatchingSpec(**TP_ENGINE_CASES["int8_weights"]),
+                  params=decoder_layout(cfg, mesh).cut(params),
+                  device="cpu", mesh=mesh)
+    except ValueError as e:
+        out["unpacked"] = str(e)
+    for name, spec in TP_ENGINE_CASES.items():
+        eng = LLMEngine(cfg, BatchingSpec(**spec),
+                        params=tp_shards(params, cfg, spec, mesh),
+                        device="cpu", mesh=mesh, seed=3)
+        rec = {}
+        if rank == 0:
+            rec["tokens"] = tp_generate(eng)
+            rec["kv_tier"] = eng.kv_tier_stats()
+            eng.stop()
+        else:
+            eng.follow()
+        rec["ops"], rec["by_op"] = eng.dispatches, dict(
+            eng._dispatch.by_op)
+        rec["gen"] = eng._gen.get_state()
+        out[name] = rec
+    torch.save(out, Path(ctx.config["out"]) / f"rank{rank}.pt")
+    return 0
+
+
+class IdText:
+    """A tokenizer that writes token ids as decimal text (``module:factory``
+    ``dist_support:IdText``), so a server's completions read back as the
+    engine's ids."""
+
+    eos_id = None
+
+    def encode(self, text: str) -> list[int]:
+        return [int(x) for x in text.split()]
+
+    def decode(self, ids: list[int]) -> str:
+        return "".join(f" {i}" for i in ids)

@@ -21,7 +21,8 @@ batches:
 - only the coordinator writes manifests, metrics and the goodput ledger;
 - the gang's ranks also run ``llm_pretrain``, ``vision_train`` (CLIP) and
   ``torch_train`` as a four-process world;
-- a ``model``, ``pipeline`` or ``expert`` degree above 1 raises.
+- a ``pipeline`` or ``expert`` degree above 1 raises (``model`` is
+  tests/test_torch_tp.py's).
 """
 
 import numpy as np
@@ -33,7 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from dist_support import (  # noqa: E402
     CKPT_CASE, ENTRY_CONFIGS, STEPS, TRAIN_CASES, check_gang, entry_dirs,
-    finish, one_thread, spawn_gang, train_config,
+    finish, one_thread, spawn_gang, train_config, whole_tree,
 )
 from kubeflow_tpu.runtime.mesh import build_mesh as jax_mesh  # noqa: E402
 from kubeflow_tpu.train import data as jdata  # noqa: E402
@@ -46,7 +47,7 @@ from kubeflow_tpu_torch.models.decoder import (  # noqa: E402
     decoder_param_specs,
 )
 from kubeflow_tpu_torch.parallel.sharding import (  # noqa: E402
-    assemble, cut_local, shard_params,
+    cut_local, shard_params,
 )
 from kubeflow_tpu_torch.runtime.mesh import MESH_AXES  # noqa: E402
 from kubeflow_tpu_torch.serve.storage import load_params  # noqa: E402
@@ -159,21 +160,7 @@ def _sizes(name: str) -> dict:
 def _whole(gang, name: str, get) -> dict:
     """Flattened whole tree assembled from the ranks' local shards of
     ``get(record)``."""
-    recs = [r[name] for r in gang["ranks"]]
-    sizes, specs = _sizes(name), recs[0]["specs"]
-    blocks = ShardLayout(sizes, {}, specs)
-    local = [T.flatten(get(rec)) for rec in recs]
-    out = {}
-    for p, spec in specs.items():
-        def shard_of(c, p=p):
-            for rec, loc in zip(recs, local):
-                if all(rec["coords"][a] == v for a, v in c.items()):
-                    return loc[p]
-            raise KeyError(c)
-
-        out[p] = assemble(blocks.global_shape(p, local[0][p].shape), spec,
-                          sizes, shard_of)
-    return out
+    return whole_tree([r[name] for r in gang["ranks"]], get)
 
 
 def _close_leaves(got: dict, want: dict, tol: float = 1e-5) -> None:
@@ -336,9 +323,26 @@ def test_four_process_gang_trains(gang, name):
 
 @pytest.mark.parametrize("axis", ["model", "pipeline", "expert"])
 def test_unported_axis_raises_with_the_roadmap_pointer(axis):
+    """``pipeline`` and ``expert`` still raise; ``model`` trains now
+    (tests/test_torch_tp.py): the check lets it through and a leaf keeps
+    both its dims, ``wq [L, D, H, Dh]`` gathering D over fsdp and keeping
+    H split over model."""
+    from kubeflow_tpu_torch.models.decoder import abstract_decoder_params
+    from kubeflow_tpu_torch.parallel.fsdp import check_mesh
+    from kubeflow_tpu_torch.parallel.sharding import placement
+
+    mesh = {axis: 2, "fsdp": 2}
+    if axis == "model":
+        check_mesh(mesh)
+        cfg = preset("tiny", dtype="float32")
+        specs = T.flatten(shard_params(abstract_decoder_params(cfg),
+                                       decoder_param_specs(cfg), mesh))
+        wq = placement(specs["layers/attn/wq"], mesh)
+        assert (wq.gather, wq.tp, wq.partial) == (1, 2, False)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         setup_train(preset("tiny", dtype="float32"), OptimizerConfig(),
-                    device="cpu", mesh={axis: 2, "fsdp": 2})
+                    device="cpu", mesh=mesh)
 
 
 def test_mesh_without_the_unported_axes_passes_the_check():

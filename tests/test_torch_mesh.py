@@ -221,11 +221,20 @@ def test_with_logical_constraint_is_a_no_op_on_a_local_tensor():
 
 
 def test_sharded_dim_allows_one_split_dim():
+    """A leaf's placement names one gather dim (over fsdp) and one TP dim
+    (over model, kept local); a dim over model and another axis at once,
+    or two gather dims, raise."""
     sizes = _sizes({"fsdp": 2, "model": 2})
-    assert S.sharded_dim((None, "fsdp", None), sizes) == 1
-    assert S.sharded_dim((None, "seq", None), sizes) is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        S.sharded_dim(("model", "fsdp"), sizes)
+    assert S.placement((None, "fsdp", None), sizes) == S.Placement(1, None)
+    assert S.placement((None, "seq", None), sizes) == S.Placement()
+    assert S.placement(("model", "fsdp"), sizes) == S.Placement(1, 0)
+    # wk's kv heads did not divide: whole on every model rank, read in parts.
+    assert S.placement((None, "fsdp", None, None), sizes,
+                       (None, "fsdp", "model", None)).partial
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        S.placement((("fsdp", "model"), None), sizes)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        S.placement(("fsdp", "data"), _sizes({"fsdp": 2, "data": 2}))
 
 
 @pytest.mark.parametrize("name", ["tiny", "tiny-moe"])

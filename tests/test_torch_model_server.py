@@ -255,11 +255,14 @@ def test_objective_probe_and_flaky_in_process(tmp_path):
 
 
 def test_multi_process_world_is_refused():
+    """A gang serves only as one tensor-parallel engine, parallelism
+    {model: N} (tests/test_torch_tp_engine.py); another world raises with
+    the ROADMAP pointer before it joins."""
     port = free_port()
     out = _run(_env("model_server", {"model": MODEL, "port": port},
-                    num_processes=2))
+                    num_processes=2, parallelism={"data": 2}))
     assert out.returncode != 0
-    assert "Queue 1 item 9" in out.stderr
+    assert "Queue 1 item 9e" in out.stderr
 
 
 @pytest.mark.parametrize("platform", ["gpu", None], ids=["gpu", "unset"])
