@@ -19,7 +19,10 @@ runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
 (l), ``--multi-cards-only`` phases 1, 2, (l)1 and (l)4 (for a machine
 with several cards), ``--tp-only`` phases 1, 2 and (m) (its 4-card parts
 where the machine has 4 cards), ``--tp-cards-only`` phases 1, 2 and
-(m)3-(m)5 (for a machine with 4 cards). Every phase prints its seconds.
+(m)3-(m)5 (for a machine with 4 cards), ``--ep-only`` phases 1, 2 and (n)
+(its 4-card parts where the machine has 4 cards), ``--ep-cards-only``
+phases 1, 2, (n)2 and (n)3 (for a machine with 4 cards). Every phase
+prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -145,7 +148,7 @@ Phases, each a hard failure:
    promotes it on the next turn: the pages' bytes equal before demotion
    and after promotion (bf16, int8 with scales), turn 2's tokens equal an
    engine's without the tier, the paged-decode kernel runs on adopted and
-   on promoted pages; ``multi_turn`` (4 s of think time) through
+   on promoted pages; ``multi_turn`` (8 requests, 4 s of think time) through
    ``EngineTarget`` on it, no request failing, pages demoted and
    promoted, none left referenced. Then a prefill and a decode worker
    process share the card: the three prompts through the prefill worker
@@ -200,7 +203,7 @@ Phases, each a hard failure:
    leaked page or adapter reference, the norms, SwiGLU and paged decode
    launched, per-adapter TTFT and TPOT and each hot-load's ms printed;
    the 8-step paged decode dispatch at 8 slots with and without adapters
-   (host enqueue, device time, launches per step); 12 requests of the
+   (host enqueue, device time, launches per step); 6 requests of the
    mix on a contiguous engine whose bucketed prefill runs the flash
    kernel under adapters. (g)2: two Llama-3-8B models (the serving seed
    and the next) behind ``ModelServer(repository=...)`` with
@@ -262,7 +265,7 @@ Phases, each a hard failure:
    all 32 layers with int8 weights through ``runtime.worker_main`` →
    ``model_server`` (``random://`` packed per layer, never bf16 whole;
    bf16 page pool, 8 slots x 2048; its batching a ``BatchingSpec`` dump
-   with ``moe_*_impl``): three completions and ``uniform`` (6 requests
+   with ``moe_*_impl``): three completions and ``uniform`` (4 requests
    at 4 req/s, prompts of 512, 64 new) through ``ServerTarget``, every
    request ok; SIGTERM -> 143; then the same seed's int8 weights in
    process, each completion token held as in (i)2; the worker's logged
@@ -343,6 +346,18 @@ Phases, each a hard failure:
    Llama-3-70B at 80 layers on ``{model: 4}`` (peak per card, 8 greedy
    requests held to a plain TP forward on the same cards, TPOT); on one
    card (m)3-(m)5 print why they did not run.
+18. (n) MoE on a mesh: (n)1 one Mixtral-width MoE block (bf16, 2 batch
+   shards of 2048 tokens, capacity factor 1.0) split over ``{expert: 4}``
+   and ``{expert: 2, model: 2}`` in lockstep on the card, against the
+   unsplit block: the kept pairs exactly equal, output and every
+   gradient (router included) within rel L2 1e-2, the aux parts' sum
+   within 1e-5; a per-rank plan and an unsummed router gradient, planted,
+   must each fail; with 4 cards, (n)2 ``llm_pretrain`` at Mixtral width
+   on ``{expert: 4}`` and ``{data: 2, expert: 2}`` held as (l)4 holds its
+   runs, then 6 layers on ``{expert: 4}`` (loss finite and falling, each
+   layer's aux, peak per card), and (n)3 Mixtral-8x7B in bf16 at 32
+   layers as a ``{model: 4}`` ``model_server`` gang held as (m)5; on one
+   card (n)2-(n)3 print why they did not run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -2877,6 +2892,9 @@ HOST_TIER = dict(host_kv_pages=64, kv_demote_after_s=0.5)
 #: 2 ((tokens, salt) of ``text``).
 HOST_TURNS = ((700, 71), (61, 72))
 MULTI_TURN_THINK_S = 4.0
+#: ``multi_turn``'s offered requests: two sessions of 3 turns (cut from 16
+#: to keep the script inside its time limit).
+MULTI_TURN_REQUESTS = 8
 
 
 def _drive(eng, req, timeout: float = 600.0):
@@ -3079,7 +3097,8 @@ def host_tier_in_process(uni, card: str) -> int:
         del base
         if quant is None:
             sc = next(x for x in loadgen.standard_matrix(
-                **LOADGEN, multi_turn_think_s=MULTI_TURN_THINK_S)
+                **dict(LOADGEN, num_requests=MULTI_TURN_REQUESTS),
+                multi_turn_think_s=MULTI_TURN_THINK_S)
                 if x.name == "multi_turn")
             before_run = teng.kv_tier_stats()
             teng.start()
@@ -4021,7 +4040,7 @@ def phase_adapters(card: str) -> None:
         # The page pool prefills in chunks through the plain attention (as
         # the JAX engine does), so the flash kernel runs under adapters in
         # the contiguous engine's bucketed prefill.
-        lora_traffic(ceng, card, "contiguous, bucketed prefill", 12,
+        lora_traffic(ceng, card, "contiguous, bucketed prefill", 6,
                      ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd",
                       "flash_fwd"), churn=False)
         del ceng, uni
@@ -4637,7 +4656,7 @@ MOE_PROMPT_LENS = (40, 300, 700, 1000)
 MOE_NEW = 64
 #: (i)3: the worker's completions and traffic.
 MOE_WORKER_PROMPTS = ((60, 61), (300, 62), (500, 63))
-MOE_LOADGEN = dict(num_requests=6, rate_rps=4.0, prompt_len=512, max_new=64,
+MOE_LOADGEN = dict(num_requests=4, rate_rps=4.0, prompt_len=512, max_new=64,
                    seed=0)
 
 
@@ -4677,8 +4696,7 @@ def moe_block_check(card: str) -> None:
         got, _ = L.moe_block(p, x, ample, valid_len=vl)
         want, _ = L.moe_block(p, x, dense)
         trained, _ = L.moe_block(p, x, cfg, valid_len=vl)
-        logits = (x.reshape(t, -1) @ p["router"]).float()
-        plan = L.dispatch_plan(logits, cfg, 1, t, vl)
+        plan = L.dispatch_plan(L.moe_route(p, x, cfg)[2], cfg, vl)
     rel = rel_l2(got[0, :vl], want[0, :vl])
     pads = float(got[0, vl:].abs().max())
     c = plan["capacity"]
@@ -4944,10 +4962,10 @@ class _PadSlots:
 
         self.L, self.orig, self.plans = L, L.dispatch_plan, []
 
-        def recorded(router_logits, cfg, b, s, valid_len=None):
-            plan = self.orig(router_logits, cfg, b, s, valid_len)
+        def recorded(topk_idx, cfg, valid_len=None, *args):
+            plan = self.orig(topk_idx, cfg, valid_len, *args)
             if plan["valid"] is not None:
-                self.plans.append((plan, (router_logits, cfg, b, s)))
+                self.plans.append((plan, (topk_idx, cfg)))
             return plan
 
         L.dispatch_plan = recorded
@@ -7274,7 +7292,13 @@ def tp_serve_8b(card: str) -> None:
 
 def tp_serve_70b(card: str) -> None:
     """(m)5: Llama-3-70B at all 80 layers and full width (bf16, 141 GB:
-    more than one card holds) as a ``{model: 4}`` ``model_server`` gang:
+    more than one card holds), ``tp_serve_checked``."""
+    tp_serve_checked(card, "(m)5", "70B", TP_MODEL_70B)
+
+
+def tp_serve_checked(card: str, tag: str, name: str, model: dict) -> None:
+    """``tag``: ``model`` (``name``) as a ``{model: 4}`` ``model_server``
+    gang on ``PAGED_SPEC``'s page pool:
     each rank's peak beside ``estimate_model_bytes / 4`` (weights and the
     pool's KV); ``TP_70B_PROMPTS`` greedy, sent at once, and held to a
     teacher-forced fp32 tensor-parallel forward over the same weights on
@@ -7291,13 +7315,13 @@ def tp_serve_70b(card: str) -> None:
     from kubeflow_tpu_torch.models.config import preset
     from kubeflow_tpu_torch.serve.repository import estimate_model_bytes
 
-    cfg = preset(TP_MODEL_70B["preset"], **TP_MODEL_70B["overrides"])
+    cfg = preset(model["preset"], **model["overrides"])
     est = estimate_model_bytes(cfg, BatchingSpec(**PAGED_SPEC))
-    label = "(m)5 70B TP gang"
+    label = f"{tag} {name} TP gang"
     tok = TokenIdText()
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
                                      prefix=".chip_smoke_tp_") as base:
-        gang = _tp_gang(TP_MODEL_70B, PAGED_SPEC, label, base)
+        gang = _tp_gang(model, PAGED_SPEC, label, base)
         ok = False
         try:
             t0 = time.perf_counter()
@@ -7333,22 +7357,23 @@ def tp_serve_70b(card: str) -> None:
         dirs = [Path(base, "teacher", f"w{r}") for r in range(TP_CARDS)]
         secs = spawn_workers(
             "chip_smoke:tp_teacher_forced",
-            {"model": TP_MODEL_70B, "outputs": outs,
+            {"model": model, "outputs": outs,
              "prompts": [tok.encode(text(*p)) for p in TP_70B_PROMPTS]},
-            dirs, {"model": TP_CARDS}, "(m)5 teacher-forced TP forwards")
+            dirs, {"model": TP_CARDS}, f"{tag} teacher-forced TP forwards")
         res = json.loads((dirs[0] / "teacher.json").read_text())
-    rel = {k: [f"{v[i]:.3e}" for i in TP_DRIFT_LAYERS]
+    depths = [i for i in TP_DRIFT_LAYERS if i <= cfg.n_layers]
+    rel = {k: [f"{v[i]:.3e}" for i in depths]
            for k, v in res["rel_l2"].items()}
     d = res["departs"]
     noise = sorted(res["noise"])
-    print(f"(m)5 drift, rel L2 of the residual stream after blocks "
-          f"{TP_DRIFT_LAYERS} (plain-fp32, served-fp32: each bf16 forward "
+    print(f"{tag} drift, rel L2 of the residual stream after blocks "
+          f"{depths} (plain-fp32, served-fp32: each bf16 forward "
           f"from the fp32 one; plain-served: the two bf16 forwards): "
           f"{rel}; a row's largest bf16 logit error median "
           f"{noise[len(noise) // 2]:.4f}, max {noise[-1]:.4f}; fp32 gaps "
           f"of the served tokens that are not its argmax "
           f"{sorted(round(g, 4) for g in res['gaps'])}; {card}", flush=True)
-    print(f"(m)5: argmax departures of {res['tokens']} tokens: served "
+    print(f"{tag}: argmax departures of {res['tokens']} tokens: served "
           f"tokens from the plain {d['tokens-plain']}, fp32 "
           f"{d['tokens-fp32']} and served-arithmetic {d['tokens-served']} "
           f"forwards; plain bf16 from fp32 {d['plain-fp32']}, served "
@@ -7357,11 +7382,11 @@ def tp_serve_70b(card: str) -> None:
           f"band plus twice their row's bf16 noise {res['bad'][:8]}; check "
           f"gang {secs:.1f} s; {card}", flush=True)
     if res["bad"]:
-        fail("(m)5: a served token's fp32 gap to the top logit is past the "
+        fail(f"{tag}: a served token's fp32 gap to the top logit is past the "
              "near-tie band plus twice its row's bf16 noise")
     limit = 2 * max(d["plain-fp32"], d["served-fp32"]) + 2
     if d["tokens-fp32"] > limit:
-        fail(f"(m)5: the served tokens depart from the fp32 forward's "
+        fail(f"{tag}: the served tokens depart from the fp32 forward's "
              f"argmax {d['tokens-fp32']} times, past {limit} (twice a bf16 "
              f"forward's departures, plus 2)")
 
@@ -7388,6 +7413,362 @@ def phase_tp(rows: list[dict], card: str, *, cards_only: bool = False
     timed_phase("tp train", card_world_runs, "(m)3", card,
                 (({"model": TP_CARDS}, "pallas"),
                  ({"fsdp": 2, "model": 2}, "pallas")), None, True)
+
+
+# -- (n) MoE on a mesh: the expert axis ---------------------------------------
+
+#: (n)1: a Mixtral-width MoE block (bf16) on 2 batch shards of EP_T tokens
+#: each, capacity factor 1.0 (pairs drop), split over expert (and model),
+#: the ranks run one after another on this card.
+EP_T = 2048
+EP_SHARDS = 2
+#: (n)1's splits: (expert ways, model ways).
+EP_SPLITS = ((4, 1), (2, 2))
+EP_REL_L2 = 1e-2
+EP_AUX_REL = 1e-5
+#: (n)2: ``llm_pretrain`` at Mixtral width over NCCL, fused on, 3 steps of
+#: 4 x 1024 tokens, against an in-process one-card run on the same global
+#: batches (the limits of (l)4 and (m)3); then {expert: 4} at EP_DEEP
+#: layers for EP_DEEP_STEPS steps.
+EP_TRAIN_MODEL = dict(n_layers=2, remat_policy="nothing_saveable")
+EP_TRAIN_DATA = dict(seq_len=1024, global_batch=4)
+EP_DEEP = 6
+EP_DEEP_STEPS = 6
+#: (n)3: Mixtral-8x7B at 32 layers in bf16 (93.4 GB: more than one card
+#: holds) on {model: 4}, every expert's columns split four ways. Prefill
+#: and decode run the drop-free dense expert path, as vLLM's fused MoE
+#: drops no token; the teacher-forced check's forwards take the same path.
+EP_MODEL_MIXTRAL = {"preset": "mixtral-8x7b",
+                    "overrides": {"param_dtype": "bfloat16",
+                                  "moe_impl": "dense"}}
+
+
+def _ep_cut(p: dict, ways: tuple[int, int], e: int, m: int) -> dict:
+    """Rank (e, m)'s expert leaves of an MoE block on ``{expert: ways[0],
+    model: ways[1]}`` (the training rules' specs; differentiable in the
+    whole leaf); the router stays whole."""
+    from kubeflow_tpu_torch.parallel.sharding import cut_local
+
+    specs = {"gate": ("expert", None, "model"), "up": ("expert", None,
+                                                       "model"),
+             "down": ("expert", "model", None)}
+    sizes = {"expert": ways[0], "model": ways[1]}
+    coords = {"expert": e, "model": m}
+    return {k: cut_local(v, specs[k], sizes, coords) if k in specs else v
+            for k, v in p.items()}
+
+
+def ep_split_block(p: dict, x: torch.Tensor, cfg, ways: tuple[int, int], *,
+                   per_rank_plan: bool = False, own_router: bool = False):
+    """The ranks of ``{data: EP_SHARDS, expert, model}`` in lockstep on one
+    card: each batch shard routes once (the router and its input are
+    whole on the ranks of one expert × model group, so autograd sums the
+    ranks' gradients of them as ``collectives.copy_to``'s backward does);
+    the shards' expert ids are put together in the global (b, s) order
+    (``layers.global_choices``' all-gather), and each rank plans its
+    pairs over the global batch (``layers.dispatch_plan``) and computes
+    its experts' columns for its shard (``layers.expert_dispatch``); the
+    partial outputs are summed (``reduce_from``'s all-reduce). The balance
+    loss is each shard's part, the claim counts summed over the shards
+    (``layers._moe_aux_loss``). Returns (out [B, S, D], summed aux parts,
+    each shard's keep [k, S], the router's gradient leaves).
+
+    Planted faults: ``per_rank_plan`` plans each shard's pairs alone, at
+    its own capacity; ``own_router`` gives every rank its own router
+    (whose combine weights see only its experts) and keeps the gradient
+    of rank (shard, 0, 0)'s alone, as a mesh does whose router gradient is
+    not summed over the expert × model group."""
+    from kubeflow_tpu_torch.models import layers as L
+
+    k, e = cfg.experts_per_token, cfg.num_experts
+    shards = x.chunk(EP_SHARDS, dim=0)
+    b = shards[0].shape[0]
+    routers = []
+
+    def route(xs):
+        r = p["router"]
+        if own_router:
+            r = r.detach().requires_grad_(True)
+            routers.append(r)
+        return L.moe_route({"router": r}, xs, cfg)
+
+    shared = [route(xs) for xs in shards]
+    ids = torch.cat([idx for _, _, idx in shared]).reshape(-1, k)
+    tg = ids.shape[0]
+    counts = torch.nn.functional.one_hot(ids, e).float().sum(dim=(0, 1))
+    outs, keeps, aux = [], [], 0.0
+    cuts = {(em, mm): _ep_cut(p, ways, em, mm) for em in range(ways[0])
+            for mm in range(ways[1])}
+    for si, xs in enumerate(shards):
+        logits, w, idx = shared[si]
+        t = idx.shape[0] * idx.shape[1]
+        mine = torch.arange(si * t, (si + 1) * t, device=x.device)
+        choices = ((idx.reshape(-1, k), None) if per_rank_plan
+                   else (ids, mine))
+        out = 0
+        for (em, mm), pc in cuts.items():
+            if own_router and (em, mm) != (0, 0):
+                w = route(xs)[1]
+            plan = L.dispatch_plan(idx, cfg, None, L.MoEAxes(
+                expert=em, experts=ways[0]), choices)
+            out = out + L.expert_dispatch(pc, xs, w, plan, cfg)
+            if (em, mm) == (0, 0):
+                keeps.append(plan["keep"].reshape(k, -1))
+        outs.append(out)
+        probs = torch.softmax(logits, dim=-1).sum(dim=(0, 1))
+        aux = aux + e * torch.sum(counts / tg * probs / tg)
+    # The shards' own routes came first: rank (shard, 0, 0)'s routers.
+    grads = routers[:EP_SHARDS] if own_router else [p["router"]]
+    return torch.cat(outs), aux, keeps, grads
+
+
+def ep_block_lockstep(card: str) -> None:
+    """(n)1: one Mixtral-width MoE block (D 4096, M 14336, 8 experts,
+    top-2, bf16 weights and activations) on T = EP_SHARDS x EP_T tokens,
+    capacity factor 1.0, split over ``{expert: 4}`` and ``{expert: 2,
+    model: 2}`` with EP_SHARDS batch shards (``ep_split_block``), against
+    the unsplit block over the whole batch (``layers.moe_block``): the
+    kept-pair set exactly equal, the output and every gradient of
+    ``sum(out · dy) + 0.01 · aux`` (x, router, gate, up, down) within rel
+    L2 EP_REL_L2, the aux parts' sum within EP_AUX_REL. Both planted
+    faults must fail their check: a per-rank plan (the kept set), and an
+    unsummed router gradient (its rel L2)."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset
+
+    cfg = dataclasses.replace(preset("mixtral-8x7b"), capacity_factor=1.0)
+    k = cfg.experts_per_token
+    gen = torch.Generator("cuda").manual_seed(SEED + 95)
+    p = {n: t.requires_grad_(True)
+         for n, t in L.init_moe(gen, cfg, torch.bfloat16).items()}
+    x = torch.randn((EP_SHARDS, EP_T, cfg.hidden), generator=gen,
+                    device="cuda").to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    names = ("x", "router", "gate", "up", "down")
+    leaves = [x] + [p[n] for n in names[1:]]
+
+    def grads_of(out, aux, extra=()):
+        loss = (out.float() * dy.float()).sum() + 0.01 * aux
+        return torch.autograd.grad(loss, leaves + list(extra),
+                                   allow_unused=True)
+
+    out1, aux1 = L.moe_block(p, x, cfg)
+    g1 = grads_of(out1, aux1)
+    aux_ref = float(aux1.detach())
+    with torch.no_grad():
+        keep1 = L.dispatch_plan(L.moe_route(p, x, cfg)[2], cfg)["keep"]
+    keep1 = keep1.reshape(k, EP_SHARDS, EP_T)
+    dropped = int((~keep1).sum())
+    for ways in EP_SPLITS:
+        name = f"(n)1 {{data: {EP_SHARDS}, expert: {ways[0]}" + (
+            f", model: {ways[1]}}}" if ways[1] > 1 else "}")
+        out, aux, keeps, _ = ep_split_block(p, x, cfg, ways)
+        g = grads_of(out, aux)
+        differ = sum(int((kp != keep1[:, i]).sum())
+                     for i, kp in enumerate(keeps))
+        rels = {"out": rel_l2(out.detach(), out1.detach())}
+        rels.update({n: rel_l2(a, b) for n, a, b in zip(names, g, g1)})
+        aux = float(aux.detach())
+        aux_rel = abs(aux - aux_ref) / abs(aux_ref)
+        # The planted faults.
+        _, _, bad_keeps, _ = ep_split_block(p, x, cfg, ways,
+                                            per_rank_plan=True)
+        bad_differ = sum(int((kp != keep1[:, i]).sum())
+                         for i, kp in enumerate(bad_keeps))
+        out_f, aux_f, _, routers = ep_split_block(p, x, cfg, ways,
+                                                  own_router=True)
+        gf = grads_of(out_f, aux_f, routers)
+        bad_router = rel_l2(sum(gf[len(leaves):]), g1[1])
+        del out_f, aux_f, gf
+        print(f"{name} in lockstep vs the unsplit block (Mixtral width, "
+              f"bf16, T={EP_SHARDS}x{EP_T}, capacity factor "
+              f"{cfg.capacity_factor}: {dropped} of {keep1.numel()} pairs "
+              f"dropped): kept pairs differing {differ}; rel L2 "
+              + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
+              + f" (tolerance {EP_REL_L2:g}); aux {aux:.6f} vs "
+              f"{aux_ref:.6f} (rel {aux_rel:.3e}, tolerance "
+              f"{EP_AUX_REL:g}); planted faults: a per-rank plan keeps "
+              f"{bad_differ} pairs differently, an unsummed router "
+              f"gradient reads rel L2 {bad_router:.3e}; {card}", flush=True)
+        if differ:
+            fail(f"{name}: the split plan keeps other pairs than the "
+                 f"unsplit block's")
+        bad = {n: v for n, v in rels.items() if not v <= EP_REL_L2}
+        if bad or not aux_rel <= EP_AUX_REL:
+            fail(f"{name}: the split block is off the unsplit one: {bad}, "
+                 f"aux rel {aux_rel:.3e}")
+        if not bad_differ:
+            fail(f"{name}: the kept-set check passes a per-rank plan")
+        if bad_router <= EP_REL_L2:
+            fail(f"{name}: the gradient check passes an unsummed router "
+                 "gradient")
+    if not dropped:
+        fail("(n)1: no pair dropped; the plans cannot differ")
+    del p, x, dy, g1, out1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def counted_ep_pretrain(ctx) -> int:
+    """(n)2's worker entrypoint (``chip_smoke:counted_ep_pretrain``):
+    ``counted_llm_pretrain`` with each MoE block's balance loss recorded
+    (the forward's and the backward's replay), written per step and layer
+    to ``aux.json`` in the workdir."""
+    from kubeflow_tpu_torch.models import layers as L
+
+    block, seen = L.moe_block, []
+
+    def recorded(*args, **kwargs):
+        out, aux = block(*args, **kwargs)
+        seen.append(aux.detach())
+        return out, aux
+
+    L.moe_block = recorded
+    try:
+        rc = counted_llm_pretrain(ctx)
+    finally:
+        L.moe_block = block
+    n = ctx.config["model_overrides"]["n_layers"]
+    vals = [float(a) for a in seen]
+    steps = [vals[i:i + n] for i in range(0, len(vals), 2 * n)]
+    Path(ctx.env.workdir, "aux.json").write_text(json.dumps(steps))
+    return rc
+
+
+def _ep_trainer_cfg(n_layers: int, steps: int):
+    return _trainer_cfg(steps=steps, name="mixtral-8x7b",
+                        base=dict(EP_TRAIN_MODEL, n_layers=n_layers),
+                        data=EP_TRAIN_DATA, fused_kernels="on")
+
+
+def _ep_gang(cfg, axes: dict, label: str) -> dict:
+    """``counted_ep_pretrain`` of ``cfg`` over NCCL on ``axes``: the
+    coordinator's metrics rows, every rank's counts and aux rows, and the
+    gang's seconds."""
+    import dataclasses
+    import tempfile
+
+    world = math.prod(axes.values())
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_train_") as base:
+        dirs = [Path(base, f"w{r}") for r in range(world)]
+        secs = spawn_workers("chip_smoke:counted_ep_pretrain",
+                             dataclasses.asdict(cfg), dirs, axes, label)
+        return {"rows": [json.loads(x) for x in (dirs[0] / "metrics.jsonl")
+                         .read_text().splitlines()],
+                "counts": [json.loads((d / "counts.json").read_text())
+                           for d in dirs],
+                "aux": [json.loads((d / "aux.json").read_text())
+                        for d in dirs],
+                "secs": secs, "world": world}
+
+
+def ep_train(card: str) -> None:
+    """(n)2: ``llm_pretrain`` over NCCL at Mixtral width (2 layers, fused
+    on, ``nothing_saveable``, 3 steps of 4 x 1024 tokens) on ``{expert:
+    4}`` (two experts a card, the batch whole on each) and ``{data: 2,
+    expert: 2}``, each against an in-process one-card run on the same
+    global batches: losses within MULTI_CARD_LOSS_REL, the step-1 grad
+    norm within MULTI_CARD_GRAD_NORM_REL, every training kernel of the
+    MoE path launched on every rank. Then ``{expert: 4}`` at EP_DEEP
+    layers, which one card cannot hold, for EP_DEEP_STEPS steps: the loss
+    finite and falling; each layer's balance loss, and the peak per card
+    beside ``estimate_model_bytes``."""
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.repository import estimate_model_bytes
+
+    want = {n for n, c in _want_per_step(True, 2, moe=True).items() if c}
+    nan = float("nan")
+    for axes in ({"expert": TP_CARDS}, {"data": 2, "expert": 2}):
+        cfg = _ep_trainer_cfg(2, MULTI_STEPS)
+        label = f"(n)2 llm_pretrain {axes}"
+        got = _ep_gang(cfg, axes, label)
+        rows, counts = got["rows"], got["counts"]
+        dp = axes.get("data", 1)
+        refs, ref_norms = _global_batch_run(cfg, dp)
+        losses = [r["loss"] for r in rows]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, refs))
+        rel_norm = abs(rows[0]["grad_norm"] - ref_norms[0]) / ref_norms[0]
+        print(f"{label} over NCCL, Mixtral width, 2 layers, fused on: exit "
+              f"0 in {got['secs']:.1f} s; backends "
+              f"{sorted({c['backend'] for c in counts})}; losses {losses} vs "
+              f"in-process one card on the same global batches {refs} (max "
+              f"rel {rel:.3e}, tolerance {MULTI_CARD_LOSS_REL:g}); step-1 "
+              f"grad norm {rows[0]['grad_norm']} vs {ref_norms[0]} (rel "
+              f"{rel_norm:.3e}, tolerance {MULTI_CARD_GRAD_NORM_REL:g}); "
+              f"aux_loss {[r['aux_loss'] for r in rows]}; step ms "
+              f"{[round(r.get('step_time_ms', nan), 1) for r in rows]}; "
+              f"peak per rank "
+              f"{[round(c['peak'] / 2**30, 2) for c in counts]} GiB; "
+              f"launches per rank {[c['launches'] for c in counts]}; {card}",
+              flush=True)
+        if len({c["device"] for c in counts}) != got["world"] or any(
+                c["backend"] != "nccl" for c in counts):
+            fail(f"{label}: the ranks are not one NCCL world over distinct "
+                 "cards")
+        if any(not c["launches"][n] for c in counts for n in want):
+            fail(f"{label}: a training kernel of the MoE path launched no "
+                 "time on a rank")
+        if not rel <= MULTI_CARD_LOSS_REL:
+            fail(f"{label}: the losses are off the one-card run's")
+        if not rel_norm <= MULTI_CARD_GRAD_NORM_REL:
+            fail(f"{label}: the step-1 grad norm is off the one-card run's")
+    cfg = _ep_trainer_cfg(EP_DEEP, EP_DEEP_STEPS)
+    label = f"(n)2 llm_pretrain {{expert: {TP_CARDS}}} at {EP_DEEP} layers"
+    got = _ep_gang(cfg, {"expert": TP_CARDS}, label)
+    losses = [r["loss"] for r in got["rows"]]
+    mcfg = preset("mixtral-8x7b", **cfg.model_overrides)
+    whole = estimate_model_bytes(mcfg)
+    e = mcfg.num_experts
+    local = mcfg.num_params() - mcfg.n_layers * (e - e // TP_CARDS) * 3 \
+        * mcfg.hidden * mcfg.mlp_dim
+    print(f"{label} ({mcfg.num_params() / 1e9:.3f} B params, "
+          f"{local / 1e9:.3f} B on a rank; estimate_model_bytes "
+          f"{whole / 2**30:.2f} GiB (fp32 weights with 10% headroom), a "
+          f"rank's params, grads and Adam moments at 16 B "
+          f"{local * 16 / 2**30:.2f} GiB): losses "
+          f"{losses}; aux per layer, rank 0, by step {got['aux'][0]}; step "
+          f"ms {[round(r.get('step_time_ms', nan), 1) for r in got['rows']]}"
+          f"; tokens/s "
+          f"{[round(r.get('tokens_per_sec', nan), 1) for r in got['rows']]}"
+          f"; peak per rank "
+          f"{[round(c['peak'] / 2**30, 2) for c in got['counts']]} GiB; "
+          f"{got['secs']:.1f} s; {card}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < \
+            losses[0]:
+        fail(f"{label}: the loss is not finite and falling: {losses}")
+    ref = [v for step in got["aux"][0] for v in step]
+    for a in got["aux"][1:]:
+        if any(abs(u - v) > 1e-6 * abs(v)
+               for u, v in zip([v for step in a for v in step], ref)):
+            fail(f"{label}: the ranks' balance losses differ")
+
+
+def ep_serve_mixtral(card: str) -> None:
+    """(n)3: Mixtral-8x7B at all 32 layers in bf16 (93.4 GB) as a
+    ``{model: 4}`` ``model_server`` gang, ``tp_serve_checked``."""
+    tp_serve_checked(card, "(n)3", "Mixtral-8x7B", EP_MODEL_MIXTRAL)
+
+
+def phase_ep(card: str, *, cards_only: bool = False) -> None:
+    """(n): MoE on a mesh — (n)1 in lockstep on one card (not with
+    ``cards_only``), then on a machine of ``TP_CARDS`` cards or more:
+    (n)2 MoE training over NCCL on the expert axis, (n)3 Mixtral-8x7B
+    served in bf16 over ``{model: 4}``."""
+    if not cards_only:
+        timed_phase("ep block", ep_block_lockstep, card)
+    count = torch.cuda.device_count()
+    if count < TP_CARDS:
+        print(f"(n)2-(n)3 MoE over {TP_CARDS} cards: not run — this machine "
+              f"has {count} card; {card}", flush=True)
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("ep train", ep_train, card)
+    timed_phase("ep serve mixtral", ep_serve_mixtral, card)
 
 
 def timed_phase(name: str, fn, *args, **kwargs):
@@ -7473,6 +7854,12 @@ def main() -> int:
         print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] in (["--ep-only"], ["--ep-cards-only"]):
+        timed_phase("ep", phase_ep, card,
+                    cards_only=sys.argv[1] == "--ep-cards-only")
+        print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] == ["--multi-only"]:
         timed_phase("multi", phase_multi, card)
         print(f"chip_smoke: multi phases passed in "
@@ -7530,6 +7917,7 @@ def main() -> int:
     timed_phase("remat", phase_remat, rows, card)
     timed_phase("multi", phase_multi, card)
     timed_phase("tp", phase_tp, rows, card)
+    timed_phase("ep", phase_ep, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -58,6 +58,8 @@ from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.parallel import vocab_parallel as VP
 
 Params = dict[str, Any]
+#: The balance loss's weight in ``decoder_loss`` (the JAX default).
+AUX_LOSS_WEIGHT = 0.01
 
 
 def _empty_like_stacked(n: int, t) -> Any:
@@ -260,12 +262,14 @@ def layer_view(layers: Any, i: int) -> Any:
 
 
 def _ffn_aux(bp: dict, h: torch.Tensor, cfg: DecoderConfig,
-             valid_len=None):
+             valid_len=None, mesh=None):
     """The block's feed-forward half on the normed stream and its balance
-    loss: ``(moe_block out, aux)`` for an MoE config, ``(mlp out, None)``
-    for a dense one."""
+    loss: ``(moe_block out, aux)`` for an MoE config (split over
+    ``mesh``'s expert, model and token axes), ``(mlp out, None)`` for a
+    dense one."""
     if cfg.is_moe:
-        return L.moe_block(bp["mlp"], h, cfg, valid_len=valid_len)
+        return L.moe_block(bp["mlp"], h, cfg, valid_len=valid_len,
+                           mesh=mesh)
     return L.mlp_block(bp["mlp"], h, cfg), None
 
 
@@ -277,12 +281,12 @@ def ffn(bp: dict, h: torch.Tensor, cfg: DecoderConfig,
 
 
 def _mlp_half(bp: dict, x: torch.Tensor, attn_out: torch.Tensor,
-              cfg: DecoderConfig, valid_len=None):
+              cfg: DecoderConfig, valid_len=None, mesh=None):
     """The block's second half: ``(x + attn_out + ffn(norm(x + attn_out)),
     aux)``, aux the MoE block's balance loss (None for a dense config)."""
     # Residual add + second norm as ONE op (one kernel pass when on).
     x, h = L.add_rmsnorm(x, attn_out, bp["ln2"], cfg)
-    out, aux = _ffn_aux(bp, h, cfg, valid_len)
+    out, aux = _ffn_aux(bp, h, cfg, valid_len, mesh)
     return x + out, aux
 
 
@@ -320,7 +324,7 @@ def _block_stages(bp: dict, positions: torch.Tensor, cfg: DecoderConfig,
                                attn_impl=attn_impl, lora=lora, mesh=mesh)
 
     def mlp(x, attn_out):
-        return _mlp_half(bp, x, attn_out, cfg, valid_len)
+        return _mlp_half(bp, x, attn_out, cfg, valid_len, mesh)
 
     return qkv, attend, mlp
 
@@ -591,7 +595,7 @@ def decoder_loss(
     *,
     loss_mask: Optional[torch.Tensor] = None,   # [B, S] 1.0 = count it
     attn_impl: str = "xla",
-    aux_loss_weight: float = 0.01,
+    aux_loss_weight: float = AUX_LOSS_WEIGHT,
     mesh=None,
     placements: Optional[dict] = None,
 ):
@@ -611,12 +615,15 @@ def decoder_loss(
     targets, at positions offset by the part's start. ``placements``
     (each param leaf's gather dim, or None; ``train/step.py``) says which
     leaves are local shards, gathered at use over the ``fsdp`` group; a
-    leaf's dim over ``model`` stays local, and the ranks of one ``model``
-    group read the same rows and compute the same loss. The
-    sum of the nll and the token count are all-reduced over the batch and
-    ``seq`` axes: the metrics are the global masked mean, and ``loss`` is
-    this rank's part of it (the parts over the ranks sum to it), so the
-    gradients summed over the ranks are the global mean's."""
+    leaf's dim over ``model`` or ``expert`` stays local, and the ranks of
+    one ``expert`` × ``model`` group read the same rows and compute the
+    same loss. The sum of the nll and the token count are all-reduced over
+    the batch and ``seq`` axes: the metrics are the global masked mean,
+    and ``loss`` is this rank's part of it (the parts over the ranks sum
+    to it), so the gradients summed over the ranks are the global mean's.
+    An MoE config's balance loss is likewise this rank's part of the
+    global batch's (``layers.moe_block``), and ``aux_loss`` the global
+    value. A ``pipeline`` axis raises (ROADMAP.md Queue 1 item 9d)."""
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     positions = None
@@ -625,14 +632,9 @@ def decoder_loss(
         from kubeflow_tpu_torch.parallel.collectives import (
             GatheredParams, axis_group, seq_info,
         )
-        from kubeflow_tpu_torch.parallel.fsdp import TOKEN_AXES
+        from kubeflow_tpu_torch.parallel.fsdp import TOKEN_AXES, check_mesh
 
-        if cfg.is_moe and mesh.size() > 1:
-            raise NotImplementedError(
-                "MoE training on a mesh of more than one device: the "
-                "expert axis and MoE under data, fsdp and seq split "
-                "arrive with a later multi-GPU slice (ROADMAP.md Queue 1 "
-                "item 9)")
+        check_mesh(mesh)
         _, idx, n = seq_info(mesh)
         s = inputs.shape[1]
         if s % n:
@@ -679,23 +681,22 @@ def decoder_loss(
     nll_sum = (nll * loss_mask).sum()
     hits = (correct * loss_mask).sum()
     count = loss_mask.sum()
+    aux_part = (torch.zeros((), dtype=torch.float32, device=nll.device)
+                if aux is None else aux)
     if loss_group is not None:
-        sums = torch.stack([nll_sum.detach(), count, hits])
+        sums = torch.stack([nll_sum.detach(), count, hits,
+                            aux_part.detach()])
         torch.distributed.all_reduce(sums, group=loss_group)
-        nll_total, count, hits = sums.unbind(0)
+        nll_total, count, hits, aux_total = sums.unbind(0)
     else:
-        nll_total = nll_sum
+        nll_total, aux_total = nll_sum, aux_part
     denom = torch.clamp(count, min=1.0)
     ce = nll_sum / denom
     ce_total = nll_total / denom
-    if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=nll.device)
-        loss = ce
-    else:
-        loss = ce + aux_loss_weight * aux
+    loss = ce if aux is None else ce + aux_loss_weight * aux
     metrics = {
         "ce_loss": ce_total.detach(),
-        "aux_loss": aux.detach(),
+        "aux_loss": aux_total.detach(),
         "tokens": denom.detach(),
         "accuracy": (hits / denom).detach(),
     }

@@ -22,15 +22,21 @@ are row-parallel, their partial outputs summed by ``reduce_from_model``;
 norms stay whole on every rank; the embedding is vocab-parallel
 (``embed``). GQA kv heads that do not divide over the axis are whole on
 every rank, and each rank reads the kv heads its own q heads read
-(``rank_kv``). The expert/sequence/tensor-parallel MoE axes are not
-ported yet (they raise here).
+(``rank_kv``). The MoE block runs under the expert, batch, sequence and
+model axes as JAX's GSPMD block does on the global batch (``moe_block``,
+``MoEAxes``): local experts and columns, the dispatch plan and the
+balance loss over the global batch, one sum of the partial outputs over
+``expert`` × ``model``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import math
+from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from kubeflow_tpu_torch.models.config import DecoderConfig, model_axis_of
 from kubeflow_tpu_torch.ops import fused_norm
@@ -458,19 +464,101 @@ def init_moe(gen: torch.Generator, cfg: DecoderConfig, dtype=None,
     }
 
 
-def _no_parallel_axes(**axes) -> None:
-    named = [k for k, v in axes.items() if v is not None]
-    if named:
-        raise NotImplementedError(
-            f"MoE {', '.join(named)}: expert, sequence and tensor "
-            "parallelism of MoE blocks arrive with a later multi-GPU slice "
-            "(ROADMAP.md Queue 1 item 9)")
+@dataclasses.dataclass(frozen=True)
+class MoEAxes:
+    """Where one MoE block's work is split (``moe_axes``):
+
+    - ``group``: the ``expert`` × ``model`` ranks, which hold the same
+      tokens. Each computes its experts' part of the output (under
+      ``model``, with its columns of each expert's ``gate``/``up`` and
+      rows of ``down``), and the parts are summed over the group in one
+      reduction;
+    - ``expert`` / ``experts``: this rank's index over ``expert`` and the
+      degree. It holds experts ``[expert · E_l, (expert + 1) · E_l)``,
+      E_l = E / experts;
+    - ``tokens``: the batch and ``seq`` ranks, which hold the rest of the
+      global batch (JAX's GSPMD block sees that batch whole). ``places``
+      gives each of them, in the group's order, its (batch index, seq
+      index); ``place`` is this rank's and ``shape`` the two degrees."""
+
+    group: Any = None
+    expert: int = 0
+    experts: int = 1
+    tokens: Any = None
+    places: tuple = ((0, 0),)
+    place: tuple = (0, 0)
+    shape: tuple = (1, 1)
+
+
+def moe_axes(cfg: DecoderConfig, mesh=None) -> Optional[MoEAxes]:
+    """The split of an MoE block over ``mesh``'s expert, model, batch and
+    seq axes (training: the groups are made on first use, by every rank in
+    one order, and kept on the mesh), else over the config's model axis
+    (a tensor-parallel engine: one request's tokens on every rank); None
+    on one device."""
+    tp = model_axis_of(cfg)
+    if mesh is None:
+        return None if tp is None else MoEAxes(group=tp.group)
+    cache = mesh.__dict__.setdefault("_kftpu_moe_axes", [])
+    if not cache:
+        cache.append(_mesh_moe_axes(mesh))
+    return cache[0]
+
+
+def _mesh_moe_axes(mesh) -> Optional[MoEAxes]:
+    from kubeflow_tpu_torch.parallel.fsdp import BATCH_AXES, TOKEN_AXES
+    from kubeflow_tpu_torch.parallel.sharding import (
+        EP_AXIS, TP_AXIS, mesh_coords, mesh_shape,
+    )
+
+    sizes = mesh_shape(mesh)
+    group = C.axis_group(mesh, (EP_AXIS, TP_AXIS))
+    tokens = C.axis_group(mesh, TOKEN_AXES)
+    if group is None and tokens is None:
+        return None
+
+    def place(coords: dict) -> tuple[int, int]:
+        bi = 0
+        for a in BATCH_AXES:
+            bi = bi * sizes[a] + coords[a]
+        return bi, coords["seq"]
+
+    places = [(0, 0)]
+    if tokens is not None:
+        places = []
+        for r in dist.get_process_group_ranks(tokens):
+            at = (mesh.mesh == r).nonzero()[0].tolist()
+            places.append(place(dict(zip(mesh.mesh_dim_names, at))))
+    dp = math.prod(sizes[a] for a in BATCH_AXES)
+    return MoEAxes(group, mesh.get_local_rank(EP_AXIS), sizes[EP_AXIS],
+                   tokens, tuple(places), place(mesh_coords(mesh)),
+                   (dp, sizes["seq"]))
+
+
+def _expert_range(cfg: DecoderConfig,
+                  axes: Optional[MoEAxes]) -> tuple[int, int]:
+    """(first, count) of the experts this rank holds."""
+    if axes is None:
+        return 0, cfg.num_experts
+    el = cfg.num_experts // axes.experts
+    return axes.expert * el, el
+
+
+def _local_experts(p: dict, cfg: DecoderConfig,
+                   axes: Optional[MoEAxes]) -> tuple[int, int]:
+    """``_expert_range``; a leaf that is not the rank's cut of the experts
+    (or, under ``model``, of their columns) raises."""
+    n = 1 if axes is None else axes.experts
+    if p["gate"].shape[0] * n != cfg.num_experts:
+        raise ValueError(f"experts: a leaf of {p['gate'].shape[0]} experts "
+                         f"on a rank of expert = {n} (whole "
+                         f"{cfg.num_experts})")
+    _check_cut(p["gate"].shape[-1], cfg.mlp_dim, cfg, "expert_mlp")
+    return _expert_range(cfg, axes)
 
 
 def moe_block(p: dict, x: torch.Tensor, cfg: DecoderConfig,
-              expert_axis: Optional[str] = None,
-              seq_axis: Optional[str] = None,
-              valid_len=None, tp_axis: Optional[str] = None):
+              valid_len=None, mesh=None):
     """Top-k MoE (Mixtral semantics: softmax over the selected k logits),
     dispatching on ``cfg.moe_impl``: "dispatch" routes tokens into
     per-expert capacity buffers so only selected experts compute; "dense"
@@ -479,14 +567,41 @@ def moe_block(p: dict, x: torch.Tensor, cfg: DecoderConfig,
     ``valid_len`` (an int, or [B]): positions >= it are padding whose
     router choices claim no expert capacity (a prefill bucket's pads would
     otherwise displace real tokens' choices under choice-major priority).
-    Dense ignores it."""
-    _no_parallel_axes(expert_axis=expert_axis, seq_axis=seq_axis,
-                      tp_axis=tp_axis)
-    if cfg.moe_impl == "dispatch":
-        return _moe_dispatch(p, x, cfg, valid_len=valid_len)
-    if cfg.moe_impl != "dense":
+    Dense ignores it.
+
+    Under ``mesh`` (training) or a config's model axis (``moe_axes``) the
+    block runs as JAX's GSPMD block does on the global batch: each rank
+    computes its local experts (and columns) for its tokens, the router
+    whole; the dispatch plan's capacity and priority span the global batch
+    (``dispatch_plan``), and so does the balance loss (``_moe_aux_loss``,
+    this rank's part of it). The combined partial outputs are summed over
+    the ``expert`` × ``model`` ranks in one reduction (``collectives.
+    reduce_from``); the experts' input and the combine weights, whose
+    gradient on each rank sees only its own experts, pass
+    ``collectives.copy_to``, whose backward sums over the same ranks."""
+    axes = moe_axes(cfg, mesh)
+    if cfg.moe_impl not in ("dispatch", "dense"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
-    return _moe_dense(p, x, cfg)
+    experts = _local_experts(p, cfg, axes)
+    logits, topk_w, topk_idx = moe_route(p, x, cfg)
+    group = None if axes is None else axes.group
+    xin, w = C.copy_to(x, group), C.copy_to(topk_w, group)
+    if cfg.moe_impl == "dispatch":
+        plan = dispatch_plan(topk_idx, cfg, valid_len, axes)
+        out = expert_dispatch(p, xin, w, plan, cfg)
+        b, s, e = logits.shape
+        onehot_sum = plan["claims"].float().reshape(
+            cfg.experts_per_token, b * s, e).sum(0).reshape(b, s, e)
+        valid = plan["valid"]
+    else:
+        onehot = torch.nn.functional.one_hot(topk_idx,
+                                             cfg.num_experts).float()
+        combine = torch.einsum("bske,bsk->bse", onehot, w)           # [B,S,E]
+        out = expert_dense(p, xin, combine, cfg, experts)
+        onehot_sum, valid = onehot.sum(dim=2), None
+    out = C.reduce_from(out, group)
+    aux = _moe_aux_loss(logits, onehot_sum, cfg, valid=valid, axes=axes)
+    return out, aux
 
 
 def _top_k(logits: torch.Tensor, k: int):
@@ -497,14 +612,39 @@ def _top_k(logits: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def moe_route(p: dict, x: torch.Tensor, cfg: DecoderConfig):
+    """The router on ``x`` [B,S,D]: ``(router_logits [B,S,E] fp32, topk_w
+    [B,S,k], topk_idx [B,S,k])``, the weights the softmax over each
+    token's k best logits."""
+    logits = (x @ weight(p["router"], cfg.activation_dtype)).float()
+    topk_logits, topk_idx = _top_k(logits, cfg.experts_per_token)
+    return logits, torch.softmax(topk_logits, dim=-1), topk_idx
+
+
 def _moe_aux_loss(router_logits: torch.Tensor, onehot_sum: torch.Tensor,
-                  cfg: DecoderConfig, valid=None) -> torch.Tensor:
+                  cfg: DecoderConfig, valid=None,
+                  axes: Optional[MoEAxes] = None) -> torch.Tensor:
     """Switch-style load-balancing loss: E * sum(frac_tokens * frac_probs).
     ``onehot_sum`` [B,S,E]: how many of the k choices hit each expert.
     ``valid`` [B,S] masks pad rows out of both fractions, which then divide
-    by the valid-token count."""
+    by the valid-token count.
+
+    ``axes`` whose ``tokens`` group holds the rest of the batch (no pad
+    rows there): the fractions are the global batch's. The claim counts
+    are summed over the token ranks without a gradient; ``frac_probs``
+    takes this rank's tokens alone over the global count, so the result
+    is this rank's part: the parts over the token ranks sum to the global
+    loss, and so do their gradients. The ranks of one ``expert`` ×
+    ``model`` group compute the same part."""
     probs = torch.softmax(router_logits, dim=-1)                     # [B,S,E]
-    if valid is not None:
+    if axes is not None and axes.tokens is not None:
+        with torch.no_grad():
+            counts = onehot_sum.sum(dim=(0, 1))
+            dist.all_reduce(counts, group=axes.tokens)
+        t = probs.shape[0] * probs.shape[1] * len(axes.places)
+        frac_tokens = counts / t
+        frac_probs = probs.sum(dim=(0, 1)) / t
+    elif valid is not None:
         m = valid[..., None].to(probs.dtype)
         denom = torch.clamp(m.sum(), min=1.0)
         frac_tokens = (onehot_sum * m).sum(dim=(0, 1)) / denom
@@ -536,6 +676,97 @@ def _valid_rows(valid_len, b: int, s: int, device) -> torch.Tensor:
     return pos < vl.expand(b)[:, None]
 
 
+def global_choices(topk_idx: torch.Tensor, axes: Optional[MoEAxes]):
+    """Every token's k expert ids over the global batch in JAX's (b, s)
+    order, ``[T_g, k]``, and the global indices of this rank's tokens
+    (``[T]``; None when the rank holds the whole batch). The ids are
+    all-gathered over the token ranks (a few KB); a batch rank's rows are
+    contiguous, a ``seq`` rank's positions its part of every row."""
+    b, s, k = topk_idx.shape
+    if axes is None or axes.tokens is None:
+        return topk_idx.reshape(b * s, k), None
+    dev = topk_idx.device
+    parts = topk_idx.new_empty((len(axes.places) * b, s, k))
+    dist.all_gather_into_tensor(parts, topk_idx.contiguous(),
+                                group=axes.tokens)
+    dp, sp = axes.shape
+    ids = topk_idx.new_empty((dp * b, sp * s, k))
+    for g, (bi, si) in enumerate(axes.places):
+        ids[bi * b:(bi + 1) * b, si * s:(si + 1) * s] = parts[g * b:
+                                                              (g + 1) * b]
+    bi, si = axes.place
+    rows = torch.arange(bi * b, (bi + 1) * b, device=dev)
+    cols = torch.arange(si * s, (si + 1) * s, device=dev)
+    mine = (rows[:, None] * (sp * s) + cols[None, :]).reshape(-1)
+    return ids.reshape(-1, k), mine
+
+
+def dispatch_plan(topk_idx: torch.Tensor, cfg: DecoderConfig,
+                  valid_len=None, axes: Optional[MoEAxes] = None,
+                  choices=None) -> dict:
+    """The dispatch path's routing of this rank's tokens, whose choices
+    are ``topk_idx`` [B,S,k], over the global batch (``global_choices``,
+    or ``choices``: the global ids and this rank's indices among them):
+
+    - ``rows`` [kT]: each (choice-major) pair's slot in this rank's
+      [E_l*C] buffers, ``E_l*C`` for a pair dropped or routed to another
+      rank's expert;
+    - ``row_of_slot`` [E_l*C]: each slot's token, ``T`` for an empty slot;
+    - ``keep`` [kT] bool: the pairs the plan keeps, whichever rank's
+      expert they go to;
+    - ``claims`` [kT,E] int: the one-hot choices that claimed capacity;
+    - ``valid`` [B,S] bool or None; ``capacity`` C.
+
+    Priority is choice-major over the global batch: every token's first
+    choice claims capacity before any token's second choice, and C is the
+    global token count's (``moe_capacity``). Pairs past capacity, and
+    every pair of a row at or past ``valid_len`` (one process's batch),
+    are dropped."""
+    b, s, k = topk_idx.shape
+    t = b * s
+    e = cfg.num_experts
+    dev = topk_idx.device
+    off, el = _expert_range(cfg, axes)
+    ids, mine = choices or global_choices(topk_idx, axes)
+    tg = ids.shape[0]
+    c = moe_capacity(cfg, tg)
+    # Choice-major flattening: row r = (choice r // T) of token (r % T).
+    flat_g = ids.T.reshape(-1)                                       # [kTg]
+    oh = torch.nn.functional.one_hot(flat_g, e)                      # [kTg,E]
+    valid_flat, valid_bs = None, None
+    if valid_len is not None:
+        if mine is not None:
+            raise ValueError("valid_len masks one process's batch")
+        # Padding rows claim no capacity (zeroed before the cumsum) and
+        # are dropped outright.
+        valid_bs = _valid_rows(valid_len, b, s, dev)                 # [B,S]
+        valid_flat = valid_bs.reshape(t).repeat(k)
+        oh = oh * valid_flat[:, None]
+    pos = torch.cumsum(oh, dim=0) - 1
+    pos_in_e = torch.gather(pos, 1, flat_g[:, None])[:, 0]           # [kTg]
+    flat_e = flat_g
+    if mine is not None:
+        flat_e = topk_idx.reshape(t, k).T.reshape(-1)                # [kT]
+        # This rank's pairs among the global ones, choice-major.
+        sel = (torch.arange(k, device=dev)[:, None] * tg
+               + mine[None, :]).reshape(-1)
+        pos_in_e, oh = pos_in_e[sel], oh[sel]
+    keep = pos_in_e < c
+    if valid_flat is not None:
+        keep = keep & valid_flat
+    ours = keep
+    if el != e:
+        ours = keep & (flat_e >= off) & (flat_e < off + el)
+    rows = torch.where(ours, (flat_e - off if off else flat_e) * c
+                       + pos_in_e,
+                       torch.full_like(flat_e, el * c))
+    tok_of = torch.arange(t, device=dev).repeat(k)                   # [kT]
+    row_of_slot = torch.full((el * c + 1,), t, dtype=torch.int64, device=dev)
+    row_of_slot.index_put_((rows,), tok_of)     # kept slots are unique
+    return {"rows": rows, "row_of_slot": row_of_slot[:el * c],
+            "keep": keep, "claims": oh, "valid": valid_bs, "capacity": c}
+
+
 def _expert_ffn(buf: torch.Tensor, p: dict, cfg: DecoderConfig,
                 dt: torch.dtype) -> torch.Tensor:
     """``act(buf @ gate) * up`` then ``@ down``, per expert: buf [E,N,D]
@@ -560,102 +791,50 @@ def _expert_ffn(buf: torch.Tensor, p: dict, cfg: DecoderConfig,
     return torch.matmul(gate * up, weight(p["down"], dt))
 
 
-def dispatch_plan(router_logits: torch.Tensor, cfg: DecoderConfig, b: int,
-                  s: int, valid_len=None) -> dict:
-    """The dispatch path's routing for ``router_logits`` [T = B*S, E] fp32:
-
-    - ``topk_w`` [T,k]: the softmax over each token's k best logits;
-    - ``rows`` [kT]: each (choice-major) pair's slot in the [E*C] buffers,
-      ``E*C`` for a dropped pair;
-    - ``row_of_slot`` [E*C]: each slot's token, ``T`` for an empty slot;
-    - ``claims`` [kT,E] int: the one-hot choices that claimed capacity;
-    - ``valid`` [B,S] bool or None; ``capacity`` C.
-
-    Priority is choice-major: every token's first choice claims capacity
-    before any token's second choice. Pairs past capacity, and every pair
-    of a row at or past ``valid_len``, are dropped."""
-    t = b * s
-    e, k = cfg.num_experts, cfg.experts_per_token
-    dev = router_logits.device
-    topk_logits, topk_idx = _top_k(router_logits, k)                 # [T,k]
-    c = moe_capacity(cfg, t)
-    # Choice-major flattening: row r = (choice r // T) of token (r % T).
-    flat_e = topk_idx.T.reshape(-1)                                  # [kT]
-    oh = torch.nn.functional.one_hot(flat_e, e)                      # [kT,E]
-    valid_flat, valid_bs = None, None
-    if valid_len is not None:
-        # Padding rows claim no capacity (zeroed before the cumsum) and
-        # are dropped outright.
-        valid_bs = _valid_rows(valid_len, b, s, dev)                 # [B,S]
-        valid_flat = valid_bs.reshape(t).repeat(k)
-        oh = oh * valid_flat[:, None]
-    pos = torch.cumsum(oh, dim=0) - 1
-    pos_in_e = torch.gather(pos, 1, flat_e[:, None])[:, 0]           # [kT]
-    keep = pos_in_e < c
-    if valid_flat is not None:
-        keep = keep & valid_flat
-    rows = torch.where(keep, flat_e * c + pos_in_e,
-                       torch.full_like(flat_e, e * c))
-    tok_of = torch.arange(t, device=dev).repeat(k)                   # [kT]
-    row_of_slot = torch.full((e * c + 1,), t, dtype=torch.int64, device=dev)
-    row_of_slot.index_put_((rows,), tok_of)     # kept slots are unique
-    return {"topk_w": torch.softmax(topk_logits, dim=-1), "rows": rows,
-            "row_of_slot": row_of_slot[:e * c], "claims": oh,
-            "valid": valid_bs, "capacity": c}
-
-
-def _moe_dispatch(p: dict, x: torch.Tensor, cfg: DecoderConfig,
-                  valid_len=None):
-    """Capacity-factor top-k dispatch into static [E, C] buffers
-    (``dispatch_plan``). A dropped pair contributes nothing, and the
-    remaining choices are not renormalized. Capacity is per dispatch
-    batch, so co-batched rows compete for it (the serving engine prefills
-    MoE one request at a time).
+def expert_dispatch(p: dict, x: torch.Tensor, topk_w: torch.Tensor,
+                    plan: dict, cfg: DecoderConfig) -> torch.Tensor:
+    """Capacity-factor top-k dispatch of ``x`` [B,S,D] into static [E_l, C]
+    buffers of this rank's experts (``dispatch_plan``): their weighted
+    outputs combined per token, [B,S,D]. A dropped pair contributes
+    nothing, and the remaining choices are not renormalized. Capacity is
+    per dispatch batch, so co-batched rows compete for it (the serving
+    engine prefills MoE one request at a time).
 
     The buffers fill with one row gather over the plan's slot → token map
     (an empty slot reads the zero row past the tokens), and the combine
     gathers each pair's expert row (a dropped pair reads zero)."""
     dt = cfg.activation_dtype
     b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
+    k = cfg.experts_per_token
     t = b * s
-    xf = x.reshape(t, d)
-    router_logits = (xf @ weight(p["router"], dt)).float()           # [T,E]
-    plan = dispatch_plan(router_logits, cfg, b, s, valid_len)
     c = plan["capacity"]
+    el = plan["row_of_slot"].shape[0] // c
+    xf = x.reshape(t, d)
     zero = torch.zeros((1, d), dtype=x.dtype, device=x.device)
     buf = torch.cat([xf, zero]).index_select(
-        0, plan["row_of_slot"]).reshape(e, c, d)
-    y = _expert_ffn(buf, p, cfg, dt).reshape(e * c, d)
+        0, plan["row_of_slot"]).reshape(el, c, d)
+    y = _expert_ffn(buf, p, cfg, dt).reshape(el * c, d)
     back = torch.cat([y, zero.to(y.dtype)]).index_select(
         0, plan["rows"])                                             # [kT,D]
-    w_flat = plan["topk_w"].T.reshape(-1, 1).to(dt)
-    out = (back * w_flat).reshape(k, t, d).sum(0).reshape(b, s, d)
-    aux = _moe_aux_loss(
-        router_logits.reshape(b, s, e),
-        plan["claims"].float().reshape(k, t, e).sum(0).reshape(b, s, e),
-        cfg, valid=plan["valid"])
-    return out, aux
+    w_flat = topk_w.reshape(t, k).T.reshape(-1, 1).to(dt)
+    return (back * w_flat).reshape(k, t, d).sum(0).reshape(b, s, d)
 
 
-def _moe_dense(p: dict, x: torch.Tensor, cfg: DecoderConfig):
-    """Every expert computes every token and a one-hot combine weights the
+def expert_dense(p: dict, x: torch.Tensor, combine: torch.Tensor,
+                 cfg: DecoderConfig, experts: tuple[int, int]) -> torch.Tensor:
+    """Every local expert (``experts``: first, count) computes every token
+    and the combine weights [B,S,E] (each token's top-k weights at its
+    experts, 0 elsewhere), sliced at the rank's experts, weight the
     results: drop-free, E/k of the dispatch path's expert FLOPs — the
     dispatch path's correctness oracle, and the serving decode's path."""
     dt = cfg.activation_dtype
     b, s, d = x.shape
-    e = cfg.num_experts
-    router_logits = (x @ weight(p["router"], dt)).float()            # [B,S,E]
-    topk_logits, topk_idx = _top_k(router_logits,
-                                   cfg.experts_per_token)            # [B,S,k]
-    topk_w = torch.softmax(topk_logits, dim=-1)
-    onehot = torch.nn.functional.one_hot(topk_idx, e).float()        # [B,S,k,E]
-    combine = torch.einsum("bske,bsk->bse", onehot, topk_w)          # [B,S,E]
-    expert_out = _expert_ffn(x.reshape(1, b * s, d), p, cfg, dt)     # [E,T,D]
-    out = torch.einsum("etd,te->td", expert_out,
-                       combine.reshape(b * s, e).to(dt)).reshape(b, s, d)
-    aux = _moe_aux_loss(router_logits, onehot.sum(dim=2), cfg)
-    return out, aux
+    off, el = experts
+    if el != combine.shape[-1]:
+        combine = combine[..., off:off + el]
+    expert_out = _expert_ffn(x.reshape(1, b * s, d), p, cfg, dt)     # [El,T,D]
+    return torch.einsum("etd,te->td", expert_out,
+                        combine.reshape(b * s, el).to(dt)).reshape(b, s, d)
 
 
 # -- Embedding -----------------------------------------------------------------

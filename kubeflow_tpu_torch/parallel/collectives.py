@@ -1,8 +1,9 @@
 """The collectives of sharded training, over a ``DeviceMesh``'s process
 groups: groups over combinations of mesh axes, autograd-aware
 all-gather (reduce-scatter backward), ring rotation and all-to-all, and
-Megatron's conjugate operators over the ``model`` axis (``copy_to_model``,
-``reduce_from_model``, ``gather_from_model``).
+Megatron's conjugate operators (``copy_to`` and ``reduce_from`` over any
+group: the ``model`` axis's ``copy_to_model``, ``reduce_from_model``,
+and the MoE block's ``expert`` × ``model`` ranks; ``gather_from_model``).
 
 Each process holds local tensors; these functions are where shards meet.
 Every rank must make the same calls in the same order, as with any
@@ -286,26 +287,39 @@ class _GatherFromModel(torch.autograd.Function):
         return g[..., ctx.rank * w:(ctx.rank + 1) * w], None, None
 
 
-def copy_to_model(x: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
-    """The input of a column-parallel product: ``x`` as it is, whose
-    gradient the backward sums over the ranks' partial ones."""
-    if tp is None or not (torch.is_grad_enabled() and x.requires_grad):
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """The input of a product whose ranks over ``group`` each compute a
+    part: ``x`` as it is, whose gradient the backward sums over the
+    ranks' partial ones (nothing without a group)."""
+    if group is None or not (torch.is_grad_enabled() and x.requires_grad):
         return x
-    return _CopyToModel.apply(x, tp.group)
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial sums over ``group`` added up (every rank gets
+    the total); the backward is the identity. Without a gradient to
+    record it is summed in place: the callers pass a fresh product."""
+    if group is None:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFromModel.apply(x, group)
+    x = x.contiguous()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def copy_to_model(x: torch.Tensor, tp: Optional[ModelAxis]) -> torch.Tensor:
+    """The input of a column-parallel product (``copy_to`` over the
+    model axis)."""
+    return copy_to(x, None if tp is None else tp.group)
 
 
 def reduce_from_model(x: torch.Tensor,
                       tp: Optional[ModelAxis]) -> torch.Tensor:
-    """The output of a row-parallel product: the ranks' partial sums added
-    up (every rank gets the total). Without a gradient to record it is
-    summed in place: the callers pass a fresh product."""
-    if tp is None:
-        return x
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _ReduceFromModel.apply(x, tp.group)
-    x = x.contiguous()
-    dist.all_reduce(x, group=tp.group)
-    return x
+    """The output of a row-parallel product (``reduce_from`` over the
+    model axis)."""
+    return reduce_from(x, None if tp is None else tp.group)
 
 
 def gather_from_model(x: torch.Tensor,

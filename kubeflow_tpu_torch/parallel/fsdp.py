@@ -15,14 +15,20 @@ process groups the step needs:
   that is whole on every model rank because its dim did not divide
   (GQA's kv heads, ``Placement.partial``), of which each rank reads its
   own part: its gradient is summed over ``model`` too;
+- ``expert``: an expert leaf's expert dim stays local (each rank holds
+  and updates its own experts); the ranks of one expert group read the
+  same batch rows (the batch rule leaves ``expert`` out), and the MoE
+  block's conjugate operators over ``expert`` × ``model`` make every
+  other gradient whole on each of them, so nothing is summed over
+  ``expert``;
 - the replica axes: a gathered leaf's gradient is then summed over
   ``dcn``, ``data`` and ``seq`` (the ranks that hold the same shard), a
   leaf with no gather dim over every batch and ``seq`` axis.
 
 The optimizer's moments mirror the params' placements, so Adam runs on
 local shards; the global gradient norm sums each block once
-(``global_norm``). A ``pipeline`` or ``expert`` degree above 1 raises:
-those axes are not ported yet.
+(``global_norm``). A ``pipeline`` degree above 1 raises: that axis is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -34,13 +40,13 @@ import torch
 from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.runtime.mesh import batch_sharding_axes
 from kubeflow_tpu_torch.parallel.sharding import (
-    DEFAULT_RULES, TP_AXIS, LogicalRules, ParamLayout, mesh_coords,
+    DEFAULT_RULES, EP_AXIS, TP_AXIS, LogicalRules, ParamLayout, mesh_coords,
     mesh_shape,
 )
 from kubeflow_tpu_torch.train import tree as T
 
 #: Mesh axes the training step does not split yet.
-UNPORTED_AXES = ("pipeline", "expert")
+UNPORTED_AXES = ("pipeline",)
 #: The axes a batch is split over, and with ``seq`` every axis a step's
 #: loss and replicated gradients are summed over.
 BATCH_AXES = batch_sharding_axes()
@@ -48,15 +54,14 @@ TOKEN_AXES = BATCH_AXES + ("seq",)
 
 
 def check_mesh(mesh) -> None:
-    """Raise ``NotImplementedError`` for a ``pipeline`` or ``expert``
-    degree above 1."""
+    """Raise ``NotImplementedError`` for a ``pipeline`` degree above 1."""
     sizes = mesh_shape(mesh)
     big = {a: sizes[a] for a in UNPORTED_AXES if sizes.get(a, 1) > 1}
     if big:
         raise NotImplementedError(
             f"mesh axes {big}: the port trains over the dcn, data, fsdp, "
-            "seq and model axes; pipeline and expert parallelism arrive "
-            "with ROADMAP.md Queue 1 item 9")
+            "expert, seq and model axes; pipeline parallelism arrives "
+            "with ROADMAP.md Queue 1 item 9d")
 
 
 def batch_index(mesh) -> tuple[int, int]:
@@ -99,8 +104,8 @@ class StateLayout(ParamLayout):
 
     @staticmethod
     def _split_axes(p) -> tuple:
-        return tuple(a for a, d in (("fsdp", p.gather), (TP_AXIS, p.tp))
-                     if d is not None)
+        return tuple(a for a, d in (("fsdp", p.gather), (EP_AXIS, p.ep),
+                                    (TP_AXIS, p.tp)) if d is not None)
 
     def state_specs(self, state: dict) -> dict[str, tuple]:
         """Flattened state path → spec: the params' and every optimizer
@@ -118,7 +123,10 @@ class StateLayout(ParamLayout):
         """Sum each local gradient over the ranks that hold the same block
         (in place): the gathers' backward already reduce-scattered a
         gathered leaf over ``fsdp``; a ``partial`` leaf's parts are summed
-        over ``model`` as well."""
+        over ``model`` as well. Nothing is summed over ``expert``: an
+        expert leaf's block is its rank's alone, and the ranks of one
+        expert group computed every other gradient whole on the same
+        rows."""
         for g, p in zip(grads, T.leaves(self.placements)):
             if p.partial:
                 group = self._partial_groups[p.gather is None]

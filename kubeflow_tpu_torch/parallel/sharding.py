@@ -234,20 +234,26 @@ def assemble(shape: Sequence[int], spec: Spec, sizes: dict[str, int],
 #: The mesh axis whose shards stay local: a leaf's dim split over it is
 #: never gathered (Megatron tensor parallelism, ``models/layers.py``).
 TP_AXIS = "model"
+#: Likewise the expert axis: a rank computes its own experts, and the MoE
+#: block sums the combined partials over ``expert`` × ``model``.
+EP_AXIS = "expert"
+LOCAL_AXES = (TP_AXIS, EP_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a leaf is split: ``gather``, its dim over the other axes
     (``fsdp``), all-gathered where the leaf is used; ``tp``, its dim over
-    ``model``, which stays local. ``partial``: the logical spec splits a
-    dim over ``model`` but it did not divide, so the leaf is whole on every
-    model rank and each reads its own part of it (the kv heads of GQA);
-    its gradient is then summed over ``model``. None for a dim not split."""
+    ``model``, and ``ep``, its dim over ``expert``, which stay local.
+    ``partial``: the logical spec splits a dim over ``model`` but it did
+    not divide, so the leaf is whole on every model rank and each reads
+    its own part of it (the kv heads of GQA); its gradient is then summed
+    over ``model``. None for a dim not split."""
 
     gather: Optional[int] = None
     tp: Optional[int] = None
     partial: bool = False
+    ep: Optional[int] = None
 
 
 def placement(spec: Spec, sizes: dict[str, int],
@@ -255,29 +261,37 @@ def placement(spec: Spec, sizes: dict[str, int],
     """The ``Placement`` of a leaf of ``spec`` on a mesh of ``sizes``;
     ``wanted`` is its spec before ``_drop_nondivisible`` (``partial`` when
     it names ``model`` and ``spec`` does not). A dim split over ``model``
-    and another axis at once, or two dims over the other axes, raise: a
-    leaf gathers one dim, over one group."""
-    gather, tp = [], []
+    or ``expert`` and another axis at once, two dims over the other axes,
+    or experts that do not divide over ``expert``, raise: a leaf gathers
+    one dim, over one group, and a rank holds its own experts."""
+    gather, tp, ep = [], [], []
     for i, e in enumerate(spec):
         axes = [a for a in _axes(e) if int(sizes.get(a, 1)) > 1]
-        if TP_AXIS in axes and len(axes) > 1:
+        local = [a for a in axes if a in LOCAL_AXES]
+        if local and len(axes) > 1:
             raise NotImplementedError(
                 f"spec {spec}: dim {i} splits over {axes}; a dim is split "
-                f"over {TP_AXIS!r} alone (ROADMAP.md Queue 1)")
+                f"over {local[0]!r} alone (ROADMAP.md Queue 1)")
         if axes:
-            (tp if TP_AXIS in axes else gather).append(i)
+            {TP_AXIS: tp, EP_AXIS: ep}.get(axes[0], gather).append(i)
     if len(gather) > 1:
         raise NotImplementedError(
-            f"spec {spec} splits dims {gather} outside {TP_AXIS!r}; a leaf "
+            f"spec {spec} splits dims {gather} outside {LOCAL_AXES}; a leaf "
             "gathers one dim (ROADMAP.md Queue 1)")
 
-    def on_model(s) -> bool:
-        return any(TP_AXIS in _axes(e) for e in s or ())
+    def on(axis: str, s) -> bool:
+        return any(axis in _axes(e) for e in s or ())
 
-    partial = (int(sizes.get(TP_AXIS, 1)) > 1 and on_model(wanted)
-               and not on_model(spec))
+    if (int(sizes.get(EP_AXIS, 1)) > 1 and on(EP_AXIS, wanted)
+            and not on(EP_AXIS, spec)):
+        raise NotImplementedError(
+            f"spec {wanted}: the experts do not divide over expert = "
+            f"{sizes[EP_AXIS]}; a rank holds E / expert of them "
+            "(ROADMAP.md Queue 1)")
+    partial = (int(sizes.get(TP_AXIS, 1)) > 1 and on(TP_AXIS, wanted)
+               and not on(TP_AXIS, spec))
     return Placement(gather[0] if gather else None, tp[0] if tp else None,
-                     partial)
+                     partial, ep[0] if ep else None)
 
 
 class ParamLayout:

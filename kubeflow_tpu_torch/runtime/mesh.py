@@ -7,7 +7,10 @@ One canonical axis order, outermost → innermost by physical distance:
     pipeline  — stages
     data      — replicated data parallel (gradient all-reduce)
     fsdp      — sharded data parallel (all-gather/reduce-scatter of params)
-    expert    — MoE expert parallel (all-to-all)
+    expert    — MoE expert parallel (each rank its experts; one
+                all-reduce of the combined partials over expert × model,
+                as JAX's code does: the batch is not split over expert, so
+                there is no all-to-all)
     seq       — sequence/context parallel (ring attention K/V rotation)
     model     — tensor parallel (innermost)
 

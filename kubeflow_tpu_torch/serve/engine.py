@@ -102,9 +102,14 @@ Design (what carries over, and what eager PyTorch changes):
   every device call that reads weights or writes KV goes through one
   dispatcher (``serve/tp_dispatch.py``), which sends it to the other
   ranks, idle in ``follow``. Sampling runs on every rank from the same
-  seeded generator. Speculative decoding, LoRA, engine roles and the
-  handoff, the host and remote KV tiers and MoE raise under a mesh
-  (ROADMAP.md Queue 1).
+  seeded generator. An MoE model runs its phases' expert paths on each
+  rank's columns of every expert (``expert_mlp`` over ``model``: the
+  prefill dispatch one request at a time with its bucket's pads masked,
+  decode dense or zero-drop), the partial outputs summed with the
+  attention's in the same way. Speculative decoding, LoRA, engine roles
+  and the handoff, the host and remote KV tiers, and any serving axis but
+  ``model`` (``expert`` among them) raise under a mesh (ROADMAP.md Queue
+  1 item 9e).
 """
 
 from __future__ import annotations
@@ -850,14 +855,13 @@ def _check_tp(cfg: DecoderConfig, b: BatchingSpec, mesh,
         f"engine role {b.role!r}": b.role != "unified",
         "the host KV tier": b.host_kv_pages > 0,
         "the remote KV tier": kv_fabric_store(b.remote_kv_root) is not None,
-        "MoE": cfg.is_moe,
     }
     named = [k for k, v in refused.items() if v]
     if named:
         raise NotImplementedError(
             f"{', '.join(named)} under a tensor-parallel mesh: the port's "
-            "TP engine serves dense models over the model axis alone "
-            "(ROADMAP.md Queue 1 item 9e)")
+            "TP engine serves dense and MoE models over the model axis "
+            "alone (ROADMAP.md Queue 1 item 9e)")
 
 
 class LLMEngine:

@@ -29,8 +29,8 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.models.decoder import (
-    abstract_decoder_params, decoder_loss, decoder_param_specs,
-    init_decoder_params,
+    AUX_LOSS_WEIGHT, abstract_decoder_params, decoder_loss,
+    decoder_param_specs, init_decoder_params,
 )
 from kubeflow_tpu_torch.parallel.fsdp import StateLayout
 from kubeflow_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
@@ -135,9 +135,10 @@ def setup_train(
             optimizer, grad_tree, state["opt_state"], params, gnorm)
         metrics = dict(metrics)
         # Under a mesh ``loss`` is this rank's part; the metric is the
-        # global mean (dense configs only there: no balance loss).
+        # global value (the balance loss 0 for a dense config).
         metrics["loss"] = (loss.detach() if mesh is None
-                           else metrics["ce_loss"])
+                           else metrics["ce_loss"]
+                           + AUX_LOSS_WEIGHT * metrics["aux_loss"])
         metrics["grad_norm"] = grad_norm
         state["opt_state"] = opt_state
         state["step"] = int(state["step"]) + 1

@@ -219,13 +219,14 @@ def entry_dirs(base, name: str, n: int) -> list[Path]:
 
 
 def train_config(attn: str, ckpt=None, fused: str = "off",
-                 chunk: int = 0) -> dict:
+                 chunk: int = 0, model: str = "tiny", **over) -> dict:
     """The TrainerConfig fields of every run the distributed tests compare
     (tiny, fp32, 5 steps, 4 x 32 tokens a step; ``chunk`` the CE's
-    ``loss_chunk_size``)."""
-    return {"model": "tiny",
+    ``loss_chunk_size``; ``model`` and ``over``: another preset and more
+    overrides)."""
+    return {"model": model,
             "model_overrides": {"dtype": "float32", "fused_kernels": fused,
-                                "loss_chunk_size": chunk},
+                                "loss_chunk_size": chunk, **over},
             "data": {"seq_len": 32, "global_batch": 4}, "steps": STEPS,
             "log_every": 1, "attn_impl": attn,
             "optimizer": {"learning_rate": 3e-3, "warmup_steps": 1},
@@ -455,6 +456,120 @@ def whole_tree(recs: list, get) -> dict:
     return out
 
 
+# -- MoE on a mesh -------------------------------------------------------------
+
+#: name → (mesh axes, port attn_impl, fused_kernels, loss_chunk_size,
+#: tiny-moe overrides) of the MoE suite (4 ranks): one expert a rank;
+#: a batch split whose capacity binds (factor 0.5: 32 slots an expert of
+#: the global batch's 256 pairs, where a plan of each rank's 128 pairs
+#: alone would give 16); expert leaves split on two dims (E over expert,
+#: D over fsdp); the flash ring under seq (``block_outs`` remat); experts
+#: over expert and their columns over model (``dots_saveable`` remat); a
+#: batch and sequence split with no expert axis and binding capacity.
+MOE_CASES = {
+    "expert4": ({"expert": 4}, "xla", "on", 0, {}),
+    "data2_expert2": ({"data": 2, "expert": 2}, "xla", "off", 0,
+                      {"capacity_factor": 0.5}),
+    "fsdp2_expert2": ({"fsdp": 2, "expert": 2}, "xla", "off", 8, {}),
+    "seq2_expert2": ({"seq": 2, "expert": 2}, "ring_flash", "off", 0,
+                     {"remat_policy": "block_outs"}),
+    "expert2_model2": ({"expert": 2, "model": 2}, "xla", "off", 0,
+                       {"remat_policy": "dots_saveable"}),
+    "data2_seq2": ({"data": 2, "seq": 2}, "xla", "off", 0,
+                   {"capacity_factor": 0.5}),
+}
+#: The MoE case whose run checkpoints (steps 2, 4 and 5).
+MOE_CKPT_CASE = "fsdp2_expert2"
+#: The case whose loss and gradients are also taken on the dense path.
+MOE_DENSE_CASE = "expert4"
+
+
+def moe_suite(ctx) -> int:
+    """Each ``MOE_CASES`` mesh over the gang's 4 ranks, ``tiny-moe`` in
+    fp32: this rank's loss, metrics, synced gradients and dispatch plans'
+    kept pairs (per layer, the forward's) of ``decoder_loss`` on the
+    init and ``tp_tokens`` (its batch rows), and in ``MOE_DENSE_CASE``
+    the same on the dense path; then a ``Trainer`` run of 5 steps (losses,
+    aux losses, grad norms, its state after step 1, and in the
+    checkpointing case the checkpoint), with the leaves' specs and this
+    rank's coordinates."""
+    import dataclasses
+
+    import torch
+
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.decoder import decoder_loss
+    from kubeflow_tpu_torch.parallel.fsdp import batch_index
+    from kubeflow_tpu_torch.runtime.mesh import build_mesh
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.set_num_threads(1)
+    ctx.mesh                                   # join the world
+    rank, world = ctx.env.process_id, ctx.env.num_processes
+    base = Path(ctx.config["out"])
+    plan_of = L.dispatch_plan
+    keeps: list = []
+
+    def recorded(*args, **kwargs):
+        plan = plan_of(*args, **kwargs)
+        keeps.append(plan["keep"].clone())
+        return plan
+
+    L.dispatch_plan = recorded
+    out = {}
+    for name, (axes, attn, fused, chunk, over) in MOE_CASES.items():
+        mesh = build_mesh(axes, "cpu")
+        wd = base / name / f"rank{rank}"
+        wd.mkdir(parents=True, exist_ok=True)
+        ckpt = str(base / "ckpt") if name == MOE_CKPT_CASE else None
+        tr = Trainer(TrainerConfig.from_dict(train_config(
+            attn, ckpt, fused, chunk, "tiny-moe", **over)), mesh,
+            process_id=rank, num_processes=world, device="cpu",
+            workdir=str(wd))
+        task = tr.task
+        params = task.state["params"]
+        rec = {"init": T.map_tree(lambda t: t.detach().clone(), params),
+               "specs": T.flatten(task.layout.specs),
+               "coords": task.layout.coords, "losses": [], "aux": [],
+               "grad_norms": []}
+        idx, dp = batch_index(mesh)
+        toks = torch.from_numpy(tp_tokens())
+        rows = toks.shape[0] // dp
+        impls = ["dispatch"] + (["dense"] if name == MOE_DENSE_CASE else [])
+        for impl in impls:
+            cfg = dataclasses.replace(task.cfg, moe_impl=impl)
+            keeps.clear()
+            loss, m = decoder_loss(params, toks[idx * rows:(idx + 1) * rows],
+                                   cfg, attn_impl=attn, mesh=mesh,
+                                   placements=task.layout.dims)
+            grads = list(torch.autograd.grad(loss, T.leaves(params)))
+            task.layout.sync_grads(grads)
+            rec[impl] = {
+                "ce_loss": float(m["ce_loss"]),
+                "aux_loss": float(m["aux_loss"]),
+                "accuracy": float(m["accuracy"]),
+                "keeps": keeps[:cfg.n_layers],
+                "grads": T.unflatten(dict(zip(T.flatten(params), grads)))}
+
+        def on_step(step, m, tr=tr, rec=rec, name=name):
+            rec["losses"].append(m["loss"])
+            rec["aux"].append(m["aux_loss"])
+            rec["grad_norms"].append(m["grad_norm"])
+            if step == 1:
+                rec["params1"] = T.map_tree(lambda t: t.detach().clone(),
+                                            tr.task.state["params"])
+            if name == MOE_CKPT_CASE and step == 2:
+                rec["state2"] = T.map_tree(
+                    lambda t: t.detach().clone()
+                    if isinstance(t, torch.Tensor) else t, tr.task.state)
+
+        tr.run(on_step=on_step)
+        out[name] = rec
+    torch.save(out, base / f"rank{rank}.pt")
+    return 0
+
+
 #: name → BatchingSpec fields of the TP engine suite's engines (tiny's
 #: 4 heads / 2 kv heads): the contiguous cache, the page pool with prefix
 #: reuse and a copy-on-write tail (8-token pages; the prompts share a
@@ -510,11 +625,12 @@ def tp_shards(params: dict, cfg, spec: dict, mesh) -> dict:
 def tp_engine_suite(ctx) -> int:
     """Each ``TP_ENGINE_CASES`` engine on ``{model: world}`` over this
     rank's shards (``tp_shards``) of the whole params in
-    ``config["params"]`` (a torch save), seed 3: rank 0 runs
-    ``tp_generate`` and stops the engine, the others ``follow``; each rank
-    writes its ops (in all and by name), its generator's state after, and
-    (rank 0) the completions and the engine's radix counters; and, under
-    ``unpacked``, the error of an int8 engine given unpacked shards."""
+    ``config["params"]`` (a torch save) of ``config["model"]`` (default
+    tiny) in fp32, seed 3: rank 0 runs ``tp_generate`` and stops the
+    engine, the others ``follow``; each rank writes its ops (in all and by
+    name), its generator's state after, and (rank 0) the completions and
+    the engine's radix counters; and, under ``unpacked``, the error of an
+    int8 engine given unpacked shards."""
     import torch
 
     from kubeflow_tpu_torch.core.serving import BatchingSpec
@@ -526,7 +642,7 @@ def tp_engine_suite(ctx) -> int:
     mesh = ctx.mesh
     rank = ctx.env.process_id
     params = torch.load(ctx.config["params"])
-    cfg = preset("tiny", dtype="float32")
+    cfg = preset(ctx.config.get("model", "tiny"), dtype="float32")
     out = {}
     try:
         LLMEngine(cfg, BatchingSpec(**TP_ENGINE_CASES["int8_weights"]),

@@ -21,8 +21,8 @@ batches:
 - only the coordinator writes manifests, metrics and the goodput ledger;
 - the gang's ranks also run ``llm_pretrain``, ``vision_train`` (CLIP) and
   ``torch_train`` as a four-process world;
-- a ``pipeline`` or ``expert`` degree above 1 raises (``model`` is
-  tests/test_torch_tp.py's).
+- a ``pipeline`` degree above 1 raises (``model`` is
+  tests/test_torch_tp.py's, ``expert`` tests/test_torch_moe_mesh.py's).
 """
 
 import numpy as np
@@ -323,22 +323,29 @@ def test_four_process_gang_trains(gang, name):
 
 @pytest.mark.parametrize("axis", ["model", "pipeline", "expert"])
 def test_unported_axis_raises_with_the_roadmap_pointer(axis):
-    """``pipeline`` and ``expert`` still raise; ``model`` trains now
-    (tests/test_torch_tp.py): the check lets it through and a leaf keeps
-    both its dims, ``wq [L, D, H, Dh]`` gathering D over fsdp and keeping
-    H split over model."""
+    """``pipeline`` still raises; ``model`` trains now
+    (tests/test_torch_tp.py) and so does ``expert``
+    (tests/test_torch_moe_mesh.py): the check lets them through and a leaf
+    keeps both its dims, ``wq [L, D, H, Dh]`` gathering D over fsdp and
+    keeping H split over model, an MoE ``gate [L, E, D, M]`` gathering D
+    over fsdp and keeping E split over expert."""
     from kubeflow_tpu_torch.models.decoder import abstract_decoder_params
     from kubeflow_tpu_torch.parallel.fsdp import check_mesh
     from kubeflow_tpu_torch.parallel.sharding import placement
 
     mesh = {axis: 2, "fsdp": 2}
-    if axis == "model":
+    if axis in ("model", "expert"):
         check_mesh(mesh)
-        cfg = preset("tiny", dtype="float32")
+        cfg = preset("tiny" if axis == "model" else "tiny-moe",
+                     dtype="float32")
         specs = T.flatten(shard_params(abstract_decoder_params(cfg),
                                        decoder_param_specs(cfg), mesh))
-        wq = placement(specs["layers/attn/wq"], mesh)
-        assert (wq.gather, wq.tp, wq.partial) == (1, 2, False)
+        if axis == "model":
+            wq = placement(specs["layers/attn/wq"], mesh)
+            assert (wq.gather, wq.tp, wq.partial) == (1, 2, False)
+        else:
+            gate = placement(specs["layers/mlp/gate"], mesh)
+            assert (gate.gather, gate.ep, gate.tp) == (2, 1, None)
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         setup_train(preset("tiny", dtype="float32"), OptimizerConfig(),

@@ -407,13 +407,15 @@ def test_int8_kv_needs_the_page_pool(cfg):
 
 def test_moe_serves_and_mesh_raises(cfg):
     # MoE models are served now (tests/test_torch_moe.py); a mesh of the
-    # model axis alone serves a dense model (tests/test_torch_tp_engine.py),
-    # and MoE or another axis under a mesh raise with the ROADMAP pointer.
+    # model axis alone serves dense and MoE models
+    # (tests/test_torch_tp_engine.py, tests/test_torch_tp_moe_engine.py),
+    # and an expert or another axis under a mesh raise with the ROADMAP
+    # pointer.
     moe = E.LLMEngine(tconfig.preset("tiny-moe"), _spec(), device="cpu")
     assert moe._cfg_decode.moe_impl == "dense"
     with pytest.raises(NotImplementedError, match="Queue 1 item 9e"):
         E.LLMEngine(tconfig.preset("tiny-moe"), _spec(), device="cpu",
-                    mesh={"model": 2})
+                    mesh={"expert": 2, "model": 2})
     with pytest.raises(NotImplementedError, match="Queue 1 item 9e"):
         E.LLMEngine(cfg, _spec(), device="cpu", mesh={"data": 2,
                                                       "model": 2})

@@ -201,12 +201,25 @@ def test_dense_and_aux_with_valid_equal_jax():
 
 
 def test_parallel_axes_and_unknown_impl_raise():
+    """The expert, sequence and model axes run now
+    (tests/test_torch_moe_mesh.py); what still raises: leaves that are not
+    a rank's cut of the experts or of their columns, experts that do not
+    divide over the expert axis, and an unknown impl."""
+    from kubeflow_tpu_torch.models.config import with_model_axis
+    from kubeflow_tpu_torch.parallel.collectives import ModelAxis
+    from kubeflow_tpu_torch.parallel.sharding import placement
+
     _, tc = _cfgs()
     _, tp = _moe_params(_cfgs()[0])
     x = torch.from_numpy(_x((1, 4, tc.hidden)))
-    for axis in ("expert_axis", "seq_axis", "tp_axis"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            tlayers.moe_block(tp, x, tc, **{axis: "ep"})
+    with pytest.raises(ValueError, match="expert_mlp"):
+        tlayers.moe_block(tp, x, with_model_axis(tc, ModelAxis(None, 0, 2)))
+    with pytest.raises(ValueError, match="experts"):
+        tlayers.moe_block({k: v[:2] if k != "router" else v
+                           for k, v in tp.items()}, x, tc)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        placement((None, None, "fsdp", "model"), {"expert": 3},
+                  (None, "expert", "fsdp", "model"))
     with pytest.raises(ValueError, match="moe_impl"):
         tlayers.moe_block(tp, x, dataclasses.replace(tc, moe_impl="ragged"))
 
