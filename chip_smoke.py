@@ -19,10 +19,15 @@ runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
 (l), ``--multi-cards-only`` phases 1, 2, (l)1 and (l)4 (for a machine
 with several cards), ``--tp-only`` phases 1, 2 and (m) (its 4-card parts
 where the machine has 4 cards), ``--tp-cards-only`` phases 1, 2 and
-(m)3-(m)5 (for a machine with 4 cards), ``--ep-only`` phases 1, 2 and (n)
+(m)3-(m)6 (for a machine with 4 cards), ``--tp-roles-cards-only`` phases
+1, 2 and (m)6 (4 cards), ``--ep-only`` phases 1, 2 and (n)
 (its 4-card parts where the machine has 4 cards), ``--ep-cards-only``
-phases 1, 2, (n)2 and (n)3 (for a machine with 4 cards). Every phase
-prints its seconds.
+phases 1, 2, (n)2 and (n)3 (for a machine with 4 cards),
+``--ep-fault-cards-only`` phases 1, 2 and (n)3 with a fault planted in
+the served gang (rank 1's shard of expert 0's down weight doubled in
+every layer), which (n)3's token check must catch (4 cards; it exits 0
+when the check fails). None of these prints the result lines. Every
+phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -344,8 +349,24 @@ Phases, each a hard failure:
    one-card forward's argmax or a near tie, ``uniform`` TTFT and TPOT, the
    followers' op counts the leader's, SIGTERM ends every rank) and (m)5
    Llama-3-70B at 80 layers on ``{model: 4}`` (peak per card, 8 greedy
-   requests held to a plain TP forward on the same cards, TPOT); on one
-   card (m)3-(m)5 print why they did not run.
+   requests held to a plain TP forward on the same cards, TPOT) and (m)6
+   disaggregated serving under TP: Llama-3-8B (bf16 pages, then int8) as
+   a ``{model: 2}`` prefill gang on cards 0-1 handing off to a ``{model:
+   2}`` decode gang on cards 2-3 with the host and remote KV tiers (the
+   KV payloads whole-model: gathered from the ranks' kv heads, each rank
+   keeping its own on adoption): greedy tokens through the pair equal to
+   a unified ``{model: 2}`` gang's, and they and (bf16) those from the
+   prefill gang to a one-process decode worker on card 2 held as (m)5
+   holds its own, by teacher-forced TP forwards; ``mixed_interference``
+   through the pair (every request ok, one export per request with tokens
+   to decode, one adoption per export, no failed or fallback handoff, no
+   page resident after) beside the unified gang; a turn demoted and
+   spilled off the decode gang, then promoted back with the same tokens;
+   each rank's launches (``ROLES_KERNELS`` on every rank) and peak, the
+   followers' ops by name the leader's, the bytes an adoption sends each
+   follower; with the decode gang gone the prefill gang recomputes; every
+   leader ends 143 on SIGTERM and every follower 0. On one card
+   (m)3-(m)6 print why they did not run.
 18. (n) MoE on a mesh: (n)1 one Mixtral-width MoE block (bf16, 2 batch
    shards of 2048 tokens, capacity factor 1.0) split over ``{expert: 4}``
    and ``{expert: 2, model: 2}`` in lockstep on the card, against the
@@ -2643,14 +2664,15 @@ WORKER_PLATFORM = "gpu"
 
 
 def spawn_worker(batching: dict, label: str, model: dict = WORKER_MODEL,
-                 service: str = "llama", storage_uri: str = "random://"):
+                 service: str = "llama", storage_uri: str = "random://",
+                 env_extra: dict | None = None):
     """Start ``python -m kubeflow_tpu_torch.runtime.worker_main`` serving
     ``model`` (default Llama-3-8B) from ``storage_uri`` (default
     ``random://``: bf16, the serving seed) with ``batching``, the ``strip``
     transformer, the
     ``grad_x_input`` explainer and the ``chip_smoke:TokenIdText``
-    tokenizer, on a free port of this host. Returns (process, url, log
-    file)."""
+    tokenizer, on a free port of this host (``env_extra`` added to its
+    environment). Returns (process, url, log file)."""
     import tempfile
 
     from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
@@ -2669,6 +2691,7 @@ def spawn_worker(batching: dict, label: str, model: dict = WORKER_MODEL,
                      parallelism={}, platform=WORKER_PLATFORM)
     env = {k: v for k, v in os.environ.items() if not k.startswith("KFTPU_")}
     env.update(wenv.to_env())
+    env.update(env_extra or {})
     env["PYTHONPATH"] = str(repo)
     log = tempfile.NamedTemporaryFile(prefix=f"chip_smoke_{label}_",
                                       suffix=".log", delete=False)
@@ -6266,9 +6289,12 @@ def counted_llm_pretrain(ctx) -> int:
 
 
 def start_workers(entrypoint: str, config: dict, workdirs: list,
-                  parallelism: dict, label: str) -> dict:
+                  parallelism: dict, label: str,
+                  env_extra: dict | None = None) -> dict:
     """One ``runtime.worker_main`` process per workdir, as one world on the
-    card(s) (``KFTPU_PLATFORM=gpu``), started; ``wait_workers`` ends them."""
+    card(s) (``KFTPU_PLATFORM=gpu``; ``env_extra``, such as
+    ``CUDA_VISIBLE_DEVICES``, added to each process's environment),
+    started; ``wait_workers`` ends them."""
     import tempfile
 
     from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port
@@ -6287,6 +6313,7 @@ def start_workers(entrypoint: str, config: dict, workdirs: list,
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("KFTPU_")}
         env.update(wenv.to_env())
+        env.update(env_extra or {})
         env["PYTHONPATH"] = str(repo)
         log = tempfile.TemporaryFile()
         procs.append((subprocess.Popen(
@@ -6323,10 +6350,11 @@ def wait_workers(gang: dict, timeout: float = 600.0) -> float:
 
 
 def spawn_workers(entrypoint: str, config: dict, workdirs: list,
-                  parallelism: dict, label: str) -> float:
+                  parallelism: dict, label: str,
+                  env_extra: dict | None = None) -> float:
     """``start_workers`` then ``wait_workers``."""
     return wait_workers(start_workers(entrypoint, config, workdirs,
-                                      parallelism, label))
+                                      parallelism, label, env_extra))
 
 
 def multi_worker_world1(card: str) -> list[float]:
@@ -6857,12 +6885,26 @@ def counted_model_server(ctx) -> int:
     counts set to 0 before and written after, with the rank's peak
     allocation, to ``counts.json`` in its workdir — also when SIGTERM ends
     it."""
+    from kubeflow_tpu_torch.serve import storage
     from kubeflow_tpu_torch.serve.model_server import model_server
 
     wrappers = _moe_wrappers()
     for w in wrappers.values():
         w.launches = 0
     ctx.mesh                  # join first: it picks this rank's card
+    plant = ctx.config.get("plant")
+    if plant and plant["rank"] == ctx.env.process_id:
+        # A test-only fault (``--ep-fault-cards-only``): this rank's shard
+        # of one expert's down weight, every layer, scaled.
+        load = storage.load_params
+
+        def planted(*args, **kwargs):
+            params = load(*args, **kwargs)
+            params["layers"]["mlp"]["down"][:, plant["expert"]] *= \
+                plant["scale"]
+            return params
+
+        storage.load_params = planted
     card = ctx.device.startswith("cuda")
     if card:
         torch.cuda.reset_peak_memory_stats()
@@ -7097,23 +7139,44 @@ def tp_profile(card: str) -> None:
             print(f"  {ms:8.3f} ms  {n:6.1f}x  {key}", flush=True)
 
 
-def _tp_gang(model: dict, batching: dict, label: str, base: str) -> dict:
+def _tp_gang(model: dict, batching: dict, label: str, base: str,
+             plant: dict | None = None) -> dict:
     """A ``{model: TP_CARDS}`` ``counted_model_server`` gang serving
     ``model`` from ``random://`` with ``batching``, the ids-as-text
     tokenizer; returns it with its url once rank 0 answers its readiness
-    probe."""
+    probe. ``plant``: a test-only fault (``counted_model_server``)."""
+    return _tp_gang_ready(_tp_gang_start(model, batching, label, base,
+                                         plant=plant))
+
+
+def _tp_gang_start(model: dict, batching: dict, label: str, base: str, *,
+                   ways: int = TP_CARDS, cards: str | None = None,
+                   plant: dict | None = None) -> dict:
+    """``_tp_gang``'s gang on ``{model: ways}``, started (on the cards
+    ``cards`` names, ``CUDA_VISIBLE_DEVICES``, when given)."""
     from kubeflow_tpu_torch.runtime.bootstrap import free_port
 
     port = free_port()
     conf = {"model": model, "storage_uri": "random://", "batching": batching,
             "port": port, "service": "llama",
             "tokenizer": "chip_smoke:TokenIdText"}
-    dirs = [Path(base, label.replace(" ", "_"), f"w{r}")
-            for r in range(TP_CARDS)]
+    if plant:
+        conf["plant"] = plant
+    dirs = [Path(base, re.sub(r"[^\w.-]", "_", label), f"w{r}")
+            for r in range(ways)]
     gang = start_workers("chip_smoke:counted_model_server", conf, dirs,
-                         {"model": TP_CARDS}, label)
+                         {"model": ways}, label,
+                         None if cards is None
+                         else {"CUDA_VISIBLE_DEVICES": cards})
     gang["url"], gang["dirs"] = f"http://127.0.0.1:{port}", dirs
-    t0 = time.perf_counter()
+    return gang
+
+
+def _tp_gang_ready(gang: dict) -> dict:
+    """``gang`` once rank 0 answers its readiness probe (``ready_s``: the
+    seconds since it started)."""
+    label = gang["label"]
+    t0 = gang["t0"]
     while True:
         dead = [r for r, (p, _) in enumerate(gang["procs"])
                 if p.poll() is not None]
@@ -7175,32 +7238,40 @@ def _tp_stop(gang: dict, card: str) -> dict:
                   file=sys.stderr, flush=True)
         fail(f"{gang['label']}: SIGTERM to rank 0 gave exit codes {rcs}")
     m = re.search(r"(\d+) ops dispatched to the model axis \(([0-9.]+) ms "
-                  r"sending\)", logs[0])
+                  r"sending; by op (\{.*?\}); bytes each follower received "
+                  r"by op (\{.*?\})\)", logs[0])
     ops = [int(m.group(1)) if m else -1]
     send_ms = float(m.group(2)) if m else float("nan")
+    by_op = [json.loads(m.group(3)) if m else None]
+    sent = json.loads(m.group(4)) if m else {}
     for r in range(1, len(procs)):
-        m = re.search(rf"follower rank {r} ran (\d+) ops", logs[r])
+        m = re.search(rf"follower rank {r} ran (\d+) ops \(by op "
+                      r"(\{.*?\})\)", logs[r])
         ops.append(int(m.group(1)) if m else -1)
+        by_op.append(json.loads(m.group(2)) if m else None)
     counts = [json.loads((d / "counts.json").read_text())
               for d in gang["dirs"]]
     print(f"{gang['label']}: SIGTERM -> exit codes {rcs} in {secs:.1f} s; "
           f"ops dispatched / run per rank {ops}; the leader's host ms "
           f"sending them {send_ms:.3f} ({send_ms / max(ops[0], 1):.3f} an "
           f"op); {card}", flush=True)
-    if ops[0] <= 0 or len(set(ops)) != 1:
-        fail(f"{gang['label']}: the followers' op counts {ops[1:]} are not "
-             f"the leader's {ops[0]}")
-    return {"ops": ops, "counts": counts}
+    if ops[0] <= 0 or len(set(ops)) != 1 or by_op[0] is None or \
+            any(b != by_op[0] for b in by_op[1:]):
+        fail(f"{gang['label']}: the followers' op counts {ops[1:]} (by op "
+             f"{by_op[1:]}) are not the leader's {ops[0]} ({by_op[0]})")
+    return {"ops": ops, "counts": counts, "by_op": by_op[0], "sent": sent}
 
 
-def _tp_greedy(url: str, prompts, new: int = TP_NEW) -> list[list[int]]:
+def _tp_greedy(url: str, prompts, new: int = TP_NEW,
+               headers: dict | None = None) -> list[list[int]]:
     """Greedy completions of ``prompts`` ((tokens, salt) of ``text``),
     sent at once (the engine batches them), as token ids."""
     from concurrent.futures import ThreadPoolExecutor
 
     def ask(ps):
         raw = _post(url + "/v1/completions",
-                    {"prompt": text(*ps), "max_tokens": new})[1]
+                    {"prompt": text(*ps), "max_tokens": new},
+                    headers=headers)[1]
         return [int(x) for x in json.loads(raw)["choices"][0]["text"].split()]
 
     with ThreadPoolExecutor(len(prompts)) as pool:
@@ -7296,7 +7367,8 @@ def tp_serve_70b(card: str) -> None:
     tp_serve_checked(card, "(m)5", "70B", TP_MODEL_70B)
 
 
-def tp_serve_checked(card: str, tag: str, name: str, model: dict) -> None:
+def tp_serve_checked(card: str, tag: str, name: str, model: dict,
+                     plant: dict | None = None) -> None:
     """``tag``: ``model`` (``name``) as a ``{model: 4}`` ``model_server``
     gang on ``PAGED_SPEC``'s page pool:
     each rank's peak beside ``estimate_model_bytes / 4`` (weights and the
@@ -7321,7 +7393,7 @@ def tp_serve_checked(card: str, tag: str, name: str, model: dict) -> None:
     tok = TokenIdText()
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
                                      prefix=".chip_smoke_tp_") as base:
-        gang = _tp_gang(model, PAGED_SPEC, label, base)
+        gang = _tp_gang(model, PAGED_SPEC, label, base, plant=plant)
         ok = False
         try:
             t0 = time.perf_counter()
@@ -7361,6 +7433,15 @@ def tp_serve_checked(card: str, tag: str, name: str, model: dict) -> None:
              "prompts": [tok.encode(text(*p)) for p in TP_70B_PROMPTS]},
             dirs, {"model": TP_CARDS}, f"{tag} teacher-forced TP forwards")
         res = json.loads((dirs[0] / "teacher.json").read_text())
+    teacher_verdict(tag, cfg, res, secs, card)
+
+
+def teacher_verdict(tag: str, cfg, res: dict, secs: float,
+                    card: str) -> None:
+    """``tp_teacher_forced``'s findings (``res``) printed, and its check:
+    no served token's fp32 gap past the near-tie band plus twice its row's
+    bf16 noise, and departures from the fp32 argmax at most twice a bf16
+    forward's, plus 2."""
     depths = [i for i in TP_DRIFT_LAYERS if i <= cfg.n_layers]
     rel = {k: [f"{v[i]:.3e}" for i in depths]
            for k, v in res["rel_l2"].items()}
@@ -7391,18 +7472,342 @@ def tp_serve_checked(card: str, tag: str, name: str, model: dict) -> None:
              f"forward's departures, plus 2)")
 
 
+# -- (m)6 disaggregated serving under tensor parallelism --------------------
+
+#: (m)6's gangs are ``{model: ROLES_WAYS}``: the prefill gang on cards 0-1,
+#: the decode gang on cards 2-3 (separate prefill and decode pools, the
+#: layout disaggregated deployments run), the one-process decode worker
+#: on card 2 and the unified gang on cards 0-1 beside the prefill gang.
+ROLES_WAYS = 2
+ROLES_CARDS = {"prefill": "0,1", "decode": "2,3", "worker": "2",
+               "unified": "0,1"}
+#: The decode gang's tiers: 64 host pages, 0.5 s to demote and 0.5 s more
+#: to spill into a store under the phase's directory, a store deadline a
+#: loaded host meets (one bf16 page blob of the 8B holds 16.8 MB).
+ROLES_TIER = dict(host_kv_pages=64, kv_demote_after_s=0.5,
+                  kv_remote_after_s=1.0, kv_remote_deadline_s=5.0)
+#: The tier check's conversation: 700 tokens, 5 full pages of 128.
+ROLES_TURN = (700, 97)
+#: The serving kernels every rank of each gang must launch: a decode gang
+#: runs no prefill, so no fused residual norm; the prefill gang decodes
+#: in ``roles_fallback``. The paged chunk prefill attends its gathered
+#: context plainly, as JAX's ``paged_chunk_prefill`` does, so the flash
+#: forward's launches are printed, not required.
+ROLES_KERNELS = {
+    "prefill": ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd",
+                "paged_decode"),
+    "decode": ("rmsnorm_fwd", "swiglu_fwd", "paged_decode"),
+    "unified": ("rmsnorm_fwd", "add_rmsnorm_fwd", "swiglu_fwd",
+                "paged_decode")}
+
+
+def _handoff_counters(pre: str, dec: str) -> dict:
+    """The pair's handoff counters: exported, failed and fallback on the
+    prefill side, adopted on the decode side, and the KV bytes of each
+    side's payloads."""
+    out = {k: _series(pre if k != "adopted" else dec,
+                      f"kftpu_engine_handoffs_{k}_total")
+           for k in ("exported", "adopted", "failed", "fallback")}
+    for k, url in (("exported", pre), ("adopted", dec)):
+        out[f"bytes_{k}"] = _series(
+            url, f"kftpu_engine_kv_handoff_bytes_{k}_total")
+    return out
+
+
+def _tier_counters(url: str) -> dict:
+    return {k: _series(url, f"kftpu_engine_kv_{k}") for k in (
+        "pages_demoted_total", "pages_promoted_total",
+        "wire_bytes_promoted_total", "remote_demoted_bytes_total",
+        "remote_promoted_bytes_total")}
+
+
+def _resident_after(*urls) -> tuple:
+    """Pages resident (in use or held for a handoff) on each server once
+    its scheduler has applied the last acks (polled up to 10 s)."""
+    for _ in range(100):
+        got = tuple(_resident_pages(u) for u in urls)
+        if not any(got):
+            break
+        time.sleep(0.1)
+    return got
+
+
+def roles_mixed(pre: str, dec: str, uni: str, card: str) -> dict:
+    """``mixed_interference`` through the TP pair (the decode gang in
+    ``X-Kftpu-Decode-Backend``) and then through the unified TP gang:
+    every request of the pair ok, one export per request with tokens to
+    decode and one adoption per export, no failed or fallback handoff, no
+    page resident on either leader after; both report lines side by
+    side."""
+    import http.client
+
+    from kubeflow_tpu_torch import loadgen
+
+    c0 = _handoff_counters(pre, dec)
+    target, stamped, base = _decode_backend_target(pre, dec)
+    http.client.HTTPConnection = stamped
+    try:
+        run, rep = run_mixed(target, f"ServerTarget, (m)6 {{model: "
+                             f"{ROLES_WAYS}}} prefill + decode gangs", card,
+                             pre)
+    finally:
+        http.client.HTTPConnection = base
+    c1 = _handoff_counters(pre, dec)
+    moved = {k: c1[k] - c0[k] for k in c0}
+    multi = sum(1 for o in run.outcomes if o.tokens > 1)
+    resident = _resident_after(pre, dec)
+    print(f"(m)6 mixed_interference through the pair: handoffs "
+          f"{json.dumps(moved)}, requests with tokens to decode {multi}, "
+          f"pages resident after (prefill, decode leaders) {resident}",
+          flush=True)
+    if rep["by_status"] != {"ok": rep["requests"]}:
+        fail(f"(m)6 pair: statuses {rep['by_status']}")
+    if not (moved["exported"] == moved["adopted"] == multi) or \
+            moved["failed"] or moved["fallback"] or \
+            moved["bytes_exported"] != moved["bytes_adopted"]:
+        fail(f"(m)6 pair: handoff counters {moved} against {multi} requests "
+             "with tokens to decode")
+    if any(resident):
+        fail(f"(m)6 pair: pages resident after the run {resident}")
+    _, urep = run_mixed(loadgen.ServerTarget(uni, model="llama"),
+                        f"ServerTarget, (m)6 unified {{model: {ROLES_WAYS}}} "
+                        "gang", card, uni)
+    check_statuses("(m)6 unified gang", urep)
+    for label, r in (("unified gang", urep), ("prefill + decode gangs", rep)):
+        print(f"(m)6 mixed_interference side by side, {{model: "
+              f"{ROLES_WAYS}}} {label}: TTFT p50 {r['ttft_ms'].get('p50')} "
+              f"p95 {r['ttft_ms'].get('p95')} ms, TPOT p50 "
+              f"{r['tpot_ms'].get('p50')} p95 {r['tpot_ms'].get('p95')} ms, "
+              f"{r['req_s']} req/s, {r['tokens_per_sec']} tokens/s; {card}",
+              flush=True)
+    return moved
+
+
+def roles_tiers(pre: str, dec: str, label: str, card: str) -> None:
+    """The decode gang's tiers: ``ROLES_TURN`` through the pair, then,
+    once every cached page has left the decode gang's cards (demoted, and
+    spilled to the store), the same turn again: the decode gang adopts it
+    over the prefix it promotes back. The tokens must be the first pass's;
+    the demote and promote counts and bytes are printed."""
+    from kubeflow_tpu_torch.core.headers import DECODE_BACKEND_HEADER
+
+    hdr = {DECODE_BACKEND_HEADER: dec}
+    first = _tp_greedy(pre, [ROLES_TURN], headers=hdr)[0]
+    c0 = _tier_counters(dec)
+    t0 = time.perf_counter()
+    while (_series(dec, "kftpu_engine_kv_pages_cached") > 0
+           or _tier_counters(dec)["remote_demoted_bytes_total"]
+           <= c0["remote_demoted_bytes_total"]):
+        if time.perf_counter() - t0 > 60:
+            fail(f"{label}: the decode gang's pages were not demoted and "
+                 f"spilled within 60 s: {_tier_counters(dec)}")
+        time.sleep(0.1)
+    waited = time.perf_counter() - t0
+    c1 = _tier_counters(dec)
+    second = _tp_greedy(pre, [ROLES_TURN], headers=hdr)[0]
+    c2 = _tier_counters(dec)
+    demoted = {k: c1[k] - c0[k] for k in c0}
+    promoted = {k: c2[k] - c1[k] for k in c0}
+    print(f"{label} tiers: turn of {ROLES_TURN[0]} tokens, then demoted and "
+          f"spilled in {waited:.1f} s ({json.dumps(demoted)}), then the "
+          f"same turn promoted back ({json.dumps(promoted)}); tokens "
+          f"{'identical' if first == second else 'DIFFERENT'}; {card}",
+          flush=True)
+    if second != first:
+        fail(f"{label}: tokens after promotion {second} differ from {first}")
+    if promoted["wire_bytes_promoted_total"] <= 0:
+        fail(f"{label}: the second pass promoted nothing: {promoted}")
+
+
+def roles_stop(gang: dict, role: str, card: str, label: str) -> dict:
+    """``_tp_stop``, then each rank's launches and peak: the serving
+    kernels of ``role`` (``ROLES_KERNELS``) must have launched on every
+    rank."""
+    got = _tp_stop(gang, card)
+    print(f"{label}: launches per rank "
+          f"{[c['launches'] for c in got['counts']]}; peak per rank "
+          f"{[round(c['peak'] / 2**30, 2) for c in got['counts']]} GiB; ops "
+          f"by name {json.dumps(got['by_op'])}; {card}", flush=True)
+    for c in got["counts"]:
+        if not all(c["launches"][k] for k in ROLES_KERNELS[role]):
+            fail(f"{label}: a serving kernel launched no time on a rank: "
+                 f"{c['launches']}")
+    return got
+
+
+def roles_fallback(pre: str, dec: str, want: list[int], label: str) -> None:
+    """With the decode gang gone, a prompt through the prefill gang still
+    gives its tokens (recomputed there) and counts one fallback."""
+    from kubeflow_tpu_torch.core.headers import DECODE_BACKEND_HEADER
+
+    fb0 = _series(pre, "kftpu_engine_handoffs_fallback_total")
+    got = _tp_greedy(pre, WORKER_PROMPTS[:1],
+                     headers={DECODE_BACKEND_HEADER: dec})[0]
+    fb = _series(pre, "kftpu_engine_handoffs_fallback_total") - fb0
+    print(f"{label} fallback with the decode gang gone: tokens "
+          f"{'identical to' if got == want else 'differ from'} the pair's, "
+          f"fallback counter +{fb:.0f}", flush=True)
+    if got != want or fb != 1:
+        fail(f"{label} fallback: tokens {got}, counter +{fb}")
+
+
+def roles_round(pool: str, spec: dict, base: str, card: str) -> dict:
+    """One pool dtype of (m)6: the prefill and decode gangs (and, for bf16
+    pages, the one-process decode worker and the unified gang) started
+    together; ``WORKER_PROMPTS`` greedy through the pair (bf16: through
+    the prefill gang to the worker, and through the unified gang);
+    ``roles_mixed`` (bf16); ``roles_tiers``; every server stopped (the
+    decode side first, then ``roles_fallback``). Returns the greedy
+    completions by route."""
+    from kubeflow_tpu_torch.core.headers import DECODE_BACKEND_HEADER
+
+    full = pool == "bf16"
+    label = f"(m)6 {pool} pages"
+    gangs = {"prefill": _tp_gang_start(
+        WORKER_MODEL, dict(spec, role="prefill"), f"{label} prefill gang",
+        base, ways=ROLES_WAYS, cards=ROLES_CARDS["prefill"]),
+        "decode": _tp_gang_start(
+        WORKER_MODEL, dict(spec, role="decode", **ROLES_TIER,
+                           remote_kv_root=str(Path(base, f"kv-{pool}"))),
+        f"{label} decode gang", base, ways=ROLES_WAYS,
+        cards=ROLES_CARDS["decode"])}
+    gangs["unified"] = _tp_gang_start(
+        WORKER_MODEL, spec, f"{label} unified gang", base, ways=ROLES_WAYS,
+        cards=ROLES_CARDS["unified"])
+    worker = None
+    if full:
+        worker = spawn_worker(dict(spec, role="decode"), "roles-decode",
+                              env_extra={"CUDA_VISIBLE_DEVICES":
+                                         ROLES_CARDS["worker"]})
+    t0 = time.perf_counter()
+    outs, ok, stopped = {}, False, set()
+    try:
+        for g in gangs.values():
+            _tp_gang_ready(g)
+        ready = {k: round(g["ready_s"], 1) for k, g in gangs.items()}
+        if worker is not None:
+            ready["worker"] = round(wait_ready(worker[0], worker[1],
+                                               "(m)6 decode worker", t0), 1)
+        pre, dec = gangs["prefill"]["url"], gangs["decode"]["url"]
+        t1 = time.perf_counter()
+        outs["pair"] = _tp_greedy(pre, WORKER_PROMPTS,
+                                  headers={DECODE_BACKEND_HEADER: dec})
+        print(f"{label}: ready in {json.dumps(ready)} s; greedy through the "
+              f"pair {outs['pair']} in {time.perf_counter() - t1:.1f} s; "
+              f"{card}", flush=True)
+        outs["unified"] = _tp_greedy(gangs["unified"]["url"],
+                                     WORKER_PROMPTS)
+        if full:
+            outs["cross"] = _tp_greedy(
+                pre, WORKER_PROMPTS,
+                headers={DECODE_BACKEND_HEADER: worker[1]})
+        for route, what in (("unified", "the unified gang's"),
+                            ("cross", "the prefill gang to the one-process "
+                                      "worker's")):
+            if route in outs:
+                same = sum(a == b for a, b in zip(outs[route], outs["pair"]))
+                print(f"{label}: {same} of {len(WORKER_PROMPTS)} completions "
+                      f"of the pair identical to {what}", flush=True)
+        if outs["pair"] != outs["unified"]:
+            # The same TP arithmetic on the same weights: only where the
+            # KV lives differs.
+            fail(f"{label}: the pair's greedy tokens are not the unified "
+                 "gang's")
+        if full:
+            roles_mixed(pre, dec, gangs["unified"]["url"], card)
+        roles_tiers(pre, dec, label, card)
+        stopped.add("unified")
+        roles_stop(gangs["unified"], "unified", card, f"{label} unified gang")
+        if full:
+            sigterm_worker(worker[0], worker[1], "(m)6 decode worker")
+        stopped.add("decode")   # _tp_stop closes the logs, pass or fail
+        got = roles_stop(gangs["decode"], "decode", card,
+                         f"{label} decode gang")
+        ups = got["by_op"].get("upload_pages", 0)
+        moved = got["sent"].get("upload_pages", 0)
+        print(f"{label} decode gang: {ups} page uploads (adoptions and "
+              f"promotions) sent {moved} bytes to each follower, "
+              f"{moved / max(ups, 1):.0f} an upload: whole-model blocks, "
+              f"padded to a power of two of pages (each rank keeps 1/"
+              f"{ROLES_WAYS} of the heads); the export gathers read "
+              f"{got['by_op'].get('gather_pages', 0)} times on the decode "
+              f"gang (demotions); {card}", flush=True)
+        roles_fallback(pre, dec, outs["pair"][0], label)
+        stopped.add("prefill")
+        roles_stop(gangs["prefill"], "prefill", card,
+                   f"{label} prefill gang")
+        ok = True
+    finally:
+        if not ok:
+            for k, g in gangs.items():
+                if k not in stopped:
+                    _tp_gang_logs(g)
+                    for p, _ in g["procs"]:
+                        p.kill()
+        if worker is not None:
+            reap_worker(worker[0], worker[2], "(m)6 decode worker", ok)
+    return outs
+
+
+def tp_roles_serve(card: str) -> None:
+    """(m)6: disaggregated serving under tensor parallelism, Llama-3-8B at
+    full width and depth (``WORKER_MODEL``, bf16 weights from the serving
+    seed, ``PAGED_SPEC``) on bf16 pages and then int8 pages
+    (``roles_round``): a ``{model: 2}`` prefill gang on cards 0-1 hands
+    off to a ``{model: 2}`` decode gang on cards 2-3 with the host and
+    remote KV tiers, and (bf16) to a one-process decode worker on card 2,
+    beside a unified ``{model: 2}`` gang, whose greedy tokens the pair's
+    must equal. Then the greedy tokens of the pair (both pools) and of the
+    cross-layout route are held as (m)5 holds its own
+    (``tp_teacher_forced`` on a ``{model: 2}`` check gang,
+    ``teacher_verdict``): a plain one-card forward's near-tie band is
+    tighter than the distance between two bf16 forwards that sum their
+    partial products in different orders."""
+    import tempfile
+
+    from kubeflow_tpu_torch.models.config import preset
+
+    outs = {}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_tp_") as base:
+        for pool, over in (("bf16", {}), ("int8", {"kv_cache_dtype": "int8"})):
+            outs[pool] = roles_round(pool, dict(PAGED_SPEC, **over), base,
+                                     card)
+        routes = (("bf16 pages, pair", outs["bf16"]["pair"]),
+                  ("bf16 pages, prefill gang to worker",
+                   outs["bf16"]["cross"]),
+                  ("int8 pages, pair", outs["int8"]["pair"]))
+        tok = TokenIdText()
+        dirs = [Path(base, "teacher", f"w{r}") for r in range(ROLES_WAYS)]
+        secs = spawn_workers(
+            "chip_smoke:tp_teacher_forced",
+            {"model": WORKER_MODEL,
+             "outputs": [o for _, got in routes for o in got],
+             "prompts": [tok.encode(text(*p)) for _ in routes
+                         for p in WORKER_PROMPTS]},
+            dirs, {"model": ROLES_WAYS}, "(m)6 teacher-forced TP forwards",
+            {"CUDA_VISIBLE_DEVICES": ROLES_CARDS["prefill"]})
+        res = json.loads((dirs[0] / "teacher.json").read_text())
+    print(f"(m)6 teacher-forced check over {', '.join(n for n, _ in routes)}"
+          f" ({len(routes) * len(WORKER_PROMPTS)} completions)", flush=True)
+    teacher_verdict("(m)6", preset(WORKER_MODEL["preset"],
+                                   **WORKER_MODEL["overrides"]),
+                    res, secs, card)
+
+
 def phase_tp(rows: list[dict], card: str, *, cards_only: bool = False
              ) -> None:
     """(m): tensor parallelism over the model axis — (m)1 and (m)2 in
     lockstep on one card (not with ``cards_only``), then on a machine of
-    ``TP_CARDS`` cards or more: (m)4 and (m)5 the TP serving gangs, then
-    (m)3 ``llm_pretrain`` on ``{model: 4}`` and ``{fsdp: 2, model: 2}``."""
+    ``TP_CARDS`` cards or more: (m)4 and (m)5 the TP serving gangs, (m)6
+    disaggregated serving over two TP gangs, then (m)3 ``llm_pretrain`` on
+    ``{model: 4}`` and ``{fsdp: 2, model: 2}``."""
     if not cards_only:
         timed_phase("tp block", tp_block_lockstep, rows, card)
         timed_phase("tp xent", tp_xent_lockstep, rows, card)
     count = torch.cuda.device_count()
     if count < TP_CARDS:
-        print(f"(m)3-(m)5 tensor parallelism over {TP_CARDS} cards: not run "
+        print(f"(m)3-(m)6 tensor parallelism over {TP_CARDS} cards: not run "
               f"— this machine has {count} card; {card}", flush=True)
         return
     gc.collect()
@@ -7410,6 +7815,7 @@ def phase_tp(rows: list[dict], card: str, *, cards_only: bool = False
     timed_phase("tp serve 8b", tp_serve_8b, card)
     timed_phase("tp profile", tp_profile, card)
     timed_phase("tp serve 70b", tp_serve_70b, card)
+    timed_phase("tp roles", tp_roles_serve, card)
     timed_phase("tp train", card_world_runs, "(m)3", card,
                 (({"model": TP_CARDS}, "pallas"),
                  ({"fsdp": 2, "model": 2}, "pallas")), None, True)
@@ -7753,6 +8159,25 @@ def ep_serve_mixtral(card: str) -> None:
     tp_serve_checked(card, "(n)3", "Mixtral-8x7B", EP_MODEL_MIXTRAL)
 
 
+#: The planted fault of ``--ep-fault-cards-only``: rank 1's shard of
+#: expert 0's down weight, in every layer, doubled (a partial summed twice).
+EP_FAULT = {"rank": 1, "expert": 0, "scale": 2.0}
+
+
+def ep_fault_mixtral(card: str) -> None:
+    """(n)3 with ``EP_FAULT`` planted in the served gang (the check gang
+    loads the clean weights): (n)3's token check must fail. Exits 0 when
+    it does, nonzero when the check passes the fault."""
+    try:
+        tp_serve_checked(card, "(n)3 planted", "Mixtral-8x7B",
+                         EP_MODEL_MIXTRAL, plant=EP_FAULT)
+    except SystemExit:
+        print(f"(n)3 planted fault {json.dumps(EP_FAULT)}: the token check "
+              f"failed, as it must; {card}", flush=True)
+        return
+    fail(f"(n)3's token check passed with the fault {EP_FAULT} planted")
+
+
 def phase_ep(card: str, *, cards_only: bool = False) -> None:
     """(n): MoE on a mesh — (n)1 in lockstep on one card (not with
     ``cards_only``), then on a machine of ``TP_CARDS`` cards or more:
@@ -7846,6 +8271,22 @@ def main() -> int:
         losses = timed_phase("multi world 1", multi_worker_world1, card)
         timed_phase("multi cards", multi_card_world, card, losses)
         print(f"chip_smoke: multi-card phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--tp-roles-cards-only"]:
+        if torch.cuda.device_count() < TP_CARDS:
+            fail(f"(m)6 needs {TP_CARDS} cards; this machine has "
+                 f"{torch.cuda.device_count()}")
+        timed_phase("tp roles", tp_roles_serve, card)
+        print(f"chip_smoke: tp-roles-cards-only phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:] == ["--ep-fault-cards-only"]:
+        if torch.cuda.device_count() < TP_CARDS:
+            fail(f"the planted (n)3 needs {TP_CARDS} cards; this machine "
+                 f"has {torch.cuda.device_count()}")
+        timed_phase("ep fault", ep_fault_mixtral, card)
+        print(f"chip_smoke: ep-fault-cards-only phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
     if sys.argv[1:] in (["--tp-only"], ["--tp-cards-only"]):

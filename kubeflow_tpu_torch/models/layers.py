@@ -226,16 +226,26 @@ def local_kv_heads(cfg: DecoderConfig) -> tuple[int, int]:
     tp = model_axis_of(cfg)
     if tp is None:
         return 0, cfg.n_kv_heads
+    return kv_head_owners(cfg)[tp.rank]
+
+
+def kv_head_owners(cfg: DecoderConfig) -> list[tuple[int, int]]:
+    """``local_kv_heads`` of every rank of the axis, in rank order: the
+    slices are contiguous and ascending, and where kv heads are
+    replicated, neighbouring ranks hold the same one."""
+    tp = model_axis_of(cfg)
+    if tp is None:
+        return [(0, cfg.n_kv_heads)]
     if cfg.n_kv_heads % tp.size == 0:
         n = cfg.n_kv_heads // tp.size
-        return tp.rank * n, n
+        return [(r * n, n) for r in range(tp.size)]
     hl, group = local_heads(cfg), cfg.n_heads // cfg.n_kv_heads
     if group % hl:
         raise NotImplementedError(
             f"{cfg.n_kv_heads} kv heads over model = {tp.size}: rank's "
             f"{hl} q heads span several GQA groups of {group} "
             "(ROADMAP.md Queue 1)")
-    return tp.rank * hl // group, 1
+    return [(r * hl // group, 1) for r in range(tp.size)]
 
 
 def rank_kv(w, cfg: DecoderConfig):

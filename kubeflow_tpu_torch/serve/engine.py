@@ -106,10 +106,14 @@ Design (what carries over, and what eager PyTorch changes):
   rank's columns of every expert (``expert_mlp`` over ``model``: the
   prefill dispatch one request at a time with its bucket's pads masked,
   decode dense or zero-drop), the partial outputs summed with the
-  attention's in the same way. Speculative decoding, LoRA, engine roles
-  and the handoff, the host and remote KV tiers, and any serving axis but
-  ``model`` (``expert`` among them) raise under a mesh (ROADMAP.md Queue
-  1 item 9e).
+  attention's in the same way. Engine roles, the handoff and the host
+  and remote KV tiers run as on one card, their payloads and blobs
+  whole-model (every kv head, the JAX wire format): a read of KV (an
+  export, a demotion) gathers the ranks' heads on the leader, a write (an
+  adoption, a promotion) sends whole-model blocks and each rank keeps its
+  heads. Speculative decoding and LoRA (ROADMAP.md Queue 1 item 9e3) and
+  any serving axis but ``model`` (``expert`` among them; item 9e2) raise
+  under a mesh.
 """
 
 from __future__ import annotations
@@ -154,13 +158,13 @@ from kubeflow_tpu_torch.serve.lora import (
 )
 from kubeflow_tpu_torch.serve.paged import (
     PageAllocator, PagePoolExhausted, context_bucket, copy_pages,
-    paged_chunk_prefill, paged_decode_multi, upload_pages,
+    gather_pages, paged_chunk_prefill, paged_decode_multi, upload_pages,
 )
 from kubeflow_tpu_torch.serve.spec_decode import (
     draft_propose, ngram_propose, paged_verify_step, verify_step,
 )
 from kubeflow_tpu_torch.serve.storage import kv_fabric_store
-from kubeflow_tpu_torch.serve.tp_dispatch import Dispatcher
+from kubeflow_tpu_torch.serve.tp_dispatch import Dispatcher, gather_kv_heads
 
 logger = logging.getLogger("kubeflow_tpu_torch.serve.engine")
 
@@ -833,10 +837,31 @@ def _phase_cfgs(cfg: DecoderConfig, b: BatchingSpec):
 
 # -- the engine ----------------------------------------------------------------
 
+def _gather_slot(cache: dict, slot: int, n: int, cfg: DecoderConfig
+                 ) -> Optional[list]:
+    """A contiguous slot's first ``n`` positions of k and v as new tensors
+    ``[L, n, KV, Dh]`` with the whole model's kv heads (a handoff export's
+    read; under a model axis the leader gets them, a follower None)."""
+    planes = [cache[k][:, slot, :n].clone() for k in ("k", "v")]
+    return gather_kv_heads(cfg, planes, axis=2)
+
+
+def _upload_slot(cache: dict, slot: int, blocks: dict,
+                 cfg: DecoderConfig) -> dict:
+    """A contiguous slot's first positions ``<- blocks[name]`` (``[L, n,
+    KV, Dh]`` with the whole model's kv heads, on the cache's device and
+    dtype), each rank keeping its kv heads: a handoff adoption's write."""
+    first, kv = L.local_kv_heads(cfg)
+    for name, blk in blocks.items():
+        cache[name][:, slot, :blk.shape[1]] = blk.narrow(2, first, kv)
+    return cache
+
+
 #: The device calls a tensor-parallel engine's leader sends its followers.
 _TP_OPS = {f.__name__: f for f in (
     _prefill_step, _chunk_prefill_step, _decode_multi, _sample_batch,
-    paged_chunk_prefill, paged_decode_multi, copy_pages, upload_pages)}
+    paged_chunk_prefill, paged_decode_multi, copy_pages, upload_pages,
+    gather_pages, _gather_slot, _upload_slot)}
 
 
 def _check_tp(cfg: DecoderConfig, b: BatchingSpec, mesh,
@@ -848,20 +873,18 @@ def _check_tp(cfg: DecoderConfig, b: BatchingSpec, mesh,
     other = {a: n for a, n in mesh_shape(mesh).items()
              if a != "model" and n > 1}
     refused = {
-        f"mesh axes {other}": bool(other),
-        "speculative decoding": b.speculative.mode != "off"
-        or draft_params is not None,
-        "LoRA adapters": b.lora.max_adapters > 0,
-        f"engine role {b.role!r}": b.role != "unified",
-        "the host KV tier": b.host_kv_pages > 0,
-        "the remote KV tier": kv_fabric_store(b.remote_kv_root) is not None,
+        f"mesh axes {other}": ("9e2", bool(other)),
+        "speculative decoding": ("9e3", b.speculative.mode != "off"
+                                 or draft_params is not None),
+        "LoRA adapters": ("9e3", b.lora.max_adapters > 0),
     }
-    named = [k for k, v in refused.items() if v]
+    named = [f"{k} (ROADMAP.md Queue 1 item {item})"
+             for k, (item, v) in refused.items() if v]
     if named:
         raise NotImplementedError(
             f"{', '.join(named)} under a tensor-parallel mesh: the port's "
             "TP engine serves dense and MoE models over the model axis "
-            "alone (ROADMAP.md Queue 1 item 9e)")
+            "alone, in every role and with the host and remote KV tiers")
 
 
 class LLMEngine:
@@ -978,7 +1001,10 @@ class LLMEngine:
                     self.cache[n] = torch.zeros(shape[:-1],
                                                 dtype=torch.float32,
                                                 device=self.device)
-            if b.enable_prefix_caching and b.prefix_index == "radix":
+            if (b.enable_prefix_caching and b.prefix_index == "radix"
+                    and (tp is None or tp.rank == 0)):
+                # A follower keeps no index and no tier: its state is its
+                # pool's planes, which the leader's ops read and write.
                 # Device work of the index rides the closures below, all
                 # enqueued on the scheduler thread in stream order with the
                 # dispatches that read their results. The fabric signature
@@ -1884,10 +1910,9 @@ class LLMEngine:
             need = -(-plen // self.page_size)
             ids = self._upload(pages[:need], torch.int64)
             width = need * self.page_size
-            planes = [self.cache[n][:, ids].reshape(
-                (cfg.n_layers, width) + self.cache[n].shape[3:])
-                for n in (("k", "v", "ks", "vs") if self.kv_quant
-                          else ("k", "v"))]
+            planes = [t.reshape((cfg.n_layers, width) + t.shape[3:])
+                      for t in self._run(gather_pages, self.cache, ids,
+                                         self._cfg_decode)]
             # The slot's page references back the payload until the decode
             # side acks: NOT freed, NOT in the table.
             self._handoff_holds[req.id] = (req, pages)
@@ -1895,8 +1920,8 @@ class LLMEngine:
             self._table[slot_idx, :] = -1
             self._dstate.mark_row(slot_idx)
         else:
-            planes = [self.cache[n][:, slot_idx, :plen].clone()
-                      for n in ("k", "v")]
+            planes = self._run(_gather_slot, self.cache, slot_idx, plen,
+                               self._cfg_decode)
         self.slots[slot_idx] = None
         self._dstate.mark_slot(slot_idx)
         self._pending_exports.append((req, planes, plen))
@@ -1962,18 +1987,19 @@ class LLMEngine:
                         n2 *= 2
                     blocks = {}
                     for name, arr in planes.items():
-                        pool = self.cache[name]
+                        # Whole-model kv heads: each rank keeps its own.
                         buf = self._host_buffer(
-                            (cfg.n_layers, n2 * pg) + pool.shape[3:],
-                            pool.dtype)
+                            (cfg.n_layers, n2 * pg) + arr.shape[2:],
+                            self.cache[name].dtype)
                         _fill(buf[:, :plen - start], arr[:, start:plen])
                         blocks[name] = self._to_device(buf).view(
-                            (cfg.n_layers, n2) + pool.shape[2:])
+                            (cfg.n_layers, n2, pg) + arr.shape[2:])
                     # Power-of-two padding: the pad ids aim at the sink.
                     pidx = [self._num_pages] * n2
                     pidx[:len(fresh)] = fresh
                     self._run(upload_pages, self.cache, blocks,
-                                 self._upload(pidx, torch.int64))
+                              self._upload(pidx, torch.int64),
+                              self._cfg_decode)
             except Exception:
                 # A failed upload must not strand the refs just taken.
                 self._allocator.free(fresh)
@@ -1989,13 +2015,15 @@ class LLMEngine:
             # start at plen, past every claimed position).
             self._kv_register(p.prompt_tokens, slot_idx, plen)
         else:
+            blocks = {}
             for name, arr in planes.items():
-                pool = self.cache[name]
                 buf = self._host_buffer(
-                    (cfg.n_layers, plen) + pool.shape[3:], pool.dtype,
-                    zeros=False)
+                    (cfg.n_layers, plen) + arr.shape[2:],
+                    self.cache[name].dtype, zeros=False)
                 _fill(buf, arr)
-                pool[:, slot_idx, :plen] = self._to_device(buf)
+                blocks[name] = self._to_device(buf)
+            self._run(_upload_slot, self.cache, slot_idx, blocks,
+                      self._cfg_decode)
         self.slots[slot_idx] = _Slot(request=req, length=plen,
                                      last_token=p.first_token, generated=0,
                                      admit_seq=next(self._admit_seq))
@@ -2062,8 +2090,9 @@ class LLMEngine:
             planes.update(ks=sk_blocks, vs=sv_blocks)
         blocks = {}
         for name, blks in planes.items():
+            # Whole-model kv heads: each rank keeps its own.
             pool = self.cache[name]
-            buf = self._host_buffer((pool.shape[0], n2) + pool.shape[2:],
+            buf = self._host_buffer((pool.shape[0], n2) + blks[0].shape[1:],
                                     pool.dtype, zeros=False)
             for j, blk in enumerate(blks):
                 _fill(buf[:, j], blk)
@@ -2071,7 +2100,7 @@ class LLMEngine:
         pidx = [self._num_pages] * n2
         pidx[:n] = page_ids
         self._run(upload_pages, self.cache, blocks,
-                  self._upload(pidx, torch.int64))
+                  self._upload(pidx, torch.int64), self._cfg_decode)
 
     def _kv_fetch_pages(self, page_ids):
         """Demotion batch: the device-side gather of the pages' planes into
@@ -2081,8 +2110,8 @@ class LLMEngine:
         migration thread waits on that event, the scheduler never does.
         An int8 pool returns four planes (k, v, scale_k, scale_v)."""
         ids = self._upload(list(page_ids), torch.int64)
-        names = ("k", "v", "ks", "vs") if self.kv_quant else ("k", "v")
-        return self._copy_to_host([self.cache[n][:, ids] for n in names])
+        return self._copy_to_host(self._run(gather_pages, self.cache, ids,
+                                            self._cfg_decode))
 
     def _kv_register(self, tokens, slot_idx: int, n_tokens: int) -> None:
         """Index ``tokens[:n_tokens]``'s written KV for cross-request reuse

@@ -27,12 +27,15 @@ runs the scheduler, the other ranks run the ops it dispatches
 (``LLMEngine.follow``) until it stops. SIGTERM to rank 0 stops the
 engine, which releases the followers (they exit 0); a follower's death
 fails rank 0's next dispatch or idle ping, and the worker exits
-nonzero. Other parallelisms, explainers and the model repository raise
-under a mesh.
+nonzero. The gang serves in every ``batching.role`` and with the host
+and remote KV tiers (only rank 0 keeps a tier and relays handoffs).
+Other parallelisms, explainers and the model repository raise under a
+mesh (ROADMAP.md Queue 1 item 9e2).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
 from typing import Callable
@@ -89,11 +92,11 @@ def model_server(ctx: WorkerContext) -> int:
                 f"{ctx.env.parallelism}: a model_server gang is one "
                 "tensor-parallel engine, parallelism {model: "
                 "num_processes}; other serving meshes arrive with "
-                "ROADMAP.md Queue 1 item 9e")
+                "ROADMAP.md Queue 1 item 9e2")
         if conf.get("explainer"):
             raise NotImplementedError(
                 "explainers under a tensor-parallel mesh (ROADMAP.md "
-                "Queue 1 item 9e)")
+                "Queue 1 item 9e2)")
         mesh = ctx.mesh
     model_conf = conf.get("model", {})
     cfg = preset(model_conf.get("preset", "tiny"),
@@ -129,7 +132,9 @@ def model_server(ctx: WorkerContext) -> int:
     del params
     if engine.tp is not None and engine.tp.rank > 0:
         n = engine.follow()
-        logger.info("follower rank %d ran %d ops%s", engine.tp.rank, n,
+        logger.info("follower rank %d ran %d ops (by op %s)%s",
+                    engine.tp.rank, n,
+                    json.dumps(dict(engine._dispatch.by_op)),
                     _memory_note(device))
         return 0
     transformer = None
@@ -159,7 +164,10 @@ def model_server(ctx: WorkerContext) -> int:
         server.stop()
         ops = ("" if engine.tp is None else
                f"; {engine.dispatches} ops dispatched to the model axis "
-               f"({engine._dispatch.send_s * 1e3:.3f} ms sending)")
+               f"({engine._dispatch.send_s * 1e3:.3f} ms sending; by op "
+               f"{json.dumps(dict(engine._dispatch.by_op))}; bytes each "
+               f"follower received by op "
+               f"{json.dumps(dict(engine._dispatch.bytes_by_op))})")
         logger.info("model server stopped%s%s", ops, _memory_note(device))
     return 0
 

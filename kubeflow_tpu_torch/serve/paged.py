@@ -54,6 +54,7 @@ from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
 from kubeflow_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.runtime.sanitize import call_site, enabled
+from kubeflow_tpu_torch.serve.tp_dispatch import gather_kv_heads
 
 
 # -- host-side page allocator --------------------------------------------------
@@ -447,17 +448,32 @@ def copy_pages(cache: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
     return cache
 
 
-def upload_pages(cache: dict, blocks: dict, ids: torch.Tensor) -> dict:
+def gather_pages(cache: dict, ids: torch.Tensor, cfg: DecoderConfig
+                 ) -> Optional[list]:
+    """The pool planes (k, v and, for an int8 pool, their scales) of pages
+    ``ids`` as new tensors ``[L, n, page, KV, ...]`` with the whole
+    model's kv heads — a handoff export's and a demotion's read. Under a
+    model axis every rank runs it and the leader gets the heads
+    (``tp_dispatch.gather_kv_heads``); a follower gets None."""
+    planes = [cache[n][:, ids] for n in ("k", "v", "ks", "vs") if n in cache]
+    return gather_kv_heads(cfg, planes, axis=3)
+
+
+def upload_pages(cache: dict, blocks: dict, ids: torch.Tensor,
+                 cfg: DecoderConfig) -> dict:
     """Page upload ``pool[:, ids[i]] <- blocks[name][:, i]`` for every plane
     in ``blocks`` (k/v and, for an int8 pool, their scales; each
-    ``[L, n, page, ...]`` on the pool's device and dtype), in place — handoff
-    adoption's and host-tier promotion's scatter. Ids outside the real
-    pages (the power-of-two padding) land on the sink page."""
+    ``[L, n, page, KV, ...]`` with the whole model's kv heads, on the
+    pool's device and dtype), in place: each rank keeps its kv heads
+    (``local_kv_heads``) — handoff adoption's and host-tier promotion's
+    scatter. Ids outside the real pages (the power-of-two padding) land on
+    the sink page."""
+    first, n = L.local_kv_heads(cfg)
     for name, blk in blocks.items():
         pool = cache[name]
         sink = pool.shape[1] - 1
         d = torch.where((ids >= 0) & (ids < sink), ids, sink).long()
-        pool[:, d] = blk
+        pool[:, d] = blk.narrow(3, first, n)
     return cache
 
 

@@ -28,10 +28,13 @@ from __future__ import annotations
 import collections
 import datetime
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from kubeflow_tpu_torch.models.config import model_axis_of
+from kubeflow_tpu_torch.models.layers import kv_head_owners
 
 #: How long an idle follower waits for the next header: as long as the
 #: leader may sit idle (its pings arrive every ``PING_S``).
@@ -64,6 +67,8 @@ class Dispatcher:
         self.by_op: collections.Counter = collections.Counter()
         #: The leader's host seconds spent sending (header and bytes).
         self.send_s = 0.0
+        #: Argument bytes each follower received, by op name.
+        self.bytes_by_op: collections.Counter = collections.Counter()
         self._last = time.monotonic()
         self.closed = False
 
@@ -79,7 +84,7 @@ class Dispatcher:
         self._send((fn.__name__, spec, [(tuple(t.shape), t.dtype)
                                         for t in tensors]))
         if tensors:
-            self._send_bytes(tensors)
+            self.bytes_by_op[fn.__name__] += self._send_bytes(tensors)
         self.count += 1
         self.by_op[fn.__name__] += 1
         self.send_s += time.perf_counter() - t0
@@ -119,10 +124,12 @@ class Dispatcher:
         raise TypeError(f"a dispatched argument of type {type(x).__name__}"
                         " is neither a tensor, a plain value nor resident")
 
-    def _send_bytes(self, tensors: list) -> None:
-        """The tensors' bytes, packed into one buffer, in one broadcast."""
+    def _send_bytes(self, tensors: list) -> int:
+        """The tensors' bytes, packed into one buffer, in one broadcast;
+        returns their number."""
         buf = torch.cat([_raw(t) for t in tensors])
         dist.broadcast(buf, src=self._src, group=self.tp.group)
+        return buf.numel()
 
     # -- follower --------------------------------------------------------------
 
@@ -150,21 +157,10 @@ class Dispatcher:
         dtype) unpacked from one broadcast buffer."""
         if not metas:
             return []
-        out = [torch.empty(shape, dtype=dt, device=self.device)
-               for shape, dt in metas]
-        buf = torch.empty(sum(_raw(o).numel() for o in out),
-                          dtype=torch.uint8, device=self.device)
+        buf = torch.empty(sum(_nbytes(m) for m in metas), dtype=torch.uint8,
+                          device=self.device)
         dist.broadcast(buf, src=self._src, group=self.tp.group)
-        at = 0
-        for o in out:
-            n = _raw(o).numel()
-            part = buf[at:at + n]
-            if o.dtype == torch.bool:
-                o.copy_(part.bool().reshape(o.shape))
-            else:
-                o.reshape(-1).view(torch.uint8).copy_(part)
-            at += n
-        return out
+        return _split_raw(buf, metas)
 
     def _unpack(self, spec, tensors: list):
         kind, v = spec
@@ -179,6 +175,60 @@ class Dispatcher:
         if kind == "tuple":
             return tuple(self._unpack(s, tensors) for s in v)
         return v
+
+
+def gather_kv_heads(cfg, planes: list[torch.Tensor], axis: int
+                    ) -> Optional[list[torch.Tensor]]:
+    """``planes`` (this rank's kv heads on dim ``axis``) with the whole
+    model's kv heads, on the leader of ``cfg``'s model axis: every rank's
+    bytes in one ``gather`` over the axis's group (NCCL on the cards, gloo
+    on the CPU), each head taken from its first owner
+    (``layers.kv_head_owners``), so a kv head replicated on several ranks
+    is taken once. None on the other ranks; ``planes`` themselves without
+    an axis. Every rank of the axis calls it at the same point of the op
+    stream: inside a dispatched op."""
+    tp = model_axis_of(cfg)
+    if tp is None:
+        return planes
+    metas = [(tuple(t.shape), t.dtype) for t in planes]
+    buf = torch.cat([_raw(t) for t in planes])
+    parts = ([torch.empty_like(buf) for _ in range(tp.size)]
+             if tp.rank == 0 else None)
+    dist.gather(buf, parts, dst=dist.get_process_group_ranks(tp.group)[0],
+                group=tp.group)
+    if parts is None:
+        return None
+    keep, seen = [], 0
+    for part, (first, count) in zip(parts, kv_head_owners(cfg)):
+        if first == seen:
+            keep.append(_split_raw(part, metas))
+            seen += count
+    return [torch.cat([p[i] for p in keep], dim=axis)
+            for i in range(len(planes))]
+
+
+def _nbytes(meta) -> int:
+    shape, dtype = meta
+    n = 1
+    for d in shape:
+        n *= d
+    return n * (1 if dtype == torch.bool else dtype.itemsize)
+
+
+def _split_raw(buf: torch.Tensor, metas: list) -> list[torch.Tensor]:
+    """Tensors of ``metas`` (shape, dtype) from their packed bytes."""
+    out, at = [], 0
+    for shape, dt in metas:
+        o = torch.empty(shape, dtype=dt, device=buf.device)
+        n = _nbytes((shape, dt))
+        part = buf[at:at + n]
+        if dt == torch.bool:
+            o.copy_(part.bool().reshape(shape))
+        else:
+            o.reshape(-1).view(torch.uint8).copy_(part)
+        out.append(o)
+        at += n
+    return out
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:

@@ -669,6 +669,284 @@ def tp_engine_suite(ctx) -> int:
     return 0
 
 
+#: The roles suite's layouts (``TP_ENGINE_CASES``' first three): the
+#: contiguous cache, full-dtype pages with prefix reuse and a COW tail,
+#: int8 pages.
+ROLE_CASES = {"dense": TP_ENGINE_CASES["contiguous"],
+              "paged": TP_ENGINE_CASES["paged"],
+              "paged_int8": TP_ENGINE_CASES["paged_int8"]}
+#: The paged layouts, which run the tiers.
+TIER_CASES = ("paged", "paged_int8")
+#: The tiers' conversation: turn 1 fills 4 pages of 8, turn 2 extends it.
+TIER_PROMPT = list(range(20, 52))
+TIER_TURN2 = TIER_PROMPT + [7, 7, 3]
+#: The tiers' knobs: demotion and spills only when forced (a drain), and a
+#: store deadline a loaded CPU meets.
+TIER_SPEC = dict(host_kv_pages=16, kv_demote_after_s=600.0,
+                 kv_remote_deadline_s=30.0)
+#: Greedy decode budget of every roles request.
+ROLE_NEW = 10
+
+
+def role_engines(kv_root) -> list[tuple[str, str, dict]]:
+    """The TP engines of ``tp_roles_suite``, in the order every rank builds
+    them: (step, layout, BatchingSpec fields)."""
+    out = [("prefill", c, dict(s, role="prefill"))
+           for c, s in ROLE_CASES.items()]
+    out += [("tiers", c, dict(ROLE_CASES[c], role="prefill", **TIER_SPEC,
+                              remote_kv_root=str(Path(kv_root, c + "-a"))))
+            for c in TIER_CASES]
+    out += [("remote_in", c, dict(ROLE_CASES[c], **TIER_SPEC,
+                                  remote_kv_root=str(Path(kv_root, c + "-b"))))
+            for c in TIER_CASES]
+    out += [("decode", c, dict(s, role="decode"))
+            for c, s in ROLE_CASES.items()]
+    return out
+
+
+def drive(eng, req, timeout: float = 120.0):
+    """Step ``eng`` until ``req`` is done."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not req.done.is_set():
+        eng.step()
+        assert time.monotonic() < deadline, "request never finished"
+    return req
+
+
+def settle(eng, timeout: float = 60.0) -> dict:
+    """Step ``eng`` until no page is referenced, no handoff held and no
+    round in flight; its page books then (pages in use, leaks by owner,
+    and whether the allocator is quiescent)."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    eng.step()                  # applies acks and fails queued so far
+    while eng.kv_pages_in_use() or eng._handoff_holds or eng._rounds:
+        eng.step()
+        assert time.monotonic() < deadline, "engine did not quiesce"
+    books = {"in_use": eng.kv_pages_in_use(), "leaks": {},
+             "quiescent": True}
+    if eng._allocator is not None:
+        books["leaks"] = eng._allocator.leak_report_by_owner()
+        try:
+            eng._allocator.assert_quiescent()
+        except AssertionError:
+            books["quiescent"] = False
+    return books
+
+
+def chain_blobs(eng, tokens) -> list:
+    """The host or remote tier entries (wire blobs; ``cas://`` uris once
+    spilled) of ``tokens``' full blocks, in path order, from ``eng``'s
+    radix tree."""
+    pg, node, out = eng.page_size, eng._kvtier.root(""), []
+    for i in range(len(tokens) // pg):
+        node = node.children.get(tuple(tokens[i * pg:(i + 1) * pg]))
+        if node is None:
+            break
+        out.append(node.blob)
+    return out
+
+
+def wait_file(path, timeout: float = 400.0):
+    """The pickle at ``path`` once another process has written it."""
+    import pickle
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not Path(path).exists():
+        assert time.monotonic() < deadline, f"{path} never appeared"
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def write_pickle(path, obj) -> None:
+    """``obj`` pickled to ``path``, which appears whole (rename)."""
+    import pickle
+
+    tmp = Path(str(path) + ".tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(obj, f)
+    tmp.rename(path)
+
+
+class _RolesLeader:
+    """Rank 0 of ``tp_roles_suite``: the one-process references on the
+    whole params, and each TP engine's requests."""
+
+    def __init__(self, params, cfg, conf):
+        from kubeflow_tpu_torch.serve.engine import SamplingParams
+
+        self.params, self.cfg, self.conf = params, cfg, conf
+        self.greedy = SamplingParams(max_new_tokens=ROLE_NEW)
+        self.tp_wires: dict = {}
+        # One-process references: unified tokens and prefill exports.
+        self.unified, self.one_wires = {}, {}
+        for c, spec in ROLE_CASES.items():
+            uni = self.engine(spec)
+            self.unified[c] = [uni.generate(p, self.greedy)
+                               for p in TP_PROMPTS + (TIER_TURN2,)]
+            pre = self.engine(dict(spec, role="prefill"))
+            self.one_wires[c] = []
+            for p in TP_PROMPTS:
+                r = drive(pre, pre.submit(p, self.greedy))
+                self.one_wires[c].append(r.handoff.to_wire())
+                pre.complete_handoff(r.id)
+
+    def engine(self, spec: dict):
+        from kubeflow_tpu_torch.core.serving import BatchingSpec
+        from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+        return LLMEngine(self.cfg, BatchingSpec(**spec), params=self.params,
+                         device="cpu", seed=3)
+
+    def adopt_all(self, eng, wires) -> list:
+        from kubeflow_tpu_torch.serve.handoff import HandoffPayload
+
+        out = []
+        for w in wires:
+            p = HandoffPayload.from_wire(w)
+            r = drive(eng, eng.submit_handoff(p))
+            out.append([p.first_token] + r.output_tokens)
+        return out
+
+    def prefill(self, eng, c: str) -> dict:
+        """Each prompt exported (the slot and pages each export read
+        recorded), then the first acked, the second failed and the third
+        reaped; a one-process decode engine adopts the exports."""
+        seen = []
+        export = eng._export_handoff
+
+        def spy(slot_idx):
+            seen.append((slot_idx, list(eng._slot_pages[slot_idx])
+                         if eng.paged else None))
+            export(slot_idx)
+
+        eng._export_handoff = spy
+        reqs = [drive(eng, eng.submit(p, self.greedy)) for p in TP_PROMPTS]
+        rec = {"reasons": [r.finish_reason for r in reqs],
+               "held": eng.kv_pages_in_use(), "export_at": seen}
+        self.tp_wires[c] = rec["wires"] = [r.handoff.to_wire() for r in reqs]
+        eng.complete_handoff(reqs[0].id)
+        eng.fail_handoff(reqs[1].id)
+        reqs[2].cancel()
+        rec["books"] = settle(eng)
+        rec["metrics"] = eng.metrics.snapshot()
+        one = self.engine(dict(ROLE_CASES[c], role="decode"))
+        rec["one_from_tp"] = self.adopt_all(one, rec["wires"])
+        rec["one_books"] = settle(one)
+        return rec
+
+    def tiers(self, eng, c: str) -> dict:
+        """Turn 1 exported and acked, then demoted (forced); a one-process
+        engine that adopts the same export demotes it too; turn 2 on the
+        TP engine promotes from the host; a drain spills to the store, and
+        a one-process engine on that store serves turn 2 from it."""
+        rec = {}
+        r = drive(eng, eng.submit(TIER_PROMPT, self.greedy))
+        wire = r.handoff.to_wire()
+        eng.complete_handoff(r.id)
+        settle(eng)
+        rec["demoted"] = eng._kvtier.tick(force=True)
+        eng._kvtier.drain_migrations()
+        rec["blobs_tp"] = chain_blobs(eng, TIER_PROMPT)
+        one = self.engine(dict(ROLE_CASES[c], role="decode",
+                               **TIER_SPEC))
+        self.adopt_all(one, [wire])
+        settle(one)
+        one._kvtier.tick(force=True)
+        one._kvtier.drain_migrations()
+        rec["blobs_one"] = chain_blobs(one, TIER_PROMPT)
+        one.stop()
+        rec["host_tokens"] = drive(eng, eng.submit(
+            TIER_TURN2, self.greedy, handoff=False)).output_tokens
+        rec["host_stats"] = eng.kv_tier_stats()
+        settle(eng)
+        rec["published"] = eng.drain_kv_to_remote()
+        rec["books"] = settle(eng)
+        far = self.engine(dict(ROLE_CASES[c], **TIER_SPEC, remote_kv_root=str(
+            Path(self.conf["kv_root"], c + "-a"))))
+        rec["remote_tokens"] = far.generate(TIER_TURN2, self.greedy)
+        rec["remote_stats"] = far.kv_tier_stats()
+        far.stop()
+        return rec
+
+    def remote_in(self, eng, c: str) -> dict:
+        """A one-process engine serves turn 1 and drains it to the store;
+        the TP engine serves turn 2 from the store."""
+        near = self.engine(dict(ROLE_CASES[c], **TIER_SPEC, remote_kv_root=str(
+            Path(self.conf["kv_root"], c + "-b"))))
+        near.generate(TIER_PROMPT, self.greedy)
+        rec = {"published": near.drain_kv_to_remote()}
+        near.stop()
+        rec["remote_tokens"] = eng.generate(TIER_TURN2, self.greedy)
+        rec["remote_stats"] = eng.kv_tier_stats()
+        rec["books"] = settle(eng)
+        return rec
+
+    def decode(self, eng, c: str) -> dict:
+        """The TP decode engine adopts its own gang's exports, the
+        one-process engine's and JAX's TP engine's."""
+        jax_tp = wait_file(self.conf["jax_tp"])
+        rec = {src: self.adopt_all(eng, wires) for src, wires in (
+            ("tp", self.tp_wires[c]), ("one", self.one_wires[c]),
+            ("jax_tp", jax_tp[c]))}
+        rec["books"] = settle(eng)
+        rec["metrics"] = eng.metrics.snapshot()
+        return rec
+
+
+def tp_roles_suite(ctx) -> int:
+    """The engines of ``role_engines`` on ``{model: world}`` over this
+    rank's shards of the whole params in ``config["params"]`` (``tiny``,
+    fp32): rank 0 drives each (``_RolesLeader``) and stops it, the others
+    ``follow``. Every rank writes, per engine, its ops by name and (the
+    prefill engines) its cache planes; rank 0 adds what it measured, and
+    after the prefill engines writes their exports to ``exports.pkl`` for
+    the JAX helper. ``config["jax_tp"]``: where JAX's TP exports appear."""
+    import torch
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+
+    torch.set_num_threads(1)
+    mesh = ctx.mesh
+    rank = ctx.env.process_id
+    conf = ctx.config
+    out = Path(conf["out"])
+    params = torch.load(conf["params"])
+    cfg = preset("tiny", dtype="float32")
+    leader = _RolesLeader(params, cfg, conf) if rank == 0 else None
+    recs = {}
+    for step, c, spec in role_engines(conf["kv_root"]):
+        eng = LLMEngine(cfg, BatchingSpec(**spec),
+                        params=tp_shards(params, cfg, spec, mesh),
+                        device="cpu", mesh=mesh, seed=3)
+        rec = {}
+        if leader is not None:
+            rec = getattr(leader, step)(eng, c)
+            eng.stop()
+        else:
+            assert eng._kvtier is None
+            eng.follow()
+        rec["ops"], rec["by_op"] = eng.dispatches, dict(eng._dispatch.by_op)
+        if step == "prefill":
+            rec["planes"] = {n: t.clone() for n, t in eng.cache.items()}
+        recs[step, c] = rec
+        if leader is not None and step == "prefill" and \
+                len(leader.tp_wires) == len(ROLE_CASES):
+            write_pickle(out / "exports.pkl", leader.tp_wires)
+    if leader is not None:
+        recs["unified"] = leader.unified
+        recs["one_wires"] = leader.one_wires
+    torch.save(recs, out / f"rank{rank}.pt")
+    return 0
+
+
 class IdText:
     """A tokenizer that writes token ids as decimal text (``module:factory``
     ``dist_support:IdText``), so a server's completions read back as the
