@@ -20,14 +20,17 @@ runs phases 1, 2 and (h), ``--moe-only`` phases 1, 2 and (i),
 with several cards), ``--tp-only`` phases 1, 2 and (m) (its 4-card parts
 where the machine has 4 cards), ``--tp-cards-only`` phases 1, 2 and
 (m)3-(m)6 (for a machine with 4 cards), ``--tp-roles-cards-only`` phases
-1, 2 and (m)6 (4 cards), ``--ep-only`` phases 1, 2 and (n)
+1, 2 and (m)6 (4 cards), ``--order-probe-only`` phases 1, 2 and (m)6's
+order probe on one card (``admission_order_probe``), ``--ep-only`` phases
+1, 2 and (n)
 (its 4-card parts where the machine has 4 cards), ``--ep-cards-only``
 phases 1, 2, (n)2 and (n)3 (for a machine with 4 cards),
 ``--ep-fault-cards-only`` phases 1, 2 and (n)3 with a fault planted in
 the served gang (rank 1's shard of expert 0's down weight doubled in
 every layer), which (n)3's token check must catch (4 cards; it exits 0
-when the check fails). None of these prints the result lines. Every
-phase prints its seconds.
+when the check fails), ``--pp-only`` phases 1, 2 and (o)1, and
+``--pp-cards-only`` phases 1, 2 and (o)2-(o)3 (4 cards). None of these
+prints the result lines. Every phase prints its seconds.
 Phases, each a hard failure:
 
 1. card: the ``nvidia-smi`` name and power limit;
@@ -379,6 +382,23 @@ Phases, each a hard failure:
    layer's aux, peak per card), and (n)3 Mixtral-8x7B in bf16 at 32
    layers as a ``{model: 4}`` ``model_server`` gang held as (m)5; on one
    card (n)2-(n)3 print why they did not run.
+19. (o) pipeline parallelism over the ``pipeline`` axis: (o)1 the 4-layer
+   Llama-3-8B training step (4 x 2048, fused kernels on) staged in
+   lockstep on the card, ``{pipeline: 2}`` GPipe and ``{pipeline: 4}``
+   1F1B, against the unstaged step: loss (rel 1e-4), grad norm (rel
+   1e-3), every gradient leaf (rel L2 1e-2), each stage's launches of
+   every training kernel exact (the CE kernels on the last stage only);
+   with 4 cards, (o)2 ``llm_pretrain`` over NCCL on ``{pipeline: 4}``
+   1F1B and ``{pipeline: 2, data: 2}`` GPipe against one card on the
+   same global batches (as (l)4 holds its runs, launches per rank
+   exact), the latter's step-3 checkpoint resumed on ``{pipeline: 4}``
+   with every params leaf bit-equal, and (o)3 Llama-3-8B at all 32
+   layers on ``{pipeline: 4}`` (a state no card holds): 6 steps, the
+   loss finite and falling, step ms, tokens/s, MFU, peak and each
+   stage's idle share beside the 1F1B bubble; on one card (o)2-(o)3
+   print why they did not run. (m)4's gangs also answer ``:explain``
+   (``grad_x_input``, ``leave_one_out``) against the one-card kernel
+   path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -386,6 +406,7 @@ one JSON object with every kernel's numbers.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -6692,6 +6713,10 @@ TP_MODEL_70B = {"preset": "llama3-70b",
 TP_70B_PROMPTS = tuple((n, 120 + i) for i, n in enumerate(
     (40, 90, 150, 200, 260, 300, 350, 400)))
 TP_NEW = 16
+#: (m)4's explanations: the handler each gang serves, and the prompt's
+#: tokens (phase (a)'s length).
+TP_EXPLAINERS = {"bf16": "grad_x_input", "int8": "leave_one_out"}
+TP_EXPLAIN_TOKENS = 37
 
 
 def _tp_cut(tree: dict, specs: dict, r: int) -> dict:
@@ -6885,10 +6910,13 @@ def counted_model_server(ctx) -> int:
     counts set to 0 before and written after, with the rank's peak
     allocation, to ``counts.json`` in its workdir — also when SIGTERM ends
     it."""
+    from kubeflow_tpu_torch.ops import fused_norm
     from kubeflow_tpu_torch.serve import storage
     from kubeflow_tpu_torch.serve.model_server import model_server
 
-    wrappers = _moe_wrappers()
+    # The backward kernels run only for an explainer (``grad_x_input``).
+    wrappers = {**_moe_wrappers(), "rmsnorm_bwd": fused_norm.rmsnorm_bwd,
+                "swiglu_bwd": fused_norm.swiglu_bwd}
     for w in wrappers.values():
         w.launches = 0
     ctx.mesh                  # join first: it picks this rank's card
@@ -7140,18 +7168,21 @@ def tp_profile(card: str) -> None:
 
 
 def _tp_gang(model: dict, batching: dict, label: str, base: str,
-             plant: dict | None = None) -> dict:
+             plant: dict | None = None, explainer: str | None = None
+             ) -> dict:
     """A ``{model: TP_CARDS}`` ``counted_model_server`` gang serving
     ``model`` from ``random://`` with ``batching``, the ids-as-text
-    tokenizer; returns it with its url once rank 0 answers its readiness
-    probe. ``plant``: a test-only fault (``counted_model_server``)."""
+    tokenizer (and the ``explainer`` handler, when given); returns it with
+    its url once rank 0 answers its readiness probe. ``plant``: a
+    test-only fault (``counted_model_server``)."""
     return _tp_gang_ready(_tp_gang_start(model, batching, label, base,
-                                         plant=plant))
+                                         plant=plant, explainer=explainer))
 
 
 def _tp_gang_start(model: dict, batching: dict, label: str, base: str, *,
                    ways: int = TP_CARDS, cards: str | None = None,
-                   plant: dict | None = None) -> dict:
+                   plant: dict | None = None,
+                   explainer: str | None = None) -> dict:
     """``_tp_gang``'s gang on ``{model: ways}``, started (on the cards
     ``cards`` names, ``CUDA_VISIBLE_DEVICES``, when given)."""
     from kubeflow_tpu_torch.runtime.bootstrap import free_port
@@ -7162,6 +7193,8 @@ def _tp_gang_start(model: dict, batching: dict, label: str, base: str, *,
             "tokenizer": "chip_smoke:TokenIdText"}
     if plant:
         conf["plant"] = plant
+    if explainer:
+        conf["explainer"] = {"handler": explainer}
     dirs = [Path(base, re.sub(r"[^\w.-]", "_", label), f"w{r}")
             for r in range(ways)]
     gang = start_workers("chip_smoke:counted_model_server", conf, dirs,
@@ -7286,22 +7319,33 @@ def tp_serve_8b(card: str) -> None:
     compared with the one-card paged engine's; ``uniform`` (16 requests)
     through ``ServerTarget`` on the bf16 gang (TTFT, TPOT); the followers'
     op counts equal the leader's; SIGTERM ends rank 0 with 143 and every
-    follower with 0; each rank's kernel launches and peak."""
+    follower with 0; each rank's kernel launches and peak. Each gang also
+    serves ``:explain`` on a ``TP_EXPLAIN_TOKENS``-token prompt, every
+    rank computing on its shards (``TP_EXPLAINERS``: ``grad_x_input`` on
+    the bf16 gang, ``leave_one_out`` on the int8 one), held to the
+    one-card kernel-path explanation of the same weights: the same
+    target, scores within ``EXPLAIN_REL_L2`` (rel L2); each rank launches
+    2L + 1 RMSNorm backward and L SwiGLU backward kernels a
+    ``grad_x_input``, and none for ``leave_one_out``."""
     import tempfile
 
     from kubeflow_tpu_torch import loadgen
     from kubeflow_tpu_torch.core.serving import BatchingSpec
     from kubeflow_tpu_torch.models.config import preset
     from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.serve.explain import (
+        attribution_cfg, explainer_registry,
+    )
     from kubeflow_tpu_torch.serve.storage import load_params
 
-    outs = {}
+    outs, explained = {}, {}
+    prompt = text(TP_EXPLAIN_TOKENS, 31)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
                                      prefix=".chip_smoke_tp_") as base:
         for pool, over in (("bf16", {}), ("int8", {"kv_cache_dtype": "int8"})):
             label = f"(m)4 8B TP gang {pool} pages"
             gang = _tp_gang(WORKER_MODEL, dict(PAGED_SPEC, **over), label,
-                            base)
+                            base, explainer=TP_EXPLAINERS[pool])
             ok = False
             try:
                 t0 = time.perf_counter()
@@ -7309,6 +7353,15 @@ def tp_serve_8b(card: str) -> None:
                 print(f"{label}: ready in {gang['ready_s']:.1f} s; greedy "
                       f"{outs[pool]} in {time.perf_counter() - t0:.1f} s; "
                       f"{card}", flush=True)
+                t0 = time.perf_counter()
+                raw = _post(gang["url"] + "/v1/models/llama:explain",
+                            {"instances": [prompt]})[1]
+                (explained[pool],) = json.loads(raw)["explanations"]
+                print(f"{label}: :explain ({TP_EXPLAINERS[pool]}, "
+                      f"{TP_EXPLAIN_TOKENS} tokens) answered in "
+                      f"{time.perf_counter() - t0:.3f} s, target "
+                      f"{explained[pool]['target_token']}; {card}",
+                      flush=True)
                 if pool == "bf16":
                     sc = next(x for x in loadgen.standard_matrix(**LOADGEN)
                               if x.name == "uniform")
@@ -7336,9 +7389,36 @@ def tp_serve_8b(card: str) -> None:
                         "paged_decode")):
                     fail(f"{label}: a serving kernel launched no time on a "
                          f"rank: {c['launches']}")
+            n_layers = preset(WORKER_MODEL["preset"]).n_layers
+            grads = TP_EXPLAINERS[pool] == "grad_x_input"
+            want = {"rmsnorm_bwd": 2 * n_layers + 1 if grads else 0,
+                    "swiglu_bwd": n_layers if grads else 0}
+            bwd = [{k: c["launches"][k] for k in want} for c in got["counts"]]
+            print(f"{label}: :explain backward launches per rank {bwd} "
+                  f"(expected {want} on each)", flush=True)
+            if any(b != want for b in bwd):
+                fail(f"{label}: the explainer's backward launches {bwd} "
+                     f"per rank, expected {want}")
     cfg = preset(WORKER_MODEL["preset"], **WORKER_MODEL["overrides"])
     params = load_params("random://", cfg, device="cuda")
     tok = TokenIdText()
+    for pool, method in TP_EXPLAINERS.items():
+        one = explainer_registry[method](tok.encode(prompt), params=params,
+                                         cfg=attribution_cfg(cfg))
+        a = torch.tensor(explained[pool]["scores"], dtype=torch.float64)
+        b = torch.tensor(one["scores"], dtype=torch.float64)
+        rel = float((a - b).norm() / b.norm())
+        print(f"(m)4 {pool} gang :explain {method}: target "
+              f"{explained[pool]['target_token']} vs one card "
+              f"{one['target_token']}; scores rel L2 {rel:.3e} against the "
+              f"one-card kernel path (tolerance {EXPLAIN_REL_L2:g}); {card}",
+              flush=True)
+        if explained[pool]["target_token"] != one["target_token"]:
+            fail(f"(m)4 {pool} gang :explain: the target differs from the "
+                 "one-card explanation's")
+        if not rel <= EXPLAIN_REL_L2:
+            fail(f"(m)4 {pool} gang :explain: {method}'s scores disagree "
+                 "with the one-card explanation's")
     for pool, over in (("bf16", {}), ("int8", {"kv_cache_dtype": "int8"})):
         eng = LLMEngine(cfg, BatchingSpec(**dict(PAGED_SPEC, **over)),
                         params=params, seed=SEED, device="cuda")
@@ -7795,6 +7875,125 @@ def tp_roles_serve(card: str) -> None:
                     res, secs, card)
 
 
+#: The order probe's co-residents of prompt 0 in one decode step: (row,
+#: prompt, pages) of the other two ``WORKER_PROMPTS``.
+ORDER_PROBE_OTHERS = ((1, 1, (20, 21, 22)), (2, 2, (30, 31, 32, 33, 34, 35)))
+
+
+def admission_order_probe(card: str) -> None:
+    """(m)6's order probe, one card, no gang: whether the paged engine's
+    greedy output for a prompt depends on the order its requests are
+    admitted in, as the HTTP requests of (m)6's exact pair-vs-unified
+    check race to each gang. The 8B at full depth (``WORKER_MODEL``,
+    random weights, ``PAGED_SPEC``), int8 and bf16 pages: the
+    ``WORKER_PROMPTS`` one at a time, then all three submitted before the
+    first scheduler step in each of the six orders; the completions equal
+    to the one-at-a-time ones are counted, and the first departing
+    position printed. Then one decode step of prompt 0 at its first decode
+    position, its KV on page 0 or 7, in row 0, 1 or 2, alone or with the
+    other two prompts live, must give bitwise the same logits: the order
+    dependence does not enter through a row, a page or a co-resident of
+    one step."""
+    import itertools
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.serve.paged import (
+        _paged_decode_step, context_bucket, paged_chunk_prefill,
+    )
+    from kubeflow_tpu_torch.serve.storage import load_params
+
+    cfg = preset(WORKER_MODEL["preset"], **WORKER_MODEL["overrides"])
+    params = load_params("random://", cfg, device="cuda")
+    tok = TokenIdText()
+    prompts = [tok.encode(text(*p)) for p in WORKER_PROMPTS]
+    sp = SamplingParams(max_new_tokens=TP_NEW, temperature=0.0)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    for pool, over in (("int8", {"kv_cache_dtype": "int8"}), ("bf16", {})):
+        spec = BatchingSpec(**dict(PAGED_SPEC, **over))
+        eng = LLMEngine(cfg, spec, params=params, seed=SEED, device="cuda")
+        alone = [eng.generate(p, sp) for p in prompts]
+        departs = []
+        for order in itertools.permutations(range(len(prompts))):
+            eng = LLMEngine(cfg, spec, params=params, seed=SEED,
+                            device="cuda")
+            reqs = {i: eng.submit(prompts[i], sp) for i in order}
+            while not all(r.done.is_set() for r in reqs.values()):
+                eng.step()
+            for i, r in sorted(reqs.items()):
+                got = r.result(1)
+                if got != alone[i]:
+                    at = next(j for j, (a, b) in enumerate(zip(got, alone[i]))
+                              if a != b)
+                    departs.append((order, i, at))
+        print(f"(m)6 order probe, {pool} pages: {len(departs)} of "
+              f"{6 * len(prompts)} completions over the six admission "
+              f"orders differ from the one-at-a-time ones, (order, prompt, "
+              f"first departing token) {departs}; {card}", flush=True)
+        if pool == "bf16" and departs:
+            fail("(m)6 order probe: bf16 pages' greedy tokens depend on the "
+                 "admission order")
+        cache, chunk = eng.cache, eng.chunk_size
+        mpp, pg = eng._mpp, eng.page_size
+        b = PAGED_SPEC["max_batch_size"]
+
+        def prefill(p: int, pages) -> int:
+            row = torch.full((mpp,), -1, **i32)
+            row[:len(pages)] = torch.tensor(pages, **i32)
+            toks, first = prompts[p], None
+            for start in range(0, len(toks), chunk):
+                real = min(chunk, len(toks) - start)
+                logits = paged_chunk_prefill(
+                    params, cache, torch.tensor(
+                        [toks[start:start + real] + [0] * (chunk - real)],
+                        device="cuda"), row, start, real, eng._cfg_prefill,
+                    context_pages=context_bucket(start, chunk, pg, mpp))
+                first = int(logits[real - 1].argmax())
+            return first
+
+        def step(rows: dict) -> dict:
+            table = torch.full((b, mpp), -1, **i32)
+            toks = torch.zeros(b, dtype=torch.int64, device="cuda")
+            lengths = torch.zeros(b, dtype=torch.int64, device="cuda")
+            live = torch.zeros(b, dtype=torch.bool, device="cuda")
+            for r, (p, pages, t) in rows.items():
+                table[r, :len(pages)] = torch.tensor(pages, **i32)
+                toks[r], lengths[r], live[r] = t, len(prompts[p]), True
+            out = _paged_decode_step(params, {**cache, "table": table}, toks,
+                                     lengths, live, eng._cfg_decode,
+                                     attn_impl=eng.paged_attn_impl)
+            return {r: out[r].clone() for r in rows}
+
+        with torch.no_grad():
+            first = prefill(0, (0,))
+            if prefill(0, (7,)) != first:
+                fail(f"(m)6 order probe, {pool} pages: prompt 0's first "
+                     "token depends on its page")
+            others = {r: (p, pages, prefill(p, pages))
+                      for r, p, pages in ORDER_PROBE_OTHERS}
+            want = step({0: (0, (0,), first)})[0]
+            same = []
+            for r, page, crowd in itertools.product((0, 1, 2), (0, 7),
+                                                    (False, True)):
+                rows = {r: (0, (page,), first)}
+                if crowd:
+                    free = [x for x in range(b) if x != r]
+                    rows.update({free[k]: v for k, v in
+                                 enumerate(others.values())})
+                same.append(torch.equal(step(rows)[r], want))
+        print(f"(m)6 order probe, {pool} pages: one decode step of prompt 0 "
+              f"bitwise equal in {sum(same)} of {len(same)} placements (row "
+              f"0-2, page 0 or 7, alone or with the other prompts live); "
+              f"{card}", flush=True)
+        if not all(same):
+            fail(f"(m)6 order probe, {pool} pages: one decode step depends "
+                 "on its row, page or co-residents")
+        del eng, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def phase_tp(rows: list[dict], card: str, *, cards_only: bool = False
              ) -> None:
     """(m): tensor parallelism over the model axis — (m)1 and (m)2 in
@@ -8196,6 +8395,457 @@ def phase_ep(card: str, *, cards_only: bool = False) -> None:
     timed_phase("ep serve mixtral", ep_serve_mixtral, card)
 
 
+# -- (o) pipeline parallelism over the pipeline axis --------------------------
+
+#: (o)1: Llama-3-8B at full width and TRAIN_MODEL's depth, fused kernels
+#: on, one 4 x 2048 batch, staged in lockstep on the card: (stages,
+#: schedule). Both run m = 4 microbatches (JAX's rule).
+PP_LOCKSTEP = ((2, "gpipe"), (4, "1f1b"))
+PP_DATA = dict(seq_len=2048, global_batch=4)
+#: (o)1's limits against the unstaged step (the staged and unstaged runs
+#: do the same products on the same rows, one microbatch at a time): the
+#: loss (relative), the grad norm (relative), each leaf (relative L2).
+PP_LOSS_REL = 1e-4
+PP_NORM_REL = 1e-3
+PP_LEAF_REL_L2 = 1e-2
+#: (o)2: llm_pretrain over NCCL at TRAIN_MODEL's depth on 4 cards: (axes,
+#: schedule), each against an in-process one-card run (fused on) on the
+#: same global batches; then a {pipeline: 2, data: 2} step-3 checkpoint
+#: resumed on {pipeline: 4}.
+PP_CARD_CASES = (({"pipeline": 4}, "1f1b"),
+                 ({"pipeline": 2, "data": 2}, "gpipe"))
+PP_CARDS = 4
+#: (o)3: Llama-3-8B at all 32 layers on {pipeline: 4}, 1F1B, 8 x 2048 a
+#: step (m = 8): 8.03 B params, 128 GB of fp32 weights, gradients and Adam
+#: moments, which no one card holds.
+PP_DEEP_DATA = dict(seq_len=2048, global_batch=8)
+PP_DEEP_STEPS = 6
+
+
+def _pp_want(per: int, m: int, last: bool) -> dict:
+    """A stage's launches of every training kernel over one step, derived
+    from the code: ``per`` layers on each of ``m`` microbatches, the
+    stage's forward replayed in its backward (``remat_policy`` is not
+    "none": JAX's ``checkpoint_stages``), so each layer's forward kernels
+    launch twice and its backward kernels once; the last stage adds the
+    final norm (forward and backward) and the fused CE's three kernels
+    once a microbatch, outside the replayed stage."""
+    want = _want_per_step(True, per)
+    want = {k: v * m for k, v in want.items()}
+    tail = 1 if last else 0
+    for k in ("rmsnorm_fwd", "rmsnorm_bwd"):
+        want[k] = want[k] - m + tail * m
+    for k in ("fused_xent_fwd", "fused_xent_bwd_dh", "fused_xent_bwd_dw"):
+        want[k] = tail * m
+    return want
+
+
+class _StageCounts:
+    """``around(stage)`` for ``staged_loss``'s lockstep run: each stretch
+    of a stage's work adds the training kernels' launches it made to that
+    stage's counts."""
+
+    def __init__(self, wrappers: dict, n: int):
+        self.wrappers = wrappers
+        self.counts = [{k: 0 for k in wrappers} for _ in range(n)]
+
+    @contextlib.contextmanager
+    def __call__(self, stage: int):
+        before = {k: w.launches for k, w in self.wrappers.items()}
+        yield
+        for k, w in self.wrappers.items():
+            self.counts[stage][k] += w.launches - before[k]
+
+
+def pp_lockstep(rows: list[dict], card: str) -> None:
+    """(o)1: the staged step in lockstep on one card, every stage in this
+    process: Llama-3-8B width at TRAIN_MODEL's depth, fp32 params from a
+    seed, fused kernels on, one 4 x 2048 batch, on ``PP_LOCKSTEP``'s
+    stages and schedules, held to the unstaged ``decoder_loss`` on the
+    same batch: the loss, the grad norm and every gradient leaf within
+    their limits; each stage's launches of every training kernel exactly
+    ``_pp_want``'s (the CE kernels on the last stage only), counted from
+    0 just before the staged step."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import (
+        decoder_loss, init_decoder_params, staged_loss,
+    )
+    from kubeflow_tpu_torch.parallel.pipeline import microbatches
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train.data import DataConfig, SyntheticLM
+    from kubeflow_tpu_torch.train.optim import global_norm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = preset("llama3-8b", **TRAIN_MODEL)
+    params = init_decoder_params(torch.Generator("cuda").manual_seed(SEED),
+                                 cfg)
+    leaves = T.flatten(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    batch = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seed=SEED, **PP_DATA)).batch_at(0))
+    batch = batch.to("cuda")
+    loss, _ = decoder_loss(params, batch, cfg, attn_impl="pallas")
+    ref = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    ref_loss, ref_norm = float(loss.detach()), float(global_norm(ref))
+    del loss
+    wrappers = _train_wrappers()
+    for n, schedule in PP_LOCKSTEP:
+        c = dataclasses.replace(cfg, pipeline_schedule=schedule)
+        m = microbatches(batch.shape[0], 1, n, schedule)
+        counts = _StageCounts(wrappers, n)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = staged_loss(params, batch, c, attn_impl="pallas",
+                                    stages=n, around=counts)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got_loss, got_norm = float(loss.detach()), float(global_norm(grads))
+        loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+        norm_rel = abs(got_norm - ref_norm) / abs(ref_norm)
+        rels = {p: rel_l2(grads[p], ref[p]) for p in leaves}
+        worst = max(rels, key=rels.get)
+        per = cfg.n_layers // n
+        want = [_pp_want(per, m, s == n - 1) for s in range(n)]
+        print(f"(o)1 {cfg.n_layers} layers on {{pipeline: {n}}} {schedule} "
+              f"in lockstep, m = {m}: loss {got_loss:.6f} vs unstaged "
+              f"{ref_loss:.6f} (rel {loss_rel:.3e}, tolerance "
+              f"{PP_LOSS_REL:g}); grad norm {got_norm:.6f} vs {ref_norm:.6f}"
+              f" (rel {norm_rel:.3e}, tolerance {PP_NORM_REL:g}); worst "
+              f"leaf {worst} rel L2 {rels[worst]:.3e} (tolerance "
+              f"{PP_LEAF_REL_L2:g}); step {secs * 1e3:.1f} ms; launches per "
+              f"stage {counts.counts}; {card}", flush=True)
+        if not loss_rel <= PP_LOSS_REL:
+            fail(f"(o)1 {schedule} on {n} stages: the loss is off the "
+                 "unstaged one's")
+        if not norm_rel <= PP_NORM_REL:
+            fail(f"(o)1 {schedule} on {n} stages: the grad norm is off the "
+                 "unstaged one's")
+        bad = [p for p, r in rels.items() if not r <= PP_LEAF_REL_L2]
+        if bad:
+            fail(f"(o)1 {schedule} on {n} stages: gradients off the "
+                 f"unstaged ones: {bad}")
+        for s in range(n):
+            if counts.counts[s] != want[s]:
+                fail(f"(o)1 {schedule} stage {s}: kernel launches "
+                     f"{counts.counts[s]}, expected {want[s]}")
+            for name, count in counts.counts[s].items():
+                _add_launches(rows, name, count)
+        del loss, grads
+    del params, leaves, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _param_digests(trainer) -> dict:
+    """Each params leaf's digest over the whole leaf, from the ranks'
+    blocks: the sum over its elements of their fp32 bits times a hash of
+    their global index, modulo a prime, each block counted once (the
+    ranks that write it, ``ShardLayout.writes``), summed over the world.
+    Two states with equal digests hold the same bits, whatever their
+    layouts."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.train import tree as T
+
+    p = 2 ** 31 - 1
+    lay = trainer.shard_layout
+    out = {}
+    for path, t in T.flatten(trainer.task.state["params"]).items():
+        key = f"params/{path}"
+        total = torch.zeros((), dtype=torch.int64, device=t.device)
+        if lay.writes(key):
+            shape = lay.global_shape(key, t.shape)
+            block = lay.block(key, shape)
+            strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+            bits = t.detach().float().contiguous().view(torch.int32)
+            rows = max(1, 2 ** 24 // max(1, math.prod(t.shape[1:])))
+            for i0 in range(0, bits.shape[0], rows):
+                i1 = min(i0 + rows, bits.shape[0])
+                g = torch.arange(block[0].start + i0, block[0].start + i1,
+                                 device=t.device) * strides[0]
+                for d in range(1, len(shape)):
+                    ar = torch.arange(block[d].start, block[d].stop,
+                                      device=t.device) * strides[d]
+                    g = g[..., None] + ar
+                h = (g * 2654435761 + 97) % p
+                v = (bits[i0:i1].long() % p) * h % p
+                total += v.sum() % p
+        dist.all_reduce(total)
+        out[path] = int(total) % p
+    return out
+
+
+def pp_digest_pretrain(ctx) -> int:
+    """(o)2's checkpoint worker (``chip_smoke:pp_digest_pretrain``):
+    ``counted_llm_pretrain`` that also writes, to ``digests.json`` in its
+    workdir, ``_param_digests`` of the state its ``Trainer`` restored (with
+    the step it resumed from) and of the state it ended with."""
+    from kubeflow_tpu_torch.train.trainer import Trainer
+
+    out: dict = {}
+    run, resume = Trainer.run, Trainer.try_resume
+
+    def resumed(self):
+        step = resume(self)
+        out["resumed"] = {"step": step, "params": _param_digests(self)}
+        return step
+
+    def ran(self, **kwargs):
+        result = run(self, **kwargs)
+        out["end"] = _param_digests(self)
+        return result
+
+    Trainer.run, Trainer.try_resume = ran, resumed
+    try:
+        rc = counted_llm_pretrain(ctx)
+    finally:
+        Trainer.run, Trainer.try_resume = run, resume
+    Path(ctx.env.workdir, "digests.json").write_text(json.dumps(out))
+    return rc
+
+
+def pp_timed_pretrain(ctx) -> int:
+    """(o)3's worker (``chip_smoke:pp_timed_pretrain``):
+    ``counted_llm_pretrain`` with this rank's stage timed at every step:
+    the schedule's wall seconds (``pipeline.run_stage``) and the seconds
+    its forwards and backwards kept the card busy (the card synchronized
+    around each), written to ``stage_times.json`` in its workdir."""
+    from kubeflow_tpu_torch.parallel import pipeline as PP
+
+    walls, busy = [], []
+    run_stage, fwd, bwd = PP.run_stage, PP.Stage.forward, PP.Stage.backward
+
+    def timed(fn):
+        def inner(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            busy[-1] += time.perf_counter() - t0
+            return out
+        return inner
+
+    def staged(program, link):
+        busy.append(0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_stage(program, link)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    PP.run_stage = staged
+    PP.Stage.forward, PP.Stage.backward = timed(fwd), timed(bwd)
+    try:
+        rc = counted_llm_pretrain(ctx)
+    finally:
+        PP.run_stage, PP.Stage.forward, PP.Stage.backward = (
+            run_stage, fwd, bwd)
+    Path(ctx.env.workdir, "stage_times.json").write_text(json.dumps(
+        {"wall_s": walls, "busy_s": busy}))
+    return rc
+
+
+def _pp_card_want(cfg, axes: dict, schedule: str, steps: int) -> list[dict]:
+    """Each rank's launches over ``steps`` steps of ``cfg`` on ``axes``
+    (``_pp_want`` of its stage), by rank: the pipeline axis is outside the
+    data axis (``runtime/mesh.MESH_AXES``)."""
+    from kubeflow_tpu_torch.parallel.pipeline import microbatches
+
+    n, dp = axes["pipeline"], axes.get("data", 1)
+    m = microbatches(cfg.data["global_batch"], dp, n, schedule)
+    per = TRAIN_MODEL["n_layers"] // n
+    out = []
+    for s in range(n):
+        want = {k: v * steps for k, v in _pp_want(per, m, s == n - 1)
+                .items()}
+        out += [want] * dp
+    return out
+
+
+def pp_train_cards(card: str) -> None:
+    """(o)2: ``llm_pretrain`` over NCCL on ``PP_CARD_CASES`` (one process
+    per card), Llama-3-8B width at TRAIN_MODEL's depth, 3 steps of 4 x
+    2048 tokens, fused kernels on, each held to an in-process one-card run
+    (fused on) on the same global batches: losses within
+    ``MULTI_CARD_LOSS_REL``, the step-1 grad norm within
+    ``MULTI_CARD_GRAD_NORM_REL``; every rank's launches exactly its
+    stage's (``_pp_want``). Then the ``{pipeline: 2, data: 2}`` run's
+    step-3 checkpoint resumed by a ``{pipeline: 4}`` gang: every params
+    leaf bit-equal to the state the first gang ended on
+    (``_param_digests``), then 2 more steps, finite."""
+    import dataclasses
+    import tempfile
+
+    nan = float("nan")
+    refs: dict = {}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_train_") as base:
+        for axes, schedule in PP_CARD_CASES:
+            cfg = _trainer_cfg(steps=MULTI_STEPS, data=PP_DATA,
+                               pipeline_schedule=schedule)
+            ckpt = (str(Path(base, "ckpt")) if axes.get("data", 1) > 1
+                    else None)
+            if ckpt:
+                cfg = dataclasses.replace(cfg, checkpoint_dir=ckpt,
+                                          checkpoint_every=MULTI_STEPS)
+            dirs = [Path(base, f"{schedule}{PP_CARDS}", f"w{r}")
+                    for r in range(PP_CARDS)]
+            secs = spawn_workers(
+                "chip_smoke:pp_digest_pretrain" if ckpt
+                else "chip_smoke:counted_llm_pretrain",
+                dataclasses.asdict(cfg), dirs, axes,
+                f"(o)2 llm_pretrain {axes}")
+            logged = [json.loads(x) for x in
+                      (dirs[0] / "metrics.jsonl").read_text().splitlines()]
+            counts = [json.loads((d / "counts.json").read_text())
+                      for d in dirs]
+            if ckpt:
+                ended = json.loads((dirs[0] / "digests.json").read_text())
+            dp = axes.get("data", 1)
+            if dp not in refs:
+                # The global batches of dp batch shards, in one process.
+                refs[dp] = _global_batch_run(dataclasses.replace(
+                    cfg, checkpoint_dir=None, checkpoint_every=0), dp)
+            ref_losses, ref_norms = refs[dp]
+            losses = [r["loss"] for r in logged]
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, ref_losses))
+            norm_rel = abs(logged[0]["grad_norm"] - ref_norms[0]) \
+                / ref_norms[0]
+            want = _pp_card_want(cfg, axes, schedule, MULTI_STEPS)
+            launches = [c["launches"] for c in counts]
+            print(f"(o)2 llm_pretrain over NCCL, {PP_CARDS} cards, {axes} "
+                  f"{schedule}: exit 0 in {secs:.1f} s; devices "
+                  f"{[c['device'] for c in counts]}; losses {losses} vs "
+                  f"in-process, fused on, same global batches {ref_losses}"
+                  f" (max rel {rel:.3e}, tolerance {MULTI_CARD_LOSS_REL:g}); "
+                  f"step-1 grad norm {logged[0]['grad_norm']} vs "
+                  f"{ref_norms[0]} (rel {norm_rel:.3e}, tolerance "
+                  f"{MULTI_CARD_GRAD_NORM_REL:g}); step ms "
+                  f"{[round(r.get('step_time_ms', nan), 1) for r in logged]}"
+                  f"; tokens/s "
+                  f"{[round(r.get('tokens_per_sec', nan), 1) for r in logged]}"
+                  f"; peak per rank "
+                  f"{[round(c['peak'] / 2**30, 2) for c in counts]} GiB; "
+                  f"launches per rank {launches}; {card}", flush=True)
+            if len({c["device"] for c in counts}) != PP_CARDS or any(
+                    c["world"] != PP_CARDS or c["backend"] != "nccl"
+                    for c in counts):
+                fail(f"(o)2 {axes}: ranks {counts} are not one NCCL world "
+                     "over distinct cards")
+            if not rel <= MULTI_CARD_LOSS_REL:
+                fail(f"(o)2 {axes}: the losses are off the one-card run's")
+            if not norm_rel <= MULTI_CARD_GRAD_NORM_REL:
+                fail(f"(o)2 {axes}: the step-1 grad norm is off the "
+                     "one-card run's")
+            if launches != want:
+                fail(f"(o)2 {axes}: launches per rank {launches}, "
+                     f"expected {want}")
+        cfg = _trainer_cfg(steps=MULTI_STEPS + 2, data=PP_DATA,
+                           pipeline_schedule="1f1b")
+        cfg = dataclasses.replace(cfg, checkpoint_dir=str(Path(base, "ckpt")),
+                                  checkpoint_every=MULTI_STEPS)
+        dirs = [Path(base, "resume", f"w{r}") for r in range(PP_CARDS)]
+        secs = spawn_workers("chip_smoke:pp_digest_pretrain",
+                             dataclasses.asdict(cfg), dirs,
+                             {"pipeline": PP_CARDS}, "(o)2 resume")
+        got = json.loads((dirs[0] / "digests.json").read_text())
+        logged = [json.loads(x) for x in
+                  (dirs[0] / "metrics.jsonl").read_text().splitlines()]
+        same = sum(got["resumed"]["params"][p] == d
+                   for p, d in ended["end"].items())
+        print(f"(o)2 the {{pipeline: 2, data: 2}} step-{MULTI_STEPS} "
+              f"checkpoint resumed on {{pipeline: {PP_CARDS}}} at step "
+              f"{got['resumed']['step']}: {same} of {len(ended['end'])} "
+              f"params leaves bit-equal (digests); then steps "
+              f"{[r['step'] for r in logged]}, losses "
+              f"{[r['loss'] for r in logged]}, in {secs:.1f} s; {card}",
+              flush=True)
+        if got["resumed"]["step"] != MULTI_STEPS or same != len(ended["end"]):
+            fail("(o)2: the resumed stage-sharded checkpoint is not the "
+                 "state the first gang saved")
+        if [r["step"] for r in logged] != list(range(MULTI_STEPS + 1,
+                                                      MULTI_STEPS + 3)) or \
+                not all(math.isfinite(r["loss"]) for r in logged):
+            fail(f"(o)2: the resumed run's steps {logged}")
+
+
+def pp_deep(card: str) -> None:
+    """(o)3: Llama-3-8B at all 32 layers on ``{pipeline: 4}`` (1F1B, 8 x
+    2048 tokens a step, m = 8), fused kernels on, ``PP_DEEP_STEPS``
+    steps: the loss finite every step and lower at the last; step ms,
+    tokens/s, MFU, each stage's peak allocation, and each stage's measured
+    idle share of its schedule (1 - busy / wall, steps 2 on) beside the
+    1F1B bubble (n - 1) / (m + n - 1)."""
+    import dataclasses
+    import tempfile
+
+    from kubeflow_tpu_torch.parallel.pipeline import microbatches
+
+    nan = float("nan")
+    n = PP_CARDS
+    cfg = _trainer_cfg(steps=PP_DEEP_STEPS, data=PP_DEEP_DATA, n_layers=32,
+                       pipeline_schedule="1f1b")
+    m = microbatches(PP_DEEP_DATA["global_batch"], 1, n, "1f1b")
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_train_") as base:
+        dirs = [Path(base, f"w{r}") for r in range(n)]
+        secs = spawn_workers("chip_smoke:pp_timed_pretrain",
+                             dataclasses.asdict(cfg), dirs, {"pipeline": n},
+                             "(o)3 llm_pretrain 32 layers")
+        logged = [json.loads(x) for x in
+                  (dirs[0] / "metrics.jsonl").read_text().splitlines()]
+        counts = [json.loads((d / "counts.json").read_text()) for d in dirs]
+        times = [json.loads((d / "stage_times.json").read_text())
+                 for d in dirs]
+    idle = [1 - sum(t["busy_s"][1:]) / sum(t["wall_s"][1:]) for t in times]
+    bubble = (n - 1) / (m + n - 1)
+    losses = [r["loss"] for r in logged]
+    print(f"(o)3 Llama-3-8B 32 layers on {{pipeline: {n}}} 1f1b, m = {m}, "
+          f"{PP_DEEP_DATA['global_batch']} x {PP_DEEP_DATA['seq_len']} "
+          f"tokens a step: exit 0 in {secs:.1f} s; losses {losses}; step ms "
+          f"{[round(r.get('step_time_ms', nan), 1) for r in logged]}; "
+          f"tokens/s {[round(r.get('tokens_per_sec', nan), 1) for r in logged]}"
+          f"; MFU {[round(r.get('mfu', nan), 4) for r in logged]}; peak per "
+          f"stage {[round(c['peak'] / 2**30, 2) for c in counts]} GiB; "
+          f"schedule wall s per stage (steps 2 on) "
+          f"{[round(sum(t['wall_s'][1:]), 3) for t in times]}, busy "
+          f"{[round(sum(t['busy_s'][1:]), 3) for t in times]}, idle share "
+          f"{[round(x, 4) for x in idle]} vs the 1F1B bubble (n - 1) / (m + "
+          f"n - 1) = {bubble:.4f}; launches per stage "
+          f"{[c['launches'] for c in counts]}; {card}", flush=True)
+    if [r["step"] for r in logged] != list(range(1, PP_DEEP_STEPS + 1)):
+        fail(f"(o)3: steps {[r['step'] for r in logged]} logged")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"(o)3: losses {losses} are not finite and falling")
+
+
+def phase_pp(rows: list[dict], card: str, *, cards_only: bool = False
+             ) -> None:
+    """(o): pipeline parallelism over the pipeline axis — (o)1 in lockstep
+    on one card (not with ``cards_only``), then on a machine of
+    ``PP_CARDS`` cards or more (o)2 and (o)3 over NCCL."""
+    if not cards_only:
+        timed_phase("pp lockstep", pp_lockstep, rows, card)
+    count = torch.cuda.device_count()
+    if count < PP_CARDS:
+        print(f"(o)2-(o)3 pipeline parallelism over {PP_CARDS} cards: not "
+              f"run — this machine has {count} card; {card}", flush=True)
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("pp train cards", pp_train_cards, card)
+    timed_phase("pp deep", pp_deep, card)
+
+
 def timed_phase(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -8281,6 +8931,11 @@ def main() -> int:
         print(f"chip_smoke: tp-roles-cards-only phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] == ["--order-probe-only"]:
+        timed_phase("order probe", admission_order_probe, card)
+        print(f"chip_smoke: order-probe phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] == ["--ep-fault-cards-only"]:
         if torch.cuda.device_count() < TP_CARDS:
             fail(f"the planted (n)3 needs {TP_CARDS} cards; this machine "
@@ -8298,6 +8953,15 @@ def main() -> int:
     if sys.argv[1:] in (["--ep-only"], ["--ep-cards-only"]):
         timed_phase("ep", phase_ep, card,
                     cards_only=sys.argv[1] == "--ep-cards-only")
+        print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
+    if sys.argv[1:] in (["--pp-only"], ["--pp-cards-only"]):
+        cards = sys.argv[1] == "--pp-cards-only"
+        if cards and torch.cuda.device_count() < PP_CARDS:
+            fail(f"(o)2-(o)3 need {PP_CARDS} cards; this machine has "
+                 f"{torch.cuda.device_count()}")
+        timed_phase("pp", phase_pp, [], card, cards_only=cards)
         print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
@@ -8359,6 +9023,7 @@ def main() -> int:
     timed_phase("multi", phase_multi, card)
     timed_phase("tp", phase_tp, rows, card)
     timed_phase("ep", phase_ep, card)
+    timed_phase("pp", phase_pp, rows, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

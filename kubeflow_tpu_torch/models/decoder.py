@@ -79,7 +79,8 @@ def _copy_layer(dst, i: int, t) -> None:
 
 
 def _stacked(gen: torch.Generator, n: int, make, quant=None,
-             shard=None, path: str = "") -> Any:
+             shard=None, path: str = "", keep: Optional[range] = None
+             ) -> Any:
     """Stack ``n`` per-layer trees drawn one layer at a time from ``make``
     into ``[L, ...]`` leaves: only one layer's draw is alive at once, so a
     full-width model never holds its fp32 draws all together. ``quant``
@@ -89,7 +90,9 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None,
     alive at once. Per-output-channel scales never reduce over the layer
     axis, so the result is bit for bit the quantization of the stacked
     draw. ``shard(path, t)`` (a sharded train state) keeps each layer's
-    block of each leaf as it is drawn, ``path`` the stacked leaf's."""
+    block of each leaf as it is drawn, ``path`` the stacked leaf's; of
+    the ``n`` layers drawn only ``keep``'s are stacked (a pipeline
+    stage's)."""
     def post(name: str, t):
         if quant is not None and quant.get(name) is not None:
             t = quantize_weight(t, tuple(d - 1 for d in quant[name]))
@@ -105,17 +108,21 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None,
 
     # Layer 0's draw shapes the stacks, is copied in, then dropped: no
     # layer's draw outlives its copy.
+    keep = range(n) if keep is None else keep
     tree = draw()
-    out = ({k: _empty_like_stacked(n, t) for k, t in tree.items()}
-           if isinstance(tree, dict) else _empty_like_stacked(n, tree))
+    out = ({k: _empty_like_stacked(len(keep), t) for k, t in tree.items()}
+           if isinstance(tree, dict)
+           else _empty_like_stacked(len(keep), tree))
     for i in range(n):
         if i:
             tree = draw()
-        if isinstance(tree, dict):
-            for k, t in tree.items():
-                _copy_layer(out[k], i, t)
-        else:
-            _copy_layer(out, i, tree)
+        if i in keep:
+            at = i - keep.start
+            if isinstance(tree, dict):
+                for k, t in tree.items():
+                    _copy_layer(out[k], at, t)
+            else:
+                _copy_layer(out, at, tree)
         del tree
     return out
 
@@ -123,7 +130,8 @@ def _stacked(gen: torch.Generator, n: int, make, quant=None,
 def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
                         dtype: Optional[torch.dtype] = None,
                         quantize: Optional[str] = None,
-                        shard=None) -> Params:
+                        shard=None, layers: Optional[range] = None
+                        ) -> Params:
     """Random weights from ``gen`` on ``gen``'s device: truncated normal with
     the JAX package's fan-in scales, stored in ``dtype`` (default
     ``cfg.param_dtype``). The values differ from ``jax.random``'s — tests
@@ -139,7 +147,9 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
     drawn (and packed, when quantizing: a ``QuantizedTensor`` is cut per
     field, keeping the whole leaf's scales), so the values are the whole
     draw's bit for bit while at most one whole leaf is alive
-    (``train/step.py``'s sharded init, a tensor-parallel engine's)."""
+    (``train/step.py``'s sharded init, a tensor-parallel engine's).
+    ``layers`` (a range of layer indices, default all): the stacked
+    layers kept, every layer drawn (a pipeline stage's block)."""
     check_quantize(quantize)
     keep = shard if shard is not None else (lambda path, t: t)
     dt = dtype or cfg.weight_dtype
@@ -158,13 +168,13 @@ def init_decoder_params(gen: torch.Generator, cfg: DecoderConfig, *,
         "attn": _stacked(gen, n,
                          lambda post: L.init_attention(gen, cfg, dt, post),
                          quant("attn", ("wq", "wk", "wv", "wo")),
-                         shard, "layers/attn"),
+                         shard, "layers/attn", layers),
         "mlp": _stacked(gen, n, lambda post: init_mlp(gen, cfg, dt, post),
-                        quant("mlp", mlp_names), shard, "layers/mlp"),
+                        quant("mlp", mlp_names), shard, "layers/mlp", layers),
         "ln1": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt),
-                        shard=shard, path="layers/ln1"),
+                        shard=shard, path="layers/ln1", keep=layers),
         "ln2": _stacked(gen, n, lambda post: L.init_rmsnorm(cfg, dev, dt),
-                        shard=shard, path="layers/ln2"),
+                        shard=shard, path="layers/ln2", keep=layers),
     }
     params["final_norm"] = keep("final_norm", L.init_rmsnorm(cfg, dev, dt))
     if not cfg.tie_embeddings:
@@ -416,10 +426,24 @@ def decoder_forward(
     inputs_embeds: Optional[torch.Tensor] = None,
     lora: Optional[dict] = None,
     valid_len=None,
+    mesh=None,
 ):
     """``_forward`` without the balance loss: (logits or hidden states,
     new caches), what the serving callers unpack. Under a model axis the
-    logits are the whole vocabulary's (gathered over the axis)."""
+    logits are the whole vocabulary's (gathered over the axis). A
+    ``mesh`` with a ``pipeline`` degree above 1 runs the layers staged
+    (``staged_forward`` on this rank's shards, whole over ``fsdp``:
+    contiguous positions, so custom ``positions`` raise, as JAX's do); a
+    cache never takes that branch."""
+    from kubeflow_tpu_torch.parallel.fsdp import pipelined
+
+    if pipelined(mesh) and kv_caches is None:
+        if positions is not None:
+            raise NotImplementedError(
+                "pipeline parallelism computes contiguous positions inside "
+                "the stage; custom positions are not supported under pp>1")
+        return staged_forward(params, tokens, cfg, mesh=mesh,
+                              attn_impl=attn_impl, skip_head=skip_head), None
     out, caches, _ = _forward(params, tokens, cfg, positions=positions,
                               kv_caches=kv_caches, attn_impl=attn_impl,
                               skip_head=skip_head,
@@ -588,6 +612,52 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
     return torch.cat(nll, dim=1), torch.cat(correct, dim=1)
 
 
+def _nll(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
+         cfg: DecoderConfig, fused: bool):
+    """Per-token (nll, correct) of the final-norm ``hidden`` [B,S,D]
+    against ``targets`` [B,S], by the loss path ``decoder_loss`` picks:
+    the fused CE (kernels 9–11), the chunked CE, or the dense logits;
+    each vocab-parallel under a model axis."""
+    tp = model_axis_of(cfg)
+    if fused or cfg.loss_chunk_size:
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        head = head.to(hidden.dtype)
+        if fused and tp is not None:
+            return VP.fused_ce(hidden, head, targets, tp,
+                               logits_softcap=cfg.logits_softcap)
+        if fused:
+            return fused_xent.fused_cross_entropy(
+                hidden, head, targets, logits_softcap=cfg.logits_softcap)
+        return _chunked_ce(hidden, head, targets, cfg)
+    logits = head_logits(params, hidden, cfg)
+    if tp is not None:
+        return VP.vocab_parallel_ce(logits, targets, tp)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return nll, (logits.argmax(-1) == targets).float()
+
+
+def _rank_part(inputs: torch.Tensor, targets: torch.Tensor, loss_mask,
+               mesh):
+    """This rank's ``seq`` part of its rows' inputs, targets and mask, and
+    the part's positions (offset by its start)."""
+    from kubeflow_tpu_torch.parallel.collectives import seq_info
+
+    _, idx, n = seq_info(mesh)
+    s = inputs.shape[1]
+    if s % n:
+        raise ValueError(f"sequence length {s} does not divide over "
+                         f"the seq axis ({n})")
+    part = s // n
+    cut = slice(idx * part, (idx + 1) * part)
+    inputs, targets = inputs[:, cut], targets[:, cut]
+    if loss_mask is not None:
+        loss_mask = loss_mask[:, cut]
+    positions = (torch.arange(part, device=inputs.device)
+                 + idx * part)[None, :].expand(inputs.shape[0], part)
+    return inputs, targets, loss_mask, positions
+
+
 def decoder_loss(
     params: Params,
     tokens: torch.Tensor,        # [B, S+1]: input = [:, :-1], target = [:, 1:]
@@ -604,11 +674,11 @@ def decoder_loss(
     Returns ``(loss, metrics)`` with ``ce_loss``, ``aux_loss`` (0 for a
     dense config), ``tokens`` and ``accuracy`` (detached).
 
-    Loss-path selection as in the JAX package: with fused kernels on
-    (``layers.fused_kernels_on``) the fused CE (``fused_xent``, kernels
-    9–11), which never materializes the [B, S, V] logits on the card;
-    otherwise ``cfg.loss_chunk_size`` streams the head in sequence chunks,
-    and the dense branch materializes the full logits.
+    Loss-path selection as in the JAX package (``_nll``): with fused
+    kernels on (``layers.fused_kernels_on``) the fused CE (``fused_xent``,
+    kernels 9–11), which never materializes the [B, S, V] logits on the
+    card; otherwise ``cfg.loss_chunk_size`` streams the head in sequence
+    chunks, and the dense branch materializes the full logits.
 
     Under ``mesh``, ``tokens`` (and ``loss_mask``, [B, S]) are this rank's
     batch rows; the rank keeps its ``seq`` part of the shifted inputs and
@@ -623,58 +693,38 @@ def decoder_loss(
     to it), so the gradients summed over the ranks are the global mean's.
     An MoE config's balance loss is likewise this rank's part of the
     global batch's (``layers.moe_block``), and ``aux_loss`` the global
-    value. A ``pipeline`` axis raises (ROADMAP.md Queue 1 item 9d)."""
+    value. A ``pipeline`` degree above 1 stages the layers
+    (``staged_loss``)."""
+    from kubeflow_tpu_torch.parallel.fsdp import pipelined
+
+    if pipelined(mesh):
+        return staged_loss(params, tokens, cfg, loss_mask=loss_mask,
+                           attn_impl=attn_impl,
+                           aux_loss_weight=aux_loss_weight, mesh=mesh,
+                           placements=placements)
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     positions = None
     loss_group = None
     if mesh is not None:
         from kubeflow_tpu_torch.parallel.collectives import (
-            GatheredParams, axis_group, seq_info,
+            GatheredParams, axis_group,
         )
         from kubeflow_tpu_torch.parallel.fsdp import TOKEN_AXES, check_mesh
 
         check_mesh(mesh)
-        _, idx, n = seq_info(mesh)
-        s = inputs.shape[1]
-        if s % n:
-            raise ValueError(f"sequence length {s} does not divide over "
-                             f"the seq axis ({n})")
-        part = s // n
-        cut = slice(idx * part, (idx + 1) * part)
-        inputs, targets = inputs[:, cut], targets[:, cut]
-        if loss_mask is not None:
-            loss_mask = loss_mask[:, cut]
-        positions = (torch.arange(part, device=inputs.device)
-                     + idx * part)[None, :].expand(inputs.shape[0], part)
+        inputs, targets, loss_mask, positions = _rank_part(
+            inputs, targets, loss_mask, mesh)
         if placements is not None:
             params = GatheredParams(params, placements,
                                     axis_group(mesh, ("fsdp",)))
         loss_group = axis_group(mesh, TOKEN_AXES)
         cfg = with_model_axis(cfg, C.model_axis(mesh))
-    tp = model_axis_of(cfg)
     fused = L.fused_kernels_on(cfg, inputs)
-    fwd = dict(positions=positions, attn_impl=attn_impl, mesh=mesh)
-    if fused or cfg.loss_chunk_size:
-        hidden, _, aux = _forward(params, inputs, cfg, skip_head=True, **fwd)
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        head = head.to(hidden.dtype)
-        if fused and tp is not None:
-            nll, correct = VP.fused_ce(hidden, head, targets, tp,
-                                       logits_softcap=cfg.logits_softcap)
-        elif fused:
-            nll, correct = fused_xent.fused_cross_entropy(
-                hidden, head, targets, logits_softcap=cfg.logits_softcap)
-        else:
-            nll, correct = _chunked_ce(hidden, head, targets, cfg)
-    elif tp is not None:
-        logits, _, aux = _forward(params, inputs, cfg, **fwd)
-        nll, correct = VP.vocab_parallel_ce(logits, targets, tp)
-    else:
-        logits, _, aux = _forward(params, inputs, cfg, **fwd)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-        correct = (logits.argmax(-1) == targets).float()
+    hidden, _, aux = _forward(params, inputs, cfg, skip_head=True,
+                              positions=positions, attn_impl=attn_impl,
+                              mesh=mesh)
+    nll, correct = _nll(params, hidden, targets, cfg, fused)
     if loss_mask is None:
         loss_mask = torch.ones_like(nll)
     loss_mask = loss_mask.to(nll.dtype)
@@ -701,3 +751,282 @@ def decoder_loss(
         "accuracy": (hits / denom).detach(),
     }
     return loss, metrics
+
+
+# -- pipeline parallelism: the staged branch -----------------------------------
+
+def check_stages(cfg: DecoderConfig, sizes: dict) -> int:
+    """The stage count of a mesh of ``sizes`` for ``cfg`` (JAX's refusals
+    of its staged branch): ``pipeline`` must divide the layers, and under
+    ``model`` the degree must divide the heads, kv heads and MLP columns
+    (this path shards them whole, with no replication)."""
+    n = int(sizes.get("pipeline", 1))
+    tp = int(sizes.get("model", 1))
+    if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp
+                   or cfg.mlp_dim % tp):
+        raise ValueError(
+            f"model={tp} must divide n_heads={cfg.n_heads}, "
+            f"n_kv_heads={cfg.n_kv_heads} and mlp_dim={cfg.mlp_dim} "
+            "for pipeline x TP")
+    if cfg.n_layers % n:
+        raise ValueError(
+            f"pipeline={n} must divide n_layers={cfg.n_layers}")
+    return n
+
+
+class _StagedLoss(torch.autograd.Function):
+    """The staged loss's value, whose backward hands each param leaf the
+    gradient the schedule already summed (scaled by the loss's
+    cotangent)."""
+
+    @staticmethod
+    def forward(ctx, value, grads, *leaves):
+        ctx.grads = grads
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        # The summed gradients are the loss's alone: scaled in place.
+        grads, ctx.grads = ctx.grads, None
+        return (None, None, *(x.mul_(g) for x in grads))
+
+
+def _stage_fn(cfg: DecoderConfig, positions: torch.Tensor, attn_impl: str,
+              first_layer: int, n_layers: int, mesh) -> Callable:
+    """A stage's work on one microbatch: layers ``first_layer`` …
+    ``+ n_layers`` of ``params["layers"]`` on the streamed ``[x]`` (an
+    MoE config streams ``[x, aux]``, aux [mb, 1] fp32 gaining the stage's
+    balance losses, JAX's ``xs["aux"]``)."""
+    def fn(params, xs):
+        h = xs[0]
+        pos = positions[:h.shape[0]]
+        auxes = []
+        for j in range(first_layer, first_layer + n_layers):
+            stages = _block_stages(layer_view(params["layers"], j), pos, cfg,
+                                   attn_impl, None, None, mesh)
+            h, aux = _chain(stages)(h)
+            auxes.append(aux)
+        if not cfg.is_moe:
+            return [h]
+        return [h, xs[1] + torch.stack(auxes).sum()]
+
+    return fn
+
+
+class _Staging:
+    """What the staged branch's entry points share: this rank's stages
+    (its own of ``mesh``'s, or every one of ``stages`` in this process),
+    its params (gathered at use over ``fsdp``) and config (with the
+    ``model`` axis), its ``seq`` part of the inputs at their positions,
+    the microbatch count and size, the first stage's ``feed`` and
+    ``run`` (the schedule, through point-to-point calls or in
+    lockstep)."""
+
+    def __init__(self, params, inputs, targets, loss_mask, cfg, mesh,
+                 placements, stages):
+        from kubeflow_tpu_torch.parallel import pipeline as PP
+        from kubeflow_tpu_torch.parallel.collectives import (
+            GatheredParams, axis_group, pipeline_axis, seq_info,
+        )
+        from kubeflow_tpu_torch.parallel.fsdp import BATCH_AXES
+        from kubeflow_tpu_torch.parallel.sharding import mesh_shape
+
+        self.mesh, self.dp, self.seq_n = mesh, 1, 1
+        if mesh is not None:
+            sizes = mesh_shape(mesh)
+            self.n = check_stages(cfg, sizes)
+            inputs, targets, loss_mask, positions = _rank_part(
+                inputs, targets, loss_mask, mesh)
+            if placements is not None:
+                params = GatheredParams(params, placements,
+                                        axis_group(mesh, ("fsdp",)))
+            cfg = with_model_axis(cfg, C.model_axis(mesh))
+            self.axis = pipeline_axis(mesh)
+            self.mine = [self.axis.stage]
+            for a in BATCH_AXES:
+                self.dp *= int(sizes.get(a, 1))
+            self.seq_n = seq_info(mesh)[2]
+        else:
+            self.n = check_stages(cfg, {"pipeline": stages})
+            b, s = inputs.shape
+            positions = torch.arange(s, device=inputs.device)[None, :] \
+                .expand(b, s)
+            self.mine = list(range(self.n))
+        self.params, self.cfg, self.positions = params, cfg, positions
+        self.inputs, self.targets, self.loss_mask = inputs, targets, loss_mask
+        self.b = inputs.shape[0]
+        self.m = PP.microbatches(self.b * self.dp, self.dp, self.n,
+                                 cfg.pipeline_schedule)
+        self.mb = self.b // self.m
+
+    def feed(self, i: int) -> list:
+        """Microbatch ``i`` embedded (and, for MoE, its zero balance-loss
+        rows)."""
+        cfg, mb = self.cfg, self.mb
+        x = L.embed(self.params["embed"], self.inputs[i * mb:(i + 1) * mb],
+                    cfg)
+        if cfg.embed_scale:
+            x = x * L.embed_scale_value(cfg)
+        if cfg.is_moe:
+            return [x, torch.zeros((mb, 1), dtype=torch.float32,
+                                   device=x.device)]
+        return [x]
+
+    def run(self, feed, sink, attn_impl: str, leaves, grad: bool,
+            around=None) -> list:
+        """The schedule over this rank's stages; returns their
+        ``pipeline.Stage``s (their summed gradients)."""
+        from kubeflow_tpu_torch.parallel import pipeline as PP
+
+        cfg, n, per = self.cfg, self.n, self.cfg.n_layers // self.n
+        work = [PP.Stage(
+            _stage_fn(cfg, self.positions, attn_impl,
+                      st * per if self.mesh is None else 0, per, self.mesh),
+            self.params, stage=st, n=n, feed=feed, sink=sink, leaves=leaves,
+            grad=grad, checkpoint_stages=cfg.remat_policy != "none")
+            for st in self.mine]
+        programs = [PP.stage_program(st, n, self.m, cfg.pipeline_schedule,
+                                     w.forward, w.backward if grad else None)
+                    for st, w in zip(self.mine, work)]
+        if self.mesh is None:
+            PP.run_lockstep(programs, around)
+        else:
+            template = [((self.mb, self.inputs.shape[1], cfg.hidden),
+                         cfg.activation_dtype)]
+            if cfg.is_moe:
+                template.append(((self.mb, 1), torch.float32))
+            PP.run_stage(programs[0], PP.PipeLink(
+                self.axis, template, self.inputs.device))
+        return work
+
+
+def staged_forward(params: Params, tokens: torch.Tensor, cfg: DecoderConfig,
+                   *, mesh=None, stages: Optional[int] = None,
+                   attn_impl: str = "xla", skip_head: bool = False
+                   ) -> torch.Tensor:
+    """The decoder's forward with the layers staged (``staged_loss``'s
+    schedule, forwards only, recording no gradient): the final-norm hidden
+    states, or the fp32 logits over the whole vocabulary, of ``tokens``
+    (this rank's rows; under ``seq``, of its part of the positions) on
+    every rank, sent from the last stage over the pipeline group as JAX
+    collects its pipeline's output."""
+    with torch.no_grad():
+        st = _Staging(params, tokens, tokens, None, cfg, mesh, None, stages)
+        outs = {}
+
+        def sink(i, ys):
+            outs[i] = ys[0]
+            return [ys[0]], None
+
+        st.run(st.feed, sink, attn_impl, [], False)
+        if mesh is None:
+            x = torch.cat([outs[i] for i in range(st.m)])
+        else:
+            axis = st.axis
+            x = (torch.cat([outs[i] for i in range(st.m)])
+                 if axis.stage == axis.size - 1 else torch.empty(
+                     (st.b, st.inputs.shape[1], st.cfg.hidden),
+                     dtype=st.cfg.activation_dtype,
+                     device=st.inputs.device))
+            torch.distributed.broadcast(x, src=axis.ranks[-1],
+                                        group=axis.group)
+        x = L.rmsnorm(x, st.params["final_norm"], st.cfg)
+        if skip_head:
+            return x
+        return lm_head(st.params, x, st.cfg)
+
+
+def staged_loss(params: Params, tokens: torch.Tensor, cfg: DecoderConfig, *,
+                loss_mask: Optional[torch.Tensor] = None,
+                attn_impl: str = "xla",
+                aux_loss_weight: float = AUX_LOSS_WEIGHT, mesh=None,
+                placements: Optional[dict] = None,
+                stages: Optional[int] = None,
+                around: Optional[Callable] = None):
+    """``decoder_loss`` with the layers staged over a ``pipeline`` axis
+    (``parallel/pipeline.py``; JAX's ``_pipeline_layers`` under
+    ``decoder_loss(mesh=)``): this rank's stage of ``mesh``, its
+    neighbours over point-to-point calls, or, without a mesh, ``stages``
+    stages of whole ``params`` in this process (``run_lockstep``).
+
+    The first stage embeds each microbatch; each stage runs its
+    ``n_layers / n`` layers on the streamed activation (the block inside a
+    stage splits over ``seq``, ``model`` and ``expert`` as the unstaged
+    block does, but an MoE block plans over the stage's microbatch alone,
+    and its balance loss streams with the rows and is averaged over them,
+    as JAX's stage ``shard_map`` does); the last stage applies the final
+    norm, the head and the CE (``_nll``) per microbatch, each
+    microbatch's loss its masked nll sum over the global token count,
+    plus ``aux_loss_weight`` times its rows' balance loss over the global
+    rows, so the microbatches' gradients sum to the unstaged mean's.
+    ``cfg.pipeline_schedule`` ("gpipe" or "1f1b") orders the work, with
+    JAX's microbatch count (``pipeline.microbatches``);
+    ``cfg.remat_policy != "none"`` recomputes each
+    stage's forward in its backward (JAX's ``checkpoint_stages``).
+
+    While autograd records, the schedule runs every backward here: the
+    returned ``loss`` carries each local param leaf's summed gradient
+    (its backward hands them out), and its value is the global loss on
+    every rank. The metrics are the global ones on every rank, summed
+    over the batch, ``seq`` and ``pipeline`` axes from the last stage's."""
+    from kubeflow_tpu_torch.parallel.collectives import axis_group
+    from kubeflow_tpu_torch.parallel.fsdp import TOKEN_AXES
+    from kubeflow_tpu_torch.train import tree as T
+
+    tokens = tokens.long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    raw = params
+    st = _Staging(params, inputs, targets, loss_mask, cfg, mesh, placements,
+                  stages)
+    params, cfg, inputs, targets, loss_mask = (
+        st.params, st.cfg, st.inputs, st.targets, st.loss_mask)
+    mb, b, dp, dev = st.mb, st.b, st.dp, inputs.device
+    count_group = stat_group = None
+    if mesh is not None:
+        count_group = axis_group(mesh, TOKEN_AXES)
+        stat_group = axis_group(mesh, TOKEN_AXES + ("pipeline",))
+    if loss_mask is None:
+        loss_mask = torch.ones(targets.shape, dtype=torch.float32, device=dev)
+    loss_mask = loss_mask.float()
+    count = loss_mask.sum()
+    if count_group is not None:
+        torch.distributed.all_reduce(count, group=count_group)
+    denom = torch.clamp(count, min=1.0)
+    leaves = T.leaves(raw)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in leaves)
+    fused = L.fused_kernels_on(cfg, inputs)
+    stats = torch.zeros(3, dtype=torch.float32, device=dev)
+
+    def sink(i, ys):
+        rows = slice(i * mb, (i + 1) * mb)
+        hidden = L.rmsnorm(ys[0], params["final_norm"], cfg)
+        nll, correct = _nll(params, hidden, targets[rows], cfg, fused)
+        mask = loss_mask[rows]
+        nll_sum = (nll * mask).sum()
+        loss = nll_sum / denom
+        part = [nll_sum.detach(), (correct * mask).sum().detach(),
+                torch.zeros_like(nll_sum)]
+        if cfg.is_moe:
+            aux_sum = ys[1].sum()
+            loss = loss + aux_loss_weight * aux_sum / (b * dp)
+            part[2] = aux_sum.detach() / st.seq_n
+        stats.add_(torch.stack(part))
+        return [loss], None
+
+    work = st.run(st.feed, sink, attn_impl, leaves, grad, around)
+    if stat_group is not None:
+        torch.distributed.all_reduce(stats, group=stat_group)
+    nll_total, hits, aux_rows = stats.unbind(0)
+    ce = nll_total / denom
+    aux_total = aux_rows / (b * dp)
+    value = ce + aux_loss_weight * aux_total if cfg.is_moe else ce
+    metrics = {"ce_loss": ce, "aux_loss": aux_total, "tokens": denom,
+               "accuracy": hits / denom}
+    if not grad:
+        return value, metrics
+    grads = []
+    for k, t in enumerate(leaves):
+        got = [w.grads[k] for w in work if w.grads[k] is not None]
+        grads.append(torch.stack(got).sum(0) if len(got) > 1 else
+                     got[0] if got else torch.zeros_like(t))
+    return _StagedLoss.apply(value, grads, *leaves), metrics

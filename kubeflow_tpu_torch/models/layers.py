@@ -489,7 +489,14 @@ class MoEAxes:
     - ``tokens``: the batch and ``seq`` ranks, which hold the rest of the
       global batch (JAX's GSPMD block sees that batch whole). ``places``
       gives each of them, in the group's order, its (batch index, seq
-      index); ``place`` is this rank's and ``shape`` the two degrees."""
+      index); ``place`` is this rank's and ``shape`` the two degrees.
+      None inside a pipeline stage (JAX's stage ``shard_map``): the plan
+      and the balance loss are then over the stage's microbatch of this
+      rank's rows and positions;
+    - ``seq``: inside a pipeline stage, the ``seq`` group whose ranks
+      hold the other parts of the microbatch's sequences: the balance
+      loss's fractions are their mean over it (JAX's ``seq_axis``
+      pmean)."""
 
     group: Any = None
     expert: int = 0
@@ -498,6 +505,7 @@ class MoEAxes:
     places: tuple = ((0, 0),)
     place: tuple = (0, 0)
     shape: tuple = (1, 1)
+    seq: Any = None
 
 
 def moe_axes(cfg: DecoderConfig, mesh=None) -> Optional[MoEAxes]:
@@ -523,6 +531,12 @@ def _mesh_moe_axes(mesh) -> Optional[MoEAxes]:
 
     sizes = mesh_shape(mesh)
     group = C.axis_group(mesh, (EP_AXIS, TP_AXIS))
+    if sizes.get("pipeline", 1) > 1:
+        seq = C.axis_group(mesh, ("seq",))
+        if group is None and seq is None:
+            return None
+        return MoEAxes(group, mesh.get_local_rank(EP_AXIS), sizes[EP_AXIS],
+                       seq=seq)
     tokens = C.axis_group(mesh, TOKEN_AXES)
     if group is None and tokens is None:
         return None
@@ -647,7 +661,18 @@ def _moe_aux_loss(router_logits: torch.Tensor, onehot_sum: torch.Tensor,
     loss, and so do their gradients. The ranks of one ``expert`` ×
     ``model`` group compute the same part."""
     probs = torch.softmax(router_logits, dim=-1)                     # [B,S,E]
-    if axes is not None and axes.tokens is not None:
+    if axes is not None and axes.seq is not None:
+        # A pipeline stage's seq part: the fractions' mean over the seq
+        # ranks; each rank's gradient is its own part's.
+        n = dist.get_world_size(axes.seq)
+        frac_tokens = onehot_sum.mean(dim=(0, 1)).detach()
+        dist.all_reduce(frac_tokens, group=axes.seq)
+        mine = probs.mean(dim=(0, 1))
+        total = mine.detach().clone()
+        dist.all_reduce(total, group=axes.seq)
+        frac_tokens = frac_tokens / n
+        frac_probs = (mine + (total - mine.detach())) / n
+    elif axes is not None and axes.tokens is not None:
         with torch.no_grad():
             counts = onehot_sum.sum(dim=(0, 1))
             dist.all_reduce(counts, group=axes.tokens)

@@ -3,7 +3,9 @@ groups: groups over combinations of mesh axes, autograd-aware
 all-gather (reduce-scatter backward), ring rotation and all-to-all, and
 Megatron's conjugate operators (``copy_to`` and ``reduce_from`` over any
 group: the ``model`` axis's ``copy_to_model``, ``reduce_from_model``,
-and the MoE block's ``expert`` × ``model`` ranks; ``gather_from_model``).
+and the MoE block's ``expert`` × ``model`` ranks; ``gather_from_model``),
+and the pipeline axis's point-to-point exchange between neighbouring
+stages (``pipeline_axis``, ``exchange``).
 
 Each process holds local tensors; these functions are where shards meet.
 Every rank must make the same calls in the same order, as with any
@@ -329,3 +331,70 @@ def gather_from_model(x: torch.Tensor,
     if tp is None:
         return x
     return _GatherFromModel.apply(x, tp.group, tp.rank)
+
+
+# -- the pipeline axis ---------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PipelineAxis:
+    """This process's place on the ``pipeline`` mesh axis: the group of
+    the ranks that differ from it only there, its stage, the number of
+    stages, and each stage's global rank (from the mesh's coordinates)."""
+
+    group: object
+    stage: int
+    size: int
+    ranks: tuple
+
+
+def pipeline_axis(mesh) -> Optional[PipelineAxis]:
+    """The ``pipeline`` axis of ``mesh``; None without a mesh or with
+    ``pipeline == 1``. The group's first use is a collective over every
+    stage, which a batch of point-to-point calls over NCCL needs."""
+    from kubeflow_tpu_torch.runtime.mesh import pipeline_ranks
+
+    if mesh is None or mesh_shape(mesh).get("pipeline", 1) == 1:
+        return None
+    group = mesh.get_group("pipeline")
+    if not mesh.__dict__.get("_kftpu_pipeline_ready"):
+        dev = "cuda" if mesh.device_type == "cuda" else "cpu"
+        dist.all_reduce(torch.zeros(1, device=dev), group=group)
+        mesh.__dict__["_kftpu_pipeline_ready"] = True
+    return PipelineAxis(group, mesh.get_local_rank("pipeline"),
+                        mesh_shape(mesh)["pipeline"],
+                        tuple(pipeline_ranks(mesh)))
+
+
+#: Tag offset of the cotangents (which flow toward the first stage) over
+#: the activations' tags 0, 1, ...
+_COTANGENT_TAG = 64
+
+
+def exchange(axis: PipelineAxis, send: Optional[str], tensors, recv:
+             Optional[str], template, device) -> Optional[list]:
+    """One exchange of a stage's schedule: ``tensors`` to the ``send``
+    neighbour ("next" stage or "prev") and a receive of ``template``'s
+    shapes and dtypes from the ``recv`` neighbour, in one batch of
+    point-to-point calls (a send and a receive of the same tick cannot
+    wait on each other). Activations travel toward the next stage,
+    cotangents toward the previous one; each tensor has its own tag."""
+    ops, outs = [], None
+
+    def peer(side: str) -> int:
+        return axis.ranks[axis.stage + (1 if side == "next" else -1)]
+
+    if send is not None:
+        base = 0 if send == "next" else _COTANGENT_TAG
+        for j, t in enumerate(tensors):
+            ops.append(dist.P2POp(dist.isend, t.contiguous(), peer(send),
+                                  axis.group, tag=base + j))
+    if recv is not None:
+        base = 0 if recv == "prev" else _COTANGENT_TAG
+        outs = [torch.empty(shape, dtype=dt, device=device)
+                for shape, dt in template]
+        for j, o in enumerate(outs):
+            ops.append(dist.P2POp(dist.irecv, o, peer(recv), axis.group,
+                                  tag=base + j))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return outs

@@ -21,14 +21,20 @@ process groups the step needs:
   block's conjugate operators over ``expert`` × ``model`` make every
   other gradient whole on each of them, so nothing is summed over
   ``expert``;
+- ``pipeline``: a layer leaf's stacked dim stays local (each stage holds
+  and updates its layers, ``parallel/pipeline.py``); the other leaves
+  (``embed``, ``final_norm``, ``lm_head``) are whole on every stage and
+  used by the first or the last, so their gradients are summed over
+  ``pipeline`` too (zeros where a stage does not use them; a tied
+  embedding's two parts add up);
 - the replica axes: a gathered leaf's gradient is then summed over
   ``dcn``, ``data`` and ``seq`` (the ranks that hold the same shard), a
   leaf with no gather dim over every batch and ``seq`` axis.
 
 The optimizer's moments mirror the params' placements, so Adam runs on
 local shards; the global gradient norm sums each block once
-(``global_norm``). A ``pipeline`` degree above 1 raises: that axis is
-not ported yet.
+(``global_norm``): a leaf split over stages sums its squares over
+``pipeline``, a leaf whole on every stage counts once.
 """
 
 from __future__ import annotations
@@ -40,13 +46,11 @@ import torch
 from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.runtime.mesh import batch_sharding_axes
 from kubeflow_tpu_torch.parallel.sharding import (
-    DEFAULT_RULES, EP_AXIS, TP_AXIS, LogicalRules, ParamLayout, mesh_coords,
-    mesh_shape,
+    DEFAULT_RULES, EP_AXIS, PP_AXIS, TP_AXIS, LogicalRules, ParamLayout,
+    mesh_coords, mesh_shape,
 )
 from kubeflow_tpu_torch.train import tree as T
 
-#: Mesh axes the training step does not split yet.
-UNPORTED_AXES = ("pipeline",)
 #: The axes a batch is split over, and with ``seq`` every axis a step's
 #: loss and replicated gradients are summed over.
 BATCH_AXES = batch_sharding_axes()
@@ -54,14 +58,17 @@ TOKEN_AXES = BATCH_AXES + ("seq",)
 
 
 def check_mesh(mesh) -> None:
-    """Raise ``NotImplementedError`` for a ``pipeline`` degree above 1."""
-    sizes = mesh_shape(mesh)
-    big = {a: sizes[a] for a in UNPORTED_AXES if sizes.get(a, 1) > 1}
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big}: the port trains over the dcn, data, fsdp, "
-            "expert, seq and model axes; pipeline parallelism arrives "
-            "with ROADMAP.md Queue 1 item 9d")
+    """Raise ``ValueError`` for a mesh with an axis the training step does
+    not know (every axis of ``runtime/mesh.MESH_AXES`` trains)."""
+    from kubeflow_tpu_torch.runtime.mesh import mesh_sizes
+
+    mesh_sizes(mesh_shape(mesh))
+
+
+def pipelined(mesh) -> bool:
+    """Whether ``mesh`` stages the layers (a ``pipeline`` degree above
+    1)."""
+    return mesh is not None and mesh_shape(mesh).get(PP_AXIS, 1) > 1
 
 
 def batch_index(mesh) -> tuple[int, int]:
@@ -91,21 +98,36 @@ class StateLayout(ParamLayout):
         self.dims = T.map_tree(lambda p: p.gather, self.placements)
         # Every rank makes the groups here, in one order.
         self.fsdp_group = C.axis_group(mesh, ("fsdp",))
-        self.shard_replicas = C.axis_group(mesh, ("dcn", "data", "seq"))
         self.token_group = C.axis_group(mesh, TOKEN_AXES)
-        self._partial_groups = (
-            C.axis_group(mesh, ("dcn", "data", "seq", TP_AXIS)),
-            C.axis_group(mesh, TOKEN_AXES + (TP_AXIS,)))
+        # Each leaf's gradient group (the ranks holding the same block,
+        # which computed parts of its gradient), made by every rank in
+        # leaf order.
+        self._sum_groups = {}
         self._split_groups = {}
         for p in T.leaves(self.placements):
-            axes = self._split_axes(p)
-            if axes and axes not in self._split_groups:
-                self._split_groups[axes] = C.axis_group(mesh, axes)
+            for axes, groups in ((self._sum_axes(p), self._sum_groups),
+                                 (self._split_axes(p), self._split_groups)):
+                if axes and axes not in groups:
+                    groups[axes] = C.axis_group(mesh, axes)
 
     @staticmethod
     def _split_axes(p) -> tuple:
         return tuple(a for a, d in (("fsdp", p.gather), (EP_AXIS, p.ep),
-                                    (TP_AXIS, p.tp)) if d is not None)
+                                    (TP_AXIS, p.tp), (PP_AXIS, p.stage))
+                     if d is not None)
+
+    @staticmethod
+    def _sum_axes(p) -> tuple:
+        """The axes a leaf's gradient is summed over: the batch and
+        ``seq`` axes (``fsdp`` left out where its gathers reduce-scatter),
+        ``model`` for a ``partial`` leaf, ``pipeline`` for a leaf whole
+        on every stage."""
+        axes = ("dcn", "data", "seq") if p.gather is not None else TOKEN_AXES
+        if p.partial:
+            axes += (TP_AXIS,)
+        if p.stage is None:
+            axes += (PP_AXIS,)
+        return axes
 
     def state_specs(self, state: dict) -> dict[str, tuple]:
         """Flattened state path → spec: the params' and every optimizer
@@ -123,17 +145,12 @@ class StateLayout(ParamLayout):
         """Sum each local gradient over the ranks that hold the same block
         (in place): the gathers' backward already reduce-scattered a
         gathered leaf over ``fsdp``; a ``partial`` leaf's parts are summed
-        over ``model`` as well. Nothing is summed over ``expert``: an
-        expert leaf's block is its rank's alone, and the ranks of one
-        expert group computed every other gradient whole on the same
-        rows."""
+        over ``model`` as well, a leaf whole on every stage over
+        ``pipeline``. Nothing is summed over ``expert``: an expert leaf's
+        block is its rank's alone, and the ranks of one expert group
+        computed every other gradient whole on the same rows."""
         for g, p in zip(grads, T.leaves(self.placements)):
-            if p.partial:
-                group = self._partial_groups[p.gather is None]
-            else:
-                group = (self.shard_replicas if p.gather is not None
-                         else self.token_group)
-            C.all_reduce_(g, group)
+            C.all_reduce_(g, self._sum_groups.get(self._sum_axes(p)))
 
     def global_norm(self, grads: Any) -> torch.Tensor:
         """The whole gradient's norm: each leaf's squares summed over the

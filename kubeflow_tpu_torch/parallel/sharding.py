@@ -15,7 +15,9 @@ Default rule intent:
 - ``heads/mlp/kv/vocab`` → tensor-parallel over ``model``
 - ``expert``     → expert-parallel over ``expert``
 - ``act_seq``    → sequence-parallel over ``seq`` (ring attention)
-- ``layers``     → replicated (the stacked-layer axis)
+- ``layers``     → replicated (the stacked-layer axis); a pipeline-parallel
+  train state maps it to ``pipeline`` (``with_rule``), so stage s holds
+  layers [s·L/n, (s+1)·L/n) and every other leaf is whole on each stage
 """
 
 from __future__ import annotations
@@ -237,14 +239,17 @@ TP_AXIS = "model"
 #: Likewise the expert axis: a rank computes its own experts, and the MoE
 #: block sums the combined partials over ``expert`` × ``model``.
 EP_AXIS = "expert"
-LOCAL_AXES = (TP_AXIS, EP_AXIS)
+#: And the pipeline axis: a stage holds and updates its own layers.
+PP_AXIS = "pipeline"
+LOCAL_AXES = (TP_AXIS, EP_AXIS, PP_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a leaf is split: ``gather``, its dim over the other axes
     (``fsdp``), all-gathered where the leaf is used; ``tp``, its dim over
-    ``model``, and ``ep``, its dim over ``expert``, which stay local.
+    ``model``, ``ep``, its dim over ``expert``, and ``stage``, its stacked
+    layer dim over ``pipeline``, which stay local.
     ``partial``: the logical spec splits a dim over ``model`` but it did
     not divide, so the leaf is whole on every model rank and each reads
     its own part of it (the kv heads of GQA); its gradient is then summed
@@ -254,6 +259,7 @@ class Placement:
     tp: Optional[int] = None
     partial: bool = False
     ep: Optional[int] = None
+    stage: Optional[int] = None
 
 
 def placement(spec: Spec, sizes: dict[str, int],
@@ -264,7 +270,7 @@ def placement(spec: Spec, sizes: dict[str, int],
     or ``expert`` and another axis at once, two dims over the other axes,
     or experts that do not divide over ``expert``, raise: a leaf gathers
     one dim, over one group, and a rank holds its own experts."""
-    gather, tp, ep = [], [], []
+    gather, tp, ep, stage = [], [], [], []
     for i, e in enumerate(spec):
         axes = [a for a in _axes(e) if int(sizes.get(a, 1)) > 1]
         local = [a for a in axes if a in LOCAL_AXES]
@@ -273,7 +279,8 @@ def placement(spec: Spec, sizes: dict[str, int],
                 f"spec {spec}: dim {i} splits over {axes}; a dim is split "
                 f"over {local[0]!r} alone (ROADMAP.md Queue 1)")
         if axes:
-            {TP_AXIS: tp, EP_AXIS: ep}.get(axes[0], gather).append(i)
+            {TP_AXIS: tp, EP_AXIS: ep, PP_AXIS: stage}.get(
+                axes[0], gather).append(i)
     if len(gather) > 1:
         raise NotImplementedError(
             f"spec {spec} splits dims {gather} outside {LOCAL_AXES}; a leaf "
@@ -291,7 +298,8 @@ def placement(spec: Spec, sizes: dict[str, int],
     partial = (int(sizes.get(TP_AXIS, 1)) > 1 and on(TP_AXIS, wanted)
                and not on(TP_AXIS, spec))
     return Placement(gather[0] if gather else None, tp[0] if tp else None,
-                     partial, ep[0] if ep else None)
+                     partial, ep[0] if ep else None,
+                     stage[0] if stage else None)
 
 
 class ParamLayout:
@@ -321,12 +329,23 @@ class ParamLayout:
     def cut_leaf(self, path: str, t):
         """This process's shard of leaf ``path`` given whole, or of one
         layer of a stacked leaf (``t`` one dim short of the leaf: its
-        leading ``layers`` dim, which no rule splits, is dropped from the
-        spec)."""
+        leading ``layers`` dim is dropped from the spec; under
+        ``pipeline`` the caller keeps only ``stage_layers``' layers)."""
         spec = self.flat_specs[path]
         if len(t.shape) == len(spec) - 1:
             spec = spec[1:]
         return cut_local(t, spec, self.sizes, self.coords)
+
+    def stage_layers(self, n_layers: int) -> range:
+        """The global indices of the stacked layers this process holds:
+        its stage's block under a ``pipeline`` degree, every layer
+        otherwise."""
+        n = int(self.sizes.get(PP_AXIS, 1))
+        if n == 1:
+            return range(n_layers)
+        per = n_layers // n
+        s = int(self.coords.get(PP_AXIS, 0))
+        return range(s * per, (s + 1) * per)
 
     def cut(self, params: Any) -> Any:
         """This process's shards of a full params tree (or of a tree that

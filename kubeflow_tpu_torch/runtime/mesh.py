@@ -69,6 +69,20 @@ def infer_parallelism(num_devices: int, *,
     return ParallelismSpec(**{prefer: num_devices})
 
 
+def pipeline_ranks(mesh) -> list[int]:
+    """The global ranks of this process's pipeline group, by stage: the
+    ranks whose mesh coordinates equal this process's on every axis but
+    ``pipeline`` (read off the mesh, whatever the axis order)."""
+    names = list(mesh.mesh_dim_names)
+    coords = [mesh.get_local_rank(a) for a in names]
+    at = names.index("pipeline")
+    out = []
+    for s in range(mesh.mesh.shape[at]):
+        coords[at] = s
+        out.append(int(mesh.mesh[tuple(coords)]))
+    return out
+
+
 def batch_sharding_axes() -> tuple[str, ...]:
     """Mesh axes the global batch dimension is sharded over (pipeline is
     not one of them: microbatches flow through stages instead)."""

@@ -111,14 +111,16 @@ Design (what carries over, and what eager PyTorch changes):
   whole-model (every kv head, the JAX wire format): a read of KV (an
   export, a demotion) gathers the ranks' heads on the leader, a write (an
   adoption, a promotion) sends whole-model blocks and each rank keeps its
-  heads. Speculative decoding and LoRA (ROADMAP.md Queue 1 item 9e3) and
-  any serving axis but ``model`` (``expert`` among them; item 9e2) raise
-  under a mesh.
+  heads. The explainers run as a dispatched op on every rank
+  (``explain``). Speculative decoding and LoRA (ROADMAP.md Queue 1 item
+  9e3) and any serving axis but ``model`` (``expert`` among them; item
+  9e2) raise under a mesh.
 """
 
 from __future__ import annotations
 
 import bisect
+import collections
 import dataclasses
 import itertools
 import logging
@@ -149,6 +151,9 @@ from kubeflow_tpu_torch.ops.quantization import (
 from kubeflow_tpu_torch.obs.trace import get_tracer
 from kubeflow_tpu_torch.parallel import collectives as C
 from kubeflow_tpu_torch.serve.device_state import DEAD_SLOT, DecodeState
+from kubeflow_tpu_torch.serve.explain import (
+    attribution_cfg, handler_of, run_handler,
+)
 from kubeflow_tpu_torch.serve.handoff import (
     host_array, payload_from_export, to_torch, torch_dtype_of,
 )
@@ -857,11 +862,19 @@ def _upload_slot(cache: dict, slot: int, blocks: dict,
     return cache
 
 
+def _explain(params: Params, cfg: DecoderConfig, handler: str,
+             config: dict, tokens: list[int]) -> dict:
+    """The explainer ``handler`` on ``tokens``: every rank of a
+    tensor-parallel engine computes it on its shards, the leader's answer
+    is served."""
+    return run_handler(handler, config, tokens, params=params, cfg=cfg)
+
+
 #: The device calls a tensor-parallel engine's leader sends its followers.
 _TP_OPS = {f.__name__: f for f in (
     _prefill_step, _chunk_prefill_step, _decode_multi, _sample_batch,
     paged_chunk_prefill, paged_decode_multi, copy_pages, upload_pages,
-    gather_pages, _gather_slot, _upload_slot)}
+    gather_pages, _gather_slot, _upload_slot, _explain)}
 
 
 def _check_tp(cfg: DecoderConfig, b: BatchingSpec, mesh,
@@ -914,6 +927,8 @@ class LLMEngine:
         self.tp = tp
         self._cfg_prefill, self._cfg_decode = _phase_cfgs(
             with_model_axis(cfg, tp), b)
+        # The explainers' config: the dense MoE path (serve/explain.py).
+        self._cfg_explain = attribution_cfg(with_model_axis(cfg, tp))
         self._kv_heads = L.local_kv_heads(self._cfg_decode)[1]
         check_quantize(b.quantize)
         if b.kv_cache_dtype not in (None, "int8"):
@@ -1046,6 +1061,7 @@ class LLMEngine:
                 "params": self.params, "cache": self.cache, "gen": self._gen,
                 "cfg_prefill": self._cfg_prefill,
                 "cfg_decode": self._cfg_decode,
+                "cfg_explain": self._cfg_explain,
                 **{f"cache/{k}": v for k, v in self.cache.items()}})
 
         # Speculative decoding (serve/spec_decode.py): greedy rounds draft k
@@ -1129,6 +1145,10 @@ class LLMEngine:
         # through ``_handoff_release`` and free on the next step.
         self._handoff_holds: dict[str, tuple] = {}  # lockfree: scheduler-confined
         self._handoff_release: "queue.Queue[tuple[str, bool]]" = queue.Queue()
+        # Calls from other threads that must join the op stream (a
+        # tensor-parallel explanation): (fn, done event, result box). A
+        # deque: the scheduler's check of an empty one takes no lock.
+        self._calls: collections.deque = collections.deque()
         # The side stream of the copies to host (exports, demotions): they
         # wait on their gather's event instead of holding up decode.
         self._copy_stream = None                # lockfree: scheduler-confined
@@ -1179,6 +1199,51 @@ class LLMEngine:
         if self._dispatch is None:
             return fn(*args, **kwargs)
         return self._dispatch.call(fn, *args, **kwargs)
+
+    def explain(self, explainer, tokens: list[int]) -> dict:
+        """``explainer`` (a ``serve/explain.build_explainer`` result) on
+        ``tokens`` with the engine's params, on the dense MoE path. Under a
+        model axis it is a dispatched op (every rank computes on its
+        shards), run on the scheduler thread, the one sender of the op
+        stream, while the calling thread waits."""
+        if self._dispatch is None:
+            return explainer(tokens, params=self.params,
+                             cfg=self._cfg_explain)
+        handler, config = handler_of(explainer)
+        return self._on_scheduler(lambda: self._run(
+            _explain, self.params, self._cfg_explain, handler, config,
+            list(tokens)))
+
+    def _on_scheduler(self, fn):
+        """``fn()`` on the scheduler thread (here when no loop runs);
+        raises what it raised, or the scheduler's error if it stopped."""
+        if self._thread is None or threading.current_thread() is self._thread:
+            return fn()
+        done, box = threading.Event(), {}
+        self._calls.append((fn, done, box))
+        self._wake.set()
+        while not done.wait(timeout=0.5):
+            if self.error is not None or self._thread is None:
+                raise RuntimeError("the engine's scheduler stopped") \
+                    from self.error
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    def _drain_calls(self) -> int:
+        """Run the calls queued by ``_on_scheduler`` (scheduler thread),
+        after the step's admissions and decode round. A call's exception
+        goes back to its caller."""
+        n = 0
+        while self._calls:
+            fn, done, box = self._calls.popleft()
+            try:
+                box["value"] = fn()
+            except Exception as exc:  # noqa: BLE001 - re-raised by the caller
+                box["error"] = exc
+            done.set()
+            n += 1
+        return n
 
     @property
     def dispatches(self) -> int:
@@ -2747,6 +2812,8 @@ class LLMEngine:
                 or any(s is not None for s in self.slots)
             self._kvtier.tick(busy=busy)
         n += self._decode_once()
+        if self._calls:
+            n += self._drain_calls()
         if n == 0:
             self._last_ready_t = None
         return n

@@ -15,6 +15,18 @@ own params and device:
   drops the predicted token's log-probability.
 
 Everything runs under ``torch.no_grad()`` except the saliency's backward.
+An MoE model explains on its dense path (``attribution_cfg``), as the JAX
+server does: dispatch MoE's shared capacity buffers would couple the
+ablation rows and make a saliency depend on capacity luck.
+
+Under a model axis (a tensor-parallel engine) every rank runs the same
+handler on its shards, through the engine's op stream (``LLMEngine.
+explain``): the embeddings are looked up vocab-parallel (whole on every
+rank), the head's logits are gathered over the vocabulary
+(``lm_head``), whose backward gives each rank its columns' gradient, so
+the log-softmax, the target and the gradient with respect to the
+embeddings are the whole model's on every rank. The op carries the
+handler's name and config (``handler_of``); each rank resolves it.
 Attention takes the plain path (``decoder_forward``'s default
 ``attn_impl``), as the JAX module's does; the norm and SwiGLU take the
 fused kernels wherever ``layers.fused_kernels_on`` says so. Handlers are
@@ -23,11 +35,14 @@ registered like transformers (name or "module:function").
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Optional
 
 import torch
 
+from kubeflow_tpu_torch.models import layers as L
+from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.models.decoder import decoder_forward, lm_head
 from kubeflow_tpu_torch.runtime.entrypoints import resolve_handler
 
@@ -43,6 +58,35 @@ def register_explainer(name: str):
 
 def resolve_explainer(handler: str) -> Callable:
     return resolve_handler(handler, explainer_registry, "explainer")
+
+
+def attribution_cfg(cfg: DecoderConfig) -> DecoderConfig:
+    """``cfg`` on the dense MoE path (a dense model's as it is): the
+    explanation of one prompt must not depend on what else shares a
+    dispatch's expert capacity (JAX's ``ModelServer.explain_text``)."""
+    if cfg.is_moe and cfg.moe_impl != "dense":
+        return dataclasses.replace(cfg, moe_impl="dense")
+    return cfg
+
+
+def handler_of(explainer: Callable) -> tuple[str, dict]:
+    """(the registered name or ``module:function`` path, config) of a
+    ``build_explainer`` result: what another rank resolves it from."""
+    fn, config = explainer, {}
+    if isinstance(explainer, functools.partial):
+        fn, config = explainer.func, dict(explainer.keywords)
+    for name, f in explainer_registry.items():
+        if f is fn:
+            return name, config
+    return f"{fn.__module__}:{fn.__name__}", config
+
+
+def run_handler(handler: str, config: dict, tokens: list[int], *, params,
+                cfg: DecoderConfig) -> dict:
+    """The explainer ``handler`` (resolved here) with ``config`` on
+    ``tokens``: one rank's part of a tensor-parallel explanation."""
+    return resolve_explainer(handler)(tokens, params=params, cfg=cfg,
+                                      **config)
 
 
 def _last_logprobs(params, cfg, toks: torch.Tensor,
@@ -77,8 +121,9 @@ def grad_x_input(tokens: list[int], *, params, cfg, **_) -> dict:
     toks = _tokens(tokens, params)
     target, lp_target = _predicted_target(params, cfg, toks)
     with torch.no_grad():
-        # [1, S, D] in the activation dtype, before the embedding scale.
-        embeds = params["embed"][toks].to(cfg.activation_dtype)
+        # [1, S, D] in the activation dtype, before the embedding scale
+        # (whole on every rank under a model axis).
+        embeds = L.embed(params["embed"], toks, cfg)
     embeds.requires_grad_(True)
     with torch.enable_grad():
         lp = _last_logprobs(params, cfg, toks, inputs_embeds=embeds)

@@ -28,9 +28,10 @@ runs the scheduler, the other ranks run the ops it dispatches
 engine, which releases the followers (they exit 0); a follower's death
 fails rank 0's next dispatch or idle ping, and the worker exits
 nonzero. The gang serves in every ``batching.role`` and with the host
-and remote KV tiers (only rank 0 keeps a tier and relays handoffs).
-Other parallelisms, explainers and the model repository raise under a
-mesh (ROADMAP.md Queue 1 item 9e2).
+and remote KV tiers (only rank 0 keeps a tier and relays handoffs), and
+answers ``:explain`` with every rank computing on its shards
+(``LLMEngine.explain``). Other parallelisms raise under a mesh, as the JAX
+package's ``PredictorSpec`` refuses them (ROADMAP.md Queue 1 item 9e2).
 """
 
 from __future__ import annotations
@@ -93,10 +94,6 @@ def model_server(ctx: WorkerContext) -> int:
                 "tensor-parallel engine, parallelism {model: "
                 "num_processes}; other serving meshes arrive with "
                 "ROADMAP.md Queue 1 item 9e2")
-        if conf.get("explainer"):
-            raise NotImplementedError(
-                "explainers under a tensor-parallel mesh (ROADMAP.md "
-                "Queue 1 item 9e2)")
         mesh = ctx.mesh
     model_conf = conf.get("model", {})
     cfg = preset(model_conf.get("preset", "tiny"),

@@ -364,7 +364,9 @@ class ModelServer:
             if len(toks) > limit:
                 raise ValueError(
                     f"explain prompt is {len(toks)} tokens; limit {limit}")
-            out = self.explainer(toks, params=engine.params, cfg=engine.cfg)
+            # On the dense MoE path; under a model axis every rank of the
+            # engine computes on its shards (``LLMEngine.explain``).
+            out = engine.explain(self.explainer, toks)
             out["tokens"] = [tokenizer.decode([t]) for t in toks]
             out["predicted_text"] = tokenizer.decode([out["target_token"]])
         return out

@@ -17,6 +17,9 @@ values of a one-process run with at most one whole leaf alive; the step
 reads the shards through
 all-gathers per layer, sums the gradients over the ranks that hold the
 same block, and updates the local shards with the global gradient norm.
+A ``pipeline`` degree stages the layers (the rule ``layers → pipeline``:
+a stage draws every layer and keeps its own block of them), and the loss
+runs the schedule (``models/decoder.staged_loss``).
 """
 
 from __future__ import annotations
@@ -29,11 +32,13 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.config import DecoderConfig
 from kubeflow_tpu_torch.models.decoder import (
-    AUX_LOSS_WEIGHT, abstract_decoder_params, decoder_loss,
+    AUX_LOSS_WEIGHT, abstract_decoder_params, check_stages, decoder_loss,
     decoder_param_specs, init_decoder_params,
 )
-from kubeflow_tpu_torch.parallel.fsdp import StateLayout
-from kubeflow_tpu_torch.parallel.sharding import DEFAULT_RULES, LogicalRules
+from kubeflow_tpu_torch.parallel.fsdp import StateLayout, pipelined
+from kubeflow_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES, LogicalRules, mesh_shape, with_rule,
+)
 from kubeflow_tpu_torch.train import tree as T
 from kubeflow_tpu_torch.train.optim import (
     OptimizerConfig, apply_optimizer, make_optimizer,
@@ -80,7 +85,9 @@ def make_state_init(cfg: DecoderConfig, optimizer, device, seed: int = 0,
     def init_fn():
         gen = torch.Generator(dev).manual_seed(seed)
         params = init_decoder_params(
-            gen, cfg, shard=None if layout is None else layout.cut_leaf)
+            gen, cfg, shard=None if layout is None else layout.cut_leaf,
+            layers=None if layout is None
+            else layout.stage_layers(cfg.n_layers))
         return trainable({"params": params,
                           "opt_state": optimizer.init(params), "step": 0})
 
@@ -112,6 +119,10 @@ def setup_train(
     unless ``device="cpu"``), sharded over ``mesh`` when one is given."""
     dev = resolve_device(device)
     optimizer = make_optimizer(opt_cfg)
+    if pipelined(mesh):
+        # Stage the layer stack: its stacked dim over the pipeline axis.
+        check_stages(cfg, mesh_shape(mesh))
+        rules = with_rule(rules, "layers", "pipeline")
     layout = None if mesh is None else _state_shardings(cfg, mesh, rules)
     init_fn = make_state_init(cfg, optimizer, dev, seed, layout)
     state = init_fn() if init_state else None
@@ -134,8 +145,9 @@ def setup_train(
         _, opt_state, grad_norm = apply_optimizer(
             optimizer, grad_tree, state["opt_state"], params, gnorm)
         metrics = dict(metrics)
-        # Under a mesh ``loss`` is this rank's part; the metric is the
-        # global value (the balance loss 0 for a dense config).
+        # Under a mesh ``loss`` is this rank's part (the staged loss's
+        # value is already global); the metric is the global value (the
+        # balance loss 0 for a dense config).
         metrics["loss"] = (loss.detach() if mesh is None
                            else metrics["ce_loss"]
                            + AUX_LOSS_WEIGHT * metrics["aux_loss"])

@@ -959,3 +959,181 @@ class IdText:
 
     def decode(self, ids: list[int]) -> str:
         return "".join(f" {i}" for i in ids)
+
+
+# -- explainers under a tensor-parallel engine ---------------------------------
+
+#: The explain suite's presets and prompts (token ids of their vocabulary).
+EXPLAIN_PRESETS = ("tiny", "tiny-moe")
+EXPLAIN_PROMPTS = ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8],
+                   list(range(40, 64)))
+EXPLAIN_METHODS = ("grad_x_input", "leave_one_out")
+
+
+def tp_explain_suite(ctx) -> int:
+    """For each ``EXPLAIN_PRESETS`` model (fp32, its whole params in
+    ``config["params"]``, a torch save of preset → params): an engine on
+    ``{model: world}`` over this rank's shards, its scheduler running on
+    rank 0, which serves ``ModelServer.explain_text`` of every
+    ``EXPLAIN_PROMPTS`` prompt with each ``EXPLAIN_METHODS`` handler
+    (``IdText`` tokens) while the other ranks ``follow``; each rank writes
+    its ops by name and rank 0 the explanations."""
+    import torch
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.serve.engine import LLMEngine
+    from kubeflow_tpu_torch.serve.explain import build_explainer
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    torch.set_num_threads(1)
+    mesh = ctx.mesh
+    rank = ctx.env.process_id
+    whole = torch.load(ctx.config["params"])
+    spec = TP_ENGINE_CASES["contiguous"]
+    out = {}
+    for name in EXPLAIN_PRESETS:
+        cfg = preset(name, dtype="float32")
+        eng = LLMEngine(cfg, BatchingSpec(**spec),
+                        params=tp_shards(whole[name], cfg, spec, mesh),
+                        device="cpu", mesh=mesh)
+        rec = {}
+        if rank == 0:
+            eng.start()
+            server = ModelServer(name, eng, tokenizer=IdText())
+            for method in EXPLAIN_METHODS:
+                server.explainer = build_explainer({"handler": method})
+                rec[method] = [server.explain_text(
+                    " ".join(map(str, p)), None) for p in EXPLAIN_PROMPTS]
+            eng.stop()
+        else:
+            eng.follow()
+        rec["by_op"] = dict(eng._dispatch.by_op)
+        out[name] = rec
+    torch.save(out, Path(ctx.config["out"]) / f"rank{rank}.pt")
+    return 0
+
+
+# -- pipeline parallelism ------------------------------------------------------
+
+#: name → (mesh axes, port attn_impl, pipeline schedule, preset, overrides)
+#: of the pipeline suite (4 ranks, fp32): GPipe beside a data axis (4
+#: layers: the Trainer and checkpoint case); 1F1B over four stages (4
+#: layers); 1F1B with the stages' blocks split over model; GPipe on
+#: tiny-moe with the experts split over expert and binding capacity
+#: (factor 0.5: 8 slots an expert of a 32-token microbatch's 64 pairs);
+#: GPipe with the flash ring over seq; GPipe on tiny-moe under seq (the
+#: balance loss's fractions averaged over the seq ranks).
+PP_CASES = {
+    "pipe2_data2": ({"pipeline": 2, "data": 2}, "xla", "gpipe", "tiny",
+                    {"n_layers": 4}),
+    "pipe4": ({"pipeline": 4}, "xla", "1f1b", "tiny", {"n_layers": 4}),
+    "pipe2_model2": ({"pipeline": 2, "model": 2}, "xla", "1f1b", "tiny", {}),
+    "pipe2_expert2": ({"pipeline": 2, "expert": 2}, "xla", "gpipe",
+                      "tiny-moe", {"capacity_factor": 0.5}),
+    "pipe2_seq2": ({"pipeline": 2, "seq": 2}, "ring_flash", "gpipe", "tiny",
+                   {}),
+    "pipe2_seq2_moe": ({"pipeline": 2, "seq": 2}, "ring", "gpipe", "tiny-moe",
+                       {}),
+}
+#: The case a ``Trainer`` runs (5 steps, checkpoints at 2, 4 and 5).
+PP_TRAIN_CASE = "pipe2_data2"
+
+
+def pp_overrides(name: str) -> dict:
+    """The model overrides of a ``PP_CASES`` case (fp32 and its
+    schedule)."""
+    _, _, schedule, _, over = PP_CASES[name]
+    return {"dtype": "float32", "pipeline_schedule": schedule, **over}
+
+
+def pipeline_suite(ctx) -> int:
+    """Each ``PP_CASES`` mesh over the gang's 4 ranks: from the seeded
+    sharded init, this rank's loss, metrics and synced gradients of
+    ``decoder_loss`` on ``tp_tokens`` (its batch rows), and on a
+    no-gradient forward each MoE dispatch's router choices and kept
+    pairs, and the staged ``decoder_forward``'s logits of its rows (its
+    seq part); in ``PP_TRAIN_CASE`` a ``Trainer`` run of 5 steps (losses,
+    grad norms, its state after step 2, the checkpoint); with the leaves'
+    specs and this rank's coordinates."""
+    import torch
+
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset
+    from kubeflow_tpu_torch.models.decoder import (
+        decoder_forward, decoder_loss,
+    )
+    from kubeflow_tpu_torch.parallel.fsdp import batch_index
+    from kubeflow_tpu_torch.runtime.mesh import build_mesh
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train.optim import OptimizerConfig
+    from kubeflow_tpu_torch.train.step import setup_train
+    from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.set_num_threads(1)
+    ctx.mesh                                   # join the world
+    rank, world = ctx.env.process_id, ctx.env.num_processes
+    base = Path(ctx.config["out"])
+    plan_of = L.dispatch_plan
+    plans: list = []
+
+    def recorded(topk_idx, *args, **kwargs):
+        plan = plan_of(topk_idx, *args, **kwargs)
+        plans.append((topk_idx.clone(), plan["keep"].clone()))
+        return plan
+
+    L.dispatch_plan = recorded
+    out = {}
+    for name, (axes, attn, _, model, _) in PP_CASES.items():
+        mesh = build_mesh(axes, "cpu")
+        cfg = preset(model, **pp_overrides(name))
+        task = setup_train(cfg, OptimizerConfig(), device="cpu",
+                           attn_impl=attn, mesh=mesh)
+        params = task.state["params"]
+        rec = {"init": T.map_tree(lambda t: t.detach().clone(), params),
+               "specs": T.flatten(task.layout.specs),
+               "coords": task.layout.coords}
+        idx, dp = batch_index(mesh)
+        toks = torch.from_numpy(tp_tokens())
+        rows = toks[idx * (4 // dp):(idx + 1) * (4 // dp)]
+        loss, m = decoder_loss(params, rows, task.cfg, attn_impl=attn,
+                               mesh=mesh, placements=task.layout.dims)
+        grads = list(torch.autograd.grad(loss, T.leaves(params)))
+        task.layout.sync_grads(grads)
+        rec.update({k: float(m[k]) for k in ("ce_loss", "aux_loss",
+                                              "accuracy")})
+        rec["loss"] = float(loss)
+        rec["grads"] = T.unflatten(dict(zip(T.flatten(params), grads)))
+        rec["grad_norm"] = float(task.layout.global_norm(rec["grads"]))
+        plans.clear()
+        with torch.no_grad():
+            decoder_loss(params, rows, task.cfg, attn_impl=attn, mesh=mesh,
+                         placements=task.layout.dims)
+        rec["plans"] = list(plans)
+        with torch.no_grad():
+            rec["logits"] = decoder_forward(params, rows[:, :-1], task.cfg,
+                                            attn_impl=attn, mesh=mesh)[0]
+        if name == PP_TRAIN_CASE:
+            wd = base / name / f"rank{rank}"
+            wd.mkdir(parents=True, exist_ok=True)
+            conf = train_config(attn, str(base / "ckpt"), model=model,
+                                **pp_overrides(name))
+            tr = Trainer(TrainerConfig.from_dict(conf), mesh,
+                         process_id=rank, num_processes=world, device="cpu",
+                         workdir=str(wd))
+            rec["losses"], rec["grad_norms"] = [], []
+
+            def on_step(step, m, tr=tr, rec=rec):
+                rec["losses"].append(m["loss"])
+                rec["grad_norms"].append(m["grad_norm"])
+                if step == 2:
+                    rec["state2"] = T.map_tree(
+                        lambda t: t.detach().clone()
+                        if isinstance(t, torch.Tensor) else t,
+                        tr.task.state)
+
+            tr.run(on_step=on_step)
+        out[name] = rec
+    L.dispatch_plan = plan_of
+    torch.save(out, base / f"rank{rank}.pt")
+    return 0

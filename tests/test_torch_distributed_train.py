@@ -21,8 +21,10 @@ batches:
 - only the coordinator writes manifests, metrics and the goodput ledger;
 - the gang's ranks also run ``llm_pretrain``, ``vision_train`` (CLIP) and
   ``torch_train`` as a four-process world;
-- a ``pipeline`` degree above 1 raises (``model`` is
-  tests/test_torch_tp.py's, ``expert`` tests/test_torch_moe_mesh.py's).
+- the ``model``, ``pipeline`` and ``expert`` axes pass the mesh check and
+  a leaf keeps its dim over them beside its fsdp gather dim (their
+  training is tests/test_torch_tp.py's, tests/test_torch_pipeline.py's
+  and tests/test_torch_moe_mesh.py's).
 """
 
 import numpy as np
@@ -323,33 +325,40 @@ def test_four_process_gang_trains(gang, name):
 
 @pytest.mark.parametrize("axis", ["model", "pipeline", "expert"])
 def test_unported_axis_raises_with_the_roadmap_pointer(axis):
-    """``pipeline`` still raises; ``model`` trains now
-    (tests/test_torch_tp.py) and so does ``expert``
-    (tests/test_torch_moe_mesh.py): the check lets them through and a leaf
-    keeps both its dims, ``wq [L, D, H, Dh]`` gathering D over fsdp and
-    keeping H split over model, an MoE ``gate [L, E, D, M]`` gathering D
-    over fsdp and keeping E split over expert."""
+    """No axis is left unported: ``model`` trains (tests/test_torch_tp.py),
+    ``pipeline`` (tests/test_torch_pipeline.py) and ``expert``
+    (tests/test_torch_moe_mesh.py). The check lets each through and a
+    leaf keeps both its dims, ``wq [L, D, H, Dh]`` gathering D over fsdp
+    and keeping H split over model (or, under the pipeline rule
+    ``layers → pipeline``, L split over stages), an MoE ``gate [L, E, D,
+    M]`` gathering D over fsdp and keeping E split over expert; an axis
+    the mesh does not know raises."""
     from kubeflow_tpu_torch.models.decoder import abstract_decoder_params
     from kubeflow_tpu_torch.parallel.fsdp import check_mesh
-    from kubeflow_tpu_torch.parallel.sharding import placement
+    from kubeflow_tpu_torch.parallel.sharding import (
+        DEFAULT_RULES, placement, with_rule,
+    )
 
     mesh = {axis: 2, "fsdp": 2}
-    if axis in ("model", "expert"):
-        check_mesh(mesh)
-        cfg = preset("tiny" if axis == "model" else "tiny-moe",
-                     dtype="float32")
-        specs = T.flatten(shard_params(abstract_decoder_params(cfg),
-                                       decoder_param_specs(cfg), mesh))
-        if axis == "model":
-            wq = placement(specs["layers/attn/wq"], mesh)
-            assert (wq.gather, wq.tp, wq.partial) == (1, 2, False)
-        else:
-            gate = placement(specs["layers/mlp/gate"], mesh)
-            assert (gate.gather, gate.ep, gate.tp) == (2, 1, None)
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        setup_train(preset("tiny", dtype="float32"), OptimizerConfig(),
-                    device="cpu", mesh=mesh)
+    check_mesh(mesh)
+    cfg = preset("tiny-moe" if axis == "expert" else "tiny",
+                 dtype="float32")
+    rules = (with_rule(DEFAULT_RULES, "layers", "pipeline")
+             if axis == "pipeline" else DEFAULT_RULES)
+    specs = T.flatten(shard_params(abstract_decoder_params(cfg),
+                                   decoder_param_specs(cfg), mesh, rules))
+    if axis == "model":
+        wq = placement(specs["layers/attn/wq"], mesh)
+        assert (wq.gather, wq.tp, wq.partial) == (1, 2, False)
+    elif axis == "pipeline":
+        wq = placement(specs["layers/attn/wq"], mesh)
+        assert (wq.gather, wq.tp, wq.stage) == (1, None, 0)
+        assert placement(specs["embed"], mesh).stage is None
+    else:
+        gate = placement(specs["layers/mlp/gate"], mesh)
+        assert (gate.gather, gate.ep, gate.tp) == (2, 1, None)
+    with pytest.raises(ValueError, match="unknown mesh axes"):
+        check_mesh({axis: 2, "stage": 2})
 
 
 def test_mesh_without_the_unported_axes_passes_the_check():

@@ -177,3 +177,52 @@ def test_explain_without_explainer_is_400():
         assert ei.value.code == 400
     finally:
         server.stop()
+
+
+def _moe_prompts() -> list[str]:
+    """Four 23-character prompts (24 byte tokens with the BOS) drawn from
+    a seeded generator: at 24 tokens tiny-moe's dispatch capacity (16
+    slots an expert at factor 1.25) binds."""
+    rng = np.random.default_rng(0)
+    return ["".join(chr(c) for c in rng.integers(48, 123, 23))
+            for _ in range(4)]
+
+
+@pytest.fixture(scope="module")
+def moe_server():
+    """A ``ModelServer`` over a tiny-moe engine on its default dispatch
+    path, on JAX-initialised weights; JAX's config and weights beside it."""
+    jcfg = jconfig.preset("tiny-moe", dtype="float32")
+    jparams = jdecoder.init_decoder_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    cfg = preset("tiny-moe", dtype="float32")
+    assert cfg.moe_impl == "dispatch"
+    engine = LLMEngine(cfg, BatchingSpec(max_batch_size=2, max_seq_len=64,
+                                         prefill_buckets=[32]),
+                       params=params, device="cpu")
+    yield jcfg, jparams, cfg, params, engine
+
+
+@pytest.mark.parametrize("method", ["grad_x_input", "leave_one_out"])
+def test_moe_explain_runs_the_dense_path_as_jaxs_server(moe_server, method):
+    """JAX's ``ModelServer.explain_text`` swaps an MoE model to
+    ``moe_impl="dense"`` before attribution; the port's ``explain_text``
+    on a dispatch engine gives JAX's scores on that path, while the
+    dispatch path's own scores differ where capacity binds."""
+    import dataclasses
+
+    jcfg, jparams, cfg, params, engine = moe_server
+    server = ModelServer("moe", engine,
+                         explainer=build_explainer({"handler": method}))
+    jdense = dataclasses.replace(jcfg, moe_impl="dense")
+    apart = 0.0
+    for prompt in _moe_prompts():
+        toks = server.tokenizer.encode(prompt)
+        assert len(toks) == 24
+        got = server.explain_text(prompt, None)
+        want = getattr(jexplain, method)(toks, params=jparams, cfg=jdense)
+        _close(got, want)
+        dispatch = EXPLAINERS[method](toks, params=params, cfg=cfg)
+        apart = max(apart, float(np.max(np.abs(
+            np.asarray(dispatch["scores"]) - np.asarray(want["scores"])))))
+    assert apart > 1e-3
