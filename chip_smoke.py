@@ -29,7 +29,9 @@ phases 1, 2, (n)2 and (n)3 (for a machine with 4 cards),
 the served gang (rank 1's shard of expert 0's down weight doubled in
 every layer), which (n)3's token check must catch (4 cards; it exits 0
 when the check fails), ``--pp-only`` phases 1, 2 and (o)1, and
-``--pp-cards-only`` phases 1, 2 and (o)2-(o)3 (4 cards). None of these
+``--pp-cards-only`` phases 1, 2 and (o)2-(o)3 (4 cards), ``--vision-only``
+phases 1, 2 and (p) (its 4-card part where the machine has 4 cards), and
+``--vision-cards-only`` phases 1, 2 and (p)2 (4 cards). None of these
 prints the result lines. Every phase prints its seconds.
 Phases, each a hard failure:
 
@@ -358,7 +360,10 @@ Phases, each a hard failure:
    2}`` decode gang on cards 2-3 with the host and remote KV tiers (the
    KV payloads whole-model: gathered from the ranks' kv heads, each rank
    keeping its own on adoption): greedy tokens through the pair equal to
-   a unified ``{model: 2}`` gang's, and they and (bf16) those from the
+   a unified ``{model: 2}`` gang's (on int8 pages both get the prompts
+   one at a time: which prompt reads another's cached first token from
+   an int8 page follows the admission order, by the reference engine's
+   design), and they and (bf16) those from the
    prefill gang to a one-process decode worker on card 2 held as (m)5
    holds its own, by teacher-forced TP forwards; ``mixed_interference``
    through the pair (every request ok, one export per request with tokens
@@ -399,6 +404,21 @@ Phases, each a hard failure:
    print why they did not run. (m)4's gangs also answer ``:explain``
    (``grad_x_input``, ``leave_one_out``) against the one-card kernel
    path.
+20. (p) vision on a mesh, and dims that do not divide: (p)1 one ViT-L/16
+   encoder block (bf16, B = 32, 197 tokens) split 4 ways over ``model``
+   and 2 ways over ``seq`` (99 and 98 positions) in lockstep on the
+   card, against the whole block (output and every gradient, rel L2
+   1e-2); the ViT head's vocab-parallel CE over 4 shards of 1000 classes;
+   one Llama-3-8B block at T = 2048 and its fused CE on a model axis of
+   3, where heads, kv heads and mlp columns do not divide (each rank
+   reads its part of the whole leaves), against the unsplit block and
+   CE, the launches per shard printed; with 4 cards, (p)2
+   ``vision_train`` over NCCL: ViT-L/16 (24 layers, 224², 1000 classes)
+   on ``{fsdp: 2, model: 2}`` and ``{data: 2, seq: 2}``, CLIP-L/14 on
+   ``{data: 2, model: 2}`` and ``{model: 2, seq: 2}``, 4 steps of 32
+   images each in fp32 activations against a one-card run of the same
+   config (losses rel 1e-4), step ms, images/s and peak per rank; on one card (p)2 prints
+   why it did not run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's numbers.
@@ -7100,7 +7120,7 @@ def tp_step_probe(ctx) -> int:
           torch.ones((b,), device=dev),
           torch.full((b,), -1, device=dev),
           torch.full((b,), 1 << 20, device=dev)]
-    shape = (cfg.n_layers, b * per_slot + 1, pg, L.local_kv_heads(tcfg)[1],
+    shape = (cfg.n_layers, b * per_slot + 1, pg, len(L.local_kv_heads(tcfg)),
              cfg.head_dim)
     pool = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
             "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
@@ -7296,9 +7316,11 @@ def _tp_stop(gang: dict, card: str) -> dict:
 
 
 def _tp_greedy(url: str, prompts, new: int = TP_NEW,
-               headers: dict | None = None) -> list[list[int]]:
+               headers: dict | None = None,
+               one_at_a_time: bool = False) -> list[list[int]]:
     """Greedy completions of ``prompts`` ((tokens, salt) of ``text``),
-    sent at once (the engine batches them), as token ids."""
+    sent at once (the engine batches them), or with ``one_at_a_time`` each
+    after the one before has finished, as token ids."""
     from concurrent.futures import ThreadPoolExecutor
 
     def ask(ps):
@@ -7307,6 +7329,8 @@ def _tp_greedy(url: str, prompts, new: int = TP_NEW,
                     headers=headers)[1]
         return [int(x) for x in json.loads(raw)["choices"][0]["text"].split()]
 
+    if one_at_a_time:
+        return [ask(ps) for ps in prompts]
     with ThreadPoolExecutor(len(prompts)) as pool:
         return list(pool.map(ask, prompts))
 
@@ -7770,13 +7794,21 @@ def roles_round(pool: str, spec: dict, base: str, card: str) -> dict:
                                                "(m)6 decode worker", t0), 1)
         pre, dec = gangs["prefill"]["url"], gangs["decode"]["url"]
         t1 = time.perf_counter()
+        # On int8 pages a prompt's tokens depend on whether its first token
+        # hit another prompt's cached prefix (read quantized from the pool)
+        # or was computed in its own chunk, so on the admission order (the
+        # JAX engine's design: tests/test_torch_admission_order.py): the
+        # pair and the unified gang get the prompts one at a time, in one
+        # order, for their exact comparison.
+        seq = not full
         outs["pair"] = _tp_greedy(pre, WORKER_PROMPTS,
-                                  headers={DECODE_BACKEND_HEADER: dec})
+                                  headers={DECODE_BACKEND_HEADER: dec},
+                                  one_at_a_time=seq)
         print(f"{label}: ready in {json.dumps(ready)} s; greedy through the "
               f"pair {outs['pair']} in {time.perf_counter() - t1:.1f} s; "
               f"{card}", flush=True)
         outs["unified"] = _tp_greedy(gangs["unified"]["url"],
-                                     WORKER_PROMPTS)
+                                     WORKER_PROMPTS, one_at_a_time=seq)
         if full:
             outs["cross"] = _tp_greedy(
                 pre, WORKER_PROMPTS,
@@ -7881,19 +7913,22 @@ ORDER_PROBE_OTHERS = ((1, 1, (20, 21, 22)), (2, 2, (30, 31, 32, 33, 34, 35)))
 
 
 def admission_order_probe(card: str) -> None:
-    """(m)6's order probe, one card, no gang: whether the paged engine's
-    greedy output for a prompt depends on the order its requests are
-    admitted in, as the HTTP requests of (m)6's exact pair-vs-unified
-    check race to each gang. The 8B at full depth (``WORKER_MODEL``,
-    random weights, ``PAGED_SPEC``), int8 and bf16 pages: the
-    ``WORKER_PROMPTS`` one at a time, then all three submitted before the
-    first scheduler step in each of the six orders; the completions equal
-    to the one-at-a-time ones are counted, and the first departing
-    position printed. Then one decode step of prompt 0 at its first decode
-    position, its KV on page 0 or 7, in row 0, 1 or 2, alone or with the
-    other two prompts live, must give bitwise the same logits: the order
-    dependence does not enter through a row, a page or a co-resident of
-    one step."""
+    """(m)6's order probe, one card, no gang: whether the paged engine's greedy
+    output for a prompt depends on the order its requests are admitted in,
+    as concurrent HTTP requests race to a gang. The 8B at full depth
+    (``WORKER_MODEL``, random weights, ``PAGED_SPEC``), int8 and bf16 pages:
+    the ``WORKER_PROMPTS`` one at a time, then all three submitted before
+    the first scheduler step in each of the six orders; the completions
+    equal to the one-at-a-time ones are counted, the first departing
+    position printed, and beside them each prompt's cached tokens at
+    admission: a prompt admitted after another's prefill reads the shared
+    first token's K/V from that prompt's page (quantized on int8 pages), one
+    admitted in the same round computes it in its own chunk, as JAX's engine
+    does (tests/test_torch_admission_order.py). Then one decode step of
+    prompt 0 at its first decode position, its KV on page 0 or 7, in row 0,
+    1 or 2, alone or with the other two prompts live, must give bitwise the
+    same logits: the order dependence does not enter through a row, a page
+    or a co-resident of one step."""
     import itertools
 
     from kubeflow_tpu_torch.core.serving import BatchingSpec
@@ -7912,25 +7947,49 @@ def admission_order_probe(card: str) -> None:
     i32 = dict(dtype=torch.int32, device="cuda")
     for pool, over in (("int8", {"kv_cache_dtype": "int8"}), ("bf16", {})):
         spec = BatchingSpec(**dict(PAGED_SPEC, **over))
-        eng = LLMEngine(cfg, spec, params=params, seed=SEED, device="cuda")
-        alone = [eng.generate(p, sp) for p in prompts]
-        departs = []
-        for order in itertools.permutations(range(len(prompts))):
+
+        def engine(covered: dict):
+            """A fresh engine recording each prompt's cached tokens (its
+            prefix read from another prompt's pages) at admission."""
             eng = LLMEngine(cfg, spec, params=params, seed=SEED,
                             device="cuda")
+            match = eng._kv_match
+
+            def recorded(req, **kw):
+                pages, n = match(req, **kw)
+                covered[prompts.index(list(req.prompt_tokens))] = n
+                return pages, n
+
+            eng._kv_match = recorded
+            return eng
+
+        alone_cov: dict = {}
+        eng = engine(alone_cov)
+        alone = [eng.generate(p, sp) for p in prompts]
+        departs, same_cov, covs = [], 0, {}
+        for order in itertools.permutations(range(len(prompts))):
+            cov: dict = {}
+            eng = engine(cov)
             reqs = {i: eng.submit(prompts[i], sp) for i in order}
             while not all(r.done.is_set() for r in reqs.values()):
                 eng.step()
+            covs["".join(map(str, order))] = [cov[i] for i in range(3)]
             for i, r in sorted(reqs.items()):
                 got = r.result(1)
                 if got != alone[i]:
                     at = next(j for j, (a, b) in enumerate(zip(got, alone[i]))
                               if a != b)
                     departs.append((order, i, at))
+                    same_cov += cov[i] == alone_cov[i]
         print(f"(m)6 order probe, {pool} pages: {len(departs)} of "
               f"{6 * len(prompts)} completions over the six admission "
               f"orders differ from the one-at-a-time ones, (order, prompt, "
-              f"first departing token) {departs}; {card}", flush=True)
+              f"first departing token) {departs}; each prompt's cached "
+              f"tokens at admission (its first token's K/V read from "
+              f"another prompt's page, or computed in its own chunk) one at "
+              f"a time {[alone_cov[i] for i in range(3)]}, by order {covs}; "
+              f"departing completions whose prompt was cached as it was one "
+              f"at a time: {same_cov}; {card}", flush=True)
         if pool == "bf16" and departs:
             fail("(m)6 order probe: bf16 pages' greedy tokens depend on the "
                  "admission order")
@@ -8846,6 +8905,447 @@ def phase_pp(rows: list[dict], card: str, *, cards_only: bool = False
     timed_phase("pp deep", pp_deep, card)
 
 
+# -- (p) vision on a mesh, and dims that do not divide ------------------------
+
+#: (p)1: ViT-L/16's block split over ``model`` and ``seq`` in lockstep on
+#: one card (bf16, the training batch), vs the whole block; rel L2.
+VIS_WAYS, VIS_SEQ, VIS_B = 4, 2, 32
+VIS_REL_L2 = 1e-2
+#: (p)1: the model degree of the 9g check (Llama-3-8B: 32 heads, 8 kv heads
+#: and 14336 mlp columns do not divide by 3; 128256 = 3 x 42752 does).
+NONDIV_WAYS = 3
+#: (p)2: 4-card vision training, each case held to a one-card run of the
+#: same config: (family, preset, mesh axes).
+VISION_CARDS = 4
+VISION_CARD_CASES = (("vit", "vit-l16", {"fsdp": 2, "model": 2}),
+                     ("vit", "vit-l16", {"data": 2, "seq": 2}),
+                     ("clip", "clip-l14", {"data": 2, "model": 2}),
+                     ("clip", "clip-l14", {"model": 2, "seq": 2}))
+VISION_CARD_BATCH = 32
+VISION_CARD_STEPS = 4
+#: (p)2's activations in its cases above: fp32 (``model_overrides``; CLIP's
+#: image tower through its ``image`` entry), so that the 1e-4 check reads
+#: the gang's arithmetic. In bf16 the first loss of a correct gang sits
+#: 2.3e-04 (rel) from one card's (ViT-L/16 on {fsdp: 2, model: 2}, H100;
+#: PERF.md §6), about bf16's own distance from fp32 on one card ((j)4:
+#: 1.4e-04 ViT-L, 3.4e-04 CLIP-L).
+VISION_CARD_DTYPE = "float32"
+#: (p)2's bf16 case: the preset as committed (bf16 activations), held to a
+#: one-card bf16 run within ``VISION_BF16_LOSS_REL``. The limit sits above
+#: the gap of a sound bf16 gang on this case (2.26e-04, H100, PERF.md §6)
+#: and must sit below the gap of a faulted control in the same run: the
+#: same gang with ``copy_to_model``'s backward sum over ``model`` taken
+#: out (the input gradients of the column-parallel products then miss the
+#: other rank's heads and mlp columns).
+VISION_BF16_CASE = ("vit", "vit-l16", {"fsdp": 2, "model": 2})
+VISION_BF16_LOSS_REL = 1e-3
+
+
+def _vision_block(gen, cfg) -> dict:
+    """One encoder block's leaves on the card (fp32, the JAX init), the
+    norms and biases drawn away from 1 and 0, each needing a gradient."""
+    from kubeflow_tpu_torch.models import vision as V
+
+    p = V._init_encoder_block(gen, cfg)
+
+    def jitter(t, base):
+        return base + 0.1 * torch.randn(t.shape, generator=gen,
+                                        device="cuda")
+
+    for ln in ("ln1", "ln2"):
+        p[ln] = {"scale": jitter(p[ln]["scale"], 1.0),
+                 "bias": jitter(p[ln]["bias"], 0.0)}
+    p["b1"], p["b2"] = jitter(p["b1"], 0.0), jitter(p["b2"], 0.0)
+    for t in _leaves(p):
+        t.requires_grad_(True)
+    return p
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def vision_block_lockstep(card: str) -> None:
+    """(p)1a: one ViT-L/16 encoder block (``vit-l16``: bf16 activations,
+    fp32 leaves, B = ``VIS_B``, 197 tokens) as the mesh splits it, the
+    ranks run one after another on this card: over ``model``
+    (``VIS_WAYS`` ranks of 4 heads and 1024 mlp columns, each from the
+    whole leaves: ``block_qkv``, ``block_attend``, ``block_mlp``; the
+    ranks' partial outputs summed where ``reduce_from_model`` sums them)
+    and over ``seq`` (``VIS_SEQ`` ranks of 99 and 98 positions, each
+    rank's queries over every rank's K and V). Output and every gradient
+    (input, norms, each weight) against the whole block (``_encoder_block``
+    on one device): rel L2 <= ``VIS_REL_L2``."""
+    from kubeflow_tpu_torch.models import vision as V
+    from kubeflow_tpu_torch.parallel.collectives import ModelAxis
+
+    cfg = V.vit_preset("vit-l16")
+    gen = torch.Generator("cuda").manual_seed(SEED + 120)
+    p = _vision_block(gen, cfg)
+    s = cfg.seq_len
+    x = torch.randn((VIS_B, s, cfg.hidden), generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    dy = torch.randn((VIS_B, s, cfg.hidden), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    ln = V._layernorm
+    eps = cfg.norm_eps
+    b2 = p["b2"].to(cfg.activation_dtype)
+
+    def whole():
+        return V._encoder_block(p, x, cfg)
+
+    def model_split():
+        axes = [V.VisionAxes(tp=ModelAxis(None, r, VIS_WAYS))
+                for r in range(VIS_WAYS)]
+        h = ln(p["ln1"], x, eps)
+        y = x + sum(V.block_attend(p, *V.block_qkv(p, h, cfg, a), cfg, a)
+                    for a in axes)
+        h2 = ln(p["ln2"], y, eps)
+        return y + (sum(V.block_mlp(p, h2, cfg, a) for a in axes) + b2)
+
+    def seq_split():
+        axes = [V.VisionAxes(seq_rank=r, seq_size=VIS_SEQ)
+                for r in range(VIS_SEQ)]
+        spans = [a.span(s) for a in axes]
+        qkv = [V.block_qkv(p, ln(p["ln1"], x[:, a:b], eps), cfg)
+               for a, b in spans]
+        kf = torch.cat([t[1] for t in qkv], dim=1)
+        vf = torch.cat([t[2] for t in qkv], dim=1)
+        outs = []
+        for (a, b), (q, _, _) in zip(spans, qkv):
+            y = x[:, a:b] + V.block_attend(p, q, kf, vf, cfg, q_offset=a)
+            h2 = ln(p["ln2"], y, eps)
+            outs.append(y + (V.block_mlp(p, h2, cfg) + b2))
+        return torch.cat(outs, dim=1)
+
+    leaves = [x, *_leaves(p)]
+    names = ["x", "ln1.scale", "ln1.bias", "ln2.scale", "ln2.bias", "wqkv",
+             "wo", "w1", "b1", "w2", "b2"]
+    ref = whole()
+    ref_g = torch.autograd.grad(ref, leaves, dy)
+    out = {}
+    widths = [b - a for a, b in (V.VisionAxes(seq_rank=r, seq_size=VIS_SEQ)
+                                 .span(s) for r in range(VIS_SEQ))]
+    for label, fn in ((f"model {VIS_WAYS}", model_split),
+                      (f"seq {VIS_SEQ} (positions {widths})", seq_split)):
+        got = fn()
+        g = torch.autograd.grad(got, leaves, dy)
+        rels = {"out": rel_l2(got, ref)}
+        rels.update({n: rel_l2(a, b) for n, a, b in zip(names, g, ref_g)})
+        ms = event_ms(lambda fn=fn: torch.autograd.grad(fn(), leaves, dy))
+        out[label] = (rels, ms)
+    whole_ms = event_ms(lambda: torch.autograd.grad(whole(), leaves, dy))
+    for label, (rels, ms) in out.items():
+        print(f"(p)1 ViT-L/16 block, B={VIS_B} S={s}, split over {label} in "
+              f"lockstep vs whole: rel L2 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f" (tolerance {VIS_REL_L2:g}); fwd+bwd ms split {ms:.3f} vs "
+              f"whole {whole_ms:.3f}; {card}", flush=True)
+        bad = {k: v for k, v in rels.items() if not v <= VIS_REL_L2}
+        if bad:
+            fail(f"(p)1 ViT block over {label}: off the whole block: {bad}")
+
+
+def vision_head_lockstep(card: str) -> None:
+    """(p)1b: the ViT head's vocab-parallel CE (ViT-L/16's 1024-wide
+    features, B = ``VIS_B``, 1000 classes over ``VIS_WAYS`` shards of 250)
+    in lockstep: each shard's fp32 logits and statistics
+    (``vocab_parallel.logit_stats`` with its shifted labels), the combine
+    (``combine_shards``), each shard's gradient with the global lse. nll,
+    accuracy and both gradients against ``log_softmax`` over the whole
+    head: rel L2 <= ``VIS_REL_L2``, accuracy equal."""
+    from kubeflow_tpu_torch.parallel import vocab_parallel as VP
+
+    d, c = 1024, 1000
+    gen = torch.Generator("cuda").manual_seed(SEED + 121)
+    feats = torch.randn((VIS_B, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    head = (torch.randn((d, c), generator=gen, device="cuda")
+            * d ** -0.5).requires_grad_(True)
+    labels = torch.randint(0, c, (VIS_B,), generator=gen, device="cuda")
+    f = feats.float().requires_grad_(True)
+    logits = f @ head.to(torch.bfloat16).float()
+    nll = -torch.log_softmax(logits, -1).gather(1, labels[:, None])[:, 0]
+    acc = float((logits.argmax(-1) == labels).float().mean())
+    df, dh = torch.autograd.grad(nll.mean(), [f, head])
+    w = c // VIS_WAYS
+    parts = [(f.detach() @ head.detach()[:, r * w:(r + 1) * w].to(
+        torch.bfloat16).float()) for r in range(VIS_WAYS)]
+    local = [labels - r * w for r in range(VIS_WAYS)]
+    snll, lse, correct = VP.combine_shards(torch.stack(
+        [VP.logit_stats(lg, t) for lg, t in zip(parts, local)]))
+    from kubeflow_tpu_torch.ops import fused_xent
+
+    dls = [(torch.exp(lg - lse[:, None]) - fused_xent._onehot(t, w))
+           / VIS_B for lg, t in zip(parts, local)]
+    sdf = sum(dl @ head.detach()[:, r * w:(r + 1) * w].to(
+        torch.bfloat16).float().T for r, dl in enumerate(dls))
+    sdh = torch.cat([f.detach().T @ dl for dl in dls], dim=1)
+    rels = {"nll": rel_l2(snll, nll), "d_feats": rel_l2(sdf, df),
+            "d_head": rel_l2(sdh, dh)}
+    sacc = float(correct.mean())
+    print(f"(p)1 ViT head CE, B={VIS_B}, {c} classes over {VIS_WAYS} shards "
+          f"of {w} in lockstep vs the whole head: rel L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tolerance {VIS_REL_L2:g}); accuracy {sacc} vs {acc}; {card}",
+          flush=True)
+    if any(not v <= VIS_REL_L2 for v in rels.values()) or sacc != acc:
+        fail(f"(p)1 ViT head CE: off the whole head: {rels}, accuracy "
+             f"{sacc} vs {acc}")
+
+
+def nondiv_block_lockstep(rows: list[dict], card: str) -> None:
+    """(p)1c: 9g at full width. One Llama-3-8B block (bf16) at B = 1,
+    T = ``TP_T`` and its fused CE, on a model axis of ``NONDIV_WAYS``
+    where the 32 heads, 8 kv heads and 14336 mlp columns do not divide:
+    every rank reads its part of the whole leaves (``layers.head_owners``:
+    8, 12 and 12 q heads along the GQA groups, 2, 3 and 3 kv heads; mlp
+    columns 4778, 4779, 4779) through the flash and SwiGLU kernels; the
+    vocabulary divides (3 x 42752), so the CE runs over 3 shards
+    (``vocab_parallel_lockstep``: rows 9-11 on each). The ranks run one
+    after another on this card, their partial outputs summed. nll and
+    every gradient (input, norms, each whole weight, the head) against the
+    unsplit block and fused CE: rel L2 <= ``TP_REL_L2``; the launches per
+    shard printed, rows 4-11 ``NONDIV_WAYS`` times the unsplit ones."""
+    from kubeflow_tpu_torch.models import layers as L
+    from kubeflow_tpu_torch.models.config import preset, with_model_axis
+    from kubeflow_tpu_torch.ops import fused_xent as fx
+    from kubeflow_tpu_torch.parallel import vocab_parallel as vp
+    from kubeflow_tpu_torch.parallel.collectives import ModelAxis
+
+    cfg = preset("llama3-8b", n_layers=1, param_dtype="bfloat16")
+    n = NONDIV_WAYS
+    cfgs = [with_model_axis(cfg, ModelAxis(None, r, n)) for r in range(n)]
+    gen = torch.Generator("cuda").manual_seed(SEED + 122)
+    attn = L.init_attention(gen, cfg)
+    mlp = L.init_mlp(gen, cfg)
+    norms = [(1.0 + 0.1 * torch.randn((cfg.hidden,), generator=gen,
+                                      device="cuda")).to(torch.bfloat16)
+             for _ in range(2)]
+    head = (torch.randn((cfg.hidden, cfg.vocab_size), generator=gen,
+                        device="cuda") * cfg.hidden ** -0.5).to(
+        torch.bfloat16)
+    leaves = [*attn.values(), *mlp.values(), *norms, head]
+    for t in leaves:
+        t.requires_grad_(True)
+    x = torch.randn((1, TP_T, cfg.hidden), generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    t = torch.randint(0, cfg.vocab_size, (TP_T,), generator=gen,
+                      device="cuda")
+    pos = torch.arange(TP_T, device="cuda")[None]
+
+    def block(split: bool):
+        parts = cfgs if split else [cfg]
+        h = L.rmsnorm(x, norms[0], cfg)
+        out = 0
+        for c in parts:
+            q, k, v = L.attention_qkv(attn, h, pos, c)
+            out = out + L.attention_out(attn, q, k, v, c, attn_impl="pallas")
+        y, h2 = L.add_rmsnorm(x, out, norms[1], cfg)
+        return y + sum(L.mlp_block(mlp, h2, c) for c in parts)
+
+    def run(split: bool):
+        for w in wrappers.values():
+            w.launches = 0
+        out = block(split)
+        h2 = out.reshape(TP_T, cfg.hidden)
+        if split:
+            nll, _, _, dh, dw = vp.vocab_parallel_lockstep(
+                h2.detach().contiguous(), head.detach(), t.to(torch.int32),
+                n)
+            grads = (*torch.autograd.grad(out, [x, *leaves[:-1]],
+                                          dh.reshape(out.shape)), dw)
+        else:
+            nll, _ = fx.fused_cross_entropy(h2, head, t)
+            grads = torch.autograd.grad(nll.float().sum(), [x, *leaves])
+        return nll.detach().float(), grads, {
+            k: w.launches for k, w in wrappers.items()}
+
+    wrappers = _train_wrappers()
+    nll1, g1, n1 = run(False)
+    nll3, g3, n3 = run(True)
+    names = ["x", *(f"attn.{k}" for k in attn), *(f"mlp.{k}" for k in mlp),
+             "ln1", "ln2", "head"]
+    rels = {"nll": rel_l2(nll3, nll1)}
+    rels.update({k: rel_l2(a, b) for k, a, b in zip(names, g3, g1)})
+    heads = L.head_owners(cfgs[0])
+    kv = L.kv_head_owners(cfgs[0])
+    cols = [L.model_part(cfg.mlp_dim, c) for c in cfgs]
+    print(f"(p)1 9g: Llama-3-8B block + fused CE, B=1 T={TP_T}, model = {n} "
+          f"in lockstep (q heads {heads}, kv heads {kv}, mlp columns {cols}, "
+          f"vocab shards of {cfg.vocab_size // n}) vs unsplit: rel L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tolerance {TP_REL_L2:g}); launches split {n3} (each shard "
+          f"{ {k: c // n for k, c in n3.items() if 'rmsnorm' not in k} }, "
+          f"the norms once) vs unsplit {n1}; {card}", flush=True)
+    bad = {k: v for k, v in rels.items() if not v <= TP_REL_L2}
+    if bad:
+        fail(f"(p)1 9g: the split block is off the unsplit one: {bad}")
+    per_rank = ("swiglu_fwd", "swiglu_bwd", "flash_fwd", "flash_bwd_dkdv",
+                "flash_bwd_dq")
+    for k, c in n3.items():
+        want = n * n1[k] if k in per_rank else n1[k]
+        if c == 0 or (not k.startswith("fused_xent") and c != want):
+            fail(f"(p)1 9g: {k} launched {c} times in the split run, "
+                 f"expected {want} (unsplit {n1[k]})")
+        _add_launches(rows, k, c)
+
+
+def counted_vision_train(ctx) -> int:
+    """(p)2's worker entrypoint (``chip_smoke:counted_vision_train``):
+    ``vision_train`` with the peak allocation and the world it joined
+    written to ``counts.json`` in the worker's workdir. With ``"fault":
+    "copy_to_model"`` in the config (the bf16 control), ``copy_to_model``
+    is the identity both ways in this process."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import collectives as C
+    from kubeflow_tpu_torch.train.entrypoints import vision_train
+
+    if ctx.config.get("fault") == "copy_to_model":
+        C.copy_to_model = lambda x, tp: x
+    torch.cuda.reset_peak_memory_stats()
+    rc = vision_train(ctx)
+    out = {"peak": torch.cuda.max_memory_allocated(),
+           "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "device": str(torch.cuda.current_device())}
+    Path(ctx.env.workdir, "counts.json").write_text(json.dumps(out))
+    return rc
+
+
+def _vision_conf(family: str, name: str, dtype: str | None) -> dict:
+    """``vision_train``'s config for (p)2: the preset's activations in
+    ``dtype`` (CLIP's two towers), or as committed with None."""
+    over = {} if dtype is None else {"dtype": dtype}
+    if dtype is not None and family == "clip":
+        over["image"] = {"dtype": dtype}
+    return {"family": family, "model": name, "steps": VISION_CARD_STEPS,
+            "batch": VISION_CARD_BATCH, "model_overrides": over}
+
+
+def _vision_one_card(base: str, conf: dict, tag: str, card: str) -> list:
+    """A one-card ``vision_train`` worker of ``conf``; its logged rows."""
+    d = [Path(base, f"{tag}-one", "w0")]
+    secs = spawn_workers("chip_smoke:counted_vision_train", conf, d,
+                         {"fsdp": 1}, f"(p)2 {tag} one card")
+    rows = [json.loads(x) for x in
+            (d[0] / "metrics.jsonl").read_text().splitlines()]
+    one = json.loads((d[0] / "counts.json").read_text())
+    ms = [round(r.get("step_time_ms", float("nan")), 1) for r in rows]
+    print(f"(p)2 {tag} on one card: exit 0 in {secs:.1f} s; losses "
+          f"{[r['loss'] for r in rows]}; step ms {ms}; peak "
+          f"{one['peak'] / 2**30:.2f} GiB; {card}", flush=True)
+    return rows
+
+
+def _vision_gang(base: str, conf: dict, tag: str, axes: dict, ref: list,
+                 tol: float, card: str) -> float:
+    """A ``VISION_CARDS``-rank NCCL gang of ``conf`` on ``axes``, printed
+    beside the one-card rows ``ref``; fails unless it is one NCCL world
+    over distinct cards. Returns the largest relative loss gap."""
+    nan = float("nan")
+    mesh_tag = "_".join(f"{a}{n}" for a, n in axes.items())
+    dirs = [Path(base, f"{tag}-{mesh_tag}", f"w{r}")
+            for r in range(VISION_CARDS)]
+    secs = spawn_workers("chip_smoke:counted_vision_train", conf, dirs, axes,
+                         f"(p)2 {tag} {axes}")
+    logged = [json.loads(x) for x in
+              (dirs[0] / "metrics.jsonl").read_text().splitlines()]
+    counts = [json.loads((d / "counts.json").read_text()) for d in dirs]
+    losses = [r["loss"] for r in logged]
+    want = [r["loss"] for r in ref]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    ms = [r.get("step_time_ms", nan) for r in logged]
+    print(f"(p)2 vision_train {tag} over NCCL, {VISION_CARDS} cards, "
+          f"{axes}: exit 0 in {secs:.1f} s; devices "
+          f"{[c['device'] for c in counts]}; losses {losses} vs one card "
+          f"{want} (max rel {gap:.3e}, tolerance {tol:g}); grad norms "
+          f"{[r.get('grad_norm') for r in logged]} vs "
+          f"{[r.get('grad_norm') for r in ref]}; step ms "
+          f"{[round(m, 1) for m in ms]}; images/s "
+          f"{[round(VISION_CARD_BATCH * 1e3 / m, 1) for m in ms]}; peak per "
+          f"rank {[round(c['peak'] / 2**30, 2) for c in counts]} GiB; "
+          f"{card}", flush=True)
+    if len(logged) != VISION_CARD_STEPS or len({
+            c["device"] for c in counts}) != VISION_CARDS or any(
+            c["world"] != VISION_CARDS or c["backend"] != "nccl"
+            for c in counts):
+        fail(f"(p)2 {tag} {axes}: {len(logged)} steps logged, ranks "
+             f"{counts}: not one NCCL world over distinct cards")
+    return gap
+
+
+def vision_train_cards(card: str) -> None:
+    """(p)2: ``vision_train`` over NCCL, one process per card, each gang
+    held to a one-card worker of the same config from the same seeded
+    init, ``VISION_CARD_STEPS`` steps of ``VISION_CARD_BATCH`` images:
+
+    - ``VISION_CARD_CASES`` in ``VISION_CARD_DTYPE``: ViT-L/16 at full
+      width (24 layers, 224², 1000 classes) on ``{fsdp: 2, model: 2}``
+      and ``{data: 2, seq: 2}`` (197 tokens: 99 and 98 a rank), CLIP-L/14
+      at the repo's preset (the ViT-L/16-shaped image tower, the 768-wide
+      12-layer text tower of 77 tokens and 49408 ids) on ``{data: 2,
+      model: 2}`` and ``{model: 2, seq: 2}``; losses within
+      ``MULTI_CARD_LOSS_REL``;
+    - ``VISION_BF16_CASE`` as committed (bf16): within
+      ``VISION_BF16_LOSS_REL``, and the faulted control beyond it.
+
+    Step ms, images/s and peak GiB per rank printed."""
+    import tempfile
+
+    refs: dict = {}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent,
+                                     prefix=".chip_smoke_train_") as base:
+        for family, name, axes in VISION_CARD_CASES:
+            conf = _vision_conf(family, name, VISION_CARD_DTYPE)
+            tag = f"{name} {VISION_CARD_DTYPE}"
+            if name not in refs:
+                refs[name] = _vision_one_card(base, conf, tag, card)
+            gap = _vision_gang(base, conf, tag, axes, refs[name],
+                               MULTI_CARD_LOSS_REL, card)
+            if not gap <= MULTI_CARD_LOSS_REL:
+                fail(f"(p)2 {tag} {axes}: the losses are off the one-card "
+                     "run's")
+        family, name, axes = VISION_BF16_CASE
+        conf = _vision_conf(family, name, None)
+        tag = f"{name} bf16"
+        ref = _vision_one_card(base, conf, tag, card)
+        gap = _vision_gang(base, conf, tag, axes, ref, VISION_BF16_LOSS_REL,
+                           card)
+        bad = _vision_gang(base, {**conf, "fault": "copy_to_model"},
+                           f"{tag} faulted (copy_to_model without its sum)",
+                           axes, ref, VISION_BF16_LOSS_REL, card)
+        print(f"(p)2 {tag} {axes}: gang {gap:.3e} <= limit "
+              f"{VISION_BF16_LOSS_REL:g} < faulted control {bad:.3e}: "
+              f"{gap <= VISION_BF16_LOSS_REL < bad}; {card}", flush=True)
+        if not gap <= VISION_BF16_LOSS_REL:
+            fail(f"(p)2 {tag} {axes}: the losses are off the one-card run's")
+        if not bad > VISION_BF16_LOSS_REL:
+            fail(f"(p)2 {tag} {axes}: the faulted control is within the "
+                 "limit, which then shows nothing")
+
+
+def phase_vision(rows: list[dict], card: str, *, cards_only: bool = False
+                 ) -> None:
+    """(p): vision on a mesh and dims that do not divide — (p)1 in
+    lockstep on one card (not with ``cards_only``), then on a machine of
+    ``VISION_CARDS`` cards or more (p)2 over NCCL."""
+    if not cards_only:
+        timed_phase("vision block", vision_block_lockstep, card)
+        timed_phase("vision head", vision_head_lockstep, card)
+        timed_phase("nondivisible block", nondiv_block_lockstep, rows, card)
+    count = torch.cuda.device_count()
+    if count < VISION_CARDS:
+        print(f"(p)2 vision training over {VISION_CARDS} cards: not run — "
+              f"this machine has {count} card; {card}", flush=True)
+        return
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed_phase("vision train cards", vision_train_cards, card)
+
+
 def timed_phase(name: str, fn, *args, **kwargs):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -8965,6 +9465,15 @@ def main() -> int:
         print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
               f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
         return 0
+    if sys.argv[1:] in (["--vision-only"], ["--vision-cards-only"]):
+        cards = sys.argv[1] == "--vision-cards-only"
+        if cards and torch.cuda.device_count() < VISION_CARDS:
+            fail(f"(p)2 needs {VISION_CARDS} cards; this machine has "
+                 f"{torch.cuda.device_count()}")
+        timed_phase("vision", phase_vision, [], card, cards_only=cards)
+        print(f"chip_smoke: {sys.argv[1][2:]} phases passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+        return 0
     if sys.argv[1:] == ["--multi-only"]:
         timed_phase("multi", phase_multi, card)
         print(f"chip_smoke: multi phases passed in "
@@ -9024,6 +9533,7 @@ def main() -> int:
     timed_phase("tp", phase_tp, rows, card)
     timed_phase("ep", phase_ep, card)
     timed_phase("pp", phase_pp, rows, card)
+    timed_phase("vision", phase_vision, rows, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} "

@@ -450,7 +450,7 @@ def decoder_forward(
                               inputs_embeds=inputs_embeds, lora=lora,
                               valid_len=valid_len)
     if not skip_head:
-        out = C.gather_from_model(out, model_axis_of(cfg))
+        out = C.gather_from_model(out, model_axis_of(cfg), cfg.vocab_size)
     return out, caches
 
 
@@ -539,6 +539,13 @@ def _forward(
     return head_logits(params, x, cfg), new_caches, aux_total
 
 
+def _head(params: Params, cfg: DecoderConfig):
+    """The output head ``[D, V]`` (the tied embedding's transpose), at this
+    rank's vocab columns under a model axis (``layers.rank_cols``)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return L.rank_cols(head, 1, cfg.vocab_size, cfg, "vocab")
+
+
 def head_logits(params: Params, x: torch.Tensor,
                 cfg: DecoderConfig) -> torch.Tensor:
     """Final-norm hidden [..., D] → fp32 logits [..., V] (softcapped when
@@ -547,9 +554,8 @@ def head_logits(params: Params, x: torch.Tensor,
     Under a model axis: the rank's vocab columns, its input through
     ``copy_to_model``."""
     dt = cfg.activation_dtype
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (C.copy_to_model(x, model_axis_of(cfg))
-              @ L.weight(head, dt)).float()
+              @ L.weight(_head(params, cfg), dt)).float()
     if cfg.logits_softcap is not None:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits
@@ -559,14 +565,14 @@ def lm_head(params: Params, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor
     """``head_logits`` over the whole vocabulary: under a model axis the
     ranks' columns all-gathered (what sampling reads)."""
     return C.gather_from_model(head_logits(params, x, cfg),
-                               model_axis_of(cfg))
+                               model_axis_of(cfg), cfg.vocab_size)
 
 
 def init_kv_caches(cfg: DecoderConfig, batch: int, max_len: int,
                    device) -> dict:
     """Contiguous decode cache, stacked over layers (on the kv heads this
     rank reads, under a model axis)."""
-    shape = (cfg.n_layers, batch, max_len, L.local_kv_heads(cfg)[1],
+    shape = (cfg.n_layers, batch, max_len, len(L.local_kv_heads(cfg)),
              cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
@@ -597,7 +603,8 @@ def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor,
         if cap is not None:
             logits = torch.tanh(logits / cap) * cap
         if tp is not None:
-            return VP.vocab_parallel_ce(logits, tc, tp)
+            return VP.vocab_parallel_ce(
+                logits, tc, tp, L.model_part(cfg.vocab_size, cfg)[0])
         logz = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, -1, tc[..., None])[..., 0]
         correct = (logits.argmax(-1) == tc).float()
@@ -619,19 +626,19 @@ def _nll(params: Params, hidden: torch.Tensor, targets: torch.Tensor,
     the fused CE (kernels 9–11), the chunked CE, or the dense logits;
     each vocab-parallel under a model axis."""
     tp = model_axis_of(cfg)
+    v0 = L.model_part(cfg.vocab_size, cfg)[0]
     if fused or cfg.loss_chunk_size:
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        head = head.to(hidden.dtype)
+        head = _head(params, cfg).to(hidden.dtype)
         if fused and tp is not None:
             return VP.fused_ce(hidden, head, targets, tp,
-                               logits_softcap=cfg.logits_softcap)
+                               logits_softcap=cfg.logits_softcap, offset=v0)
         if fused:
             return fused_xent.fused_cross_entropy(
                 hidden, head, targets, logits_softcap=cfg.logits_softcap)
         return _chunked_ce(hidden, head, targets, cfg)
     logits = head_logits(params, hidden, cfg)
     if tp is not None:
-        return VP.vocab_parallel_ce(logits, targets, tp)
+        return VP.vocab_parallel_ce(logits, targets, tp, v0)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     return nll, (logits.argmax(-1) == targets).float()
@@ -759,9 +766,18 @@ def check_stages(cfg: DecoderConfig, sizes: dict) -> int:
     """The stage count of a mesh of ``sizes`` for ``cfg`` (JAX's refusals
     of its staged branch): ``pipeline`` must divide the layers, and under
     ``model`` the degree must divide the heads, kv heads and MLP columns
-    (this path shards them whole, with no replication)."""
+    (this path shards them whole, with no replication), and under
+    ``expert`` the degree must divide the experts (JAX's stage
+    ``shard_map`` refuses a leaf whose dim does not divide)."""
     n = int(sizes.get("pipeline", 1))
     tp = int(sizes.get("model", 1))
+    ep = int(sizes.get("expert", 1))
+    if cfg.is_moe and ep > 1 and cfg.num_experts % ep:
+        raise ValueError(
+            "shard_map applied to the function 'worker' was given argument "
+            "arrays with axis sizes that are not evenly divisible by the "
+            f"corresponding mesh axis sizes: the {cfg.num_experts} experts "
+            f"over mesh axis 'expert' (of size {ep})")
     if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp
                    or cfg.mlp_dim % tp):
         raise ValueError(

@@ -20,13 +20,15 @@ and CE kernels run on the local blocks as they do on one device. Under a
 mlp columns, their input passing ``copy_to_model``; ``wo`` and ``down``
 are row-parallel, their partial outputs summed by ``reduce_from_model``;
 norms stay whole on every rank; the embedding is vocab-parallel
-(``embed``). GQA kv heads that do not divide over the axis are whole on
-every rank, and each rank reads the kv heads its own q heads read
-(``rank_kv``). The MoE block runs under the expert, batch, sequence and
-model axes as JAX's GSPMD block does on the global batch (``moe_block``,
-``MoEAxes``): local experts and columns, the dispatch plan and the
-balance loss over the global batch, one sum of the partial outputs over
-``expert`` × ``model``.
+(``embed``). Heads, kv heads, mlp columns, the vocabulary and experts
+that do not divide over their axis are whole on every rank, as JAX
+replicates them, and each rank computes its part of them (``part``,
+``head_owners``): the kv heads its own q heads read (``rank_kv``). The
+MoE block runs under the expert, batch, sequence and model axes as JAX's
+GSPMD block does on the global batch (``moe_block``, ``MoEAxes``): local
+experts and columns, the dispatch plan and the balance loss over the
+global batch, one sum of the partial outputs over ``expert`` ×
+``model``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch.distributed as dist
 from kubeflow_tpu_torch.models.config import DecoderConfig, model_axis_of
 from kubeflow_tpu_torch.ops import fused_norm
 from kubeflow_tpu_torch.parallel import collectives as C
+from kubeflow_tpu_torch.parallel.collectives import axis_part, part
 from kubeflow_tpu_torch.ops.attention import multi_head_attention
 from kubeflow_tpu_torch.ops.quantization import QuantizedTensor
 
@@ -201,70 +204,156 @@ def index_layer(lora: Optional[dict], i: int) -> Optional[dict]:
 
 
 # -- Tensor parallelism over the model axis ------------------------------------
+#
+# A dim that JAX splits over ``model`` (or ``expert``) but that does not
+# divide over the axis is replicated there, as JAX's ``shard_params``
+# replicates it: every rank holds the whole leaf. The ranks still share its
+# work: each computes its own part of it (``part``), so the row-parallel
+# sums and the vocab-parallel combine stay as they are, and the leaf's
+# gradient, nonzero on each rank in its part alone, is summed over the axis
+# (``sharding.Placement.partial``).
 
-def _split(whole: int, tp, what: str) -> int:
-    """``whole`` columns of ``what`` over the axis: the rank's count."""
-    if whole % tp.size:
-        raise NotImplementedError(
-            f"{what} {whole} does not divide over model = {tp.size}; the "
-            "port splits heads, mlp columns and the vocabulary evenly "
-            "(ROADMAP.md Queue 1)")
-    return whole // tp.size
+def _narrow(leaf, dim: int, start: int, length: int):
+    if isinstance(leaf, QuantizedTensor):
+        d = dim % leaf.ndim
+        scale = leaf.scale
+        if scale.shape[d] > 1:
+            scale = scale.narrow(d, start, length)
+        return QuantizedTensor(leaf.q.narrow(d, start, length), scale)
+    return leaf.narrow(dim, start, length)
 
 
-def local_heads(cfg: DecoderConfig) -> int:
-    """The q heads this rank computes."""
+def rank_part(leaf, dim: int, whole: int, lo: int, hi: int, what: str):
+    """The part ``[lo, hi)`` of ``dim`` of a leaf that is that part already
+    (the rank's cut of a dim that divides) or whole (a dim replicated
+    because it does not divide, or a leaf never cut)."""
+    n = leaf.shape[dim]
+    if n == hi - lo:
+        return leaf
+    if n != whole:
+        raise ValueError(f"{what}: a leaf of {n} on a rank whose part is "
+                         f"[{lo}, {hi}) of {whole}")
+    return _narrow(leaf, dim, lo, hi - lo)
+
+
+def rank_part_of(leaf, dim: int, whole: int, tp: Optional[C.ModelAxis],
+                 what: str, span: Optional[tuple[int, int]] = None):
+    """``rank_part`` of this rank's ``span`` of ``whole`` over the model
+    axis ``tp`` (its ``axis_part`` by default); the leaf as it is without
+    one. Every leaf that may be cut over ``model`` is read through here."""
+    if tp is None:
+        return leaf
+    return rank_part(leaf, dim, whole, *(span or axis_part(whole, tp)), what)
+
+
+def model_part(whole: int, cfg: DecoderConfig) -> tuple[int, int]:
+    """This rank's part of ``whole`` columns (mlp, vocabulary) over the
+    config's model axis; all of them without one."""
+    return axis_part(whole, model_axis_of(cfg))
+
+
+def rank_cols(leaf, dim: int, whole: int, cfg: DecoderConfig, what: str):
+    """``rank_part_of`` under the config's model axis."""
+    return rank_part_of(leaf, dim, whole, model_axis_of(cfg), what)
+
+
+def head_owners(cfg: DecoderConfig) -> list[tuple[int, int]]:
+    """``[start, stop)`` of the q heads each rank of the model axis
+    computes, in rank order. Heads that divide over the axis are the even
+    split of ``wq``. Heads that do not are whole on every rank, and the
+    ranks share them along GQA groups: whole groups a rank where there are
+    at least as many groups as ranks, else each group's heads shared by
+    the ranks that fall to it, so that a rank's q heads read whole kv
+    heads in order."""
     tp = model_axis_of(cfg)
-    return cfg.n_heads if tp is None else _split(cfg.n_heads, tp, "heads")
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    if tp is None:
+        return [(0, h)]
+    n, g = tp.size, h // k
+    if h % n == 0:
+        return [part(h, r, n) for r in range(n)]
+    if k >= n:
+        return [(g * a, g * b) for a, b in (part(k, r, n) for r in range(n))]
+    out = []
+    for r in range(n):
+        grp = r * k // n
+        mates = [s for s in range(n) if s * k // n == grp]
+        a, b = part(g, mates.index(r), len(mates))
+        out.append((grp * g + a, grp * g + b))
+    return out
 
 
-def local_kv_heads(cfg: DecoderConfig) -> tuple[int, int]:
-    """(first, count) of the kv heads this rank's q heads read: its split
-    of them when they divide over the axis, else the one kv head its
-    group of q heads shares (JAX replicates kv heads that do not divide;
-    the rank's q heads must then lie in one GQA group)."""
+def head_range(cfg: DecoderConfig) -> tuple[int, int]:
+    """This rank's ``head_owners`` entry."""
+    tp = model_axis_of(cfg)
+    return head_owners(cfg)[0 if tp is None else tp.rank]
+
+
+def kv_head_owners(cfg: DecoderConfig) -> list[tuple[int, ...]]:
+    """The kv heads each rank's cache holds, in rank order: the global
+    indices its q heads read (``head_owners``). A rank whose q heads fill
+    their groups in order holds each kv head once (its split of them where
+    they divide); a rank whose q heads split a group unevenly (``wq``
+    split, kv heads whole) holds one kv head per q head, repeated where
+    its q heads share one, and attends as plain multi-head attention."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    out = []
+    for a, b in head_owners(cfg):
+        owners = [q // g for q in range(a, b)]
+        distinct = sorted(set(owners))
+        per = len(owners) // max(len(distinct), 1)
+        if owners == [kv for kv in distinct for _ in range(per)]:
+            out.append(tuple(distinct))
+        else:
+            out.append(tuple(owners))
+    return out
+
+
+def local_kv_heads(cfg: DecoderConfig) -> tuple[int, ...]:
+    """This rank's ``kv_head_owners`` entry (every kv head without a model
+    axis)."""
     tp = model_axis_of(cfg)
     if tp is None:
-        return 0, cfg.n_kv_heads
+        return tuple(range(cfg.n_kv_heads))
     return kv_head_owners(cfg)[tp.rank]
 
 
-def kv_head_owners(cfg: DecoderConfig) -> list[tuple[int, int]]:
-    """``local_kv_heads`` of every rank of the axis, in rank order: the
-    slices are contiguous and ascending, and where kv heads are
-    replicated, neighbouring ranks hold the same one."""
-    tp = model_axis_of(cfg)
-    if tp is None:
-        return [(0, cfg.n_kv_heads)]
-    if cfg.n_kv_heads % tp.size == 0:
-        n = cfg.n_kv_heads // tp.size
-        return [(r * n, n) for r in range(tp.size)]
-    hl, group = local_heads(cfg), cfg.n_heads // cfg.n_kv_heads
-    if group % hl:
-        raise NotImplementedError(
-            f"{cfg.n_kv_heads} kv heads over model = {tp.size}: rank's "
-            f"{hl} q heads span several GQA groups of {group} "
-            "(ROADMAP.md Queue 1)")
-    return [(r * hl // group, 1) for r in range(tp.size)]
+def take_kv_heads(t, dim: int, cfg: DecoderConfig):
+    """This rank's kv heads (``local_kv_heads``) of ``t``, whose ``dim``
+    holds every kv head: a view where they are contiguous and ascending."""
+    heads = local_kv_heads(cfg)
+    if heads == tuple(range(heads[0], heads[0] + len(heads))):
+        return _narrow(t, dim, heads[0], len(heads))
+    idx = torch.tensor(heads, dtype=torch.long, device=t.q.device if
+                       isinstance(t, QuantizedTensor) else t.device)
+    if isinstance(t, QuantizedTensor):
+        d = dim % t.ndim
+        scale = t.scale.index_select(d, idx) if t.scale.shape[d] > 1 \
+            else t.scale
+        return QuantizedTensor(t.q.index_select(d, idx), scale)
+    return t.index_select(dim, idx)
+
+
+def rank_q(w, cfg: DecoderConfig, dim: int = 1):
+    """This rank's q heads of ``wq`` (``dim`` 1) or ``wo`` (``dim`` 0); the
+    leaf as it is without a model axis."""
+    return rank_part_of(w, dim, cfg.n_heads, model_axis_of(cfg), "heads",
+                        head_range(cfg))
 
 
 def rank_kv(w, cfg: DecoderConfig):
     """The kv heads this rank reads of a ``[D, K, Dh]`` leaf: the leaf as
-    it is when it is the rank's split, its slice when it is whole."""
-    first, n = local_kv_heads(cfg)
-    if w.shape[1] == n:
-        return w
-    return w[:, first:first + n]
-
-
-def _check_cut(local: int, whole: int, cfg: DecoderConfig, what: str) -> None:
-    """A column-parallel leaf must be the rank's cut of the columns (a
-    leaf left whole because its dim did not divide would be summed
-    ``model`` times)."""
+    it is when it is the rank's split, its heads when it is whole."""
     tp = model_axis_of(cfg)
-    if tp is not None and local != _split(whole, tp, what):
-        raise ValueError(f"{what}: a leaf of {local} columns on a rank of "
-                         f"model = {tp.size} (whole {whole})")
+    if tp is None:
+        return w
+    k = cfg.n_kv_heads
+    if k % tp.size == 0 and w.shape[1] == k // tp.size:
+        return w
+    if w.shape[1] != k:
+        raise ValueError(f"kv heads: a leaf of {w.shape[1]} on a rank of "
+                         f"model = {tp.size} (whole {k})")
+    return take_kv_heads(w, 1, cfg)
 
 
 # -- Attention block -----------------------------------------------------------
@@ -305,11 +394,8 @@ def attention_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     (JAX's ``q_rope`` and ``k_rope``), v as projected (``v_proj``), each
     with its adapter delta when ``lora`` is given."""
     dt = cfg.activation_dtype
-    tp = model_axis_of(cfg)
-    if tp is not None:
-        _check_cut(p["wq"].shape[1], cfg.n_heads, cfg, "heads")
-        x = C.copy_to_model(x, tp)
-    q = project(x, p["wq"], dt)
+    x = C.copy_to_model(x, model_axis_of(cfg))
+    q = project(x, rank_q(p["wq"], cfg), dt)
     k = project(x, rank_kv(p["wk"], cfg), dt)
     v = project(x, rank_kv(p["wv"], cfg), dt)
     if lora is not None:
@@ -325,7 +411,7 @@ def attention_proj(p: dict, out: torch.Tensor, cfg: DecoderConfig,
     """The attention output [B,S,H,Dh] through ``wo`` (JAX's
     ``attn_out``); under a model axis the rank's heads give a partial sum,
     summed over the axis."""
-    proj = out_project(out, p["wo"], cfg.activation_dtype)
+    proj = out_project(out, rank_q(p["wo"], cfg, 0), cfg.activation_dtype)
     if lora is not None:
         b, s = out.shape[0], out.shape[1]
         proj = apply_lora_layer(lora, "wo", out.reshape(b, s, -1), proj)
@@ -448,16 +534,16 @@ def mlp_block(p: dict, x: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     over the axis (JAX's ``tp_axis`` form)."""
     dt = cfg.activation_dtype
     tp = model_axis_of(cfg)
-    if tp is not None:
-        _check_cut(p["gate"].shape[-1], cfg.mlp_dim, cfg, "mlp")
-        x = C.copy_to_model(x, tp)
-    gate_pre = project(x, p["gate"], dt)
-    up = project(x, p["up"], dt)
+    x = C.copy_to_model(x, tp)
+    m = cfg.mlp_dim
+    gate_pre = project(x, rank_cols(p["gate"], -1, m, cfg, "mlp"), dt)
+    up = project(x, rank_cols(p["up"], -1, m, cfg, "mlp"), dt)
     if fused_kernels_on(cfg, x) and cfg.hidden_act in ("silu", "gelu"):
         h = fused_norm.swiglu_fused(gate_pre, up, act=cfg.hidden_act)
     else:
         h = fused_norm.act_ref(gate_pre, cfg.hidden_act) * up
-    return C.reduce_from_model(project(h, p["down"], dt), tp)
+    return C.reduce_from_model(
+        project(h, rank_cols(p["down"], 0, m, cfg, "mlp"), dt), tp)
 
 
 # -- MoE -----------------------------------------------------------------------
@@ -561,24 +647,27 @@ def _mesh_moe_axes(mesh) -> Optional[MoEAxes]:
 
 def _expert_range(cfg: DecoderConfig,
                   axes: Optional[MoEAxes]) -> tuple[int, int]:
-    """(first, count) of the experts this rank holds."""
+    """(first, count) of the experts this rank computes: its split of them
+    over ``expert``, or its part where they do not divide (``part``)."""
     if axes is None:
         return 0, cfg.num_experts
-    el = cfg.num_experts // axes.experts
-    return axes.expert * el, el
+    lo, hi = part(cfg.num_experts, axes.expert, axes.experts)
+    return lo, hi - lo
 
 
 def _local_experts(p: dict, cfg: DecoderConfig,
-                   axes: Optional[MoEAxes]) -> tuple[int, int]:
-    """``_expert_range``; a leaf that is not the rank's cut of the experts
-    (or, under ``model``, of their columns) raises."""
-    n = 1 if axes is None else axes.experts
-    if p["gate"].shape[0] * n != cfg.num_experts:
-        raise ValueError(f"experts: a leaf of {p['gate'].shape[0]} experts "
-                         f"on a rank of expert = {n} (whole "
-                         f"{cfg.num_experts})")
-    _check_cut(p["gate"].shape[-1], cfg.mlp_dim, cfg, "expert_mlp")
-    return _expert_range(cfg, axes)
+                   axes: Optional[MoEAxes]) -> tuple[dict, tuple[int, int]]:
+    """The block's leaves with ``gate``/``up``/``down`` at this rank's
+    experts and, under ``model``, their columns (each leaf as it is where
+    it is the rank's cut, its part where it is whole), and
+    ``_expert_range``."""
+    first, count = _expert_range(cfg, axes)
+    e, m = cfg.num_experts, cfg.mlp_dim
+    out = dict(p)
+    for name, cols in (("gate", 2), ("up", 2), ("down", 1)):
+        w = rank_part(p[name], 0, e, first, first + count, "experts")
+        out[name] = rank_cols(w, cols, m, cfg, "expert_mlp")
+    return out, (first, count)
 
 
 def moe_block(p: dict, x: torch.Tensor, cfg: DecoderConfig,
@@ -606,7 +695,7 @@ def moe_block(p: dict, x: torch.Tensor, cfg: DecoderConfig,
     axes = moe_axes(cfg, mesh)
     if cfg.moe_impl not in ("dispatch", "dense"):
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}")
-    experts = _local_experts(p, cfg, axes)
+    p, experts = _local_experts(p, cfg, axes)
     logits, topk_w, topk_idx = moe_route(p, x, cfg)
     group = None if axes is None else axes.group
     xin, w = C.copy_to(x, group), C.copy_to(topk_w, group)
@@ -883,19 +972,26 @@ def embed_scale_value(cfg: DecoderConfig) -> float:
 
 def embed(table, tokens: torch.Tensor, cfg: DecoderConfig) -> torch.Tensor:
     """The rows of ``tokens`` in the embedding ``table``, in the activation
-    dtype. Under a model axis ``table`` holds the rank's vocab rows: a
+    dtype (``vocab_rows`` over the config's model axis)."""
+    return vocab_rows(table, tokens, cfg.vocab_size, model_axis_of(cfg),
+                      cfg.activation_dtype)
+
+
+def vocab_rows(table, tokens: torch.Tensor, vocab: int, tp,
+               dt: torch.dtype) -> torch.Tensor:
+    """The rows of ``tokens`` in ``table`` in ``dt``. Under the model axis
+    ``tp`` the table holds the rank's vocab rows (or all ``vocab`` of them
+    where the vocabulary does not divide: the rank reads its ``part``): a
     token outside them reads zero and the ranks' rows are summed over the
     axis (exactly one rank adds a nonzero row, so the sum is the lookup's
     bits)."""
-    dt = cfg.activation_dtype
-    tp = model_axis_of(cfg)
     if tp is None:
         return table[tokens].to(dt)
-    rows = table.shape[0]
-    _check_cut(rows, cfg.vocab_size, cfg, "vocab")
-    local = tokens - tp.rank * rows
-    hit = (local >= 0) & (local < rows)
-    x = table[local.clamp(0, rows - 1)].to(dt) * hit[..., None].to(dt)
+    lo, hi = axis_part(vocab, tp)
+    table = rank_part_of(table, 0, vocab, tp, "vocab")
+    local = tokens - lo
+    hit = (local >= 0) & (local < hi - lo)
+    x = table[local.clamp(0, hi - lo - 1)].to(dt) * hit[..., None].to(dt)
     return C.reduce_from_model(x, tp)
 
 

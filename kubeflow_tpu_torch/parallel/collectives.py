@@ -232,6 +232,18 @@ class ModelAxis:
     size: int
 
 
+def part(whole: int, rank: int, size: int) -> tuple[int, int]:
+    """``[start, stop)`` of rank ``rank``'s part of ``whole`` over ``size``
+    ranks: the even split where it divides, balanced parts otherwise."""
+    return rank * whole // size, (rank + 1) * whole // size
+
+
+def axis_part(whole: int, tp: Optional[ModelAxis]) -> tuple[int, int]:
+    """This rank's ``part`` of ``whole`` over the model axis ``tp``; all of
+    it without one."""
+    return (0, whole) if tp is None else part(whole, tp.rank, tp.size)
+
+
 def model_axis(mesh) -> Optional[ModelAxis]:
     """The ``model`` axis of ``mesh``; None without a mesh or with
     ``model == 1``."""
@@ -271,22 +283,31 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 class _GatherFromModel(torch.autograd.Function):
-    """All-gather along the last dim forward; the backward keeps this
-    rank's columns."""
+    """All-gather along the last dim forward (each rank's block padded to
+    the widest of ``widths``, the padding dropped); the backward keeps
+    this rank's columns."""
 
     @staticmethod
-    def forward(ctx, x, group, rank: int):
-        ctx.rank, ctx.width = rank, x.shape[-1]
-        n = dist.get_world_size(group)
-        xt = x.movedim(-1, 0).contiguous()
-        out = xt.new_empty((n * xt.shape[0], *xt.shape[1:]))
+    def forward(ctx, x, group, rank: int, widths: tuple):
+        lo = sum(widths[:rank])
+        ctx.cols = (lo, lo + widths[rank])
+        n, wide = len(widths), max(widths)
+        xt = x.movedim(-1, 0)
+        if xt.shape[0] < wide:
+            xt = torch.cat([xt, xt.new_zeros((wide - xt.shape[0],
+                                              *xt.shape[1:]))])
+        xt = xt.contiguous()
+        out = xt.new_empty((n * wide, *xt.shape[1:]))
         dist.all_gather_into_tensor(out, xt, group=group)
+        if any(w != wide for w in widths):
+            out = torch.cat([out[r * wide:r * wide + w]
+                             for r, w in enumerate(widths)])
         return out.movedim(0, -1)
 
     @staticmethod
     def backward(ctx, g):
-        w = ctx.width
-        return g[..., ctx.rank * w:(ctx.rank + 1) * w], None, None
+        lo, hi = ctx.cols
+        return g[..., lo:hi], None, None, None
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
@@ -324,13 +345,17 @@ def reduce_from_model(x: torch.Tensor,
     return reduce_from(x, None if tp is None else tp.group)
 
 
-def gather_from_model(x: torch.Tensor,
-                      tp: Optional[ModelAxis]) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, tp: Optional[ModelAxis],
+                      whole: Optional[int] = None) -> torch.Tensor:
     """The ranks' column blocks of the last dim, concatenated in rank order
-    (the serving logits over the whole vocabulary)."""
+    (the serving logits over the whole vocabulary): equal blocks, or with
+    ``whole`` the balanced parts of ``whole`` columns (``part``)."""
     if tp is None:
         return x
-    return _GatherFromModel.apply(x, tp.group, tp.rank)
+    n = tp.size
+    widths = tuple(b - a for a, b in (part(whole, r, n) for r in range(n))) \
+        if whole else (x.shape[-1],) * n
+    return _GatherFromModel.apply(x, tp.group, tp.rank, widths)
 
 
 # -- the pipeline axis ---------------------------------------------------------

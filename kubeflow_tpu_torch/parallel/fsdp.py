@@ -13,14 +13,16 @@ process groups the step needs:
   (``copy_to_model``, ``reduce_from_model``) make each rank's gradient of
   its block whole, so nothing is summed over ``model`` — except a leaf
   that is whole on every model rank because its dim did not divide
-  (GQA's kv heads, ``Placement.partial``), of which each rank reads its
-  own part: its gradient is summed over ``model`` too;
+  (kv or q heads, mlp columns, the vocabulary: ``Placement.partial``),
+  of which each rank computes with its own part: its gradient is summed
+  over ``model`` too;
 - ``expert``: an expert leaf's expert dim stays local (each rank holds
   and updates its own experts); the ranks of one expert group read the
   same batch rows (the batch rule leaves ``expert`` out), and the MoE
   block's conjugate operators over ``expert`` × ``model`` make every
   other gradient whole on each of them, so nothing is summed over
-  ``expert``;
+  ``expert`` — except experts that did not divide (whole on every rank,
+  each computing its part of them, ``Placement.ep_partial``);
 - ``pipeline``: a layer leaf's stacked dim stays local (each stage holds
   and updates its layers, ``parallel/pipeline.py``); the other leaves
   (``embed``, ``final_norm``, ``lm_head``) are whole on every stage and
@@ -120,11 +122,13 @@ class StateLayout(ParamLayout):
     def _sum_axes(p) -> tuple:
         """The axes a leaf's gradient is summed over: the batch and
         ``seq`` axes (``fsdp`` left out where its gathers reduce-scatter),
-        ``model`` for a ``partial`` leaf, ``pipeline`` for a leaf whole
-        on every stage."""
+        ``model`` for a ``partial`` leaf, ``expert`` for an ``ep_partial``
+        one, ``pipeline`` for a leaf whole on every stage."""
         axes = ("dcn", "data", "seq") if p.gather is not None else TOKEN_AXES
         if p.partial:
             axes += (TP_AXIS,)
+        if p.ep_partial:
+            axes += (EP_AXIS,)
         if p.stage is None:
             axes += (PP_AXIS,)
         return axes
@@ -145,10 +149,11 @@ class StateLayout(ParamLayout):
         """Sum each local gradient over the ranks that hold the same block
         (in place): the gathers' backward already reduce-scattered a
         gathered leaf over ``fsdp``; a ``partial`` leaf's parts are summed
-        over ``model`` as well, a leaf whole on every stage over
-        ``pipeline``. Nothing is summed over ``expert``: an expert leaf's
-        block is its rank's alone, and the ranks of one expert group
-        computed every other gradient whole on the same rows."""
+        over ``model`` as well, an ``ep_partial`` one's over ``expert``, a
+        leaf whole on every stage over ``pipeline``. Nothing else is
+        summed over ``expert``: an expert leaf's block is its rank's
+        alone, and the ranks of one expert group computed every other
+        gradient whole on the same rows."""
         for g, p in zip(grads, T.leaves(self.placements)):
             C.all_reduce_(g, self._sum_groups.get(self._sum_axes(p)))
 

@@ -251,25 +251,29 @@ class Placement:
     ``model``, ``ep``, its dim over ``expert``, and ``stage``, its stacked
     layer dim over ``pipeline``, which stay local.
     ``partial``: the logical spec splits a dim over ``model`` but it did
-    not divide, so the leaf is whole on every model rank and each reads
-    its own part of it (the kv heads of GQA); its gradient is then summed
-    over ``model``. None for a dim not split."""
+    not divide, so the leaf is whole on every model rank (as JAX
+    replicates it) and each computes with its own part of it (the kv heads
+    of GQA, heads, mlp columns, the vocabulary; ``collectives.part``): its
+    gradient is then summed over ``model``. ``ep_partial``: likewise for
+    experts that do not divide over ``expert``. None for a dim not
+    split."""
 
     gather: Optional[int] = None
     tp: Optional[int] = None
     partial: bool = False
     ep: Optional[int] = None
     stage: Optional[int] = None
+    ep_partial: bool = False
 
 
 def placement(spec: Spec, sizes: dict[str, int],
               wanted: Optional[Spec] = None) -> Placement:
     """The ``Placement`` of a leaf of ``spec`` on a mesh of ``sizes``;
     ``wanted`` is its spec before ``_drop_nondivisible`` (``partial`` when
-    it names ``model`` and ``spec`` does not). A dim split over ``model``
-    or ``expert`` and another axis at once, two dims over the other axes,
-    or experts that do not divide over ``expert``, raise: a leaf gathers
-    one dim, over one group, and a rank holds its own experts."""
+    it names ``model`` and ``spec`` does not, ``ep_partial`` likewise for
+    ``expert``). A dim split over ``model`` or ``expert`` and another axis
+    at once, or two dims over the other axes, raise: a leaf gathers one
+    dim, over one group."""
     gather, tp, ep, stage = [], [], [], []
     for i, e in enumerate(spec):
         axes = [a for a in _axes(e) if int(sizes.get(a, 1)) > 1]
@@ -286,20 +290,15 @@ def placement(spec: Spec, sizes: dict[str, int],
             f"spec {spec} splits dims {gather} outside {LOCAL_AXES}; a leaf "
             "gathers one dim (ROADMAP.md Queue 1)")
 
-    def on(axis: str, s) -> bool:
-        return any(axis in _axes(e) for e in s or ())
+    def dropped(axis: str) -> bool:
+        def on(s) -> bool:
+            return any(axis in _axes(e) for e in s or ())
 
-    if (int(sizes.get(EP_AXIS, 1)) > 1 and on(EP_AXIS, wanted)
-            and not on(EP_AXIS, spec)):
-        raise NotImplementedError(
-            f"spec {wanted}: the experts do not divide over expert = "
-            f"{sizes[EP_AXIS]}; a rank holds E / expert of them "
-            "(ROADMAP.md Queue 1)")
-    partial = (int(sizes.get(TP_AXIS, 1)) > 1 and on(TP_AXIS, wanted)
-               and not on(TP_AXIS, spec))
+        return int(sizes.get(axis, 1)) > 1 and on(wanted) and not on(spec)
+
     return Placement(gather[0] if gather else None, tp[0] if tp else None,
-                     partial, ep[0] if ep else None,
-                     stage[0] if stage else None)
+                     dropped(TP_AXIS), ep[0] if ep else None,
+                     stage[0] if stage else None, dropped(EP_AXIS))
 
 
 class ParamLayout:

@@ -1,7 +1,8 @@
 """Megatron's vocab-parallel cross-entropy over the ``model`` axis.
 
-Each rank holds the head's columns ``[v0, v0 + V/tp)``. Per row it
-computes its shard's lse, picked logit, row max and correct
+Each rank holds the head's columns ``[v0, v0 + V/tp)`` (or its part of a
+whole head whose vocabulary does not divide, ``collectives.part``). Per
+row it computes its shard's lse, picked logit, row max and correct
 (``fused_xent.shard_stats`` on kernel 9 with the targets shifted by
 ``v0``, where a target outside the shard picks nothing; ``logit_stats``
 on logits); one all-gather brings every rank's rows, and
@@ -85,16 +86,20 @@ class VocabParallelCEFn(torch.autograd.Function):
 
 def fused_ce(hidden: torch.Tensor, head: torch.Tensor,
              targets: torch.Tensor, tp, *,
-             logits_softcap: Optional[float] = None):
+             logits_softcap: Optional[float] = None,
+             offset: Optional[int] = None):
     """``fused_xent.fused_cross_entropy`` with ``head`` this rank's vocab
-    columns ``[D, V/tp]`` of the model axis ``tp``; ``hidden`` is whole on
-    every rank. ``(nll, correct)``, fp32 with ``targets``' shape."""
+    columns ``[D, V/tp]`` of the model axis ``tp`` (from ``offset``, by
+    default ``rank · V/tp``; a vocabulary that does not divide gives the
+    ranks parts of unequal widths); ``hidden`` is whole on every rank.
+    ``(nll, correct)``, fp32 with ``targets``' shape."""
     d = hidden.shape[-1]
     if head.dim() != 2 or head.shape[0] != d:
         raise ValueError(f"head {tuple(head.shape)} does not match hidden "
                          f"dim {d}")
     h2 = C.copy_to_model(hidden, tp).reshape(-1, d).contiguous()
-    local = (targets.reshape(-1) - tp.rank * head.shape[1]).to(
+    v0 = tp.rank * head.shape[1] if offset is None else offset
+    local = (targets.reshape(-1) - v0).to(
         torch.int32).contiguous()
     nll, correct = VocabParallelCEFn.apply(
         h2, head.contiguous(), local,
@@ -122,13 +127,16 @@ class _VocabParallelLogitsCE(torch.autograd.Function):
         return dl, None, None
 
 
-def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, tp):
+def vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, tp,
+                      offset: Optional[int] = None):
     """``(nll, correct)``, fp32 with ``targets``' shape, from this rank's
-    logits ``[..., V/tp]`` (columns ``[rank · V/tp, ...)`` of the
-    vocabulary) and the global ``targets``: local statistics, all-gathered
-    over the axis and combined (``combine_shards``)."""
+    logits ``[..., V/tp]`` (columns ``[offset, ...)`` of the vocabulary,
+    by default ``rank · V/tp``) and the global ``targets``: local
+    statistics, all-gathered over the axis and combined
+    (``combine_shards``)."""
     v = logits.shape[-1]
-    local = (targets.reshape(-1) - tp.rank * v).long()
+    local = (targets.reshape(-1) - (tp.rank * v if offset is None
+                                    else offset)).long()
     nll, correct = _VocabParallelLogitsCE.apply(
         logits.reshape(-1, v).float(), local, tp.group)
     return nll.reshape(targets.shape), correct.reshape(targets.shape)

@@ -93,7 +93,8 @@ Design (what carries over, and what eager PyTorch changes):
 - **Tensor parallelism** (``mesh`` with a ``model`` axis, one process
   per card): every rank builds the engine on its shards — weights cut by
   the training rules (``decoder_param_specs``; heads, mlp columns and
-  vocab over ``model``, kv heads that do not divide whole on every rank),
+  vocab over ``model``, a dim that does not divide whole on every rank,
+  each rank computing its part: ``layers.head_owners``),
   KV caches and page pools (bf16 or int8 with their scales) on the kv
   heads its q heads read — and the layers run Megatron's split
   (``models/layers.py``): the flash prefill and the paged-decode kernel
@@ -277,7 +278,7 @@ def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
     add an exact zero)."""
     dt = cfg.activation_dtype
     h = L.rmsnorm(x, bp["ln1"], cfg)
-    q = L.project(h, bp["attn"]["wq"], dt)
+    q = L.project(h, L.rank_q(bp["attn"]["wq"], cfg), dt)
     k = L.project(h, L.rank_kv(bp["attn"]["wk"], cfg), dt)
     v = L.project(h, L.rank_kv(bp["attn"]["wv"], cfg), dt)
     if lora is not None:
@@ -294,7 +295,7 @@ def _decode_block(bp, x, positions, lengths, live, cache_k, cache_v,
     cache_k[bidx, widx] = torch.where(keep, k[:, 0], cache_k[bidx, widx])
     cache_v[bidx, widx] = torch.where(keep, v[:, 0], cache_v[bidx, widx])
     attn = _decode_attention(q, cache_k, cache_v, lengths, cfg)
-    proj = L.out_project(attn, bp["attn"]["wo"], dt)
+    proj = L.out_project(attn, L.rank_q(bp["attn"]["wo"], cfg, 0), dt)
     if lora is not None:
         proj = L.apply_lora_layer(
             lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
@@ -379,7 +380,7 @@ def _prefill_step(params: Params, cache: dict, tokens: torch.Tensor,
     lets the flash kernel apply), copies the K/V into the slot rows. Each
     row's pads past its length claim no MoE expert capacity."""
     n, bucket = tokens.shape
-    shape = (cfg.n_layers, n, bucket, L.local_kv_heads(cfg)[1], cfg.head_dim)
+    shape = (cfg.n_layers, n, bucket, len(L.local_kv_heads(cfg)), cfg.head_dim)
     scratch = {
         "k": torch.zeros(shape, dtype=cfg.activation_dtype,
                          device=tokens.device),
@@ -856,9 +857,8 @@ def _upload_slot(cache: dict, slot: int, blocks: dict,
     """A contiguous slot's first positions ``<- blocks[name]`` (``[L, n,
     KV, Dh]`` with the whole model's kv heads, on the cache's device and
     dtype), each rank keeping its kv heads: a handoff adoption's write."""
-    first, kv = L.local_kv_heads(cfg)
     for name, blk in blocks.items():
-        cache[name][:, slot, :blk.shape[1]] = blk.narrow(2, first, kv)
+        cache[name][:, slot, :blk.shape[1]] = L.take_kv_heads(blk, 2, cfg)
     return cache
 
 
@@ -929,7 +929,7 @@ class LLMEngine:
             with_model_axis(cfg, tp), b)
         # The explainers' config: the dense MoE path (serve/explain.py).
         self._cfg_explain = attribution_cfg(with_model_axis(cfg, tp))
-        self._kv_heads = L.local_kv_heads(self._cfg_decode)[1]
+        self._kv_heads = len(L.local_kv_heads(self._cfg_decode))
         check_quantize(b.quantize)
         if b.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"unknown kv_cache_dtype {b.kv_cache_dtype!r}; "

@@ -329,7 +329,7 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
 
     dt = cfg.activation_dtype
     h = L.rmsnorm(x, bp["ln1"], cfg)
-    q = L.project(h, bp["attn"]["wq"], dt)
+    q = L.project(h, L.rank_q(bp["attn"]["wq"], cfg), dt)
     k = L.project(h, L.rank_kv(bp["attn"]["wk"], cfg), dt)
     v = L.project(h, L.rank_kv(bp["attn"]["wv"], cfg), dt)
     if lora is not None:
@@ -365,7 +365,7 @@ def _paged_decode_block(bp, x, positions, lengths, live, pool_k, pool_v,
             attn = _decode_attention(q, paged_gather(pool_k, table),
                                      paged_gather(pool_v, table), lengths,
                                      cfg)
-    proj = L.out_project(attn, bp["attn"]["wo"], dt)
+    proj = L.out_project(attn, L.rank_q(bp["attn"]["wo"], cfg, 0), dt)
     if lora is not None:
         proj = L.apply_lora_layer(
             lora, "wo", attn.reshape(attn.shape[0], 1, -1), proj)
@@ -468,12 +468,11 @@ def upload_pages(cache: dict, blocks: dict, ids: torch.Tensor,
     (``local_kv_heads``) — handoff adoption's and host-tier promotion's
     scatter. Ids outside the real pages (the power-of-two padding) land on
     the sink page."""
-    first, n = L.local_kv_heads(cfg)
     for name, blk in blocks.items():
         pool = cache[name]
         sink = pool.shape[1] - 1
         d = torch.where((ids >= 0) & (ids < sink), ids, sink).long()
-        pool[:, d] = blk.narrow(3, first, n)
+        pool[:, d] = L.take_kv_heads(blk, 3, cfg)
     return cache
 
 

@@ -181,30 +181,41 @@ def gather_kv_heads(cfg, planes: list[torch.Tensor], axis: int
                     ) -> Optional[list[torch.Tensor]]:
     """``planes`` (this rank's kv heads on dim ``axis``) with the whole
     model's kv heads, on the leader of ``cfg``'s model axis: every rank's
-    bytes in one ``gather`` over the axis's group (NCCL on the cards, gloo
-    on the CPU), each head taken from its first owner
-    (``layers.kv_head_owners``), so a kv head replicated on several ranks
-    is taken once. None on the other ranks; ``planes`` themselves without
-    an axis. Every rank of the axis calls it at the same point of the op
-    stream: inside a dispatched op."""
+    bytes (padded to the largest rank's) in one ``gather`` over the axis's
+    group (NCCL on the cards, gloo on the CPU), each head taken from its
+    first owner (``layers.kv_head_owners``), so a kv head held on several
+    ranks, or twice on one, is taken once. None on the other ranks;
+    ``planes`` themselves without an axis. Every rank of the axis calls it
+    at the same point of the op stream: inside a dispatched op."""
     tp = model_axis_of(cfg)
     if tp is None:
         return planes
-    metas = [(tuple(t.shape), t.dtype) for t in planes]
+    owners = kv_head_owners(cfg)
+
+    def metas_of(heads: tuple) -> list:
+        return [(tuple(len(heads) if d == axis else n
+                       for d, n in enumerate(t.shape)), t.dtype)
+                for t in planes]
+
+    size = max(sum(_nbytes(m) for m in metas_of(h)) for h in owners)
     buf = torch.cat([_raw(t) for t in planes])
+    if buf.numel() < size:
+        buf = torch.cat([buf, buf.new_zeros(size - buf.numel())])
     parts = ([torch.empty_like(buf) for _ in range(tp.size)]
              if tp.rank == 0 else None)
     dist.gather(buf, parts, dst=dist.get_process_group_ranks(tp.group)[0],
                 group=tp.group)
     if parts is None:
         return None
-    keep, seen = [], 0
-    for part, (first, count) in zip(parts, kv_head_owners(cfg)):
-        if first == seen:
-            keep.append(_split_raw(part, metas))
-            seen += count
-    return [torch.cat([p[i] for p in keep], dim=axis)
-            for i in range(len(planes))]
+    got = [_split_raw(p, metas_of(h)) for p, h in zip(parts, owners)]
+    pick = {}
+    for r, heads in enumerate(owners):
+        for i, kv in enumerate(heads):
+            pick.setdefault(kv, (r, i))
+    return [torch.cat([got[r][j].narrow(axis, i, 1)
+                       for r, i in (pick[kv] for kv in sorted(pick))],
+                      dim=axis)
+            for j in range(len(planes))]
 
 
 def _nbytes(meta) -> int:

@@ -31,7 +31,12 @@ def _metrics_path(ctx: WorkerContext):
 def vision_train(ctx: WorkerContext) -> int:
     """ViT classification / CLIP contrastive training. Config:
     {"family": "vit"|"clip", "model": preset, "steps", "batch",
-    "optimizer": {...}, "model_overrides": {...}, "log_every"}."""
+    "optimizer": {...}, "model_overrides": {...}, "log_every"}. A CLIP
+    config's ``model_overrides`` may hold ``"image": {...}``, fields of
+    its image tower (the ``dtype`` of the CLIP config itself reaches the
+    text tower alone, as in JAX)."""
+    import dataclasses
+
     from kubeflow_tpu_torch.models.vision import clip_preset, vit_preset
     from kubeflow_tpu_torch.train.metrics import MetricsEmitter
     from kubeflow_tpu_torch.train.optim import OptimizerConfig
@@ -52,7 +57,11 @@ def vision_train(ctx: WorkerContext) -> int:
         task = setup_vit_train(mcfg, opt, device=ctx.device, mesh=mesh)
         batch_fn = lambda step: vit_batch(mcfg, batch, step)  # noqa: E731
     elif family == "clip":
+        image = overrides.pop("image", None)
         mcfg = clip_preset(cfg.get("model", "tiny-clip"), **overrides)
+        if image:
+            mcfg = dataclasses.replace(
+                mcfg, image=dataclasses.replace(mcfg.image, **image))
         task = setup_clip_train(mcfg, opt, device=ctx.device, mesh=mesh)
         batch_fn = lambda step: clip_batch(mcfg, batch, step)  # noqa: E731
     else:

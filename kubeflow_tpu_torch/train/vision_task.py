@@ -8,11 +8,18 @@ state's tensors in place. The synthetic data sources are the JAX
 package's, bit for bit: numpy, seeded by step, with learnable structure
 so that "loss decreases" is a real signal.
 
-Under a mesh (the ``dcn``, ``data`` and ``fsdp`` axes; vision has no
-sequence split) the state is sharded as the decoder's
-(``parallel/fsdp.py``): each rank draws the whole init, keeps its shards,
-takes its rows of each global batch, and sums its gradients with the
-other ranks'.
+Under a mesh the state is sharded as the decoder's (``parallel/fsdp.py``):
+each rank draws the whole init and keeps its shards (heads, mlp columns,
+classes and the text vocabulary over ``model``, the hidden dim over
+``fsdp``; a dim that does not divide is whole, as JAX replicates it), takes
+its rows of each global batch (over ``dcn``, ``data`` and ``fsdp``: the
+``seq``, ``model``, ``expert`` and ``pipeline`` ranks of a batch shard
+read the same rows), runs the loss on its part of the work
+(``models/vision.VisionAxes``: its positions over ``seq``, its heads and
+columns over ``model``), and sums its gradients with the ranks that hold
+the same block (over the batch axes and ``seq``; a leaf whole on every
+model rank over ``model`` too; ``pipeline``, which no vision leaf names,
+like ``seq`` by its ranks' 1/copies parts of the loss).
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ from kubeflow_tpu_torch.models.vision import (
 )
 from kubeflow_tpu_torch.parallel.collectives import GatheredParams
 from kubeflow_tpu_torch.parallel.fsdp import StateLayout, batch_index
-from kubeflow_tpu_torch.parallel.sharding import mesh_shape
 from kubeflow_tpu_torch.train import tree as T
 from kubeflow_tpu_torch.train.optim import (
     OptimizerConfig, apply_optimizer, make_optimizer,
@@ -54,20 +60,10 @@ def _setup(cfg, init_fn, specs_fn, loss_fn, opt_cfg: OptimizerConfig,
     dev = resolve_device(device)
     optimizer = make_optimizer(opt_cfg)
     params = init_fn(torch.Generator(dev).manual_seed(seed), cfg)
-    layout = batch_group = None
+    layout = None
     if mesh is not None:
-        if mesh_shape(mesh).get("seq", 1) > 1:
-            raise NotImplementedError(
-                "vision training splits the batch, not the sequence: a seq "
-                "axis above 1 is not supported (ROADMAP.md Queue 1 item 9)")
-        if mesh_shape(mesh).get("model", 1) > 1:
-            raise NotImplementedError(
-                "vision training under a model axis above 1: tensor "
-                "parallelism of the ViT and CLIP blocks is not ported "
-                "(ROADMAP.md Queue 1 item 9f)")
         layout = StateLayout(mesh, specs_fn(cfg), params)
         params = layout.cut(params)
-        batch_group = layout.token_group
     shard, dp = batch_index(mesh)
     state = trainable({"params": params, "opt_state": optimizer.init(params),
                        "step": 0})
@@ -86,7 +82,7 @@ def _setup(cfg, init_fn, specs_fn, loss_fn, opt_cfg: OptimizerConfig,
             on_dev[k] = t.to(dev)
         view = params if layout is None else GatheredParams(
             params, layout.dims, layout.fsdp_group)
-        loss, metrics = loss_fn(view, on_dev, cfg, batch_group)
+        loss, metrics = loss_fn(view, on_dev, cfg, mesh=mesh)
         grads = torch.autograd.grad(loss, T.leaves(params))
         gnorm = None
         if layout is not None:

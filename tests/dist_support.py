@@ -96,14 +96,18 @@ def _one_process_vision_loss(conf: dict) -> float:
     from kubeflow_tpu_torch.train.optim import OptimizerConfig
 
     family = conf["family"]
+    over = dict(conf["model_overrides"])
+    image = over.pop("image", None)
     preset_fn = V.vit_preset if family == "vit" else V.clip_preset
-    mcfg = preset_fn(conf["model"], **conf["model_overrides"])
+    mcfg = preset_fn(conf["model"], **over)
+    if image:
+        mcfg = dataclasses.replace(
+            mcfg, image=dataclasses.replace(mcfg.image, **image))
     setup = VT.setup_vit_train if family == "vit" else VT.setup_clip_train
     batch_fn = VT.vit_batch if family == "vit" else VT.clip_batch
-    with one_thread():
-        task = setup(mcfg, OptimizerConfig(total_steps=2, warmup_steps=0),
-                     device="cpu")
-        _, m = task.step_fn(task.state, batch_fn(mcfg, conf["batch"], 0))
+    task = setup(mcfg, OptimizerConfig(total_steps=2, warmup_steps=0),
+                 device="cpu")
+    _, m = task.step_fn(task.state, batch_fn(mcfg, conf["batch"], 0))
     return float(m["loss"])
 
 
@@ -1136,4 +1140,188 @@ def pipeline_suite(ctx) -> int:
         out[name] = rec
     L.dispatch_plan = plan_of
     torch.save(out, base / f"rank{rank}.pt")
+    return 0
+
+
+# -- vision on a mesh ---------------------------------------------------------
+
+#: world → name → (mesh axes, family) of the vision suite: ``tiny-vit``
+#: and ``tiny-clip`` in fp32 (tiny-vit's 10 classes do not divide over
+#: ``{model: 4}``: its head is whole on every rank; 17 image tokens over
+#: ``{seq: 2}`` split unevenly, 9 and 8; the text's 16 evenly), the
+#: ``pipeline`` and ``expert`` axes, which no vision leaf names, and JAX's
+#: own ViT test mesh as one 8-rank gang.
+VISION_CASES = {
+    2: {f"{m}-{f}": (axes, f) for m, axes in (
+        ("model2", {"model": 2}), ("seq2", {"seq": 2}))
+        for f in ("vit", "clip")},
+    4: {f"{m}-{f}": (axes, f) for m, axes, fams in (
+        ("model4", {"model": 4}, ("vit", "clip")),
+        ("data2_model2", {"data": 2, "model": 2}, ("vit", "clip")),
+        ("fsdp2_seq2", {"fsdp": 2, "seq": 2}, ("vit", "clip")),
+        ("model2_seq2", {"model": 2, "seq": 2}, ("vit", "clip")),
+        ("pipeline2_model2", {"pipeline": 2, "model": 2}, ("vit",)),
+        ("expert2_seq2", {"expert": 2, "seq": 2}, ("clip",)))
+        for f in fams},
+    8: {"data2_fsdp2_model2-vit": ({"data": 2, "fsdp": 2, "model": 2},
+                                   "vit")},
+}
+#: The global batch of every vision case, and the steps of its run.
+VISION_BATCH = 8
+VISION_STEPS = 2
+#: SGD, as tests/test_torch_vision.py's one-step check (Adam's first step
+#: is sign-like on gradients near fp32 noise).
+VISION_OPT = dict(name="sgd", learning_rate=1e-3, warmup_steps=0,
+                  total_steps=4)
+
+
+def vision_cfg(family: str):
+    """``tiny-vit`` or ``tiny-clip`` in fp32."""
+    from kubeflow_tpu_torch.models import vision as V
+
+    if family == "vit":
+        return V.vit_preset("tiny-vit", dtype="float32")
+    base = V.clip_preset("tiny-clip")
+    return dataclasses.replace(base, image=dataclasses.replace(
+        base.image, dtype="float32"), dtype="float32")
+
+
+def vision_suite(ctx) -> int:
+    """Each ``VISION_CASES`` mesh of the gang's world size: this rank's
+    loss, metrics and synced gradients of the family's loss on the task's
+    init (drawn whole from seed 0 on every rank, then cut) and the global
+    batch of step 0 (its rows), then ``VISION_STEPS`` steps of the task
+    (metrics, and its params after them), with the leaves' specs and this
+    rank's coordinates."""
+    import torch
+
+    from kubeflow_tpu_torch.models import vision as V
+    from kubeflow_tpu_torch.parallel.collectives import GatheredParams
+    from kubeflow_tpu_torch.parallel.fsdp import batch_index
+    from kubeflow_tpu_torch.runtime.mesh import build_mesh
+    from kubeflow_tpu_torch.train import tree as T
+    from kubeflow_tpu_torch.train import vision_task as VT
+    from kubeflow_tpu_torch.train.optim import OptimizerConfig
+
+    torch.set_num_threads(1)
+    ctx.mesh                                   # join the world
+    rank, world = ctx.env.process_id, ctx.env.num_processes
+    base = Path(ctx.config["out"])
+    out = {}
+    for name, (axes, family) in VISION_CASES[world].items():
+        mesh = build_mesh(axes, "cpu")
+        cfg = vision_cfg(family)
+        setup = VT.setup_vit_train if family == "vit" else \
+            VT.setup_clip_train
+        batch_fn = VT.vit_batch if family == "vit" else VT.clip_batch
+        loss_fn = V.vit_loss if family == "vit" else V.clip_loss
+        task = setup(cfg, OptimizerConfig(**VISION_OPT), device="cpu",
+                     mesh=mesh)
+        params = task.state["params"]
+        layout = task.layout
+        rec = {"specs": T.flatten(layout.specs), "coords": layout.coords}
+        idx, dp = batch_index(mesh)
+        rows = VISION_BATCH // dp
+        batch = {k: torch.from_numpy(v[idx * rows:(idx + 1) * rows])
+                 for k, v in batch_fn(cfg, VISION_BATCH, 0).items()}
+        loss, m = loss_fn(GatheredParams(params, layout.dims,
+                                         layout.fsdp_group), batch, cfg,
+                          mesh=mesh)
+        grads = list(torch.autograd.grad(loss, T.leaves(params)))
+        layout.sync_grads(grads)
+        rec["metrics"] = {k: float(v) for k, v in m.items()}
+        rec["grads"] = T.unflatten(dict(zip(T.flatten(params), grads)))
+        rec["steps"] = []
+        for step in range(VISION_STEPS):
+            task.state, m = task.step_fn(
+                task.state, batch_fn(cfg, VISION_BATCH, step))
+            rec["steps"].append({k: float(v) for k, v in m.items()})
+        rec["params"] = T.map_tree(lambda t: t.detach().clone(),
+                                   task.state["params"])
+        out[name] = rec
+    torch.save(out, base / f"rank{rank}.pt")
+    return 0
+
+
+# -- dims that do not divide ---------------------------------------------------
+
+#: world → name → (preset, overrides, mesh axes) of the non-divisible
+#: suite: tiny on ``{model: 3}`` (4 heads, 2 kv heads, 128 mlp columns and
+#: 256 tokens of vocabulary, none of which divides by 3), 6 heads and 3 kv
+#: heads on ``{model: 2}`` (the heads split, a rank's three q heads read
+#: two kv heads unevenly), and tiny-moe's 4 experts on ``{expert: 3}``.
+NONDIV_CASES = {
+    3: {"tiny-model3": ("tiny", {}, {"model": 3}),
+        "moe-expert3": ("tiny-moe", {}, {"expert": 3})},
+    2: {"h6kv3-model2": ("tiny", {"n_heads": 6, "n_kv_heads": 3},
+                         {"model": 2})},
+}
+#: The TP engine layouts each dense case serves.
+NONDIV_ENGINES = ("contiguous", "paged")
+
+
+def nondiv_cfg(name: str, world: int):
+    from kubeflow_tpu_torch.models.config import preset
+
+    p, over, _ = NONDIV_CASES[world][name]
+    return preset(p, dtype="float32", **over)
+
+
+def nondiv_suite(ctx) -> int:
+    """Each ``NONDIV_CASES`` case of the gang's world size, from the whole
+    params in ``config["params"]`` (a torch save: name → tree): this
+    rank's ``decoder_loss`` metrics and synced gradients on ``tp_tokens``
+    (dispatch and, for MoE, dense), with specs and coordinates; for a
+    dense case, a TP engine of each ``NONDIV_ENGINES`` layout on this
+    rank's shards: rank 0's greedy completions of ``TP_PROMPTS``."""
+    import dataclasses
+
+    import torch
+
+    from kubeflow_tpu_torch.core.serving import BatchingSpec
+    from kubeflow_tpu_torch.models.decoder import (
+        decoder_layout, decoder_loss, decoder_param_specs,
+    )
+    from kubeflow_tpu_torch.parallel.fsdp import StateLayout
+    from kubeflow_tpu_torch.runtime.mesh import build_mesh
+    from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.train import tree as T
+
+    torch.set_num_threads(1)
+    ctx.mesh                                   # join the world
+    rank, world = ctx.env.process_id, ctx.env.num_processes
+    whole = torch.load(ctx.config["params"])
+    out = {}
+    for name, (_, _, axes) in NONDIV_CASES[world].items():
+        mesh = build_mesh(axes, "cpu")
+        cfg = nondiv_cfg(name, world)
+        layout = StateLayout(mesh, decoder_param_specs(cfg), whole[name])
+        params = T.map_tree(lambda t: t.detach().clone().requires_grad_(
+            True), layout.cut(whole[name]))
+        rec = {"specs": T.flatten(layout.specs), "coords": layout.coords}
+        impls = ("dispatch", "dense") if cfg.is_moe else ("dispatch",)
+        for impl in impls:
+            c = dataclasses.replace(cfg, moe_impl=impl)
+            loss, m = decoder_loss(params, torch.from_numpy(tp_tokens()), c,
+                                   mesh=mesh, placements=layout.dims)
+            grads = list(torch.autograd.grad(loss, T.leaves(params)))
+            layout.sync_grads(grads)
+            rec[impl] = {k: float(m[k]) for k in ("ce_loss", "accuracy",
+                                                   "aux_loss") if k in m}
+            rec[impl]["grads"] = T.unflatten(dict(zip(T.flatten(params),
+                                                      grads)))
+        if not cfg.is_moe:
+            shards = decoder_layout(cfg, mesh).cut(whole[name])
+            for eng_name in NONDIV_ENGINES:
+                eng = LLMEngine(cfg, BatchingSpec(
+                    **TP_ENGINE_CASES[eng_name]), params=shards,
+                    device="cpu", mesh=mesh, seed=3)
+                if rank == 0:
+                    rec[eng_name] = [eng.generate(p, SamplingParams(
+                        max_new_tokens=10)) for p in TP_PROMPTS]
+                    eng.stop()
+                else:
+                    eng.follow()
+        out[name] = rec
+    torch.save(out, Path(ctx.config["out"]) / f"rank{rank}.pt")
     return 0

@@ -22,6 +22,7 @@ from kubeflow_tpu_torch.pipelines import artifacts as tart  # noqa: E402
 from kubeflow_tpu_torch.serve.storage import load_params  # noqa: E402
 from kubeflow_tpu_torch.train import tree as T  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 STORES = {"jax": jart.ArtifactStore, "port": tart.ArtifactStore}
 DIRECTIONS = [("jax", "port"), ("port", "jax")]

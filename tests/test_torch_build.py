@@ -7,6 +7,7 @@ computed."""
 import pytest
 
 from kubeflow_tpu_torch.ops import _build
+from port_threads import torch_on_one_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -29,6 +29,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
 from kubeflow_tpu_torch.serve.faults import ChaosProxy, kill_model_server
 from kubeflow_tpu_torch.serve.router import Router
 from kubeflow_tpu_torch.serve.server import ModelServer
+from port_threads import torch_on_one_thread  # noqa: F401
 
 CFG = preset("tiny", vocab_size=512, dtype="float32")   # byte tokenizer fits
 SPEC = dict(max_batch_size=2, max_seq_len=96, prefill_buckets=[32],

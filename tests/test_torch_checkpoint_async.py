@@ -42,6 +42,7 @@ from kubeflow_tpu_torch.train import data as tdata
 from kubeflow_tpu_torch.train import tree as T
 from kubeflow_tpu_torch.train.survival import EXIT_PREEMPTED
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+from port_threads import torch_on_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

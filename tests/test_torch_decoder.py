@@ -23,6 +23,7 @@ from kubeflow_tpu.models import decoder as jdec  # noqa: E402
 from kubeflow_tpu_torch.models import config as tconfig  # noqa: E402
 from kubeflow_tpu_torch.models import decoder as tdec  # noqa: E402
 from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOL = 1e-4
 

@@ -36,7 +36,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from dist_support import (  # noqa: E402
     CKPT_CASE, ENTRY_CONFIGS, STEPS, TRAIN_CASES, check_gang, entry_dirs,
-    finish, one_thread, spawn_gang, train_config, whole_tree,
+    finish, spawn_gang, train_config, whole_tree,
 )
 from kubeflow_tpu.runtime.mesh import build_mesh as jax_mesh  # noqa: E402
 from kubeflow_tpu.train import data as jdata  # noqa: E402
@@ -63,6 +63,7 @@ from kubeflow_tpu_torch.train.step import setup_train  # noqa: E402
 from kubeflow_tpu_torch.train.trainer import (  # noqa: E402
     Trainer, TrainerConfig,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 CASES = list(TRAIN_CASES)
 
@@ -136,16 +137,15 @@ def gang(tmp_path_factory):
                        [out / f"w{r}" for r in range(4)],
                        parallelism={"fsdp": 4})
     try:
-        with one_thread():
-            task = setup_train(preset("tiny", dtype="float32"),
-                               OptimizerConfig(), device="cpu")
-            init = T.map_tree(lambda t: t.detach().clone(), task.params)
-            init_np = T.map_tree(lambda t: t.numpy(), init)
-            refs = {}
-            for name, (axes, attn, fused) in TRAIN_CASES.items():
-                refs[name] = {"jax": _jax_run(axes, init_np),
-                              "port": _port_run(axes, attn, fused,
-                                                out / f"one-{name}")}
+        task = setup_train(preset("tiny", dtype="float32"),
+                           OptimizerConfig(), device="cpu")
+        init = T.map_tree(lambda t: t.detach().clone(), task.params)
+        init_np = T.map_tree(lambda t: t.numpy(), init)
+        refs = {}
+        for name, (axes, attn, fused) in TRAIN_CASES.items():
+            refs[name] = {"jax": _jax_run(axes, init_np),
+                          "port": _port_run(axes, attn, fused,
+                                            out / f"one-{name}")}
     finally:
         res = finish(procs)
     for r, (rc, _, err) in enumerate(res):

@@ -31,6 +31,7 @@ from kubeflow_tpu_torch.serve import engine as E  # noqa: E402
 from kubeflow_tpu_torch.serve.device_state import (  # noqa: E402
     DEAD_SLOT, STATE_FIELDS, DecodeState,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 # Prompts of tests/test_serve_engine.py (its single-request and
 # interleaved cases).

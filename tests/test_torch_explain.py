@@ -27,6 +27,7 @@ from kubeflow_tpu_torch.serve.explain import (  # noqa: E402
     build_explainer, grad_x_input, leave_one_out,
 )
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOKENS = [5, 17, 3, 99, 42, 7]
 EXPLAINERS = {"grad_x_input": grad_x_input, "leave_one_out": leave_one_out}

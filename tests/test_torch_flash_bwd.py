@@ -19,6 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from kubeflow_tpu.ops import flash_attention as jflash  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as F  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 CASES = [(kh, s, d, cap, impl)

@@ -29,6 +29,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine
 from kubeflow_tpu_torch.serve.faults import ChaosProxy, kill_model_server
 from kubeflow_tpu_torch.serve.router import Router
 from kubeflow_tpu_torch.serve.server import ModelServer
+from port_threads import torch_on_one_thread  # noqa: F401
 
 CFG = preset("tiny", vocab_size=512, dtype="float32")   # byte tokenizer fits
 TURN1 = "fleet failover: the conversation must survive the host"

@@ -44,6 +44,7 @@ from kubeflow_tpu_torch.ops import fused_norm as tnorm  # noqa: E402
 from kubeflow_tpu_torch.ops import fused_xent as txent  # noqa: E402
 from kubeflow_tpu_torch.train import step as tstep  # noqa: E402
 from kubeflow_tpu_torch.train import tree as T  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 

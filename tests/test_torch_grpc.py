@@ -32,6 +32,7 @@ from kubeflow_tpu_torch.serve.grpc_server import (  # noqa: E402
 )
 from kubeflow_tpu_torch.serve.protos import oip_pb2 as pb  # noqa: E402
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 SPEC = dict(max_batch_size=2, max_seq_len=96, prefill_buckets=[16, 32])
 

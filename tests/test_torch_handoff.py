@@ -38,6 +38,7 @@ from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.serve import handoff as thandoff  # noqa: E402
 from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams  # noqa: E402
 from kubeflow_tpu_torch.serve.handoff import HandoffPayload  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 JCFG = jconfig.preset("tiny", vocab_size=512, dtype="float32")
 CFG = tconfig.preset("tiny", vocab_size=512, dtype="float32")

@@ -21,6 +21,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from port_threads import torch_on_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "kubeflow_tpu_torch"

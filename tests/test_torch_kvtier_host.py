@@ -29,6 +29,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
 from kubeflow_tpu_torch.serve.handoff import pages_from_wire, pages_to_wire
 from kubeflow_tpu_torch.serve.kvtier import RadixPrefixIndex
 from kubeflow_tpu_torch.serve.paged import PageAllocator
+from port_threads import torch_on_one_thread  # noqa: F401
 
 PG = 4
 

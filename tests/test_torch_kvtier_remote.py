@@ -31,6 +31,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
 from kubeflow_tpu_torch.serve.faults import ChaosStore
 from kubeflow_tpu_torch.serve.kvtier import RadixPrefixIndex
 from kubeflow_tpu_torch.serve.paged import PageAllocator
+from port_threads import torch_on_one_thread  # noqa: F401
 
 PG = 4
 SIG = "L2.H1.D2.P4.full"

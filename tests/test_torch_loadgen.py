@@ -26,6 +26,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine  # noqa: E402
 from kubeflow_tpu_torch.serve.server import (  # noqa: E402
     ModelServer, serving_metrics_registry,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 SPEC = dict(max_batch_size=4, max_seq_len=256, prefill_buckets=[32, 64, 256])
 MATRIX = dict(num_requests=6, rate_rps=40.0, prompt_len=12, max_new=4,

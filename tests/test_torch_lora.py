@@ -53,6 +53,7 @@ from kubeflow_tpu_torch.serve import kvtier as tkvtier  # noqa: E402
 from kubeflow_tpu_torch.serve import lora as tlora  # noqa: E402
 from kubeflow_tpu_torch.serve import paged as tpaged  # noqa: E402
 from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 ALL_TARGETS = ("wq", "wk", "wv", "wo")
 PROMPT = [5, 17, 3, 99, 42, 8, 8, 1]

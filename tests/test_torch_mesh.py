@@ -29,6 +29,7 @@ from kubeflow_tpu_torch.parallel import sharding as S
 from kubeflow_tpu_torch.runtime import mesh as tmesh
 from kubeflow_tpu_torch.runtime import topology as ttopo
 from kubeflow_tpu_torch.train import tree as T
+from port_threads import torch_on_one_thread  # noqa: F401
 
 MESHES = [
     {"fsdp": 8}, {"data": 8}, {"data": 2, "fsdp": 4}, {"fsdp": 2, "model": 4},
@@ -222,8 +223,9 @@ def test_with_logical_constraint_is_a_no_op_on_a_local_tensor():
 
 def test_sharded_dim_allows_one_split_dim():
     """A leaf's placement names one gather dim (over fsdp) and one TP dim
-    (over model, kept local); a dim over model and another axis at once,
-    or two gather dims, raise."""
+    (over model, kept local); a dim that did not divide over model or
+    expert is whole and read in parts; a dim over model and another axis
+    at once, or two gather dims, raise."""
     sizes = _sizes({"fsdp": 2, "model": 2})
     assert S.placement((None, "fsdp", None), sizes) == S.Placement(1, None)
     assert S.placement((None, "seq", None), sizes) == S.Placement()
@@ -231,6 +233,12 @@ def test_sharded_dim_allows_one_split_dim():
     # wk's kv heads did not divide: whole on every model rank, read in parts.
     assert S.placement((None, "fsdp", None, None), sizes,
                        (None, "fsdp", "model", None)).partial
+    # Nor did 4 experts over expert = 3: whole on every expert rank, each
+    # computing its part, the gradient summed over expert (JAX's layout;
+    # tests/test_torch_nondivisible.py holds the sums to JAX).
+    three = _sizes({"expert": 3})
+    assert S.placement((None, None, None), three,
+                       (None, "expert", None)) == S.Placement(ep_partial=True)
     with pytest.raises(NotImplementedError, match="Queue 1"):
         S.placement((("fsdp", "model"), None), sizes)
     with pytest.raises(NotImplementedError, match="Queue 1"):

@@ -36,6 +36,7 @@ from kubeflow_tpu_torch.runtime.bootstrap import (  # noqa: E402
 )
 from kubeflow_tpu_torch.serve.model_server import strip  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 MODEL = {"preset": "tiny", "overrides": {"vocab_size": 512,

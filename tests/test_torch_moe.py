@@ -51,6 +51,7 @@ from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.runtime.bootstrap import WorkerEnv, free_port  # noqa: E402
 from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams  # noqa: E402
 from kubeflow_tpu_torch.serve.tokenizer import ByteTokenizer  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-5
@@ -202,24 +203,35 @@ def test_dense_and_aux_with_valid_equal_jax():
 
 def test_parallel_axes_and_unknown_impl_raise():
     """The expert, sequence and model axes run now
-    (tests/test_torch_moe_mesh.py); what still raises: leaves that are not
-    a rank's cut of the experts or of their columns, experts that do not
-    divide over the expert axis, and an unknown impl."""
+    (tests/test_torch_moe_mesh.py). Leaves whole on a model rank (columns
+    that do not divide, replicated as JAX replicates them) are read in the
+    rank's part: the ranks' partial outputs add up to the whole block's.
+    Experts that do not divide over the expert axis are whole on every
+    rank and their gradients summed over it (``ep_partial``). What still
+    raises: leaves that are neither whole nor the rank's cut of the
+    experts or of their columns, and an unknown impl."""
     from kubeflow_tpu_torch.models.config import with_model_axis
     from kubeflow_tpu_torch.parallel.collectives import ModelAxis
-    from kubeflow_tpu_torch.parallel.sharding import placement
+    from kubeflow_tpu_torch.parallel.sharding import Placement, placement
 
     _, tc = _cfgs()
     _, tp = _moe_params(_cfgs()[0])
     x = torch.from_numpy(_x((1, 4, tc.hidden)))
+    dense = dataclasses.replace(tc, moe_impl="dense")
+    whole = tlayers.moe_block(tp, x, dense)[0]
+    parts = sum(tlayers.moe_block(tp, x, with_model_axis(
+        dense, ModelAxis(None, r, 3)))[0] for r in range(3))
+    close(parts, whole.numpy())
+    cut = {k: v if k == "router" else v[:, :, :40] if k != "down"
+           else v[:, :40] for k, v in tp.items()}
     with pytest.raises(ValueError, match="expert_mlp"):
-        tlayers.moe_block(tp, x, with_model_axis(tc, ModelAxis(None, 0, 2)))
+        tlayers.moe_block(cut, x, with_model_axis(tc, ModelAxis(None, 0, 2)))
     with pytest.raises(ValueError, match="experts"):
         tlayers.moe_block({k: v[:2] if k != "router" else v
                            for k, v in tp.items()}, x, tc)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        placement((None, None, "fsdp", "model"), {"expert": 3},
-                  (None, "expert", "fsdp", "model"))
+    assert placement((None, None, "fsdp", "model"), {"expert": 3},
+                     (None, "expert", "fsdp", "model")) == Placement(
+                         ep_partial=True)
     with pytest.raises(ValueError, match="moe_impl"):
         tlayers.moe_block(tp, x, dataclasses.replace(tc, moe_impl="ragged"))
 

@@ -40,7 +40,7 @@ from jax.sharding import NamedSharding  # noqa: E402
 
 from dist_support import (  # noqa: E402
     ENTRY_CONFIGS, MOE_CASES, MOE_CKPT_CASE, MOE_DENSE_CASE, STEPS,
-    check_gang, entry_dirs, finish, one_thread, spawn_gang, tp_tokens,
+    check_gang, entry_dirs, finish, spawn_gang, tp_tokens,
     train_config, whole_tree,
 )
 from kubeflow_tpu.models import config as jconfig  # noqa: E402
@@ -67,6 +67,7 @@ from kubeflow_tpu_torch.train.checkpoint import (  # noqa: E402
 )
 from kubeflow_tpu_torch.train.optim import OptimizerConfig  # noqa: E402
 from kubeflow_tpu_torch.train.step import setup_train  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 WORLD = 4
 CASES = list(MOE_CASES)
@@ -253,10 +254,9 @@ def gang(tmp_path_factory):
     other ``Trainer`` references, then the entry points' two-rank gangs
     on ``{expert: 2}`` (``MOE_ENTRY``)."""
     base = tmp_path_factory.mktemp("moe_mesh")
-    with one_thread():
-        init = T.map_tree(lambda t: t.detach().clone(), setup_train(
-            preset("tiny-moe", dtype="float32"), OptimizerConfig(),
-            device="cpu").params)
+    init = T.map_tree(lambda t: t.detach().clone(), setup_train(
+        preset("tiny-moe", dtype="float32"), OptimizerConfig(),
+        device="cpu").params)
     init_np = T.map_tree(lambda t: t.numpy(), init)
     runs, log, runs_out = _start_jax_runs(init_np, base)
     procs = spawn_gang("dist_support:moe_suite", {"out": str(base)}, WORLD,
@@ -264,13 +264,12 @@ def gang(tmp_path_factory):
                        parallelism={"fsdp": WORLD})
     refs, entry, res = {}, {}, None
     try:
-        with one_thread():
-            for name, impl in LOSS_CASES:
-                refs[name, impl] = _jax_loss_grads(name, impl, init_np)
-            for name in BINDING:
-                refs[name, "plans"] = _jax_plans(name, init_np)
-            for name in CASES[len(HELPER_RUNS):]:
-                refs[name, "run"] = _jax_run(name, init_np)
+        for name, impl in LOSS_CASES:
+            refs[name, impl] = _jax_loss_grads(name, impl, init_np)
+        for name in BINDING:
+            refs[name, "plans"] = _jax_plans(name, init_np)
+        for name in CASES[len(HELPER_RUNS):]:
+            refs[name, "run"] = _jax_run(name, init_np)
         res = finish(procs)
         for name, conf in MOE_ENTRY.items():
             dirs = entry_dirs(base, name, 2)

@@ -51,6 +51,7 @@ from kubeflow_tpu_torch.train import tree as T  # noqa: E402
 from kubeflow_tpu_torch.train.trainer import (  # noqa: E402
     Trainer, TrainerConfig,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 

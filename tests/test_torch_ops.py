@@ -26,6 +26,7 @@ from kubeflow_tpu_torch.models.config import preset  # noqa: E402
 from kubeflow_tpu_torch.ops import attention as tattn  # noqa: E402
 from kubeflow_tpu_torch.ops import fused_norm as tnorm  # noqa: E402
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 NORM_TOL = 1e-6
 ATTN_TOL = 1e-5

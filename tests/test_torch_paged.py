@@ -49,6 +49,7 @@ from kubeflow_tpu_torch.serve import engine as E  # noqa: E402
 from kubeflow_tpu_torch.serve import kvtier as tkvtier  # noqa: E402
 from kubeflow_tpu_torch.serve import paged as tpaged  # noqa: E402
 from kubeflow_tpu_torch.serve.device_state import DecodeState  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 ATTN_TOL = 2e-5
 STEP_TOL = 1e-5

@@ -34,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 from kubeflow_tpu.ops import paged_attention as jpa  # noqa: E402
 from kubeflow_tpu_torch.ops import paged_attention as PA  # noqa: E402
 from kubeflow_tpu_torch.ops import quantization as tquant  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 MERGE_TOL = 1e-6
 ATTN_TOL = 2e-5

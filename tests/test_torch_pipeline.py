@@ -43,7 +43,7 @@ from jax.sharding import NamedSharding  # noqa: E402
 
 from dist_support import (  # noqa: E402
     ENTRY_CONFIGS, PP_CASES, PP_TRAIN_CASE, STEPS, check_gang, entry_dirs,
-    finish, one_thread, pp_overrides, spawn_gang, tp_tokens, train_config,
+    finish, pp_overrides, spawn_gang, tp_tokens, train_config,
     whole_tree,
 )
 from kubeflow_tpu.models import config as jconfig  # noqa: E402
@@ -72,6 +72,7 @@ from kubeflow_tpu_torch.train.checkpoint import (  # noqa: E402
 )
 from kubeflow_tpu_torch.train.optim import OptimizerConfig  # noqa: E402
 from kubeflow_tpu_torch.train.step import setup_train  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 WORLD = 4
 CASES = list(PP_CASES)
@@ -154,14 +155,13 @@ def test_staged_loss_and_forward_in_lockstep_are_the_unstaged_ones(
     for t in leaves:
         t.requires_grad_(True)
     toks = torch.from_numpy(tp_tokens())
-    with one_thread():
-        want, _ = decoder_loss(params, toks, cfg)
-        g_want = torch.autograd.grad(want, leaves)
-        got, m = staged_loss(params, toks, cfg, stages=stages)
-        g_got = torch.autograd.grad(got, leaves)
-        with torch.no_grad():
-            logits = staged_forward(params, toks[:, :-1], cfg, stages=stages)
-            ref = decoder_forward(params, toks[:, :-1], cfg)[0]
+    want, _ = decoder_loss(params, toks, cfg)
+    g_want = torch.autograd.grad(want, leaves)
+    got, m = staged_loss(params, toks, cfg, stages=stages)
+    g_got = torch.autograd.grad(got, leaves)
+    with torch.no_grad():
+        logits = staged_forward(params, toks[:, :-1], cfg, stages=stages)
+        ref = decoder_forward(params, toks[:, :-1], cfg)[0]
     want = float(want.detach())
     assert float(got.detach()) == pytest.approx(want, rel=1e-6)
     assert float(m["ce_loss"]) == pytest.approx(want, rel=1e-6)
@@ -267,10 +267,9 @@ def jax_refs(base: str) -> None:
     def init(name):
         return T.unflatten(dict(np.load(Path(base, f"init_{name}.npz"))))
 
-    with one_thread():
-        out = {name: _jax_loss_grads(name, init(name))
-               for name in HELPER_CASES}
-        out["run"] = _jax_run(PP_TRAIN_CASE, init(PP_TRAIN_CASE))
+    out = {name: _jax_loss_grads(name, init(name))
+           for name in HELPER_CASES}
+    out["run"] = _jax_run(PP_TRAIN_CASE, init(PP_TRAIN_CASE))
     with open(Path(base, "jax_refs.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -293,10 +292,9 @@ def _start_jax_refs(inits: dict, base: Path):
 
 def _one_process_init(name: str) -> dict:
     axes, _, _, model, _ = PP_CASES[name]
-    with one_thread():
-        return T.map_tree(lambda t: t.detach().clone(), setup_train(
-            preset(model, **pp_overrides(name)), OptimizerConfig(),
-            device="cpu").params)
+    return T.map_tree(lambda t: t.detach().clone(), setup_train(
+        preset(model, **pp_overrides(name)), OptimizerConfig(),
+        device="cpu").params)
 
 
 @pytest.fixture(scope="module")
@@ -315,11 +313,10 @@ def gang(tmp_path_factory):
     try:
         inits = {name: _one_process_init(name) for name in CASES}
         helper, log = _start_jax_refs(inits, base)
-        with one_thread():
-            for name in CASES:
-                if name not in HELPER_CASES:
-                    refs[name] = _jax_loss_grads(
-                        name, T.map_tree(lambda t: t.numpy(), inits[name]))
+        for name in CASES:
+            if name not in HELPER_CASES:
+                refs[name] = _jax_loss_grads(
+                    name, T.map_tree(lambda t: t.numpy(), inits[name]))
         res = finish(procs)
         dirs = entry_dirs(base, "llm_pretrain", 2)
         entry = (dirs, finish(spawn_gang("llm_pretrain", conf, 2, dirs,

@@ -50,6 +50,7 @@ from kubeflow_tpu_torch.serve.repository import (  # noqa: E402
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
 from kubeflow_tpu_torch.serve.storage import load_params  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 PROMPTS = [[5, 17, 3, 99, 42], list(range(1, 40)), [7] * 20, [9, 8, 7, 6]]

@@ -46,6 +46,7 @@ from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.ops import flash_attention as F  # noqa: E402
 from kubeflow_tpu_torch.train import tree as T  # noqa: E402
 from kubeflow_tpu_torch.train.step import trainable  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 POLICIES = ("none", "full", "nothing_saveable", "dots_saveable",

@@ -37,6 +37,7 @@ from kubeflow_tpu_torch.serve.repository import (  # noqa: E402
     ModelRepository, estimate_model_bytes,
 )
 from kubeflow_tpu_torch.serve.server import ModelServer  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 SPEC = dict(max_batch_size=2, max_seq_len=64, prefill_buckets=[16])
 MODELS = {"alpha": ("tiny", 0), "beta": ("tiny-gemma", 1)}

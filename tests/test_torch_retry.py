@@ -13,6 +13,7 @@ from kubeflow_tpu_torch.serve.retry import (
     STORE_POLICY, RetryPolicy, call_with_retry, env_float, env_int,
     handoff_policy,
 )
+from port_threads import torch_on_one_thread  # noqa: F401
 
 
 class TestRetryPolicy:

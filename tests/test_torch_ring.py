@@ -21,6 +21,7 @@ from dist_support import RING_CASES, finish, spawn_gang  # noqa: E402
 from kubeflow_tpu.parallel import ring_attention as JR  # noqa: E402
 from kubeflow_tpu.runtime.mesh import build_mesh  # noqa: E402
 from kubeflow_tpu_torch.parallel import ring_attention as R  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 N = 4
 B, S, H, KH, D = 2, 32, 8, 4, 16

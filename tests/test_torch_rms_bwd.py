@@ -30,6 +30,7 @@ jax = pytest.importorskip("jax")
 
 from kubeflow_tpu.ops import fused_norm as jnorm  # noqa: E402
 from kubeflow_tpu_torch.ops import fused_norm as tnorm  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 

@@ -25,6 +25,7 @@ jax = pytest.importorskip("jax")
 
 from kubeflow_tpu.serve import router as jrouter  # noqa: E402
 from kubeflow_tpu_torch.serve import router as trouter  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 URLS = [f"http://10.0.0.{i}:8000" for i in range(1, 7)]
 

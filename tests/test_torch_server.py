@@ -33,6 +33,7 @@ from kubeflow_tpu_torch.serve.engine import (  # noqa: E402
 from kubeflow_tpu_torch.serve.server import (  # noqa: E402
     ModelServer, serving_metrics_registry,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 SPEC = dict(max_batch_size=4, max_seq_len=128, prefill_buckets=[32, 64, 128])
 

@@ -59,6 +59,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams  # noqa: E
 from kubeflow_tpu_torch.serve.handoff import HandoffPayload  # noqa: E402
 from kubeflow_tpu_torch.serve.paged import paged_gather  # noqa: E402
 from kubeflow_tpu_torch.serve.tokenizer import ByteTokenizer  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 TOL = 1e-5

@@ -31,6 +31,7 @@ from kubeflow_tpu_torch.train.checkpoint import (  # noqa: E402
     CheckpointCorruptionError, CheckpointManager,
 )
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 PROMPTS = ([5, 17, 3, 99, 42], [7] * 20, [30, 31, 200, 1])
 SPEC = dict(max_batch_size=2, max_seq_len=64, prefill_buckets=[16, 64])

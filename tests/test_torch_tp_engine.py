@@ -32,7 +32,7 @@ import torch
 jax = pytest.importorskip("jax")
 
 from dist_support import (  # noqa: E402
-    TP_ENGINE_CASES, TP_PROMPTS, finish, free_port, one_thread, spawn_gang,
+    TP_ENGINE_CASES, TP_PROMPTS, finish, free_port, spawn_gang,
     tp_generate,
 )
 from kubeflow_tpu.core.serving import BatchingSpec as JBatchingSpec  # noqa: E402
@@ -45,6 +45,7 @@ from kubeflow_tpu_torch.models.config import preset  # noqa: E402
 from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.serve.engine import LLMEngine  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 WORLDS = (2, 4)
 
@@ -82,13 +83,12 @@ def served(tmp_path_factory):
             w, [base / str(w) / f"w{r}" for r in range(w)],
             parallelism={"model": w})
     try:
-        with one_thread():
-            cfg = preset("tiny", dtype="float32")
-            one = {name: tp_generate(LLMEngine(
-                cfg, BatchingSpec(**spec), params=params, device="cpu",
-                seed=3)) for name, spec in TP_ENGINE_CASES.items()}
-            jax_tokens = {c: _jax_tp_tokens(jparams, c)
-                          for c in TP_ENGINE_CASES}
+        cfg = preset("tiny", dtype="float32")
+        one = {name: tp_generate(LLMEngine(
+            cfg, BatchingSpec(**spec), params=params, device="cpu",
+            seed=3)) for name, spec in TP_ENGINE_CASES.items()}
+        jax_tokens = {c: _jax_tp_tokens(jparams, c)
+                      for c in TP_ENGINE_CASES}
     finally:
         res = {w: finish(p) for w, p in procs.items()}
     for w, rs in res.items():
@@ -152,18 +152,31 @@ def test_unpacked_int8_shards_are_refused(served, world):
 def test_kv_cache_holds_the_ranks_kv_heads():
     """Under no mesh the cache holds every kv head; the rank's share is
     what ``local_kv_heads`` says: 1 of 2 over model = 2, and the one its
-    q head's group reads over model = 4 (kv heads whole on every rank)."""
+    q head's group reads over model = 4 (kv heads whole on every rank).
+    Over model = 3 tiny's 4 heads do not divide: they are whole on every
+    rank (as JAX replicates them) and shared along the GQA groups, so
+    each rank's q heads read one kv head; 6 heads and 3 kv heads over
+    model = 2 split the q heads evenly, and a rank whose heads split a
+    group holds one kv head per q head (the engines' tokens against JAX's
+    are in tests/test_torch_nondivisible.py)."""
+    import dataclasses
+
     from kubeflow_tpu_torch.models import layers as L
     from kubeflow_tpu_torch.models.config import with_model_axis
     from kubeflow_tpu_torch.parallel.collectives import ModelAxis
 
     cfg = preset("tiny", dtype="float32")
-    assert L.local_kv_heads(cfg) == (0, 2)
+    assert L.local_kv_heads(cfg) == (0, 1)
     got = [L.local_kv_heads(with_model_axis(cfg, ModelAxis(None, r, n)))
            for n in (2, 4) for r in range(n)]
-    assert got == [(0, 1), (1, 1), (0, 1), (0, 1), (1, 1), (1, 1)]
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        L.local_heads(with_model_axis(cfg, ModelAxis(None, 0, 3)))
+    assert got == [(0,), (1,), (0,), (0,), (1,), (1,)]
+    three = with_model_axis(cfg, ModelAxis(None, 0, 3))
+    assert L.head_owners(three) == [(0, 1), (1, 2), (2, 4)]
+    assert L.kv_head_owners(three) == [(0,), (0,), (1,)]
+    six = with_model_axis(dataclasses.replace(cfg, n_heads=6, n_kv_heads=3),
+                          ModelAxis(None, 0, 2))
+    assert L.head_owners(six) == [(0, 3), (3, 6)]
+    assert L.kv_head_owners(six) == [(0, 0, 1), (1, 2, 2)]
 
 
 def _post(url: str, body: dict) -> dict:

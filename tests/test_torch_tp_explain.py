@@ -39,6 +39,7 @@ from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import (  # noqa: E402
     CheckpointManager,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 WORLD = 2
 

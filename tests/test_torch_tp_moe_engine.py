@@ -30,7 +30,7 @@ import torch
 jax = pytest.importorskip("jax")
 
 from dist_support import (  # noqa: E402
-    TP_ENGINE_CASES, TP_PROMPTS, finish, free_port, one_thread, spawn_gang,
+    TP_ENGINE_CASES, TP_PROMPTS, finish, free_port, spawn_gang,
     tp_generate,
 )
 from kubeflow_tpu.core.serving import BatchingSpec as JBatchingSpec  # noqa: E402
@@ -43,6 +43,7 @@ from kubeflow_tpu_torch.models.config import preset  # noqa: E402
 from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.serve.engine import LLMEngine  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 MODEL = "tiny-moe"
 WORLD = 2
@@ -82,12 +83,11 @@ def served(tmp_path_factory):
         WORLD, [base / f"w{r}" for r in range(WORLD)],
         parallelism={"model": WORLD})
     try:
-        with one_thread():
-            cfg = preset(MODEL, dtype="float32")
-            one = {name: tp_generate(LLMEngine(
-                cfg, BatchingSpec(**spec), params=params, device="cpu",
-                seed=3)) for name, spec in TP_ENGINE_CASES.items()}
-            jax_tokens = {c: _jax_tp_tokens(jparams, c) for c in CASES}
+        cfg = preset(MODEL, dtype="float32")
+        one = {name: tp_generate(LLMEngine(
+            cfg, BatchingSpec(**spec), params=params, device="cpu",
+            seed=3)) for name, spec in TP_ENGINE_CASES.items()}
+        jax_tokens = {c: _jax_tp_tokens(jparams, c) for c in CASES}
     finally:
         res = finish(procs)
     for r, (rc, _, err) in enumerate(res):

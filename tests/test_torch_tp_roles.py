@@ -48,7 +48,7 @@ jax = pytest.importorskip("jax")
 
 from dist_support import (  # noqa: E402
     ROLE_CASES, ROLE_NEW, TIER_CASES, TIER_TURN2, TP_PROMPTS, finish,
-    free_port, one_thread, spawn_gang, wait_file, write_pickle,
+    free_port, spawn_gang, wait_file, write_pickle,
 )
 from kubeflow_tpu_torch.core.serving import BatchingSpec  # noqa: E402
 from kubeflow_tpu_torch.models import layers as L  # noqa: E402
@@ -58,6 +58,7 @@ from kubeflow_tpu_torch.parallel.collectives import ModelAxis  # noqa: E402
 from kubeflow_tpu_torch.serve import engine as E  # noqa: E402
 from kubeflow_tpu_torch.serve.handoff import HandoffPayload  # noqa: E402
 from kubeflow_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 WORLDS = (2, 4)
 DIRECTIONS = ("tp_to_tp", "tp_to_one", "one_to_tp", "jax_tp_to_tp",
@@ -240,7 +241,10 @@ def _planes(p: HandoffPayload) -> dict:
 
 
 def _owners(world: int) -> list:
-    return L.kv_head_owners(with_model_axis(CFG, ModelAxis(None, 0, world)))
+    """Each rank's kv heads as (first, count): tiny's are contiguous on
+    every rank of these worlds."""
+    return [(h[0], len(h)) for h in L.kv_head_owners(
+        with_model_axis(CFG, ModelAxis(None, 0, world)))]
 
 
 @pytest.mark.parametrize("world,case", CASES, ids=IDS)
@@ -480,18 +484,17 @@ def test_refusals_that_stand_name_their_roadmap_items():
                           remote_kv_root="kv-store")
     E._check_tp(CFG, served, {"model": 2}, None)
     E._check_tp(CFG, BatchingSpec(role="decode"), {"model": 4}, None)
-    with one_thread():
-        for spec, mesh, named in (
-                (dict(paged=True, speculative={"mode": "ngram", "k": 4}),
-                 {"model": 2}, "speculative decoding (ROADMAP.md Queue 1 "
-                 "item 9e3)"),
-                (dict(lora={"max_adapters": 2}), {"model": 2},
-                 "LoRA adapters (ROADMAP.md Queue 1 item 9e3)"),
-                (dict(role="prefill", host_kv_pages=4, paged=True),
-                 {"data": 2, "model": 2}, "mesh axes {'data': 2} "
-                 "(ROADMAP.md Queue 1 item 9e2)")):
-            with pytest.raises(NotImplementedError) as err:
-                E.LLMEngine(CFG, BatchingSpec(**spec), device="cpu",
-                            mesh=mesh)
-            assert str(err.value).split(" under a tensor-parallel mesh")[0] \
-                == named
+    for spec, mesh, named in (
+            (dict(paged=True, speculative={"mode": "ngram", "k": 4}),
+             {"model": 2}, "speculative decoding (ROADMAP.md Queue 1 "
+             "item 9e3)"),
+            (dict(lora={"max_adapters": 2}), {"model": 2},
+             "LoRA adapters (ROADMAP.md Queue 1 item 9e3)"),
+            (dict(role="prefill", host_kv_pages=4, paged=True),
+             {"data": 2, "model": 2}, "mesh axes {'data': 2} "
+             "(ROADMAP.md Queue 1 item 9e2)")):
+        with pytest.raises(NotImplementedError) as err:
+            E.LLMEngine(CFG, BatchingSpec(**spec), device="cpu",
+                        mesh=mesh)
+        assert str(err.value).split(" under a tensor-parallel mesh")[0] \
+            == named

@@ -61,6 +61,7 @@ from kubeflow_tpu_torch.train.survival import EXIT_PREEMPTED  # noqa: E402
 from kubeflow_tpu_torch.train.trainer import (  # noqa: E402
     Trainer, TrainerConfig,
 )
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 
 def _tcfg(jcfg, **kw):

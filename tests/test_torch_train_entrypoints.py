@@ -42,6 +42,7 @@ from kubeflow_tpu_torch.serve.engine import LLMEngine, SamplingParams
 from kubeflow_tpu_torch.serve.storage import load_params
 from kubeflow_tpu_torch.train import tree as T
 from kubeflow_tpu_torch.train.trainer import Trainer, TrainerConfig
+from port_threads import torch_on_one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ENTRYPOINTS = ("llm_pretrain", "vision_train", "torch_train")

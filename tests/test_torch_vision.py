@@ -36,6 +36,7 @@ from kubeflow_tpu_torch.train import optim as toptim  # noqa: E402
 from kubeflow_tpu_torch.train import tree as T  # noqa: E402
 from kubeflow_tpu_torch.train import vision_task as ttask  # noqa: E402
 from kubeflow_tpu_torch.train.step import trainable  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 

@@ -36,6 +36,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from kubeflow_tpu.ops import fused_xent as jxent  # noqa: E402
 from kubeflow_tpu_torch.ops import fused_xent as txent  # noqa: E402
+from port_threads import torch_on_one_thread  # noqa: E402,F401
 
 TOL = 1e-6
 TM, TN, TK = 128, 256, 64           # output tile (D x chunk columns), K step
